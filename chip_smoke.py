@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. builds the CUDA kernels from src/repro_torch/csrc into build/;
+2. holds each kernel against its plain PyTorch version at the serving
+   path's shapes (d 1024, H 2048, 96 experts; gelu, plus swiglu) in bf16
+   and f32, with ragged group sizes, empty groups and sum(group_sizes) < M,
+   and times kernel, plain version and the library call where one exists;
+3. holds the reduced f32 model served through the kernels on the card
+   against the same model on the CPU (the plain path the CPU tests hold
+   against the JAX package);
+4. serves full-width fastmoe-gpt (12 layers x 96 experts, bf16, weights from
+   a seed) greedily: 8 prompts x 128 tokens of prefill, then 32 decode
+   steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
+   the launch counters set to 0 just before and read just after;
+5. holds each combination's prefill and first-decode logits against the
+   plain einsum experts on the same dispatch.
+
+Prints the kernel times beside their bounds, the serving rates, the card's
+name and power limit, a ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": ...}`` line.  Any failure exits non-zero before the
+last line.  It needs a CUDA card and the repository's src/ beside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by the
+# unit the kernels use — bf16 on the tensor cores, f32 on the FMA units.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+E, D, H = 96, 1024, 2048  # fastmoe-gpt experts, d_model, expert hidden
+BATCH, PROMPT, GEN = 8, 128, 32
+# kernel vs plain version on the same inputs: bf16 outputs are rounded once
+# from f32 sums of identical products, so they differ by at most a bf16 ulp
+# where a sum straddles a rounding boundary (plus one hidden-tile ulp in the
+# fused kernel); f32 sums differ by reassociation over K <= 2048 terms.
+KERNEL_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+              "float32": dict(rtol=1e-4, atol=1e-4)}
+# Full-width logits in bf16 against the einsum oracle in f32.  bf16 rounds
+# at different points on each path (the fused kernel once per hidden tile,
+# the two-pass paths after each product and the activation), ~2^-8 relative
+# per rounding, compounding over 12 layers; and where a token's 2nd and 3rd
+# expert scores nearly tie, the rounding switches its expert and moves its
+# logits by O(1).  So the plain bf16 einsum path's own distance to the f32
+# oracle is the floor, and each kernel path must stay within it: median
+# per-position relative error <= 1.25 x floor + 0.01, argmax agreement >=
+# floor - 0.05.  A wrong kernel lands far outside (the f32 reduced-model
+# check above holds the kernels to 1e-4 where rounding does not hide them).
+SERVE_REL_SLACK, SERVE_ABS_SLACK, SERVE_AGREE_SLACK = 1.25, 0.01, 0.05
+SMALL_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 card vs CPU, reduced model
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def close(name: str, got, ref, tol: dict) -> float:
+    import torch
+    err = (got.float() - ref.float()).abs().max().item() if got.numel() else 0.0
+    ok = torch.allclose(got.float(), ref.float(), **tol)
+    check(ok, f"{name}: kernel disagrees with its plain version "
+              f"(max |err| {err:.3e}, tolerance {tol})")
+    return err
+
+
+def time_ms(fn, flush, reps: int = 15) -> float:
+    """Median device time of fn over reps, L2 flushed before each rep."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def routed(tokens: int, k: int, lo: int, dev):
+    """Random top-k ids over experts lo..E-1 (experts < lo stay empty)."""
+    import torch
+    g = torch.Generator().manual_seed(tokens)
+    scores = torch.rand(tokens, E - lo, generator=g)
+    ids = scores.topk(k, dim=-1).indices + lo
+    return ids.to(dev)
+
+
+def kernel_phase(dev, flush):
+    """Every kernel against its plain version in bf16 and f32 at the decode
+    and prefill shapes; bf16 (the serving dtype) timed beside its bound."""
+    import torch
+    from repro_torch.core import dispatch as Dsp
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import token_shuffle as ts
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    # decode: 8 tokens' top-2 is 16 rows, here one token short (sum < M);
+    # prefill: 1024 tokens are 2048 rows, 4 tokens short, experts 0..9 empty
+    shapes = {"decode": (16, routed(7, 2, 0, dev)),
+              "prefill": (2048, routed(1020, 2, 10, dev))}
+    errs, timed = {}, {}
+
+    def measure(name, shape, kern, plain, nbytes, flops, peak, lib=None):
+        ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
+        lib_ms = time_ms(lib, flush) if lib is not None else None
+        b_ms, b_by = bound(nbytes, flops, peak)
+        timed[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib_ms)
+        print(f"kernel {name:12s} {shape:7s} bf16: {ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})  plain {plain_ms:.4f} ms  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        tol = KERNEL_TOL[dn]
+        wi = randn(E, D, H, scale=D ** -0.5, dtype=dtype)
+        wu = randn(E, D, H, scale=D ** -0.5, dtype=dtype)
+        wo = randn(E, H, D, scale=H ** -0.5, dtype=dtype)
+        for shape, (M, ids) in shapes.items():
+            gs = torch.bincount(ids.flatten(), minlength=E).to(torch.int32)
+            n, used = int(gs.sum()), int((gs > 0).sum())
+            check(n < M and used < E, "test groups malformed")
+            x = randn(M, D, dtype=dtype)
+            x[n:] = 0  # the ops contract: rows past the groups arrive zero
+            h = randn(M, H, dtype=dtype)
+            h[n:] = 0
+            cases = {
+                "grouped_gemm": (lambda: gg.grouped_gemm(x, wi, gs),
+                                 lambda: gg.grouped_gemm_plain(x, wi, gs)),
+                "grouped_gemm_wo": (lambda: gg.grouped_gemm(h, wo, gs),
+                                    lambda: gg.grouped_gemm_plain(h, wo, gs)),
+                "fused_ffn": (lambda: ff.fused_ffn(x, (wi,), wo, gs, "gelu"),
+                              lambda: ff.fused_ffn_plain(x, (wi,), wo, gs, "gelu")),
+                "fused_ffn_swiglu": (
+                    lambda: ff.fused_ffn(x, (wi, wu), wo, gs, "swiglu"),
+                    lambda: ff.fused_ffn_plain(x, (wi, wu), wo, gs, "swiglu")),
+            }
+            for name, (kern, plain) in cases.items():
+                got = kern()
+                torch.cuda.synchronize()
+                errs[(name, dn, shape)] = close(f"{name} {dn} {shape}", got,
+                                                plain(), tol)
+                check(not got[n:].any(), f"{name} {dn} {shape}: rows past "
+                                         f"sum(group_sizes) are not zero")
+
+            # the token shuffle on this routing: tokens -> expert order -> back
+            T = ids.shape[0]
+            plan = Dsp.make_ragged_plan(ids, E)
+            rows = plan.token_rows
+            xt = randn(T, D, dtype=dtype)
+            got = ts.gather_rows(xt, rows)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ts.gather_rows_plain(xt, rows)),
+                  f"gather_rows {dn} {shape}: not bitwise equal")
+            errs[("gather_rows", dn, shape)] = 0.0
+            inv = torch.empty_like(plan.sort_idx)
+            inv[plan.sort_idx] = torch.arange(inv.numel(), device=dev)
+            idx = inv.reshape(T, 2).to(torch.int32)
+            w = torch.softmax(randn(T, 2), -1)
+            src = randn(2 * T, D, dtype=dtype)
+            got = ts.combine_topk(src, idx, w)
+            torch.cuda.synchronize()
+            errs[("combine_topk", dn, shape)] = close(
+                f"combine_topk {dn} {shape}", got,
+                ts.combine_topk_plain(src, idx, w), tol)
+
+            if dtype != torch.bfloat16:
+                continue
+            e, offs = 2, torch.cumsum(gs, 0).to(torch.int32)
+            measure("grouped_gemm", shape, *cases["grouped_gemm"],
+                    e * (M * D + used * D * H + M * H) + 4 * E,
+                    2 * n * D * H, "bfloat16",
+                    lib=grouped_mm_call(x, wi, offs))
+            measure("fused_ffn", shape, *cases["fused_ffn"],
+                    e * (2 * M * D + used * 2 * D * H) + 4 * E,
+                    4 * n * D * H, "bfloat16")
+            measure("gather_rows", shape, lambda: ts.gather_rows(xt, rows),
+                    lambda: ts.gather_rows_plain(xt, rows),
+                    e * D * (int(rows.unique().numel()) + rows.numel())
+                    + 4 * rows.numel(), 0, "bfloat16",
+                    lib=lambda: torch.index_select(xt, 0, rows))
+            measure("combine_topk", shape, lambda: ts.combine_topk(src, idx, w),
+                    lambda: ts.combine_topk_plain(src, idx, w),
+                    e * D * (int(idx.unique().numel()) + T) + 8 * idx.numel(),
+                    2 * idx.numel() * D, "float32")
+        del wi, wu, wo
+    print(f"kernel checks passed: {len(errs)} cases (bf16 tol "
+          f"{KERNEL_TOL['bfloat16']}, f32 tol {KERNEL_TOL['float32']}, gather "
+          f"bitwise)", flush=True)
+    return errs, timed
+
+
+def grouped_mm_call(x, w, offs):
+    """PyTorch's own grouped product, timed beside the kernel as a yardstick
+    (the port never calls it); None where this PyTorch build lacks it."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print("library: torch._grouped_mm is not in this PyTorch")
+        return None
+    try:
+        fn(x, w, offs=offs)
+    except RuntimeError as exc:
+        print(f"library: torch._grouped_mm refused these inputs: {exc}"[:300])
+        return None
+    return lambda: fn(x, w, offs=offs)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+def with_dispatch(cfg, dispatch):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            dispatch=dispatch))
+
+
+def small_reference(dev):
+    """Reduced f32 model: kernels on the card against the plain path on the
+    CPU, prefill and two decode steps."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+
+    base = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=256)
+    params = lm.init_params(base, seed=0, device="cpu")
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {k: to(v, where) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, where) for v in tree]
+        return tree.to(where)
+
+    params_dev = to(params, dev)
+    prompt = torch.randint(0, base.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(3))
+    worst = 0.0
+    for dispatch in ("ragged", "capacity"):
+        cfg = with_dispatch(base, dispatch)
+        for impl in ("fused", "pallas"):
+            outs = []
+            for where, p in (("cpu", params), (dev, params_dev)):
+                cache = lm.init_cache(cfg, 2, 32, device=where)
+                lp, cache, _ = lm.prefill(p, cfg, prompt, cache, impl=impl,
+                                          device=where)
+                tok = torch.argmax(outs[0][0][:, -1] if outs else lp[:, -1],
+                                   -1)[:, None]
+                ld, cache, _ = lm.decode_step(p, cfg, tok.cpu(), 16, cache,
+                                              impl=impl, device=where)
+                outs.append((lp.cpu(), ld.cpu()))
+            for a, b in zip(outs[1], outs[0]):
+                worst = max(worst, close(f"reduced model {impl}/{dispatch}",
+                                         a, b, SMALL_TOL))
+    print(f"reduced fastmoe-gpt f32, card vs CPU plain path: max |err| "
+          f"{worst:.3e} (tol {SMALL_TOL})", flush=True)
+
+
+def counters():
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import token_shuffle as ts
+    return {"grouped_gemm": gg.grouped_gemm, "gather_rows": ts.gather_rows,
+            "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn}
+
+
+def serve_phase(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    base = get_config("fastmoe-gpt")
+    t0 = time.perf_counter()
+    params = lm.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"fastmoe-gpt: {n / 1e9:.3f} B params (layers bf16, embed/head f32) "
+          f"made from seed 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompt = torch.randint(0, base.vocab_size, (BATCH, PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cache_len = serve.cache_len_for(base, PROMPT + GEN)
+    combos = [("fused", "ragged"), ("pallas", "ragged"),
+              ("fused", "capacity"), ("pallas", "capacity")]
+    for impl, dispatch in combos:  # warm-up: first-call costs out of the timing
+        serve.generate(params, with_dispatch(base, dispatch), prompt[:, :8], 2,
+                       impl=impl, cache_len=16, device=dev)
+    torch.cuda.synchronize()
+
+    # ---- the main path: counters at 0 just before, read just after
+    for fn in counters().values():
+        fn.launches = 0
+    results = {}
+    for impl, dispatch in combos:
+        timings: dict = {}
+        seq = serve.generate(params, with_dispatch(base, dispatch), prompt, GEN,
+                             impl=impl, cache_len=cache_len, device=dev,
+                             timings=timings)
+        check(seq.shape == (BATCH, PROMPT + GEN), f"generate shape {seq.shape}")
+        check(bool(((seq >= 0) & (seq < base.vocab_size)).all()), "bad tokens")
+        check(torch.equal(seq[:, :PROMPT], prompt), "prompt not kept")
+        results[(impl, dispatch)] = (seq, timings)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"main path launches: {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched on the main path")
+
+    for (impl, dispatch), (seq, t) in results.items():
+        dec = statistics.median(t["decode_s"])
+        total = t["prefill_s"] + sum(t["decode_s"])
+        print(f"serve {impl}/{dispatch}: prefill {BATCH}x{PROMPT} "
+              f"{t['prefill_s'] * 1e3:.2f} ms ({BATCH * PROMPT / t['prefill_s']:.0f} "
+              f"tok/s); decode {dec * 1e3:.3f} ms/step median over "
+              f"{len(t['decode_s'])} ({BATCH / dec:.1f} tok/s); end to end "
+              f"{BATCH * GEN / total:.1f} generated tok/s", flush=True)
+    ref_seq = results[("fused", "ragged")][0]
+    for key, (seq, _) in results.items():
+        agree = (seq[:, PROMPT:] == ref_seq[:, PROMPT:]).float().mean().item()
+        print(f"generated tokens equal to fused/ragged: {key[0]}/{key[1]} "
+              f"{agree:.3f}")
+
+    # ---- logits against the einsum oracle, and launches per decode step.
+    # The oracle runs the plain einsum experts on the model cast to f32; the
+    # bf16 einsum path's distance to it is the bf16 noise floor the kernel
+    # paths are held to (see SERVE_* above).
+    params32 = dict(params, layers=[lm.cast_params(l, torch.float32)
+                                    for l in params["layers"]])
+    per_step = {}
+    for dispatch in ("ragged", "capacity"):
+        cfg = with_dispatch(base, dispatch)
+        oracle = first_logits(params32, dataclasses.replace(cfg, dtype="float32"),
+                              prompt, "einsum", cache_len, dev)
+        floor = None
+        for impl in ("einsum", "fused", "pallas"):
+            lp, ld, _, step = first_logits(params, cfg, prompt, impl, cache_len,
+                                           dev, tok=oracle[2])
+            rel_p, rel_d = rel_err(lp, oracle[0]), rel_err(ld, oracle[1])
+            med_p, med_d = rel_p.median().item(), rel_d.median().item()
+            agree = (lp.argmax(-1) == oracle[0].argmax(-1)).float().mean().item()
+            print(f"logits {impl}/{dispatch} bf16 vs f32 einsum oracle: "
+                  f"per-position relative error prefill p50 {med_p:.4f} p90 "
+                  f"{rel_p.quantile(0.9).item():.4f} max {rel_p.max().item():.4f}, "
+                  f"argmax agree {agree:.4f}; first decode p50 {med_d:.4f} max "
+                  f"{rel_d.max().item():.4f}", flush=True)
+            if floor is None:
+                floor = (med_p, med_d, agree)
+                continue
+            per_step[(impl, dispatch)] = step
+            check(med_p <= SERVE_REL_SLACK * floor[0] + SERVE_ABS_SLACK
+                  and med_d <= SERVE_REL_SLACK * floor[1] + SERVE_ABS_SLACK
+                  and agree >= floor[2] - SERVE_AGREE_SLACK,
+                  f"{impl}/{dispatch} logits further from the f32 oracle than "
+                  f"the bf16 einsum path (floor {floor}; slack x{SERVE_REL_SLACK} "
+                  f"+{SERVE_ABS_SLACK}, agreement -{SERVE_AGREE_SLACK})")
+    del params32
+    for impl, dispatch in (("fused", "ragged"), ("pallas", "capacity")):
+        profile_step(params, with_dispatch(base, dispatch), prompt, impl,
+                     cache_len, dev)
+    print(f"launches per decode step: "
+          f"{json.dumps({f'{i}/{d}': v for (i, d), v in per_step.items()})}")
+    return launches
+
+
+def first_logits(params, cfg, prompt, impl, cache_len, dev, tok=None):
+    """(prefill logits, first decode logits, the token fed to the decode
+    step — by default the prefill's argmax —, the decode step's kernel
+    launches)."""
+    import torch
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, prompt.shape[0], cache_len, device=dev)
+    lp, cache, _ = lm.prefill(params, cfg, prompt, cache, impl=impl, device=dev)
+    if tok is None:
+        tok = torch.argmax(lp[:, -1], -1)[:, None]
+    before = {k: fn.launches for k, fn in counters().items()}
+    ld, cache, _ = lm.decode_step(params, cfg, tok, prompt.shape[1], cache,
+                                  impl=impl, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches - before[k] for k, fn in counters().items()}
+    for t in (lp, ld):
+        check(t.shape[0] == prompt.shape[0] and t.shape[-1] == cfg.vocab_size
+              and bool(torch.isfinite(t).all()), f"{impl} logits malformed")
+    return lp.float(), ld.float(), tok, launches
+
+
+def profile_step(params, cfg, prompt, impl, cache_len, dev):
+    """One decode step under torch.profiler: wall time, summed kernel time
+    (so the device's busy share), kernel launches and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, prompt.shape[0], cache_len, device=dev)
+    lp, cache, _ = lm.prefill(params, cfg, prompt, cache, impl=impl, device=dev)
+    tok = torch.argmax(lp[:, -1], -1)[:, None]
+    for pos in range(prompt.shape[1], prompt.shape[1] + 2):  # warm
+        lm.decode_step(params, cfg, tok, pos, cache, impl=impl, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.decode_step(params, cfg, tok, prompt.shape[1] + 2, cache, impl=impl,
+                       device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3  # us -> ms
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile decode step {impl}/{cfg.moe.dispatch} (profiler on): wall "
+          f"{wall * 1e3:.2f} ms, kernels {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% "
+          f"busy), {len(kernels)} kernel launches; top: "
+          + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top), flush=True)
+
+
+def rel_err(a, b):
+    """Relative L2 error of each position's logit vector, flattened."""
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
+
+
+def _leaves(tree):
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU machine",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from the "
+              f"repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for path in libs.values():
+        log = path.with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in line or "spill" in line:
+                print(f"  {path.stem.split('-')[0]}: {line.strip()}")
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    errs, timed = kernel_phase(dev, flush)
+    del flush
+    small_reference(dev)
+    launches = serve_phase(dev)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    replaces = {
+        "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
+                         "src/repro/kernels/grouped_gemm.py:49"),
+        "gather_rows": ("src/repro_torch/csrc/token_shuffle.cu",
+                        "src/repro/kernels/token_shuffle.py:29"),
+        "combine_topk": ("src/repro_torch/csrc/token_shuffle.cu",
+                         "src/repro/kernels/token_shuffle.py:56"),
+        "fused_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
+                      "src/repro/kernels/fused_ffn.py:111"),
+    }
+    kernels = []
+    for name, (source, rep) in replaces.items():
+        t = timed[(name, "decode")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": rep,
+            "launches": launches[name],
+            "max_abs_err": errs[(name, "bfloat16", "decode")],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "decode, batch 8, bf16"})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,64 @@
+"""Grouped GEMM — FastMoE's FMoELinear (paper §3.1/§4), hand-written for
+Hopper in ``csrc/grouped_gemm.cu``.
+
+``y[i] = x[i] @ w[g(i)]`` for rows ``x`` sorted by group, accumulated in f32
+and rounded once to the working dtype.  The kernel takes the group sizes as
+they are (no padding of groups to row tiles): each block finds its group and
+row range itself, so an expert with no rows is never read.  Rows beyond
+``sum(group_sizes)`` come out as zero.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {"grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: one f32 product per group,
+    rounded to x's dtype; rows past the groups are zero."""
+    M = x.shape[0]
+    y = torch.zeros(M, w.shape[2], dtype=x.dtype, device=x.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, M)
+        if end > start:
+            y[start:end] = (x[start:end].float() @ w[e].float()).to(x.dtype)
+        start = end
+    return y
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[i] @ w[g(i)]; x (M, K), w (E, K, N), group_sizes (E,) int32
+    summing to <= M."""
+    if x.device.type == "cpu":
+        return grouped_gemm_plain(x, w, group_sizes)
+    _build.require_cuda("grouped_gemm", x, w, group_sizes)
+    code = _build.dtype_code("grouped_gemm", x)
+    M, K = x.shape
+    E, K2, N = w.shape
+    if (w.dtype != x.dtype or K2 != K or group_sizes.shape != (E,)
+            or group_sizes.dtype != torch.int32):
+        raise ValueError(f"grouped_gemm: x (M, K), w (E, K, N) of one dtype, "
+                         f"group_sizes (E,) int32; got {tuple(x.shape)} "
+                         f"{x.dtype}, {tuple(w.shape)} {w.dtype}, "
+                         f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
+    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    if M and N:
+        lib = _build.load("grouped_gemm", _SIGS)
+        rc = lib.grouped_gemm(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
+                              y.data_ptr(), M, K, N, E, code,
+                              _build.stream_of(x))
+        _build.check(lib, rc, "grouped_gemm")
+        grouped_gemm.launches += 1
+    return y
+
+
+grouped_gemm.launches = 0

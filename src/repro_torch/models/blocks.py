@@ -1,0 +1,102 @@
+"""Per-layer blocks of the ``dense`` and ``moe`` families:
+[norm -> GQA attention -> norm -> FFN | MoE], as full-sequence, prefill
+(fills the decode cache) and one-token decode.  The other families of the
+JAX package (ssm, hybrid, audio, vlm, MLA) are later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fmoe import _ffn_init, dense_ffn, fmoe_apply, fmoe_init
+from repro_torch.models import attention as A
+from repro_torch.models.layers import apply_norm, norm_init
+
+FULL_WINDOW = 1 << 30  # "no window" sentinel (larger than any seq len)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.attention is None \
+            or cfg.attention.kind != "gqa":
+        raise NotImplementedError(
+            f"repro_torch serves the dense/moe GQA families so far; "
+            f"{cfg.name!r} is family {cfg.family!r} (see ROADMAP.md)")
+
+
+def layer_windows(cfg: ModelConfig) -> list:
+    """Per-layer attention window (FULL_WINDOW for global layers)."""
+    a = cfg.attention
+    L = cfg.num_layers
+    if a is None or a.sliding_window is None:
+        return [FULL_WINDOW] * L
+    return [FULL_WINDOW if i in a.global_layers else a.sliding_window
+            for i in range(L)]
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
+               dtype=torch.float32) -> dict:
+    """One decoder layer.  Norm and router params are f32; the rest
+    ``dtype``."""
+    _check_family(cfg)
+    d = cfg.d_model
+    p = {"norm1": norm_init(d, cfg.norm, device=device),
+         "norm2": norm_init(d, cfg.norm, device=device),
+         "attn": A.gqa_init(gen, d, cfg.attention, device=device, dtype=dtype)}
+    if cfg.moe is not None:
+        p["ffn"] = fmoe_init(gen, d, cfg.moe, act=cfg.act, d_ff_dense=cfg.d_ff,
+                             device=device, dtype=dtype)
+    else:
+        p["ffn"] = _ffn_init(gen, 0, d, cfg.d_ff, cfg.act, device=device,
+                             dtype=dtype)
+    return p
+
+
+def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str):
+    if cfg.moe is not None:
+        return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl)
+    return dense_ffn(p, x, cfg.act), None
+
+
+def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
+                    impl: str = "einsum"):
+    """x (B, S, d) -> (x, MoEMetrics | None)."""
+    h = A.gqa_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
+                    cfg.attention, window=window)
+    x = x + h
+    h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
+                            impl)
+    return x + h, metrics
+
+
+def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        cache: A.KVCache, *, window: int, start: int = 0,
+                        impl: str = "einsum"):
+    """x (B, S, d), this layer's cache -> (x, filled cache, MoEMetrics|None).
+    One full-sequence pass writes every position's K/V into the cache so
+    decoding can continue at position S."""
+    h, (k, v) = A.gqa_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
+                            cfg.attention, window=window, return_kv=True)
+    x = x + h
+    cache = A.fill_kv_cache(cache, k, v, start=start)
+    h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
+                            impl)
+    return x + h, cache, metrics
+
+
+def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       cache: A.KVCache, pos, *, window: int,
+                       impl: str = "einsum"):
+    """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None)."""
+    h, cache = A.gqa_decode(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
+                            cache, pos, cfg.attention, window=window)
+    x = x + h
+    h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
+                            impl)
+    return x + h, cache, metrics
+
+
+def layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
+                device) -> A.KVCache:
+    _check_family(cfg)
+    return A.gqa_init_cache(batch, cache_len, cfg.attention, dtype,
+                            device=device)

@@ -1,0 +1,97 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small and awkward shapes (unaligned widths, hidden tails, empty groups,
+rows past sum(group_sizes)).  ``python3 chip_smoke.py`` checks the same at
+the serving shapes.  Skips on hosts without a card; on the GPU machine:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: bf16 outputs come from f32 sums of identical bf16 products
+rounded once, so kernel and plain differ by at most a bf16 ulp where a sum
+straddles a rounding boundary (rtol/atol 2e-2); f32 by reassociation
+(1e-4).  The gather is a copy: bitwise.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import fused_ffn as ff  # noqa: E402
+from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
+from repro_torch.kernels import token_shuffle as ts  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+       torch.float32: dict(rtol=1e-4, atol=1e-4)}
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine, or "
+                    "python3 chip_smoke.py there)")
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, M, K, sizes, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    x[int(gs.sum()):] = 0
+    return g, x, gs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (70, 36, 24, [0, 40, 0, 27]),       # K, N not multiples of 8; sum < M
+    (130, 64, 200, [64, 0, 65, 0, 1]),  # tiles straddle groups, N tail
+    (5, 1024, 2048, [0, 0, 3, 0]),      # decode-like: one short group
+])
+def test_grouped_gemm(dev, dtype, M, K, N, sizes):
+    g, x, gs = _inputs(dev, dtype, M, K, sizes)
+    w = (torch.randn(len(sizes), K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+    got = gg.grouped_gemm(x, w, gs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gg.grouped_gemm_plain(x, w, gs), **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", [
+    (40, 48, 200, 72, [9, 0, 17, 5]),   # H tail 72 of 128, N not a BN2 multiple
+    (33, 30, 128, 20, [0, 33]),          # K, N unaligned, one full group
+])
+def test_fused_ffn(dev, dtype, act, M, K, H, N, sizes):
+    g, x, gs = _inputs(dev, dtype, M, K, sizes, seed=1)
+    E = len(sizes)
+    nw = 2 if act == "swiglu" else 1
+    ws = tuple((torch.randn(E, K, H, generator=g, device=dev) * K ** -0.5).to(dtype)
+               for _ in range(nw))
+    wo = (torch.randn(E, H, N, generator=g, device=dev) * H ** -0.5).to(dtype)
+    got = ff.fused_ffn(x, ws, wo, gs, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),
+                               **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1024, 36, 3])
+def test_gather_rows(dev, dtype, d):
+    x = torch.randn(50, d, device=dev).to(dtype)
+    idx = torch.randint(0, 50, (77,), device=dev, dtype=torch.int32)
+    got = ts.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,d", [(1, 1024), (2, 36), (4, 200)])
+def test_combine_topk(dev, dtype, k, d):
+    src = torch.randn(64, d, device=dev).to(dtype)
+    idx = torch.randint(0, 64, (30, k), device=dev, dtype=torch.int32)
+    w = torch.rand(30, k, device=dev)
+    got = ts.combine_topk(src, idx, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ts.combine_topk_plain(src, idx, w),
+                               **TOL[dtype])

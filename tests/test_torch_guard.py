@@ -1,0 +1,61 @@
+"""Guards of the port's boundaries: it imports no JAX and nothing of the JAX
+package, and its entry points never fall back to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import token_shuffle  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_no_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
+           for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_cuda():
+    """Called without ``device`` on a host with no CUDA, every entry point
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: this guard is for hosts without one")
+    cfg = reduced(get_config("fastmoe-gpt"), num_layers=1, d_model=64)
+    params = lm.init_params(cfg, device="cpu")
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    prompt = torch.zeros(1, 4, dtype=torch.long)
+    calls = [lambda: serve.generate(params, cfg, prompt, 2),
+             lambda: lm.decode_step(params, cfg, prompt[:, :1], 0, cache),
+             lambda: lm.prefill(params, cfg, prompt, cache),
+             lambda: lm.init_params(cfg),
+             lambda: lm.init_cache(cfg, 1, 8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_kernel_wrapper_never_falls_back():
+    """A tensor that is neither on the CPU nor on a card is refused, not
+    routed to the plain version."""
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        token_shuffle.gather_rows(x, torch.zeros(2, dtype=torch.int32,
+                                                 device="meta"))

@@ -16,17 +16,32 @@
    steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
    the launch counters set to 0 just before and read just after;
 5. holds each combination's prefill and first-decode logits against the
-   plain einsum experts on the same dispatch.
+   plain einsum experts on the same dispatch;
+6. holds the fused FFN's backward kernels (dX, grouped dW) against their
+   plain versions at the training shapes (2048 tokens top-2: 4096 ragged
+   rows, or 96 x 56 capacity rows), with an empty group, rows past
+   sum(group_sizes) and a hidden tail, and times them beside their bounds;
+7. trains the reduced f32 model 3 steps through the kernels on the card
+   against the CPU plain path (per-step loss and per-leaf gradients);
+8. trains full-width fastmoe-gpt cut to 10 layers (f32 masters, bf16
+   compute, AdamW) from seed 0 on SyntheticLM batches of 8 x 256 tokens,
+   for fused/capacity, fused/ragged and pallas/ragged, with the launch
+   counters set to 0 just before and read just after, printing step time,
+   tokens/s, the forward/backward/optimizer split and peak memory;
+9. holds one step's gradients of each kernel path (full width, 2 layers)
+   no further from an f32 einsum oracle than the bf16 einsum path is.
 
-Prints the kernel times beside their bounds, the serving rates, the card's
-name and power limit, a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": ...}`` line.  Any failure exits non-zero before the
-last line.  It needs a CUDA card and the repository's src/ beside it.
+Prints the kernel times beside their bounds, the serving and training
+rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, "device": ...}`` line.  Any failure exits non-zero
+before the last line.  It needs a CUDA card and the repository's src/
+beside it.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,6 +58,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 E, D, H = 96, 1024, 2048  # fastmoe-gpt experts, d_model, expert hidden
 BATCH, PROMPT, GEN = 8, 128, 32
+# training: 8 sequences x 256 tokens = 2048 tokens per step; full width at
+# 10 of the 12 layers (f32 params + grads + two AdamW moments are 16 B per
+# param: 12 layers are 79.8 GB, 10 layers 66.8 GB of the card's 80 GB; the
+# per-layer recompute keeps the rest to a few GB)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = 8, 256, 10
+TRAIN_WARM, TRAIN_STEPS = 1, 4
+TRAIN_COMBOS = [("fused", "capacity"), ("fused", "ragged"), ("pallas", "ragged")]
 # kernel vs plain version on the same inputs: bf16 outputs are rounded once
 # from f32 sums of identical products, so they differ by at most a bf16 ulp
 # where a sum straddles a rounding boundary (plus one hidden-tile ulp in the
@@ -60,7 +82,31 @@ KERNEL_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
 # floor - 0.05.  A wrong kernel lands far outside (the f32 reduced-model
 # check above holds the kernels to 1e-4 where rounding does not hide them).
 SERVE_REL_SLACK, SERVE_ABS_SLACK, SERVE_AGREE_SLACK = 1.25, 0.01, 0.05
+# The dW kernel's f32 outputs sum products of bf16-rounded intermediates
+# (h, dg): where the kernel's and the plain version's f32 recomputes differ
+# in the last bit, an intermediate rounds to the neighbouring bf16 value —
+# one bf16 ulp (2^-6 at |dg| ~ 3) times the other operand (|x|, |dy| up to
+# ~5 at the training shapes), up to ~0.2 on one output.  So bf16 dW is held
+# elementwise to atol 0.25 and, as a whole, to a relative Frobenius error
+# of 1e-3 (such flips are rare; a wrong product shows there).  f32 dW keeps
+# the f32 tolerance.
+DW_TOL = {"bfloat16": dict(rtol=2e-2, atol=0.25),
+          "float32": KERNEL_TOL["float32"]}
+DW_FRO = 1e-3
 SMALL_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 card vs CPU, reduced model
+# Training it: step-0 gradients elementwise to SMALL_TOL (atol scaled by the
+# leaf's largest entry); every step's gradients per leaf to a relative L2
+# distance of 1e-3.  Adam's first update is sign-like, so an entry whose
+# gradient is ~0 moves by +-lr on either side, and later gradients differ
+# by more than f32 reassociation in a few entries.
+SMALL_GRAD_L2 = 1e-3
+# Gradients at full width in bf16 against the f32 einsum oracle: the same
+# rule as the logits.  Per leaf, the relative L2 distance to the oracle;
+# each kernel path's median over leaves must stay within 1.25 x the bf16
+# einsum path's median + 0.01, and its worst leaf within 1.25 x the einsum
+# path's worst leaf + 0.05 (the router's gradient moves most where a
+# rounding switches a token's expert).
+GRAD_REL_SLACK, GRAD_MED_SLACK, GRAD_MAX_SLACK = 1.25, 0.01, 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -264,15 +310,7 @@ def small_reference(dev):
 
     base = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=256)
     params = lm.init_params(base, seed=0, device="cpu")
-
-    def to(tree, where):
-        if isinstance(tree, dict):
-            return {k: to(v, where) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, where) for v in tree]
-        return tree.to(where)
-
-    params_dev = to(params, dev)
+    params_dev = _to(params, dev)
     prompt = torch.randint(0, base.vocab_size, (2, 16),
                            generator=torch.Generator().manual_seed(3))
     worst = 0.0
@@ -296,12 +334,18 @@ def small_reference(dev):
           f"{worst:.3e} (tol {SMALL_TOL})", flush=True)
 
 
+SERVE_KERNELS = ("grouped_gemm", "gather_rows", "combine_topk", "fused_ffn")
+
+
 def counters():
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_ffn_bwd as fb
     from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import token_shuffle as ts
     return {"grouped_gemm": gg.grouped_gemm, "gather_rows": ts.gather_rows,
-            "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn}
+            "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
+            "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
+            "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw}
 
 
 def serve_phase(dev):
@@ -309,12 +353,13 @@ def serve_phase(dev):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
 
     base = get_config("fastmoe-gpt")
     t0 = time.perf_counter()
     params = lm.init_params(base, seed=0, device=dev)
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in tree_leaves(params))
     print(f"fastmoe-gpt: {n / 1e9:.3f} B params (layers bf16, embed/head f32) "
           f"made from seed 0 in {time.perf_counter() - t0:.1f} s", flush=True)
     prompt = torch.randint(0, base.vocab_size, (BATCH, PROMPT), device=dev,
@@ -341,9 +386,10 @@ def serve_phase(dev):
         check(torch.equal(seq[:, :PROMPT], prompt), "prompt not kept")
         results[(impl, dispatch)] = (seq, timings)
     launches = {k: fn.launches for k, fn in counters().items()}
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    print(f"main path launches (serving): {json.dumps(launches)}", flush=True)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the serving path")
 
     for (impl, dispatch), (seq, t) in results.items():
         dec = statistics.median(t["decode_s"])
@@ -453,17 +499,362 @@ def profile_step(params, cfg, prompt, impl, cache_len, dev):
           + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training: the fused FFN backward kernels, the reduced model card vs CPU,
+# full-width training and its gradients against an f32 oracle
+# ---------------------------------------------------------------------------
+
+
+def _to(tree, where):
+    if isinstance(tree, dict):
+        return {k: _to(v, where) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, where) for v in tree]
+    return tree.detach().to(where).clone()
+
+
+def bwd_kernel_phase(dev, flush):
+    """fused_ffn_bwd_dx / _dw against their plain versions in bf16 and f32
+    at the training shapes; bf16 timed beside its bound.  Ragged: 2044
+    tokens' top-2 over experts 6..95 (4088 of 4096 rows, 6 empty experts);
+    capacity: 96 x C = 56 rows, each expert's slots past its load zero;
+    tail: the ragged rows with H = 2000 (a 80-wide last hidden tile)."""
+    import torch
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    from repro_torch.kernels import grouped_gemm as gg
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    cap = 56  # expert_capacity(2048, 96, 2, 1.25)
+    ids_r = routed(2044, 2, 6, dev)
+    gs_r = torch.bincount(ids_r.flatten(), minlength=E).to(torch.int32)
+    load_c = torch.bincount(routed(2048, 2, 0, dev).flatten(), minlength=E)
+    gs_c = torch.full((E,), cap, dtype=torch.int32, device=dev)
+    shapes = {"ragged": (4096, gs_r, None), "capacity": (E * cap, gs_c,
+                                                          load_c.clamp(max=cap))}
+    errs, timed = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        tol = KERNEL_TOL[dn]
+        for hid in (H, 2000):
+            wi = randn(E, D, hid, scale=D ** -0.5, dtype=dtype)
+            wu = randn(E, D, hid, scale=D ** -0.5, dtype=dtype)
+            wo = randn(E, hid, D, scale=hid ** -0.5, dtype=dtype)
+            for shape, (M, gs, fill) in shapes.items():
+                if hid != H and shape != "ragged":
+                    continue
+                name = shape if hid == H else "tail"
+                n, used = int(gs.sum()), int((gs > 0).sum())
+                x = randn(M, D, dtype=dtype)
+                if fill is None:
+                    x[n:] = 0  # the ops contract: rows past the groups are zero
+                else:  # capacity buffers: slots past an expert's load are zero
+                    slot = torch.arange(cap, device=dev)
+                    x.view(E, cap, D)[slot[None] >= fill[:, None]] = 0
+                dy = randn(M, D, dtype=dtype)
+                acts = (("gelu", (wi,)), ("swiglu", (wi, wu))) \
+                    if shape == "ragged" else (("gelu", (wi,)),)
+                for act, ws in acts:
+                    tag = f"{name} {act} {dn}"
+                    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+                    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
+                    torch.cuda.synchronize()
+                    e1 = close(f"fused_ffn_bwd_dx {tag}", dx,
+                               fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
+                               tol)
+                    check(not dx[n:].any(), f"fused_ffn_bwd_dx {tag}: rows past "
+                                            f"sum(group_sizes) are not zero")
+                    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act)
+                    e2 = 0.0
+                    for a, b in zip((*dws, dwo), (*rws, rwo)):
+                        e2 = max(e2, close(f"fused_ffn_bwd_dw {tag}", a, b,
+                                           DW_TOL[dn]))
+                        fro = ((a - b).norm() / b.norm()).item()
+                        check(fro <= DW_FRO, f"fused_ffn_bwd_dw {tag}: relative "
+                                             f"Frobenius error {fro:.2e}")
+                    empty = gs == 0
+                    check(not dwo[empty].any() and not dws[0][empty].any(),
+                          f"fused_ffn_bwd_dw {tag}: empty experts not zero")
+                    errs[("fused_ffn_bwd_dx", dn, name, act)] = e1
+                    errs[("fused_ffn_bwd_dw", dn, name, act)] = e2
+                    del dx, dws, dwo, rws, rwo
+                if dtype != torch.bfloat16 or name == "tail":
+                    continue
+                # bf16, gelu (the model's act), timed beside its bound: each
+                # input read once (the weights of the experts with rows), each
+                # output written once (dW: all experts' f32 dwi and dwo)
+                ws, b = (wi,), 2
+                wbytes = used * 2 * D * hid * b
+                cases = {
+                    "fused_ffn_bwd_dx": (
+                        lambda: fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "gelu"),
+                        lambda: fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "gelu"),
+                        b * 3 * M * D + wbytes + 4 * E, 6 * n * D * hid),
+                    "fused_ffn_bwd_dw": (
+                        lambda: fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "gelu"),
+                        lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu"),
+                        b * 2 * M * D + wbytes + 4 * 2 * E * D * hid + 4 * E,
+                        8 * n * D * hid),
+                }
+                for kname, (kern, plain, nbytes, flops) in cases.items():
+                    ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 5)
+                    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+                    timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
+                                                bound_ms=b_ms, bound_by=b_by,
+                                                library_ms=None)
+                    print(f"kernel {kname} {name:8s} bf16: {ms:.4f} ms  bound "
+                          f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
+                          f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  "
+                          f"library n/a", flush=True)
+                # the pallas path's backward on the same rows: dX is the
+                # grouped GEMM reading w transposed, dW the plain per-group
+                # product (no kernel yet)
+                gx = randn(M, hid, dtype=dtype)
+                gx[n:] = 0
+                gemm_dx = time_ms(lambda: gg.grouped_gemm(gx, wi, gs, True), flush)
+                gemm_dw = time_ms(lambda: gg.grouped_dw_plain(x, gx, gs, E), flush, 5)
+                print(f"pallas backward {name}: grouped_gemm dX (w^T) "
+                      f"{gemm_dx:.4f} ms; grouped dW, plain per-group product "
+                      f"{gemm_dw:.4f} ms (one (E, 1024, 2048) weight)", flush=True)
+                del gx
+            del wi, wu, wo
+    print(f"backward kernel checks passed: {len(errs)} cases (dX: bf16 tol "
+          f"{KERNEL_TOL['bfloat16']}, f32 tol {KERNEL_TOL['float32']}; dW: "
+          f"bf16 tol {DW_TOL['bfloat16']} and relative Frobenius <= {DW_FRO}, "
+          f"f32 tol {DW_TOL['float32']})", flush=True)
+    return errs, timed
+
+
+def _grad_dists(grads, oracle):
+    """Per leaf, the relative L2 distance of grads to the oracle's (trees
+    or lists of leaves)."""
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    for a, o in zip(tree_leaves(grads), tree_leaves(oracle)):
+        den = o.float().norm().item()
+        out.append((a.float() - o.float()).norm().item() / max(den, 1e-30))
+    return out
+
+
+def small_reference_train(dev):
+    """Reduced f32 model (2 layers, remat on) trained 3 steps through the
+    kernels on the card against the plain path on the CPU: per-step loss
+    and per-leaf gradients."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(reduced(get_config("fastmoe-gpt"), num_layers=2,
+                                       d_model=256), remat="full")
+    worst_loss = worst_grad = worst_l2 = 0.0
+    for impl, dispatch in TRAIN_COMBOS:
+        cfg = with_dispatch(base, dispatch)
+        p_cpu = lm.init_params(cfg, seed=0, device="cpu",
+                               param_dtype=cfg.param_dtype)
+        sides = {}
+        for where in ("cpu", dev):
+            p = p_cpu if where == "cpu" else _to(p_cpu, dev)
+            opt = AdamW(lr=1e-3)
+            sides[where] = [p, opt.init(p), train.make_train_step(
+                cfg, opt, warmup=2, total_steps=10, impl=impl, device=where)]
+        data = SyntheticLM(cfg.vocab_size, 32, seed=0).batches(4)
+        for step in range(3):
+            tokens = torch.from_numpy(next(data)["tokens"])
+            out = {}
+            for where, (p, st, step_fn) in sides.items():
+                batch = {"tokens": tokens.to(where)}
+                loss, _, grads = train.loss_and_grads(p, cfg, batch, impl=impl,
+                                                      device=where)
+                p, st, m = step_fn(p, st, batch, step)
+                sides[where][:2] = [p, st]
+                out[where] = (loss.cpu(), m["loss"].cpu(),
+                              [t.cpu() for t in tree_leaves(grads)])
+            (lc, mc, gc), (ld, md, gd) = out["cpu"], out[dev]
+            worst_loss = max(worst_loss, close(f"train {impl}/{dispatch} loss",
+                                               torch.stack([ld, md]),
+                                               torch.stack([lc, mc]), SMALL_TOL))
+            l2 = max(_grad_dists(gd, gc))
+            check(l2 <= SMALL_GRAD_L2, f"train {impl}/{dispatch} step {step}: "
+                                       f"gradient L2 distance {l2:.2e}")
+            worst_l2 = max(worst_l2, l2)
+            if step:
+                continue
+            for i, (a, b) in enumerate(zip(gd, gc)):
+                scale = b.abs().max().item()
+                tol = dict(rtol=SMALL_TOL["rtol"], atol=SMALL_TOL["atol"] * scale)
+                err = close(f"train {impl}/{dispatch} step 0 grad leaf {i}",
+                            a, b, tol)
+                worst_grad = max(worst_grad, err / max(scale, 1e-30))
+    print(f"reduced fastmoe-gpt f32 training, card vs CPU plain path, 3 steps "
+          f"x {len(TRAIN_COMBOS)} paths: max |loss err| {worst_loss:.3e} (tol "
+          f"{SMALL_TOL}); step-0 grads max err {worst_grad:.3e} of the leaf's "
+          f"max (tol {SMALL_TOL} x leaf max); every step's grads max per-leaf "
+          f"relative L2 {worst_l2:.3e} (tol {SMALL_GRAD_L2})", flush=True)
+
+
+def train_phase(dev):
+    """Full-width fastmoe-gpt at TRAIN_LAYERS layers trained from seed 0,
+    for each of TRAIN_COMBOS: TRAIN_WARM + TRAIN_STEPS steps.  The launch
+    counters are set to 0 just before and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(get_config("fastmoe-gpt"), num_layers=TRAIN_LAYERS)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    results = {}
+    for fn in counters().values():
+        fn.launches = 0
+    for impl, dispatch in TRAIN_COMBOS:
+        cfg = with_dispatch(base, dispatch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: fn.launches for k, fn in counters().items()}
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device=dev,
+                                param_dtype=cfg.param_dtype)
+        opt = AdamW()
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        init_s = time.perf_counter() - t0
+        step_fn = train.make_train_step(cfg, opt, impl=impl, device=dev)
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+        steps, losses = [], []
+        for step in range(TRAIN_WARM + TRAIN_STEPS):
+            batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+            timings: dict = {}
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch, step,
+                                       timings=timings)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+            losses.append(loss)
+            check(math.isfinite(loss) and 3.0 < loss < 20.0,
+                  f"train {impl}/{dispatch} step {step}: loss {loss}")
+            check(math.isfinite(float(m["grad_norm"])),
+                  f"train {impl}/{dispatch} step {step}: grad norm not finite")
+            if step >= TRAIN_WARM:
+                steps.append((wall, timings))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: fn.launches - before[k] for k, fn in counters().items()}
+        med = statistics.median(w for w, _ in steps)
+        split = {k: statistics.median(t[k] for _, t in steps)
+                 for k in ("fwd_s", "bwd_s", "opt_s")}
+        results[(impl, dispatch)] = dict(step_ms=med * 1e3, launches=launches,
+                                         peak=peak, losses=losses)
+        print(f"train {impl}/{dispatch}: {TRAIN_LAYERS}-layer fastmoe-gpt "
+              f"({n_params / 1e9:.3f} B f32 params, made in {init_s:.1f} s), "
+              f"batch {TRAIN_BATCH}x{TRAIN_SEQ}: step {med * 1e3:.1f} ms median "
+              f"over {len(steps)} ({tokens_per_step / med:.0f} tokens/s); "
+              f"forward {split['fwd_s'] * 1e3:.1f} ms, backward "
+              f"{split['bwd_s'] * 1e3:.1f} ms, optimizer "
+              f"{split['opt_s'] * 1e3:.1f} ms; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB); losses "
+              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+        print(f"  launches {impl}/{dispatch} ({TRAIN_WARM + TRAIN_STEPS} steps): "
+              f"{json.dumps(launches)}", flush=True)
+        needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
+            if impl == "fused" else ["grouped_gemm"]
+        if dispatch == "ragged":
+            needed += ["gather_rows", "combine_topk"]
+        for name in needed:
+            check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
+                                      f"was never launched")
+        if (impl, dispatch) == TRAIN_COMBOS[0]:
+            profile_train_step(step_fn, params, state, data, dev)
+        del params, state, step_fn
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"main path launches (training): {json.dumps(launches)}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, results
+
+
+def profile_train_step(step_fn, params, state, data, dev):
+    """One train step under torch.profiler: wall time, summed kernel time
+    (the device's busy share), kernel launches and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, batch, TRAIN_WARM + TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile train step (profiler on): wall {wall * 1e3:.1f} ms, kernels "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
+          f"{len(kernels)} kernel launches; top: "
+          + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
+
+
+def grad_oracle_phase(dev):
+    """One step's gradients at full width (2 layers, bf16 compute) of each
+    kernel path against the f32 einsum oracle on the same dispatch, held
+    to the bf16 einsum path's own distance (see GRAD_* above)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    base = dataclasses.replace(get_config("fastmoe-gpt"), num_layers=2)
+    params = lm.init_params(base, seed=0, device=dev, param_dtype="float32")
+    tokens = torch.from_numpy(next(SyntheticLM(base.vocab_size, TRAIN_SEQ,
+                                               seed=1).batches(TRAIN_BATCH))
+                              ["tokens"]).to(dev)
+    batch = {"tokens": tokens}
+    for dispatch in ("capacity", "ragged"):
+        cfg = with_dispatch(base, dispatch)
+        _, _, oracle = train.loss_and_grads(
+            params, dataclasses.replace(cfg, dtype="float32"), batch,
+            impl="einsum", device=dev)
+        floor = None
+        for impl in ("einsum", "fused", "pallas"):
+            if (impl, dispatch) not in TRAIN_COMBOS and impl != "einsum":
+                continue
+            loss, _, grads = train.loss_and_grads(params, cfg, batch, impl=impl,
+                                                  device=dev)
+            d = _grad_dists(grads, oracle)
+            del grads
+            med, worst = statistics.median(d), max(d)
+            print(f"grads {impl}/{dispatch} bf16 vs f32 einsum oracle "
+                  f"(2 layers, full width): per-leaf relative L2 distance "
+                  f"median {med:.4f} max {worst:.4f} over {len(d)} leaves; "
+                  f"loss {float(loss):.4f}", flush=True)
+            if floor is None:
+                floor = (med, worst)
+                continue
+            check(med <= GRAD_REL_SLACK * floor[0] + GRAD_MED_SLACK
+                  and worst <= GRAD_REL_SLACK * floor[1] + GRAD_MAX_SLACK,
+                  f"{impl}/{dispatch} gradients further from the f32 oracle "
+                  f"than the bf16 einsum path (floor {floor})")
+        del oracle
+    del params
+    torch.cuda.empty_cache()
+
+
 def rel_err(a, b):
     """Relative L2 error of each position's logit vector, flattened."""
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
-
-
-def _leaves(tree):
-    if isinstance(tree, (dict, list)):
-        for v in (tree.values() if isinstance(tree, dict) else tree):
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def main() -> int:
@@ -496,9 +887,14 @@ def main() -> int:
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)
+    bwd_errs, bwd_timed = bwd_kernel_phase(dev, flush)
     del flush
     small_reference(dev)
+    small_reference_train(dev)
     launches = serve_phase(dev)
+    torch.cuda.empty_cache()  # the serving params are gone with serve_phase
+    train_launches, _ = train_phase(dev)
+    grad_oracle_phase(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -524,6 +920,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "decode, batch 8, bf16"})
+    for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
+                      ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
+        t = bwd_timed[(name, "ragged")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_ffn_bwd.cu", "replaces": rep,
+            "launches": train_launches[name],
+            "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "train, 2048 tokens top-2 = 4096 ragged rows, bf16"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

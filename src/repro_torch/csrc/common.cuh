@@ -40,6 +40,37 @@ __device__ __forceinline__ float activate(float g, float u, int act) {
   }
 }
 
+// The activation's gradient, written out: given g (and u for swiglu) and
+// the incoming dh of h = activate(g, u), returns dg and, for swiglu, du
+// (0 otherwise) — the exact VJP the JAX backward takes with jax.vjp:
+//   gelu (tanh form): dh * (0.5 (1 + t) + 0.5 g (1 - t^2) c (1 + 3 a g^2)),
+//                     t = tanh(c (g + a g^3)), c = sqrt(2 / pi), a = 0.044715
+//   swiglu: dg = dh u silu'(g), du = dh silu(g);   silu: dg = dh silu'(g)
+//   rwkv:   dg = 2 relu(g) dh
+// with silu'(g) = s (1 + g (1 - s)), s = sigmoid(g).
+__device__ __forceinline__ float2 activate_vjp(float g, float u, float dh,
+                                               int act) {
+  switch (act) {
+    case ACT_SWIGLU: {
+      const float s = 1.f / (1.f + expf(-g));
+      return make_float2(dh * u * (s * (1.f + g * (1.f - s))), dh * silu_f(g));
+    }
+    case ACT_GELU: {
+      const float c = 0.7978845608028654f, a = 0.044715f;
+      const float t = tanhf(c * (g + a * g * g * g));
+      return make_float2(
+          dh * (0.5f * (1.f + t) +
+                0.5f * g * (1.f - t * t) * c * (1.f + 3.f * a * g * g)),
+          0.f);
+    }
+    case ACT_RWKV: return make_float2(2.f * fmaxf(g, 0.f) * dh, 0.f);
+    default: {
+      const float s = 1.f / (1.f + expf(-g));
+      return make_float2(dh * (s * (1.f + g * (1.f - s))), 0.f);
+    }
+  }
+}
+
 // The row tile a block owns in a grouped product over rows sorted by group.
 // Group e owns ceil(size_e / bm) tiles, in group order; a block whose index
 // lies past every group's tiles is a "zero tile": it covers rows
@@ -107,6 +138,32 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
       for (int v = 0; v < V; ++v)
         d[v] = (r < row_lim && col + v < col_lim) ? s[v] : from_f32<T>(0.f);
     }
+  }
+}
+
+// y[r] = sum over splits of partial[s][r] (in split order, so the sum is
+// deterministic), rounded to the working dtype; rows >= sum(group_sizes)
+// are zero.  One block per row.  Used where a row tile's hidden tiles are
+// split over several blocks that each write an f32 partial.
+template <typename T>
+__global__ void reduce_splits_kernel(const float* __restrict__ partial,
+                                     const int* __restrict__ group_sizes,
+                                     T* __restrict__ y, int M, int N, int E,
+                                     int splits) {
+  __shared__ int total;
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int e = 0; e < E; ++e) t += group_sizes[e];
+    total = t;
+  }
+  __syncthreads();
+  const int r = blockIdx.x;
+  const bool valid = r < total;
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    float s = 0.f;
+    if (valid)
+      for (int p = 0; p < splits; ++p) s += partial[((size_t)p * M + r) * N + c];
+    y[(size_t)r * N + c] = from_f32<T>(s);
   }
 }
 

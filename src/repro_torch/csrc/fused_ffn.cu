@@ -227,30 +227,6 @@ fused_ffn_kernel(const T* __restrict__ x, const T* __restrict__ wg,
   }
 }
 
-// y[r] = sum over splits of partial[s][r] (in split order), rounded to the
-// working dtype; rows >= sum(group_sizes) are zero.
-template <typename T>
-__global__ void fused_ffn_reduce_kernel(const float* __restrict__ partial,
-                                        const int* __restrict__ group_sizes,
-                                        T* __restrict__ y, int M, int N, int E,
-                                        int splits) {
-  __shared__ int total;
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int e = 0; e < E; ++e) t += group_sizes[e];
-    total = t;
-  }
-  __syncthreads();
-  const int r = blockIdx.x;
-  const bool valid = r < total;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    float s = 0.f;
-    if (valid)
-      for (int p = 0; p < splits; ++p) s += partial[((size_t)p * M + r) * N + c];
-    y[(size_t)r * N + c] = from_f32<T>(s);
-  }
-}
-
 template <typename T>
 int launch(const T* x, const T* wg, const T* wu, const T* wo, const int* gs,
            float* partial, T* y, int M, int K, int H, int N, int E, int act,
@@ -264,7 +240,7 @@ int launch(const T* x, const T* wg, const T* wu, const T* wo, const int* gs,
                                                H, N, E, act, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_ffn_reduce_kernel<T><<<M, 128, 0, st>>>(partial, gs, y, M, N, E, splits);
+  reduce_splits_kernel<T><<<M, 128, 0, st>>>(partial, gs, y, M, N, E, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

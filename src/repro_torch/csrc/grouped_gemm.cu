@@ -19,6 +19,10 @@
 // cores (wmma 16x16x16, f32 accumulate); f32 on the FMA units, so f32 stays
 // f32.  Output is rounded once to the working dtype.
 //
+// With trans_w the weights are read transposed, y[i] = x[i] @ w[g(i)]^T for
+// w (E, N, K): the backward's dX = dy @ w^T runs on the forward's weights
+// in place, with no transposed copy of the expert stack.
+//
 // A simple kernel: synchronous tile loads, 64x64 output tiles, 4 warps.
 // wgmma, TMA and a pipelined ring of tiles come later.
 #include <mma.h>
@@ -30,15 +34,17 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 32, NT = 128;
 constexpr int LDA = BK + 8;  // padded shared-memory strides (elements)
 constexpr int LDB = BN + 8;
+constexpr int LDBT = BK + 8;  // transposed weight tile (BN x BK)
+constexpr int BS = BK * LDB > BN * LDBT ? BK * LDB : BN * LDBT;
 constexpr int LDC = BN + 4;
 
-template <typename T>
+template <typename T, bool TW>
 __global__ void __launch_bounds__(NT)
 grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const int* __restrict__ group_sizes, T* __restrict__ y,
                     int M, int K, int N, int E) {
   __shared__ __align__(128) T As[BM * LDA];
-  __shared__ __align__(128) T Bs[BK * LDB];
+  __shared__ __align__(128) T Bs[BS];
   __shared__ __align__(128) float Cs[BM * LDC];
 
   const Tile tile = find_tile(group_sizes, E, M, BM, blockIdx.x);
@@ -57,6 +63,14 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const T* xa = x + (size_t)tile.row0 * K;
   const T* wb = w + (size_t)tile.group * K * N;
+  // B(k, n) = w[g][k][n], or w[g][n][k] with TW; its tile in shared memory
+  // is Bs[k * LDB + n], or Bs[n * LDBT + k] with TW
+  auto load_b = [&](int k0) {
+    if constexpr (TW)
+      load_tile<T, BN, BK, LDBT>(Bs, wb + (size_t)n0 * K, K, N - n0, k0, K);
+    else
+      load_tile<T, BK, BN, LDB>(Bs, wb + (size_t)k0 * N, N, K - k0, n0, N);
+  };
 
   if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
@@ -66,20 +80,26 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    using LayoutB = std::conditional_t<TW, wmma::col_major, wmma::row_major>;
     for (int k0 = 0; k0 < K; k0 += BK) {
       load_tile<T, BM, BK, LDA>(As, xa, K, rows, k0, K);
-      load_tile<T, BK, BN, LDB>(Bs, wb + (size_t)k0 * N, N, K - k0, n0, N);
+      load_b(k0);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk, LDA);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16, LDB);
+        for (int j = 0; j < 2; ++j) {
+          const int n = wc * 32 + j * 16;
+          if constexpr (TW)
+            wmma::load_matrix_sync(b[j], Bs + n * LDBT + kk, LDBT);
+          else
+            wmma::load_matrix_sync(b[j], Bs + kk * LDB + n, LDB);
+        }
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -105,7 +125,7 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     float acc[8][4] = {};
     for (int k0 = 0; k0 < K; k0 += BK) {
       load_tile<T, BM, BK, LDA>(As, xa, K, rows, k0, K);
-      load_tile<T, BK, BN, LDB>(Bs, wb + (size_t)k0 * N, N, K - k0, n0, N);
+      load_b(k0);
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < BK; ++kk) {
@@ -113,7 +133,8 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int i = 0; i < 8; ++i) a[i] = to_f32(As[(ty * 8 + i) * LDA + kk]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = to_f32(Bs[kk * LDB + tx * 4 + j]);
+        for (int j = 0; j < 4; ++j)
+          b[j] = to_f32(TW ? Bs[(tx * 4 + j) * LDBT + kk] : Bs[kk * LDB + tx * 4 + j]);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -134,26 +155,31 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+template <typename T>
+void launch(const void* x, const void* w, const int* gs, void* y, int M, int K,
+            int N, int E, bool trans_w, cudaStream_t st) {
+  dim3 grid((M + BM - 1) / BM + E + 1, (N + BN - 1) / BN);
+  auto kernel = trans_w ? grouped_gemm_kernel<T, true> : grouped_gemm_kernel<T, false>;
+  kernel<<<grid, NT, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                              gs, static_cast<T*>(y), M, K, N, E);
+}
+
 }  // namespace
 
 REPRO_EXPORT_ERROR_STRING
 
-// x (M, K), w (E, K, N), group_sizes (E,) int32, y (M, N); x, w, y share the
-// dtype.  One block per (row tile, column tile); row tiles: at most
-// ceil(M / BM) + E + 1 (each group's partial tile plus the zero tiles).
+// x (M, K), w (E, K, N) — or (E, N, K) with trans_w —, group_sizes (E,)
+// int32, y (M, N); x, w, y share the dtype.  One block per (row tile,
+// column tile); row tiles: at most ceil(M / BM) + E + 1 (each group's
+// partial tile plus the zero tiles).
 extern "C" int grouped_gemm(const void* x, const void* w, const void* group_sizes,
-                            void* y, int M, int K, int N, int E, int dtype,
-                            void* stream) {
+                            void* y, int M, int K, int N, int E, int trans_w,
+                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((M + BM - 1) / BM + E + 1, (N + BN - 1) / BN);
   const int* gs = static_cast<const int*>(group_sizes);
   if (dtype == DT_BF16)
-    grouped_gemm_kernel<bf16><<<grid, NT, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), gs,
-        static_cast<bf16*>(y), M, K, N, E);
+    launch<bf16>(x, w, gs, y, M, K, N, E, trans_w != 0, st);
   else
-    grouped_gemm_kernel<float><<<grid, NT, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), gs,
-        static_cast<float*>(y), M, K, N, E);
+    launch<float>(x, w, gs, y, M, K, N, E, trans_w != 0, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models.lm import cast_params
 
 
 def _map(fn, tree):
@@ -31,16 +30,14 @@ def _to_torch(a, device) -> torch.Tensor:
 
 
 def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda") -> dict:
-    """JAX param tree (numpy leaves, stacked layers) -> port params, with the
-    layer params cast once to ``cfg.dtype`` (see ``repro_torch.models.lm``)."""
+    """JAX param tree (numpy leaves, stacked layers) -> port params, in the
+    dtypes JAX has them (f32 masters; ``repro_torch.models.lm`` casts the
+    layers to ``cfg.dtype`` at use)."""
     dev = resolve(device)
     out = {k: _map(lambda a: _to_torch(a, dev), v)
            for k, v in params_np.items() if k != "layers"}
-    dtype = getattr(torch, cfg.dtype)
-    out["layers"] = [
-        cast_params(_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev),
-                         params_np["layers"]), dtype)
-        for i in range(cfg.num_layers)]
+    out["layers"] = [_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev),
+                          params_np["layers"]) for i in range(cfg.num_layers)]
     return out
 
 

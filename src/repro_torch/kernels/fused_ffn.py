@@ -48,26 +48,27 @@ def activate(g: torch.Tensor, u, act: str) -> torch.Tensor:
 
 def fused_ffn_plain(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                     group_sizes: torch.Tensor, act: str) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: f32 products, the hidden
-    rounded to x's dtype before the second product; rows past the groups
-    are zero."""
+    """The kernel's arithmetic in plain PyTorch: f32 products (f64 for f64
+    inputs), the hidden rounded to x's dtype before the second product;
+    rows past the groups are zero."""
     check_gating(ws, act)
     M = x.shape[0]
+    acc = torch.promote_types(x.dtype, torch.float32)
     y = torch.zeros(M, wo.shape[2], dtype=x.dtype, device=x.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, M)
         if end > start:
-            xe = x[start:end].float()
-            g = xe @ ws[0][e].float()
-            u = xe @ ws[1][e].float() if len(ws) == 2 else None
-            h = activate(g, u, act).to(x.dtype).float()
-            y[start:end] = (h @ wo[e].float()).to(x.dtype)
+            xe = x[start:end].to(acc)
+            g = xe @ ws[0][e].to(acc)
+            u = xe @ ws[1][e].to(acc) if len(ws) == 2 else None
+            h = activate(g, u, act).to(x.dtype).to(acc)
+            y[start:end] = (h @ wo[e].to(acc)).to(x.dtype)
         start = end
     return y
 
 
-def _splits(M: int, E: int, H: int, device) -> int:
+def splits_for(M: int, E: int, H: int, device) -> int:
     """Hidden-tile split per row tile: enough blocks for about two per SM,
     never more splits than hidden tiles."""
     row_tiles = max(1, min(math.ceil(M / BM) + E, M))
@@ -97,7 +98,7 @@ def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        splits = _splits(M, E, H, x.device)
+        splits = splits_for(M, E, H, x.device)
         partial = torch.empty(splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None

@@ -2,7 +2,9 @@
 Hopper in ``csrc/grouped_gemm.cu``.
 
 ``y[i] = x[i] @ w[g(i)]`` for rows ``x`` sorted by group, accumulated in f32
-and rounded once to the working dtype.  The kernel takes the group sizes as
+and rounded once to the working dtype; with ``trans_w`` the weights are read
+transposed (``x[i] @ w[g(i)]^T``, the backward's dX, on the forward's
+weights in place).  The kernel takes the group sizes as
 they are (no padding of groups to row tiles): each block finds its group and
 row range itself, so an expert with no rows is never read.  Rows beyond
 ``sum(group_sizes)`` come out as zero.
@@ -16,37 +18,62 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+_SIGS = {"grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
-                       group_sizes: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: one f32 product per group,
-    rounded to x's dtype; rows past the groups are zero."""
+                       group_sizes: torch.Tensor,
+                       trans_w: bool = False) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: one f32 product per group
+    (f64 for f64 inputs), rounded to x's dtype; rows past the groups are
+    zero."""
     M = x.shape[0]
-    y = torch.zeros(M, w.shape[2], dtype=x.dtype, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = torch.zeros(M, w.shape[1 if trans_w else 2], dtype=x.dtype,
+                    device=x.device)
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, M)
         if end > start:
-            y[start:end] = (x[start:end].float() @ w[e].float()).to(x.dtype)
+            we = w[e].T if trans_w else w[e]
+            y[start:end] = (x[start:end].to(acc) @ we.to(acc)).to(x.dtype)
         start = end
     return y
 
 
-def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
-                 group_sizes: torch.Tensor) -> torch.Tensor:
-    """y[i] = x[i] @ w[g(i)]; x (M, K), w (E, K, N), group_sizes (E,) int32
-    summing to <= M."""
+def grouped_dw_plain(x: torch.Tensor, dy: torch.Tensor,
+                     group_sizes: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """dW of the grouped product, ``dw[e] = x_e^T @ dy_e`` in f32 (f64 for
+    f64 inputs), one plain product per group; rows past the groups are not
+    read.  The port's counterpart of the ``ragged_dot`` VJP the JAX package
+    takes for it (not a Pallas kernel there)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dw = torch.zeros(num_groups, x.shape[1], dy.shape[1], dtype=acc,
+                     device=x.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + size, x.shape[0])
+        if end > start:
+            dw[e] = x[start:end].to(acc).T @ dy[start:end].to(acc)
+        start = end
+    return dw
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                 trans_w: bool = False) -> torch.Tensor:
+    """y[i] = x[i] @ w[g(i)]; x (M, K), w (E, K, N) — or (E, N, K) with
+    ``trans_w``, read as its transpose —, group_sizes (E,) int32 summing to
+    <= M."""
     if x.device.type == "cpu":
-        return grouped_gemm_plain(x, w, group_sizes)
+        return grouped_gemm_plain(x, w, group_sizes, trans_w)
     _build.require_cuda("grouped_gemm", x, w, group_sizes)
     code = _build.dtype_code("grouped_gemm", x)
     M, K = x.shape
-    E, K2, N = w.shape
+    E, K2, N = (w.shape[0], w.shape[2], w.shape[1]) if trans_w else w.shape
     if (w.dtype != x.dtype or K2 != K or group_sizes.shape != (E,)
             or group_sizes.dtype != torch.int32):
-        raise ValueError(f"grouped_gemm: x (M, K), w (E, K, N) of one dtype, "
+        raise ValueError(f"grouped_gemm: x (M, K), w (E, K, N) (or (E, N, K) "
+                         f"with trans_w) of one dtype, "
                          f"group_sizes (E,) int32; got {tuple(x.shape)} "
                          f"{x.dtype}, {tuple(w.shape)} {w.dtype}, "
                          f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
@@ -54,7 +81,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     if M and N:
         lib = _build.load("grouped_gemm", _SIGS)
         rc = lib.grouped_gemm(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-                              y.data_ptr(), M, K, N, E, code,
+                              y.data_ptr(), M, K, N, E, int(trans_w), code,
                               _build.stream_of(x))
         _build.check(lib, rc, "grouped_gemm")
         grouped_gemm.launches += 1

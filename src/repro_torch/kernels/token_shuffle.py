@@ -36,8 +36,9 @@ def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def combine_topk_plain(src: torch.Tensor, idx: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
-    gathered = src[idx.long()].float()  # (T, k, d)
-    return (w.float()[..., None] * gathered).sum(1).to(src.dtype)
+    acc = torch.promote_types(src.dtype, torch.float32)  # f64 stays f64
+    gathered = src[idx.long()].to(acc)  # (T, k, d)
+    return (w.to(acc)[..., None] * gathered).sum(1).to(src.dtype)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

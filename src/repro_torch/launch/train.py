@@ -1,0 +1,161 @@
+"""Single-device training: a train step (loss, backward, AdamW, with
+optional microbatch gradient accumulation) and its CLI.
+
+    python -m repro_torch.launch.train --arch fastmoe-gpt [--reduced] \
+        [--num_layers 10] --steps 50 --batch 8 --seq 256 --impl fused \
+        --dispatch capacity [--device cpu] [--seed 0]
+
+``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
+grouped-GEMM kernel in both directions, fused = the fused FFN kernel
+forward and the fused dX / grouped dW kernels backward); ``--dispatch``
+overrides the config's MoE dispatch (capacity | ragged).  Runs on the GPU
+unless ``--device cpu``.  Params are f32 masters cast to ``cfg.dtype`` at
+use; ``--num_layers`` cuts the depth (full-width ``fastmoe-gpt`` with f32
+params, grads and AdamW moments needs 16 B per param: 10 layers, 66.8 GB,
+fit one 80 GB card; 12, 79.8 GB, do not).  Expert parallelism,
+checkpoints and the step guard of the JAX CLI are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data import SyntheticLM
+from repro_torch.device import resolve
+from repro_torch.models import lm
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
+                   impl: str = "einsum", device="cuda", timings=None):
+    """(loss, aux, grads): ``lm.loss_fn`` and its gradient with respect to
+    every param leaf (a tree like ``params``).  A ``timings`` dict, when
+    given, gains the forward and backward seconds (``fwd_s``, ``bwd_s``),
+    each taken after a device synchronize."""
+    dev = resolve(device)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss, aux = lm.loss_fn(params, cfg, batch, impl=impl, device=dev)
+    if timings is not None:
+        _sync(dev)
+        t1 = time.perf_counter()
+        timings["fwd_s"] = timings.get("fwd_s", 0.0) + t1 - t0
+    flat = torch.autograd.grad(loss, leaves)
+    if timings is not None:
+        _sync(dev)
+        timings["bwd_s"] = timings.get("bwd_s", 0.0) + time.perf_counter() - t1
+    it = iter(flat)
+    grads = tree_map(lambda _: next(it), params)
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, grads
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, *, num_microbatches: int = 1,
+                    warmup: int = 100, total_steps: int = 10000,
+                    impl: str = "einsum", device="cuda"):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    ``impl`` picks the expert kernels (einsum | pallas | fused).  Params and
+    the optimizer state are updated in place.  The step also takes
+    ``timings=``, a dict that gains ``fwd_s``, ``bwd_s`` and ``opt_s``."""
+    dev = resolve(device)
+
+    def train_step(params, opt_state, batch, step, *, timings=None):
+        tokens = torch.as_tensor(batch["tokens"])
+        if tokens.shape[0] % num_microbatches:
+            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                             f"{num_microbatches} equal microbatches")
+        micro = tokens.reshape(num_microbatches, -1, *tokens.shape[1:])
+        grads = loss = aux = None
+        for mb in micro:
+            l, a, g = loss_and_grads(params, cfg, {"tokens": mb}, impl=impl,
+                                     device=dev, timings=timings)
+            if grads is None:
+                grads, loss, aux = g, l, a
+            else:
+                for acc, new in zip(tree_leaves(grads), tree_leaves(g)):
+                    acc.add_(new)
+                loss = loss + l
+                aux = {k: aux[k] + a[k] for k in aux}
+        if num_microbatches > 1:
+            inv = 1.0 / num_microbatches
+            for g in tree_leaves(grads):
+                g.mul_(inv)
+            loss, aux = loss * inv, {k: v * inv for k, v in aux.items()}
+        t0 = time.perf_counter()
+        lr_scale = warmup_cosine(step, warmup=warmup, total=total_steps)
+        params, opt_state, gnorm = opt.update(grads, opt_state, params,
+                                              lr_scale=lr_scale)
+        if timings is not None:
+            _sync(dev)
+            timings["opt_s"] = timings.get("opt_s", 0.0) + time.perf_counter() - t0
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr_scale": lr_scale, **aux}
+
+    return train_step
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="fastmoe-gpt")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the reduced CPU-scale variant")
+    ap.add_argument("--num_layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the config's)")
+    ap.add_argument("--log_every", type=int, default=10)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--impl", default="fused",
+                    choices=["einsum", "pallas", "fused"])
+    ap.add_argument("--dispatch", default="", choices=["", "capacity", "ragged"],
+                    help="override the MoE dispatch mode")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg, num_layers=4, d_model=256)
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    if args.dispatch and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+    opt = AdamW(lr=args.lr)
+    params = lm.init_params(cfg, seed=args.seed, device=dev,
+                            param_dtype=cfg.param_dtype)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, num_microbatches=args.microbatches,
+                              impl=args.impl, device=dev)
+    batches = SyntheticLM(cfg.vocab_size, args.seq, seed=args.seed).batches(
+        args.batch)
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
+        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,23 +1,31 @@
 """The language model assembled from a config (dense / moe GQA families).
 
 Public API:
-  init_params(cfg, seed=, device=)                 -> params
+  init_params(cfg, seed=, device=, param_dtype=)   -> params
   forward(params, cfg, tokens, impl=, device=)     -> (logits, MoEMetrics)
+  loss_fn(params, cfg, batch, impl=, device=)      -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
   init_cache(cfg, batch, cache_len, device=)       -> list of per-layer KVCache
   decode_step(params, cfg, tokens, pos, cache,...) -> (logits, cache, metrics)
 
 Params mirror the JAX tree, except that ``params["layers"]`` is a list of
 per-layer dicts (JAX stacks them on a leading L dim and scans; here a Python
-loop runs the layers).  Numerics: JAX casts the *layer* params to
-``cfg.dtype`` at every use and keeps ``embed``, ``final_norm`` and ``lm_head``
-in f32, with f32 logits.  The port casts the layer params once, when they
-are made or loaded (same values, no cast traffic per step), and keeps the
-other three in f32.  The decode cache is updated in place.
+loop runs the layers).  Numerics: JAX keeps f32 master params, casts the
+*layer* params to ``cfg.dtype`` at every use and keeps ``embed``,
+``final_norm`` and ``lm_head`` in f32, with f32 logits.  The port does the
+same — every forward casts the layer params at use, so gradients reach f32
+leaves through the cast — and for serving makes or loads the layers
+already in ``cfg.dtype`` (``init_params`` default), where that cast is a
+no-op.  ``cfg.remat == "full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.remat`` does; the
+cast sits inside the recomputed region, so no bf16 copy of the weights
+outlives its layer.  The decode cache is updated in place.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balance import MoEMetrics
@@ -34,13 +42,15 @@ def cast_params(p, dtype):
     return p.to(dtype) if p.is_floating_point() else p
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                param_dtype: str | None = None) -> dict:
     """Random params from ``seed`` (the JAX package's distributions and
-    scales; a torch generator, so not its numbers).  Layers come out in
-    ``cfg.dtype``, made one layer at a time in f32 and cast."""
+    scales; a torch generator, so not its numbers).  Layers are made one at
+    a time in f32 and kept in ``param_dtype``: by default ``cfg.dtype``, the
+    serving layout; training passes ``cfg.param_dtype`` (f32 masters)."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dtype = getattr(torch, cfg.dtype)
+    dtype = getattr(torch, param_dtype or cfg.dtype)
     p = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
         "layers": [cast_params(B.layer_init(gen, cfg, device=dev), dtype)
@@ -74,19 +84,51 @@ def _n_experts(cfg: ModelConfig) -> int:
     return cfg.moe.num_experts if cfg.moe is not None else 1
 
 
+def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
+               impl: str):
+    dtype = getattr(torch, cfg.dtype)
+    x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
+                             impl=impl)
+    return x.to(dtype), m
+
+
 def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
             device="cuda"):
     """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over layers)."""
     tokens = _inputs(params, tokens, device)
-    dtype = getattr(torch, cfg.dtype)
-    x = embed_lookup(params["embed"], tokens, dtype)
+    x = embed_lookup(params["embed"], tokens, getattr(torch, cfg.dtype))
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for p_l, window in zip(params["layers"], B.layer_windows(cfg)):
-        x, m = B.layer_apply_seq(p_l, cfg, x, window=window, impl=impl)
+        if remat:
+            x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl,
+                              use_reentrant=False)
+        else:
+            x, m = _layer_seq(p_l, cfg, x, window, impl)
         metrics = _accumulate(metrics, m)
-        x = x.to(dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), metrics
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            impl: str = "einsum", device="cuda"):
+    """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
+    ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
+    {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
+    load}), drop_frac and load averaged over layers."""
+    tokens = _inputs(params, batch["tokens"], device)
+    logits, metrics = forward(params, cfg, tokens, impl=impl, device=device)
+    V = logits.shape[-1]
+    ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
+                         tokens[:, 1:].reshape(-1).long())
+    loss = ce
+    L = max(cfg.num_layers, 1)
+    if cfg.moe is not None:
+        loss = loss + (cfg.moe.balance_loss_weight * metrics.aux_loss
+                       + cfg.moe.z_loss_weight * metrics.z_loss) / L
+    aux = {"ce": ce, "aux_loss": metrics.aux_loss, "z_loss": metrics.z_loss,
+           "drop_frac": metrics.drop_frac / L, "load": metrics.load / L}
+    return loss, aux
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
@@ -99,8 +141,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
     for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
-        x, c_l, m = B.layer_apply_prefill(p_l, cfg, x, c_l, window=window,
-                                          impl=impl)
+        x, c_l, m = B.layer_apply_prefill(cast_params(p_l, dtype), cfg, x, c_l,
+                                          window=window, impl=impl)
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         x = x.to(dtype)
@@ -128,7 +170,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
     for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
-        x, c_l, m = B.layer_apply_decode(p_l, cfg, x, c_l, pos,
+        x, c_l, m = B.layer_apply_decode(cast_params(p_l, dtype), cfg, x, c_l,
+                                         pos,
                                          window=min(window, cache_len),
                                          impl=impl)
         new_cache.append(c_l)

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small and awkward shapes (unaligned widths, hidden tails, empty groups,
-rows past sum(group_sizes)).  ``python3 chip_smoke.py`` checks the same at
-the serving shapes.  Skips on hosts without a card; on the GPU machine:
+rows past sum(group_sizes)), the fused FFN's backward kernels included.
+``python3 chip_smoke.py`` checks the same at the serving and training
+shapes.  Skips on hosts without a card; on the GPU machine:
 
-    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``tests/conftest.py`` imports JAX, which the GPU machine does not have.)
 
 Tolerances: bf16 outputs come from f32 sums of identical bf16 products
 rounded once, so kernel and plain differ by at most a bf16 ulp where a sum
@@ -15,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_ffn as ff  # noqa: E402
+from repro_torch.kernels import fused_ffn_bwd as fb  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import token_shuffle as ts  # noqa: E402
 
@@ -56,18 +60,72 @@ def test_grouped_gemm(dev, dtype, M, K, N, sizes):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
-@pytest.mark.parametrize("M,K,H,N,sizes", [
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (70, 36, 24, [0, 40, 0, 27]),
+    (130, 64, 200, [64, 0, 65, 0, 1]),
+])
+def test_grouped_gemm_trans_w(dev, dtype, M, K, N, sizes):
+    """The backward's dX: x @ w^T with w (E, N, K) read in place."""
+    g, x, gs = _inputs(dev, dtype, M, K, sizes)
+    w = (torch.randn(len(sizes), N, K, generator=g, device=dev) * K ** -0.5).to(dtype)
+    got = gg.grouped_gemm(x, w, gs, trans_w=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gg.grouped_gemm_plain(x, w, gs, True),
+                               **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+FFN_SHAPES = [
     (40, 48, 200, 72, [9, 0, 17, 5]),   # H tail 72 of 128, N not a BN2 multiple
     (33, 30, 128, 20, [0, 33]),          # K, N unaligned, one full group
-])
-def test_fused_ffn(dev, dtype, act, M, K, H, N, sizes):
+    (150, 64, 256, 64, [70, 0, 3, 66]),  # groups longer than a dW row pass
+]
+
+
+def _ffn_inputs(dev, dtype, act, M, K, H, N, sizes):
     g, x, gs = _inputs(dev, dtype, M, K, sizes, seed=1)
     E = len(sizes)
     nw = 2 if act == "swiglu" else 1
     ws = tuple((torch.randn(E, K, H, generator=g, device=dev) * K ** -0.5).to(dtype)
                for _ in range(nw))
     wo = (torch.randn(E, H, N, generator=g, device=dev) * H ** -0.5).to(dtype)
+    dy = torch.randn(M, N, generator=g, device=dev).to(dtype)
+    return x, gs, ws, wo, dy
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", FFN_SHAPES)
+def test_fused_ffn_bwd_dx(dev, dtype, act, M, K, H, N, sizes):
+    x, gs, ws, wo, dy = _ffn_inputs(dev, dtype, act, M, K, H, N, sizes)
+    got = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
+                               **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", FFN_SHAPES)
+def test_fused_ffn_bwd_dw(dev, dtype, act, M, K, H, N, sizes):
+    """f32 outputs from bf16 products: the tolerance of the working dtype."""
+    x, gs, ws, wo, dy = _ffn_inputs(dev, dtype, act, M, K, H, N, sizes)
+    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act)
+    for got, ref in zip((*dws, dwo), (*rws, rwo)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref.float(), **TOL[dtype])
+    empty = gs == 0
+    assert not dwo[empty].any() and not dws[0][empty].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", FFN_SHAPES[:2])
+def test_fused_ffn(dev, dtype, act, M, K, H, N, sizes):
+    x, gs, ws, wo, _ = _ffn_inputs(dev, dtype, act, M, K, H, N, sizes)
     got = ff.fused_ffn(x, ws, wo, gs, act)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),

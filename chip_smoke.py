@@ -16,7 +16,7 @@
    steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
    the launch counters set to 0 just before and read just after;
 5. holds each combination's prefill and first-decode logits against the
-   plain einsum experts on the same dispatch;
+   plain einsum experts and plain attention on the same dispatch;
 6. holds the fused FFN's backward kernels (dX, grouped dW) against their
    plain versions at the training shapes (2048 tokens top-2: 4096 ragged
    rows, or 96 x 56 capacity rows), with an empty group, rows past
@@ -29,7 +29,22 @@
    counters set to 0 just before and read just after, printing step time,
    tokens/s, the forward/backward/optimizer split and peak memory;
 9. holds one step's gradients of each kernel path (full width, 2 layers)
-   no further from an f32 einsum oracle than the bf16 einsum path is.
+   no further from an f32 einsum oracle than the bf16 einsum path is (both
+   on plain attention);
+10. holds the flash-attention kernels (forward; backward dq, dk, dv)
+   against their plain versions in bf16 and f32 at the fastmoe-gpt prefill
+   (8 x 128) and training (8 x 256) shapes, one starcoder2-15b kv group
+   (2 x 8192, 12 heads over 1, window 4096), window 1 and sequences that
+   are no tile multiple, and times them beside their bounds, the plain
+   version and SDPA (run before the model phases, while the plain
+   version's f32 scores fit the card);
+11. holds 2-layer full-width starcoder2-15b logits (1 x 8192) of the
+   kernel path no further from an f32 plain-attention path than the bf16
+   plain path is;
+12. serves full-width 40-layer starcoder2-15b (15.96 B params, bf16 layers)
+   greedily: 2 prompts x 8192 tokens into a 4096-slot ring, then 32
+   decode steps, with the launch counters set to 0 just before and read
+   just after, printing prefill ms, decode ms/step and peak memory.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -39,6 +54,7 @@ beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -93,6 +109,18 @@ SERVE_REL_SLACK, SERVE_ABS_SLACK, SERVE_AGREE_SLACK = 1.25, 0.01, 0.05
 DW_TOL = {"bfloat16": dict(rtol=2e-2, atol=0.25),
           "float32": KERNEL_TOL["float32"]}
 DW_FRO = 1e-3
+# Flash attention against its plain version.  At the starcoder2 shape a
+# row averages ~4096 keys, so a typical |o| is ~0.02, at or below the bf16
+# atol: the elementwise tolerance alone would pass a wrong bf16 kernel.  So
+# each output and gradient is also held, as a whole, to a relative
+# Frobenius error (bf16: the backward rounds P and dS to bf16 once, ~2^-9
+# relative per element, and both sides round the result once; f32: sums
+# reassociated), and the bf16 forward, which splits P into bf16 high and
+# low parts, must equal the plain version bit for bit on >= 99% of outputs
+# (it rounds one f32 sum, reassociated, where the plain version rounds its
+# own).
+FLASH_FRO = {"bfloat16": 1e-2, "float32": 1e-4}
+FLASH_EQUAL = 0.99
 SMALL_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 card vs CPU, reduced model
 # Training it: step-0 gradients elementwise to SMALL_TOL (atol scaled by the
 # leaf's largest entry); every step's gradients per leaf to a relative L2
@@ -107,6 +135,11 @@ SMALL_GRAD_L2 = 1e-3
 # path's worst leaf + 0.05 (the router's gradient moves most where a
 # rounding switches a token's expert).
 GRAD_REL_SLACK, GRAD_MED_SLACK, GRAD_MAX_SLACK = 1.25, 0.01, 0.05
+# starcoder2-15b, 2 layers: the bf16 kernel path's logits against the f32
+# plain path.  Its floor (the bf16 plain path's distance, ~0.007) is far
+# below fastmoe-gpt's (~0.2: no experts to switch), so the slack is
+# relative only: median <= 1.25 x floor, argmax agreement >= floor - 0.01.
+SC2_REL_SLACK, SC2_AGREE_SLACK = 1.25, 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -124,6 +157,19 @@ def close(name: str, got, ref, tol: dict) -> float:
     ok = torch.allclose(got.float(), ref.float(), **tol)
     check(ok, f"{name}: kernel disagrees with its plain version "
               f"(max |err| {err:.3e}, tolerance {tol})")
+    return err
+
+
+def frobenius(name: str, got, ref, limit: float) -> float:
+    """Relative Frobenius error ||got - ref|| / ||ref||, held to limit.  An
+    all-zero reference (dq and dk at window 1, where each row's only key
+    has P = 1 and dS = dP - rowsum(dO o) = 0) has no relative error: the
+    caller's elementwise tolerance holds it alone, and this returns 0."""
+    den = ref.float().norm().item()
+    if den == 0.0:
+        return 0.0
+    err = (got.float() - ref.float()).norm().item() / den
+    check(err <= limit, f"{name}: relative Frobenius error {err:.3e} > {limit}")
     return err
 
 
@@ -292,6 +338,216 @@ def grouped_mm_call(x, w, offs):
 
 
 # ---------------------------------------------------------------------------
+# flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+FULL_WINDOW = 1 << 30
+# (B, S, H, KV, d, window): fastmoe-gpt prefill and training (16 heads of
+# 64, causal, no window); one starcoder2-15b layer (48 heads of 128 over 4
+# kv heads, window 4096) on one kv group, where the plain version's f32
+# scores fit the card (all 48 heads would need 4 x 6.4 GB per copy); and
+# the edges: window 1 and sequences that are no tile multiple.
+FLASH_SHAPES = {
+    "prefill": (BATCH, PROMPT, 16, 16, 64, FULL_WINDOW),
+    "train": (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, FULL_WINDOW),
+    "starcoder2": (2, 8192, 12, 1, 128, 4096),
+    "window1": (2, 1000, 12, 4, 128, 1),
+    "tail": (3, 333, 16, 16, 64, 100),
+}
+STARCODER2_FULL = (2, 8192, 48, 4, 128, 4096)  # the kernel alone, all heads
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """Causal (i, j) pairs with 0 <= i - j < window over S positions: what
+    this input needs (tiles outside the band are never computed)."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_bound(B, S, H, KV, d, window, *, backward: bool):
+    """(bytes, operations) of the forward (q, k, v, o once; 4 d per visible
+    pair and head) or the backward (q, k, v, o, dO, dq, dk, dv and the f32
+    lse once; 10 d per pair and head) in bf16."""
+    e = 2
+    qo, kv = B * S * H * d * e, B * S * KV * d * e
+    pairs = B * H * visible_pairs(S, window)
+    if backward:
+        return 4 * qo + 4 * kv + 4 * B * H * S, 10 * d * pairs
+    return 2 * qo + 2 * kv, 4 * d * pairs
+
+
+def sdpa_calls(q, k, v, do, window):
+    """PyTorch's scaled_dot_product_attention on the same inputs, forward
+    and backward, timed beside the kernels as a yardstick (the port never
+    calls it): is_causal at full window, else a boolean band mask.  Prints
+    the backend that takes it; (None, None) where SDPA refuses."""
+    import torch
+    import torch.nn.functional as F
+    S = q.shape[1]
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    kw = dict(enable_gqa=True)
+    if window >= S:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(S, device=q.device)
+        dist = i[:, None] - i[None, :]
+        kw["attn_mask"] = (dist >= 0) & (dist < window)
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    try:  # the backend's name is informative only
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(choice(qt, kt, vt, **kw)).name if choice else "unknown"
+    except (ImportError, RuntimeError, TypeError, ValueError) as exc:
+        backend = f"unknown ({type(exc).__name__})"
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    except RuntimeError as exc:
+        print(f"library: SDPA refused {tuple(q.shape)}: {exc}"[:300])
+        return None, None
+    print(f"library: SDPA backend for {tuple(q.shape)} window {window}: "
+          f"{backend}", flush=True)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    def bwd():
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return fwd, bwd
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's full-sequence attention on the plain version (one masked
+    softmax over materialised f32 scores) instead of the kernels: the
+    reference paths of the logit and gradient checks, so that no kernel
+    attention runs on the side a kernel path is held against."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    kernel = A.blockwise_attention
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    A.blockwise_attention = fa.attention_plain
+    try:
+        yield
+    finally:
+        A.blockwise_attention = kernel
+    check(before == (fa.flash_attention_fwd.launches,
+                     fa.flash_attention_bwd.launches),
+          "a flash kernel ran on the plain-attention reference path")
+
+
+def flash_phase(dev, flush):
+    """flash_attention_fwd / _bwd against their plain versions in bf16 and
+    f32 at FLASH_SHAPES; bf16 timed beside its bound, the plain version and
+    SDPA at the three model shapes; the kernels alone at all 48 heads of a
+    starcoder2 layer."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    errs, timed = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        tol = KERNEL_TOL[dn]
+        for name, (B, S, H, KV, d, window) in FLASH_SHAPES.items():
+            q, do = (torch.randn(B, S, H, d, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(B, S, KV, d, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            kw = dict(window=window)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            e1 = close(f"flash_attention_fwd {name} {dn}", o, ro, tol)
+            fro = {"o": frobenius(f"flash_attention_fwd {name} {dn}", o, ro,
+                                  FLASH_FRO[dn])}
+            same = (o == ro).float().mean().item()
+            check(dtype != torch.bfloat16 or same >= FLASH_EQUAL,
+                  f"flash_attention_fwd {name} {dn}: {100 * same:.2f}% of "
+                  f"outputs equal to the plain version's (< {FLASH_EQUAL})")
+            close(f"flash_attention_fwd lse {name} {dn}", lse, rlse,
+                  KERNEL_TOL["float32"])
+            del ro, rlse
+            e2 = 0.0
+            for gname, a, b in zip(("dq", "dk", "dv"), grads,
+                                   fa.flash_attention_bwd_plain(q, k, v, do, **kw)):
+                # atol scaled by the gradient's largest entry where it is > 1
+                scale = max(b.float().abs().max().item(), 1.0)
+                e2 = max(e2, close(f"flash_attention_bwd {gname} {name} {dn}",
+                                   a, b, dict(rtol=tol["rtol"],
+                                              atol=tol["atol"] * scale)))
+                fro[gname] = frobenius(f"flash_attention_bwd {gname} {name} {dn}",
+                                       a, b, FLASH_FRO[dn])
+            errs[("flash_attention_fwd", dn, name)] = e1
+            errs[("flash_attention_bwd", dn, name)] = e2
+            print(f"flash {name} {dn}: max |err| forward {e1:.3e} "
+                  f"({100 * same:.2f}% of outputs equal to the plain "
+                  f"version's), backward {e2:.3e}; relative Frobenius "
+                  + " ".join(f"{k} {v:.2e}" for k, v in fro.items()), flush=True)
+            del grads
+            torch.cuda.empty_cache()
+            if dtype != torch.bfloat16 or name in ("window1", "tail"):
+                continue
+            reps = 5 if name == "starcoder2" else 15
+            lib_f, lib_b = sdpa_calls(q, k, v, do, window)
+            cases = (
+                ("flash_attention_fwd",
+                 lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                 lambda: fa.attention_plain(q, k, v, **kw), lib_f, False),
+                ("flash_attention_bwd",
+                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, do, **kw),
+                 lib_b, True))
+            for kname, kern, plain, lib, back in cases:
+                nbytes, flops = flash_bound(B, S, H, KV, d, window, backward=back)
+                ms = time_ms(kern, flush)
+                plain_ms = time_ms(plain, flush, reps)
+                lib_ms = time_ms(lib, flush, reps) if lib is not None else None
+                b_ms, b_by = bound(nbytes, flops, "bfloat16")
+                timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
+                                            bound_ms=b_ms, bound_by=b_by,
+                                            library_ms=lib_ms)
+                print(f"kernel {kname} {name:10s} bf16 {B}x{S} {H}/{KV} heads "
+                      f"x {d}, window {window}: {ms:.4f} ms  bound {b_ms:.4f} "
+                      f"ms ({b_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
+                      f"GFLOP)  plain {plain_ms:.4f} ms  SDPA "
+                      f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                      flush=True)
+            del lib_f, lib_b
+            torch.cuda.empty_cache()
+    # one starcoder2 layer at all its heads: the kernels alone
+    B, S, H, KV, d, window = STARCODER2_FULL
+    q, do = (torch.randn(B, S, H, d, generator=g, device=dev, dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, d, generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, window=window)
+    for kname, kern, back in (
+            ("flash_attention_fwd",
+             lambda: fa.flash_attention_fwd(q, k, v, window=window), False),
+            ("flash_attention_bwd",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, window=window),
+             True)):
+        nbytes, flops = flash_bound(B, S, H, KV, d, window, backward=back)
+        ms = time_ms(kern, flush, 5)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        timed[(kname, "starcoder2_full")] = dict(ms=ms, bound_ms=b_ms)
+        print(f"kernel {kname} starcoder2 layer bf16 {B}x{S} {H}/{KV} heads x "
+              f"{d}, window {window}: {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+              f"{flops / 1e12:.3f} TFLOP: {flops / ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    print(f"flash attention checks passed: {len(errs)} cases (bf16 tol "
+          f"{KERNEL_TOL['bfloat16']}, f32 tol {KERNEL_TOL['float32']}; lse f32 "
+          f"tol; gradients' atol x max(1, largest entry); relative Frobenius "
+          f"<= {FLASH_FRO}; bf16 forward equal to the plain version on >= "
+          f"{FLASH_EQUAL} of outputs)", flush=True)
+    return errs, timed
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
@@ -334,10 +590,12 @@ def small_reference(dev):
           f"{worst:.3e} (tol {SMALL_TOL})", flush=True)
 
 
-SERVE_KERNELS = ("grouped_gemm", "gather_rows", "combine_topk", "fused_ffn")
+SERVE_KERNELS = ("grouped_gemm", "gather_rows", "combine_topk", "fused_ffn",
+                 "flash_attention_fwd")
 
 
 def counters():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_ffn_bwd as fb
     from repro_torch.kernels import grouped_gemm as gg
@@ -345,7 +603,9 @@ def counters():
     return {"grouped_gemm": gg.grouped_gemm, "gather_rows": ts.gather_rows,
             "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
-            "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw}
+            "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
 
 
 def serve_phase(dev):
@@ -408,18 +668,21 @@ def serve_phase(dev):
     # ---- logits against the einsum oracle, and launches per decode step.
     # The oracle runs the plain einsum experts on the model cast to f32; the
     # bf16 einsum path's distance to it is the bf16 noise floor the kernel
-    # paths are held to (see SERVE_* above).
+    # paths are held to (see SERVE_* above).  Both run the plain attention,
+    # so no kernel runs on the reference side.
     params32 = dict(params, layers=[lm.cast_params(l, torch.float32)
                                     for l in params["layers"]])
     per_step = {}
     for dispatch in ("ragged", "capacity"):
         cfg = with_dispatch(base, dispatch)
-        oracle = first_logits(params32, dataclasses.replace(cfg, dtype="float32"),
-                              prompt, "einsum", cache_len, dev)
+        with plain_attention():
+            oracle = first_logits(params32, dataclasses.replace(cfg, dtype="float32"),
+                                  prompt, "einsum", cache_len, dev)
         floor = None
         for impl in ("einsum", "fused", "pallas"):
-            lp, ld, _, step = first_logits(params, cfg, prompt, impl, cache_len,
-                                           dev, tok=oracle[2])
+            with plain_attention() if impl == "einsum" else contextlib.nullcontext():
+                lp, ld, _, step = first_logits(params, cfg, prompt, impl,
+                                               cache_len, dev, tok=oracle[2])
             rel_p, rel_d = rel_err(lp, oracle[0]), rel_err(ld, oracle[1])
             med_p, med_d = rel_p.median().item(), rel_d.median().item()
             agree = (lp.argmax(-1) == oracle[0].argmax(-1)).float().mean().item()
@@ -767,6 +1030,7 @@ def train_phase(dev):
               f"{json.dumps(launches)}", flush=True)
         needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
             if impl == "fused" else ["grouped_gemm"]
+        needed += ["flash_attention_fwd", "flash_attention_bwd"]
         if dispatch == "ragged":
             needed += ["gather_rows", "combine_topk"]
         for name in needed:
@@ -809,7 +1073,8 @@ def profile_train_step(step_fn, params, state, data, dev):
 def grad_oracle_phase(dev):
     """One step's gradients at full width (2 layers, bf16 compute) of each
     kernel path against the f32 einsum oracle on the same dispatch, held
-    to the bf16 einsum path's own distance (see GRAD_* above)."""
+    to the bf16 einsum path's own distance (see GRAD_* above).  The oracle
+    and the bf16 einsum path run the plain attention."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
@@ -824,15 +1089,17 @@ def grad_oracle_phase(dev):
     batch = {"tokens": tokens}
     for dispatch in ("capacity", "ragged"):
         cfg = with_dispatch(base, dispatch)
-        _, _, oracle = train.loss_and_grads(
-            params, dataclasses.replace(cfg, dtype="float32"), batch,
-            impl="einsum", device=dev)
+        with plain_attention():
+            _, _, oracle = train.loss_and_grads(
+                params, dataclasses.replace(cfg, dtype="float32"), batch,
+                impl="einsum", device=dev)
         floor = None
         for impl in ("einsum", "fused", "pallas"):
             if (impl, dispatch) not in TRAIN_COMBOS and impl != "einsum":
                 continue
-            loss, _, grads = train.loss_and_grads(params, cfg, batch, impl=impl,
-                                                  device=dev)
+            with plain_attention() if impl == "einsum" else contextlib.nullcontext():
+                loss, _, grads = train.loss_and_grads(params, cfg, batch,
+                                                      impl=impl, device=dev)
             d = _grad_dists(grads, oracle)
             del grads
             med, worst = statistics.median(d), max(d)
@@ -850,6 +1117,127 @@ def grad_oracle_phase(dev):
         del oracle
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# starcoder2-15b: long-prompt sliding-window serving at full width
+# ---------------------------------------------------------------------------
+
+SC2_BATCH, SC2_PROMPT, SC2_GEN = 2, 8192, 32
+
+
+def starcoder2_logits_phase(dev):
+    """starcoder2-15b at full width cut to 2 layers, batch 1, an 8192-token
+    prompt (twice the window): the bf16 kernel path's logits against the
+    f32 plain path, within the bf16 plain path's own distance (SC2_*)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("starcoder2-15b"), num_layers=2)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SC2_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        params32 = dict(params, layers=[lm.cast_params(l, torch.float32)
+                                        for l in params["layers"]])
+        with plain_attention():
+            oracle = lm.forward(params32, dataclasses.replace(cfg, dtype="float32"),
+                                tokens, device=dev)[0]
+            del params32
+            plain = lm.forward(params, cfg, tokens, device=dev)[0]
+        before = fa.flash_attention_fwd.launches
+        kern = lm.forward(params, cfg, tokens, device=dev)[0]
+        torch.cuda.synchronize()
+    check(fa.flash_attention_fwd.launches - before == cfg.num_layers,
+          "starcoder2 forward did not run the flash kernel in every layer")
+    floor = None
+    for name, lg in (("plain bf16", plain), ("kernel bf16", kern)):
+        check(bool(torch.isfinite(lg).all()), f"starcoder2 {name} logits not finite")
+        rel = rel_err(lg, oracle)
+        med = rel.median().item()
+        agree = (lg.argmax(-1) == oracle.argmax(-1)).float().mean().item()
+        print(f"starcoder2-15b 2 layers, 1x{SC2_PROMPT}: {name} logits vs f32 "
+              f"plain path: per-position relative error p50 {med:.5f} p90 "
+              f"{rel.quantile(0.9).item():.5f} max {rel.max().item():.5f}, "
+              f"argmax agree {agree:.4f}", flush=True)
+        if floor is None:
+            floor = (med, agree)
+            continue
+        check(med <= SC2_REL_SLACK * floor[0]
+              and agree >= floor[1] - SC2_AGREE_SLACK,
+              f"starcoder2 kernel logits further from the f32 plain path than "
+              f"the bf16 plain path (floor {floor}; slack x{SC2_REL_SLACK}, "
+              f"agreement -{SC2_AGREE_SLACK})")
+    del params, oracle, plain, kern
+    torch.cuda.empty_cache()
+
+
+def starcoder2_serve_phase(dev):
+    """Full-width 40-layer starcoder2-15b (bf16 layers, f32 embed and head,
+    weights from seed 0) served greedily: SC2_BATCH prompts of SC2_PROMPT
+    tokens into a 4096-slot ring, then SC2_GEN decode steps, with the
+    launch counters set to 0 just before and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("starcoder2-15b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    wbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"starcoder2-15b: {n / 1e9:.3f} B params ({wbytes / 1e9:.2f} GB: "
+          f"layers bf16, embed/head f32) made from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (SC2_BATCH, SC2_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    cache_len = serve.cache_len_for(cfg, SC2_PROMPT + SC2_GEN)
+    check(cache_len == cfg.attention.sliding_window, f"ring of {cache_len}")
+    serve.generate(params, cfg, prompt[:, :256], 2, cache_len=256, device=dev)
+    torch.cuda.synchronize()
+
+    # ---- the main path: counters at 0 just before, read just after
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    seq = serve.generate(params, cfg, prompt, SC2_GEN, cache_len=cache_len,
+                         device=dev, timings=timings)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"main path launches (starcoder2 serving): {json.dumps(launches)}",
+          flush=True)
+    check(seq.shape == (SC2_BATCH, SC2_PROMPT + SC2_GEN), f"shape {seq.shape}")
+    check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()), "bad tokens")
+    check(torch.equal(seq[:, :SC2_PROMPT], prompt), "prompt not kept")
+    check(launches["flash_attention_fwd"] == cfg.num_layers,
+          f"flash_attention_fwd launched {launches['flash_attention_fwd']} "
+          f"times in a {cfg.num_layers}-layer prefill")
+    # one layer's materialised f32 scores would be B * S * H * S * 4 bytes
+    scores = SC2_BATCH * SC2_PROMPT * cfg.attention.num_heads * SC2_PROMPT * 4
+    check(peak - wbytes < scores, f"prefill peak {peak / 1e9:.2f} GB holds a "
+                                  f"score matrix ({scores / 1e9:.1f} GB)")
+    dec = statistics.median(timings["decode_s"])
+    print(f"serve starcoder2-15b: prefill {SC2_BATCH}x{SC2_PROMPT} "
+          f"{timings['prefill_s'] * 1e3:.2f} ms "
+          f"({SC2_BATCH * SC2_PROMPT / timings['prefill_s']:.0f} tok/s); decode "
+          f"{dec * 1e3:.3f} ms/step median over {len(timings['decode_s'])} "
+          f"({SC2_BATCH / dec:.1f} tok/s), ring {cache_len}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB: weights "
+          f"{wbytes / 1e9:.2f} GB + {(peak - wbytes) / 1e9:.2f} GB, where one "
+          f"layer's f32 scores would be {scores / 1e9:.1f} GB); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params, seq
+    torch.cuda.empty_cache()
+    return launches
 
 
 def rel_err(a, b):
@@ -888,6 +1276,7 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)
     bwd_errs, bwd_timed = bwd_kernel_phase(dev, flush)
+    fa_errs, fa_timed = flash_phase(dev, flush)
     del flush
     small_reference(dev)
     small_reference_train(dev)
@@ -895,6 +1284,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _ = train_phase(dev)
     grad_oracle_phase(dev)
+    starcoder2_logits_phase(dev)
+    sc2_launches = starcoder2_serve_phase(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -931,6 +1322,21 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "train, 2048 tokens top-2 = 4096 ragged rows, bf16"})
+    for name, rep in (("flash_attention_fwd", "src/repro/kernels/flash_attention.py:73"),
+                      ("flash_attention_bwd", "src/repro/models/attention.py:67")):
+        t = fa_timed[(name, "starcoder2")]
+        by_path = {"fastmoe-gpt serving": launches[name],
+                   "fastmoe-gpt training": train_launches[name],
+                   "starcoder2-15b serving": sc2_launches[name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": rep,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": fa_errs[(name, "bfloat16", "starcoder2")],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "one starcoder2-15b kv group: 2 x 8192, 12 heads over 1 "
+                     "kv head x 128, window 4096, bf16"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("token_shuffle", "grouped_gemm", "fused_ffn", "fused_ffn_bwd")
+SOURCES = ("token_shuffle", "grouped_gemm", "fused_ffn", "fused_ffn_bwd",
+           "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

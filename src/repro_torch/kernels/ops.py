@@ -20,7 +20,11 @@ Each op is a ``torch.autograd.Function`` whose backward runs kernels too:
   kernel: the gradient of a gather of every token into its k rows is the
   sum of those rows (``combine_topk`` with weight 1), and the gradient of
   the gate-weighted combine with respect to its rows is each row's token
-  gradient times its weight (``combine_topk`` with k = 1).
+  gradient times its weight (``combine_topk`` with k = 1);
+* ``flash_attention`` — the forward kernel saves (q, k, v, o, lse) and
+  nothing of size (Sq, Skv); the backward kernels recompute the
+  probabilities from the per-row log-sum-exp (the reference has no
+  backward kernel: XLA differentiates its jnp blockwise scan).
 
 ``impl="pallas"`` runs the hand-written kernel (the port of the Pallas
 kernel; on CPU tensors its plain version); ``impl="plain"`` runs the plain
@@ -33,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_ffn as ff
 from repro_torch.kernels import fused_ffn_bwd as fb
 from repro_torch.kernels import grouped_gemm as gg
@@ -183,3 +188,29 @@ def combine_tokens(src: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
     y[t] = sum_k w[t, k] src[idx[t, k]].  The gradient of src takes the
     ragged dispatch's layout: idx is a permutation of src's rows."""
     return _CombineTokens.apply(src, idx.to(torch.int32), w)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, q_offset, causal):
+        o, lse = fa.flash_attention_fwd(q, k, v, window=window,
+                                        q_offset=q_offset, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(window=window, q_offset=q_offset, causal=causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                            **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, q_offset: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v over 0 <= i - j < window (causal) or
+    i - j < window; q (B, Sq, H, d), k, v (B, Skv, KV, d), any strides."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 int(window), int(q_offset), bool(causal))

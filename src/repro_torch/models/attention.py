@@ -1,10 +1,12 @@
 """GQA attention: full-sequence (prefill) and one-token decode against a
 ring-buffer KV cache.
 
-Plain PyTorch matmuls and a masked softmax in f32, in the JAX package's
-``(B, S, H, d)`` layout.  ``blockwise_attention`` computes what the JAX
-blockwise online-softmax scan computes, as one masked softmax (the Pallas
-flash-attention kernel is a later slice of the port).  The cache keeps each
+In the JAX package's ``(B, S, H, d)`` layout.  ``blockwise_attention``
+computes what the JAX blockwise online-softmax scan computes through the
+flash-attention kernels (``kernels/flash_attention.py``: the (S, S) scores
+never reach device memory on the card; on the CPU their plain version, one
+masked softmax in f32).  Decode is plain PyTorch matmuls and a masked
+softmax in f32 over the ring.  The cache keeps each
 entry's absolute position beside it (-1 = empty, masked); RoPE is applied
 at write time.  Decode writes the cache in place — the JAX version returns
 a new cache; the port updates the tensors it was given and returns them.
@@ -16,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, linear, linear_init
 
 _NEG = -1e30
@@ -24,26 +27,16 @@ _NEG = -1e30
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int, q_offset: int = 0,
                         causal: bool = True) -> torch.Tensor:
-    """softmax(q k^T / sqrt(dk)) v over keys with 0 <= i - j < window.
+    """softmax(q k^T / sqrt(dk)) v over keys with 0 <= i - j < window
+    (causal) or i - j < window (not causal).
 
     q: (B, Sq, H, dk); k: (B, Skv, KV, dk); v: (B, Skv, KV, dv); i is the
-    absolute query position ``q_offset + row``.
+    absolute query position ``q_offset + row``.  The flash-attention
+    kernels on the card, forward and backward; the plain masked softmax on
+    the CPU.
     """
-    B, Sq, H, dk = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, dk).float()
-    s = torch.einsum("bskgd,bckd->bskgc", qg, k.float()) * dk ** -0.5
-    i_pos = q_offset + torch.arange(Sq, device=q.device)
-    j_pos = torch.arange(Skv, device=q.device)
-    dist = i_pos[:, None] - j_pos[None, :]
-    mask = dist < window
-    if causal:
-        mask &= dist >= 0
-    s = s.masked_fill(~mask[None, :, None, None, :], _NEG)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bskgc,bckd->bskgd", p, v.float())
-    return out.reshape(B, Sq, H, -1).to(q.dtype)
+    return ops.flash_attention(q, k, v, window=window, q_offset=q_offset,
+                               causal=causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

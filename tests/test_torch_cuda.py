@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small and awkward shapes (unaligned widths, hidden tails, empty groups,
-rows past sum(group_sizes)), the fused FFN's backward kernels included.
+rows past sum(group_sizes)), the fused FFN's backward kernels and flash
+attention (tails of both tile sizes, window 1, GQA, non-causal, a query
+offset) included.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -17,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_ffn as ff  # noqa: E402
 from repro_torch.kernels import fused_ffn_bwd as fb  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
@@ -153,3 +156,84 @@ def test_combine_topk(dev, dtype, k, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ts.combine_topk_plain(src, idx, w),
                                **TOL[dtype])
+
+
+# (B, Sq, Skv, H, KV, d, window, q_offset, causal): tails of both tile
+# sizes, window 1, GQA groups, non-causal, a query offset.
+FLASH_CASES = [
+    (2, 100, 100, 6, 2, 64, 1, 0, True),
+    (1, 130, 130, 4, 1, 128, 5, 0, True),
+    (2, 70, 70, 3, 3, 64, 16, 0, False),
+    (1, 200, 200, 2, 1, 128, 1 << 30, 0, True),
+    (1, 200, 200, 4, 2, 64, 1 << 30, 0, False),
+    (1, 40, 90, 4, 2, 64, 30, 50, True),
+    (2, 257, 257, 12, 4, 128, 64, 0, True),
+]
+
+
+# Each output and gradient as a whole: relative Frobenius error (the
+# elementwise tolerance alone is loose where |o| ~ 1/sqrt(keys)).  An
+# all-zero reference (dq, dk at window 1) is held elementwise only.
+FLASH_FRO = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _assert_fro(got, ref, dtype):
+    den = ref.float().norm().item()
+    if den == 0.0:
+        return
+    err = (got.float() - ref.float()).norm().item() / den
+    assert err <= FLASH_FRO[dtype], f"relative Frobenius error {err:.3e}"
+
+
+def _flash_inputs(dev, dtype, B, Sq, Skv, H, KV, d, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(B, Sq, H, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, KV, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,window,q_offset,causal", FLASH_CASES)
+def test_flash_attention_fwd(dev, dtype, B, Sq, Skv, H, KV, d, window,
+                             q_offset, causal):
+    q, k, v, _ = _flash_inputs(dev, dtype, B, Sq, Skv, H, KV, d)
+    kw = dict(window=window, q_offset=q_offset, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    _assert_fro(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,window,q_offset,causal", FLASH_CASES)
+def test_flash_attention_bwd(dev, dtype, B, Sq, Skv, H, KV, d, window,
+                             q_offset, causal):
+    """dq, dk, dv against autograd of the plain version; each held at the
+    dtype's tolerance scaled by that gradient's largest entry, and to a
+    relative Frobenius error."""
+    q, k, v, do = _flash_inputs(dev, dtype, B, Sq, Skv, H, KV, d)
+    kw = dict(window=window, q_offset=q_offset, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, fa.flash_attention_bwd_plain(q, k, v, do, **kw)):
+        scale = max(b.float().abs().max().item(), 1.0)
+        tol = dict(rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale)
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+        _assert_fro(a, b, dtype)
+
+
+def test_flash_attention_op_autograd(dev):
+    """ops.flash_attention runs the kernels both ways on the card."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 96, 96, 4, 2, 64)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    ops.flash_attention(q, k, v, window=33).backward(do)
+    assert fa.flash_attention_fwd.launches == f0 + 1
+    assert fa.flash_attention_bwd.launches == b0 + 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

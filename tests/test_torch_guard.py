@@ -8,7 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.kernels import token_shuffle  # noqa: E402
+from repro_torch.kernels import flash_attention, token_shuffle  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
@@ -59,3 +59,10 @@ def test_kernel_wrapper_never_falls_back():
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         token_shuffle.gather_rows(x, torch.zeros(2, dtype=torch.int32,
                                                  device="meta"))
+    q = torch.empty(1, 8, 4, 64, device="meta")
+    kv = torch.empty(1, 8, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        flash_attention.flash_attention_fwd(q, kv, kv, window=8)
+    lse = torch.empty(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        flash_attention.flash_attention_bwd(q, kv, kv, q, lse, q, window=8)

@@ -3,24 +3,31 @@
 
     python3 chip_smoke.py
 
-1. builds the CUDA kernels from src/repro_torch/csrc into build/;
+1. builds the CUDA kernels from src/repro_torch/csrc into build/ and
+   prints each kernel's registers and spills from -Xptxas -v, failing if
+   the grouped GEMM's ring kernel or the bf16 flash backward spills;
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes (d 1024, H 2048, 96 experts; gelu, plus swiglu) in bf16
    and f32, with ragged group sizes, empty groups and sum(group_sizes) < M,
-   and times kernel, plain version and the library call where one exists;
+   and times kernel, plain version and the library call where one exists
+   (events, and the device time alone from torch.profiler);
 3. holds the reduced f32 model served through the kernels on the card
    against the same model on the CPU (the plain path the CPU tests hold
    against the JAX package);
 4. serves full-width fastmoe-gpt (12 layers x 96 experts, bf16, weights from
    a seed) greedily: 8 prompts x 128 tokens of prefill, then 32 decode
    steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
-   the launch counters set to 0 just before and read just after;
+   the launch counters set to 0 just before and read just after, failing
+   if the simple grouped GEMM (f32 and unaligned shapes) ran at a model
+   shape (also on the training paths);
 5. holds each combination's prefill and first-decode logits against the
    plain einsum experts and plain attention on the same dispatch;
 6. holds the fused FFN's backward kernels (dX, grouped dW) against their
    plain versions at the training shapes (2048 tokens top-2: 4096 ragged
    rows, or 96 x 56 capacity rows), with an empty group, rows past
-   sum(group_sizes) and a hidden tail, and times them beside their bounds;
+   sum(group_sizes) and a hidden tail, and times them beside their bounds,
+   with the fused FFN forward and the grouped GEMM (forward, and dX reading
+   w transposed) on the same rows;
 7. trains the reduced f32 model 3 steps through the kernels on the card
    against the CPU plain path (per-step loss and per-leaf gradients);
 8. trains full-width fastmoe-gpt cut to 10 layers (f32 masters, bf16
@@ -31,7 +38,8 @@
 9. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
    on plain attention);
-10. holds the flash-attention kernels (forward; backward dq, dk, dv)
+10. holds the flash-attention kernels (forward; backward dq, dk, dv — the
+   bf16 backward twice, as its dq sums by atomic adds in no fixed order)
    against their plain versions in bf16 and f32 at the fastmoe-gpt prefill
    (8 x 128) and training (8 x 256) shapes, one starcoder2-15b kv group
    (2 x 8192, 12 heads over 1, window 4096), window 1 and sequences that
@@ -191,6 +199,24 @@ def time_ms(fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Summed device time of the kernels and memsets one call of fn runs,
+    mean over reps, from torch.profiler, L2 warm.  Where the host takes
+    longer to issue a call than the device to run it (small shapes, and
+    autograd around a library call), the event time above holds host time
+    too; this is the device's part alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
 def bound(nbytes: float, flops: float, dtype_name: str):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -237,9 +263,13 @@ def kernel_phase(dev, flush):
         b_ms, b_by = bound(nbytes, flops, peak)
         timed[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms)
+        dev_ms = device_ms(kern)
+        lib_dev = f"{device_ms(lib):.4f} ms" if lib is not None else "n/a"
         print(f"kernel {name:12s} {shape:7s} bf16: {ms:.4f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})  plain {plain_ms:.4f} ms  library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; device "
+              f"(profiler, L2 warm) {dev_ms:.4f} ms, library {lib_dev}",
+              flush=True)
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -456,7 +486,10 @@ def flash_phase(dev, flush):
                     for _ in range(2))
             kw = dict(window=window)
             o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            # bf16 runs twice: its dq is summed by atomic adds in an order
+            # that changes from run to run, and each run must pass
+            runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                    for _ in range(2 if dtype == torch.bfloat16 else 1)]
             torch.cuda.synchronize()
             ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
             e1 = close(f"flash_attention_fwd {name} {dn}", o, ro, tol)
@@ -470,22 +503,23 @@ def flash_phase(dev, flush):
                   KERNEL_TOL["float32"])
             del ro, rlse
             e2 = 0.0
-            for gname, a, b in zip(("dq", "dk", "dv"), grads,
-                                   fa.flash_attention_bwd_plain(q, k, v, do, **kw)):
-                # atol scaled by the gradient's largest entry where it is > 1
-                scale = max(b.float().abs().max().item(), 1.0)
-                e2 = max(e2, close(f"flash_attention_bwd {gname} {name} {dn}",
-                                   a, b, dict(rtol=tol["rtol"],
-                                              atol=tol["atol"] * scale)))
-                fro[gname] = frobenius(f"flash_attention_bwd {gname} {name} {dn}",
-                                       a, b, FLASH_FRO[dn])
+            ref = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+            for run, grads in enumerate(runs):
+                for gname, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                    # atol scaled by the gradient's largest entry where > 1
+                    scale = max(b.float().abs().max().item(), 1.0)
+                    tag = f"flash_attention_bwd {gname} {name} {dn} run {run}"
+                    e2 = max(e2, close(tag, a, b, dict(rtol=tol["rtol"],
+                                                       atol=tol["atol"] * scale)))
+                    fro[f"{gname}{run}"] = frobenius(tag, a, b, FLASH_FRO[dn])
+            del ref
             errs[("flash_attention_fwd", dn, name)] = e1
             errs[("flash_attention_bwd", dn, name)] = e2
             print(f"flash {name} {dn}: max |err| forward {e1:.3e} "
                   f"({100 * same:.2f}% of outputs equal to the plain "
                   f"version's), backward {e2:.3e}; relative Frobenius "
                   + " ".join(f"{k} {v:.2e}" for k, v in fro.items()), flush=True)
-            del grads
+            del runs
             torch.cuda.empty_cache()
             if dtype != torch.bfloat16 or name in ("window1", "tail"):
                 continue
@@ -508,11 +542,17 @@ def flash_phase(dev, flush):
                 timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
                                             bound_ms=b_ms, bound_by=b_by,
                                             library_ms=lib_ms)
+                on_device = ""
+                if name != "starcoder2":  # small: the host may hide the device
+                    on_device = (f"; device (profiler, L2 warm) "
+                                 f"{device_ms(kern):.4f} ms, SDPA "
+                                 + (f"{device_ms(lib):.4f} ms"
+                                    if lib is not None else "n/a"))
                 print(f"kernel {kname} {name:10s} bf16 {B}x{S} {H}/{KV} heads "
                       f"x {d}, window {window}: {ms:.4f} ms  bound {b_ms:.4f} "
                       f"ms ({b_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
                       f"GFLOP)  plain {plain_ms:.4f} ms  SDPA "
-                      f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                      f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}{on_device}",
                       flush=True)
             del lib_f, lib_b
             torch.cuda.empty_cache()
@@ -600,7 +640,9 @@ def counters():
     from repro_torch.kernels import fused_ffn_bwd as fb
     from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import token_shuffle as ts
-    return {"grouped_gemm": gg.grouped_gemm, "gather_rows": ts.gather_rows,
+    return {"grouped_gemm": gg.grouped_gemm,
+            "grouped_gemm_simple": gg.grouped_gemm_simple,
+            "gather_rows": ts.gather_rows,
             "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
             "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw,
@@ -650,6 +692,8 @@ def serve_phase(dev):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the serving path")
+    check(launches["grouped_gemm_simple"] == 0,
+          "the serving path ran the simple grouped GEMM at a model shape")
 
     for (impl, dispatch), (seq, t) in results.items():
         dec = statistics.median(t["decode_s"])
@@ -778,11 +822,15 @@ def _to(tree, where):
 
 def bwd_kernel_phase(dev, flush):
     """fused_ffn_bwd_dx / _dw against their plain versions in bf16 and f32
-    at the training shapes; bf16 timed beside its bound.  Ragged: 2044
-    tokens' top-2 over experts 6..95 (4088 of 4096 rows, 6 empty experts);
-    capacity: 96 x C = 56 rows, each expert's slots past its load zero;
-    tail: the ragged rows with H = 2000 (a 80-wide last hidden tile)."""
+    at the training shapes; bf16 timed beside its bound, with the fused FFN
+    forward and the grouped GEMM's forward and dX (w^T) on the same rows
+    (checked against their plain versions, timed beside their bounds and
+    torch._grouped_mm).  Ragged: 2044 tokens' top-2 over experts 6..95
+    (4088 of 4096 rows, 6 empty experts); capacity: 96 x C = 56 rows, each
+    expert's slots past its load zero; tail: the ragged rows with H = 2000
+    (a 80-wide last hidden tile)."""
     import torch
+    from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_ffn_bwd as fb
     from repro_torch.kernels import grouped_gemm as gg
 
@@ -848,7 +896,8 @@ def bwd_kernel_phase(dev, flush):
                     continue
                 # bf16, gelu (the model's act), timed beside its bound: each
                 # input read once (the weights of the experts with rows), each
-                # output written once (dW: all experts' f32 dwi and dwo)
+                # output written once (dW: all experts' f32 dwi and dwo); the
+                # fused FFN forward on the same rows beside them
                 ws, b = (wi,), 2
                 wbytes = used * 2 * D * hid * b
                 cases = {
@@ -861,7 +910,17 @@ def bwd_kernel_phase(dev, flush):
                         lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu"),
                         b * 2 * M * D + wbytes + 4 * 2 * E * D * hid + 4 * E,
                         8 * n * D * hid),
+                    "fused_ffn": (
+                        lambda: ff.fused_ffn(x, ws, wo, gs, "gelu"),
+                        lambda: ff.fused_ffn_plain(x, ws, wo, gs, "gelu"),
+                        b * 2 * M * D + wbytes + 4 * E, 4 * n * D * hid),
                 }
+                got = ff.fused_ffn(x, ws, wo, gs, "gelu")
+                torch.cuda.synchronize()
+                errs[("fused_ffn", dn, name)] = close(
+                    f"fused_ffn {name} gelu {dn}", got,
+                    ff.fused_ffn_plain(x, ws, wo, gs, "gelu"), tol)
+                del got
                 for kname, (kern, plain, nbytes, flops) in cases.items():
                     ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 5)
                     b_ms, b_by = bound(nbytes, flops, "bfloat16")
@@ -872,16 +931,45 @@ def bwd_kernel_phase(dev, flush):
                           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
                           f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  "
                           f"library n/a", flush=True)
-                # the pallas path's backward on the same rows: dX is the
-                # grouped GEMM reading w transposed, dW the plain per-group
-                # product (no kernel yet)
+                # the pallas path on the same rows: forward x @ wi and dX =
+                # dy @ wi^T on the grouped GEMM (w read transposed in place),
+                # beside torch._grouped_mm (given wi.transpose(1, 2) for dX);
+                # dW the plain per-group product (no kernel yet)
                 gx = randn(M, hid, dtype=dtype)
                 gx[n:] = 0
-                gemm_dx = time_ms(lambda: gg.grouped_gemm(gx, wi, gs, True), flush)
+                offs = torch.cumsum(gs, 0).to(torch.int32)
+                gemm_cases = {
+                    "grouped_gemm": (x, wi, False, grouped_mm_call(x, wi, offs)),
+                    "grouped_gemm_dx": (gx, wi, True, grouped_mm_call(
+                        gx, wi.transpose(1, 2), offs)),
+                }
+                for kname, (a, w_, tw, lib) in gemm_cases.items():
+                    got = gg.grouped_gemm(a, w_, gs, tw)
+                    torch.cuda.synchronize()
+                    errs[(kname, dn, name)] = close(
+                        f"{kname} {name} {dn}", got,
+                        gg.grouped_gemm_plain(a, w_, gs, tw), tol)
+                    check(not got[n:].any(), f"{kname} {name}: rows past "
+                                             f"sum(group_sizes) are not zero")
+                    nbytes = b * (a.numel() + used * D * hid + got.numel()) + 4 * E
+                    del got
+                    ms = time_ms(lambda: gg.grouped_gemm(a, w_, gs, tw), flush)
+                    plain_ms = time_ms(lambda: gg.grouped_gemm_plain(a, w_, gs, tw),
+                                       flush, 5)
+                    lib_ms = time_ms(lib, flush) if lib is not None else None
+                    b_ms, b_by = bound(nbytes, 2 * n * D * hid, "bfloat16")
+                    timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
+                                                bound_ms=b_ms, bound_by=b_by,
+                                                library_ms=lib_ms)
+                    print(f"kernel {kname:16s} {name:8s} bf16 ({M} rows, "
+                          f"{'w^T' if tw else 'w'}): {ms:.4f} ms  bound "
+                          f"{b_ms:.4f} ms ({b_by})  plain {plain_ms:.4f} ms  "
+                          f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                          flush=True)
                 gemm_dw = time_ms(lambda: gg.grouped_dw_plain(x, gx, gs, E), flush, 5)
-                print(f"pallas backward {name}: grouped_gemm dX (w^T) "
-                      f"{gemm_dx:.4f} ms; grouped dW, plain per-group product "
-                      f"{gemm_dw:.4f} ms (one (E, 1024, 2048) weight)", flush=True)
+                print(f"pallas backward {name}: grouped dW, plain per-group "
+                      f"product {gemm_dw:.4f} ms (one (E, 1024, 2048) weight)",
+                      flush=True)
                 del gx
             del wi, wu, wo
     print(f"backward kernel checks passed: {len(errs)} cases (dX: bf16 tol "
@@ -1036,8 +1124,11 @@ def train_phase(dev):
         for name in needed:
             check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
-        if (impl, dispatch) == TRAIN_COMBOS[0]:
-            profile_train_step(step_fn, params, state, data, dev)
+        check(launches["grouped_gemm_simple"] == 0,
+              f"train {impl}/{dispatch}: the simple grouped GEMM ran at a "
+              f"model shape")
+        profile_train_step(f"{impl}/{dispatch}", step_fn, params, state,
+                           data, dev)
         del params, state, step_fn
     launches = {k: fn.launches for k, fn in counters().items()}
     print(f"main path launches (training): {json.dumps(launches)}", flush=True)
@@ -1045,7 +1136,7 @@ def train_phase(dev):
     return launches, results
 
 
-def profile_train_step(step_fn, params, state, data, dev):
+def profile_train_step(label, step_fn, params, state, data, dev):
     """One train step under torch.profiler: wall time, summed kernel time
     (the device's busy share), kernel launches and the top kernels."""
     import torch
@@ -1064,7 +1155,7 @@ def profile_train_step(step_fn, params, state, data, dev):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile train step (profiler on): wall {wall * 1e3:.1f} ms, kernels "
+    print(f"profile train step {label} (profiler on): wall {wall * 1e3:.1f} ms, kernels "
           f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
           f"{len(kernels)} kernel launches; top: "
           + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
@@ -1245,6 +1336,42 @@ def rel_err(a, b):
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
 
 
+# the kernels redesigned for registers: ptxas must report no spills
+NO_SPILL = ("grouped_gemm_mma_kernel", "flash_bwd_mma_kernel")
+
+
+def ptxas_report(libs) -> None:
+    """Each kernel's registers, static shared memory and spill bytes from
+    the build's -Xptxas -v lines (dynamic shared memory is set at launch);
+    fails if a NO_SPILL kernel spills."""
+    import re
+    import shutil
+    filt = shutil.which("c++filt")
+    for path in libs.values():
+        log = path.with_suffix(".log")
+        entry, props = None, {}
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            if m:
+                entry = m.group(1)
+            elif entry and "spill" in line:
+                props[entry] = [line.strip()]
+            elif entry and "registers" in line:
+                props.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+        for entry, info in props.items():
+            name = entry
+            if filt:
+                name = subprocess.run([filt, entry], capture_output=True, text=True,
+                                      timeout=60).stdout.strip() or entry
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+            print(f"  ptxas {path.stem.split('-')[0]}: {name}: "
+                  + "; ".join(info), flush=True)
+            if any(k in entry for k in NO_SPILL):
+                spills = re.findall(r"(\d+) bytes spill", " ".join(info))
+                check(spills and not any(int(v) for v in spills),
+                      f"{name}: spills registers ({'; '.join(info)})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1267,11 +1394,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for path in libs.values():
-        log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  {path.stem.split('-')[0]}: {line.strip()}")
+    ptxas_report(libs)
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)

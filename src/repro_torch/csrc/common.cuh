@@ -1,6 +1,7 @@
 // Shared helpers of the repro_torch kernels: dtype conversion, the
-// tile -> group search of the grouped products, vectorized tile loads and
-// the activations.
+// tile -> group search of the grouped products, vectorized tile loads, the
+// activations, and the bf16 tensor-core (mma.sync, ldmatrix) and cp.async
+// helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,29 +82,73 @@ struct Tile {
   int row0, row1;  // rows [row0, row1), clamped to M
 };
 
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Tile b, found by one whole warp (every lane gets the same answer): the
+// lanes take 32 groups at a time and prefix-sum their sizes and tile counts
+// with shuffles, so a lookup costs ceil(E / 32) short scans.
+__device__ __forceinline__ Tile find_tile_warp(const int* __restrict__ group_sizes,
+                                               int E, int M, int bm, int b) {
+  const int lane = threadIdx.x & 31;
+  int off = 0, tiles = 0;  // rows and tiles of the groups before this chunk
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    const int e = e0 + lane;
+    const int sz = e < E ? group_sizes[e] : 0;
+    const int t = (sz + bm - 1) / bm;
+    int rows_incl = sz, tiles_incl = t;  // inclusive prefix sums
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int r = __shfl_up_sync(kFullMask, rows_incl, d);
+      const int u = __shfl_up_sync(kFullMask, tiles_incl, d);
+      if (lane >= d) { rows_incl += r; tiles_incl += u; }
+    }
+    const int first = tiles + tiles_incl - t;  // this group's first tile
+    const unsigned hit = __ballot_sync(kFullMask, t > 0 && b >= first && b < first + t);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      const int g_first = __shfl_sync(kFullMask, first, src);
+      const int g_row0 = off + __shfl_sync(kFullMask, rows_incl - sz, src);
+      const int g_end = off + __shfl_sync(kFullMask, rows_incl, src);
+      const int r0 = g_row0 + (b - g_first) * bm;
+      return Tile{e0 + src, min(r0, M), min(min(r0 + bm, g_end), M)};
+    }
+    off += __shfl_sync(kFullMask, rows_incl, 31);
+    tiles += __shfl_sync(kFullMask, tiles_incl, 31);
+  }
+  const int r0 = off + (b - tiles) * bm;
+  return Tile{-1, min(r0, M), min(r0 + bm, M)};
+}
+
+// Every row tile of the product, the zero tiles past sum(group_sizes)
+// included: sum ceil(size_e / bm) + ceil((M - total) / bm).  One warp.
+__device__ __forceinline__ int count_row_tiles_warp(const int* __restrict__ group_sizes,
+                                                    int E, int M, int bm) {
+  const int lane = threadIdx.x & 31;
+  int rows = 0, tiles = 0;
+  for (int e = lane; e < E; e += 32) {
+    const int sz = group_sizes[e];
+    rows += sz;
+    tiles += (sz + bm - 1) / bm;
+  }
+#pragma unroll
+  for (int d = 16; d; d >>= 1) {
+    rows += __shfl_xor_sync(kFullMask, rows, d);
+    tiles += __shfl_xor_sync(kFullMask, tiles, d);
+  }
+  return tiles + (max(M - rows, 0) + bm - 1) / bm;
+}
+
+// The block's tile b: warp 0 finds it and shares it (blockDim.x >= 32).
 __device__ __forceinline__ Tile find_tile(const int* __restrict__ group_sizes,
                                           int E, int M, int bm, int b) {
   __shared__ int s[3];
-  if (threadIdx.x == 0) {
-    int off = 0, tiles = 0, grp = -1, r0 = 0, r1 = 0;
-    for (int e = 0; e < E; ++e) {
-      int sz = group_sizes[e];
-      int t = (sz + bm - 1) / bm;
-      if (grp < 0 && b < tiles + t) {
-        grp = e;
-        r0 = off + (b - tiles) * bm;
-        r1 = min(r0 + bm, off + sz);
-      }
-      off += sz;
-      tiles += t;
+  if (threadIdx.x < 32) {
+    const Tile t = find_tile_warp(group_sizes, E, M, bm, b);
+    if (threadIdx.x == 0) {
+      s[0] = t.group;
+      s[1] = t.row0;
+      s[2] = t.row1;
     }
-    if (grp < 0) {
-      r0 = off + (b - tiles) * bm;
-      r1 = r0 + bm;
-    }
-    s[0] = grp;
-    s[1] = min(r0, M);
-    s[2] = min(r1, M);
   }
   __syncthreads();
   Tile t{s[0], s[1], s[2]};
@@ -165,6 +210,76 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial,
       for (int p = 0; p < splits; ++p) s += partial[((size_t)p * M + r) * N + c];
     y[(size_t)r * N + c] = from_f32<T>(s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core and asynchronous-copy helpers (sm_80 and later)
+// ---------------------------------------------------------------------------
+//
+// mma.sync m16n8k16, row.col: a thread of the warp (g = lane / 4, t4 = lane
+// % 4) holds, of the f32 accumulator tile, rows g and g + 8, columns 2 t4
+// and 2 t4 + 1 (c[0], c[1] on row g; c[2], c[3] on row g + 8).  The
+// accumulators of two neighbouring 8-wide tiles, packed to bf16 pairs, are
+// element for element the A fragment of the 16 x 16 tile they cover, so a
+// product's result feeds the next product without leaving registers.
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane L gives the address of
+// row L % 8 of matrix L / 8.  TRANS delivers each matrix transposed.  The
+// usual addresses, for a tile stored row-major with leading dimension LD:
+//   A fragment (16 x 16 at row m0, column k0, stored [m][k]):
+//     (m0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8,         TRANS false
+//   B fragments of two 8-wide n tiles (n0, n0 + 8) over k0..k0 + 15:
+//     stored [n][k]: (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + k0
+//                    + ((lane >> 3) & 1) * 8,                   TRANS false
+//     stored [k][n]: (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8, TRANS true
+//   r[0], r[1] are the first n tile's B fragment, r[2], r[3] the second's.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled when
+// !ok (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes, asynchronously, through L1; zero-filled when !ok.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 #define REPRO_EXPORT_ERROR_STRING                                  \

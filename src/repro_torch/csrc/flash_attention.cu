@@ -7,40 +7,65 @@
 // (src/repro/kernels/flash_attention.py:73), and, for the backward, the XLA
 // autodiff of the jnp blockwise scan the JAX models differentiate
 // (src/repro/models/attention.py:67), which has no Pallas kernel.  As
-// there, the (S, S) scores never reach device memory: a block keeps one
-// (64, BK) score tile in shared memory with the online-softmax statistics
-// (m, l) in f32, and l is floored at 1e-30 before the division.
+// there, the (S, S) scores never reach device memory, the online-softmax
+// statistics (m, l) are f32, and l is floored at 1e-30 before the division.
 //
 // What differs from the TPU kernel: its grid walked every kv tile in order
-// on one core and masked the ones outside the band.  Here a block owns one
-// (q tile, head, batch) and walks, in a loop, only the kv tiles its rows
-// can see, from floor(max(0, i0 - window + 1) / BK) up to the diagonal when
-// causal; tiles outside the band are never loaded, and masks are computed
-// only on tiles that cross the diagonal, the window edge or the Skv tail.
-// Any Sq and Skv (no multiple of a tile).  The window is a runtime int, so
-// one build serves every layer of a stack that mixes windows.
-//
-// Backward (FlashAttention-2): prep writes delta = rowsum(dO * O); dkdv owns
-// one (kv tile, kv head, batch), loops over the G query heads of its group
-// and over the q tiles that see its kv tile, recomputes P = exp(s - lse)
-// and accumulates dV += P^T dO, dK += dS^T Q with dS = P (dO V^T - delta);
-// dq owns one (q tile, head, batch) and accumulates dQ += dS K.  No
-// atomics: every output element has one owner and a fixed summation order.
+// on one core and masked the ones outside the band.  Here a forward block
+// owns one (q tile, head, batch) and walks, in a loop, only the kv tiles
+// its rows can see, from floor(max(0, i0 - window + 1) / BK) up to the
+// diagonal when causal; a backward block owns one (kv tile, kv head,
+// batch) and walks only the q tiles that see it.  Tiles outside the band
+// are never loaded, and masks are computed only on tiles that cross the
+// diagonal, the window edge or the Skv tail.  Any Sq and Skv (no multiple
+// of a tile).  The window is a runtime int, so one build serves every
+// layer of a stack that mixes windows.
 //
 // Bound on the H100: operations at long sequences (4 d flops per visible
-// (i, j) pair forward, 10 d backward), bytes at short ones.  bf16 products
-// run on the tensor cores with f32 accumulation: the forward as
-// FlashAttention-2 lays it out (mma.sync m16n8k16, Q, S, P and O in
-// registers, K and V tiles double-buffered by cp.async); the backward, a
-// simpler first version, with wmma 16x16x16 and every product staged
-// through shared memory.  The reference takes P V in f32: the forward
-// splits P into bf16 high and low parts (two products, P exact to ~2^-16),
-// so its bf16 output is, element for element, nearly always the plain
-// version's.  The backward rounds P and dS to bf16 for its second
-// products, as FlashAttention does.  f32 runs on the FMA units (not TF32),
-// every product staged through shared memory.  No wgmma or TMA yet.
-#include <mma.h>
-
+// (i, j) pair forward, 10 d backward), bytes at short ones.
+//
+// Forward, bf16 (flash_fwd_mma_kernel): FlashAttention-2's layout —
+// mma.sync m16n8k16, Q, S, P and O in registers, K and V tiles
+// double-buffered by cp.async.  The reference takes P V in f32: the
+// forward splits P into bf16 high and low parts (two products, P exact to
+// ~2^-16), so its bf16 output is, element for element, nearly always the
+// plain version's.
+//
+// Backward, bf16 (FlashAttention-2's): a prep kernel writes delta =
+// rowsum(dO * O); flash_bwd_mma_kernel owns one (64-row kv tile, kv head,
+// batch), keeps dK and dV in f32 registers for its whole loop over the G
+// query heads of the group and the q tiles that see its kv tile, and per
+// (head, q tile) step, with the kv rows as the mma M dimension:
+//   S^T = K Q^T and dP^T = V dO^T (f32 accumulators);
+//   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta), in registers;
+//   dV += P^T dO, dK += dS^T Q, the accumulators packed to bf16 as the A
+//   fragments (the forward's identity), so no S, dP, P or dK/dV tile goes
+//   through shared memory;
+//   dQ += dS K: dS (bf16) is written once to shared memory, and each warp
+//   adds its (16 q rows x 64 d) part to an f32 (B, Sq, H, d) scratch in
+//   device memory with 16-byte atomic adds (two lanes pair up their
+//   fragments).  A last small kernel scales the scratch by 1/sqrt(d) and
+//   rounds it to bf16.
+// So the work is the 10 d flops per pair the bound counts: no kernel
+// recomputes S and dP for dQ.  Q, dO, lse and delta of the next step land
+// in a two-stage cp.async ring while this one computes.  Tiles: 64 kv rows
+// over 4 warps; 64 q rows a step at d = 64 (the fastmoe-gpt training
+// shape is 512 blocks of at most 4 steps), 32 at d = 128 (a thread holds
+// 64 + 64 f32 accumulators of dK and dV; two blocks fit an SM).  P and dS
+// are rounded to bf16 for their second products, as FlashAttention does.
+// The kv tile is the grid's slowest index, so the tiles most q tiles see
+// (the first, when causal) start first and the light ones fill in.
+// Not deterministic: the order in which the kv tiles' atomic adds reach
+// one dq element changes from run to run, so dq may differ in its last
+// bits between two runs (dk and dv have one owner each and a fixed order).
+// Still simple: mma.sync rather than wgmma; K and V fragments re-read from
+// shared memory each step; ~255 registers a thread, so two blocks an SM;
+// at the small fastmoe-gpt shapes (blocks of 1-4 steps) latency, the
+// memset of the scratch and three launches weigh most.
+//
+// f32 (the oracles' dtype): the FMA units (not TF32), every product staged
+// through shared memory; the backward as two kernels (dK/dV per kv tile,
+// dQ per q tile) with no atomics.  No wgmma or TMA yet.
 #include <cmath>
 
 #include "common.cuh"
@@ -48,12 +73,13 @@
 namespace {
 
 constexpr int NT = 128;  // four warps
-constexpr int BQ = 64;   // q rows per tile
+constexpr int BQ = 64;   // q rows per tile (forward; f32 backward)
+constexpr int BK32 = 32, PAD32 = 4;  // f32 kernels: kv rows per tile, row padding
 constexpr float kNeg = -1e30f;
 
-template <typename T> struct Tiles {
-  static constexpr int BK = sizeof(T) == 2 ? 64 : 32;  // kv rows per tile
-  static constexpr int PAD = 16 / sizeof(T);           // row padding, elements
+struct Args {
+  int B, Sq, Skv, H, KV, window, q_offset, causal;
+  float scale;
 };
 
 // Bump allocator over dynamic shared memory; run with base = nullptr on
@@ -69,72 +95,42 @@ struct Carve {
   }
 };
 
-// C (M x N f32, ldc) = or += a product of two tiles of T in shared memory:
+// C (M x N f32, ldc) = or += a product of two f32 tiles in shared memory,
+// on the FMA units, one output element per thread at a time, k in order:
 //   NT: C[m][n] = sum_k A[m][k] B[n][k]   (A M x KD, B N x KD)
 //   NN: C[m][n] = sum_k A[m][k] B[k][n]   (A M x KD, B KD x N)
 //   TN: C[m][n] = sum_k A[k][m] B[k][n]   (A KD x M, B KD x N)
-// bf16 on the tensor cores, one 16x16 output tile per warp at a time; f32
-// one output element per thread at a time, k in order.
 enum Op { OP_NT, OP_NN, OP_TN };
 
-template <int OP, bool ACC, int M, int N, int KD, typename T>
-__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
-                                   const T* B, int ldb) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    static_assert(M % 16 == 0 && N % 16 == 0 && KD % 16 == 0, "wmma tiles");
-    using LA = typename std::conditional<OP == OP_TN, wmma::col_major,
-                                         wmma::row_major>::type;
-    using LB = typename std::conditional<OP == OP_NT, wmma::col_major,
-                                         wmma::row_major>::type;
-    const int warp = threadIdx.x / 32, nw = blockDim.x / 32;
-    for (int t = warp; t < (M / 16) * (N / 16); t += nw) {
-      const int m0 = (t / (N / 16)) * 16, n0 = (t % (N / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC)
-        wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll 4
-      for (int k0 = 0; k0 < KD; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-        wmma::load_matrix_sync(a, OP == OP_TN ? A + k0 * lda + m0
-                                              : A + m0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, OP == OP_NT ? B + n0 * ldb + k0
-                                              : B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
+template <int OP, bool ACC, int M, int N, int KD>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
+                                   const float* B, int ldb) {
+  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
+    const int m = e / N, n = e % N;
+    float s = ACC ? C[m * ldc + n] : 0.f;
+    for (int k = 0; k < KD; ++k) {
+      const float a = OP == OP_TN ? A[k * lda + m] : A[m * lda + k];
+      const float b = OP == OP_NT ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
     }
-  } else {
-    for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-      const int m = e / N, n = e % N;
-      float s = ACC ? C[m * ldc + n] : 0.f;
-      for (int k = 0; k < KD; ++k) {
-        const float a = to_f32(OP == OP_TN ? A[k * lda + m] : A[m * lda + k]);
-        const float b = to_f32(OP == OP_NT ? B[n * ldb + k] : B[k * ldb + n]);
-        s = fmaf(a, b, s);
-      }
-      C[m * ldc + n] = s;
-    }
+    C[m * ldc + n] = s;
   }
 }
 
-// Rows [s0, s0 + ROWS) of head h of a (B, S, Hn, D) tensor (batch already
-// applied to src) as a ROWS x D tile, in 16-byte chunks; rows past S read
-// as zero.  fetch() issues every load of the tile before any is used, so
-// the tile costs one memory latency, and a caller can fetch the next tile
-// into registers while it computes on the current one; store() writes the
-// registers to shared memory.  Needs 16-byte aligned rows (the wrapper
-// checks the pointers).
-template <typename T, int ROWS, int D> struct RowsInFlight {
-  static constexpr int V = 16 / sizeof(T), CH = D / V, N = ROWS * CH / NT;
+// Rows [s0, s0 + ROWS) of head h of a (B, S, Hn, D) f32 tensor (batch
+// already applied to src) as a ROWS x D tile, in 16-byte chunks; rows past
+// S read as zero.  fetch() issues every load of the tile before any is
+// used, so the tile costs one memory latency, and a caller can fetch the
+// next tile into registers while it computes on the current one; store()
+// writes the registers to shared memory.  Needs 16-byte aligned rows (the
+// wrapper checks the pointers).
+template <int ROWS, int D> struct RowsInFlight {
+  static constexpr int V = 4, CH = D / V, N = ROWS * CH / NT;
   static_assert((ROWS * CH) % NT == 0, "tile does not split over the block");
   uint4 buf[N];
-  __device__ __forceinline__ void fetch(const T* src, int S, int Hn, int h,
+  __device__ __forceinline__ void fetch(const float* src, int S, int Hn, int h,
                                         int s0) {
-    const T* base = src + ((size_t)s0 * Hn + h) * D;
+    const float* base = src + ((size_t)s0 * Hn + h) * D;
     const size_t ld = (size_t)Hn * D;
 #pragma unroll
     for (int u = 0; u < N; ++u) {
@@ -143,7 +139,7 @@ template <typename T, int ROWS, int D> struct RowsInFlight {
                           : make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  template <int LD> __device__ __forceinline__ void store(T* dst) const {
+  template <int LD> __device__ __forceinline__ void store(float* dst) const {
 #pragma unroll
     for (int u = 0; u < N; ++u) {
       const int i = threadIdx.x + u * NT, r = i / CH, c = (i % CH) * V;
@@ -152,10 +148,10 @@ template <typename T, int ROWS, int D> struct RowsInFlight {
   }
 };
 
-template <typename T, int ROWS, int D, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int S, int Hn,
-                                          int h, int s0) {
-  RowsInFlight<T, ROWS, D> t;
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int S,
+                                          int Hn, int h, int s0) {
+  RowsInFlight<ROWS, D> t;
   t.fetch(src, S, Hn, h, s0);
   t.store<LD>(dst);
 }
@@ -191,8 +187,8 @@ __device__ __forceinline__ void kv_tiles(long long i_lo, long long i_hi,
 // ---------------------------------------------------------------------------
 
 template <int D> struct FwdSmem {
-  static constexpr int BK = Tiles<float>::BK, LDT = D + Tiles<float>::PAD;
-  static constexpr int LDS = BK + 4, LDP = BK + Tiles<float>::PAD, LDO = D + 4;
+  static constexpr int BK = BK32, LDT = D + PAD32;
+  static constexpr int LDS = BK + 4, LDP = BK + PAD32, LDO = D + 4;
   float *q, *k, *v, *p, *s, *o, *m, *l, *corr;
   __host__ __device__ size_t carve(unsigned char* base) {
     Carve c{base, 0};
@@ -228,7 +224,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)b * Skv * KV * D;
   const float* vb = v + (size_t)b * Skv * KV * D;
 
-  load_rows<float, BQ, D, L::LDT>(sm.q, q + (size_t)b * Sq * H * D, Sq, H, h, q0);
+  load_rows<BQ, D, L::LDT>(sm.q, q + (size_t)b * Sq * H * D, Sq, H, h, q0);
   for (int i = tid; i < BQ * L::LDO; i += NT) sm.o[i] = 0.f;
   for (int i = tid; i < BQ; i += NT) { sm.m[i] = kNeg; sm.l[i] = 0.f; }
 
@@ -237,7 +233,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // softmax stage: two threads per row, columns half, half + 2, ...
   const int r = tid >> 1, half = tid & 1;
   const long long i = i_lo + r;
-  RowsInFlight<float, BK, D> kf, vf;
+  RowsInFlight<BK, D> kf, vf;
   if (t0 <= t1) {
     kf.fetch(kb, Skv, KV, kvh, t0 * BK);
     vf.fetch(vb, Skv, KV, kvh, t0 * BK);
@@ -310,35 +306,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // parts (two products).  K and V tiles land in shared memory by cp.async,
 // double-buffered: the next tile loads while this one computes.
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8.  TRANS delivers each matrix transposed.
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if constexpr (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ROWS rows of head h from row s0 into a (ROWS, LD) bf16 tile by cp.async,
-// 16 bytes a copy; rows past S are zero-filled.
+// 16 bytes a copy, committed as one group; rows past S are zero-filled.
 template <int ROWS, int D, int LD>
 __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int S,
                                         int Hn, int h, int s0) {
@@ -348,12 +317,9 @@ __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int S,
   for (int u = 0; u < ROWS * CH / NT; ++u) {
     const int i = threadIdx.x + u * NT, r = i / CH, c = (i % CH) * 8;
     const bool ok = s0 + r < S;
-    const bf16* g = ok ? base + (size_t)r * Hn * D + c : src;
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LD + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(g), "r"(ok ? 16 : 0));
+    cp_async16(dst + r * LD + c, ok ? base + (size_t)r * Hn * D + c : src, ok);
   }
-  asm volatile("cp.async.commit_group;\n");
+  cp_async_commit();
 }
 
 template <int D>
@@ -527,25 +493,49 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // backward
 // ---------------------------------------------------------------------------
 
-// delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c] in f32; one warp a row.
-template <typename T>
+// delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c] in f32: D / V lanes a
+// row, one 16-byte load of each tensor a lane, a shuffle sum over the lanes.
+template <typename T, int D> struct Prep {
+  static constexpr int V = 16 / sizeof(T), L = D / V, ROWS = NT / L;  // a block
+  static_assert(L <= 32 && 32 % L == 0, "a row's lanes within one warp");
+};
+
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ delta, int B, int Sq, int H, int D) {
-  const long long row = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  if (row >= (long long)B * Sq * H) return;
-  const int lane = threadIdx.x % 32;
-  const T* op = o + row * D;
-  const T* dp = dout + row * D;
+                      float* __restrict__ delta, int B, int Sq, int H) {
+  using P = Prep<T, D>;
+  const int part = threadIdx.x % P::L;
+  const long long row = (long long)blockIdx.x * P::ROWS + threadIdx.x / P::L;
+  const bool ok = row < (long long)B * Sq * H;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += to_f32(op[c]) * to_f32(dp[c]);
+  if (ok) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * P::V);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + part * P::V);
+    const T* pa = reinterpret_cast<const T*>(&a);
+    const T* pb = reinterpret_cast<const T*>(&b);
 #pragma unroll
-  for (int w = 16; w; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
-  if (lane == 0) {  // row = (b * Sq + i) * H + h
+    for (int e = 0; e < P::V; ++e) s += to_f32(pa[e]) * to_f32(pb[e]);
+  }
+#pragma unroll
+  for (int w = P::L / 2; w; w >>= 1) s += __shfl_xor_sync(kFullMask, s, w);
+  if (ok && part == 0) {  // row = (b * Sq + i) * H + h
     const long long h = row % H, bi = row / H, i = bi % Sq, b = bi / Sq;
     delta[(b * H + h) * Sq + i] = s;
   }
 }
+
+template <typename T, int D>
+void launch_prep(const T* o, const T* dout, float* delta, const Args& a,
+                 cudaStream_t st) {
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  const long long blocks = (rows + Prep<T, D>::ROWS - 1) / Prep<T, D>::ROWS;
+  flash_bwd_prep_kernel<T, D><<<(unsigned)blocks, NT, 0, st>>>(o, dout, delta, a.B,
+                                                              a.Sq, a.H);
+}
+
+// ---- f32: dK, dV per kv tile and dQ per q tile, every product staged
+// through shared memory on the FMA units
 
 // lse and delta of rows [q0, q0 + BQ) into shared memory; rows past Sq get
 // lse = +inf, so that their recomputed P is exp(-inf) = 0.
@@ -559,12 +549,12 @@ __device__ __forceinline__ void load_stats(float* ls, float* ds,
   }
 }
 
-// P = exp(s scale - lse) and dS = P (dP - delta) of a (BQ, BK) tile, both
-// rounded to T into p (when given) and ds.  s, dp are the raw products.
-template <typename T, int BK, int LDS, int LDP>
+// P = exp(s scale - lse) and dS = P (dP - delta) of a (BQ, BK) tile into
+// p (when given) and ds.  s, dp are the raw products.
+template <int BK, int LDS, int LDP>
 __device__ __forceinline__ void grad_tile(const float* s, const float* dp,
                                           const float* ls, const float* dl,
-                                          T* p, T* ds, long long i_lo,
+                                          float* p, float* ds, long long i_lo,
                                           long long i_hi, int j0, int Skv,
                                           int window, int causal, float scale) {
   const bool mask = needs_mask(i_lo, i_hi, j0, BK, Skv, window, causal);
@@ -572,26 +562,26 @@ __device__ __forceinline__ void grad_tile(const float* s, const float* dp,
     const int r = e / BK, c = e % BK;
     float pv = expf(s[r * LDS + c] * scale - ls[r]);
     if (mask && !visible(i_lo + r, j0 + c, Skv, window, causal)) pv = 0.f;
-    if (p) p[r * LDP + c] = from_f32<T>(pv);
-    ds[r * LDP + c] = from_f32<T>(pv * (dp[r * LDS + c] - dl[r]));
+    if (p) p[r * LDP + c] = pv;
+    ds[r * LDP + c] = pv * (dp[r * LDS + c] - dl[r]);
   }
 }
 
-template <typename T, int D> struct DkdvSmem {
-  static constexpr int BK = Tiles<T>::BK, LDT = D + Tiles<T>::PAD;
-  static constexpr int LDS = BK + 4, LDP = BK + Tiles<T>::PAD, LDA = D + 4;
-  T *k, *v, *q, *dout, *p, *ds;
+template <int D> struct DkdvSmem {
+  static constexpr int BK = BK32, LDT = D + PAD32;
+  static constexpr int LDS = BK + 4, LDP = BK + PAD32, LDA = D + 4;
+  float *k, *v, *q, *dout, *p, *ds;
   float *s, *dp, *dk, *dv, *lse, *delta;
   __host__ __device__ size_t carve(unsigned char* base) {
     Carve c{base, 0};
-    k = c.take<T>(BK * LDT);
-    v = c.take<T>(BK * LDT);
-    q = c.take<T>(BQ * LDT);
-    dout = c.take<T>(BQ * LDT);
+    k = c.take<float>(BK * LDT);
+    v = c.take<float>(BK * LDT);
+    q = c.take<float>(BQ * LDT);
+    dout = c.take<float>(BQ * LDT);
     s = c.take<float>(BQ * LDS);
     dp = c.take<float>(BQ * LDS);
-    p = c.take<T>(BQ * LDP);
-    ds = c.take<T>(BQ * LDP);
+    p = c.take<float>(BQ * LDP);
+    ds = c.take<float>(BQ * LDP);
     dk = c.take<float>(BK * LDA);
     dv = c.take<float>(BK * LDA);
     lse = c.take<float>(BQ);
@@ -600,15 +590,15 @@ template <typename T, int D> struct DkdvSmem {
   }
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int Sq, int Skv, int H, int KV,
                       int window, int q_offset, int causal, float scale) {
-  using L = DkdvSmem<T, D>;
+  using L = DkdvSmem<D>;
   constexpr int BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   L sm;
@@ -618,8 +608,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / KV;
   const int kv_rows = min(BK, Skv - j0);
 
-  load_rows<T, BK, D, L::LDT>(sm.k, k + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
-  load_rows<T, BK, D, L::LDT>(sm.v, v + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
+  load_rows<BK, D, L::LDT>(sm.k, k + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
+  load_rows<BK, D, L::LDT>(sm.v, v + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
   for (int i = tid; i < BK * L::LDA; i += NT) { sm.dk[i] = 0.f; sm.dv[i] = 0.f; }
 
   // the query rows that see a key of this tile
@@ -633,9 +623,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // next step's q and dO tiles load while this one computes
   const int qt0 = (int)(r_lo / BQ);
   const int nq = r_lo <= r_hi ? (int)(r_hi / BQ) - qt0 + 1 : 0;
-  const T* qb = q + (size_t)b * Sq * H * D;
-  const T* db = dout + (size_t)b * Sq * H * D;
-  RowsInFlight<T, BQ, D> qf, df;
+  const float* qb = q + (size_t)b * Sq * H * D;
+  const float* db = dout + (size_t)b * Sq * H * D;
+  RowsInFlight<BQ, D> qf, df;
   if (nq) {
     qf.fetch(qb, Sq, H, kvh * G, qt0 * BQ);
     df.fetch(db, Sq, H, kvh * G, qt0 * BQ);
@@ -658,7 +648,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mm<OP_NT, false, BQ, BK, D>(sm.s, L::LDS, sm.q, L::LDT, sm.k, L::LDT);
     mm<OP_NT, false, BQ, BK, D>(sm.dp, L::LDS, sm.dout, L::LDT, sm.v, L::LDT);
     __syncthreads();
-    grad_tile<T, BK, L::LDS, L::LDP>(sm.s, sm.dp, sm.lse, sm.delta, sm.p,
+    grad_tile<BK, L::LDS, L::LDP>(sm.s, sm.dp, sm.lse, sm.delta, sm.p,
                                      sm.ds, i_lo, i_lo + rows - 1, j0, Skv,
                                      window, causal, scale);
     __syncthreads();
@@ -671,25 +661,25 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kv_rows * D; e += NT) {
     const int rr = e / D, c = e % D;
     const size_t at = base + (size_t)(j0 + rr) * KV * D + c;
-    dk[at] = from_f32<T>(sm.dk[rr * L::LDA + c] * scale);
-    dv[at] = from_f32<T>(sm.dv[rr * L::LDA + c]);
+    dk[at] = sm.dk[rr * L::LDA + c] * scale;
+    dv[at] = sm.dv[rr * L::LDA + c];
   }
 }
 
-template <typename T, int D> struct DqSmem {
-  static constexpr int BK = Tiles<T>::BK, LDT = D + Tiles<T>::PAD;
-  static constexpr int LDS = BK + 4, LDP = BK + Tiles<T>::PAD, LDA = D + 4;
-  T *q, *dout, *k, *v, *ds;
+template <int D> struct DqSmem {
+  static constexpr int BK = BK32, LDT = D + PAD32;
+  static constexpr int LDS = BK + 4, LDP = BK + PAD32, LDA = D + 4;
+  float *q, *dout, *k, *v, *ds;
   float *s, *dp, *dq, *lse, *delta;
   __host__ __device__ size_t carve(unsigned char* base) {
     Carve c{base, 0};
-    q = c.take<T>(BQ * LDT);
-    dout = c.take<T>(BQ * LDT);
-    k = c.take<T>(BK * LDT);
-    v = c.take<T>(BK * LDT);
+    q = c.take<float>(BQ * LDT);
+    dout = c.take<float>(BQ * LDT);
+    k = c.take<float>(BK * LDT);
+    v = c.take<float>(BK * LDT);
     s = c.take<float>(BQ * LDS);
     dp = c.take<float>(BQ * LDS);
-    ds = c.take<T>(BQ * LDP);
+    ds = c.take<float>(BQ * LDP);
     dq = c.take<float>(BQ * LDA);
     lse = c.take<float>(BQ);
     delta = c.take<float>(BQ);
@@ -697,15 +687,15 @@ template <typename T, int D> struct DqSmem {
   }
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Skv, int H, int KV, int window, int q_offset,
                     int causal, float scale) {
-  using L = DqSmem<T, D>;
+  using L = DqSmem<D>;
   constexpr int BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   L sm;
@@ -715,18 +705,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int rows = min(BQ, Sq - q0);
   const long long i_lo = (long long)q_offset + q0, i_hi = i_lo + rows - 1;
-  const T* kb = k + (size_t)b * Skv * KV * D;
-  const T* vb = v + (size_t)b * Skv * KV * D;
+  const float* kb = k + (size_t)b * Skv * KV * D;
+  const float* vb = v + (size_t)b * Skv * KV * D;
 
-  load_rows<T, BQ, D, L::LDT>(sm.q, q + (size_t)b * Sq * H * D, Sq, H, h, q0);
-  load_rows<T, BQ, D, L::LDT>(sm.dout, dout + (size_t)b * Sq * H * D, Sq, H, h, q0);
+  load_rows<BQ, D, L::LDT>(sm.q, q + (size_t)b * Sq * H * D, Sq, H, h, q0);
+  load_rows<BQ, D, L::LDT>(sm.dout, dout + (size_t)b * Sq * H * D, Sq, H, h, q0);
   load_stats(sm.lse, sm.delta, lse + ((size_t)b * H + h) * Sq,
              delta + ((size_t)b * H + h) * Sq, q0, Sq);
   for (int i = tid; i < BQ * L::LDA; i += NT) sm.dq[i] = 0.f;
 
   int t0, t1;
   kv_tiles(i_lo, i_hi, Skv, window, causal, BK, &t0, &t1);
-  RowsInFlight<T, BK, D> kf, vf;
+  RowsInFlight<BK, D> kf, vf;
   if (t0 <= t1) {
     kf.fetch(kb, Skv, KV, kvh, t0 * BK);
     vf.fetch(vb, Skv, KV, kvh, t0 * BK);
@@ -744,20 +734,264 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mm<OP_NT, false, BQ, BK, D>(sm.s, L::LDS, sm.q, L::LDT, sm.k, L::LDT);
     mm<OP_NT, false, BQ, BK, D>(sm.dp, L::LDS, sm.dout, L::LDT, sm.v, L::LDT);
     __syncthreads();
-    grad_tile<T, BK, L::LDS, L::LDP>(sm.s, sm.dp, sm.lse, sm.delta,
-                                     static_cast<T*>(nullptr), sm.ds, i_lo,
-                                     i_hi, j0, Skv, window, causal, scale);
+    grad_tile<BK, L::LDS, L::LDP>(sm.s, sm.dp, sm.lse, sm.delta,
+                                  static_cast<float*>(nullptr), sm.ds, i_lo,
+                                  i_hi, j0, Skv, window, causal, scale);
     __syncthreads();
     mm<OP_NN, true, BQ, D, BK>(sm.dq, L::LDA, sm.ds, L::LDP, sm.k, L::LDT);
   }
   __syncthreads();
 
-  T* out = dq + ((size_t)b * Sq * H + h) * D;
+  float* out = dq + ((size_t)b * Sq * H + h) * D;
   for (int e = tid; e < rows * D; e += NT) {
     const int rr = e / D, c = e % D;
-    out[(size_t)(q0 + rr) * H * D + c] = from_f32<T>(sm.dq[rr * L::LDA + c] * scale);
+    out[(size_t)(q0 + rr) * H * D + c] = sm.dq[rr * L::LDA + c] * scale;
   }
 }
+
+// ---------------------------------------------------------------------------
+// backward, bf16: FlashAttention-2's loop with mma.sync, dQ by atomic adds
+// ---------------------------------------------------------------------------
+//
+// Warp w owns kv rows [16 w, 16 w + 16) of the block's 64-row kv tile: the
+// M dimension of S^T, dP^T, dK and dV.  See the note at the top.
+
+template <int D> struct BwdCfg {
+  static constexpr int BK = 64;                  // kv rows per block
+  static constexpr int BQ = D == 128 ? 32 : 64;  // q rows per step
+  static constexpr int LD = D + 8;               // K, V, Q, dO rows (bf16)
+  static constexpr int LDS = BQ + 8;             // dS^T rows, [kv][q] (bf16)
+  static constexpr int K_OFF = 0, V_OFF = K_OFF + BK * LD;
+  static constexpr int Q_OFF = V_OFF + BK * LD;        // two stages
+  static constexpr int DO_OFF = Q_OFF + 2 * BQ * LD;   // two stages
+  static constexpr int DS_OFF = DO_OFF + 2 * BQ * LD;
+  static constexpr int STATS_OFF = DS_OFF + BK * LDS;  // then f32 lse, delta
+  static constexpr size_t SMEM = sizeof(bf16) * STATS_OFF + sizeof(float) * 4 * BQ;
+  static_assert(BK == 16 * (NT / 32), "one 16-row kv strip per warp");
+  static_assert((sizeof(bf16) * STATS_OFF) % 16 == 0, "stats alignment");
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq_acc,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                     int Skv, int H, int KV, int window, int q_offset,
+                     int causal, float scale) {
+  using C = BwdCfg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDS = C::LDS;
+  constexpr int NQ = BQ / 8, ND = D / 8;  // n8 tiles over q, over d
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = smem + C::K_OFF;
+  bf16* vs = smem + C::V_OFF;
+  bf16* dss = smem + C::DS_OFF;
+  float* stats = reinterpret_cast<float*>(smem + C::STATS_OFF);  // lse[2][BQ], delta[2][BQ]
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // the kv tile is the grid's slowest index: heavy tiles start first
+  const int j0 = blockIdx.z * BK, kvh = blockIdx.x, b = blockIdx.y;
+  const int G = H / KV;
+  const int kv_rows = min(BK, Skv - j0);
+
+  cp_rows<BK, D, LD>(ks, k + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
+  cp_rows<BK, D, LD>(vs, v + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
+
+  // the query rows that see a key of this tile
+  const long long i_max = (long long)j0 + kv_rows - 1 + window - 1;
+  long long r_lo = causal ? (long long)j0 - q_offset : 0;
+  long long r_hi = i_max - q_offset;
+  if (r_lo < 0) r_lo = 0;
+  if (r_hi > Sq - 1) r_hi = Sq - 1;
+  // steps (head of the group, q tile), flattened
+  const int qt0 = (int)(r_lo / BQ);
+  const int nq = r_lo <= r_hi ? (int)(r_hi / BQ) - qt0 + 1 : 0;
+  const int steps = G * nq;
+  const bf16* qb = q + (size_t)b * Sq * H * D;
+  const bf16* db = dout + (size_t)b * Sq * H * D;
+
+  // step n's Q, dO, lse and delta into ring stage n & 1: three groups
+  auto load_step = [&](int n) {
+    const int s = n & 1, h = kvh * G + n / nq, q0 = (qt0 + n % nq) * BQ;
+    cp_rows<BQ, D, LD>(smem + C::Q_OFF + s * BQ * LD, qb, Sq, H, h, q0);
+    cp_rows<BQ, D, LD>(smem + C::DO_OFF + s * BQ * LD, db, Sq, H, h, q0);
+    if (tid < 2 * BQ) {  // rows past Sq: 0 (their Q and dO rows are 0 too)
+      const int r = tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) + ((size_t)b * H + h) * Sq + q0 + r;
+      const bool ok = q0 + r < Sq;
+      cp_async4(stats + (tid < BQ ? 0 : 2 * BQ) + s * BQ + r, ok ? src : lse, ok);
+    }
+    cp_async_commit();
+  };
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  if (steps) load_step(0);
+  for (int n = 0; n < steps; ++n) {
+    const int s = n & 1, h = kvh * G + n / nq, q0 = (qt0 + n % nq) * BQ;
+    const int rows = min(BQ, Sq - q0);
+    const long long i_lo = (long long)q_offset + q0;
+    if (n + 1 < steps) {  // the next step loads while this one computes
+      load_step(n + 1);
+      cp_async_wait<3>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qt = smem + C::Q_OFF + s * BQ * LD;
+    const bf16* dot = smem + C::DO_OFF + s * BQ * LD;
+    const float* lt = stats + s * BQ;
+    const float* dlt = stats + 2 * BQ + s * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: A from the K, V rows of this warp,
+    // B fragments of two 8-wide q tiles per x4 load
+    float sacc[NQ][4], pacc[NQ][4];
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[c][e] = pacc[c][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int a_at = (w * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4<false>(ka, ks + a_at);
+      ldsm_x4<false>(va, vs + a_at);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        const int b_at = (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                         ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bo[4];
+        ldsm_x4<false>(bq, qt + b_at);
+        ldsm_x4<false>(bo, dot + b_at);
+        mma_bf16(sacc[2 * np], ka, bq);
+        mma_bf16(sacc[2 * np + 1], ka, bq + 2);
+        mma_bf16(pacc[2 * np], va, bo);
+        mma_bf16(pacc[2 * np + 1], va, bo + 2);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse) (0 outside the band), dS^T = P^T (dP^T - delta)
+    const bool mask = needs_mask(i_lo, i_lo + rows - 1, j0, BK, Skv, window, causal);
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + c * 8 + 2 * t4);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + c * 8 + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c * 8 + 2 * t4 + (e & 1);
+        float p = expf(sacc[c][e] * scale - ((e & 1) ? l2.y : l2.x));
+        if (mask && !visible(i_lo + col, j0 + w * 16 + g + (e >> 1) * 8, Skv,
+                             window, causal))
+          p = 0.f;
+        sacc[c][e] = p;
+        pacc[c][e] = p * (pacc[c][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: the accumulators of two neighbouring q
+    // tiles are the A fragment; B = dO, Q rows [q][d] through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const float* p0 = sacc[2 * kk];
+      const float* p1 = sacc[2 * kk + 1];
+      const float* s0 = pacc[2 * kk];
+      const float* s1 = pacc[2 * kk + 1];
+      const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+                              pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+      const uint32_t sa[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                              pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        const int b_at = (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8;
+        uint32_t bo[4], bq[4];
+        ldsm_x4<true>(bo, dot + b_at);
+        ldsm_x4<true>(bq, qt + b_at);
+        mma_bf16(dv_acc[2 * np], pa, bo);
+        mma_bf16(dv_acc[2 * np + 1], pa, bo + 2);
+        mma_bf16(dk_acc[2 * np], sa, bq);
+        mma_bf16(dk_acc[2 * np + 1], sa, bq + 2);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // dS^T, bf16, for dQ
+        const int row = w * 16 + g + hh * 8;
+        *reinterpret_cast<uint32_t*>(dss + row * LDS + kk * 16 + 2 * t4) = sa[hh];
+        *reinterpret_cast<uint32_t*>(dss + row * LDS + kk * 16 + 8 + 2 * t4) = sa[2 + hh];
+      }
+    }
+    __syncthreads();  // dS is whole; every warp is done with this stage's Q, dO
+
+    // dQ (BQ x D) += dS K: warp w takes q rows [16 (w % STRIPS), +16) and
+    // d columns [DW (w / STRIPS), +DW); A = dS from dS^T by ldmatrix.trans
+    constexpr int STRIPS = BQ / 16, DW = D / (NT / 32 / STRIPS), NJ = DW / 8;
+    const int strip = w % STRIPS, col0 = (w / STRIPS) * DW;
+    float qacc[NJ][4];
+#pragma unroll
+    for (int c = 0; c < NJ; ++c) qacc[c][0] = qacc[c][1] = qacc[c][2] = qacc[c][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4<true>(a, dss + (kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LDS +
+                           strip * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4<true>(bk, ks + (kk * 16 + (lane & 15)) * LD + col0 + np * 16 +
+                              (lane >> 4) * 8);
+        mma_bf16(qacc[2 * np], a, bk);
+        mma_bf16(qacc[2 * np + 1], a, bk + 2);
+      }
+    }
+    // 16-byte adds: lanes t4 = 2p and 2p + 1 swap halves, so the even lane
+    // holds row g, columns 4p..4p+3 and the odd lane row g + 8
+    const bool odd = t4 & 1;
+    const int row = strip * 16 + g + (odd ? 8 : 0);
+    float* dq_row = dq_acc + (((size_t)b * Sq + q0 + row) * H + h) * D + col0 + (t4 >> 1) * 4;
+#pragma unroll
+    for (int c = 0; c < NJ; ++c) {
+      const float x0 = __shfl_xor_sync(kFullMask, odd ? qacc[c][0] : qacc[c][2], 1);
+      const float x1 = __shfl_xor_sync(kFullMask, odd ? qacc[c][1] : qacc[c][3], 1);
+      const float4 add = odd ? make_float4(x0, x1, qacc[c][2], qacc[c][3])
+                             : make_float4(qacc[c][0], qacc[c][1], x0, x1);
+      if (row < rows) atomicAdd(reinterpret_cast<float4*>(dq_row + c * 8), add);
+    }
+  }
+  cp_async_wait<0>();
+
+  // dK (scaled) and dV, rounded once, straight from the accumulators
+  const size_t base = ((size_t)b * Skv * KV + kvh) * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = w * 16 + g + hh * 8;
+    if (row >= kv_rows) continue;
+    const size_t at = base + (size_t)(j0 + row) * KV * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + n * 8) =
+          pack_bf16(dk_acc[n][2 * hh] * scale, dk_acc[n][2 * hh + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + n * 8) =
+          pack_bf16(dv_acc[n][2 * hh], dv_acc[n][2 * hh + 1]);
+    }
+  }
+}
+
+// dq = bf16(acc * scale), four elements a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_round_kernel(const float4* __restrict__ acc, bf16* __restrict__ dq,
+                          long long n4, float scale) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = acc[i];
+    *reinterpret_cast<uint2*>(dq + 4 * i) =
+        make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // launches
@@ -769,10 +1003,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-struct Args {
-  int B, Sq, Skv, H, KV, window, q_offset, causal;
-  float scale;
-};
 
 template <typename T, int D>
 int fwd(const T* q, const T* k, const T* v, T* o, float* lse, Args a,
@@ -797,33 +1027,58 @@ int fwd(const T* q, const T* k, const T* v, T* o, float* lse, Args a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int bwd(const T* q, const T* k, const T* v, const T* o, const float* lse,
-        const T* dout, T* dq, T* dk, T* dv, float* delta, Args a,
-        cudaStream_t st) {
-  const long long rows = (long long)a.B * a.Sq * a.H;
-  flash_bwd_prep_kernel<T><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT,
-                             0, st>>>(o, dout, delta, a.B, a.Sq, a.H, D);
+template <int D>
+int bwd_f32(const float* q, const float* k, const float* v, const float* o,
+            const float* lse, const float* dout, float* dq, float* dk,
+            float* dv, float* delta, Args a, cudaStream_t st) {
+  launch_prep<float, D>(o, dout, delta, a, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t s_kv = DkdvSmem<T, D>().carve(nullptr);
-  err = allow_smem(flash_bwd_dkdv_kernel<T, D>, s_kv);
+  const size_t s_kv = DkdvSmem<D>().carve(nullptr);
+  err = allow_smem(flash_bwd_dkdv_kernel<D>, s_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 g_kv((a.Skv + Tiles<T>::BK - 1) / Tiles<T>::BK, a.KV, a.B);
-  flash_bwd_dkdv_kernel<T, D><<<g_kv, NT, s_kv, st>>>(
+  dim3 g_kv((a.Skv + BK32 - 1) / BK32, a.KV, a.B);
+  flash_bwd_dkdv_kernel<D><<<g_kv, NT, s_kv, st>>>(
       q, k, v, dout, lse, delta, dk, dv, a.Sq, a.Skv, a.H, a.KV, a.window,
       a.q_offset, a.causal, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t s_q = DqSmem<T, D>().carve(nullptr);
-  err = allow_smem(flash_bwd_dq_kernel<T, D>, s_q);
+  const size_t s_q = DqSmem<D>().carve(nullptr);
+  err = allow_smem(flash_bwd_dq_kernel<D>, s_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 g_q((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<g_q, NT, s_q, st>>>(
+  flash_bwd_dq_kernel<D><<<g_q, NT, s_q, st>>>(
       q, k, v, dout, lse, delta, dq, a.Sq, a.Skv, a.H, a.KV, a.window,
       a.q_offset, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq_acc: (B, Sq, H, D) f32, zero on entry.
+template <int D>
+int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+             const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
+             float* delta, float* dq_acc, Args a, cudaStream_t st) {
+  launch_prep<bf16, D>(o, dout, delta, a, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem = BwdCfg<D>::SMEM;
+  err = allow_smem(flash_bwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(a.KV, a.B, (a.Skv + BwdCfg<D>::BK - 1) / BwdCfg<D>::BK);
+  flash_bwd_mma_kernel<D><<<grid, NT, smem, st>>>(
+      q, k, v, dout, lse, delta, dq_acc, dk, dv, a.Sq, a.Skv, a.H, a.KV,
+      a.window, a.q_offset, a.causal, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long n4 = (long long)a.B * a.Sq * a.H * D / 4;
+  const long long blocks = (n4 + 255) / 256;
+  flash_bwd_dq_round_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                              st>>>(reinterpret_cast<const float4*>(dq_acc), dq,
+                                    n4, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -857,30 +1112,38 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // The gradients of flash_attention_fwd: dO (B, Sq, H, d) -> dq, dk, dv in
-// the inputs' shapes and dtype; delta (B, H, Sq) f32 scratch.
+// the inputs' shapes and dtype; delta (B, H, Sq) f32 scratch; for bf16,
+// dq_acc (B, Sq, H, d) f32 scratch, zero on entry (unused for f32).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
-                                   void* dv, void* delta, int B, int Sq,
-                                   int Skv, int H, int KV, int d, int window,
-                                   int q_offset, int causal, int dtype,
-                                   void* stream) {
+                                   void* dv, void* delta, void* dq_acc, int B,
+                                   int Sq, int Skv, int H, int KV, int d,
+                                   int window, int q_offset, int causal,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{B, Sq, Skv, H, KV, window, q_offset, causal, 1.f / sqrtf((float)d)};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-#define BWD(T, D)                                                              \
-  return bwd<T, D>(static_cast<const T*>(q), static_cast<const T*>(k),         \
-                   static_cast<const T*>(v), static_cast<const T*>(o), l,      \
-                   static_cast<const T*>(dout), static_cast<T*>(dq),           \
-                   static_cast<T*>(dk), static_cast<T*>(dv), dl, a, st)
+#define BWD_BF16(D)                                                            \
+  return bwd_bf16<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), \
+                     static_cast<const bf16*>(v), static_cast<const bf16*>(o), \
+                     l, static_cast<const bf16*>(dout), static_cast<bf16*>(dq), \
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), dl,        \
+                     static_cast<float*>(dq_acc), a, st)
+#define BWD_F32(D)                                                             \
+  return bwd_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), \
+                    static_cast<const float*>(v), static_cast<const float*>(o), \
+                    l, static_cast<const float*>(dout), static_cast<float*>(dq), \
+                    static_cast<float*>(dk), static_cast<float*>(dv), dl, a, st)
   if (dtype == DT_BF16) {
-    if (d == 64) BWD(bf16, 64);
-    if (d == 128) BWD(bf16, 128);
+    if (d == 64) BWD_BF16(64);
+    if (d == 128) BWD_BF16(128);
   } else {
-    if (d == 64) BWD(float, 64);
-    if (d == 128) BWD(float, 128);
+    if (d == 64) BWD_F32(64);
+    if (d == 128) BWD_F32(128);
   }
-#undef BWD
+#undef BWD_BF16
+#undef BWD_F32
   return static_cast<int>(cudaErrorInvalidValue);
 }

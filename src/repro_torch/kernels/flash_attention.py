@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_P],
-         "flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_P]}
+         "flash_attention_bwd": [_P] * 11 + [_I] * 10 + [_P]}
 HEAD_DIMS = (64, 128)
 _NEG = -1e30
 
@@ -132,11 +132,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def dq_scratch(q: torch.Tensor) -> torch.Tensor | None:
+    """The f32 (B, Sq, H, d) zeros the bf16 backward kernel adds dQ into
+    (each kv tile's part by atomic adds) before a last kernel scales and
+    rounds it; None for f32, whose dQ kernel owns each row."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+
+
 def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
                         q_offset: int = 0, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention_fwd` given its (o, lse) and
-    dO, in the inputs' dtype: three kernels (delta = rowsum(dO o); dK and
-    dV per kv tile; dQ per q tile)."""
+    dO, in the inputs' dtype.  bf16: delta = rowsum(dO o); one kernel per
+    kv tile for dK, dV and the dQ adds into :func:`dq_scratch`; dq rounded
+    from it.  f32: delta; dK and dV per kv tile; dQ per q tile.  bf16 dq
+    is not bitwise reproducible: the atomic adds land in any order."""
     check_args(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, window=window,
@@ -151,12 +162,15 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel():
         delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+        acc = dq_scratch(q)
         lib = _build.load("flash_attention", _SIGS)
         rc = lib.flash_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(),
                                      dout.data_ptr(), dq.data_ptr(),
                                      dk.data_ptr(), dv.data_ptr(),
-                                     delta.data_ptr(), *args)
+                                     delta.data_ptr(),
+                                     None if acc is None else acc.data_ptr(),
+                                     *args)
         _build.check(lib, rc, "flash_attention_bwd")
         flash_attention_bwd.launches += 1
     else:

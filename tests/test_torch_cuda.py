@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small and awkward shapes (unaligned widths, hidden tails, empty groups,
-rows past sum(group_sizes)), the fused FFN's backward kernels and flash
-attention (tails of both tile sizes, window 1, GQA, non-causal, a query
-offset) included.
+rows past sum(group_sizes)), the grouped GEMM's ring kernel at the model
+widths and its routing of other shapes to the simple kernel, the fused
+FFN's backward kernels and flash attention (tails of both tile sizes,
+window 1, GQA, non-causal, a query offset) included.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -52,6 +53,7 @@ def _inputs(dev, dtype, M, K, sizes, seed=0):
     (70, 36, 24, [0, 40, 0, 27]),       # K, N not multiples of 8; sum < M
     (130, 64, 200, [64, 0, 65, 0, 1]),  # tiles straddle groups, N tail
     (5, 1024, 2048, [0, 0, 3, 0]),      # decode-like: one short group
+    (50, 200, 72, [0, 20, 25]),         # bf16 ring: K and N tails of 8
 ])
 def test_grouped_gemm(dev, dtype, M, K, N, sizes):
     g, x, gs = _inputs(dev, dtype, M, K, sizes)
@@ -66,6 +68,7 @@ def test_grouped_gemm(dev, dtype, M, K, N, sizes):
 @pytest.mark.parametrize("M,K,N,sizes", [
     (70, 36, 24, [0, 40, 0, 27]),
     (130, 64, 200, [64, 0, 65, 0, 1]),
+    (50, 200, 72, [0, 20, 25]),
 ])
 def test_grouped_gemm_trans_w(dev, dtype, M, K, N, sizes):
     """The backward's dX: x @ w^T with w (E, N, K) read in place."""
@@ -75,6 +78,59 @@ def test_grouped_gemm_trans_w(dev, dtype, M, K, N, sizes):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, gg.grouped_gemm_plain(x, w, gs, True),
                                **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+def _routed_sizes(M, E, seed):
+    """Ragged sizes over E groups summing to M - 3, some groups empty."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, E, (M - 3,), generator=g)
+    ids = ids[ids % 7 != 3]  # every 7th group from 3 on stays empty
+    sizes = torch.bincount(ids, minlength=E)
+    sizes[0] += M - 3 - int(sizes.sum())
+    return sizes.tolist()
+
+
+@pytest.mark.parametrize("trans_w", [False, True])
+@pytest.mark.parametrize("K,N", [(1024, 2048), (2048, 1024)])
+@pytest.mark.parametrize("M,bm", [(16, 16), (96 * 20, 32), (96 * 40, 64)])
+def test_grouped_gemm_ring_kernel(dev, M, bm, K, N, trans_w):
+    """The bf16 ring kernel over 96 experts, one case per row tile: decode
+    (16 rows), prefill-like and training-like rows per expert."""
+    E = 96
+    assert gg.tile_config(M, N, E)[0] == bm
+    g, x, gs = _inputs(dev, torch.bfloat16, M, K, _routed_sizes(M, E, M))
+    shape = (E, N, K) if trans_w else (E, K, N)
+    w = (torch.randn(*shape, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    ring, simple = gg.grouped_gemm.launches, gg.grouped_gemm_simple.launches
+    got = gg.grouped_gemm(x, w, gs, trans_w)
+    torch.cuda.synchronize()
+    assert gg.grouped_gemm.launches == ring + 1
+    assert gg.grouped_gemm_simple.launches == simple
+    torch.testing.assert_close(got, gg.grouped_gemm_plain(x, w, gs, trans_w),
+                               **TOL[torch.bfloat16])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("case", ["K36", "N36", "misaligned", "f32"])
+def test_grouped_gemm_simple_route(dev, case):
+    """Shapes the ring kernel does not take run the simple kernel, right."""
+    K, N, dtype = {"K36": (36, 64, torch.bfloat16), "N36": (64, 36, torch.bfloat16),
+                   "misaligned": (64, 64, torch.bfloat16),
+                   "f32": (64, 64, torch.float32)}[case]
+    M, sizes = 40, [0, 17, 20]
+    g, x, gs = _inputs(dev, dtype, M, K, sizes)
+    if case == "misaligned":
+        buf = torch.zeros(M * K + 8, dtype=dtype, device=dev)
+        x = buf[1:1 + M * K].view(M, K).copy_(x)
+    w = (torch.randn(len(sizes), K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+    assert gg.route(x, w) == "simple"
+    ring, simple = gg.grouped_gemm.launches, gg.grouped_gemm_simple.launches
+    got = gg.grouped_gemm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gg.grouped_gemm.launches == ring
+    assert gg.grouped_gemm_simple.launches == simple + 1
+    torch.testing.assert_close(got, gg.grouped_gemm_plain(x, w, gs), **TOL[dtype])
     assert not got[int(gs.sum()):].any()
 
 
@@ -225,6 +281,26 @@ def test_flash_attention_bwd(dev, dtype, B, Sq, Skv, H, KV, d, window,
         tol = dict(rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale)
         torch.testing.assert_close(a.float(), b.float(), **tol)
         _assert_fro(a, b, dtype)
+
+
+def test_flash_attention_bwd_bf16_group_twice(dev):
+    """The bf16 backward at a starcoder2-like group (12 query heads over one
+    kv head of 128), a window shorter than the sequence, a tail Sq and a
+    query offset, run twice: dq's atomic adds land in another order each
+    run, and both runs must hold to the plain version."""
+    B, Sq, Skv, H, KV, d, window, q_offset = 1, 150, 300, 12, 1, 128, 100, 140
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, H, KV, d, seed=4)
+    kw = dict(window=window, q_offset=q_offset, causal=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+    for _ in range(2):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            scale = max(b.float().abs().max().item(), 1.0)
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2 * scale)
+            _assert_fro(a, b, torch.bfloat16)
 
 
 def test_flash_attention_op_autograd(dev):

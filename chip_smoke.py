@@ -5,12 +5,17 @@
 
 1. builds the CUDA kernels from src/repro_torch/csrc into build/ and
    prints each kernel's registers and spills from -Xptxas -v, failing if
-   the grouped GEMM's ring kernel or the bf16 flash backward spills;
+   a kernel redesigned for registers (the grouped GEMM's and the fused
+   FFN's ring kernels, the bf16 flash forward and backward) spills, and
+   the dynamic shared memory the fused FFN's ring kernel and the bf16
+   flash forward ask for at each of their tile choices;
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes (d 1024, H 2048, 96 experts; gelu, plus swiglu) in bf16
    and f32, with ragged group sizes, empty groups and sum(group_sizes) < M,
    and times kernel, plain version and the library call where one exists
-   (events, and the device time alone from torch.profiler);
+   (events, and the device time alone from torch.profiler), and, as a
+   labelled reference line, the unfused FFN by PyTorch calls
+   (torch._grouped_mm, GELU, torch._grouped_mm);
 3. holds the reduced f32 model served through the kernels on the card
    against the same model on the CPU (the plain path the CPU tests hold
    against the JAX package);
@@ -18,16 +23,17 @@
    a seed) greedily: 8 prompts x 128 tokens of prefill, then 32 decode
    steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
    the launch counters set to 0 just before and read just after, failing
-   if the simple grouped GEMM (f32 and unaligned shapes) ran at a model
-   shape (also on the training paths);
+   if the simple grouped GEMM or the simple fused FFN (f32 and unaligned
+   shapes) ran at a model shape (also on the training paths);
 5. holds each combination's prefill and first-decode logits against the
    plain einsum experts and plain attention on the same dispatch;
 6. holds the fused FFN's backward kernels (dX, grouped dW) against their
    plain versions at the training shapes (2048 tokens top-2: 4096 ragged
    rows, or 96 x 56 capacity rows), with an empty group, rows past
    sum(group_sizes) and a hidden tail, and times them beside their bounds,
-   with the fused FFN forward and the grouped GEMM (forward, and dX reading
-   w transposed) on the same rows;
+   with the fused FFN forward (events and device time, and the unfused
+   reference) and the grouped GEMM (forward, and dX reading w transposed)
+   on the same rows;
 7. trains the reduced f32 model 3 steps through the kernels on the card
    against the CPU plain path (per-step loss and per-leaf gradients);
 8. trains full-width fastmoe-gpt cut to 10 layers (f32 masters, bf16
@@ -45,10 +51,12 @@
    (2 x 8192, 12 heads over 1, window 4096), window 1 and sequences that
    are no tile multiple, and times them beside their bounds, the plain
    version and SDPA (run before the model phases, while the plain
-   version's f32 scores fit the card);
+   version's f32 scores fit the card), and takes the forward's device time
+   at the fastmoe-gpt training shape apart (SMALL_SHAPE_PARTS);
 11. holds 2-layer full-width starcoder2-15b logits (1 x 8192) of the
    kernel path no further from an f32 plain-attention path than the bf16
-   plain path is;
+   plain path is, and profiles one 2-layer prefill of 2 x 8192 (busy
+   share, the flash forward's share, top kernels);
 12. serves full-width 40-layer starcoder2-15b (15.96 B params, bf16 layers)
    greedily: 2 prompts x 8192 tokens into a 4096-slot ring, then 32
    decode steps, with the launch counters set to 0 just before and read
@@ -335,6 +343,7 @@ def kernel_phase(dev, flush):
             measure("fused_ffn", shape, *cases["fused_ffn"],
                     e * (2 * M * D + used * 2 * D * H) + 4 * E,
                     4 * n * D * H, "bfloat16")
+            unfused_ffn(f"fused_ffn {shape}", x, wi, wo, offs, flush)
             measure("gather_rows", shape, lambda: ts.gather_rows(xt, rows),
                     lambda: ts.gather_rows_plain(xt, rows),
                     e * D * (int(rows.unique().numel()) + rows.numel())
@@ -365,6 +374,32 @@ def grouped_mm_call(x, w, offs):
         print(f"library: torch._grouped_mm refused these inputs: {exc}"[:300])
         return None
     return lambda: fn(x, w, offs=offs)
+
+
+def unfused_ffn(label, x, wi, wo, offs, flush):
+    """A reference line, not the library column: the fastmoe-gpt FFN as
+    three PyTorch calls (torch._grouped_mm, tanh GELU, torch._grouped_mm),
+    which write the (M, H) hidden to device memory; it shows whether fusion
+    pays.  Events and device time, or a note where this PyTorch lacks the
+    grouped product."""
+    import torch
+    import torch.nn.functional as F
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print(f"reference {label}: torch._grouped_mm is not in this PyTorch")
+        return
+
+    def run():
+        h = F.gelu(fn(x, wi, offs=offs), approximate="tanh")
+        return fn(h, wo, offs=offs)
+    try:
+        run()
+    except RuntimeError as exc:
+        print(f"reference {label}: unfused FFN not timed: {exc}"[:300], flush=True)
+        return
+    print(f"reference {label}: unfused FFN (torch._grouped_mm + GELU + "
+          f"torch._grouped_mm) {time_ms(run, flush):.4f} ms, device (profiler, "
+          f"L2 warm) {device_ms(run):.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +501,42 @@ def plain_attention():
           "a flash kernel ran on the plain-attention reference path")
 
 
+# Where the forward's device time goes at the fastmoe-gpt training shape
+# (8 x 256, 16 heads x 64, causal): (B, S, causal) cases that take it apart
+SMALL_SHAPE_PARTS = {
+    "the training shape": (8, 256, True),
+    "its 64 heaviest blocks alone (4 kv tiles each)": (1, 256, True),
+    "every block 4 kv tiles (not causal)": (8, 256, False),
+    "512 blocks of one kv tile": (32, 64, True),
+    "one block of one kv tile": (1, 64, True),
+}
+
+
+def flash_small_shapes(dev):
+    """Device times of the bf16 flash forward and SDPA's at SMALL_SHAPE_PARTS
+    (16 heads x 64; the last case one head), beside one tiny elementwise
+    kernel (the launch floor): what the forward loses to cuDNN at the
+    fastmoe-gpt shapes, launch, per-tile latency or the tail."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(11)
+    tiny = torch.zeros(16, device=dev)
+    parts = [f"launch floor {device_ms(lambda: tiny.add_(1)):.4f} ms"]
+    for label, (B, S, causal) in SMALL_SHAPE_PARTS.items():
+        H = 1 if B == 1 and S == 64 else 16
+        q, k, v = (torch.randn(B, S, H, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ours = device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, window=FULL_WINDOW, causal=causal))
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        parts.append(f"{label} ({B}x{S}x{H}) {ours:.4f} ms, SDPA {sdpa:.4f} ms")
+    print("flash forward small shapes, device (profiler, L2 warm): "
+          + "; ".join(parts), flush=True)
+
+
 def flash_phase(dev, flush):
     """flash_attention_fwd / _bwd against their plain versions in bf16 and
     f32 at FLASH_SHAPES; bf16 timed beside its bound, the plain version and
@@ -556,6 +627,7 @@ def flash_phase(dev, flush):
                       flush=True)
             del lib_f, lib_b
             torch.cuda.empty_cache()
+    flash_small_shapes(dev)
     # one starcoder2 layer at all its heads: the kernels alone
     B, S, H, KV, d, window = STARCODER2_FULL
     q, do = (torch.randn(B, S, H, d, generator=g, device=dev, dtype=torch.bfloat16)
@@ -644,6 +716,7 @@ def counters():
             "grouped_gemm_simple": gg.grouped_gemm_simple,
             "gather_rows": ts.gather_rows,
             "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
+            "fused_ffn_simple": ff.fused_ffn_simple,
             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
             "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw,
             "flash_attention_fwd": fa.flash_attention_fwd,
@@ -692,8 +765,9 @@ def serve_phase(dev):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the serving path")
-    check(launches["grouped_gemm_simple"] == 0,
-          "the serving path ran the simple grouped GEMM at a model shape")
+    for simple in ("grouped_gemm_simple", "fused_ffn_simple"):
+        check(launches[simple] == 0,
+              f"the serving path ran {simple} at a model shape")
 
     for (impl, dispatch), (seq, t) in results.items():
         dec = statistics.median(t["decode_s"])
@@ -927,10 +1001,16 @@ def bwd_kernel_phase(dev, flush):
                     timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
                                                 bound_ms=b_ms, bound_by=b_by,
                                                 library_ms=None)
+                    on_device = ""
+                    if kname == "fused_ffn":
+                        on_device = (f"; device (profiler, L2 warm) "
+                                     f"{device_ms(kern):.4f} ms")
                     print(f"kernel {kname} {name:8s} bf16: {ms:.4f} ms  bound "
                           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
                           f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  "
-                          f"library n/a", flush=True)
+                          f"library n/a{on_device}", flush=True)
+                unfused_ffn(f"fused_ffn {name}", x, wi, wo,
+                            torch.cumsum(gs, 0).to(torch.int32), flush)
                 # the pallas path on the same rows: forward x @ wi and dX =
                 # dy @ wi^T on the grouped GEMM (w read transposed in place),
                 # beside torch._grouped_mm (given wi.transpose(1, 2) for dX);
@@ -1124,9 +1204,9 @@ def train_phase(dev):
         for name in needed:
             check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
-        check(launches["grouped_gemm_simple"] == 0,
-              f"train {impl}/{dispatch}: the simple grouped GEMM ran at a "
-              f"model shape")
+        for simple in ("grouped_gemm_simple", "fused_ffn_simple"):
+            check(launches[simple] == 0, f"train {impl}/{dispatch}: {simple} "
+                                         f"ran at a model shape")
         profile_train_step(f"{impl}/{dispatch}", step_fn, params, state,
                            data, dev)
         del params, state, step_fn
@@ -1261,8 +1341,49 @@ def starcoder2_logits_phase(dev):
               f"starcoder2 kernel logits further from the f32 plain path than "
               f"the bf16 plain path (floor {floor}; slack x{SC2_REL_SLACK}, "
               f"agreement -{SC2_AGREE_SLACK})")
-    del params, oracle, plain, kern
+    del oracle, plain, kern
+    profile_prefill(params, cfg, dev)
+    del params
     torch.cuda.empty_cache()
+
+
+def profile_prefill(params, cfg, dev):
+    """One prefill of the 2-layer full-width starcoder2-15b (SC2_BATCH x
+    SC2_PROMPT into the serving ring) under torch.profiler, after one
+    warm-up: wall time, summed kernel time (the device's busy share), the
+    flash forward's part of it, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    tokens = torch.randint(0, cfg.vocab_size, (SC2_BATCH, SC2_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    cache_len = serve.cache_len_for(cfg, SC2_PROMPT + SC2_GEN)
+    with torch.no_grad():
+        for warm in (True, False):
+            cache = lm.init_cache(cfg, SC2_BATCH, cache_len, device=dev)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         ) if not warm else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                lm.prefill(params, cfg, tokens, cache, impl="fused", device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            del cache
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    flash = sum(t for n, t in by_name.items() if "flash_fwd" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile starcoder2-15b prefill, {cfg.num_layers} layers, "
+          f"{SC2_BATCH}x{SC2_PROMPT} (profiler on): wall {wall * 1e3:.1f} ms, "
+          f"kernels {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
+          f"{len(kernels)} kernel launches; flash forward {flash:.2f} ms "
+          f"({100 * flash / busy:.1f}% of kernel time); top: "
+          + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
 
 
 def starcoder2_serve_phase(dev):
@@ -1337,7 +1458,39 @@ def rel_err(a, b):
 
 
 # the kernels redesigned for registers: ptxas must report no spills
-NO_SPILL = ("grouped_gemm_mma_kernel", "flash_bwd_mma_kernel")
+NO_SPILL = ("grouped_gemm_mma_kernel", "flash_bwd_mma_kernel",
+            "fused_ffn_ring_kernel", "flash_fwd_wgmma_kernel")
+
+
+def dynamic_smem_report() -> None:
+    """The dynamic shared memory the fused FFN's ring kernel and the bf16
+    flash forward ask for at each tile choice (set at launch, so not in
+    the ptxas lines), each within a block's 232,448 bytes; the flash
+    forward's equal to the host's mirror (fwd_config)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    lib = _build.load("fused_ffn", ff._SIGS)
+    sizes = {(bm, hc, g): lib.fused_ffn_smem(bm, hc, g) for bm in ff.ROW_TILES
+             for hc in ff.HIDDEN_CHUNKS for g in (0, 1)
+             if not (g and hc > 128)}
+    lib = _build.load("flash_attention", fa._SIGS)
+    for d in fa.HEAD_DIMS:
+        for bq, sq in ((64, 1), (128, 1 << 20)):
+            got = lib.flash_attention_fwd_smem(d, bq)
+            cfg = fa.fwd_config(1, sq, 64, d)
+            check(cfg.bq == bq and got == cfg.smem,
+                  f"flash forward d {d} bq {bq}: kernel asks {got} B, host "
+                  f"mirror {cfg.smem} B")
+            sizes[("flash", d, bq)] = got
+    check(all(0 < v <= fa.SMEM_LIMIT for v in sizes.values()),
+          f"dynamic shared memory out of range: {sizes}")
+    print("  dynamic shared memory (bytes): fused_ffn_ring_kernel (bm, hc, "
+          "gated) " + ", ".join(f"{k}: {v}" for k, v in sizes.items()
+                                if k[0] != "flash")
+          + "; flash_fwd_wgmma_kernel (d, bq) "
+          + ", ".join(f"({k[1]}, {k[2]}): {v}" for k, v in sizes.items()
+                      if k[0] == "flash"), flush=True)
 
 
 def ptxas_report(libs) -> None:
@@ -1395,6 +1548,7 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     ptxas_report(libs)
+    dynamic_smem_report()
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)

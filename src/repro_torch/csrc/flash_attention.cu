@@ -24,12 +24,14 @@
 // Bound on the H100: operations at long sequences (4 d flops per visible
 // (i, j) pair forward, 10 d backward), bytes at short ones.
 //
-// Forward, bf16 (flash_fwd_mma_kernel): FlashAttention-2's layout —
-// mma.sync m16n8k16, Q, S, P and O in registers, K and V tiles
-// double-buffered by cp.async.  The reference takes P V in f32: the
-// forward splits P into bf16 high and low parts (two products, P exact to
-// ~2^-16), so its bf16 output is, element for element, nearly always the
-// plain version's.
+// Forward, bf16 (flash_fwd_wgmma_kernel): FlashAttention-3's layout —
+// K and V tiles by TMA into a 2-4 stage mbarrier ring fed by one producer
+// warp, consumer warpgroups on wgmma with S, P and O in registers, softmax
+// in base 2 with scale log2(e) folded into one multiply.  The reference
+// takes P V in f32: the forward splits P into bf16 high and low parts (two
+// products, P exact to ~2^-16), so its bf16 output is, element for
+// element, nearly always the plain version's.  The tensor work is thus 6 d
+// flops a visible pair; the bound counts the 4 d the function needs.
 //
 // Backward, bf16 (FlashAttention-2's): a prep kernel writes delta =
 // rowsum(dO * O); flash_bwd_mma_kernel owns one (64-row kv tile, kv head,
@@ -65,10 +67,11 @@
 //
 // f32 (the oracles' dtype): the FMA units (not TF32), every product staged
 // through shared memory; the backward as two kernels (dK/dV per kv tile,
-// dQ per q tile) with no atomics.  No wgmma or TMA yet.
+// dQ per q tile) with no atomics.
 #include <cmath>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -293,18 +296,320 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// forward, bf16: mma.sync m16n8k16 with everything but the K, V tiles in
-// registers (FlashAttention-2's layout)
+// forward, bf16: wgmma and TMA, warp-specialised (FlashAttention-3's layout)
 // ---------------------------------------------------------------------------
 //
-// Warp w owns q rows [16 w, 16 w + 16) of the tile; a thread holds rows
-// g = lane / 4 and g + 8, columns 2 (lane % 4) + {0, 1} of every 8-wide
-// accumulator tile.  Q stays in registers as A fragments, S = Q K^T and
-// O in f32 accumulators; the S accumulators of two neighbouring 8-wide
-// tiles are, element for element, the A fragment of P for the next
-// product, so P never leaves registers.  P is split into bf16 high and low
-// parts (two products).  K and V tiles land in shared memory by cp.async,
-// double-buffered: the next tile loads while this one computes.
+// A block owns BQ = 64 NWG q rows of one (head, batch): NWG consumer
+// warpgroups of 64 rows each, and a producer (one warp issues every load;
+// with NWG = 2 it is a whole warpgroup that gives its registers to the
+// consumers by setmaxnreg).  The producer loads the block's Q, then each kv
+// tile's K and V by TMA into a ring of ST stages (K and V on barriers of
+// their own, so S = Q K^T starts while V lands); Q, K0 and V0 are in
+// flight together.  A consumer warpgroup, per kv tile:
+//   S = Q K^T by wgmma from shared memory (f32 accumulators);
+//   scale by scale log2(e) and mask in one pass, online softmax in base 2
+//   (m, l in f32), O rescaled in registers;
+//   P split into bf16 high and low parts, each the A operand of
+//   O += P V straight from registers (wgmma, V MN-major through the
+//   descriptor's transpose bit), so the products' sum carries P to ~2^-16;
+//   one arrival per warp frees the stage.
+// The products of one tile overlap the softmax of the next: S of tile t
+// is issued before P V of tile t - 1, and tile t's softmax runs while P V
+// is in flight (FlashAttention-3's intra-warpgroup pipelining); K and V
+// stages are freed apart (K once S has landed, V once P V has), so the
+// producer stays a tile ahead.  P V for d = 128 is one
+// m64n128k16 product over both 64-column boxes of V (the descriptor's
+// leading byte offset steps between them).
+// The tensor maps are over (B, S, heads, d): a box is 64 columns of one
+// head, 128-byte swizzled as wgmma reads it, and rows past S arrive as
+// zeros.  The q tile is the grid's slowest index, taken in reverse, so the
+// causal blocks that see the most kv tiles start first.  Host choice
+// (kernels/flash_attention.py fwd_config): NWG = 2, BK = 128 where the
+// grid has many blocks (long sequences); NWG = 1, BK = 64 where it has
+// few (the fastmoe-gpt shapes), so that several blocks share an SM.
+
+template <int D, int NWG> struct FwdCfg {
+  static constexpr int BQ = 64 * NWG;              // q rows a block
+  static constexpr int BK = NWG == 2 ? 128 : 64;   // kv rows a stage
+  // K / V ring stages: 3-4, as many as fit, but 2 for one warpgroup at
+  // d 128 (two blocks an SM)
+  static constexpr int ST = D == 64 ? (NWG == 2 ? 4 : 3) : (NWG == 2 ? 3 : 2);
+  static constexpr int DC = D / 64;                // 64-column boxes a row
+  static constexpr int NT = 128 * NWG + (NWG == 2 ? 128 : 32);
+  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : (D == 64 ? 3 : 2);
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  // 1024 to align the base (swizzle atoms), Q, the K and V stages, barriers
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES + 8 * (1 + 4 * ST);
+};
+
+template <int BK>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (BK == 128) wgmma_ss_n128(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(FwdCfg<D, NWG>::NT, FwdCfg<D, NWG>::MIN_BLOCKS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+                       int Skv, int H, int KV, int window, int q_offset,
+                       int causal, float scale_log2) {
+  using C = FwdCfg<D, NWG>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, DC = C::DC;
+  constexpr int NS = BK / 2;  // S accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* qs = reinterpret_cast<bf16*>(base);  // DC boxes of BQ x 64
+  bf16* ks = qs + BQ * D;                    // ST stages of DC boxes of BK x 64
+  bf16* vs = ks + ST * BK * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * BK * D);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;  // K and V stages free up apart: K after
+  uint64_t* v_empty = k_empty + ST;  // S lands, V after P V lands
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tiles first
+  const int kvh = h / (H / KV);
+  const int rows = min(BQ, Sq - q0);
+  const long long i_lo = (long long)q_offset + q0, i_hi = i_lo + rows - 1;
+  int t0, t1;
+  kv_tiles(i_lo, i_hi, Skv, window, causal, BK, &t0, &t1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4 * NWG);  // one arrival per consumer warp
+      mbar_init(&v_empty[s], 4 * NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // ---- producer
+    if constexpr (NWG == 2) setmaxnreg_dec<24>();
+    if (warp == 4 * NWG && lane == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        tma_load_4d(qs + c * BQ * 64, &qmap, q_full, c * 64, h, q0, b);
+      for (int t = t0; t <= t1; ++t) {
+        const int i = t - t0, s = i % ST;
+        if (i >= ST) mbar_wait(&k_empty[s], ((i / ST) - 1) & 1);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load_4d(ks + (s * DC + c) * BK * 64, &kmap, &k_full[s], c * 64,
+                      kvh, t * BK, b);
+        if (i >= ST) mbar_wait(&v_empty[s], ((i / ST) - 1) & 1);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load_4d(vs + (s * DC + c) * BK * 64, &vmap, &v_full[s], c * 64,
+                      kvh, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const long long w_lo = i_lo + wg * 64, w_hi = w_lo + 63;
+  const long long i_r[2] = {w_lo + wq * 16 + g, w_lo + wq * 16 + g + 8};
+
+  float oacc[D / 2];  // O: 64 rows x D in the accumulator layout
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) oacc[e] = 0.f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // l: this thread's part
+
+  // S = Q K^T of the tile in stage s, over d 16 columns a step (32 bytes
+  // into the swizzled rows), issued and committed as one group
+  float sacc[NS];
+  auto issue_s = [&](int s) {
+    const bf16* kt = ks + s * DC * BK * 64;
+    fence_regs<NS>(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 16;
+      wgmma_ss<BK>(sacc,
+                   wgmma_desc(qs + c * BQ * 64 + wg * 64 * 64 + off, 16, 1024),
+                   wgmma_desc(kt + c * BK * 64 + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    fence_regs<NS>(sacc);
+  };
+  // scale (base 2), mask and online softmax of kv tile t in place: sacc
+  // becomes P = exp2(s - m), m and l move on, corr rescales the older O
+  float corr[2];
+  auto softmax = [&](int t) {
+    const int j0 = t * BK;
+    const bool mask = needs_mask(w_lo, w_hi, j0, BK, Skv, window, causal);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = sacc[4 * n + e] * scale_log2;
+        if (mask && !visible(i_r[e / 2], j0 + n * 8 + 2 * t4 + (e & 1), Skv,
+                             window, causal))
+          sv = -INFINITY;
+        sacc[4 * n + e] = sv;
+        mx[e / 2] = fmaxf(mx[e / 2], sv);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(kFullMask, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(kFullMask, mx[rr], 2));
+      const float m_new = fmaxf(m_r[rr], mx[rr]);
+      corr[rr] = exp2f(m_r[rr] - m_new);
+      m_r[rr] = m_new;
+      l_r[rr] *= corr[rr];
+    }
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      const int rr = (e / 2) & 1;
+      sacc[e] = exp2f(sacc[e] - m_r[rr]);  // masked: exp2(-inf) = 0
+      l_r[rr] += sacc[e];
+    }
+  };
+  // P split into bf16 high and low A fragments, 16 kv columns a k step
+  // (the accumulators of two 8-wide column blocks): u = (row g | g + 8) x
+  // (columns 0-7 | 8-15)
+  uint32_t hi[BK / 16][4], lo[BK / 16][4];
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e0 = 8 * kk + 4 * (u / 2) + 2 * (u % 2);
+        hi[kk][u] = pack_bf16(sacc[e0], sacc[e0 + 1]);
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][u]);
+        lo[kk][u] = pack_bf16(sacc[e0] - __low2float(hv),
+                              sacc[e0 + 1] - __high2float(hv));
+      }
+  };
+  // O += P V for the tile in stage s: V (kv rows x 64 columns a box) is the
+  // MN-major B operand; a k step is 16 kv rows, two 8-row atoms
+  auto issue_pv = [&](int s) {
+    const bf16* vt = vs + s * DC * BK * 64;
+    fence_regs<D / 2>(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (D == 128) {  // one product over both boxes, lbo apart
+        const uint64_t dv = wgmma_desc(vt + kk * 16 * 64, BK * 128, 1024);
+        wgmma_rs_n128_tb(oacc, hi[kk], dv);
+        wgmma_rs_n128_tb(oacc, lo[kk], dv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const uint64_t dv = wgmma_desc(vt + c * BK * 64 + kk * 16 * 64, BK * 128, 1024);
+          wgmma_rs_n64_tb(oacc + 32 * c, hi[kk], dv);
+          wgmma_rs_n64_tb(oacc + 32 * c, lo[kk], dv);
+        }
+      }
+    }
+    wgmma_commit();
+    fence_regs<D / 2>(oacc);
+  };
+
+  auto settle_pv = [&]() {  // P V has landed: its registers are free again
+    fence_regs<D / 2>(oacc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      fence_regs<4>(hi[kk]);
+      fence_regs<4>(lo[kk]);
+    }
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) oacc[e] *= corr[(e / 2) & 1];
+  };
+
+  auto release = [&](uint64_t* empty, int s) {  // this warp is done with stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+
+  mbar_wait(q_full, 0);
+  // The tensor cores stay busy through the softmax: step t issues S of
+  // tile t, then P V of tile t - 1, and runs tile t's softmax while P V is
+  // in flight; O is rescaled once P V has landed.
+  if (t0 <= t1) {
+    mbar_wait(&k_full[0], 0);
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs<NS>(sacc);
+    release(k_empty, 0);
+    softmax(t0);
+    split_p();
+  }
+  for (int t = t0 + 1; t <= t1; ++t) {
+    const int i = t - t0, ip = i - 1, sp = ip % ST;  // tile t - 1's step, stage
+    mbar_wait(&k_full[i % ST], (i / ST) & 1);
+    mbar_wait(&v_full[sp], (ip / ST) & 1);
+    issue_s(i % ST);
+    issue_pv(sp);
+    wgmma_wait<1>();  // S of tile t has landed; P V of tile t - 1 still runs
+    fence_regs<NS>(sacc);
+    release(k_empty, i % ST);
+    softmax(t);
+    wgmma_wait<0>();
+    settle_pv();
+    release(v_empty, sp);
+    rescale_o();
+    split_p();
+  }
+  if (t0 <= t1) {  // P V of the last tile
+    const int ip = t1 - t0, sp = ip % ST;
+    mbar_wait(&v_full[sp], (ip / ST) & 1);
+    issue_pv(sp);
+    wgmma_wait<0>();
+    settle_pv();
+  }
+
+  const float ln2 = 0.6931471805599453f;
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l_r[rr] += __shfl_xor_sync(kFullMask, l_r[rr], 1);
+    l_r[rr] += __shfl_xor_sync(kFullMask, l_r[rr], 2);
+    const float l = fmaxf(l_r[rr], 1e-30f);
+    inv[rr] = 1.f / l;
+    const int row = wg * 64 + wq * 16 + g + rr * 8;
+    if (t4 == 0 && row < rows)  // natural log, as the backward reads it
+      lse[((size_t)b * H + h) * Sq + q0 + row] = m_r[rr] * ln2 + logf(l);
+  }
+  bf16* ob = o + ((size_t)b * Sq * H + h) * D;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = wg * 64 + wq * 16 + g + rr * 8;
+    if (row >= rows) continue;
+    bf16* orow = ob + (size_t)(q0 + row) * H * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + c * 64 + n * 8 + 2 * t4) =
+            pack_bf16(oacc[32 * c + 4 * n + 2 * rr] * inv[rr],
+                      oacc[32 * c + 4 * n + 2 * rr + 1] * inv[rr]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
 // ROWS rows of head h from row s0 into a (ROWS, LD) bf16 tile by cp.async,
 // 16 bytes a copy, committed as one group; rows past S are zero-filled.
@@ -322,176 +627,6 @@ __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int S,
   cp_async_commit();
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Skv, int H, int KV,
-                     int window, int q_offset, int causal, float scale) {
-  constexpr int BK = 64, LD = D + 8, NS = BK / 8, NO = D / 8;
-  static_assert(BQ == 16 * (NT / 32), "one 16-row strip of the q tile per warp");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks[2] = {reinterpret_cast<bf16*>(smem),
-                 reinterpret_cast<bf16*>(smem) + BK * LD};
-  bf16* vs[2] = {ks[1] + BK * LD, ks[1] + 2 * BK * LD};
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int rows = min(BQ, Sq - q0);
-  const long long i_lo = (long long)q_offset + q0, i_hi = i_lo + rows - 1;
-  const long long i_r[2] = {i_lo + w * 16 + g, i_lo + w * 16 + g + 8};
-  const bf16* kb = k + (size_t)b * Skv * KV * D;
-  const bf16* vb = v + (size_t)b * Skv * KV * D;
-
-  // Q through shared memory (the second K buffer) into A fragments
-  uint32_t qa[D / 16][4];
-  cp_rows<BQ, D, LD>(ks[1], q + (size_t)b * Sq * H * D, Sq, H, h, q0);
-  asm volatile("cp.async.wait_group 0;\n");
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4<false>(qa[kk], ks[1] + (w * 16 + (lane & 15)) * LD + kk * 16 +
-                               (lane >> 4) * 8);
-  __syncthreads();
-
-  float oacc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // l: this thread's part
-
-  int t0, t1;
-  kv_tiles(i_lo, i_hi, Skv, window, causal, BK, &t0, &t1);
-  if (t0 <= t1) {
-    cp_rows<BK, D, LD>(ks[0], kb, Skv, KV, kvh, t0 * BK);
-    cp_rows<BK, D, LD>(vs[0], vb, Skv, KV, kvh, t0 * BK);
-  }
-  for (int t = t0; t <= t1; ++t) {
-    const int j0 = t * BK, buf = (t - t0) & 1;
-    if (t < t1) {  // the next tile loads while this one computes
-      cp_rows<BK, D, LD>(ks[buf ^ 1], kb, Skv, KV, kvh, j0 + BK);
-      cp_rows<BK, D, LD>(vs[buf ^ 1], vb, Skv, KV, kvh, j0 + BK);
-      asm volatile("cp.async.wait_group 2;\n");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n");
-    }
-    __syncthreads();
-    const bf16* kt = ks[buf];
-    const bf16* vt = vs[buf];
-
-    // S = Q K^T: for 16 kv rows at a time, one x4 load gives the B
-    // fragments of two 8-wide tiles
-    float sacc[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bk[4];
-        ldsm_x4<false>(bk, kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                               kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sacc[2 * np], qa[kk], bk);
-        mma_bf16(sacc[2 * np + 1], qa[kk], bk + 2);
-      }
-    }
-
-    // scale, mask, online softmax on the thread's two rows
-    const bool mask = needs_mask(i_lo, i_hi, j0, BK, Skv, window, causal);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sv = sacc[n][e] * scale;
-        if (mask && !visible(i_r[e / 2], j0 + n * 8 + 2 * t4 + (e & 1), Skv,
-                             window, causal))
-          sv = -INFINITY;
-        sacc[n][e] = sv;
-        mx[e / 2] = fmaxf(mx[e / 2], sv);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m_r[rr], mx[rr]);
-      corr[rr] = expf(m_r[rr] - m_new);
-      m_r[rr] = m_new;
-      l_r[rr] *= corr[rr];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      oacc[n][0] *= corr[0]; oacc[n][1] *= corr[0];
-      oacc[n][2] *= corr[1]; oacc[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = expf(sacc[n][e] - m_r[e / 2]);  // masked: exp(-inf) = 0
-        sacc[n][e] = pv;
-        l_r[e / 2] += pv;
-      }
-    }
-
-    // O += P V, 16 kv rows at a time; P = hi + lo in bf16
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const float* p0 = sacc[2 * kk];
-      const float* p1 = sacc[2 * kk + 1];
-      uint32_t hi[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                        pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-      uint32_t lo[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* pp = u < 2 ? p0 : p1;
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&hi[u]);
-        lo[u] = pack_bf16(pp[2 * (u & 1)] - __low2float(hv),
-                          pp[2 * (u & 1) + 1] - __high2float(hv));
-      }
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bv[4];
-        ldsm_x4<true>(bv, vt + (kk * 16 + (lane & 15)) * LD + np * 16 +
-                              (lane >> 4) * 8);
-        mma_bf16(oacc[2 * np], hi, bv);
-        mma_bf16(oacc[2 * np + 1], hi, bv + 2);
-        mma_bf16(oacc[2 * np], lo, bv);
-        mma_bf16(oacc[2 * np + 1], lo, bv + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it refills
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 1);
-    l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 2);
-    const float l = fmaxf(l_r[rr], 1e-30f);
-    inv[rr] = 1.f / l;
-    const int row = w * 16 + g + rr * 8;
-    if (t4 == 0 && row < rows)
-      lse[((size_t)b * H + h) * Sq + q0 + row] = m_r[rr] + logf(l);
-  }
-  bf16* ob = o + ((size_t)b * Sq * H + h) * D;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = w * 16 + g + rr * 8;
-    if (row >= rows) continue;
-    bf16* orow = ob + (size_t)(q0 + row) * H * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-          pack_bf16(oacc[n][2 * rr] * inv[rr], oacc[n][2 * rr + 1] * inv[rr]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
 
 // delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c] in f32: D / V lanes a
 // row, one 16-byte load of each tensor a lane, a shuffle sum over the lanes.
@@ -1004,26 +1139,35 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 
-template <typename T, int D>
-int fwd(const T* q, const T* k, const T* v, T* o, float* lse, Args a,
-        cudaStream_t st) {
+template <int D, int NWG>
+int fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+              Args a, cudaStream_t st) {
+  using C = FwdCfg<D, NWG>;
+  CUtensorMap qm, km, vm;
+  if (!encode_rows_map(&qm, q, a.B, a.Sq, a.H, D, C::BQ) ||
+      !encode_rows_map(&km, k, a.B, a.Skv, a.KV, D, C::BK) ||
+      !encode_rows_map(&vm, v, a.B, a.Skv, a.KV, D, C::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_wgmma_kernel<D, NWG>;
+  cudaError_t err = allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(a.H, a.B, (a.Sq + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::NT, C::SMEM, st>>>(qm, km, vm, o, lse, a.Sq, a.Skv, a.H,
+                                       a.KV, a.window, a.q_offset, a.causal,
+                                       a.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int fwd_f32(const float* q, const float* k, const float* v, float* o,
+            float* lse, Args a, cudaStream_t st) {
+  const size_t smem = FwdSmem<D>().carve(nullptr);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = 4 * 64 * (D + 8) * sizeof(bf16);  // K, V double-buffered
-    err = allow_smem(flash_fwd_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_mma_kernel<D><<<grid, NT, smem, st>>>(
-        q, k, v, o, lse, a.Sq, a.Skv, a.H, a.KV, a.window, a.q_offset,
-        a.causal, a.scale);
-  } else {
-    const size_t smem = FwdSmem<D>().carve(nullptr);
-    err = allow_smem(flash_fwd_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_kernel<D><<<grid, NT, smem, st>>>(
-        q, k, v, o, lse, a.Sq, a.Skv, a.H, a.KV, a.window, a.q_offset,
-        a.causal, a.scale);
-  }
+  flash_fwd_kernel<D><<<grid, NT, smem, st>>>(
+      q, k, v, o, lse, a.Sq, a.Skv, a.H, a.KV, a.window, a.q_offset,
+      a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1087,28 +1231,46 @@ int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 REPRO_EXPORT_ERROR_STRING
 
 // q (B, Sq, H, d); k, v (B, Skv, KV, d); o (B, Sq, H, d) in q's dtype; lse
-// (B, H, Sq) f32.  d in {64, 128}; H % KV == 0; window >= 1.  Returns
-// cudaErrorInvalidValue for a d without an instance.
+// (B, H, Sq) f32.  d in {64, 128}; H % KV == 0; window >= 1; bq, the bf16
+// kernel's q rows a block, 64 or 128 (kernels/flash_attention.py
+// fwd_config; ignored for f32).  Returns cudaErrorInvalidValue for a d or
+// bq without an instance, or a tensor map the driver refuses.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Skv,
                                    int H, int KV, int d, int window,
-                                   int q_offset, int causal, int dtype,
+                                   int q_offset, int causal, int dtype, int bq,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{B, Sq, Skv, H, KV, window, q_offset, causal, 1.f / sqrtf((float)d)};
   float* l = static_cast<float*>(lse);
-#define FWD(T, D)                                                              \
-  return fwd<T, D>(static_cast<const T*>(q), static_cast<const T*>(k),         \
-                   static_cast<const T*>(v), static_cast<T*>(o), l, a, st)
+#define FWD_BF16(D, NWG)                                                        \
+  return fwd_wgmma<D, NWG>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), \
+                           static_cast<const bf16*>(v), static_cast<bf16*>(o), l, a, st)
+#define FWD_F32(D)                                                              \
+  return fwd_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), \
+                    static_cast<const float*>(v), static_cast<float*>(o), l, a, st)
   if (dtype == DT_BF16) {
-    if (d == 64) FWD(bf16, 64);
-    if (d == 128) FWD(bf16, 128);
+    if (d == 64 && bq == 64) FWD_BF16(64, 1);
+    if (d == 64 && bq == 128) FWD_BF16(64, 2);
+    if (d == 128 && bq == 64) FWD_BF16(128, 1);
+    if (d == 128 && bq == 128) FWD_BF16(128, 2);
   } else {
-    if (d == 64) FWD(float, 64);
-    if (d == 128) FWD(float, 128);
+    if (d == 64) FWD_F32(64);
+    if (d == 128) FWD_F32(128);
   }
-#undef FWD
+#undef FWD_BF16
+#undef FWD_F32
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory the bf16 forward asks for at head dim d and bq
+// q rows a block (0 if no instance): the host's fwd_config mirrors it.
+extern "C" int flash_attention_fwd_smem(int d, int bq) {
+  if (d == 64 && bq == 64) return (int)FwdCfg<64, 1>::SMEM;
+  if (d == 64 && bq == 128) return (int)FwdCfg<64, 2>::SMEM;
+  if (d == 128 && bq == 64) return (int)FwdCfg<128, 1>::SMEM;
+  if (d == 128 && bq == 128) return (int)FwdCfg<128, 2>::SMEM;
+  return 0;
 }
 
 // The gradients of flash_attention_fwd: dO (B, Sq, H, d) -> dq, dk, dv in

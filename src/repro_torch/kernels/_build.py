@@ -27,6 +27,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132  # streaming multiprocessors of an H100 SXM: the grids the host plans fill
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -11,23 +11,52 @@ the probabilities tile by tile; the (Sq, Skv) scores never reach device
 memory on the card.
 
 The kernels take d in {64, 128}, bf16 or f32, a window >= 1 and inputs
-where every row sees at least one key, so no row's softmax is empty.  On
+where every row sees at least one key, so no row's softmax is empty.  The
+bf16 forward (wgmma, K and V by TMA) takes its q tile from the shape:
+:func:`fwd_config`.  On
 CPU tensors the wrappers run the plain version: the masked softmax in f32
 (the JAX package's ``SCORE_DTYPE`` default) and its autograd.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_P],
+_SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 11 + [_P],
+         "flash_attention_fwd_smem": [_I, _I],
          "flash_attention_bwd": [_P] * 11 + [_I] * 10 + [_P]}
 HEAD_DIMS = (64, 128)
 _NEG = -1e30
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may ask for on Hopper
+
+
+class FwdConfig(NamedTuple):
+    """The bf16 forward's tiles: q rows a block (64 per consumer
+    warpgroup), kv rows a ring stage, ring stages, and the dynamic shared
+    memory it asks for (``FwdCfg`` in ``csrc/flash_attention.cu``; chip_smoke
+    holds the two equal)."""
+    bq: int
+    bk: int
+    stages: int
+    smem: int
+
+
+def fwd_config(B: int, Sq: int, H: int, d: int) -> FwdConfig:
+    """Two consumer warpgroups (128 q rows, 128-row kv stages; one block an
+    SM, its registers rebalanced to the consumers) where 128-row q tiles
+    give at least four blocks per SM, else one (64 and 64: several blocks
+    share an SM, so short sequences keep the card full)."""
+    bq = 128 if B * H * math.ceil(Sq / 128) >= 4 * _build.SMS else 64
+    bk = 128 if bq == 128 else 64
+    stages = (4 if bq == 128 else 3) if d == 64 else (3 if bq == 128 else 2)
+    smem = 1024 + bq * d * 2 + 2 * stages * bk * d * 2 + 8 * (1 + 4 * stages)
+    return FwdConfig(bq, bk, stages, smem)
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -120,13 +149,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_fwd_plain(q, k, v, window=window,
                                          q_offset=q_offset, causal=causal)
     args = _kernel_args("flash_attention_fwd", q, k, v, window, q_offset, causal)
-    B, Sq, H, _ = q.shape
+    B, Sq, H, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     if q.numel():
         lib = _build.load("flash_attention", _SIGS)
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     o.data_ptr(), lse.data_ptr(), *args)
+                                     o.data_ptr(), lse.data_ptr(), *args[:-1],
+                                     fwd_config(B, Sq, H, d).bq, args[-1])
         _build.check(lib, rc, "flash_attention_fwd")
         flash_attention_fwd.launches += 1
     return o, lse

@@ -2,19 +2,23 @@
 kernel, hand-written for Hopper in ``csrc/fused_ffn.cu``.
 
 ``y[i] = act(x[i] @ wi[g]) [* (x[i] @ wi_up[g])] @ wo[g]`` for rows sorted
-by group.  The (M, H) hidden activation never reaches device memory: each
-block keeps one (16, 128) hidden tile in shared memory, rounded to the
-working dtype before the second product (so fused matches two-pass in
-bf16).  The hidden tiles of a row tile may be split over several blocks
-that write f32 partials, summed in order by a second small kernel; the
-wrapper sizes that split from the row count so that decode (few rows, few
-experts) still fills the card.  Same group / zero-row contract as
-``grouped_gemm``.
+by group.  The (M, H) hidden activation never reaches device memory; it is
+rounded to the working dtype before the second product (so fused matches
+two-pass in bf16).  The hidden dimension of a row tile is split over
+several blocks that write f32 partials, summed in order by a second small
+kernel.  Same group / zero-row contract as ``grouped_gemm``.
+
+Two kernels: bf16 with K, H and N multiples of 8 and 16-byte aligned
+operands (every model shape) runs the weight-streaming ring kernel, with
+its row tile, hidden chunk and split from :func:`plan`; f32 and other
+shapes run the simple kernel (:func:`fused_ffn_simple`).  :func:`route`
+makes the choice on the host from dtype and shape alone.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -22,9 +26,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"fused_ffn": [_P] * 7 + [_I] * 8 + [_P]}
+_SIGS = {"fused_ffn": [_P] * 7 + [_I] * 9 + [_P],
+         "fused_ffn_simple": [_P] * 7 + [_I] * 8 + [_P],
+         "fused_ffn_smem": [_I] * 3}
 ACTS = {"swiglu": 0, "gelu": 1, "rwkv": 2, "silu": 3}
-BM, BH = 16, 128  # row tile and hidden tile of csrc/fused_ffn.cu
+ROW_TILES = (16, 32, 64)  # the ring kernel's row tiles
+HIDDEN_CHUNKS = (256, 128, 64)  # its hidden columns a block, largest first
+SIMPLE_BM, SIMPLE_BH = 16, 128  # row tile and hidden tile of the simple kernel
 
 
 def check_gating(ws: tuple, act: str) -> None:
@@ -68,47 +76,119 @@ def fused_ffn_plain(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     return y
 
 
-def splits_for(M: int, E: int, H: int, device) -> int:
-    """Hidden-tile split per row tile: enough blocks for about two per SM,
-    never more splits than hidden tiles."""
-    row_tiles = max(1, min(math.ceil(M / BM) + E, M))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(H / BH), math.ceil(2 * sms / row_tiles)))
+class Plan(NamedTuple):
+    """The ring kernel's tiling: ``bm`` rows of one expert and ``hc``
+    hidden columns a block, ``splits = ceil(H / hc)`` blocks per row tile,
+    each writing an f32 partial of (M, N)."""
+    bm: int
+    hc: int
+    splits: int
 
 
-def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
-              group_sizes: torch.Tensor, act: str) -> torch.Tensor:
-    """x (M, K); ws (wi,) or (wi_gate, wi_up), each (E, K, H); wo (E, H, N);
-    group_sizes (E,) int32 summing to <= M."""
-    if x.device.type == "cpu":
-        return fused_ffn_plain(x, ws, wo, group_sizes, act)
+def plan(M: int, E: int, H: int, gated: bool = False) -> Plan:
+    """The ring kernel's tiles for M rows over E experts and hidden H.
+
+    ``bm`` is the smallest row tile that holds an expert of average size
+    (ceil(M / E) rows, at most 64), so an expert's weights are streamed
+    once rather than once per 16 rows.  ``hc`` is the largest hidden chunk
+    (256, 128, 64; at most 128 when gated: two GEMM1 accumulators) whose
+    split gives the grid at least two blocks per SM — counting one row tile
+    per expert the rows can reach (min(M, E)) or per ``bm`` rows, whichever
+    is more; each split adds an f32 (M, N) partial to write and read back,
+    so no more splits than that."""
+    per_group = math.ceil(M / max(E, 1))
+    bm = next((b for b in ROW_TILES if b >= per_group), ROW_TILES[-1])
+    row_tiles = max(math.ceil(M / bm), min(M, E), 1)
+    chunks = [c for c in HIDDEN_CHUNKS if not (gated and c > 128)]
+    hc = next((c for c in chunks
+               if row_tiles * math.ceil(H / c) >= 2 * _build.SMS), chunks[-1])
+    return Plan(bm, hc, math.ceil(H / hc))
+
+
+def route(x: torch.Tensor, ws: tuple, wo: torch.Tensor) -> str:
+    """"ring" for bf16 with K, H and N multiples of 8 and 16-byte aligned
+    x and weights, else "simple"."""
+    K, H, N = x.shape[1], ws[0].shape[2], wo.shape[2]
+    if (all(t.dtype == torch.bfloat16 for t in (x, *ws, wo))
+            and K % 8 == 0 and H % 8 == 0 and N % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *ws, wo))):
+        return "ring"
+    return "simple"
+
+
+def simple_splits(M: int, E: int, H: int) -> int:
+    """The hidden-tile split of the simple kernel and of the backward's dX
+    kernel (both 16-row, 128-hidden tiles): enough blocks for about two per
+    SM, never more splits than hidden tiles."""
+    tiles = max(1, min(math.ceil(M / SIMPLE_BM) + E, M))
+    return max(1, min(math.ceil(H / SIMPLE_BH), math.ceil(2 * _build.SMS / tiles)))
+
+
+def _check(what, x, ws, wo, group_sizes, act):
     check_gating(ws, act)
-    _build.require_cuda("fused_ffn", x, *ws, wo, group_sizes)
-    code = _build.dtype_code("fused_ffn", x)
+    _build.require_cuda(what, x, *ws, wo, group_sizes)
     M, K = x.shape
     E, K2, H = ws[0].shape
     E2, H2, N = wo.shape
     if (any(w.dtype != x.dtype or w.shape != ws[0].shape for w in (*ws,))
             or wo.dtype != x.dtype or (K2, E2, H2) != (K, E, H)
             or group_sizes.shape != (E,) or group_sizes.dtype != torch.int32):
-        raise ValueError(f"fused_ffn: x (M, K), ws (E, K, H), wo (E, H, N) of "
+        raise ValueError(f"{what}: x (M, K), ws (E, K, H), wo (E, H, N) of "
                          f"one dtype, group_sizes (E,) int32; got "
                          f"{tuple(x.shape)}, {[tuple(w.shape) for w in ws]}, "
                          f"{tuple(wo.shape)}, {tuple(group_sizes.shape)}")
+    return M, K, H, N, E
+
+
+def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
+                     group_sizes: torch.Tensor, act: str) -> torch.Tensor:
+    """The simple kernel (f32 or bf16, any K, H, N): :func:`fused_ffn`'s
+    route for f32 and for shapes the ring kernel does not take."""
+    M, K, H, N, E = _check("fused_ffn_simple", x, ws, wo, group_sizes, act)
+    code = _build.dtype_code("fused_ffn_simple", x)
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        splits = splits_for(M, E, H, x.device)
+        splits = simple_splits(M, E, H)
         partial = torch.empty(splits, M, N, dtype=torch.float32,
+                              device=x.device)
+        wu = ws[1].data_ptr() if len(ws) == 2 else None
+        rc = lib.fused_ffn_simple(x.data_ptr(), ws[0].data_ptr(), wu,
+                                  wo.data_ptr(), group_sizes.data_ptr(),
+                                  partial.data_ptr(), y.data_ptr(), M, K, H, N,
+                                  E, ACTS[act], splits, code,
+                                  _build.stream_of(x))
+        _build.check(lib, rc, "fused_ffn_simple")
+        fused_ffn_simple.launches += 1
+        fused_ffn.launches += 1
+    return y
+
+
+def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
+              group_sizes: torch.Tensor, act: str) -> torch.Tensor:
+    """x (M, K); ws (wi,) or (wi_gate, wi_up), each (E, K, H); wo (E, H, N);
+    group_sizes (E,) int32 summing to <= M.  ``fused_ffn.launches`` counts
+    every kernel launch, ``fused_ffn_simple.launches`` the simple kernel's."""
+    if x.device.type == "cpu":
+        return fused_ffn_plain(x, ws, wo, group_sizes, act)
+    M, K, H, N, E = _check("fused_ffn", x, ws, wo, group_sizes, act)
+    if route(x, ws, wo) == "simple":
+        return fused_ffn_simple(x, ws, wo, group_sizes, act)
+    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    if M and N:
+        lib = _build.load("fused_ffn", _SIGS)
+        p = plan(M, E, H, gated=len(ws) == 2)
+        partial = torch.empty(p.splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None
         rc = lib.fused_ffn(x.data_ptr(), ws[0].data_ptr(), wu, wo.data_ptr(),
                            group_sizes.data_ptr(), partial.data_ptr(),
-                           y.data_ptr(), M, K, H, N, E, ACTS[act], splits,
-                           code, _build.stream_of(x))
+                           y.data_ptr(), M, K, H, N, E, ACTS[act], p.bm, p.hc,
+                           p.splits, _build.stream_of(x))
         _build.check(lib, rc, "fused_ffn")
         fused_ffn.launches += 1
     return y
 
 
 fused_ffn.launches = 0
+fused_ffn_simple.launches = 0

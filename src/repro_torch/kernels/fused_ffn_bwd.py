@@ -145,7 +145,7 @@ def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     dx = torch.empty_like(x)
     if M and K:
         lib = _build.load("fused_ffn_bwd", _SIGS)
-        splits = ff.splits_for(M, E, H, x.device)
+        splits = ff.simple_splits(M, E, H)
         partial = torch.empty(splits, M, K, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None

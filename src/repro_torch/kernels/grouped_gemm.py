@@ -28,7 +28,6 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"grouped_gemm": [_P, _P, _P, _P] + [_I] * 7 + [_P],
          "grouped_gemm_simple": [_P, _P, _P, _P] + [_I] * 6 + [_P]}
-SMS = 132  # streaming multiprocessors of an H100 SXM: the grid tile_config fills
 ROW_TILES = (16, 32, 64)
 
 
@@ -42,7 +41,7 @@ def tile_config(M: int, N: int, E: int) -> tuple[int, int]:
     per_group = math.ceil(M / max(E, 1))
     bm = next((b for b in ROW_TILES if b >= per_group), ROW_TILES[-1])
     row_tiles = max(math.ceil(M / bm), min(M, E))
-    bn = 128 if row_tiles * math.ceil(N / 128) >= 2 * SMS else 64
+    bn = 128 if row_tiles * math.ceil(N / 128) >= 2 * _build.SMS else 64
     return bm, bn
 
 

@@ -2,8 +2,11 @@
 small and awkward shapes (unaligned widths, hidden tails, empty groups,
 rows past sum(group_sizes)), the grouped GEMM's ring kernel at the model
 widths and its routing of other shapes to the simple kernel, the fused
-FFN's backward kernels and flash attention (tails of both tile sizes,
-window 1, GQA, non-causal, a query offset) included.
+FFN's ring kernel (all acts, hidden tails, empty groups, the decode,
+prefill and training row counts at full width) and its simple route, its
+backward kernels, and flash attention (tails of both tile sizes, window 1,
+GQA, non-causal, a query offset, one query row; the bf16 forward at both
+of its tile choices, also bit for bit on >= 99% of outputs) included.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -313,3 +316,115 @@ def test_flash_attention_op_autograd(dev):
     assert fa.flash_attention_fwd.launches == f0 + 1
     assert fa.flash_attention_bwd.launches == b0 + 1
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# the fused FFN's ring kernel and the flash forward's tile choices
+# ---------------------------------------------------------------------------
+
+RING_SHAPES = [
+    # (M, K, H, N, sizes): hidden tails (H % 64), empty groups, rows past
+    # sum(group_sizes), an expert over several row tiles
+    (40, 48, 200, 72, [9, 0, 17, 5]),
+    (150, 64, 264, 64, [70, 0, 3, 66]),
+    (300, 128, 136, 200, [0, 130, 0, 120, 41]),
+    # nine hidden splits of 64
+    (40, 48, 576, 72, [9, 0, 17, 5]),
+]
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", RING_SHAPES)
+def test_fused_ffn_ring_kernel(dev, act, M, K, H, N, sizes):
+    x, gs, ws, wo, _ = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N, sizes)
+    assert ff.route(x, ws, wo) == "ring"
+    ring, simple = ff.fused_ffn.launches, ff.fused_ffn_simple.launches
+    got = ff.fused_ffn(x, ws, wo, gs, act)
+    torch.cuda.synchronize()
+    assert ff.fused_ffn.launches == ring + 1
+    assert ff.fused_ffn_simple.launches == simple
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),
+                               **TOL[torch.bfloat16])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("M,bm", [(16, 16), (2048, 32), (4096, 64)])
+def test_fused_ffn_ring_kernel_model_rows(dev, act, M, bm):
+    """fastmoe-gpt widths over 96 experts at the decode, prefill and
+    training row counts (one row tile per case), some experts empty and
+    three rows past the groups."""
+    E, K, H, N = 96, 1024, 2048, 1024
+    assert ff.plan(M, E, H, gated=act == "swiglu").bm == bm
+    x, gs, ws, wo, _ = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N,
+                                   _routed_sizes(M, E, M))
+    got = ff.fused_ffn(x, ws, wo, gs, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),
+                               **TOL[torch.bfloat16])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32"])
+def test_fused_ffn_simple_route(dev, case):
+    """Shapes the ring kernel does not take run the simple kernel, right;
+    fused_ffn.launches counts them too."""
+    K, H, dtype = {"K36": (36, 128, torch.bfloat16), "H100": (64, 100, torch.bfloat16),
+                   "misaligned": (64, 128, torch.bfloat16),
+                   "f32": (64, 128, torch.float32)}[case]
+    M, N, sizes = 40, 64, [0, 17, 20]
+    x, gs, ws, wo, _ = _ffn_inputs(dev, dtype, "gelu", M, K, H, N, sizes)
+    if case == "misaligned":
+        buf = torch.zeros(M * K + 8, dtype=dtype, device=dev)
+        x = buf[1:1 + M * K].view(M, K).copy_(x)
+    assert ff.route(x, ws, wo) == "simple"
+    ring, simple = ff.fused_ffn.launches, ff.fused_ffn_simple.launches
+    got = ff.fused_ffn(x, ws, wo, gs, "gelu")
+    torch.cuda.synchronize()
+    assert ff.fused_ffn.launches == ring + 1
+    assert ff.fused_ffn_simple.launches == simple + 1
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, "gelu"),
+                               **TOL[dtype])
+    assert not got[int(gs.sum()):].any()
+
+
+# (B, Sq, Skv, H, KV, d, window, q_offset, causal): both tile choices of the
+# bf16 forward at d 64 and 128 (the last three take 128-row q tiles),
+# tails of 333, one query row, a window, GQA, a query offset, non-causal
+FLASH_FWD_CASES = [
+    (1, 1, 333, 4, 1, 128, 1 << 30, 332, True),
+    (1, 1, 333, 8, 2, 64, 50, 332, True),
+    (2, 333, 333, 4, 2, 128, 100, 0, True),
+    (3, 333, 333, 16, 16, 64, 1 << 30, 0, False),
+    (1, 150, 333, 12, 1, 128, 64, 183, True),
+    (4, 333, 333, 48, 4, 128, 100, 0, True),
+    (4, 333, 333, 48, 48, 64, 1 << 30, 0, False),
+    (3, 600, 700, 48, 6, 64, 200, 100, True),
+]
+FLASH_EQUAL = 0.99  # of bf16 outputs bit-equal to the plain version's
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,window,q_offset,causal", FLASH_FWD_CASES)
+def test_flash_attention_fwd_bf16_tiles(dev, B, Sq, Skv, H, KV, d, window,
+                                        q_offset, causal):
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, H, KV, d, seed=5)
+    kw = dict(window=window, q_offset=q_offset, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, ro, **TOL[torch.bfloat16])
+    _assert_fro(o, ro, torch.bfloat16)
+    assert (o == ro).float().mean().item() >= FLASH_EQUAL
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("bq", [64, 128])
+def test_flash_fwd_config_matches_the_kernel(dev, d, bq):
+    """The host's mirror of the forward's shared memory is what the kernel
+    asks for."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention", fa._SIGS)
+    cfg = fa.fwd_config(1, 1 if bq == 64 else 1 << 20, 64, d)
+    assert cfg.bq == bq
+    assert lib.flash_attention_fwd_smem(d, bq) == cfg.smem

@@ -1,14 +1,20 @@
 """Host-side choices of the bf16 kernels, checked on the CPU with no kernel
 launched: the grouped GEMM's tile shape (``tile_config``) and its routing
-between the ring kernel and the simple one (``route``), and the f32 dQ
-scratch the flash backward adds into (``dq_scratch``)."""
+between the ring kernel and the simple one (``route``), the f32 dQ
+scratch the flash backward adds into (``dq_scratch``), the fused FFN's
+tiling (``plan``) and routing (``route``), and the flash forward's tiles
+and shared memory (``fwd_config``).  The SM count they plan for is
+``_build.SMS``."""
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_ffn as ff  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 
 E = 96  # fastmoe-gpt experts
@@ -42,7 +48,7 @@ def test_tile_config_fills_the_card_at_decode(N):
     """16 decode rows touch at most 16 experts: their row tiles times the
     column tiles must give every SM a block."""
     bm, bn = gg.tile_config(16, N, E)
-    assert min(16, E) * math.ceil(N / bn) >= gg.SMS
+    assert min(16, E) * math.ceil(N / bn) >= _build.SMS
 
 
 def _w(E_, K, N, dtype, trans_w=False):
@@ -85,3 +91,172 @@ def test_dq_scratch_bf16(shape):
 def test_dq_scratch_f32_is_none():
     """The f32 backward's dQ kernel owns each row: no scratch."""
     assert fa.dq_scratch(torch.zeros(1, 8, 2, 64)) is None
+
+
+# ---------------------------------------------------------------------------
+# fused FFN: plan, row tiles, route
+# ---------------------------------------------------------------------------
+
+HIDDEN = 2048  # fastmoe-gpt
+
+
+def _topk_sizes(tokens, k, seed, lo=0):
+    """Group sizes of `tokens` tokens routed top-k over experts lo..E-1 by
+    random scores (the chip smoke test's routing)."""
+    rng = np.random.default_rng(seed)
+    ids = np.argsort(-rng.random((tokens, E - lo)), axis=1)[:, :k] + lo
+    return np.bincount(ids.ravel(), minlength=E).tolist()
+
+
+def row_tiles(group_sizes, M, bm):
+    """A model of the row tiles ``find_tile`` (``csrc/common.cuh``) hands
+    the blocks, as (group, row0, row1) in block order: group e owns
+    ceil(size_e / bm) tiles of its rows, empty groups none; tiles past
+    sum(group_sizes) are zero tiles (group -1).  The kernel's own lookup is
+    held to the plain version by the ``cuda`` ring-kernel tests (empty
+    groups, rows past the groups, experts over several tiles)."""
+    tiles, start = [], 0
+    for e, size in enumerate(group_sizes):
+        for r0 in range(start, start + size, bm):
+            tiles.append((e, min(r0, M), min(r0 + bm, start + size, M)))
+        start += size
+    for r0 in range(start, M, bm):
+        tiles.append((-1, r0, min(r0 + bm, M)))
+    return tiles
+
+
+def grid_rows(M, bm):
+    """The ring kernel's row blocks (``launch_ring`` in
+    ``csrc/fused_ffn.cu``): ceil(M / bm) + min(E, M) + 1."""
+    return math.ceil(M / bm) + min(E, M) + 1
+
+
+FFN_MAIN_PATH = {
+    # name: (M rows, group sizes): decode (8 tokens top-2, one short), prefill
+    # (1020 of 1024 tokens, experts 0..9 empty), ragged training (2044 of 2048
+    # tokens, experts 0..5 empty), capacity training (96 x 56 slots)
+    "decode": (16, _topk_sizes(7, 2, 0)),
+    "prefill": (2048, _topk_sizes(1020, 2, 1, lo=10)),
+    "train": (4096, _topk_sizes(2044, 2, 2, lo=6)),
+    "capacity": (E * 56, [56] * E),
+}
+
+
+@pytest.mark.parametrize("shape,expected", [
+    ("decode", (16, 64, 32)), ("prefill", (32, 256, 8)),
+    ("train", (64, 256, 8)), ("capacity", (64, 256, 8))])
+def test_ffn_plan_main_path(shape, expected):
+    M, sizes = FFN_MAIN_PATH[shape]
+    assert tuple(ff.plan(M, E, HIDDEN)) == expected
+
+
+@pytest.mark.parametrize("shape", list(FFN_MAIN_PATH))
+@pytest.mark.parametrize("gated", [False, True])
+def test_ffn_plan_fills_the_card_within_the_grid(shape, gated):
+    """At every main-path shape the blocks with rows (row tiles x splits)
+    give each SM at least two, the hidden chunks cover H exactly, and the
+    grid's row blocks hold every row tile of the routed sizes."""
+    M, sizes = FFN_MAIN_PATH[shape]
+    p = ff.plan(M, E, HIDDEN, gated=gated)
+    tiles = row_tiles(sizes, M, p.bm)
+    real = [t for t in tiles if t[0] >= 0]
+    assert len(real) * p.splits >= 2 * _build.SMS
+    assert p.splits == math.ceil(HIDDEN / p.hc) and (p.splits - 1) * p.hc < HIDDEN
+    assert len(tiles) <= grid_rows(M, p.bm)
+
+
+@pytest.mark.parametrize("per_group,bm", [(1, 16), (16, 16), (17, 32), (32, 32),
+                                          (33, 64), (500, 64)])
+def test_ffn_plan_row_tile_holds_an_average_expert(per_group, bm):
+    assert ff.plan(E * per_group, E, HIDDEN).bm == bm
+
+
+@pytest.mark.parametrize("H", [64, 200, 2048, 2000, 8192])
+@pytest.mark.parametrize("gated", [False, True])
+def test_ffn_plan_hidden_chunk(H, gated):
+    """A chunk the kernel has (<= 128 when gated), the largest that still
+    fills the card, and a split count that covers H."""
+    for M in (16, 2048, 4096):
+        p = ff.plan(M, E, H, gated=gated)
+        assert p.hc in ((64, 128) if gated else ff.HIDDEN_CHUNKS)
+        assert p.splits == math.ceil(H / p.hc)
+        rows = max(math.ceil(M / p.bm), min(M, E))
+        bigger = [c for c in ff.HIDDEN_CHUNKS if c > p.hc and not (gated and c > 128)]
+        assert all(rows * math.ceil(H / c) < 2 * _build.SMS for c in bigger)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_ffn_grid_rows_hold_every_tile(seed):
+    """Random group sizes (empty groups, sum below M): the row tiles never
+    outnumber the grid's row blocks."""
+    rng = np.random.default_rng(seed)
+    for bm in ff.ROW_TILES:
+        sizes = rng.integers(0, 3 * bm, size=E)
+        sizes[rng.random(E) < 0.3] = 0
+        M = int(sizes.sum()) + int(rng.integers(0, 2 * bm))
+        assert len(row_tiles(sizes.tolist(), M, bm)) <= grid_rows(M, bm)
+
+
+def _ffn_w(K, H, N, dtype, E_=4):
+    return (torch.zeros(E_, K, H, dtype=dtype),), torch.zeros(E_, H, N, dtype=dtype)
+
+
+@pytest.mark.parametrize("K,H,N,dtype,gated,expected", [
+    (1024, 2048, 1024, torch.bfloat16, False, "ring"),
+    (1024, 2048, 1024, torch.bfloat16, True, "ring"),
+    (48, 200, 72, torch.bfloat16, False, "ring"),   # multiples of 8, tails
+    (36, 128, 64, torch.bfloat16, False, "simple"),  # K not a multiple of 8
+    (64, 100, 64, torch.bfloat16, False, "simple"),  # H not a multiple of 8
+    (64, 128, 20, torch.bfloat16, False, "simple"),  # N not a multiple of 8
+    (1024, 2048, 1024, torch.float32, False, "simple"),  # f32: the FMA kernel
+])
+def test_ffn_route_dtype_and_shape(K, H, N, dtype, gated, expected):
+    x = torch.zeros(16, K, dtype=dtype)
+    ws, wo = _ffn_w(K, H, N, dtype)
+    if gated:
+        ws = ws * 2
+    assert ff.route(x, ws, wo) == expected
+
+
+@pytest.mark.parametrize("which", ["x", "wi", "wo"])
+def test_ffn_route_misaligned_operand_takes_the_simple_kernel(which):
+    """A view that starts 2 bytes into a buffer cannot feed 16-byte copies."""
+    K, H, N = 64, 128, 64
+    ws, wo = _ffn_w(K, H, N, torch.bfloat16)
+    x = torch.zeros(16, K, dtype=torch.bfloat16)
+    buf = torch.zeros(4 * K * H + 8, dtype=torch.bfloat16)[1:]
+    if which == "x":
+        x = buf[:16 * K].view(16, K)
+    elif which == "wi":
+        ws = (buf[:4 * K * H].view(4, K, H),)
+    else:
+        wo = buf[:4 * H * N].view(4, H, N)
+    assert ff.route(x, ws, wo) == "simple"
+
+
+# ---------------------------------------------------------------------------
+# flash forward: tiles and shared memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,bq", [
+    ((8, 128, 16, 64), 64),     # fastmoe-gpt prefill: 128 blocks of 128 rows
+    ((8, 256, 16, 64), 64),     # fastmoe-gpt training: 256
+    ((2, 8192, 12, 128), 128),  # one starcoder2 kv group
+    ((2, 8192, 48, 128), 128),  # a starcoder2 layer
+    ((1, 1, 4, 128), 64),       # one decode-like row
+])
+def test_flash_fwd_config_model_shapes(shape, bq):
+    cfg = fa.fwd_config(*shape)
+    assert cfg.bq == bq and cfg.bk == bq
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("Sq", [1, 333, 4096, 1 << 16])
+def test_flash_fwd_config_shared_memory(d, Sq):
+    """Every tile choice fits a block's 232,448 bytes of dynamic shared
+    memory, and two consumer warpgroups come only with four blocks an SM."""
+    cfg = fa.fwd_config(2, Sq, 16, d)
+    assert cfg.smem <= fa.SMEM_LIMIT
+    assert cfg.smem >= cfg.bq * d * 2 + 2 * cfg.stages * cfg.bk * d * 2
+    assert cfg.stages >= 2 and cfg.bq in (64, 128)
+    assert (cfg.bq == 128) == (2 * 16 * math.ceil(Sq / 128) >= 4 * _build.SMS)

@@ -6,9 +6,11 @@
 1. builds the CUDA kernels from src/repro_torch/csrc into build/ and
    prints each kernel's registers and spills from -Xptxas -v, failing if
    a kernel redesigned for registers (the grouped GEMM's and the fused
-   FFN's ring kernels, the bf16 flash forward and backward) spills, and
-   the dynamic shared memory the fused FFN's ring kernel and the bf16
-   flash forward ask for at each of their tile choices;
+   FFN's ring kernels, the fused FFN backward's dX and dW ring kernels,
+   the bf16 flash forward and backward) spills, and the dynamic shared
+   memory the fused FFN's and its backward's ring kernels and the bf16
+   flash forward ask for at each of their tile choices (the backward's and
+   the flash forward's held equal to the host's mirrors);
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes (d 1024, H 2048, 96 experts; gelu, plus swiglu) in bf16
    and f32, with ragged group sizes, empty groups and sum(group_sizes) < M,
@@ -23,29 +25,41 @@
    a seed) greedily: 8 prompts x 128 tokens of prefill, then 32 decode
    steps, for impl in {fused, pallas} x dispatch in {ragged, capacity}, with
    the launch counters set to 0 just before and read just after, failing
-   if the simple grouped GEMM or the simple fused FFN (f32 and unaligned
-   shapes) ran at a model shape (also on the training paths);
+   if the simple grouped GEMM, the simple fused FFN or the first-version
+   backward kernels (f32 and unaligned shapes) ran at a model shape (also
+   on the training paths);
 5. holds each combination's prefill and first-decode logits against the
    plain einsum experts and plain attention on the same dispatch;
 6. holds the fused FFN's backward kernels (dX, grouped dW) against their
    plain versions at the training shapes (2048 tokens top-2: 4096 ragged
    rows, or 96 x 56 capacity rows), with an empty group, rows past
-   sum(group_sizes) and a hidden tail, and times them beside their bounds,
-   with the fused FFN forward (events and device time, and the unfused
-   reference) and the grouped GEMM (forward, and dX reading w transposed)
-   on the same rows;
+   sum(group_sizes), a hidden tail, swiglu and a skewed routing (one
+   expert over the dW kernel's 64-row batch) — bf16 on the ring kernels,
+   f32 on the first versions, as the launch counters must show, and the
+   first versions in bf16 too, called directly — and times them beside
+   their bounds by events and device time, with the first versions on the
+   same inputs (also at the skewed routing), an unfused reference by
+   PyTorch calls
+   (torch._grouped_mm), the fused FFN forward (events and device time,
+   and its unfused reference) and the grouped GEMM (forward, and dX
+   reading w transposed) on the same rows;
 7. trains the reduced f32 model 3 steps through the kernels on the card
    against the CPU plain path (per-step loss and per-leaf gradients);
 8. trains full-width fastmoe-gpt cut to 10 layers (f32 masters, bf16
    compute, AdamW) from seed 0 on SyntheticLM batches of 8 x 256 tokens,
    for fused/capacity, fused/ragged and pallas/ragged, with the launch
    counters set to 0 just before and read just after, printing step time,
-   tokens/s, the forward/backward/optimizer split and peak memory;
+   tokens/s, the forward/backward/optimizer split and peak memory; then
+   times the backward kernels (ring and first version) at the group sizes
+   of each layer of fused/ragged's profiled step (the model's own routing),
+   holding them against their plain versions at its most skewed layer;
 9. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
    on plain attention);
 10. holds the flash-attention kernels (forward; backward dq, dk, dv — the
-   bf16 backward twice, as its dq sums by atomic adds in no fixed order)
+   bf16 backward twice, bit-equal over the runs where its dQ has a slot
+   per kv tile, at the fastmoe-gpt shapes, and each run to the tolerance
+   where it adds by atomics, at the starcoder2 kv group)
    against their plain versions in bf16 and f32 at the fastmoe-gpt prefill
    (8 x 128) and training (8 x 256) shapes, one starcoder2-15b kv group
    (2 x 8192, 12 heads over 1, window 4096), window 1 and sequences that
@@ -402,6 +416,49 @@ def unfused_ffn(label, x, wi, wo, offs, flush):
           f"L2 warm) {device_ms(run):.4f} ms", flush=True)
 
 
+def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush):
+    """A reference line, not the library column: the fastmoe-gpt FFN's
+    backward by PyTorch calls, each half recomputing what it needs as the
+    fused kernels do, the (M, H) hidden in device memory.  dX: g = x wi and
+    dh = dy wo^T (torch._grouped_mm), dg = gelu'(g) dh, dX = dg wi^T.  dW:
+    g, dh, dg and h = gelu(g) likewise, then dwi = x^T dg and dwo = h^T dy
+    by torch._grouped_mm with the offsets on the contracted rows, where this
+    PyTorch takes them (else the line says so).  Events and device time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print(f"reference {label}: torch._grouped_mm is not in this PyTorch")
+        return
+    wo_t, wi_t = wo.transpose(1, 2), wi.transpose(1, 2)
+
+    def grads():
+        g = fn(x, wi, offs=offs)
+        dh = fn(dy, wo_t, offs=offs)
+        dg, _ = fb.act_vjp(g.float(), None, dh.float(), "gelu")
+        return g, dg.to(x.dtype)
+
+    def dx_run():
+        return fn(grads()[1], wi_t, offs=offs)
+
+    def dw_run():
+        g, dg = grads()
+        h = F.gelu(g.float(), approximate="tanh").to(x.dtype)
+        return fn(x.t(), dg, offs=offs), fn(h.t(), dy, offs=offs)
+    parts = []
+    for what, run in (("dX", dx_run), ("dW", dw_run)):
+        try:
+            run()
+        except RuntimeError as exc:
+            parts.append(f"{what} not timed: {exc}"[:200])
+            continue
+        parts.append(f"{what} {time_ms(run, flush):.4f} ms, device (profiler, "
+                     f"L2 warm) {device_ms(run):.4f} ms")
+    print(f"reference {label}: unfused backward (torch._grouped_mm, GELU', "
+          f"torch._grouped_mm): " + "; ".join(parts), flush=True)
+
+
 # ---------------------------------------------------------------------------
 # flash attention against its plain version
 # ---------------------------------------------------------------------------
@@ -557,11 +614,28 @@ def flash_phase(dev, flush):
                     for _ in range(2))
             kw = dict(window=window)
             o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-            # bf16 runs twice: its dq is summed by atomic adds in an order
-            # that changes from run to run, and each run must pass
+            # bf16 runs twice: where its dQ scratch has a slot per kv tile
+            # (the fastmoe-gpt shapes) the two runs must be equal bit for
+            # bit; where the kv tiles add into one scratch by atomics (a
+            # starcoder2 kv group: its slots would exceed the budget) the
+            # order of the adds changes from run to run, and each run must
+            # pass on its own
             runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
                     for _ in range(2 if dtype == torch.bfloat16 else 1)]
             torch.cuda.synchronize()
+            slots = fa.dq_slots(q, S) if dtype == torch.bfloat16 else 0
+            if slots:
+                for gname, a, b in zip(("dq", "dk", "dv"), *runs):
+                    check(torch.equal(a, b), f"flash_attention_bwd {name}: "
+                                             f"{gname} differs between two runs")
+            if dtype == torch.bfloat16:
+                print(f"flash backward {name} bf16: dq " + (
+                    f"bit-equal over two runs ({slots} per-kv-tile slots)"
+                    if slots else
+                    f"by atomic adds (slots would exceed "
+                    f"{fa.DQ_SLOT_BUDGET >> 20} MiB), max |run 0 - run 1| "
+                    f"{(runs[0][0].float() - runs[1][0].float()).abs().max().item():.3e}"),
+                      flush=True)
             ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
             e1 = close(f"flash_attention_fwd {name} {dn}", o, ro, tol)
             fro = {"o": frobenius(f"flash_attention_fwd {name} {dn}", o, ro,
@@ -704,6 +778,10 @@ def small_reference(dev):
 
 SERVE_KERNELS = ("grouped_gemm", "gather_rows", "combine_topk", "fused_ffn",
                  "flash_attention_fwd")
+# the first versions, for f32 and shapes the ring kernels do not take: no
+# model path may run them
+SIMPLE_KERNELS = ("grouped_gemm_simple", "fused_ffn_simple",
+                  "fused_ffn_bwd_dx_simple", "fused_ffn_bwd_dw_simple")
 
 
 def counters():
@@ -718,7 +796,9 @@ def counters():
             "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
             "fused_ffn_simple": ff.fused_ffn_simple,
             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
+            "fused_ffn_bwd_dx_simple": fb.fused_ffn_bwd_dx_simple,
             "fused_ffn_bwd_dw": fb.fused_ffn_bwd_dw,
+            "fused_ffn_bwd_dw_simple": fb.fused_ffn_bwd_dw_simple,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd}
 
@@ -765,7 +845,7 @@ def serve_phase(dev):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the serving path")
-    for simple in ("grouped_gemm_simple", "fused_ffn_simple"):
+    for simple in SIMPLE_KERNELS:
         check(launches[simple] == 0,
               f"the serving path ran {simple} at a model shape")
 
@@ -894,15 +974,74 @@ def _to(tree, where):
     return tree.detach().to(where).clone()
 
 
+def skewed_sizes(gs):
+    """The ragged group sizes with 256 rows moved to expert 7 (~300 rows:
+    five of the dW ring kernel's 64-row batches, so the later four read
+    back and add to the first's output), taken one at a time from experts
+    8.. in turn; the sum is kept."""
+    import torch
+    sizes = gs.tolist()
+    sizes[7] += 256
+    i, left = 8, 256
+    while left:
+        if sizes[i] > 1:
+            sizes[i] -= 1
+            left -= 1
+        i = 8 + (i - 7) % (len(sizes) - 8)
+    return torch.tensor(sizes, dtype=torch.int32, device=gs.device)
+
+
+def bwd_counts():
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    return tuple(f.launches for f in (fb.fused_ffn_bwd_dx, fb.fused_ffn_bwd_dx_simple,
+                                      fb.fused_ffn_bwd_dw, fb.fused_ffn_bwd_dw_simple))
+
+
+def bwd_routing_times(label, x, ws, wo, dy, gs, flush):
+    """The backward's ring kernels (dX, dW) and their first versions at one
+    routing (bf16, gelu): ms by events, and the ring kernels' device time.
+    dW's blocks each own (expert, hidden chunk) and walk the expert's rows
+    in DW_ROWS-row batches, so its time follows the largest expert."""
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    args = (x, ws, wo, dy, gs, "gelu")
+    runs = {"dx": lambda: fb.fused_ffn_bwd_dx(*args),
+            "dw": lambda: fb.fused_ffn_bwd_dw(*args),
+            "dx_first": lambda: fb.fused_ffn_bwd_dx_simple(*args),
+            "dw_first": lambda: fb.fused_ffn_bwd_dw_simple(*args)}
+    t = {k: time_ms(fn, flush) for k, fn in runs.items()}
+    t.update(dx_device=device_ms(runs["dx"]), dw_device=device_ms(runs["dw"]))
+    sizes = gs.tolist()
+    # each dW batch after an expert's first reads back and rewrites the f32
+    # (DW_CHUNK x K) dwi and (DW_CHUNK x N) dwo slices of its hidden chunks
+    later = sum(max(math.ceil(v / fb.DW_ROWS) - 1, 0) for v in sizes)
+    readback = later * math.ceil(ws[0].shape[2] / fb.DW_CHUNK) * fb.DW_CHUNK \
+        * (x.shape[1] + dy.shape[1]) * 4 * 2
+    t["dw_readback_bytes"] = readback
+    print(f"routing {label}: {sum(v > 0 for v in sizes)} experts with rows, "
+          f"largest {max(sizes)} rows, {sum(v > fb.DW_ROWS for v in sizes)} over "
+          f"one {fb.DW_ROWS}-row dW batch, {later} later batches (f32 read back "
+          f"and rewritten: {readback / 1e9:.3f} GB, "
+          f"{readback / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate): "
+          f"dX {t['dx']:.4f} ms (device "
+          f"{t['dx_device']:.4f}), dW {t['dw']:.4f} ms (device "
+          f"{t['dw_device']:.4f}); first versions dX {t['dx_first']:.4f} ms, "
+          f"dW {t['dw_first']:.4f} ms", flush=True)
+    return t
+
+
 def bwd_kernel_phase(dev, flush):
-    """fused_ffn_bwd_dx / _dw against their plain versions in bf16 and f32
-    at the training shapes; bf16 timed beside its bound, with the fused FFN
+    """fused_ffn_bwd_dx / _dw against their plain versions in bf16 (the
+    ring kernels, as the launch counters show) and f32 (the first versions)
+    at the training shapes; bf16 timed beside its bound by events and by
+    device time, with the first versions (the simple route) and an unfused
+    reference by PyTorch calls on the same inputs, and with the fused FFN
     forward and the grouped GEMM's forward and dX (w^T) on the same rows
     (checked against their plain versions, timed beside their bounds and
     torch._grouped_mm).  Ragged: 2044 tokens' top-2 over experts 6..95
     (4088 of 4096 rows, 6 empty experts); capacity: 96 x C = 56 rows, each
     expert's slots past its load zero; tail: the ragged rows with H = 2000
-    (a 80-wide last hidden tile)."""
+    (a 80-wide last hidden tile); skewed: the ragged rows with expert 7
+    over five of the dW kernel's 64-row batches (bf16, gelu)."""
     import torch
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_ffn_bwd as fb
@@ -919,7 +1058,8 @@ def bwd_kernel_phase(dev, flush):
     load_c = torch.bincount(routed(2048, 2, 0, dev).flatten(), minlength=E)
     gs_c = torch.full((E,), cap, dtype=torch.int32, device=dev)
     shapes = {"ragged": (4096, gs_r, None), "capacity": (E * cap, gs_c,
-                                                          load_c.clamp(max=cap))}
+                                                          load_c.clamp(max=cap)),
+              "skewed": (4096, skewed_sizes(gs_r), None)}
     errs, timed = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -929,7 +1069,8 @@ def bwd_kernel_phase(dev, flush):
             wu = randn(E, D, hid, scale=D ** -0.5, dtype=dtype)
             wo = randn(E, hid, D, scale=hid ** -0.5, dtype=dtype)
             for shape, (M, gs, fill) in shapes.items():
-                if hid != H and shape != "ragged":
+                if (hid != H and shape != "ragged") or (
+                        shape == "skewed" and (hid != H or dtype != torch.bfloat16)):
                     continue
                 name = shape if hid == H else "tail"
                 n, used = int(gs.sum()), int((gs > 0).sum())
@@ -944,50 +1085,79 @@ def bwd_kernel_phase(dev, flush):
                     if shape == "ragged" else (("gelu", (wi,)),)
                 for act, ws in acts:
                     tag = f"{name} {act} {dn}"
-                    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
-                    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
-                    torch.cuda.synchronize()
-                    e1 = close(f"fused_ffn_bwd_dx {tag}", dx,
-                               fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
-                               tol)
-                    check(not dx[n:].any(), f"fused_ffn_bwd_dx {tag}: rows past "
-                                            f"sum(group_sizes) are not zero")
+                    rdx = fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act)
                     rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act)
-                    e2 = 0.0
-                    for a, b in zip((*dws, dwo), (*rws, rwo)):
-                        e2 = max(e2, close(f"fused_ffn_bwd_dw {tag}", a, b,
-                                           DW_TOL[dn]))
-                        fro = ((a - b).norm() / b.norm()).item()
-                        check(fro <= DW_FRO, f"fused_ffn_bwd_dw {tag}: relative "
-                                             f"Frobenius error {fro:.2e}")
-                    empty = gs == 0
-                    check(not dwo[empty].any() and not dws[0][empty].any(),
-                          f"fused_ffn_bwd_dw {tag}: empty experts not zero")
-                    errs[("fused_ffn_bwd_dx", dn, name, act)] = e1
-                    errs[("fused_ffn_bwd_dw", dn, name, act)] = e2
-                    del dx, dws, dwo, rws, rwo
-                if dtype != torch.bfloat16 or name == "tail":
+                    # the wrappers (bf16: the ring kernels; f32: the first
+                    # versions), then in bf16 the first versions called
+                    # directly, each held against the same plain version
+                    ring = dtype == torch.bfloat16
+                    runs = [("", fb.fused_ffn_bwd_dx, fb.fused_ffn_bwd_dw, ring)]
+                    if ring:
+                        runs.append(("_simple", fb.fused_ffn_bwd_dx_simple,
+                                     fb.fused_ffn_bwd_dw_simple, False))
+                    for suffix, fdx, fdw, on_ring in runs:
+                        kdx, kdw = f"fused_ffn_bwd_dx{suffix}", f"fused_ffn_bwd_dw{suffix}"
+                        before = bwd_counts()
+                        dx = fdx(x, ws, wo, dy, gs, act)
+                        dws, dwo = fdw(x, ws, wo, dy, gs, act)
+                        torch.cuda.synchronize()
+                        check(bwd_counts() == (before[0] + 1, before[1] + (not on_ring),
+                                               before[2] + 1, before[3] + (not on_ring)),
+                              f"{kdx} / {kdw} {tag}: expected the "
+                              f"{'ring' if on_ring else 'simple'} kernels "
+                              f"(launches {before} -> {bwd_counts()})")
+                        e1 = close(f"{kdx} {tag}", dx, rdx, tol)
+                        check(not dx[n:].any(), f"{kdx} {tag}: rows past "
+                                                f"sum(group_sizes) are not zero")
+                        e2 = 0.0
+                        for a, b in zip((*dws, dwo), (*rws, rwo)):
+                            e2 = max(e2, close(f"{kdw} {tag}", a, b, DW_TOL[dn]))
+                            fro = ((a - b).norm() / b.norm()).item()
+                            check(fro <= DW_FRO, f"{kdw} {tag}: relative "
+                                                 f"Frobenius error {fro:.2e}")
+                        empty = gs == 0
+                        check(not dwo[empty].any() and not dws[0][empty].any(),
+                              f"{kdw} {tag}: empty experts not zero")
+                        errs[(kdx, dn, name, act)] = e1
+                        errs[(kdw, dn, name, act)] = e2
+                        del dx, dws, dwo
+                    del rdx, rws, rwo
+                if name == "skewed":  # the ring kernels where dW adds batches
+                    timed[("fused_ffn_bwd", name)] = bwd_routing_times(
+                        name, x, (wi,), wo, dy, gs, flush)
+                if dtype != torch.bfloat16 or name in ("tail", "skewed"):
                     continue
                 # bf16, gelu (the model's act), timed beside its bound: each
                 # input read once (the weights of the experts with rows), each
                 # output written once (dW: all experts' f32 dwi and dwo); the
-                # fused FFN forward on the same rows beside them
+                # first versions (the simple route) and the fused FFN forward
+                # on the same rows beside them
                 ws, b = (wi,), 2
                 wbytes = used * 2 * D * hid * b
+                p = fb.plan_bwd(M, E, hid)
+                print(f"plan_bwd {name}: dX row tile {p.bm}, {fb.DX_CHUNK} hidden "
+                      f"columns a block, {p.splits} splits (f32 partials "
+                      f"{2 * p.splits * M * D * 4 / 1e6:.1f} MB written and read "
+                      f"back), shared memory {fb.dx_smem(p.bm, False)} B; "
+                      f"dW {fb.DW_CHUNK} hidden columns a block, {fb.DW_ROWS} "
+                      f"rows a batch, shared memory {fb.dw_smem(False)} B",
+                      flush=True)
                 cases = {
                     "fused_ffn_bwd_dx": (
                         lambda: fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "gelu"),
                         lambda: fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "gelu"),
-                        b * 3 * M * D + wbytes + 4 * E, 6 * n * D * hid),
+                        b * 3 * M * D + wbytes + 4 * E, 6 * n * D * hid,
+                        lambda: fb.fused_ffn_bwd_dx_simple(x, ws, wo, dy, gs, "gelu")),
                     "fused_ffn_bwd_dw": (
                         lambda: fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "gelu"),
                         lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu"),
                         b * 2 * M * D + wbytes + 4 * 2 * E * D * hid + 4 * E,
-                        8 * n * D * hid),
+                        8 * n * D * hid,
+                        lambda: fb.fused_ffn_bwd_dw_simple(x, ws, wo, dy, gs, "gelu")),
                     "fused_ffn": (
                         lambda: ff.fused_ffn(x, ws, wo, gs, "gelu"),
                         lambda: ff.fused_ffn_plain(x, ws, wo, gs, "gelu"),
-                        b * 2 * M * D + wbytes + 4 * E, 4 * n * D * hid),
+                        b * 2 * M * D + wbytes + 4 * E, 4 * n * D * hid, None),
                 }
                 got = ff.fused_ffn(x, ws, wo, gs, "gelu")
                 torch.cuda.synchronize()
@@ -995,22 +1165,28 @@ def bwd_kernel_phase(dev, flush):
                     f"fused_ffn {name} gelu {dn}", got,
                     ff.fused_ffn_plain(x, ws, wo, gs, "gelu"), tol)
                 del got
-                for kname, (kern, plain, nbytes, flops) in cases.items():
+                for kname, (kern, plain, nbytes, flops, simple) in cases.items():
                     ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 5)
+                    dev_ms = device_ms(kern)
                     b_ms, b_by = bound(nbytes, flops, "bfloat16")
                     timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
                                                 bound_ms=b_ms, bound_by=b_by,
-                                                library_ms=None)
-                    on_device = ""
-                    if kname == "fused_ffn":
-                        on_device = (f"; device (profiler, L2 warm) "
-                                     f"{device_ms(kern):.4f} ms")
+                                                library_ms=None, device_ms=dev_ms)
+                    first = ""
+                    if simple is not None:  # the first version, same inputs
+                        timed[(kname, name)].update(
+                            first_version_ms=time_ms(simple, flush),
+                            first_version_device_ms=device_ms(simple))
+                        first = (f"; first version {timed[(kname, name)]['first_version_ms']:.4f}"
+                                 f" ms, device {timed[(kname, name)]['first_version_device_ms']:.4f} ms")
                     print(f"kernel {kname} {name:8s} bf16: {ms:.4f} ms  bound "
                           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
                           f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  "
-                          f"library n/a{on_device}", flush=True)
-                unfused_ffn(f"fused_ffn {name}", x, wi, wo,
-                            torch.cumsum(gs, 0).to(torch.int32), flush)
+                          f"library n/a; device (profiler, L2 warm) {dev_ms:.4f} ms"
+                          f"{first}", flush=True)
+                offs = torch.cumsum(gs, 0).to(torch.int32)
+                unfused_ffn(f"fused_ffn {name}", x, wi, wo, offs, flush)
+                unfused_ffn_bwd(f"fused_ffn_bwd {name}", x, wi, wo, dy, offs, flush)
                 # the pallas path on the same rows: forward x @ wi and dX =
                 # dy @ wi^T on the grouped GEMM (w read transposed in place),
                 # beside torch._grouped_mm (given wi.transpose(1, 2) for dX);
@@ -1052,7 +1228,11 @@ def bwd_kernel_phase(dev, flush):
                       flush=True)
                 del gx
             del wi, wu, wo
-    print(f"backward kernel checks passed: {len(errs)} cases (dX: bf16 tol "
+    print(f"backward kernel checks passed: {len(errs)} cases (bf16 first "
+          f"versions: max |err| dX "
+          f"{max(v for k, v in errs.items() if k[0] == 'fused_ffn_bwd_dx_simple'):.3e}, "
+          f"dW {max(v for k, v in errs.items() if k[0] == 'fused_ffn_bwd_dw_simple'):.3e}; "
+          f"dX: bf16 tol "
           f"{KERNEL_TOL['bfloat16']}, f32 tol {KERNEL_TOL['float32']}; dW: "
           f"bf16 tol {DW_TOL['bfloat16']} and relative Frobenius <= {DW_FRO}, "
           f"f32 tol {DW_TOL['float32']})", flush=True)
@@ -1145,6 +1325,7 @@ def train_phase(dev):
     base = dataclasses.replace(get_config("fastmoe-gpt"), num_layers=TRAIN_LAYERS)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
     results = {}
+    routing: list = []  # fused/ragged's profiled step: each layer's group sizes
     for fn in counters().values():
         fn.launches = 0
     for impl, dispatch in TRAIN_COMBOS:
@@ -1204,26 +1385,29 @@ def train_phase(dev):
         for name in needed:
             check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
-        for simple in ("grouped_gemm_simple", "fused_ffn_simple"):
+        for simple in SIMPLE_KERNELS:
             check(launches[simple] == 0, f"train {impl}/{dispatch}: {simple} "
                                          f"ran at a model shape")
         profile_train_step(f"{impl}/{dispatch}", step_fn, params, state,
-                           data, dev)
+                           data, dev, routing if (impl, dispatch) ==
+                           ("fused", "ragged") else None)
         del params, state, step_fn
     launches = {k: fn.launches for k, fn in counters().items()}
     print(f"main path launches (training): {json.dumps(launches)}", flush=True)
     torch.cuda.empty_cache()
-    return launches, results
+    return launches, results, routing[:TRAIN_LAYERS]
 
 
-def profile_train_step(label, step_fn, params, state, data, dev):
+def profile_train_step(label, step_fn, params, state, data, dev, routing=None):
     """One train step under torch.profiler: wall time, summed kernel time
-    (the device's busy share), kernel launches and the top kernels."""
+    (the device's busy share), kernel launches and the top kernels; with a
+    ``routing`` list, each fused FFN call's group sizes are put in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    tap = contextlib.nullcontext() if routing is None else group_sizes_tap(routing)
+    with tap, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(params, state, batch, TRAIN_WARM + TRAIN_STEPS)
         torch.cuda.synchronize()
@@ -1235,10 +1419,82 @@ def profile_train_step(label, step_fn, params, state, data, dev):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ffn_bwd = {k: sum(t for n, t in by_name.items() if f"fused_ffn_bwd_{k}" in n)
+               for k in ("dx", "dw")}
     print(f"profile train step {label} (profiler on): wall {wall * 1e3:.1f} ms, kernels "
           f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
-          f"{len(kernels)} kernel launches; top: "
+          f"{len(kernels)} kernel launches; fused FFN backward dX "
+          f"{ffn_bwd['dx']:.2f} ms, dW {ffn_bwd['dw']:.2f} ms; top: "
           + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
+
+
+@contextlib.contextmanager
+def group_sizes_tap(out: list):
+    """While open, records the group sizes of every fused FFN call
+    (ops.fused_grouped_ffn, which the MoE layer calls through its module)
+    and passes the call on unchanged: it keeps the tensor the layer made,
+    so it adds no work on the device."""
+    from repro_torch.kernels import ops
+    orig = ops.fused_grouped_ffn
+
+    def tap(x, ws, wo, group_sizes, act="swiglu"):
+        out.append(group_sizes.detach())
+        return orig(x, ws, wo, group_sizes, act)
+    ops.fused_grouped_ffn = tap
+    try:
+        yield
+    finally:
+        ops.fused_grouped_ffn = orig
+
+
+def model_routing_phase(dev, sizes):
+    """The backward kernels at the model's own routing: the group sizes of
+    each layer of fused/ragged's profiled train step (random bf16 inputs at
+    full width, gelu; the kernels' time depends on the sizes, not the
+    values).  Holds both ring kernels against their plain versions at the
+    layer with the largest expert (where dW adds the most batches), then
+    times ring and first version at every layer; returns the medians over
+    the layers (the sums over them read against the profile's)."""
+    import torch
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+    M = int(sizes[0].sum())
+    check(all(int(gs.sum()) == M for gs in sizes), "model routing: rows differ")
+    ws, wo = (randn(E, D, H, scale=D ** -0.5),), randn(E, H, D, scale=H ** -0.5)
+    x, dy = randn(M, D), randn(M, D)
+    worst = max(range(len(sizes)), key=lambda i: int(sizes[i].max()))
+    gs = sizes[worst]
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "gelu")
+    close(f"fused_ffn_bwd_dx model routing layer {worst}", dx,
+          fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "gelu"), KERNEL_TOL["bfloat16"])
+    del dx
+    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "gelu")
+    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu")
+    for a, b in zip((*dws, dwo), (*rws, rwo)):
+        close(f"fused_ffn_bwd_dw model routing layer {worst}", a, b, DW_TOL["bfloat16"])
+        fro = ((a - b).norm() / b.norm()).item()
+        check(fro <= DW_FRO, f"fused_ffn_bwd_dw model routing layer {worst}: "
+                             f"relative Frobenius error {fro:.2e}")
+    del dws, dwo, rws, rwo
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    per_layer = [bwd_routing_times(f"model layer {i}", x, ws, wo, dy, gs_, flush)
+                 for i, gs_ in enumerate(sizes)]
+    med = {k: statistics.median(t[k] for t in per_layer) for k in per_layer[0]}
+    total = sum(t["dw_device"] for t in per_layer)
+    print(f"model routing (fused/ragged profiled step, {len(sizes)} layers, {M} rows; "
+          f"held to the plain versions at layer {worst}), median a layer: dX "
+          f"{med['dx']:.4f} ms (device {med['dx_device']:.4f}), dW {med['dw']:.4f} "
+          f"ms (device {med['dw_device']:.4f}; its f32 read-back "
+          f"{med['dw_readback_bytes'] / 1e9:.3f} GB); first versions dX "
+          f"{med['dx_first']:.4f}, dW {med['dw_first']:.4f} ms; dW device summed over "
+          f"the layers {total:.2f} ms (the step profile's line above reads the "
+          f"same launches in the step)", flush=True)
+    del flush, x, dy, ws, wo
+    torch.cuda.empty_cache()
+    return med
 
 
 def grad_oracle_phase(dev):
@@ -1459,17 +1715,35 @@ def rel_err(a, b):
 
 # the kernels redesigned for registers: ptxas must report no spills
 NO_SPILL = ("grouped_gemm_mma_kernel", "flash_bwd_mma_kernel",
-            "fused_ffn_ring_kernel", "flash_fwd_wgmma_kernel")
+            "fused_ffn_ring_kernel", "flash_fwd_wgmma_kernel",
+            "fused_ffn_bwd_dx_ring_kernel", "fused_ffn_bwd_dw_ring_kernel")
 
 
 def dynamic_smem_report() -> None:
-    """The dynamic shared memory the fused FFN's ring kernel and the bf16
-    flash forward ask for at each tile choice (set at launch, so not in
-    the ptxas lines), each within a block's 232,448 bytes; the flash
-    forward's equal to the host's mirror (fwd_config)."""
+    """The dynamic shared memory the fused FFN's ring kernel, its
+    backward's ring kernels and the bf16 flash forward ask for at each tile
+    choice (set at launch, so not in the ptxas lines), each within a
+    block's 232,448 bytes; the backward's and the flash forward's equal to
+    the host's mirrors (dx_smem, dw_smem, fwd_config)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    lib = _build.load("fused_ffn_bwd", fb._SIGS)
+    bwd = {}
+    for g in (0, 1):
+        for bm in ff.ROW_TILES:
+            bwd[("dx", bm, g)] = (lib.fused_ffn_bwd_smem(0, bm, g),
+                                  fb.dx_smem(bm, bool(g)))
+        bwd[("dw", g)] = (lib.fused_ffn_bwd_smem(1, 0, g), fb.dw_smem(bool(g)))
+    check(all(k == h and 0 < k <= fa.SMEM_LIMIT for k, h in bwd.values()),
+          f"fused FFN backward shared memory (kernel, host mirror): {bwd}")
+    print("  dynamic shared memory (bytes): fused_ffn_bwd_dx_ring_kernel (bm, "
+          "gated) " + ", ".join(f"{k[1:]}: {v[0]}" for k, v in bwd.items()
+                                    if k[0] == "dx")
+          + "; fused_ffn_bwd_dw_ring_kernel (gated) "
+          + ", ".join(f"{k[1:]}: {v[0]}" for k, v in bwd.items() if k[0] == "dw"),
+          flush=True)
     lib = _build.load("fused_ffn", ff._SIGS)
     sizes = {(bm, hc, g): lib.fused_ffn_smem(bm, hc, g) for bm in ff.ROW_TILES
              for hc in ff.HIDDEN_CHUNKS for g in (0, 1)
@@ -1559,7 +1833,8 @@ def main() -> int:
     small_reference_train(dev)
     launches = serve_phase(dev)
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
-    train_launches, _ = train_phase(dev)
+    train_launches, _, routing = train_phase(dev)
+    routing_ms = model_routing_phase(dev, routing)
     grad_oracle_phase(dev)
     starcoder2_logits_phase(dev)
     sc2_launches = starcoder2_serve_phase(dev)
@@ -1590,6 +1865,7 @@ def main() -> int:
             "shape": "decode, batch 8, bf16"})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
+        kind = name[-2:]
         t = bwd_timed[(name, "ragged")]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1598,6 +1874,12 @@ def main() -> int:
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "first_version_ms": t["first_version_ms"],
+            "first_version_max_abs_err": bwd_errs[(name + "_simple", "bfloat16",
+                                                   "ragged", "gelu")],
+            "skewed_ms": bwd_timed[("fused_ffn_bwd", "skewed")][kind],
+            "model_routing_ms": routing_ms[kind],
+            "model_routing_first_version_ms": routing_ms[kind + "_first"],
             "shape": "train, 2048 tokens top-2 = 4096 ragged rows, bf16"})
     for name, rep in (("flash_attention_fwd", "src/repro/kernels/flash_attention.py:73"),
                       ("flash_attention_bwd", "src/repro/models/attention.py:67")):

@@ -1,7 +1,7 @@
 // Shared helpers of the repro_torch kernels: dtype conversion, the
 // tile -> group search of the grouped products, vectorized tile loads, the
-// activations, and the bf16 tensor-core (mma.sync, ldmatrix) and cp.async
-// helpers.
+// activations, the bf16 tensor-core (mma.sync, ldmatrix) and cp.async
+// helpers, and the split reduction of the fused FFN's ring kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -280,6 +280,50 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most N committed groups of this thread are in flight.
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// the split reduction of the ring kernels
+// ---------------------------------------------------------------------------
+
+// y = bf16(sum over splits of partial), four columns a thread, splits in
+// order (deterministic); rows >= sum(group_sizes) are zero.  N % 4 == 0.
+static __global__ void __launch_bounds__(256)
+reduce_partials_kernel(const float4* __restrict__ partial,
+                       const int* __restrict__ group_sizes, bf16* __restrict__ y,
+                       int M, int N, int E, int splits) {
+  __shared__ int total;
+  if (threadIdx.x < 32) {
+    int t = 0;
+    for (int e = threadIdx.x; e < E; e += 32) t += group_sizes[e];
+#pragma unroll
+    for (int d = 16; d; d >>= 1) t += __shfl_xor_sync(kFullMask, t, d);
+    if (threadIdx.x == 0) total = t;
+  }
+  __syncthreads();
+  const long long n4 = (long long)M * N / 4;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i * 4 / N < total)
+      for (int p = 0; p < splits; ++p) {
+        const float4 v = partial[(long long)p * n4 + i];
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+    *reinterpret_cast<uint2*>(y + i * 4) =
+        make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+  }
+}
+
+// Launches reduce_partials_kernel over partial (splits, M, N) f32 into y
+// (M, N); returns cudaGetLastError().
+inline int launch_reduce_partials(const float* partial, const int* group_sizes,
+                                  bf16* y, int M, int N, int E, int splits,
+                                  cudaStream_t st) {
+  const long long n4 = (long long)M * N / 4, blocks = (n4 + 255) / 256;
+  reduce_partials_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(partial), group_sizes, y, M, N, E, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_EXPORT_ERROR_STRING                                  \

@@ -44,10 +44,14 @@
 //   fragments (the forward's identity), so no S, dP, P or dK/dV tile goes
 //   through shared memory;
 //   dQ += dS K: dS (bf16) is written once to shared memory, and each warp
-//   adds its (16 q rows x 64 d) part to an f32 (B, Sq, H, d) scratch in
-//   device memory with 16-byte atomic adds (two lanes pair up their
-//   fragments).  A last small kernel scales the scratch by 1/sqrt(d) and
-//   rounds it to bf16.
+//   writes its (16 q rows x 64 d) part, 16 bytes a lane (two lanes pair up
+//   their fragments), to an f32 scratch in device memory: where the host
+//   gives one slot per kv tile (kernels/flash_attention.py dq_scratch,
+//   within a memory budget: every training shape), a plain store to this
+//   kv tile's own slot of (kv tiles, B, Sq, H, d); beyond it, an atomic
+//   add to one (B, Sq, H, d) scratch.  A last small kernel sums the slots
+//   the kv tiles wrote, in kv-tile order, scales by 1/sqrt(d) and rounds
+//   to bf16.
 // So the work is the 10 d flops per pair the bound counts: no kernel
 // recomputes S and dP for dQ.  Q, dO, lse and delta of the next step land
 // in a two-stage cp.async ring while this one computes.  Tiles: 64 kv rows
@@ -57,9 +61,9 @@
 // are rounded to bf16 for their second products, as FlashAttention does.
 // The kv tile is the grid's slowest index, so the tiles most q tiles see
 // (the first, when causal) start first and the light ones fill in.
-// Not deterministic: the order in which the kv tiles' atomic adds reach
-// one dq element changes from run to run, so dq may differ in its last
-// bits between two runs (dk and dv have one owner each and a fixed order).
+// With slots, dq is bitwise reproducible (dk and dv have one owner each
+// and a fixed order).  With the atomic adds it is not: their order changes
+// from run to run, so dq may differ in its last bits between two runs.
 // Still simple: mma.sync rather than wgmma; K and V fragments re-read from
 // shared memory each step; ~255 registers a thread, so two blocks an SM;
 // at the small fastmoe-gpt shapes (blocks of 1-4 steps) latency, the
@@ -891,6 +895,19 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Warp w owns kv rows [16 w, 16 w + 16) of the block's 64-row kv tile: the
 // M dimension of S^T, dP^T, dK and dV.  See the note at the top.
 
+// The q tiles [x, x + y) of BQ rows that see a key of the kv tile at j0
+// (kv_rows rows): the bf16 backward's loop, and the dQ sum's test of which
+// kv tiles wrote a q tile's slots.
+__device__ __forceinline__ int2 bwd_q_tiles(int j0, int kv_rows, int Sq, int window,
+                                            int q_offset, int causal, int bq) {
+  long long r_lo = causal ? (long long)j0 - q_offset : 0;
+  long long r_hi = (long long)j0 + kv_rows - 1 + window - 1 - q_offset;
+  if (r_lo < 0) r_lo = 0;
+  if (r_hi > Sq - 1) r_hi = Sq - 1;
+  const int qt0 = (int)(r_lo / bq);
+  return make_int2(qt0, r_lo <= r_hi ? (int)(r_hi / bq) - qt0 + 1 : 0);
+}
+
 template <int D> struct BwdCfg {
   static constexpr int BK = 64;                  // kv rows per block
   static constexpr int BQ = D == 128 ? 32 : 64;  // q rows per step
@@ -914,7 +931,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dq_acc,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
                      int Skv, int H, int KV, int window, int q_offset,
-                     int causal, float scale) {
+                     int causal, float scale, int slots) {
   using C = BwdCfg<D>;
   constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDS = C::LDS;
   constexpr int NQ = BQ / 8, ND = D / 8;  // n8 tiles over q, over d
@@ -934,16 +951,13 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_rows<BK, D, LD>(ks, k + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
   cp_rows<BK, D, LD>(vs, v + (size_t)b * Skv * KV * D, Skv, KV, kvh, j0);
 
-  // the query rows that see a key of this tile
-  const long long i_max = (long long)j0 + kv_rows - 1 + window - 1;
-  long long r_lo = causal ? (long long)j0 - q_offset : 0;
-  long long r_hi = i_max - q_offset;
-  if (r_lo < 0) r_lo = 0;
-  if (r_hi > Sq - 1) r_hi = Sq - 1;
-  // steps (head of the group, q tile), flattened
-  const int qt0 = (int)(r_lo / BQ);
-  const int nq = r_lo <= r_hi ? (int)(r_hi / BQ) - qt0 + 1 : 0;
+  // the q tiles that see a key of this tile; steps (head of the group, q
+  // tile), flattened
+  const int2 qts = bwd_q_tiles(j0, kv_rows, Sq, window, q_offset, causal, BQ);
+  const int qt0 = qts.x, nq = qts.y;
   const int steps = G * nq;
+  // dQ: this kv tile's slot (plain stores), or the one scratch (atomics)
+  float* dq_base = dq_acc + (slots ? (size_t)blockIdx.z * gridDim.y * Sq * H * D : 0);
   const bf16* qb = q + (size_t)b * Sq * H * D;
   const bf16* db = dout + (size_t)b * Sq * H * D;
 
@@ -1082,18 +1096,23 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(qacc[2 * np + 1], a, bk + 2);
       }
     }
-    // 16-byte adds: lanes t4 = 2p and 2p + 1 swap halves, so the even lane
-    // holds row g, columns 4p..4p+3 and the odd lane row g + 8
+    // 16 bytes a lane: lanes t4 = 2p and 2p + 1 swap halves, so the even
+    // lane holds row g, columns 4p..4p+3 and the odd lane row g + 8
     const bool odd = t4 & 1;
     const int row = strip * 16 + g + (odd ? 8 : 0);
-    float* dq_row = dq_acc + (((size_t)b * Sq + q0 + row) * H + h) * D + col0 + (t4 >> 1) * 4;
+    float* dq_row = dq_base + (((size_t)b * Sq + q0 + row) * H + h) * D + col0 + (t4 >> 1) * 4;
 #pragma unroll
     for (int c = 0; c < NJ; ++c) {
       const float x0 = __shfl_xor_sync(kFullMask, odd ? qacc[c][0] : qacc[c][2], 1);
       const float x1 = __shfl_xor_sync(kFullMask, odd ? qacc[c][1] : qacc[c][3], 1);
       const float4 add = odd ? make_float4(x0, x1, qacc[c][2], qacc[c][3])
                              : make_float4(qacc[c][0], qacc[c][1], x0, x1);
-      if (row < rows) atomicAdd(reinterpret_cast<float4*>(dq_row + c * 8), add);
+      if (row < rows) {
+        if (slots)
+          *reinterpret_cast<float4*>(dq_row + c * 8) = add;
+        else
+          atomicAdd(reinterpret_cast<float4*>(dq_row + c * 8), add);
+      }
     }
   }
   cp_async_wait<0>();
@@ -1115,13 +1134,33 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dq = bf16(acc * scale), four elements a thread.
+// dq = bf16(acc * scale), four elements a thread.  With slots (one (B, Sq,
+// H, D) slot per kv tile) acc is the sum of the slots the kv tiles that see
+// the element's q tile wrote (flash_bwd_mma_kernel's own loop bounds), in
+// kv-tile order; the others were never written and are skipped.
+template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_round_kernel(const float4* __restrict__ acc, bf16* __restrict__ dq,
-                          long long n4, float scale) {
+                          long long n4, float scale, int slots, int Sq, int Skv,
+                          int H, int window, int q_offset, int causal) {
+  using C = BwdCfg<D>;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
-    const float4 a = acc[i];
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!slots) {
+      a = acc[i];
+    } else {
+      const int qt = (int)(i * 4 / ((long long)H * D) % Sq) / C::BQ;
+      for (int t = 0; t < slots; ++t) {
+        const int j0 = t * C::BK;
+        const int2 r = bwd_q_tiles(j0, min(C::BK, Skv - j0), Sq, window, q_offset,
+                                   causal, C::BQ);
+        if (qt >= r.x && qt < r.x + r.y) {
+          const float4 v = acc[(long long)t * n4 + i];
+          a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+        }
+      }
+    }
     *reinterpret_cast<uint2*>(dq + 4 * i) =
         make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
   }
@@ -1199,11 +1238,14 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq_acc: (B, Sq, H, D) f32, zero on entry.
+// dq_acc: slots == 0: (B, Sq, H, D) f32, zero on entry; else (slots, B,
+// Sq, H, D) f32, slots = ceil(Skv / 64), any contents.
 template <int D>
 int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
              const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
-             float* delta, float* dq_acc, Args a, cudaStream_t st) {
+             float* delta, float* dq_acc, int slots, Args a, cudaStream_t st) {
+  if (slots && slots != (a.Skv + BwdCfg<D>::BK - 1) / BwdCfg<D>::BK)
+    return static_cast<int>(cudaErrorInvalidValue);
   launch_prep<bf16, D>(o, dout, delta, a, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1214,15 +1256,16 @@ int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   dim3 grid(a.KV, a.B, (a.Skv + BwdCfg<D>::BK - 1) / BwdCfg<D>::BK);
   flash_bwd_mma_kernel<D><<<grid, NT, smem, st>>>(
       q, k, v, dout, lse, delta, dq_acc, dk, dv, a.Sq, a.Skv, a.H, a.KV,
-      a.window, a.q_offset, a.causal, a.scale);
+      a.window, a.q_offset, a.causal, a.scale, slots);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long n4 = (long long)a.B * a.Sq * a.H * D / 4;
   const long long blocks = (n4 + 255) / 256;
-  flash_bwd_dq_round_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                              st>>>(reinterpret_cast<const float4*>(dq_acc), dq,
-                                    n4, a.scale);
+  flash_bwd_dq_round_kernel<D><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                                 st>>>(reinterpret_cast<const float4*>(dq_acc), dq,
+                                       n4, a.scale, slots, a.Sq, a.Skv, a.H,
+                                       a.window, a.q_offset, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1275,14 +1318,17 @@ extern "C" int flash_attention_fwd_smem(int d, int bq) {
 
 // The gradients of flash_attention_fwd: dO (B, Sq, H, d) -> dq, dk, dv in
 // the inputs' shapes and dtype; delta (B, H, Sq) f32 scratch; for bf16,
-// dq_acc (B, Sq, H, d) f32 scratch, zero on entry (unused for f32).
+// dq_acc f32 scratch (unused for f32): dq_slots = ceil(Skv / 64) slots of
+// (B, Sq, H, d), any contents, each kv tile's dQ in its own (summed in
+// order: deterministic), or dq_slots = 0 and one (B, Sq, H, d), zero on
+// entry, that the kv tiles add into by atomics.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, void* dq_acc, int B,
                                    int Sq, int Skv, int H, int KV, int d,
                                    int window, int q_offset, int causal,
-                                   int dtype, void* stream) {
+                                   int dtype, int dq_slots, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{B, Sq, Skv, H, KV, window, q_offset, causal, 1.f / sqrtf((float)d)};
   const float* l = static_cast<const float*>(lse);
@@ -1292,7 +1338,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                      static_cast<const bf16*>(v), static_cast<const bf16*>(o), \
                      l, static_cast<const bf16*>(dout), static_cast<bf16*>(dq), \
                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), dl,        \
-                     static_cast<float*>(dq_acc), a, st)
+                     static_cast<float*>(dq_acc), dq_slots, a, st)
 #define BWD_F32(D)                                                             \
   return bwd_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), \
                     static_cast<const float*>(v), static_cast<const float*>(o), \

@@ -460,35 +460,6 @@ fused_ffn_ring_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   cp_async_wait<0>();
 }
 
-// y = bf16(sum over splits of partial), four columns a thread, splits in
-// order (deterministic); rows >= sum(group_sizes) are zero.  N % 4 == 0.
-__global__ void __launch_bounds__(256)
-reduce_partials_kernel(const float4* __restrict__ partial,
-                       const int* __restrict__ group_sizes, bf16* __restrict__ y,
-                       int M, int N, int E, int splits) {
-  __shared__ int total;
-  if (threadIdx.x < 32) {
-    int t = 0;
-    for (int e = threadIdx.x; e < E; e += 32) t += group_sizes[e];
-#pragma unroll
-    for (int d = 16; d; d >>= 1) t += __shfl_xor_sync(kFullMask, t, d);
-    if (threadIdx.x == 0) total = t;
-  }
-  __syncthreads();
-  const long long n4 = (long long)M * N / 4;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i * 4 / N < total)
-      for (int p = 0; p < splits; ++p) {
-        const float4 v = partial[(long long)p * n4 + i];
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-    *reinterpret_cast<uint2*>(y + i * 4) =
-        make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
-  }
-}
-
 template <int BM, int HC, bool GATED, int WN, int S1, int ST>
 int launch_ring(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wo,
                 const int* gs, float* partial, bf16* y, int M, int K, int H,
@@ -504,10 +475,7 @@ int launch_ring(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wo,
   kernel<<<grid, R_NT, smem, st>>>(x, wg, wu, wo, gs, partial, M, K, H, N, E, act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n4 = (long long)M * N / 4, blocks = (n4 + 255) / 256;
-  reduce_partials_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(
-      reinterpret_cast<const float4*>(partial), gs, y, M, N, E, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce_partials(partial, gs, y, M, N, E, splits, st);
 }
 
 // The tiling of each (BM, HC, gated), chosen by timing the variants on an

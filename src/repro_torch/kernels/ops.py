@@ -210,7 +210,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, q_offset: int = 0,
                     causal: bool = True) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over 0 <= i - j < window (causal) or
-    i - j < window; q (B, Sq, H, d), k, v (B, Skv, KV, d), any strides."""
+    """softmax(q k^T / sqrt(dk)) v over 0 <= i - j < window (causal) or
+    i - j < window; q (B, Sq, H, dk), k (B, Skv, KV, dk), v (B, Skv, KV,
+    dv), any strides; the output is (B, Sq, H, dv)."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                  int(window), int(q_offset), bool(causal))

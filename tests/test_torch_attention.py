@@ -135,3 +135,75 @@ def test_rows_without_keys_are_refused(window, q_offset, S, Skv):
     k = torch.zeros(1, Skv, 2, 32)
     with pytest.raises(ValueError, match="every row must see a key"):
         ops.flash_attention(q, k, k, window=window, q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# v narrower than q and k (dv != dk), as MLA has it: the reduced deepseek
+# shape, dk 48 (32 nope + 16 rope) and dv 32.  The scale stays dk^-1/2 and
+# the output is (B, Sq, H, dv).  f32: outputs to 1e-5, gradients to 1e-4.
+# ---------------------------------------------------------------------------
+
+MLA_DK, MLA_DV = 48, 32
+MLA_TOL = dict(rtol=1e-5, atol=1e-5)
+MLA_GRAD_TOL = 1e-4
+
+
+def _mla_inputs(B, S, H, KV, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, MLA_DK)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, MLA_DK)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, MLA_DV)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal,window", [(True, FULL_WINDOW), (True, 5),
+                                           (False, 16)])
+def test_dv_differs_from_dk_matches_jax_blockwise(causal, window):
+    """The port's blockwise_attention against the jnp scan at S = 37 with
+    8-key chunks."""
+    q, k, v = _mla_inputs(2, 37, 4, 2, seed=11)
+    want = JA.blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  window=window, chunk=8, causal=causal)
+    got = TA.blockwise_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 window=window, causal=causal).numpy()
+    assert got.shape == (2, 37, 4, MLA_DV)
+    np.testing.assert_allclose(got, np.asarray(want), **MLA_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, FULL_WINDOW), (True, 5),
+                                           (False, 16)])
+def test_dv_differs_from_dk_matches_jax_pallas_kernel(causal, window):
+    """The port's blockwise_attention against the Pallas kernel in
+    interpret mode (S 32, tiles of 16)."""
+    q, k, v = _mla_inputs(1, 32, 6, 2, seed=12)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                window=window, causal=causal, bq=16, bk=16)
+    got = TA.blockwise_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 window=window, causal=causal).numpy()
+    assert got.shape == (1, 32, 6, MLA_DV)
+    np.testing.assert_allclose(got, np.asarray(want), **MLA_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, FULL_WINDOW), (True, 5),
+                                           (False, 16)])
+def test_dv_differs_from_dk_backward_matches_jax_vjp(causal, window):
+    """dq, dk (width dk) and dv (width dv) of the port's op against jax.vjp
+    of the blockwise scan."""
+    q, k, v = _mla_inputs(2, 37, 4, 2, seed=13)
+    do = np.random.default_rng(14).standard_normal(
+        (2, 37, 4, MLA_DV)).astype(np.float32)
+
+    def f(q, k, v):
+        return JA.blockwise_attention(q, k, v, window=window, chunk=8,
+                                      causal=causal)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    ops.flash_attention(tq, tk, tv, window=window,
+                        causal=causal).backward(torch.from_numpy(do))
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        ref = np.asarray(ref)
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got.numpy(), ref, rtol=MLA_GRAD_TOL,
+                                   atol=MLA_GRAD_TOL * scale, err_msg=f"d{name}")

@@ -4,9 +4,12 @@ rows past sum(group_sizes)), the grouped GEMM's ring kernel at the model
 widths and its routing of other shapes to the simple kernel, the fused
 FFN's ring kernel (all acts, hidden tails, empty groups, the decode,
 prefill and training row counts at full width) and its simple route, its
-backward kernels, and flash attention (tails of both tile sizes, window 1,
-GQA, non-causal, a query offset, one query row; the bf16 forward at both
-of its tile choices, also bit for bit on >= 99% of outputs) included.
+backward kernels (the dX and dW ring kernels over the same cases, an
+expert over the dW kernel's 64-row batch, and their simple route), and
+flash attention (tails of both tile sizes, window 1, GQA, non-causal, a
+query offset, one query row; the bf16 forward at both of its tile choices,
+also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
+over two runs; dv != dk refused) included.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -289,21 +292,45 @@ def test_flash_attention_bwd(dev, dtype, B, Sq, Skv, H, KV, d, window,
 def test_flash_attention_bwd_bf16_group_twice(dev):
     """The bf16 backward at a starcoder2-like group (12 query heads over one
     kv head of 128), a window shorter than the sequence, a tail Sq and a
-    query offset, run twice: dq's atomic adds land in another order each
-    run, and both runs must hold to the plain version."""
+    query offset, run twice: its dQ scratch has a slot per kv tile (the
+    shape is within dq_scratch's budget), so dq, dk and dv must be equal
+    bit for bit over the two runs, and both runs must hold to the plain
+    version."""
     B, Sq, Skv, H, KV, d, window, q_offset = 1, 150, 300, 12, 1, 128, 100, 140
     q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, H, KV, d, seed=4)
+    assert fa.dq_scratch(q, Skv).dim() == 5
     kw = dict(window=window, q_offset=q_offset, causal=True)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ref = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+    runs = []
     for _ in range(2):
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        runs.append(got)
         for a, b in zip(got, ref):
             scale = max(b.float().abs().max().item(), 1.0)
             torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
                                        atol=2e-2 * scale)
             _assert_fro(a, b, torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_attention_dv_differs_from_dk_is_refused(dev, which):
+    """v narrower than q and k (MLA) runs only on the CPU for now: on the
+    card both kernels refuse it, naming where the port owes it, and never
+    fall back to the plain version."""
+    q, k, _, do = _flash_inputs(dev, torch.bfloat16, 1, 64, 64, 4, 2, 64)
+    v = torch.randn(1, 64, 2, 32, device=dev).to(torch.bfloat16)
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="ROADMAP §2 item 0"):
+        if which == "fwd":
+            fa.flash_attention_fwd(q, k, v, window=64)
+        else:
+            lse = torch.zeros(1, 4, 64, device=dev)
+            fa.flash_attention_bwd(q, k, v, q, lse, do, window=64)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (f0, b0)
 
 
 def test_flash_attention_op_autograd(dev):
@@ -351,9 +378,9 @@ def test_fused_ffn_ring_kernel(dev, act, M, K, H, N, sizes):
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
 @pytest.mark.parametrize("M,bm", [(16, 16), (2048, 32), (4096, 64)])
 def test_fused_ffn_ring_kernel_model_rows(dev, act, M, bm):
-    """fastmoe-gpt widths over 96 experts at the decode, prefill and
-    training row counts (one row tile per case), some experts empty and
-    three rows past the groups."""
+    """fastmoe-gpt widths over 96 experts at row counts that pick each row
+    tile (the training rows pick 64), some experts empty and three rows
+    past the groups."""
     E, K, H, N = 96, 1024, 2048, 1024
     assert ff.plan(M, E, H, gated=act == "swiglu").bm == bm
     x, gs, ws, wo, _ = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N,
@@ -428,3 +455,128 @@ def test_flash_fwd_config_matches_the_kernel(dev, d, bq):
     cfg = fa.fwd_config(1, 1 if bq == 64 else 1 << 20, 64, d)
     assert cfg.bq == bq
     assert lib.flash_attention_fwd_smem(d, bq) == cfg.smem
+
+
+# ---------------------------------------------------------------------------
+# the fused FFN backward's ring kernels
+# ---------------------------------------------------------------------------
+
+BWD_RING_SHAPES = [
+    # (M, K, H, N, sizes): hidden tails (H % 128 and % 64), empty experts,
+    # rows past sum(group_sizes), experts over several dX row tiles
+    (40, 48, 200, 72, [9, 0, 17, 5]),
+    (300, 128, 136, 200, [0, 130, 0, 120, 41]),
+    # an expert of 300 rows (five 64-row dW batches: the later four add to
+    # the first's output) beside one of 100 and one of 3
+    (420, 64, 264, 64, [300, 0, 3, 100]),
+    # nine hidden splits of 256 at the smallest row tile
+    (40, 48, 2216, 72, [9, 0, 17, 5]),
+]
+# dW sums over an expert's rows products of bf16-rounded h and dg: where the
+# kernel's f32 recompute and the plain version's differ in the last bit an
+# intermediate may round to the neighbouring bf16 value, so dW is held as
+# chip_smoke.py holds it (DW_TOL, DW_FRO)
+DW_TOL, DW_FRO = dict(rtol=2e-2, atol=0.25), 1e-3
+
+
+def _check_dw(got, ref, gs):
+    dws, dwo = got
+    rws, rwo = ref
+    for a, b in zip((*dws, dwo), (*rws, rwo)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b.float(), **DW_TOL)
+        assert ((a - b).norm() / b.norm()).item() <= DW_FRO
+    empty = gs == 0
+    assert not dwo[empty].any() and not any(w[empty].any() for w in dws)
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", BWD_RING_SHAPES)
+def test_fused_ffn_bwd_dx_ring_kernel(dev, act, M, K, H, N, sizes):
+    x, gs, ws, wo, dy = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N, sizes)
+    assert fb.route(x, ws, wo, dy) == "ring"
+    ring, simple = fb.fused_ffn_bwd_dx.launches, fb.fused_ffn_bwd_dx_simple.launches
+    got = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    assert fb.fused_ffn_bwd_dx.launches == ring + 1
+    assert fb.fused_ffn_bwd_dx_simple.launches == simple
+    torch.testing.assert_close(got, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
+                               **TOL[torch.bfloat16])
+    assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu", "rwkv", "silu"])
+@pytest.mark.parametrize("M,K,H,N,sizes", BWD_RING_SHAPES)
+def test_fused_ffn_bwd_dw_ring_kernel(dev, act, M, K, H, N, sizes):
+    x, gs, ws, wo, dy = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N, sizes)
+    assert fb.route(x, ws, wo, dy) == "ring"
+    ring, simple = fb.fused_ffn_bwd_dw.launches, fb.fused_ffn_bwd_dw_simple.launches
+    got = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    assert fb.fused_ffn_bwd_dw.launches == ring + 1
+    assert fb.fused_ffn_bwd_dw_simple.launches == simple
+    _check_dw(got, fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act), gs)
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("M,bm", [(16, 16), (2048, 32), (4096, 64)])
+def test_fused_ffn_bwd_ring_kernels_model_rows(dev, act, M, bm):
+    """fastmoe-gpt widths over 96 experts at row counts that pick each row
+    tile (the training rows pick 64), some experts empty and three rows
+    past the groups."""
+    E, K, H, N = 96, 1024, 2048, 1024
+    assert fb.plan_bwd(M, E, H).bm == bm
+    x, gs, ws, wo, dy = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N,
+                                    _routed_sizes(M, E, M))
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
+                               **TOL[torch.bfloat16])
+    assert not dx[int(gs.sum()):].any()
+    del dx
+    _check_dw(fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act),
+              fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act), gs)
+
+
+@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32"])
+def test_fused_ffn_bwd_simple_route(dev, case):
+    """Shapes the ring kernels do not take run the first versions, right;
+    the kernels' launch counters count them too."""
+    K, H, dtype = {"K36": (36, 128, torch.bfloat16), "H100": (64, 100, torch.bfloat16),
+                   "misaligned": (64, 128, torch.bfloat16),
+                   "f32": (64, 128, torch.float32)}[case]
+    M, N, sizes = 40, 64, [0, 17, 20]
+    x, gs, ws, wo, dy = _ffn_inputs(dev, dtype, "gelu", M, K, H, N, sizes)
+    if case == "misaligned":
+        buf = torch.zeros(M * N + 8, dtype=dtype, device=dev)
+        dy = buf[1:1 + M * N].view(M, N).copy_(dy)
+    assert fb.route(x, ws, wo, dy) == "simple"
+    counts = [f.launches for f in (fb.fused_ffn_bwd_dx, fb.fused_ffn_bwd_dx_simple,
+                                   fb.fused_ffn_bwd_dw, fb.fused_ffn_bwd_dw_simple)]
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "gelu")
+    got = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "gelu")
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.fused_ffn_bwd_dx, fb.fused_ffn_bwd_dx_simple,
+                                 fb.fused_ffn_bwd_dw, fb.fused_ffn_bwd_dw_simple)] \
+        == [c + 1 for c in counts]
+    torch.testing.assert_close(dx, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "gelu"),
+                               **TOL[dtype])
+    for a, b in zip((*got[0], got[1]),
+                    (*fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu")[0],
+                     fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu")[1])):
+        torch.testing.assert_close(a, b.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", [0, 1])
+def test_fused_ffn_bwd_smem_matches_the_kernel(dev, kind):
+    """The host's mirrors of the ring kernels' shared memory are what the
+    kernels ask for, at every instance."""
+    from repro_torch.kernels import _build
+    lib = _build.load("fused_ffn_bwd", fb._SIGS)
+    for gated in (False, True):
+        if kind == 0:
+            for bm in ff.ROW_TILES:
+                assert lib.fused_ffn_bwd_smem(0, bm, int(gated)) == \
+                    fb.dx_smem(bm, gated)
+        else:
+            assert lib.fused_ffn_bwd_smem(1, 0, int(gated)) == fb.dw_smem(gated)

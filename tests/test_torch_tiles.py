@@ -1,9 +1,11 @@
 """Host-side choices of the bf16 kernels, checked on the CPU with no kernel
 launched: the grouped GEMM's tile shape (``tile_config``) and its routing
 between the ring kernel and the simple one (``route``), the f32 dQ
-scratch the flash backward adds into (``dq_scratch``), the fused FFN's
-tiling (``plan``) and routing (``route``), and the flash forward's tiles
-and shared memory (``fwd_config``).  The SM count they plan for is
+scratch of the flash backward (``dq_scratch``: per-kv-tile slots within a
+budget, else one the kv tiles add into), the fused FFN's tiling (``plan``)
+and routing (``route``), its backward's (``plan_bwd``, ``route``, the
+shared memory mirrors ``dx_smem`` / ``dw_smem``), and the flash forward's
+tiles and shared memory (``fwd_config``).  The SM count they plan for is
 ``_build.SMS``."""
 import math
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_ffn as ff  # noqa: E402
+from repro_torch.kernels import fused_ffn_bwd as fb  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 
 E = 96  # fastmoe-gpt experts
@@ -79,18 +82,31 @@ def test_route_misaligned_operand_takes_the_simple_kernel(which):
     assert gg.route(x, w) == "simple"
 
 
-@pytest.mark.parametrize("shape", [(8, 256, 16, 64), (2, 333, 12, 128)])
-def test_dq_scratch_bf16(shape):
+@pytest.mark.parametrize("shape,skv,slots", [
+    ((8, 256, 16, 64), 256, 4),       # fastmoe-gpt training: 4 x 8.4 MB
+    ((2, 333, 12, 128), 333, 6),      # tails of both tile sizes
+    ((1, 64, 12, 128), 70000, None),  # a long key run: 1094 slots > budget
+])
+def test_dq_scratch_bf16(shape, skv, slots):
+    """One f32 slot of q's shape per 64-row kv tile where they fit the
+    budget (each kv tile stores its part, summed in order: deterministic),
+    else one zeroed scratch of q's shape the kv tiles add into."""
     q = torch.zeros(shape, dtype=torch.bfloat16)
-    acc = fa.dq_scratch(q)
-    assert acc.shape == q.shape and acc.dtype == torch.float32
-    assert acc.is_contiguous() and not acc.any()
+    acc = fa.dq_scratch(q, skv)
+    assert fa.dq_slots(q, skv) == (slots or 0)
+    assert acc.dtype == torch.float32 and acc.is_contiguous()
     assert acc.device == q.device
+    if slots is None:
+        assert math.ceil(skv / 64) * q.numel() * 4 > fa.DQ_SLOT_BUDGET
+        assert acc.shape == q.shape and not acc.any()
+    else:
+        assert acc.shape == (slots, *shape)
+        assert acc.numel() * 4 <= fa.DQ_SLOT_BUDGET
 
 
 def test_dq_scratch_f32_is_none():
     """The f32 backward's dQ kernel owns each row: no scratch."""
-    assert fa.dq_scratch(torch.zeros(1, 8, 2, 64)) is None
+    assert fa.dq_scratch(torch.zeros(1, 8, 2, 64), 8) is None
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +248,111 @@ def test_ffn_route_misaligned_operand_takes_the_simple_kernel(which):
     else:
         wo = buf[:4 * H * N].view(4, H, N)
     assert ff.route(x, ws, wo) == "simple"
+
+
+# ---------------------------------------------------------------------------
+# fused FFN backward: plan_bwd, shared memory, route
+# ---------------------------------------------------------------------------
+
+# the backward runs in training only: the ragged and the capacity rows
+BWD_MAIN_PATH = ("train", "capacity")
+
+
+@pytest.mark.parametrize("shape", BWD_MAIN_PATH)
+def test_bwd_plan_main_path(shape):
+    M, _ = FFN_MAIN_PATH[shape]
+    assert tuple(fb.plan_bwd(M, E, HIDDEN)) == (64, 8)
+
+
+@pytest.mark.parametrize("shape", BWD_MAIN_PATH)
+def test_bwd_plan_fills_the_card_within_the_grid(shape):
+    """dX: the routed row tiles times the splits give two waves of
+    BLOCKS_PER_SM blocks on every SM, the chunks cover H, the grid's row
+    blocks hold every row tile, and the row tile is the forward's.  dW:
+    its (expert, chunk) blocks give two such waves."""
+    M, sizes = FFN_MAIN_PATH[shape]
+    p = fb.plan_bwd(M, E, HIDDEN)
+    waves = 2 * fb.BLOCKS_PER_SM * _build.SMS
+    tiles = row_tiles(sizes, M, p.bm)
+    real = [t for t in tiles if t[0] >= 0]
+    assert len(real) * p.splits >= waves
+    assert p.splits == math.ceil(HIDDEN / fb.DX_CHUNK)
+    assert len(tiles) <= grid_rows(M, p.bm)
+    assert p.bm == ff.plan(M, E, HIDDEN).bm
+    assert E * math.ceil(HIDDEN / fb.DW_CHUNK) >= waves
+
+
+@pytest.mark.parametrize("per_group,bm", [(1, 16), (16, 16), (17, 32), (32, 32),
+                                          (33, 64), (56, 64), (500, 64)])
+def test_bwd_plan_row_tile_holds_an_average_expert(per_group, bm):
+    assert fb.plan_bwd(E * per_group, E, HIDDEN).bm == bm
+
+
+@pytest.mark.parametrize("H", [64, 200, 2000, 2048, 8192])
+@pytest.mark.parametrize("E_", [8, E])
+def test_bwd_plan_chunks_have_an_instance(H, E_):
+    """Every row tile the plan picks has a kernel instance, and the splits
+    cover H."""
+    for M in (16, 2048, 4096, E_ * 56):
+        p = fb.plan_bwd(M, E_, H)
+        assert p.bm in ff.ROW_TILES
+        assert p.splits == math.ceil(H / fb.DX_CHUNK)
+        assert (p.splits - 1) * fb.DX_CHUNK < H <= p.splits * fb.DX_CHUNK
+
+
+SM_SMEM = 233_472  # shared memory of an H100 SM; 1 KB of it reserved a block
+
+
+@pytest.mark.parametrize("bm", ff.ROW_TILES)
+@pytest.mark.parametrize("gated", [False, True])
+def test_bwd_shared_memory_fits_a_block(bm, gated):
+    """Every instance's dynamic shared memory (the host's mirror, which the
+    chip smoke test and the cuda tests hold equal to the kernel's) fits a
+    block's 232,448 bytes with dg [du] (and dW's h) of the chunk in it, and
+    ungated, BLOCKS_PER_SM blocks fit an SM."""
+    per_sm = 1 if gated else fb.BLOCKS_PER_SM
+    smem = fb.dx_smem(bm, gated)
+    assert bm * fb.DX_CHUNK * 2 * (2 if gated else 1) < smem <= fa.SMEM_LIMIT
+    assert per_sm * (smem + 1024) <= SM_SMEM
+    smem = fb.dw_smem(gated)
+    assert fb.DW_ROWS * fb.DW_CHUNK * 2 * (3 if gated else 2) < smem <= fa.SMEM_LIMIT
+    assert per_sm * (smem + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("K,H,N,dtype,gated,expected", [
+    (1024, 2048, 1024, torch.bfloat16, False, "ring"),
+    (1024, 2048, 1024, torch.bfloat16, True, "ring"),
+    (48, 200, 72, torch.bfloat16, False, "ring"),   # multiples of 8, tails
+    (36, 128, 64, torch.bfloat16, False, "simple"),  # K not a multiple of 8
+    (64, 100, 64, torch.bfloat16, True, "simple"),   # H not a multiple of 8
+    (64, 128, 20, torch.bfloat16, False, "simple"),  # N not a multiple of 8
+    (1024, 2048, 1024, torch.float32, False, "simple"),  # f32: the first version
+])
+def test_bwd_route_dtype_and_shape(K, H, N, dtype, gated, expected):
+    x = torch.zeros(16, K, dtype=dtype)
+    ws, wo = _ffn_w(K, H, N, dtype)
+    if gated:
+        ws = ws * 2
+    assert fb.route(x, ws, wo, torch.zeros(16, N, dtype=dtype)) == expected
+
+
+@pytest.mark.parametrize("which", ["x", "wi", "wo", "dy"])
+def test_bwd_route_misaligned_operand_takes_the_simple_kernel(which):
+    """A view that starts 2 bytes into a buffer cannot feed 16-byte copies."""
+    K, H, N = 64, 128, 64
+    ws, wo = _ffn_w(K, H, N, torch.bfloat16)
+    x = torch.zeros(16, K, dtype=torch.bfloat16)
+    dy = torch.zeros(16, N, dtype=torch.bfloat16)
+    buf = torch.zeros(4 * K * H + 8, dtype=torch.bfloat16)[1:]
+    if which == "x":
+        x = buf[:16 * K].view(16, K)
+    elif which == "wi":
+        ws = (buf[:4 * K * H].view(4, K, H),)
+    elif which == "wo":
+        wo = buf[:4 * H * N].view(4, H, N)
+    else:
+        dy = buf[:16 * N].view(16, N)
+    assert fb.route(x, ws, wo, dy) == "simple"
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,14 @@ from repro_torch.configs.base import (
     MoEConfig,
     reduced,
 )
+from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek_v2
 from repro_torch.configs.fastmoe_gpt import CONFIG as _fastmoe_gpt
 from repro_torch.configs.fastmoe_gpt import DENSE_BASELINE as _fastmoe_dense
 from repro_torch.configs.starcoder2_15b import CONFIG as _starcoder2
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [_fastmoe_gpt, _fastmoe_dense, _starcoder2]}
+    c.name: c for c in [_fastmoe_gpt, _fastmoe_dense, _starcoder2,
+                        _deepseek_v2]}
 
 
 def get_config(name: str) -> ModelConfig:

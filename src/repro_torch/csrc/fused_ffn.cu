@@ -46,8 +46,10 @@
 // shapes to the simple kernel below.
 //
 // The simple kernel (fused_ffn_simple_kernel, the first version): one
-// (16, 128) hidden tile at a time in shared memory, synchronous loads, wmma
-// for bf16, the FMA units for f32; its (16, N) f32 output in shared memory.
+// (16, 128) hidden tile at a time in shared memory, synchronous loads of x
+// and weight tiles 32 deep, wmma for bf16, the FMA units for f32; a block's
+// (16, up to 1024) f32 output in shared memory, wider N over the grid's z
+// (each z block recomputes its hidden tiles), so any K and N fit.
 #include <mma.h>
 
 #include "common.cuh"
@@ -63,6 +65,8 @@ constexpr int BM = 16, BH = 128, BK1 = 32, NT = 256;
 template <typename T>
 struct Cfg {
   static constexpr int BN2 = sizeof(T) == 2 ? 128 : 64;  // GEMM2 column chunk
+  static constexpr int NC = 1024;      // output columns a block (grid z)
+  static constexpr int LDX = BK1 + 8;  // x tile (BM x BK1)
   static constexpr int LDW = BH + 8;   // GEMM1 weight tile (BK1 x BH)
   static constexpr int LDO = BN2 + 8;  // GEMM2 weight tile (BH x BN2)
   static constexpr int LDH = BH + 8;   // hidden tile, working dtype
@@ -72,47 +76,25 @@ struct Cfg {
 __host__ __device__ inline size_t up128(size_t v) { return (v + 127) / 128 * 128; }
 
 struct Layout {
-  int kp, ldx, np, ldacc;
+  int np, ldacc;  // a block's output columns, padded to BN2
   size_t x, w, f, u, h, acc, total;  // byte offsets into dynamic shared memory
 };
 
 template <typename T>
-__host__ __device__ inline Layout layout(int K, int N) {
+__host__ __device__ inline Layout layout(int N) {
   using C = Cfg<T>;
   Layout L;
-  L.kp = (K + BK1 - 1) / BK1 * BK1;
-  L.ldx = L.kp + 8;
-  L.np = (N + C::BN2 - 1) / C::BN2 * C::BN2;
+  L.np = ((N < C::NC ? N : C::NC) + C::BN2 - 1) / C::BN2 * C::BN2;
   L.ldacc = L.np + 4;
   const size_t w1 = 2 * BK1 * C::LDW, w2 = BH * C::LDO;
   L.x = 0;
-  L.w = up128(L.x + sizeof(T) * BM * L.ldx);
+  L.w = up128(L.x + sizeof(T) * BM * C::LDX);
   L.f = up128(L.w + sizeof(T) * (w1 > w2 ? w1 : w2));  // GEMM1 and GEMM2 tiles alias
   L.u = up128(L.f + sizeof(float) * BM * C::LDF);
   L.h = up128(L.u + sizeof(float) * BM * C::LDF);
   L.acc = up128(L.h + sizeof(T) * BM * C::LDH);
   L.total = up128(L.acc + sizeof(float) * BM * L.ldacc);
   return L;
-}
-
-// Xs[r][c] = x[r][c] for r < rows, c < K; zero up to kp columns.
-template <typename T>
-__device__ void load_x(T* Xs, int ldx, const T* x, int K, int kp, int rows) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = aligned16(x) && K % V == 0;
-  const int chunks = kp / V;
-  for (int i = threadIdx.x; i < BM * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * V;
-    T* d = Xs + r * ldx + c;
-    const T* s = x + (size_t)r * K + c;
-    if (vec && r < rows && c + V <= K) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        d[v] = (r < rows && c + v < K) ? s[v] : from_f32<T>(0.f);
-    }
-  }
 }
 
 template <typename T>
@@ -123,7 +105,7 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
                  int M, int K, int H, int N, int E, int act, int splits) {
   using C = Cfg<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<T>(K, N);
+  const Layout L = layout<T>(N);
   T* Xs = reinterpret_cast<T*>(smem + L.x);
   T* Wgs = reinterpret_cast<T*>(smem + L.w);
   T* Wus = Wgs + BK1 * C::LDW;
@@ -144,8 +126,9 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
   const T* wg_e = wg + g * K * H;
   const T* wu_e = gated ? wu + g * K * H : nullptr;
   const T* wo_e = wo + g * H * N;
+  const T* x_t = x + (size_t)tile.row0 * K;
+  const int nz = blockIdx.z * C::NC, ncols = min(C::NC, N - nz);
 
-  load_x(Xs, L.ldx, x + (size_t)tile.row0 * K, K, L.kp, rows);
   for (int i = tid; i < BM * L.ldacc; i += NT) Acc[i] = 0.f;
   __syncthreads();
 
@@ -158,6 +141,7 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
       wmma::fill_fragment(fg, 0.f);
       wmma::fill_fragment(fu, 0.f);
       for (int k0 = 0; k0 < K; k0 += BK1) {
+        load_tile<T, BM, BK1, C::LDX>(Xs, x_t, K, rows, k0, K);
         load_tile<T, BK1, BH, C::LDW>(Wgs, wg_e + (size_t)k0 * H, H, K - k0, h0, H);
         if (gated)
           load_tile<T, BK1, BH, C::LDW>(Wus, wu_e + (size_t)k0 * H, H, K - k0, h0, H);
@@ -166,7 +150,7 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
         for (int kk = 0; kk < BK1; kk += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, Xs + k0 + kk, L.ldx);
+          wmma::load_matrix_sync(a, Xs + kk, C::LDX);
           wmma::load_matrix_sync(b, Wgs + kk * C::LDW + warp * 16, C::LDW);
           wmma::mma_sync(fg, a, b, fg);
           if (gated) {
@@ -191,12 +175,13 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
       const int r = tid / 16, c0 = (tid % 16) * 8;
       float fg[8] = {}, fu[8] = {};
       for (int k0 = 0; k0 < K; k0 += BK1) {
+        load_tile<T, BM, BK1, C::LDX>(Xs, x_t, K, rows, k0, K);
         load_tile<T, BK1, BH, C::LDW>(Wgs, wg_e + (size_t)k0 * H, H, K - k0, h0, H);
         if (gated)
           load_tile<T, BK1, BH, C::LDW>(Wus, wu_e + (size_t)k0 * H, H, K - k0, h0, H);
         __syncthreads();
         for (int kk = 0; kk < BK1; ++kk) {
-          const float a = to_f32(Xs[r * L.ldx + k0 + kk]);
+          const float a = to_f32(Xs[r * C::LDX + kk]);
 #pragma unroll
           for (int v = 0; v < 8; ++v) fg[v] += a * to_f32(Wgs[kk * C::LDW + c0 + v]);
           if (gated) {
@@ -214,8 +199,8 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     __syncthreads();
 
     // ---- GEMM2: Acc += Hs @ wo[h0:h0+BH, :]; rows past H read as zero
-    for (int n0 = 0; n0 < L.np; n0 += C::BN2) {
-      load_tile<T, BH, C::BN2, C::LDO>(Wos, wo_e + (size_t)h0 * N, N, hlim, n0, N);
+    for (int n0 = 0; n0 < ncols; n0 += C::BN2) {
+      load_tile<T, BH, C::BN2, C::LDO>(Wos, wo_e + (size_t)h0 * N, N, hlim, nz + n0, N);
       __syncthreads();
       if constexpr (std::is_same<T, bf16>::value) {
         using namespace nvcuda;
@@ -247,9 +232,9 @@ fused_ffn_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     }
   }
 
-  float* out = partial + ((size_t)blockIdx.y * M + tile.row0) * N;
-  for (int i = tid; i < rows * N; i += NT) {
-    const int r = i / N, c = i % N;
+  float* out = partial + ((size_t)blockIdx.y * M + tile.row0) * N + nz;
+  for (int i = tid; i < rows * ncols; i += NT) {
+    const int r = i / ncols, c = i % ncols;
     out[(size_t)r * N + c] = Acc[r * L.ldacc + c];
   }
 }
@@ -258,11 +243,11 @@ template <typename T>
 int launch(const T* x, const T* wg, const T* wu, const T* wo, const int* gs,
            float* partial, T* y, int M, int K, int H, int N, int E, int act,
            int splits, cudaStream_t st) {
-  const size_t smem = layout<T>(K, N).total;
+  const size_t smem = layout<T>(N).total;
   cudaError_t err = cudaFuncSetAttribute(
       fused_ffn_simple_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((M + BM - 1) / BM + E, splits);
+  dim3 grid((M + BM - 1) / BM + E, splits, (N + Cfg<T>::NC - 1) / Cfg<T>::NC);
   fused_ffn_simple_kernel<T><<<grid, NT, smem, st>>>(x, wg, wu, wo, gs, partial, M, K,
                                                H, N, E, act, splits);
   err = cudaGetLastError();

@@ -59,7 +59,8 @@
 // f32, and K, H or N not multiples of 8: the first versions
 // (fused_ffn_bwd_dx_simple_kernel, fused_ffn_bwd_dw_simple_kernel) —
 // synchronous loads, products staged through shared memory (wmma for
-// bf16, the FMA units for f32).
+// bf16, the FMA units for f32); dX's columns 1024 a block over the grid's
+// z (each z block recomputes its hidden tiles), so any K fits.
 #include <mma.h>
 
 #include "common.cuh"
@@ -766,11 +767,12 @@ struct DX {
   static constexpr int BM = 16;
   static constexpr int BK = sizeof(T) == 2 ? 64 : 32;   // recompute chunk
   static constexpr int BC = sizeof(T) == 2 ? 128 : 64;  // dX column chunk
-  int kp, ldacc;
+  static constexpr int KC = 1024;  // dX columns a block (grid z)
+  int kp, ldacc;                   // a block's dX columns, padded to BC
   size_t acc, chunk, gf, uf, df, dg, du, total;  // byte offsets
 
   __host__ __device__ DX(int K) {
-    kp = (K + BC - 1) / BC * BC;
+    kp = ((K < KC ? K : KC) + BC - 1) / BC * BC;
     ldacc = kp + 4;
     const size_t ldk = BK + 8;
     const size_t c1 = sizeof(T) * (2 * BM * ldk + 2 * BK * LDH + BH * ldk);
@@ -824,6 +826,7 @@ fused_ffn_bwd_dx_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg
   const T* wo_e = wo + g * H * N;
   const T* xr = x + (size_t)tile.row0 * K;
   const T* dyr = dy + (size_t)tile.row0 * N;
+  const int kz = blockIdx.z * L::KC, kcols = min(L::KC, K - kz);
 
   for (int i = threadIdx.x; i < BM * lay.ldacc; i += NT) Acc[i] = 0.f;
   for (int j = j0; j < j1; ++j) {
@@ -840,10 +843,11 @@ fused_ffn_bwd_dx_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg
       Du[r * LDH + c] = from_f32<T>(d.y);
     }
     __syncthreads();
-    // acc[:, k0:k0+BC] += dg @ wi[k0:k0+BC, tile]^T: B(h, k) = Wg2[k * LDH + h]
-    for (int k0 = 0; k0 < lay.kp; k0 += BC) {
-      load_tile<T, BC, BH, LDH>(Wg2, wg_e + (size_t)k0 * H, H, K - k0, h0, H);
-      if (gated) load_tile<T, BC, BH, LDH>(Wu2, wu_e + (size_t)k0 * H, H, K - k0, h0, H);
+    // acc[:, k0:k0+BC] += dg @ wi[kz+k0:kz+k0+BC, tile]^T: B(h, k) = Wg2[k * LDH + h]
+    for (int k0 = 0; k0 < kcols; k0 += BC) {
+      const size_t wk = (size_t)(kz + k0) * H;
+      load_tile<T, BC, BH, LDH>(Wg2, wg_e + wk, H, K - kz - k0, h0, H);
+      if (gated) load_tile<T, BC, BH, LDH>(Wu2, wu_e + wk, H, K - kz - k0, h0, H);
       __syncthreads();
       block_mma<T, BM, BC, BH, false, true>(Dg, LDH, Wg2, LDH, Acc + k0, lay.ldacc, true);
       if (gated)
@@ -852,9 +856,9 @@ fused_ffn_bwd_dx_simple_kernel(const T* __restrict__ x, const T* __restrict__ wg
     }
   }
 
-  float* out = partial + ((size_t)blockIdx.y * M + tile.row0) * K;
-  for (int i = threadIdx.x; i < rows * K; i += NT) {
-    const int r = i / K, c = i % K;
+  float* out = partial + ((size_t)blockIdx.y * M + tile.row0) * K + kz;
+  for (int i = threadIdx.x; i < rows * kcols; i += NT) {
+    const int r = i / kcols, c = i % kcols;
     out[(size_t)r * K + c] = Acc[r * lay.ldacc + c];
   }
 }
@@ -1027,7 +1031,8 @@ int launch_dx_simple(const T* x, const T* wg, const T* wu, const T* wo, const T*
   const size_t smem = DX<T>(K).total;
   int err = set_smem(reinterpret_cast<const void*>(fused_ffn_bwd_dx_simple_kernel<T>), smem);
   if (err) return err;
-  dim3 grid((M + DX<T>::BM - 1) / DX<T>::BM + E, splits);
+  dim3 grid((M + DX<T>::BM - 1) / DX<T>::BM + E, splits,
+            (K + DX<T>::KC - 1) / DX<T>::KC);
   fused_ffn_bwd_dx_simple_kernel<T><<<grid, NT, smem, st>>>(x, wg, wu, wo, dy, gs,
                                                       partial, M, K, H, N, E,
                                                       act, splits);

@@ -11,11 +11,11 @@ per-row log-sum-exp (B, H, Sq) f32, which the backward uses to recompute
 the probabilities tile by tile; the (Sq, Skv) scores never reach device
 memory on the card.
 
-The kernels take dv == dk in {64, 128} (dv != dk, which MLA needs, runs
-only on the CPU for now: ROADMAP §2 item 0), bf16 or f32, a window >= 1
-and inputs where every row sees at least one key, so no row's softmax is
-empty.  The
-bf16 forward (wgmma, K and V by TMA) takes its q tile from the shape:
+The kernels take (dk, dv) in :data:`HEAD_DIM_PAIRS` — (64, 64), (128,
+128) and MLA's (192, 128) —, bf16 or f32, a window >= 1 and inputs where
+every row sees at least one key, so no row's softmax is empty; other
+pairs (the reduced MLA's (48, 32)) run only on the CPU.  The bf16 forward
+(wgmma, K and V by TMA) takes its q tile from the shape:
 :func:`fwd_config`.  On
 CPU tensors the wrappers run the plain version: the masked softmax in f32
 (the JAX package's ``SCORE_DTYPE`` default) and its autograd.
@@ -31,10 +31,11 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 11 + [_P],
-         "flash_attention_fwd_smem": [_I, _I],
-         "flash_attention_bwd": [_P] * 11 + [_I] * 11 + [_P]}
-HEAD_DIMS = (64, 128)
+_SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 12 + [_P],
+         "flash_attention_fwd_smem": [_I] * 3,
+         "flash_attention_bwd": [_P] * 11 + [_I] * 12 + [_P]}
+# (dk, dv) with an instance on the card (FOR_EACH_PAIR in the source)
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
 BWD_KV_TILE = 64  # kv rows a block of the bf16 backward (BwdCfg::BK)
 DQ_SLOT_BUDGET = 256 * 2 ** 20  # bytes of per-kv-tile f32 dQ slots at most
 _NEG = -1e30
@@ -52,15 +53,21 @@ class FwdConfig(NamedTuple):
     smem: int
 
 
-def fwd_config(B: int, Sq: int, H: int, d: int) -> FwdConfig:
+def fwd_config(B: int, Sq: int, H: int, dk: int, dv: int) -> FwdConfig:
     """Two consumer warpgroups (128 q rows, 128-row kv stages; one block an
     SM, its registers rebalanced to the consumers) where 128-row q tiles
     give at least four blocks per SM, else one (64 and 64: several blocks
-    share an SM, so short sequences keep the card full)."""
+    share an SM, so short sequences keep the card full).  Stages: as many
+    as fit, but two for one warpgroup at dk >= 128 (two blocks an SM) and
+    at (192, 128) (three 128-row stages of K and V would need 296 KB)."""
     bq = 128 if B * H * math.ceil(Sq / 128) >= 4 * _build.SMS else 64
     bk = 128 if bq == 128 else 64
-    stages = (4 if bq == 128 else 3) if d == 64 else (3 if bq == 128 else 2)
-    smem = 1024 + bq * d * 2 + 2 * stages * bk * d * 2 + 8 * (1 + 4 * stages)
+    if dk == 64:
+        stages = 4 if bq == 128 else 3
+    else:
+        stages = 3 if bq == 128 and dk + dv <= 256 else 2
+    smem = (1024 + bq * dk * 2 + stages * bk * (dk + dv) * 2
+            + 8 * (1 + 4 * stages))
     return FwdConfig(bq, bk, stages, smem)
 
 
@@ -133,23 +140,23 @@ def flash_attention_bwd_plain(q, k, v, dout, *, window: int, q_offset: int = 0,
 
 
 def _kernel_args(what, q, k, v, window, q_offset, causal, *more):
-    if v.shape[3] != q.shape[3]:
-        raise ValueError(f"{what}: the card's kernels take dv == dk; got dk "
-                         f"{q.shape[3]}, dv {v.shape[3]} (dv != dk runs on the "
-                         f"CPU only until ROADMAP §2 item 0 ports it)")
+    pair = (q.shape[3], v.shape[3])
+    if pair not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{what}: the card's kernels take (dk, dv) in "
+                         f"{HEAD_DIM_PAIRS}; got {pair} (other pairs run on "
+                         f"the CPU only)")
     _build.require_cuda(what, q, k, v, *more)
     code = _build.dtype_code(what, q)
-    if any(t.dtype != q.dtype for t in (k, v, *more)) or q.shape[3] not in HEAD_DIMS:
+    if any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"{what}: q, k, v{', o, dO' if more else ''} of one "
-                         f"dtype and head dim in {HEAD_DIMS}; got "
-                         f"{[(tuple(t.shape), t.dtype) for t in (q, k, v, *more)]}")
+                         f"dtype; got {[t.dtype for t in (q, k, v, *more)]}")
     if any(t.data_ptr() % 16 for t in (q, k, v, *more)):
         raise ValueError(f"{what}: the kernels read rows in 16-byte chunks; "
                          f"every tensor must start 16-byte aligned")
-    B, Sq, H, d = q.shape
+    B, Sq, H, dk = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    return [B, Sq, Skv, H, KV, d, int(window), int(q_offset), int(causal), code,
-            _build.stream_of(q)]
+    return [B, Sq, Skv, H, KV, dk, v.shape[3], int(window), int(q_offset),
+            int(causal), code, _build.stream_of(q)]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -160,14 +167,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_fwd_plain(q, k, v, window=window,
                                          q_offset=q_offset, causal=causal)
     args = _kernel_args("flash_attention_fwd", q, k, v, window, q_offset, causal)
-    B, Sq, H, d = q.shape
-    o = torch.empty_like(q)
+    B, Sq, H, dk = q.shape
+    dv = v.shape[3]
+    o = q.new_empty(B, Sq, H, dv)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     if q.numel():
         lib = _build.load("flash_attention", _SIGS)
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(), *args[:-1],
-                                     fwd_config(B, Sq, H, d).bq, args[-1])
+                                     fwd_config(B, Sq, H, dk, dv).bq, args[-1])
         _build.check(lib, rc, "flash_attention_fwd")
         flash_attention_fwd.launches += 1
     return o, lse
@@ -185,13 +193,13 @@ def dq_scratch(q: torch.Tensor, skv: int) -> torch.Tensor | None:
     last kernel sums, scales and rounds it, for Skv = ``skv`` keys; None
     for f32, whose dQ kernel owns each row.
 
-    Where one (B, Sq, H, d) slot per 64-row kv tile fits DQ_SLOT_BUDGET
+    Where one (B, Sq, H, dk) slot per 64-row kv tile fits DQ_SLOT_BUDGET
     (every training shape: 4 x 8.4 MB at fastmoe-gpt's 8 x 256), it is
-    (kv tiles, B, Sq, H, d), uninitialised: each kv tile stores its part in
+    (kv tiles, B, Sq, H, dk), uninitialised: each kv tile stores its part in
     its own slot and the last kernel sums the slots that were written in
     kv-tile order, so dq is bitwise reproducible.  Beyond the budget (one
     starcoder2-15b kv group at 2 x 8192 would need ~12.9 GB) it is one
-    (B, Sq, H, d) of zeros that the kv tiles add into by atomics, in an
+    (B, Sq, H, dk) of zeros that the kv tiles add into by atomics, in an
     order that changes from run to run."""
     if q.dtype != torch.bfloat16:
         return None

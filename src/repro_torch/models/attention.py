@@ -1,5 +1,5 @@
-"""GQA attention: full-sequence (prefill) and one-token decode against a
-ring-buffer KV cache.
+"""Attention blocks: GQA and MLA (DeepSeek-V2), full-sequence (prefill)
+and one-token decode against a ring-buffer cache.
 
 In the JAX package's ``(B, S, H, d)`` layout.  ``blockwise_attention``
 computes what the JAX blockwise online-softmax scan computes through the
@@ -10,6 +10,12 @@ softmax in f32 over the ring.  The cache keeps each
 entry's absolute position beside it (-1 = empty, masked); RoPE is applied
 at write time.  Decode writes the cache in place — the JAX version returns
 a new cache; the port updates the tensors it was given and returns them.
+
+MLA caches only the compressed latent (kv_lora) and the shared rope key;
+prefill materialises per-head keys (dk = nope + rope) and values (dv) from
+the latent and runs the flash kernels with dv != dk, and decode uses the
+*absorbed* form (W_uk folded into the query, W_uv into the output), in f32
+einsums against the cached latents, as the reference does.
 """
 from __future__ import annotations
 
@@ -109,23 +115,45 @@ def _per_seq_pos(pos, B: int, device) -> torch.Tensor:
     return pos.expand(B) if pos.dim() == 0 else pos
 
 
+def _write_slots(cache, rows: tuple, posb: torch.Tensor):
+    """Decode: write each sequence's new row of every cached tensor (all
+    but ``positions``, in order) and its position into ring slot
+    posb[b] % W, in place."""
+    slots = posb % cache.positions.shape[1]
+    bidx = torch.arange(posb.shape[0], device=posb.device)
+    for buf, row in zip(cache[:-1], rows):
+        buf[bidx, slots] = row.to(buf.dtype)
+    cache.positions[bidx, slots] = posb.to(cache.positions.dtype)
+    return cache
+
+
+def _fill_ring(cache, rows: tuple, start: int):
+    """Prefill: write S rows of every cached tensor (all but
+    ``positions``, in order) into the ring from absolute position
+    ``start``, in place; only the last W survive if S exceeds it."""
+    B, S = rows[0].shape[:2]
+    W = cache.positions.shape[1]
+    tail = max(0, S - W)
+    pos_abs = start + torch.arange(tail, S, device=rows[0].device)
+    slots = pos_abs % W
+    for buf, new in zip(cache[:-1], rows):
+        buf[:, slots] = new[:, tail:].to(buf.dtype)
+    cache.positions[:, slots] = pos_abs.to(cache.positions.dtype).expand(B, -1)
+    return cache
+
+
 def gqa_decode(params: dict, x: torch.Tensor, cache: KVCache, pos,
                cfg: AttentionConfig, *, window: int):
     """One-token decode; writes (k, v, pos) into each sequence's ring slot
     pos[b] % W of ``cache`` in place and returns (y, cache)."""
     B = x.shape[0]
-    W = cache.k.shape[1]
     posb = _per_seq_pos(pos, B, x.device)
     q = linear(params["wq"], x).reshape(B, 1, cfg.num_heads, cfg.head_dim)
     k = linear(params["wk"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
     v = linear(params["wv"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, posb[:, None], cfg.rope_theta)
     k = apply_rope(k, posb[:, None], cfg.rope_theta)
-    slots = posb % W
-    bidx = torch.arange(B, device=x.device)
-    cache.k[bidx, slots] = k[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slots] = v[:, 0].to(cache.v.dtype)
-    cache.positions[bidx, slots] = posb.to(cache.positions.dtype)
+    cache = _write_slots(cache, (k[:, 0], v[:, 0]), posb)
     out = decode_attention(q, cache.k, cache.v, cache.positions,
                            posb[:, None], window)
     return linear(params["wo"], out.reshape(B, 1, -1)), cache
@@ -135,15 +163,7 @@ def fill_kv_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, *,
                   start: int = 0) -> KVCache:
     """Prefill: write S (post-RoPE) rows into the ring in place, starting at
     absolute position ``start``; only the last W survive if S exceeds it."""
-    B, S = k.shape[:2]
-    W = cache.k.shape[1]
-    tail = max(0, S - W)
-    pos_abs = start + torch.arange(tail, S, device=k.device)
-    slots = pos_abs % W
-    cache.k[:, slots] = k[:, tail:].to(cache.k.dtype)
-    cache.v[:, slots] = v[:, tail:].to(cache.v.dtype)
-    cache.positions[:, slots] = pos_abs.to(cache.positions.dtype).expand(B, -1)
-    return cache
+    return _fill_ring(cache, (k, v), start)
 
 
 def gqa_init_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, *,
@@ -153,3 +173,130 @@ def gqa_init_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, *,
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.full((batch, max_len), -1, dtype=torch.int32,
                               device=device))
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # (B, W, kv_lora) compressed latent
+    kr: torch.Tensor  # (B, W, qk_rope) decoupled rope key (shared by heads)
+    positions: torch.Tensor  # (B, W) absolute positions, -1 empty
+
+
+def mla_init(gen: torch.Generator, d_model: int, cfg: AttentionConfig, *,
+             device, dtype=torch.float32) -> dict:
+    """The reference's leaves and layouts: ``w_uk`` (H, kv_lora, nope) and
+    ``w_uv`` (H, kv_lora, v) up-project the latent per head; ``w_q`` stands
+    in for ``w_dq`` and ``w_uq`` when ``q_lora_rank`` is 0."""
+    kw = dict(device=device, dtype=dtype)
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+
+    def up(d):
+        t = torch.randn(H, r, d, generator=gen, device=device) * r ** -0.5
+        return t.to(dtype)
+
+    p = {"w_dkv": linear_init(gen, d_model, r, **kw),
+         "w_kr": linear_init(gen, d_model, cfg.qk_rope_head_dim, **kw),
+         "w_uk": up(cfg.qk_nope_head_dim),
+         "w_uv": up(cfg.v_head_dim),
+         "wo": linear_init(gen, H * cfg.v_head_dim, d_model, **kw)}
+    if cfg.q_lora_rank:
+        p["w_dq"] = linear_init(gen, d_model, cfg.q_lora_rank, **kw)
+        p["w_uq"] = linear_init(gen, cfg.q_lora_rank, H * qd, **kw)
+    else:
+        p["w_q"] = linear_init(gen, d_model, H * qd, **kw)
+    return p
+
+
+def _mla_q(params: dict, x: torch.Tensor, cfg: AttentionConfig):
+    """(q_nope, q_rope), each (B, S, H, *)."""
+    B, S, _ = x.shape
+    if "w_dq" in params:
+        q = linear(params["w_uq"], linear(params["w_dq"], x))
+    else:
+        q = linear(params["w_q"], x)
+    q = q.reshape(B, S, cfg.num_heads,
+                  cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    return q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+
+
+def mla_apply(params: dict, x: torch.Tensor, cfg: AttentionConfig, *,
+              window: int, positions=None, return_kv: bool = False):
+    """Training/prefill MLA on x (B, S, d): per-head keys concat(nope, rope)
+    (dk = nope + rope) and values (dv) from the latent, through the flash
+    kernels.  As the reference: q is roped at ``positions`` (default
+    arange(S)), the shared rope key at arange(S).  ``return_kv`` also
+    returns the latents (ckv (B, S, kv_lora), kr (B, S, rope)) for the
+    decode cache."""
+    B, S, _ = x.shape
+    H, rope = cfg.num_heads, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    ar = torch.arange(S, device=x.device)
+    q_rope = apply_rope(q_rope, ar if positions is None else positions,
+                        cfg.rope_theta)
+    ckv = linear(params["w_dkv"], x)
+    kr = linear(params["w_kr"], x).reshape(B, S, 1, rope)
+    kr = apply_rope(kr, ar, cfg.rope_theta)
+    k_nope = torch.einsum("bsr,hrd->bshd", ckv, params["w_uk"])
+    v = torch.einsum("bsr,hrd->bshd", ckv, params["w_uv"]).contiguous()
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr.expand(B, S, H, rope)], dim=-1)
+    out = blockwise_attention(q, k, v, window=window)
+    y = linear(params["wo"], out.reshape(B, S, -1))
+    if return_kv:
+        return y, (ckv, kr[:, :, 0, :])
+    return y
+
+
+def fill_mla_cache(cache: MLACache, ckv: torch.Tensor, kr: torch.Tensor, *,
+                   start: int = 0) -> MLACache:
+    """Prefill the latent cache in place (ckv (B, S, kv_lora), kr (B, S,
+    rope)) from absolute position ``start``; only the last W survive if S
+    exceeds the ring."""
+    return _fill_ring(cache, (ckv, kr), start)
+
+
+def mla_decode(params: dict, x: torch.Tensor, cache: MLACache, pos,
+               cfg: AttentionConfig, *, window: int):
+    """Absorbed-form one-token decode: writes (ckv, kr, pos) into each
+    sequence's ring slot pos[b] % W in place, scores the query against the
+    cached latents (W_uk absorbed into q) and maps the attended latent
+    through W_uv, in f32 einsums; scale (nope + rope)^-1/2.  ``pos``:
+    scalar or (B,).  Returns (y, cache)."""
+    B = x.shape[0]
+    H, rope = cfg.num_heads, cfg.qk_rope_head_dim
+    posb = _per_seq_pos(pos, B, x.device)
+    q_nope, q_rope = _mla_q(params, x, cfg)  # (B, 1, H, *)
+    q_rope = apply_rope(q_rope, posb[:, None], cfg.rope_theta)
+    ckv = linear(params["w_dkv"], x)[:, 0]  # (B, kv_lora)
+    kr = linear(params["w_kr"], x).reshape(B, 1, 1, rope)
+    kr = apply_rope(kr, posb[:, None], cfg.rope_theta)[:, 0, 0]  # (B, rope)
+    cache = _write_slots(cache, (ckv, kr), posb)
+
+    q_eff = torch.einsum("bhd,hrd->bhr", q_nope[:, 0].float(),
+                         params["w_uk"].float())
+    s = torch.einsum("bhr,bwr->bhw", q_eff, cache.ckv.float())
+    s = s + torch.einsum("bhd,bwd->bhw", q_rope[:, 0].float(),
+                         cache.kr.float())
+    s = s * (cfg.qk_nope_head_dim + rope) ** -0.5
+    dist = posb[:, None] - cache.positions
+    valid = (cache.positions >= 0) & (dist >= 0) & (dist < window)
+    s = s.masked_fill(~valid[:, None, :], _NEG)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhw,bwr->bhr", p, cache.ckv.float())
+    out = torch.einsum("bhr,hrd->bhd", o_lat, params["w_uv"].float())
+    out = out.reshape(B, 1, H * cfg.v_head_dim).to(x.dtype)
+    return linear(params["wo"], out), cache
+
+
+def mla_init_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, *,
+                   device) -> MLACache:
+    return MLACache(
+        torch.zeros(batch, max_len, cfg.kv_lora_rank, dtype=dtype, device=device),
+        torch.zeros(batch, max_len, cfg.qk_rope_head_dim, dtype=dtype,
+                    device=device),
+        torch.full((batch, max_len), -1, dtype=torch.int32, device=device))

@@ -1,7 +1,7 @@
 """Per-layer blocks of the ``dense`` and ``moe`` families:
-[norm -> GQA attention -> norm -> FFN | MoE], as full-sequence, prefill
-(fills the decode cache) and one-token decode.  The other families of the
-JAX package (ssm, hybrid, audio, vlm, MLA) are later slices (ROADMAP.md).
+[norm -> attention (GQA or MLA) -> norm -> FFN | MoE], as full-sequence,
+prefill (fills the decode cache) and one-token decode.  The other families
+of the JAX package (ssm, hybrid, audio, vlm) are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,10 +17,14 @@ FULL_WINDOW = 1 << 30  # "no window" sentinel (larger than any seq len)
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe") or cfg.attention is None \
-            or cfg.attention.kind != "gqa":
+            or cfg.attention.kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"repro_torch serves the dense/moe GQA families so far; "
-            f"{cfg.name!r} is family {cfg.family!r} (see ROADMAP.md)")
+            f"repro_torch serves the dense/moe families with GQA or MLA so "
+            f"far; {cfg.name!r} is family {cfg.family!r} (see ROADMAP.md)")
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attention.kind == "mla"
 
 
 def layer_windows(cfg: ModelConfig) -> list:
@@ -41,7 +45,8 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
     d = cfg.d_model
     p = {"norm1": norm_init(d, cfg.norm, device=device),
          "norm2": norm_init(d, cfg.norm, device=device),
-         "attn": A.gqa_init(gen, d, cfg.attention, device=device, dtype=dtype)}
+         "attn": (A.mla_init if _is_mla(cfg) else A.gqa_init)(
+             gen, d, cfg.attention, device=device, dtype=dtype)}
     if cfg.moe is not None:
         p["ffn"] = fmoe_init(gen, d, cfg.moe, act=cfg.act, d_ff_dense=cfg.d_ff,
                              device=device, dtype=dtype)
@@ -60,8 +65,9 @@ def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str):
 def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
                     impl: str = "einsum"):
     """x (B, S, d) -> (x, MoEMetrics | None)."""
-    h = A.gqa_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
-                    cfg.attention, window=window)
+    attn = A.mla_apply if _is_mla(cfg) else A.gqa_apply
+    h = attn(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg.attention,
+             window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
                             impl)
@@ -69,26 +75,32 @@ def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
 
 
 def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                        cache: A.KVCache, *, window: int, start: int = 0,
+                        cache, *, window: int, start: int = 0,
                         impl: str = "einsum"):
     """x (B, S, d), this layer's cache -> (x, filled cache, MoEMetrics|None).
-    One full-sequence pass writes every position's K/V into the cache so
-    decoding can continue at position S."""
-    h, (k, v) = A.gqa_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
-                            cfg.attention, window=window, return_kv=True)
+    One full-sequence pass writes every position's K/V (MLA: latents) into
+    the cache so decoding can continue at position S."""
+    xn = apply_norm(p["norm1"], x, cfg.norm)
+    if _is_mla(cfg):
+        h, (ckv, kr) = A.mla_apply(p["attn"], xn, cfg.attention,
+                                   window=window, return_kv=True)
+        cache = A.fill_mla_cache(cache, ckv, kr, start=start)
+    else:
+        h, (k, v) = A.gqa_apply(p["attn"], xn, cfg.attention, window=window,
+                                return_kv=True)
+        cache = A.fill_kv_cache(cache, k, v, start=start)
     x = x + h
-    cache = A.fill_kv_cache(cache, k, v, start=start)
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
                             impl)
     return x + h, cache, metrics
 
 
 def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                       cache: A.KVCache, pos, *, window: int,
-                       impl: str = "einsum"):
+                       cache, pos, *, window: int, impl: str = "einsum"):
     """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None)."""
-    h, cache = A.gqa_decode(p["attn"], apply_norm(p["norm1"], x, cfg.norm),
-                            cache, pos, cfg.attention, window=window)
+    decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
+    h, cache = decode(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cache,
+                      pos, cfg.attention, window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
                             impl)
@@ -96,7 +108,8 @@ def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
-                device) -> A.KVCache:
+                device):
+    """A KVCache, or for MLA an MLACache of latents."""
     _check_family(cfg)
-    return A.gqa_init_cache(batch, cache_len, cfg.attention, dtype,
-                            device=device)
+    init = A.mla_init_cache if _is_mla(cfg) else A.gqa_init_cache
+    return init(batch, cache_len, cfg.attention, dtype, device=device)

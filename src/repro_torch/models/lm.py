@@ -1,11 +1,12 @@
-"""The language model assembled from a config (dense / moe GQA families).
+"""The language model assembled from a config (dense / moe families, GQA
+or MLA attention).
 
 Public API:
   init_params(cfg, seed=, device=, param_dtype=)   -> params
   forward(params, cfg, tokens, impl=, device=)     -> (logits, MoEMetrics)
   loss_fn(params, cfg, batch, impl=, device=)      -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
-  init_cache(cfg, batch, cache_len, device=)       -> list of per-layer KVCache
+  init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
   decode_step(params, cfg, tokens, pos, cache,...) -> (logits, cache, metrics)
 
 Params mirror the JAX tree, except that ``params["layers"]`` is a list of
@@ -152,7 +153,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device="cuda") -> list:
-    """One ring-buffer KV cache per layer, in ``cfg.dtype``."""
+    """One ring-buffer cache per layer (KVCache; MLACache of latents for
+    MLA), in ``cfg.dtype``."""
     dev = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     return [B.layer_cache(cfg, batch, cache_len, dtype, device=dev)

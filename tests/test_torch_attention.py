@@ -141,6 +141,9 @@ def test_rows_without_keys_are_refused(window, q_offset, S, Skv):
 # v narrower than q and k (dv != dk), as MLA has it: the reduced deepseek
 # shape, dk 48 (32 nope + 16 rope) and dv 32.  The scale stays dk^-1/2 and
 # the output is (B, Sq, H, dv).  f32: outputs to 1e-5, gradients to 1e-4.
+# The card's kernels take (dk, dv) in flash_attention.HEAD_DIM_PAIRS —
+# (64, 64), (128, 128) and full deepseek's (192, 128) —, so this pair runs
+# on the CPU only (tests/test_torch_cuda.py holds (192, 128) on the card).
 # ---------------------------------------------------------------------------
 
 MLA_DK, MLA_DV = 48, 32

@@ -9,7 +9,9 @@ expert over the dW kernel's 64-row batch, and their simple route), and
 flash attention (tails of both tile sizes, window 1, GQA, non-causal, a
 query offset, one query row; the bf16 forward at both of its tile choices,
 also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
-over two runs; dv != dk refused) included.
+over two runs; MLA's (dk 192, dv 128) forward and backward, the bf16
+backward's dq, dk and dv bit for bit over two runs; a pair without an
+instance refused) included.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -316,20 +318,80 @@ def test_flash_attention_bwd_bf16_group_twice(dev):
         assert torch.equal(a, b), f"{name} differs between two runs"
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd"])
-def test_flash_attention_dv_differs_from_dk_is_refused(dev, which):
-    """v narrower than q and k (MLA) runs only on the CPU for now: on the
-    card both kernels refuse it, naming where the port owes it, and never
-    fall back to the plain version."""
-    q, k, _, do = _flash_inputs(dev, torch.bfloat16, 1, 64, 64, 4, 2, 64)
-    v = torch.randn(1, 64, 2, 32, device=dev).to(torch.bfloat16)
+# MLA's pair (deepseek-v2: dk 192 = 128 nope + 64 rope, dv 128), H = KV:
+# tails of both forward tiles and of the backward's 16-row q steps, a
+# window, non-causal, a query offset, and both forward tile choices
+MLA_CASES = [
+    (2, 333, 333, 8, 8, 1 << 30, 0, True),
+    (1, 150, 300, 4, 4, 100, 150, True),
+    (2, 97, 97, 4, 4, 40, 0, False),
+    (1, 1024, 1024, 128, 128, 1 << 30, 0, True),  # bq 128: 2-stage ring
+]
+
+
+def _mla_inputs(dev, dtype, B, Sq, Skv, H, KV, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, H, 192, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, KV, 192, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, KV, 128, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, Sq, H, 128, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,window,q_offset,causal", MLA_CASES)
+def test_flash_attention_dv_differs_from_dk(dev, dtype, B, Sq, Skv, H, KV,
+                                            window, q_offset, causal):
+    """The kernels at (dk 192, dv 128): o (B, Sq, H, 128) and lse against
+    the plain version (bf16 also bit for bit on >= 99% of outputs); dq,
+    dk, dv against its autograd at the dtype's tolerance scaled by each
+    gradient's largest entry and to a relative Frobenius error; the bf16
+    backward run twice, equal bit for bit where its dQ has a slot per kv
+    tile (all but the 128-head case, whose slots would exceed the budget)."""
+    q, k, v, do = _mla_inputs(dev, dtype, B, Sq, Skv, H, KV)
+    kw = dict(window=window, q_offset=q_offset, causal=causal)
     f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="ROADMAP §2 item 0"):
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            for _ in range(2 if dtype == torch.bfloat16 else 1)]
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches - f0,
+            fa.flash_attention_bwd.launches - b0) == (1, len(runs))
+    assert o.shape == (B, Sq, H, 128)
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    _assert_fro(o, ro, dtype)
+    if dtype == torch.bfloat16:
+        assert (o == ro).float().mean().item() >= FLASH_EQUAL
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+    for got in runs:
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape
+            scale = max(b.float().abs().max().item(), 1.0)
+            tol = dict(rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale)
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+            _assert_fro(a, b, dtype)
+    if dtype == torch.bfloat16 and fa.dq_slots(q, Skv):
+        for name, a, b in zip(("dq", "dk", "dv"), *runs):
+            assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_attention_pair_without_instance_is_refused(dev, which):
+    """The reduced MLA pair (dk 48, dv 32) has no instance on the card:
+    both kernels refuse it, naming the pairs they take, never fall back to
+    the plain version and count no launch."""
+    q, k, _, do = _flash_inputs(dev, torch.bfloat16, 1, 64, 64, 4, 2, 48)
+    v = torch.randn(1, 64, 2, 32, device=dev).to(torch.bfloat16)
+    do = do[..., :32].contiguous()
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match=r"\(192, 128\).*got \(48, 32\)"):
         if which == "fwd":
             fa.flash_attention_fwd(q, k, v, window=64)
         else:
             lse = torch.zeros(1, 4, 64, device=dev)
-            fa.flash_attention_bwd(q, k, v, q, lse, do, window=64)
+            fa.flash_attention_bwd(q, k, v, do, lse, do, window=64)
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (f0, b0)
 
 
@@ -392,14 +454,18 @@ def test_fused_ffn_ring_kernel_model_rows(dev, act, M, bm):
     assert not got[int(gs.sum()):].any()
 
 
-@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32"])
+@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32", "f32_wide"])
 def test_fused_ffn_simple_route(dev, case):
     """Shapes the ring kernel does not take run the simple kernel, right;
-    fused_ffn.launches counts them too."""
-    K, H, dtype = {"K36": (36, 128, torch.bfloat16), "H100": (64, 100, torch.bfloat16),
-                   "misaligned": (64, 128, torch.bfloat16),
-                   "f32": (64, 128, torch.float32)}[case]
-    M, N, sizes = 40, 64, [0, 17, 20]
+    fused_ffn.launches counts them too.  f32_wide: deepseek-v2's K 5120
+    and an N over three of the kernel's 1024-column blocks, the last
+    partial."""
+    K, H, N, dtype = {"K36": (36, 128, 64, torch.bfloat16),
+                      "H100": (64, 100, 64, torch.bfloat16),
+                      "misaligned": (64, 128, 64, torch.bfloat16),
+                      "f32": (64, 128, 64, torch.float32),
+                      "f32_wide": (5120, 200, 2100, torch.float32)}[case]
+    M, sizes = 40, [0, 17, 20]
     x, gs, ws, wo, _ = _ffn_inputs(dev, dtype, "gelu", M, K, H, N, sizes)
     if case == "misaligned":
         buf = torch.zeros(M * K + 8, dtype=dtype, device=dev)
@@ -445,16 +511,16 @@ def test_flash_attention_fwd_bf16_tiles(dev, B, Sq, Skv, H, KV, d, window,
     torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dk,dv", fa.HEAD_DIM_PAIRS)
 @pytest.mark.parametrize("bq", [64, 128])
-def test_flash_fwd_config_matches_the_kernel(dev, d, bq):
+def test_flash_fwd_config_matches_the_kernel(dev, dk, dv, bq):
     """The host's mirror of the forward's shared memory is what the kernel
     asks for."""
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention", fa._SIGS)
-    cfg = fa.fwd_config(1, 1 if bq == 64 else 1 << 20, 64, d)
+    cfg = fa.fwd_config(1, 1 if bq == 64 else 1 << 20, 64, dk, dv)
     assert cfg.bq == bq
-    assert lib.flash_attention_fwd_smem(d, bq) == cfg.smem
+    assert lib.flash_attention_fwd_smem(dk, dv, bq) == cfg.smem
 
 
 # ---------------------------------------------------------------------------
@@ -538,14 +604,17 @@ def test_fused_ffn_bwd_ring_kernels_model_rows(dev, act, M, bm):
               fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act), gs)
 
 
-@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32"])
+@pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32", "f32_wide"])
 def test_fused_ffn_bwd_simple_route(dev, case):
     """Shapes the ring kernels do not take run the first versions, right;
-    the kernels' launch counters count them too."""
-    K, H, dtype = {"K36": (36, 128, torch.bfloat16), "H100": (64, 100, torch.bfloat16),
-                   "misaligned": (64, 128, torch.bfloat16),
-                   "f32": (64, 128, torch.float32)}[case]
-    M, N, sizes = 40, 64, [0, 17, 20]
+    the kernels' launch counters count them too.  f32_wide: deepseek-v2's
+    K 5120, dX over five of the dX kernel's 1024-column blocks."""
+    K, H, N, dtype = {"K36": (36, 128, 64, torch.bfloat16),
+                      "H100": (64, 100, 64, torch.bfloat16),
+                      "misaligned": (64, 128, 64, torch.bfloat16),
+                      "f32": (64, 128, 64, torch.float32),
+                      "f32_wide": (5120, 200, 2100, torch.float32)}[case]
+    M, sizes = 40, [0, 17, 20]
     x, gs, ws, wo, dy = _ffn_inputs(dev, dtype, "gelu", M, K, H, N, sizes)
     if case == "misaligned":
         buf = torch.zeros(M * N + 8, dtype=dtype, device=dev)

@@ -5,8 +5,9 @@ scratch of the flash backward (``dq_scratch``: per-kv-tile slots within a
 budget, else one the kv tiles add into), the fused FFN's tiling (``plan``)
 and routing (``route``), its backward's (``plan_bwd``, ``route``, the
 shared memory mirrors ``dx_smem`` / ``dw_smem``), and the flash forward's
-tiles and shared memory (``fwd_config``).  The SM count they plan for is
-``_build.SMS``."""
+tiles and shared memory (``fwd_config``) at every (dk, dv) pair with an
+instance, and the refusal of a pair without one before any card is
+needed.  The SM count they plan for is ``_build.SMS``."""
 import math
 
 import numpy as np
@@ -367,17 +368,62 @@ def test_bwd_route_misaligned_operand_takes_the_simple_kernel(which):
     ((1, 1, 4, 128), 64),       # one decode-like row
 ])
 def test_flash_fwd_config_model_shapes(shape, bq):
-    cfg = fa.fwd_config(*shape)
+    cfg = fa.fwd_config(*shape, shape[-1])
     assert cfg.bq == bq and cfg.bk == bq
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [dk for dk, dv in fa.HEAD_DIM_PAIRS if dk == dv])
 @pytest.mark.parametrize("Sq", [1, 333, 4096, 1 << 16])
 def test_flash_fwd_config_shared_memory(d, Sq):
     """Every tile choice fits a block's 232,448 bytes of dynamic shared
     memory, and two consumer warpgroups come only with four blocks an SM."""
-    cfg = fa.fwd_config(2, Sq, 16, d)
+    cfg = fa.fwd_config(2, Sq, 16, d, d)
     assert cfg.smem <= fa.SMEM_LIMIT
     assert cfg.smem >= cfg.bq * d * 2 + 2 * cfg.stages * cfg.bk * d * 2
     assert cfg.stages >= 2 and cfg.bq in (64, 128)
     assert (cfg.bq == 128) == (2 * 16 * math.ceil(Sq / 128) >= 4 * _build.SMS)
+
+
+# MLA's pair: dk 192 (128 nope + 64 rope), dv 128.  By hand: 1024 bytes to
+# align the base, Q (bq x 192 bf16), per stage a K (bk x 192) and a V (bk x
+# 128) tile, and 8 bytes for each of 1 + 4 x stages barriers.
+MLA_SMEM = {64: 1024 + 64 * 192 * 2 + 2 * (64 * 192 * 2 + 64 * 128 * 2) + 8 * 9,
+            128: 1024 + 128 * 192 * 2 + 2 * (128 * 192 * 2 + 128 * 128 * 2) + 8 * 9}
+
+
+@pytest.mark.parametrize("bq,shape", [
+    (64, (1, 256, 16)),      # a short prompt: one warpgroup, several blocks an SM
+    (128, (2, 4096, 128)),   # deepseek-v2 prefill, 2 x 4096, 128 heads
+])
+def test_flash_fwd_config_mla_shared_memory(bq, shape):
+    cfg = fa.fwd_config(*shape, 192, 128)
+    assert (cfg.bq, cfg.bk, cfg.stages) == (bq, bq, 2)
+    assert cfg.smem == MLA_SMEM[bq] == {64: 107_592, 128: 214_088}[bq]
+    assert cfg.smem <= fa.SMEM_LIMIT
+    # a third stage would not fit two blocks an SM (bq 64) or one (bq 128)
+    third = cfg.smem + cfg.bk * (192 + 128) * 2 + 32
+    assert third > (fa.SMEM_LIMIT if bq == 128 else fa.SMEM_LIMIT // 2 - 1024)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_pair_without_instance_is_refused_before_the_card(which):
+    """The reduced MLA pair (48, 32) has no instance: ``_kernel_args``
+    names the pairs the card takes before it asks for CUDA tensors (these
+    are on the CPU), so the refusal needs no card and nothing launches."""
+    q = torch.zeros(1, 8, 2, 48)
+    v = torch.zeros(1, 8, 2, 32)
+    more = (v, v) if which == "bwd" else ()
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match=r"\(dk, dv\) in .*\(192, 128\).*got \(48, 32\)"):
+        fa._kernel_args(f"flash_attention_{which}", q, q, v, 8, 0, True, *more)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (f0, b0)
+
+
+@pytest.mark.parametrize("pair", fa.HEAD_DIM_PAIRS)
+def test_flash_pairs_with_an_instance_pass_the_pair_check(pair):
+    """A pair with an instance gets past the pair check and stops, on the
+    CPU, only at the next one: the tensors must be on the card."""
+    dk, dv = pair
+    q, v = torch.zeros(1, 8, 2, dk), torch.zeros(1, 8, 2, dv)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        fa._kernel_args("flash_attention_fwd", q, q, v, 8, 0, True)

@@ -53,10 +53,19 @@
    times the backward kernels (ring and first version) at the group sizes
    of each layer of fused/ragged's profiled step (the model's own routing),
    holding them against their plain versions at its most skewed layer;
-9. holds one step's gradients of each kernel path (full width, 2 layers)
+9. runs expert parallelism (the §3.2 exchange, repro_torch.launch.mesh and
+   core.sync) over a 1x1 mesh, a world-size-1 NCCL group in this process:
+   the same 10-layer model and batch through the EP path of fused/ragged,
+   fused/capacity and pallas/ragged, whose step-0 loss and every gradient
+   leaf must equal the local path's bit for bit (the exchange is an
+   identity at world size 1), with the launch counters set to 0 just
+   before each EP run and read just after; then times the EP AdamW step
+   against the local one (fused/ragged, fused/capacity: median of 5 steps,
+   the difference, peak memory, launches per step);
+10. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
    on plain attention);
-10. holds the flash-attention kernels (forward; backward dq, dk, dv — the
+11. holds the flash-attention kernels (forward; backward dq, dk, dv — the
    bf16 backward twice, bit-equal over the runs where its dQ has a slot
    per kv tile, at the fastmoe-gpt shapes, and each run to the tolerance
    where it adds by atomics, at the starcoder2 kv group)
@@ -71,18 +80,18 @@
    and times the kernels at MLA's pair at full width (forward 2 x 4096, 128
    heads; backward 16 heads, twice), by events and device time, beside
    their bounds, the plain version and SDPA;
-11. holds 2-layer full-width starcoder2-15b logits (1 x 8192) of the
+12. holds 2-layer full-width starcoder2-15b logits (1 x 8192) of the
    kernel path no further from an f32 plain-attention path than the bf16
    plain path is, and profiles one 2-layer prefill of 2 x 8192 (busy
    share, the flash forward's share, top kernels);
-12. serves full-width 40-layer starcoder2-15b (15.96 B params, bf16 layers)
+13. serves full-width 40-layer starcoder2-15b (15.96 B params, bf16 layers)
    greedily: 2 prompts x 8192 tokens into a 4096-slot ring, then 32
    decode steps, with the launch counters set to 0 just before and read
    just after, printing prefill ms, decode ms/step and peak memory;
-13. holds 2-layer full-width deepseek-v2-236b logits (2 x 256, MLA prefill
+14. holds 2-layer full-width deepseek-v2-236b logits (2 x 256, MLA prefill
    on the flash kernels at dk 192, dv 128; fused/ragged) no further from
    an f32 plain path on the same weights than the bf16 plain path is;
-14. serves deepseek-v2-236b at full width, 4 of its 60 layers (16.9 B
+15. serves deepseek-v2-236b at full width, 4 of its 60 layers (16.9 B
    params, bf16 layers), greedily: 2 prompts x 4096 tokens, then 32
    absorbed-form decode steps against a 4160-slot latent cache, for
    fused/ragged and pallas/capacity, with the launch counters set to 0
@@ -125,6 +134,12 @@ BATCH, PROMPT, GEN = 8, 128, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = 8, 256, 10
 TRAIN_WARM, TRAIN_STEPS = 1, 4
 TRAIN_COMBOS = [("fused", "capacity"), ("fused", "ragged"), ("pallas", "ragged")]
+# expert parallelism at world size 1 (NCCL): each path's step-0 loss and
+# gradients against the local path's, bit for bit; the fused ones timed as
+# AdamW steps against the local step, EP_STEPS each after a warm step
+EP_COMBOS = (("fused", "ragged"), ("fused", "capacity"), ("pallas", "ragged"))
+EP_TIMED = (("fused", "ragged"), ("fused", "capacity"))
+EP_STEPS = 5
 # kernel vs plain version on the same inputs: bf16 outputs are rounded once
 # from f32 sums of identical products, so they differ by at most a bf16 ulp
 # where a sum straddles a rounding boundary (plus one hidden-tile ulp in the
@@ -1573,6 +1588,178 @@ def group_sizes_tap(out: list):
         ops.fused_grouped_ffn = orig
 
 
+def ep_phase(dev):
+    """Expert parallelism over a 1x1 mesh: a world-size-1 NCCL process group
+    in this process (a HashStore), full-width fastmoe-gpt at TRAIN_LAYERS
+    layers, 8 x 256 tokens.  At world size 1 the exchange is an identity
+    (the send buffer is the sorted rows, the compaction and the capacity
+    buffer unchanged), so for each of EP_COMBOS the EP path's step-0 loss
+    and every gradient leaf must equal the local path's (``dist=None``) bit
+    for bit.  Then the EP AdamW step is timed against the local one
+    (EP_TIMED).  The launch counters are set to 0 just before each EP run
+    and read just after; returns their sums."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        mesh = make_local_mesh(1, 1)
+        base = dataclasses.replace(get_config("fastmoe-gpt"),
+                                   num_layers=TRAIN_LAYERS)
+        data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+        batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = lm.init_params(base, seed=0, device=dev,
+                                param_dtype=base.param_dtype)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        total = {k: 0 for k in counters()}
+
+        def counted(fn, ep=True):
+            for f in counters().values():
+                f.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            runs = {k: f.launches for k, f in counters().items()}
+            for k, v in runs.items():
+                total[k] += v if ep else 0
+            return out, runs
+
+        for impl, dispatch in EP_COMBOS:
+            cfg = with_dispatch(base, dispatch)
+            dist = train.moe_dist(cfg, mesh, tokens)
+            check(dist is not None and dist.mode == "a2a",
+                  f"EP {impl}/{dispatch}: no a2a dist")
+            loss_l, _, g_local = train.loss_and_grads(params, cfg, batch,
+                                                      impl=impl, device=dev)
+            (loss_e, _, g_ep), runs = counted(lambda: train.loss_and_grads(
+                params, cfg, batch, impl=impl, device=dev, dist=dist))
+            pairs = list(zip(tree_leaves(g_local), tree_leaves(g_ep)))
+            unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+            worst = max((float((a.float() - b.float()).abs().max())
+                         for i, (a, b) in enumerate(pairs) if i in unequal),
+                        default=0.0)
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"EP {impl}/{dispatch} 1x1 (NCCL, world size 1): step-0 loss "
+                  f"{float(loss_e):.6f}, local {float(loss_l):.6f}, "
+                  f"{'equal' if torch.equal(loss_l, loss_e) else 'UNEQUAL'}; "
+                  f"{len(pairs) - len(unequal)} of {len(pairs)} gradient leaves "
+                  f"bit-equal (max |diff| {worst:.3e}); peak memory with two "
+                  f"sets of f32 grads {peak / 1e9:.2f} GB ({n_params / 1e9:.3f} "
+                  f"B params: {4 * n_params / 1e9:.1f} GB each for params and "
+                  f"each set)", flush=True)
+            check(torch.equal(loss_l, loss_e),
+                  f"EP {impl}/{dispatch}: step-0 loss differs from the local path")
+            check(not unequal, f"EP {impl}/{dispatch}: gradient leaves {unequal} "
+                               f"differ from the local path")
+            needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
+                if impl == "fused" else ["grouped_gemm"]
+            needed += ["flash_attention_fwd", "flash_attention_bwd"]
+            if dispatch == "ragged":
+                needed += ["gather_rows", "combine_topk"]
+            for name in needed:
+                check(runs[name] > 0, f"EP {impl}/{dispatch}: kernel {name} "
+                                      f"was never launched")
+            for simple in SIMPLE_KERNELS:
+                check(runs[simple] == 0, f"EP {impl}/{dispatch}: {simple} ran "
+                                         f"at a model shape")
+            del g_local, g_ep, pairs
+            torch.cuda.empty_cache()
+
+        opt = AdamW()
+        state = opt.init(params)
+        for impl, dispatch in EP_TIMED:
+            cfg = with_dispatch(base, dispatch)
+            dist = train.moe_dist(cfg, mesh, tokens)
+            steps = {name: train.make_train_step(cfg, opt, dist=d, impl=impl,
+                                                 device=dev)
+                     for name, d in (("local", None), ("ep", dist))}
+            times = {name: [] for name in steps}
+            peaks = {name: 0 for name in steps}
+            per_step: dict = {}
+            for step in range(1 + EP_STEPS):  # the two paths in turn
+                for name, step_fn in steps.items():
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (params, state, m), runs = counted(
+                        lambda: step_fn(params, state, batch, step),
+                        ep=name == "ep")
+                    wall = time.perf_counter() - t0
+                    loss = float(m["loss"])
+                    check(math.isfinite(loss) and 3.0 < loss < 20.0,
+                          f"EP timing {name} {impl}/{dispatch}: loss {loss}")
+                    peaks[name] = max(peaks[name],
+                                      torch.cuda.max_memory_allocated(dev))
+                    if step:
+                        times[name].append(wall * 1e3)
+                        per_step[name] = runs
+            med = {name: statistics.median(v) for name, v in times.items()}
+            launches = sum(per_step["ep"].values())
+            print(f"EP train step {impl}/{dispatch} 1x1 vs local, "
+                  f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
+                  f"{TRAIN_SEQ}, AdamW included: EP {med['ep']:.1f} ms, local "
+                  f"{med['local']:.1f} ms median of {EP_STEPS} "
+                  f"(EP - local {med['ep'] - med['local']:+.1f} ms; EP "
+                  + " ".join(f"{v:.1f}" for v in times["ep"]) + "; local "
+                  + " ".join(f"{v:.1f}" for v in times["local"])
+                  + f"); peak memory EP {peaks['ep'] / 1e9:.2f} GB, local "
+                  f"{peaks['local'] / 1e9:.2f} GB; kernel launches per EP step "
+                  f"{launches} ({json.dumps({k: v for k, v in per_step['ep'].items() if v})}), "
+                  f"per local step "
+                  f"{sum(per_step['local'].values())}", flush=True)
+            for name, step_fn in steps.items():
+                params, state = profile_ep_step(
+                    f"{name} {impl}/{dispatch}", step_fn, params, state,
+                    batch, 1 + EP_STEPS)
+        del params, state, opt
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"main path launches (EP training, 1x1): {json.dumps(total)}",
+          flush=True)
+    return total
+
+
+def profile_ep_step(label, step_fn, params, state, batch, step):
+    """One train step under torch.profiler: wall, kernel time and busy
+    share, CUDA launches (all, and NCCL's with their device time), host
+    syncs, and the host ops with the most self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, batch, step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    syncs = sum(1 for e in events if e.name in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"))
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    print(f"profile EP-phase step {label} (profiler on): wall "
+          f"{wall * 1e3:.1f} ms, kernels {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} kernel "
+          f"launches, of them {len(nccl)} NCCL "
+          f"({sum(e.device_time for e in nccl) / 1e3:.2f} ms device), {syncs} "
+          f"host syncs; host self time: "
+          + "; ".join(f"{a.key[:40]} {a.self_cpu_time_total / 1e3:.1f} ms "
+                      f"x{a.count}" for a in host[:8]), flush=True)
+    return params, state
+
+
 def model_routing_phase(dev, sizes):
     """The backward kernels at the model's own routing: the group sizes of
     each layer of fused/ragged's profiled train step (random bf16 inputs at
@@ -2129,6 +2316,7 @@ def main() -> int:
     launches = serve_phase(dev)
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _, routing = train_phase(dev)
+    ep_launches = ep_phase(dev)
     routing_ms = model_routing_phase(dev, routing)
     grad_oracle_phase(dev)
     starcoder2_logits_phase(dev)
@@ -2156,6 +2344,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "launches": launches[name],
+            "launches_by_path": {"fastmoe-gpt serving": launches[name],
+                                 "fastmoe-gpt training": train_launches[name],
+                                 "fastmoe-gpt EP training 1x1": ep_launches[name]},
             "max_abs_err": errs[(name, "bfloat16", "decode")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2168,6 +2359,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/fused_ffn_bwd.cu", "replaces": rep,
             "launches": train_launches[name],
+            "launches_by_path": {"fastmoe-gpt training": train_launches[name],
+                                 "fastmoe-gpt EP training 1x1": ep_launches[name]},
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2183,6 +2376,7 @@ def main() -> int:
         t = fa_timed[(name, "starcoder2")]
         by_path = {"fastmoe-gpt serving": launches[name],
                    "fastmoe-gpt training": train_launches[name],
+                   "fastmoe-gpt EP training 1x1": ep_launches[name],
                    "starcoder2-15b serving": sc2_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",

@@ -8,6 +8,11 @@ Two realizations, as in the JAX package:
   scatter (``dispatch_ragged``) and the gate-weighted gather
   (``combine_ragged``) are the two token-shuffle kernels
   (``repro_torch.kernels.token_shuffle``).
+
+and the plans of the expert-parallel ragged exchange (``make_ragged_xplan``,
+``ragged_recv_compact``), whose packing and compaction are plain index
+copies (``scatter_rows``, ``gather_rows_fill``), as the reference's
+scatters and gathers are.
 """
 from __future__ import annotations
 
@@ -127,3 +132,104 @@ def combine_ragged(y_sorted: torch.Tensor, plan: RaggedPlan,
     idx = inv.reshape(T, k).to(torch.int32)
     return ops.combine_tokens(y_sorted, idx,
                               combine_weights.to(y_sorted.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Cross-rank ragged plans — the expert-parallel dropless exchange (§3.2)
+# ---------------------------------------------------------------------------
+#
+# Each rank's rows for peer p form one contiguous segment of its
+# expert-sorted array (experts are contiguous per rank), laid into shard p
+# of a (mp, bound, d) send buffer.  ``bound`` is the static pad-to-max-per-
+# peer width; the valid lengths travel apart, as the (mp, E_local) counts
+# all-to-all, so the receiver can compact the padded shards into one
+# expert-sorted array for the grouped kernels.  bound = T*k never drops.
+
+
+class RaggedXPlan(NamedTuple):
+    """Send-side geometry of the ragged all-to-all, indexing the rank's
+    expert-sorted rows (``make_ragged_plan`` order)."""
+
+    send_dest: torch.Tensor  # (T*k,) int32 — slot in the flat (mp*bound)
+    # send buffer; == mp*bound for rows not sent (over the bound)
+    peer_counts: torch.Tensor  # (mp, E_local) int32 — rows that fit the
+    # bound, per (destination rank, its local expert): the counts payload
+    keep: torch.Tensor  # (T*k,) bool — owned rows that fit the bound
+    num_owned_rows: torch.Tensor  # () int32 — rows routed to owned experts
+
+
+def make_ragged_xplan(group_sizes: torch.Tensor, num_rows: int,
+                      num_owned: int, num_peers: int,
+                      bound: int) -> RaggedXPlan:
+    """Lay this rank's ``num_rows`` sorted rows into per-peer shards of
+    width ``bound``.
+
+    group_sizes: (E,) of the local expert sort.  The first ``num_owned``
+    experts take the exchange, ``num_owned // num_peers`` per peer in
+    contiguous blocks.  A peer's rows keep their expert-sorted order inside
+    its shard, and an over-full shard loses its trailing experts' rows.
+    """
+    dev = group_sizes.device
+    e_pp = num_owned // num_peers
+    raw = group_sizes[:num_owned].to(torch.int64).reshape(num_peers, e_pp)
+    peer_tot = raw.sum(dim=1)
+    cum = torch.cumsum(peer_tot, dim=0)  # (mp,) inclusive
+    num_owned_rows = cum[-1]
+    i = torch.arange(num_rows, dtype=torch.int64, device=dev)
+    owned = i < num_owned_rows
+    peer = torch.searchsorted(cum, i, right=True).clamp(0, num_peers - 1)
+    within = i - (cum[peer] - peer_tot[peer])  # position inside the shard
+    keep = owned & (within < bound)
+    send_dest = torch.where(keep, peer * bound + within,
+                            torch.full_like(i, num_peers * bound))
+    off_in_peer = torch.cumsum(raw, dim=1) - raw  # exclusive, per peer
+    peer_counts = torch.minimum(torch.clamp(bound - off_in_peer, min=0), raw)
+    return RaggedXPlan(send_dest.to(torch.int32),
+                       peer_counts.to(torch.int32), keep,
+                       num_owned_rows.to(torch.int32))
+
+
+def ragged_recv_compact(incoming: torch.Tensor, bound: int):
+    """Compaction map for the received (mp, bound, d) shards.
+
+    incoming: (mp, E_local) kept-row counts from each source rank (the
+    counts all-to-all's output); shard s holds ``incoming[s].sum()`` valid
+    rows, expert-sorted with segment lengths ``incoming[s]``.  Returns
+    ``(dest, group_sizes)``: ``dest`` (mp*bound,) int32 maps each received
+    slot to its row of the expert-sorted compact array (mp*bound for
+    padding), and ``group_sizes`` (E_local,) int32 are the compact array's
+    segments, source-major within an expert — global token order when
+    ranks hold contiguous token blocks in rank order.
+    """
+    mp, e_local = incoming.shape
+    inc = incoming.to(torch.int64)
+    gs = inc.sum(dim=0)  # (E_local,)
+    e_off = torch.cumsum(gs, dim=0) - gs  # exclusive expert offsets
+    prior = torch.cumsum(inc, dim=0) - inc  # earlier sources' rows per e
+    in_off = torch.cumsum(inc, dim=1) - inc  # within-source expert offsets
+    cum_src = torch.cumsum(inc, dim=1)  # (mp, E_local) inclusive
+    src_tot = inc.sum(dim=1)  # (mp,)
+    idx = torch.arange(mp * bound, dtype=torch.int64, device=inc.device)
+    s, j = idx // bound, idx % bound
+    # expert of slot (s, j): how many inclusive boundaries j has passed
+    e = (j[:, None] >= cum_src[s]).sum(dim=1).clamp(0, e_local - 1)
+    valid = j < src_tot[s]
+    dest = e_off[e] + prior[s, e] + (j - in_off[s, e])
+    dest = torch.where(valid, dest, torch.full_like(dest, mp * bound))
+    return dest.to(torch.int32), gs.to(torch.int32)
+
+
+def scatter_rows(rows: torch.Tensor, dest: torch.Tensor,
+                 num_slots: int) -> torch.Tensor:
+    """(num_slots, d) buffer with ``rows[i]`` at slot ``dest[i]`` and zeros
+    elsewhere; rows whose dest is ``num_slots`` are dropped (they land in a
+    sacrificial extra row that is sliced off).  Differentiable in ``rows``."""
+    buf = rows.new_zeros(num_slots + 1, rows.shape[-1])
+    return buf.index_copy(0, dest.long(), rows)[:num_slots]
+
+
+def gather_rows_fill(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]`` with zeros where ``idx == rows.shape[0]`` (the drop
+    sentinel).  Differentiable in ``rows``."""
+    padded = torch.cat([rows, rows.new_zeros(1, rows.shape[-1])])
+    return padded.index_select(0, idx.long())

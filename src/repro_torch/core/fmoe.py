@@ -1,31 +1,125 @@
-"""The FMoE layer — paper §3 (system design) + §4 (reordered computation),
-single worker.
+"""The FMoE layer — paper §3 (system design) + §4 (reordered computation).
 
 Functional analogue of FastMoE's ``FMoE`` / ``FMoETransformerMLP``:
-arbitrary expert networks through an overloadable ``expert_fn`` (§3.1) and
+arbitrary expert networks through an overloadable ``expert_fn`` (§3.1),
 the scatter → per-expert GeMM → gather reordering (§4, Fig 4), with the
 capacity and ragged dispatches of the JAX package and its three expert
 implementations:
 
 * ``einsum`` — plain PyTorch batched products (XLA's einsum in JAX);
 * ``pallas`` — two passes of the grouped-GEMM kernel;
-* ``fused``  — the fused GEMM1+act+GEMM2 kernel.
+* ``fused``  — the fused GEMM1+act+GEMM2 kernel;
 
-Expert parallelism (§3.2, a ``dist`` with a mesh) is not ported yet.
+and expert parallelism across ranks (§3.2, Fig 2): a ``DistConfig`` over a
+``launch.mesh.Mesh`` runs the counts all-to-all, the payload all-to-all,
+the local experts, the return all-to-all and the combine, for both
+dispatches, on ``torch.distributed``.  Rank ``m`` of the model axis holds
+experts ``[m * E_local, (m + 1) * E_local)``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import comm
 from repro_torch.core import dispatch as D
+from repro_torch.core import pipeline
 from repro_torch.core.balance import (MoEMetrics, load_balance_loss,
                                       load_metrics, router_z_loss)
 from repro_torch.core.gate import route_tokens, router_init
 from repro_torch.kernels import ops
+
+
+class DistConfig(NamedTuple):
+    """How the MoE layer is distributed over a ``launch.mesh.Mesh``.
+
+    mode "a2a" (tokens sharded over the expert axis too, the paper's §3.2
+    all-to-all) when ``expert_axis`` is among ``token_axes``; otherwise
+    "psum", which is not ported (ROADMAP §1 item 5).  ``x`` given to
+    ``fmoe_apply`` is this rank's token shard; ranks hold contiguous token
+    blocks in rank order.
+
+      overlap_chunks — the §5.2 pipelined exchange: 0 or 1 runs the serial
+        exchange; more raises (ROADMAP §1 item 2).
+      ragged_bound — rows per peer shard of the ragged exchange: 0 = T_local
+        * k, which never drops; a smaller bound drops the rows past it
+        (counted in ``drop_frac``).
+
+    The reference's other fields are carried so that a caller's setting is
+    refused, never ignored: ``tp_axis``, ``placement``, ``wire_dtype``,
+    ``node_axis``, ``inter_bound``, ``fsdp_axis`` and ``router`` raise
+    ``NotImplementedError`` unless left at their defaults.
+    """
+
+    mesh: Any
+    token_axes: tuple
+    expert_axis: str = "model"
+    tp_axis: Optional[str] = None
+    fsdp_axis: Optional[str] = None
+    placement: Any = None
+    overlap_chunks: int = 0
+    wire_dtype: Optional[str] = None
+    ragged_bound: int = 0
+    node_axis: Optional[str] = None
+    inter_bound: int = 0
+    router: Optional[str] = None
+
+    @classmethod
+    def local(cls) -> "DistConfig":
+        """Single-worker carrier: no mesh, no collectives."""
+        return cls(None, ())
+
+    @property
+    def expert_axes(self) -> tuple:
+        return (self.expert_axis if isinstance(self.expert_axis, tuple)
+                else (self.expert_axis,))
+
+    @property
+    def mode(self) -> str:
+        return ("a2a" if all(a in self.token_axes for a in self.expert_axes)
+                else "psum")
+
+    @property
+    def expert_parallelism(self) -> int:
+        return self.mesh.axes_size(self.expert_axes)
+
+
+# where each option the port does not carry yet is queued (ROADMAP.md §1)
+_NOT_CARRIED = {"tp_axis": "expert-internal tensor parallelism (ROADMAP §1 "
+                           "item 1)",
+                "placement": "placement (ROADMAP §1 item 4)",
+                "wire_dtype": "the §5.2 overlap (ROADMAP §1 item 2)",
+                "node_axis": "the hierarchical exchange (ROADMAP §1 item 6)",
+                "inter_bound": "the hierarchical exchange (ROADMAP §1 item 6)",
+                "fsdp_axis": "sharding (ROADMAP §1 item 9)",
+                "router": "the routing zoo (ROADMAP §1 item 3)"}
+
+
+def _check_dist(dist: DistConfig) -> None:
+    """Refuse every option this slice does not carry."""
+    for field, item in _NOT_CARRIED.items():
+        if getattr(dist, field) != DistConfig._field_defaults[field]:
+            raise NotImplementedError(
+                f"DistConfig.{field}={getattr(dist, field)!r} is {item}, not "
+                f"ported to repro_torch yet")
+    if dist.mesh is None:
+        return
+    if dist.expert_axes != ("model",):
+        raise ValueError(f"the port's mesh has axes {dist.mesh.axis_names}; "
+                         f"experts shard over 'model', not "
+                         f"{dist.expert_axis!r}")
+    if dist.overlap_chunks > 1:
+        raise NotImplementedError(
+            f"DistConfig.overlap_chunks={dist.overlap_chunks} is the §5.2 "
+            f"overlap (ROADMAP §1 item 2), not ported to repro_torch yet")
+    if dist.mode != "a2a":
+        raise NotImplementedError(
+            f"psum mode (token_axes {dist.token_axes!r} without the expert "
+            f"axis) is decode at scale (ROADMAP §1 item 5), not ported to "
+            f"repro_torch yet")
 
 
 # ---------------------------------------------------------------------------
@@ -200,23 +294,148 @@ def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     return y, metrics
 
 
+# ---------------------------------------------------------------------------
+# Distributed forward — paper §3.2 global data exchange
+# ---------------------------------------------------------------------------
+
+
+def _dist_metrics(dist: DistConfig, load_part: torch.Tensor, aux, z, drop,
+                  E: int) -> MoEMetrics:
+    """The layer's metrics over every token rank, in one all-reduce.
+
+    ``load_part`` (E,) is this rank's share of the global assigned load
+    (summed over the token ranks it is the global count per expert);
+    aux, z and drop are this rank's and come back as their mean over the
+    token ranks.  The aux and z losses keep their local gradient: the train
+    step's gradient sync sums every rank's loss, which is the gradient of
+    the mean."""
+    group = dist.mesh.group(dist.token_axes)
+    n = dist.mesh.axes_size(dist.token_axes)
+    red = torch.cat([load_part.float(),
+                     torch.stack([aux, z, drop]).detach().float()])
+    torch.distributed.all_reduce(red, group=group)
+    load_global = red[:E]
+    load = load_global / load_global.sum().clamp_min(1.0)
+    aux_pm, z_pm, drop_pm = red[E:] / n
+    return MoEMetrics(aux + (aux_pm - aux.detach()), z + (z_pm - z.detach()),
+                      load, drop_pm)
+
+
+def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
+             act: str, expert_fn: Callable, dist: DistConfig):
+    """Tokens sharded over every mesh axis, experts over the model axis.
+
+    Per rank: gate -> dispatch into (E, C, d), C from the local token count
+    -> the counts all-to-all (Fig 2's "exchange sizes", which feeds the
+    load metric) -> the payload all-to-all -> the local experts on
+    (E_local, mp*C, d) -> the return all-to-all -> combine."""
+    group = dist.mesh.group(dist.expert_axis)
+    mp = dist.expert_parallelism
+    E = cfg.num_experts
+    E_local = E // mp
+    t, d = x.shape
+    g = route_tokens(router, x, cfg)
+    C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
+    plan = D.make_capacity_plan(g.expert_ids, E, C)
+    buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+
+    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
+    incoming = pipeline.counts_all_to_all(plan.load.reshape(mp, E_local),
+                                          group, mp)  # per source rank
+    out = pipeline.pipelined_expert_exchange(
+        buf.reshape(mp, E_local, C, d), group, mp, n_chunks,
+        lambda b: expert_fn(experts, b, act))
+    y = D.combine_capacity(out.reshape(E, C, -1), plan, g.combine_weights)
+
+    # the global load: my experts' received counts in my model slot, summed
+    # over the token ranks (an all-gather over model, a psum over data)
+    m = dist.mesh.coords()[1]
+    load_part = x.new_zeros(E, dtype=torch.float32)
+    load_part[m * E_local:(m + 1) * E_local] = incoming.sum(0).float()
+    _, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
+    metrics = _dist_metrics(
+        dist, load_part,
+        load_balance_loss(g.probs, g.expert_ids, E), router_z_loss(g.logits),
+        drop, E)
+    return y, metrics
+
+
+def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
+                    cfg: MoEConfig, act: str, dist: DistConfig,
+                    impl: str = "einsum"):
+    """Dropless expert parallelism — the load-sized exchange.
+
+      1. the counts all-to-all: each rank tells peer p how many rows it
+         routed to each of p's experts;
+      2. the payload all-to-all: the expert-sorted rows in (mp, bound, d)
+         pad-to-max-per-peer shards (``dist.ragged_bound``; 0 = T_local*k,
+         which never drops);
+      3. the receiver compacts the valid prefixes into one expert-sorted
+         array and runs the grouped kernels (``RAGGED_FNS[impl]``);
+      4. the return all-to-all brings the rows back into the slots they
+         were sent from, and ``combine_ragged`` applies the gate weights.
+
+    The packing and compaction are plain index copies, with a zero row for
+    the drop sentinel, as the reference's scatters and gathers are."""
+    group = dist.mesh.group(dist.expert_axis)
+    mp = dist.expert_parallelism
+    E = cfg.num_experts
+    t, d = x.shape
+    g = route_tokens(router, x, cfg)
+    n = t * cfg.top_k
+    plan = D.make_ragged_plan(g.expert_ids, E)
+    x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
+    B = dist.ragged_bound or n
+    xplan = D.make_ragged_xplan(plan.group_sizes, n, E, mp, B)
+    send = D.scatter_rows(x_sorted, xplan.send_dest, mp * B).reshape(mp, B, d)
+
+    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, B)
+    recv, incoming = comm.exchange_ragged(send, xplan.peer_counts, group, mp,
+                                          n_chunks=n_chunks)
+    # source-major within an expert = global token order, as ranks hold
+    # contiguous token blocks in rank order
+    cplan, gs_local = D.ragged_recv_compact(incoming, B)
+    xs = D.scatter_rows(recv.reshape(mp * B, d), cplan, mp * B)
+    ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
+    out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
+    ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp,
+                             n_chunks=n_chunks)
+    y_sorted = D.gather_rows_fill(ret.reshape(mp * B, -1), xplan.send_dest)
+    y = D.combine_ragged(y_sorted, plan, g.combine_weights)
+
+    dropped = (xplan.num_owned_rows - xplan.keep.sum()).float()
+    metrics = _dist_metrics(
+        dist, plan.group_sizes,
+        load_balance_loss(g.probs, g.expert_ids, E), router_z_loss(g.logits),
+        dropped / n, E)
+    return y, metrics
+
+
 def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                act: str = "swiglu", dist=None, impl: str = "einsum"):
     """Apply the MoE FFN to ``x`` of shape (..., d_model).
 
     Returns ``(y, MoEMetrics)``.  ``impl`` selects the expert kernels
-    ("einsum" | "pallas" | "fused") on both dispatch modes.  Only the
-    single-worker §4 path is ported: a ``dist`` carrying a mesh raises.
+    ("einsum" | "pallas" | "fused") on both dispatch modes.  ``dist=None``
+    (or a ``DistConfig`` without a mesh) runs the single-worker §4 path;
+    a ``DistConfig`` over a mesh runs the §3.2 exchange, with ``x`` this
+    rank's token shard and ``params["experts"]`` its expert shard.  The
+    shared and dense residual FFNs run on the local tokens.
     """
-    if dist is not None and getattr(dist, "mesh", None) is not None:
-        raise NotImplementedError(
-            "expert parallelism (a dist with a mesh) is not ported to "
-            "repro_torch yet; see ROADMAP.md")
+    if dist is not None:
+        _check_dist(dist)
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
-    y, metrics = _moe_local(xf, params["router"], params["experts"], cfg, act,
-                            expert_fn, impl=impl)
+    router, experts = params["router"], params["experts"]
+    if dist is None or dist.mesh is None:
+        y, metrics = _moe_local(xf, router, experts, cfg, act, expert_fn,
+                                impl=impl)
+    elif cfg.dispatch == "ragged":
+        y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
+                                     impl=impl)
+    else:
+        y, metrics = _moe_a2a(xf, router, experts, cfg, act, expert_fn, dist)
     for k in ("shared", "dense"):
         if k in params:
             y = y + dense_ffn(params[k], xf, act)

@@ -5,7 +5,10 @@ on the JAX side); this module imports no JAX.  Layouts stay as JAX has them:
 experts ``wi`` (E, d, h) and ``wo`` (E, h, d), linear ``w`` (d_in, d_out).
 ``params["layers"]`` is stacked on a leading L dim in JAX and a list of
 per-layer dicts here.  Every parity test builds its torch params through
-:func:`from_jax`.
+:func:`from_jax`.  With a mesh, a rank keeps its shard: the routed expert
+stacks sliced on their expert dim, rank ``m`` of the model axis holding
+experts ``[m * E_local, (m + 1) * E_local)`` (``P("model", None, None)``
+in the reference), everything else whole.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sync import fastmoe_tag, tagged_leaves
 from repro_torch.device import resolve
+from repro_torch.optim.adamw import tree_map
 
 
 def _map(fn, tree):
@@ -29,16 +34,38 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+def shard_params(params: dict, mesh, rank: int | None = None) -> dict:
+    """The rank's shard of whole params (``rank`` defaults to the mesh's
+    own): each routed expert stack sliced on dim 0 to the rank's experts,
+    every other leaf as it is.  A slice is a copy, so the whole stack can
+    be freed."""
+    mp = mesh.shape["model"]
+    if mp == 1:
+        return params
+    m = mesh.coords(rank)[1]
+
+    def shard(path, t):
+        if fastmoe_tag(path) != "none":
+            return t
+        e_local = t.shape[0] // mp
+        return t[m * e_local:(m + 1) * e_local].clone()
+
+    shards = iter([shard(path, t) for path, t in tagged_leaves(params)])
+    return tree_map(lambda _: next(shards), params)
+
+
+def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda", mesh=None,
+             rank: int | None = None) -> dict:
     """JAX param tree (numpy leaves, stacked layers) -> port params, in the
     dtypes JAX has them (f32 masters; ``repro_torch.models.lm`` casts the
-    layers to ``cfg.dtype`` at use)."""
+    layers to ``cfg.dtype`` at use).  With ``mesh``, the shard of ``rank``
+    (default: the mesh's own; :func:`shard_params`)."""
     dev = resolve(device)
     out = {k: _map(lambda a: _to_torch(a, dev), v)
            for k, v in params_np.items() if k != "layers"}
     out["layers"] = [_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev),
                           params_np["layers"]) for i in range(cfg.num_layers)]
-    return out
+    return out if mesh is None else shard_params(out, mesh, rank)
 
 
 def to_jax(params: dict) -> dict:

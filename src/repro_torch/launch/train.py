@@ -1,9 +1,19 @@
-"""Single-device training: a train step (loss, backward, AdamW, with
-optional microbatch gradient accumulation) and its CLI.
+"""Training: a train step (loss, backward, FastMoE's gradient sync under
+expert parallelism, AdamW, with optional microbatch gradient
+accumulation) and its CLI.
 
     python -m repro_torch.launch.train --arch fastmoe-gpt [--reduced] \
         [--num_layers 10] --steps 50 --batch 8 --seq 256 --impl fused \
         --dispatch capacity [--device cpu] [--seed 0]
+
+Expert parallelism over a (data, model) mesh of ranks, one process each:
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 2x2 \
+        --device cpu --reduced --steps 2
+
+(gloo on the CPU, NCCL with one card a rank on the GPU).  Each rank takes
+its contiguous block of the global batch's rows and its model-axis shard
+of the expert stacks; the logged loss is the mean over the ranks.
 
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel in both directions, fused = the fused FFN kernel
@@ -12,8 +22,8 @@ overrides the config's MoE dispatch (capacity | ragged).  Runs on the GPU
 unless ``--device cpu``.  Params are f32 masters cast to ``cfg.dtype`` at
 use; ``--num_layers`` cuts the depth (full-width ``fastmoe-gpt`` with f32
 params, grads and AdamW moments needs 16 B per param: 10 layers, 66.8 GB,
-fit one 80 GB card; 12, 79.8 GB, do not).  Expert parallelism,
-checkpoints and the step guard of the JAX CLI are not ported yet.
+fit one 80 GB card; 12, 79.8 GB, do not).  Checkpoints and the step
+guard of the JAX CLI are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,11 +32,17 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed
 
+from repro_torch import interop
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fmoe import DistConfig
+from repro_torch.core.sync import sync_grads
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import (all_axes, data_axes, init_distributed,
+                                     make_local_mesh)
 from repro_torch.models import lm
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -37,18 +53,53 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def moe_dist(cfg: ModelConfig, mesh, num_tokens: int) -> DistConfig | None:
+    """The expert-parallel mode for this (config, mesh, global token count).
+
+    a2a (the paper's §3.2 exchange) when the tokens split evenly over every
+    rank; otherwise the reference's psum mode, which ``fmoe_apply``
+    refuses (ROADMAP §1 item 5).  None when the config has no MoE or its
+    experts do not split over the model axis."""
+    if cfg.moe is None or cfg.moe.num_experts % mesh.shape["model"]:
+        return None
+    if num_tokens % mesh.size == 0:
+        return DistConfig(mesh, all_axes(mesh))
+    d_axes = data_axes(mesh)
+    return DistConfig(mesh, d_axes if num_tokens % mesh.axes_size(d_axes) == 0
+                      else ())
+
+
+def _rank_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous block of the global batch's rows."""
+    if tokens.shape[0] % mesh.size:
+        raise ValueError(f"batch {tokens.shape[0]} does not split over "
+                         f"{mesh.size} ranks")
+    b = tokens.shape[0] // mesh.size
+    return tokens[mesh.rank * b:(mesh.rank + 1) * b]
+
+
+def _mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
+    t = t.clone()
+    torch.distributed.all_reduce(t, group=mesh.group(mesh.axis_names))
+    return t / mesh.size
+
+
 def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
-                   impl: str = "einsum", device="cuda", timings=None):
+                   impl: str = "einsum", device="cuda", timings=None,
+                   dist=None):
     """(loss, aux, grads): ``lm.loss_fn`` and its gradient with respect to
     every param leaf (a tree like ``params``).  A ``timings`` dict, when
     given, gains the forward and backward seconds (``fwd_s``, ``bwd_s``),
-    each taken after a device synchronize."""
+    each taken after a device synchronize.  With ``dist``, ``batch`` holds
+    this rank's rows and the loss and grads are the rank's own, unsynced
+    (``core.sync.sync_grads``)."""
     dev = resolve(device)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     t0 = time.perf_counter()
-    loss, aux = lm.loss_fn(params, cfg, batch, impl=impl, device=dev)
+    loss, aux = lm.loss_fn(params, cfg, batch, impl=impl, device=dev,
+                           dist=dist)
     if timings is not None:
         _sync(dev)
         t1 = time.perf_counter()
@@ -63,18 +114,28 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     return loss.detach(), aux, grads
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW, *, num_microbatches: int = 1,
-                    warmup: int = 100, total_steps: int = 10000,
-                    impl: str = "einsum", device="cuda"):
+def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
+                    num_microbatches: int = 1, warmup: int = 100,
+                    total_steps: int = 10000, impl: str = "einsum",
+                    device="cuda"):
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     ``impl`` picks the expert kernels (einsum | pallas | fused).  Params and
     the optimizer state are updated in place.  The step also takes
-    ``timings=``, a dict that gains ``fwd_s``, ``bwd_s`` and ``opt_s``."""
+    ``timings=``, a dict that gains ``fwd_s``, ``bwd_s`` and ``opt_s``.
+
+    ``dist`` (``moe_dist``) runs expert parallelism: every rank is given
+    the global batch and takes its rows, its params are its shard
+    (``interop.shard_params``), the gradients are synced as FastMoE does
+    (``core.sync.sync_grads``) before AdamW, and the metrics are the means
+    over the ranks."""
     dev = resolve(device)
+    mesh = dist.mesh if dist is not None else None
 
     def train_step(params, opt_state, batch, step, *, timings=None):
         tokens = torch.as_tensor(batch["tokens"])
+        if mesh is not None:
+            tokens = _rank_rows(tokens, mesh)
         if tokens.shape[0] % num_microbatches:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{num_microbatches} equal microbatches")
@@ -82,7 +143,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, num_microbatches: int = 1,
         grads = loss = aux = None
         for mb in micro:
             l, a, g = loss_and_grads(params, cfg, {"tokens": mb}, impl=impl,
-                                     device=dev, timings=timings)
+                                     device=dev, timings=timings, dist=dist)
             if grads is None:
                 grads, loss, aux = g, l, a
             else:
@@ -96,9 +157,13 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, num_microbatches: int = 1,
                 g.mul_(inv)
             loss, aux = loss * inv, {k: v * inv for k, v in aux.items()}
         t0 = time.perf_counter()
+        if mesh is not None:
+            sync_grads(grads, mesh)
+            loss = _mean_over_ranks(loss, mesh)
+            aux["ce"] = _mean_over_ranks(aux["ce"], mesh)
         lr_scale = warmup_cosine(step, warmup=warmup, total=total_steps)
         params, opt_state, gnorm = opt.update(grads, opt_state, params,
-                                              lr_scale=lr_scale)
+                                              lr_scale=lr_scale, mesh=mesh)
         if timings is not None:
             _sync(dev)
             timings["opt_s"] = timings.get("opt_s", 0.0) + time.perf_counter() - t0
@@ -127,9 +192,22 @@ def main(argv=None) -> None:
                     help="override the MoE dispatch mode")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="",
+                    help="DATAxMODEL expert parallelism, one rank a process "
+                         "(run under torchrun)")
     args = ap.parse_args(argv)
+    if not args.mesh:
+        return _run(args, resolve(args.device), None)
+    data, model = (int(v) for v in args.mesh.lower().split("x"))
+    dev = init_distributed(args.device)
+    try:
+        _run(args, dev, make_local_mesh(data, model))
+    finally:
+        torch.distributed.destroy_process_group()
 
-    dev = resolve(args.device)
+
+def _run(args, dev: torch.device, mesh) -> None:
+    lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
@@ -139,10 +217,21 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
     opt = AdamW(lr=args.lr)
+    # every rank makes the whole params from the seed and keeps its shard
     params = lm.init_params(cfg, seed=args.seed, device=dev,
                             param_dtype=cfg.param_dtype)
+    dist = None
+    if mesh is not None:
+        dist = moe_dist(cfg, mesh, args.batch * args.seq)
+        if dist is None:
+            raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
+                             f" experts do not split over the model axis of "
+                             f"{args.mesh}, and data parallelism without "
+                             f"experts is not ported")
+        params = interop.shard_params(params, mesh)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, num_microbatches=args.microbatches,
+    step_fn = make_train_step(cfg, opt, dist=dist,
+                              num_microbatches=args.microbatches,
                               impl=args.impl, device=dev)
     batches = SyntheticLM(cfg.vocab_size, args.seq, seed=args.seed).batches(
         args.batch)
@@ -150,11 +239,12 @@ def main(argv=None) -> None:
     for step in range(args.steps):
         batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        if step % args.log_every == 0:
+        if lead and step % args.log_every == 0:
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.1f}s)", flush=True)
-    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    if lead:
+        print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
 
 
 if __name__ == "__main__":

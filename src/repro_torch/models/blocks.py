@@ -56,27 +56,29 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str):
+def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str,
+               dist=None):
     if cfg.moe is not None:
-        return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl)
+        return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl, dist=dist)
     return dense_ffn(p, x, cfg.act), None
 
 
 def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
-                    impl: str = "einsum"):
-    """x (B, S, d) -> (x, MoEMetrics | None)."""
+                    impl: str = "einsum", dist=None):
+    """x (B, S, d) -> (x, MoEMetrics | None).  ``dist``: the MoE layer's
+    ``core.fmoe.DistConfig`` (x is then this rank's batch rows)."""
     attn = A.mla_apply if _is_mla(cfg) else A.gqa_apply
     h = attn(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg.attention,
              window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl)
+                            impl, dist)
     return x + h, metrics
 
 
 def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         cache, *, window: int, start: int = 0,
-                        impl: str = "einsum"):
+                        impl: str = "einsum", dist=None):
     """x (B, S, d), this layer's cache -> (x, filled cache, MoEMetrics|None).
     One full-sequence pass writes every position's K/V (MLA: latents) into
     the cache so decoding can continue at position S."""
@@ -91,19 +93,20 @@ def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
         cache = A.fill_kv_cache(cache, k, v, start=start)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl)
+                            impl, dist)
     return x + h, cache, metrics
 
 
 def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                       cache, pos, *, window: int, impl: str = "einsum"):
+                       cache, pos, *, window: int, impl: str = "einsum",
+                       dist=None):
     """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None)."""
     decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
     h, cache = decode(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cache,
                       pos, cfg.attention, window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl)
+                            impl, dist)
     return x + h, cache, metrics
 
 

@@ -3,8 +3,8 @@ or MLA attention).
 
 Public API:
   init_params(cfg, seed=, device=, param_dtype=)   -> params
-  forward(params, cfg, tokens, impl=, device=)     -> (logits, MoEMetrics)
-  loss_fn(params, cfg, batch, impl=, device=)      -> (loss, aux dict)
+  forward(params, cfg, tokens, impl=, device=, dist=)  -> (logits, MoEMetrics)
+  loss_fn(params, cfg, batch, impl=, device=, dist=)   -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
   init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
   decode_step(params, cfg, tokens, pos, cache,...) -> (logits, cache, metrics)
@@ -21,6 +21,11 @@ no-op.  ``cfg.remat == "full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.remat`` does; the
 cast sits inside the recomputed region, so no bf16 copy of the weights
 outlives its layer.  The decode cache is updated in place.
+
+With ``dist`` (a ``core.fmoe.DistConfig`` over a mesh) ``forward`` and
+``loss_fn`` run this rank's batch rows, and every MoE layer exchanges its
+tokens with the other ranks; under remat each layer's exchange runs again
+in the backward, on every rank in the same order.
 """
 from __future__ import annotations
 
@@ -86,15 +91,15 @@ def _n_experts(cfg: ModelConfig) -> int:
 
 
 def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
-               impl: str):
+               impl: str, dist):
     dtype = getattr(torch, cfg.dtype)
     x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
-                             impl=impl)
+                             impl=impl, dist=dist)
     return x.to(dtype), m
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
-            device="cuda"):
+            device="cuda", dist=None):
     """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over layers)."""
     tokens = _inputs(params, tokens, device)
     x = embed_lookup(params["embed"], tokens, getattr(torch, cfg.dtype))
@@ -102,23 +107,26 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for p_l, window in zip(params["layers"], B.layer_windows(cfg)):
         if remat:
-            x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl,
+            x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl, dist,
                               use_reentrant=False)
         else:
-            x, m = _layer_seq(p_l, cfg, x, window, impl)
+            x, m = _layer_seq(p_l, cfg, x, window, impl, dist)
         metrics = _accumulate(metrics, m)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), metrics
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            impl: str = "einsum", device="cuda"):
+            impl: str = "einsum", device="cuda", dist=None):
     """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
     ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
     {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
-    load}), drop_frac and load averaged over layers."""
+    load}), drop_frac and load averaged over layers.  With ``dist``, the
+    batch is this rank's rows and ``ce`` their mean; the MoE metrics are
+    already the means over every rank (``fmoe_apply``)."""
     tokens = _inputs(params, batch["tokens"], device)
-    logits, metrics = forward(params, cfg, tokens, impl=impl, device=device)
+    logits, metrics = forward(params, cfg, tokens, impl=impl, device=device,
+                              dist=dist)
     V = logits.shape[-1]
     ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
                          tokens[:, 1:].reshape(-1).long())

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.sync import sharded_sq_norms
+
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
@@ -37,8 +39,13 @@ class AdamWState(NamedTuple):
     nu: dict
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  With a ``mesh``,
+    the norm of the whole gradient: each rank holds only its shard of an
+    expert leaf, so those squares are summed over the model group
+    (``core.sync.sharded_sq_norms``), and every rank clips alike."""
+    if mesh is not None:
+        return torch.sqrt(sum(sharded_sq_norms(tree, mesh)))
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
 
@@ -59,10 +66,11 @@ class AdamW(NamedTuple):
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, *,
-               lr_scale: float = 1.0):
+               lr_scale: float = 1.0, mesh=None):
         """Returns (params, state, grad_norm); params and the moments are
-        updated in place, and ``grads`` is used as scratch."""
-        gnorm = global_norm(grads)
+        updated in place, and ``grads`` is used as scratch.  ``mesh``: the
+        grads are a rank's synced shards (``global_norm``)."""
+        gnorm = global_norm(grads, mesh)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),

@@ -8,9 +8,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.fmoe import DistConfig  # noqa: E402
 from repro_torch.kernels import flash_attention, token_shuffle  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -42,11 +45,14 @@ def test_entry_points_raise_without_cuda():
     params = lm.init_params(cfg, device="cpu")
     cache = lm.init_cache(cfg, 1, 8, device="cpu")
     prompt = torch.zeros(1, 4, dtype=torch.long)
+    dist = DistConfig(launch_mesh.Mesh(1, 1), ("data", "model"))
     calls = [lambda: serve.generate(params, cfg, prompt, 2),
              lambda: lm.decode_step(params, cfg, prompt[:, :1], 0, cache),
              lambda: lm.prefill(params, cfg, prompt, cache),
              lambda: lm.init_params(cfg),
-             lambda: lm.init_cache(cfg, 1, 8)]
+             lambda: lm.init_cache(cfg, 1, 8),
+             lambda: train.make_train_step(cfg, AdamW(), dist=dist),
+             lambda: launch_mesh.init_distributed()]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -6,7 +6,6 @@ sort order) must be equal; float outputs agree to rtol/atol 1e-5, the f32
 reassociation between the two packages' products (the JAX side runs its
 Pallas kernels in interpret mode).
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -23,6 +22,7 @@ from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.core import dispatch as TD  # noqa: E402
 from repro_torch.core import fmoe as tfmoe  # noqa: E402
 from repro_torch.core import gate as tgate  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -132,7 +132,10 @@ def test_fmoe_apply_matches_jax(impl, dispatch):
 
 
 def test_fmoe_apply_with_a_mesh_raises():
+    """Expert parallelism over a mesh is ported (tests/test_torch_ep.py);
+    a mesh whose tokens do not shard over the expert axis (psum mode,
+    decode at scale) is not, and raises before any collective."""
     cfg = MoEConfig(num_experts=2, d_expert_hidden=8)
-    dist = dataclasses.make_dataclass("Dist", ["mesh"])(mesh=object())
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    dist = tfmoe.DistConfig(Mesh(1, 2), ("data",))
+    with pytest.raises(NotImplementedError, match="psum mode"):
         tfmoe.fmoe_apply({}, torch.zeros(2, 4), cfg, dist=dist)

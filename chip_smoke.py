@@ -17,7 +17,9 @@
    and times kernel, plain version and the library call where one exists
    (events, and the device time alone from torch.profiler), and, as a
    labelled reference line, the unfused FFN by PyTorch calls
-   (torch._grouped_mm, GELU, torch._grouped_mm);
+   (torch._grouped_mm, GELU, torch._grouped_mm); also at the shapes of
+   continuous serving (batch-1 prefills, ragged and capacity, and a
+   tick's rows; KERNEL_MODELS);
 3. holds the reduced f32 model served through the kernels on the card
    against the same model on the CPU (the plain path the CPU tests hold
    against the JAX package);
@@ -73,6 +75,7 @@
    (8 x 128) and training (8 x 256) shapes, one starcoder2-15b kv group
    (2 x 8192, 12 heads over 1, window 4096), window 1, sequences that
    are no tile multiple and MLA's (dk 192, dv 128) at a tail and a window,
+   the forward at continuous serving's batch-1 prefills (FLASH_PREFILL),
    and times them beside their bounds, the plain
    version and SDPA (run before the model phases, while the plain
    version's f32 scores fit the card), and takes the forward's device time
@@ -97,7 +100,30 @@
    fused/ragged and pallas/capacity, with the launch counters set to 0
    just before and read just after (the flash forward once a layer a
    prefill), printing prefill ms, decode ms/step and peak memory; then
-   profiles one prefill (busy share, top kernels) and one decode step.
+   profiles one prefill (busy share, top kernels) and one decode step;
+   then serves 8 requests of 513-1024 prompt tokens and 64 new by
+   continuous batching through 4 slots, paged (blocks of 64) and ring,
+   each a main path of its own, whose tokens must be equal bit for bit,
+   times steady ticks of both in turns and profiles one;
+16. (after step 9) serves full-width fastmoe-gpt by continuous batching
+   (launch/scheduler.ContinuousBatcher: 8 slots, blocks of 16, max_len
+   160) to 24 requests of 65-128 prompt tokens and 32 new, for
+   fused/ragged paged (the headline), pallas/capacity paged, fused/ragged
+   ring, and both admission policies on output lengths of 8-32, each a
+   main path of its own (counters at 0 just before, read just after),
+   printing tok/s, ticks, TTFT and per-token p50/p99 and peak memory;
+   fails unless paged and ring tokens are equal bit for bit and the
+   continuous tokens agree with an f32 static pass over the same
+   sequences no less than the bf16 einsum path does (less
+   SERVE_AGREE_SLACK); times steady ticks of paged and ring in turns,
+   holds one steady tick's logits against the f32 einsum oracle on the
+   same pool (SERVE_* slack over the bf16 einsum floor) and profiles one
+   tick (busy share, hand-written launches with the counters at 0 just
+   before and read just after); then runs the psum mode over a 1x1 mesh
+   (a world-size-1 NCCL group in this process) for fused/ragged and
+   pallas/capacity, failing unless its tokens equal the local path's bit
+   for bit, with steady ticks of both in turns, the pallas/capacity
+   tick's logits held as above and a profiled tick of each batcher.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -291,27 +317,42 @@ def routed(tokens: int, k: int, lo: int, dev, experts: int = E):
 # The expert kernels at the widths of each model a serving path runs:
 # label prefix -> ((experts, d_model, expert hidden, top-k), the kernels
 # timed, {routing: (tokens, experts left empty or None for capacity
-# buffers, rows M or None, the kernels checked)}).  fastmoe-gpt: decode is
-# 8 tokens' top-2 (16 rows) one token short, prefill 1024 tokens (2048
-# rows) 4 tokens short with experts 0..9 empty, so both hold the edges
-# (rows past the groups, empty experts); every kernel on the ragged rows.
-# deepseek-v2-236b (SwiGLU, top-6 of 160): the rows of its two serving
-# paths at batch 2 and a 4096-token prompt, fused/ragged (the fused FFN
-# and the token shuffle on 12 and 49152 rows) and pallas/capacity (the
-# grouped GEMM on 160 equal groups of C rows, C from
-# dispatch.expert_capacity: 1280 and 61440 rows).
+# buffers, rows M or None, the kernels checked, timed in bf16)}).
+# fastmoe-gpt: decode is 8 tokens' top-2 (16 rows) one token short,
+# prefill 1024 tokens (2048 rows) 4 tokens short with experts 0..9 empty,
+# so both hold the edges (rows past the groups, empty experts); every
+# kernel on the ragged rows.  deepseek-v2-236b (SwiGLU, top-6 of 160): the
+# rows of its two serving paths at batch 2 and a 4096-token prompt,
+# fused/ragged (the fused FFN and the token shuffle on 12 and 49152 rows)
+# and pallas/capacity (the grouped GEMM on 160 equal groups of C rows, C
+# from dispatch.expert_capacity: 1280 and 61440 rows).  Continuous
+# serving's shapes: a request's batch-1 prefill (fastmoe-gpt prompts of
+# 65-128 tokens, ragged and capacity; deepseek's of 513-1024), the
+# capacity buffer of an 8-slot fastmoe-gpt tick, and the 24 rows of a
+# 4-slot deepseek tick.
 GPT_KERNELS = ("grouped_gemm", "grouped_gemm_wo", "fused_ffn",
                "fused_ffn_swiglu", "shuffle")
+CAP_KERNELS = ("grouped_gemm", "grouped_gemm_wo", "fused_ffn")
+DS_RAGGED = ("fused_ffn_swiglu", "shuffle")
+DS_CAP = ("grouped_gemm", "grouped_gemm_wo")
 KERNEL_MODELS = {
     "": ((E, D, H, 2), ("grouped_gemm", "fused_ffn", "shuffle"), {
-        "decode": (7, 0, 16, GPT_KERNELS),
-        "prefill": (1020, 10, 2048, GPT_KERNELS)}),
+        "decode": (7, 0, 16, GPT_KERNELS, True),
+        "prefill": (1020, 10, 2048, GPT_KERNELS, True),
+        "batch-1 prefill 65": (65, 0, 130, GPT_KERNELS, False),
+        "batch-1 prefill 128": (128, 0, 256, GPT_KERNELS, True),
+        "capacity batch-1 prefill 65": (65, None, None, CAP_KERNELS, False),
+        "capacity batch-1 prefill 128": (128, None, None, CAP_KERNELS, False),
+        "capacity tick 8 slots": (8, None, None, CAP_KERNELS, False)}),
     "deepseek ": ((160, 5120, 1536, 6), ("grouped_gemm", "fused_ffn_swiglu",
                                         "shuffle"), {
-        "decode": (2, 0, 12, ("fused_ffn_swiglu", "shuffle")),
-        "prefill": (8192, 0, 49152, ("fused_ffn_swiglu", "shuffle")),
-        "capacity decode": (2, None, None, ("grouped_gemm", "grouped_gemm_wo")),
-        "capacity prefill": (8192, None, None, ("grouped_gemm", "grouped_gemm_wo"))}),
+        "decode": (2, 0, 12, DS_RAGGED, True),
+        "prefill": (8192, 0, 49152, DS_RAGGED, True),
+        "capacity decode": (2, None, None, DS_CAP, True),
+        "capacity prefill": (8192, None, None, DS_CAP, True),
+        "batch-1 prefill 513": (513, 0, 3078, DS_RAGGED, False),
+        "batch-1 prefill 1024": (1024, 0, 6144, DS_RAGGED, True),
+        "tick 4 slots": (4, 0, 24, DS_RAGGED, False)}),
 }
 
 
@@ -354,11 +395,11 @@ def kernel_phase(dev, flush):
             wi = randn(nE, nD, nH, scale=nD ** -0.5, dtype=dtype)
             wu = randn(nE, nD, nH, scale=nD ** -0.5, dtype=dtype)
             wo = randn(nE, nH, nD, scale=nH ** -0.5, dtype=dtype)
-            for routing, (T, lo, M, names) in routings.items():
+            for routing, (T, lo, M, names, timed_here) in routings.items():
                 shape = model + routing
                 timing = (set(names) & set(timed_names)
-                          if dtype == torch.bfloat16 else set())
-                if lo is None:  # deepseek's capacity_factor
+                          if dtype == torch.bfloat16 and timed_here else set())
+                if lo is None:  # both models' capacity_factor
                     C = Dsp.expert_capacity(T, nE, k, 1.25)
                     M, gs = nE * C, torch.full((nE,), C, dtype=torch.int32,
                                                 device=dev)
@@ -366,7 +407,8 @@ def kernel_phase(dev, flush):
                     ids = routed(T, k, lo, dev, nE)
                     gs = torch.bincount(ids.flatten(), minlength=nE).to(torch.int32)
                 n, used = int(gs.sum()), int((gs > 0).sum())
-                check(n <= M and (model or (n < M and used < nE)),
+                edges = not model and routing in ("decode", "prefill")
+                check(n <= M and (not edges or (n < M and used < nE)),
                       f"test groups malformed at {shape}")
                 x = randn(M, nD, dtype=dtype)
                 x[n:] = 0  # the ops contract: rows past the groups arrive zero
@@ -563,6 +605,15 @@ FLASH_SHAPES = {
 FLASH_FULL = {
     "mla_fwd": ((2, 4096, 128, 128, 192, 128, FULL_WINDOW), "flash_attention_fwd", 16),
     "mla_bwd": ((2, 4096, 16, 16, 192, 128, FULL_WINDOW), "flash_attention_bwd", 0),
+}
+# continuous serving's batch-1 prefills, the forward alone (no path runs
+# their backward), bf16 and f32: fastmoe-gpt prompts of 65 (a one-row
+# tail tile) and 128 tokens, deepseek-v2's (MLA) of 513 and 1024
+FLASH_PREFILL = {
+    "cb_prefill_65": (1, 65, 16, 16, 64, 64, FULL_WINDOW),
+    "cb_prefill_128": (1, 128, 16, 16, 64, 64, FULL_WINDOW),
+    "cb_mla_prefill_513": (1, 513, 128, 128, 192, 128, FULL_WINDOW),
+    "cb_mla_prefill_1024": (1, 1024, 128, 128, 192, 128, FULL_WINDOW),
 }
 # timed in bf16 beside their bounds: name -> (kernel reps, plain and SDPA
 # reps, device-time reps or 0: at starcoder2 the events are device time)
@@ -806,7 +857,8 @@ def flash_time(name, q, k, v, o, lse, do, kw, flush, kernels, heads=0):
 
 def flash_phase(dev, flush):
     """flash_attention_fwd / _bwd against their plain versions in bf16 and
-    f32 at FLASH_SHAPES and in bf16 at FLASH_FULL; bf16 timed at
+    f32 at FLASH_SHAPES, the forward at FLASH_PREFILL, and in bf16 at
+    FLASH_FULL; bf16 timed at
     FLASH_TIMED; the kernels alone at all 48 heads of a starcoder2 layer.
     Keys: (kernel, dtype, shape) and (kernel, shape)."""
     import torch
@@ -823,6 +875,9 @@ def flash_phase(dev, flush):
     cases = [(name, shape, dtype, ("flash_attention_fwd", "flash_attention_bwd"), 0)
              for dtype in (torch.bfloat16, torch.float32)
              for name, shape in FLASH_SHAPES.items()]
+    cases += [(name, shape, dtype, ("flash_attention_fwd",), 0)
+              for dtype in (torch.bfloat16, torch.float32)
+              for name, shape in FLASH_PREFILL.items()]
     cases += [(name, shape, torch.bfloat16, (kname,), heads)
               for name, (shape, kname, heads) in FLASH_FULL.items()]
     for name, (B, S, H, KV, dk, dv, window), dtype, kernels, heads in cases:
@@ -1099,6 +1154,345 @@ def profile_step(params, cfg, prompt, impl, cache_len, dev):
           f"{wall * 1e3:.2f} ms, kernels {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% "
           f"busy), {len(kernels)} kernel launches; top: "
           + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: the paged KV cache, the admission policies and the
+# psum mode at world size 1
+# ---------------------------------------------------------------------------
+
+# fastmoe-gpt traffic: ServeConfig(slots=8, block_size=16, max_len=160), a
+# pool of 8 x 10 + 2 = 82 blocks; CB_REQUESTS requests drawn as
+# serve_continuous draws them from prompt_len CB_PROMPT (65-128 tokens,
+# RandomState(1)), CB_GEN new tokens each, all submitted at the start
+CB_SLOTS, CB_BLOCK, CB_MAX_LEN = 8, 16, 160
+CB_REQUESTS, CB_PROMPT, CB_GEN = 24, 128, 32
+# (label, impl, dispatch, ServeConfig overrides, mixed output lengths): the
+# headline first, the ring on the headline's path; then the two admission
+# policies on a stream whose output lengths differ (CB_MIXED_GEN, drawn
+# from RandomState(2)) — with every request asking for CB_GEN tokens the
+# slots of a batch all finish on one tick, and the policies tick alike
+CB_RUNS = (("fused/ragged paged", "fused", "ragged", {}, False),
+           ("pallas/capacity paged", "pallas", "capacity", {}, False),
+           ("fused/ragged ring", "fused", "ragged", {"paged": False}, False),
+           ("fused/ragged mixed continuous", "fused", "ragged", {}, True),
+           ("fused/ragged mixed static", "fused", "ragged",
+            {"policy": "static"}, True))
+CB_MIXED_GEN = (8, CB_GEN)
+CB_PSUM = (("fused", "ragged"), ("pallas", "capacity"))
+# deepseek-v2-236b (DS_LAYERS layers): 4 slots, blocks of 64, max_len 1088
+# (17 blocks), 8 requests from prompt_len 1024 (513-1024 tokens), 64 new
+DSC_SLOTS, DSC_BLOCK, DSC_MAX_LEN, DSC_REQUESTS, DSC_PROMPT, DSC_GEN = \
+    4, 64, 1088, 8, 1024, 64
+CB_ROUNDS = 12  # steady ticks a batcher in the in-turn comparisons
+CB_KERNELS = {"fused": ("fused_ffn", "gather_rows", "combine_topk",
+                        "flash_attention_fwd"),
+              "pallas": ("grouped_gemm", "flash_attention_fwd")}
+
+
+def run_continuous(label, params, cfg, scfg, impl, dev, *, prompt_len, gen,
+                   requests, mesh=None, mixed=False):
+    """The continuous batcher over serve.request_stream's requests (their
+    output lengths redrawn from CB_MIXED_GEN when ``mixed``), all submitted
+    at the start, with the launch counters set to 0 just before and read
+    just after: every request served with its tokens, in the vocabulary,
+    the path's kernels launched and no first version.  Returns ({request
+    id: tokens}, serve.serving_stats, launches, peak bytes)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    reqs = serve.request_stream(cfg, prompt_len=prompt_len, gen=gen,
+                                num_requests=requests)
+    if mixed:
+        lens = np.random.RandomState(2).randint(CB_MIXED_GEN[0],
+                                                CB_MIXED_GEN[1] + 1, requests)
+        for r, n in zip(reqs, lens):
+            r.max_new_tokens = int(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    batcher = ContinuousBatcher(params, cfg, scfg, mesh=mesh, impl=impl,
+                                device=dev)
+    t0 = time.time()
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    stats = serve.serving_stats(batcher.completions, time.time() - t0,
+                                batcher.ticks)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    toks = {c.request_id: c.tokens for c in batcher.completions}
+    check(sorted(toks) == list(range(requests)), f"{label}: served {sorted(toks)}")
+    check(all(len(toks[r.id]) == r.max_new_tokens
+              and all(0 <= v < cfg.vocab_size for v in toks[r.id])
+              for r in reqs), f"{label}: malformed tokens")
+    for name in CB_KERNELS[impl]:
+        check(launches[name] > 0, f"{label}: kernel {name} was never launched")
+    for simple in SIMPLE_KERNELS:
+        check(launches[simple] == 0, f"{label}: ran {simple} at a model shape")
+    print(f"continuous {cfg.name} {label} ({scfg.slots} slots, "
+          f"{'paged, ' + str(scfg.pool_blocks) + ' blocks of ' + str(scfg.block_size) if batcher.paged else 'ring ' + str(scfg.max_len)}, "
+          f"{scfg.policy}): {serve.format_stats(stats)}; decode tick "
+          f"{stats['seconds'] / max(stats['ticks'], 1) * 1e3:.2f} ms a tick on "
+          f"average (prefills included); peak memory {peak / 1e9:.2f} GB; "
+          f"kernel launches {json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    return toks, stats, launches, peak
+
+
+def filled(params, cfg, scfg, impl, dev, *, prompt_len, gen, mesh=None):
+    """A batcher whose every slot holds a request of the stream (admitted
+    by one tick), with ``gen`` - 2 ticks left before any retires."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    b = ContinuousBatcher(params, cfg, scfg, impl=impl, device=dev, mesh=mesh)
+    for r in serve.request_stream(cfg, prompt_len=prompt_len, gen=gen,
+                                  num_requests=scfg.slots):
+        b.submit(r)
+    b.step()
+    return b
+
+
+def tick_race(label, batchers: dict) -> dict:
+    """Steady decode ticks of filled batchers in turns (every slot busy,
+    nothing to admit), CB_ROUNDS each: the median wall of a tick, host
+    clock, each tick ending in its argmax's copy to the host."""
+    times = {k: [] for k in batchers}
+    for _ in range(CB_ROUNDS):
+        for k, b in batchers.items():
+            t0 = time.perf_counter()
+            active = b.step()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+            check(active == b.B and not b.queue, f"{label} {k}: tick not steady")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"steady ticks in turns, {label}, median of {CB_ROUNDS}: "
+          + "; ".join(f"{k} {med[k]:.2f} ms ({min(v):.2f}-{max(v):.2f})"
+                      for k, v in times.items()), flush=True)
+    return med
+
+
+def profile_tick(label, b) -> dict:
+    """One steady decode tick of a filled batcher under torch.profiler:
+    wall, kernel time and busy share, CUDA launches, and the hand-written
+    kernels' launches that tick (counters at 0 just before the tick, read
+    just after; returned, those launched)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        active = b.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    runs = {k: fn.launches for k, fn in counters().items()}
+    check(active == b.B and not b.queue, f"{label}: the tick was not steady")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    print(f"profile continuous tick {b.cfg.name} {label} (profiler on): wall "
+          f"{wall * 1e3:.2f} ms, kernels {busy:.3f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} kernel "
+          f"launches; hand-written a tick: "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+    return {k: v for k, v in runs.items() if v}
+
+
+def tick_logits(label, b, params32) -> None:
+    """One steady tick's logits of a filled paged batcher (no mesh), from
+    copies of its pool at its tokens, positions and block tables, three
+    ways: its kernel path in bf16, the plain einsum path in bf16 (the
+    floor) and the f32 einsum oracle (``params32``, the pool cast to f32).
+    Held as serve_phase holds the first decode step: the median per-slot
+    relative error within SERVE_REL_SLACK x floor + SERVE_ABS_SLACK, argmax
+    agreement no less than the floor's less SERVE_AGREE_SLACK."""
+    import torch
+    from repro_torch.models import lm
+    toks = torch.as_tensor(b.next_tok, device=b.dev)[:, None]
+    pos = torch.as_tensor(b.pos, device=b.dev)
+    tables = torch.as_tensor(b.tables, device=b.dev)
+
+    def logits(params, cfg, impl):
+        dtype = getattr(torch, cfg.dtype)
+        pool = [type(c)(*(t.to(dtype, copy=True) if t.is_floating_point()
+                          else t.clone() for t in c)) for c in b.pool]
+        with torch.no_grad():
+            out, _, _ = lm.decode_step(params, cfg, toks, pos, pool, impl=impl,
+                                       device=b.dev, block_tables=tables)
+        check(out.shape == (b.B, 1, cfg.vocab_size)
+              and bool(torch.isfinite(out).all()), f"{label}: {impl} logits malformed")
+        return out[:, 0].float()
+
+    oracle = logits(params32, dataclasses.replace(b.cfg, dtype="float32"), "einsum")
+    rows = {}
+    for impl in ("einsum", b._impl):
+        got = logits(b.params, b.cfg, impl)
+        rows[impl] = (rel_err(got, oracle).median().item(),
+                      (got.argmax(-1) == oracle.argmax(-1)).float().mean().item())
+    (f_rel, f_agree), (k_rel, k_agree) = rows["einsum"], rows[b._impl]
+    print(f"steady tick logits {b.cfg.name} {label} ({b.B} slots, positions "
+          f"{int(b.pos.min())}-{int(b.pos.max())}) vs the f32 einsum oracle on "
+          f"the same pool: per-slot relative error p50 {k_rel:.4f}, argmax agree "
+          f"{k_agree:.4f} (bf16 einsum floor {f_rel:.4f}, {f_agree:.4f})", flush=True)
+    check(k_rel <= SERVE_REL_SLACK * f_rel + SERVE_ABS_SLACK
+          and k_agree >= f_agree - SERVE_AGREE_SLACK,
+          f"{label}: a steady tick's logits further from the f32 oracle than "
+          f"the bf16 einsum path (floor {f_rel:.4f}, {f_agree:.4f}; slack "
+          f"x{SERVE_REL_SLACK} +{SERVE_ABS_SLACK}, agreement -{SERVE_AGREE_SLACK})")
+
+
+def static_agreement(params, params32, cfg, toks, dev, *, prompt_len, gen,
+                     requests):
+    """Each request's continuous tokens against a static batch-1 pass over
+    its prompt and its tokens (the last excepted): the argmax at every
+    generated position, of the f32 einsum oracle (plain attention, layers
+    cast to f32), of the bf16 einsum path (plain attention) — the bf16
+    floor — and of the bf16 kernel path (fused/ragged).  The continuous
+    tokens must agree with the oracle no less than the floor does, less
+    SERVE_AGREE_SLACK."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    hits = {"floor": 0, "continuous": 0, "kernel static": 0}
+    n = 0
+    reqs = serve.request_stream(cfg, prompt_len=prompt_len, gen=gen,
+                                num_requests=requests)
+    with torch.no_grad():
+        for r in reqs:
+            got = torch.tensor(toks[r.id], device=dev)
+            seq = torch.cat([torch.as_tensor(r.prompt, device=dev), got[:-1]])[None]
+            S = len(r.prompt)
+
+            def argmax(p, c, impl):
+                return lm.forward(p, c, seq, impl=impl, device=dev)[0][0, S - 1:].argmax(-1)
+
+            with plain_attention():
+                oracle = argmax(params32, cfg32, "einsum")
+                floor = argmax(params, cfg, "einsum")
+            kernel = argmax(params, cfg, "fused")
+            hits["floor"] += int((floor == oracle).sum())
+            hits["continuous"] += int((got == oracle).sum())
+            hits["kernel static"] += int((got == kernel).sum())
+            n += got.numel()
+    agree = {k: v / n for k, v in hits.items()}
+    print(f"continuous fastmoe-gpt fused/ragged tokens vs a static batch-1 pass "
+          f"over the same sequences ({n} tokens): argmax agreement with the f32 "
+          f"oracle {agree['continuous']:.4f} (bf16 einsum floor "
+          f"{agree['floor']:.4f}, slack -{SERVE_AGREE_SLACK}); with the bf16 "
+          f"kernel path {agree['kernel static']:.4f}", flush=True)
+    check(agree["continuous"] >= agree["floor"] - SERVE_AGREE_SLACK,
+          f"continuous tokens agree with the f32 oracle {agree['continuous']:.4f}, "
+          f"below the bf16 floor {agree['floor']:.4f} - {SERVE_AGREE_SLACK}")
+
+
+def continuous_phase(dev):
+    """Continuous batching of full-width fastmoe-gpt (CB_*): CB_RUNS, each
+    a main path of its own (counters at 0 just before, read just after);
+    paged == ring tokens bit for bit; the continuous tokens against a
+    static pass; steady ticks of paged and ring in turns; then the psum
+    mode over a 1x1 mesh (a world-size-1 NCCL group in this process) for
+    CB_PSUM, tokens bit-equal to the local path's, with steady ticks of
+    both in turns; one steady tick's logits of fused/ragged and
+    pallas/capacity against the f32 einsum oracle on the same pool; one
+    profiled steady tick of each path, local and psum.  Returns (the
+    launches summed over the runs, the hand-written launches of each
+    profiled tick, by the label of the batcher it ran on)."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.launch.serve_api import ServeConfig
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    base = get_config("fastmoe-gpt")
+    params = lm.init_params(base, seed=0, device=dev)
+    kw = dict(prompt_len=CB_PROMPT, gen=CB_GEN)
+    for impl, dispatch in CB_PSUM:  # warm-up: first-call costs out of the timing
+        serve.serve_continuous(params, with_dispatch(base, dispatch),
+                               ServeConfig(slots=2, block_size=CB_BLOCK,
+                                           max_len=CB_MAX_LEN),
+                               prompt_len=CB_PROMPT, gen=2, num_requests=2,
+                               impl=impl, device=dev)
+    total = {k: 0 for k in counters()}
+    results = {}
+    for label, impl, dispatch, over, mixed in CB_RUNS:
+        scfg = ServeConfig(slots=CB_SLOTS, block_size=CB_BLOCK,
+                           max_len=CB_MAX_LEN, **over)
+        results[label] = run_continuous(label, params, with_dispatch(base, dispatch),
+                                        scfg, impl, dev, requests=CB_REQUESTS,
+                                        mixed=mixed, **kw)
+        for k, v in results[label][2].items():
+            total[k] += v
+    head, ring = results["fused/ragged paged"], results["fused/ragged ring"]
+    check(head[0] == ring[0], "fused/ragged: paged tokens differ from the ring's")
+    cont, stat = (results[f"fused/ragged mixed {p}"] for p in ("continuous", "static"))
+    same = sum(a == b for i in cont[0] for a, b in zip(cont[0][i], stat[0][i]))
+    print(f"paged vs ring, fused/ragged: tokens bit-equal; {head[1]['tok_s']:.1f} "
+          f"vs {ring[1]['tok_s']:.1f} tok/s, per-token p50 "
+          f"{head[1]['token_p50'] * 1e3:.2f} vs {ring[1]['token_p50'] * 1e3:.2f} "
+          f"ms; continuous vs static policy on mixed output lengths "
+          f"{CB_MIXED_GEN}: {cont[1]['tok_s']:.1f} vs {stat[1]['tok_s']:.1f} "
+          f"tok/s ({cont[1]['ticks']} vs {stat[1]['ticks']} ticks), tokens "
+          f"equal {same / max(cont[1]['tokens'], 1):.4f}", flush=True)
+    params32 = dict(params, layers=[lm.cast_params(l, torch.float32)
+                                    for l in params["layers"]])
+    static_agreement(params, params32, with_dispatch(base, "ragged"), head[0],
+                     dev, requests=CB_REQUESTS, **kw)
+    cfg = with_dispatch(base, "ragged")
+    race = {name: filled(params, cfg, ServeConfig(
+        slots=CB_SLOTS, block_size=CB_BLOCK, max_len=CB_MAX_LEN, paged=paged),
+        "fused", dev, **kw) for name, paged in (("paged", True), ("ring", False))}
+    tick_race("fastmoe-gpt fused/ragged", race)
+    tick_logits("fused/ragged paged", race["paged"], params32)
+    per_tick = {"fused/ragged paged": profile_tick("fused/ragged paged",
+                                                   race["paged"])}
+    del race
+
+    # ---- the psum mode at world size 1: bit-equal to the local path
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        mesh = make_local_mesh(1, 1)
+        for impl, dispatch in CB_PSUM:
+            cfg = with_dispatch(base, dispatch)
+            dist = serve.decode_dist(cfg, mesh, CB_SLOTS)
+            check(dist is not None and dist.mode == "psum", f"psum: {dist}")
+            label = f"{impl}/{dispatch} paged psum 1x1"
+            scfg = ServeConfig(slots=CB_SLOTS, block_size=CB_BLOCK,
+                               max_len=CB_MAX_LEN)
+            got = run_continuous(label, params, cfg, scfg, impl, dev, mesh=mesh,
+                                 requests=CB_REQUESTS, **kw)
+            for k, v in got[2].items():
+                total[k] += v
+            local = results[f"{impl}/{dispatch} paged"]
+            check(got[0] == local[0], f"{label}: tokens differ from the local path")
+            race = {name: filled(params, cfg, scfg, impl, dev, mesh=m, **kw)
+                    for name, m in (("local", None), ("psum", mesh))}
+            med = tick_race(f"fastmoe-gpt {impl}/{dispatch}", race)
+            print(f"psum 1x1 vs local {impl}/{dispatch}: tokens bit-equal; "
+                  f"{got[1]['tok_s']:.1f} vs {local[1]['tok_s']:.1f} tok/s; a "
+                  f"steady tick {med['psum']:.2f} vs {med['local']:.2f} ms "
+                  f"({med['psum'] - med['local']:+.2f} ms)", flush=True)
+            if impl == "pallas":
+                tick_logits(f"{impl}/{dispatch} paged", race["local"], params32)
+                per_tick[f"{impl}/{dispatch} paged"] = profile_tick(
+                    f"{impl}/{dispatch} paged", race["local"])
+            per_tick[label] = profile_tick(label, race["psum"])
+            del race
+    finally:
+        tdist.destroy_process_group()
+    del params32
+    print(f"continuous phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"hand-written launches a steady tick: {json.dumps(per_tick)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return total, per_tick
 
 
 # ---------------------------------------------------------------------------
@@ -2156,11 +2550,42 @@ def deepseek_serve_phase(dev):
                     DS_PROMPT, DS_CACHE)
     profile_step(params, with_dispatch(base, "ragged"), prompt, "fused",
                  DS_CACHE, dev)
+
+    # ---- continuous batching, fused/ragged: the paged latent pool against
+    # the ring, each a main path of its own
+    from repro_torch.launch.serve_api import ServeConfig
+    cfg = with_dispatch(base, "ragged")
+    kw = dict(prompt_len=DSC_PROMPT, gen=DSC_GEN)
+    serve.serve_continuous(params, cfg, ServeConfig(  # warm-up
+        slots=2, block_size=DSC_BLOCK, max_len=DSC_MAX_LEN),
+        prompt_len=DSC_PROMPT, gen=2, num_requests=2, impl="fused",
+        device=dev)
+    cont = {}
+    for paged in (True, False):
+        scfg = ServeConfig(slots=DSC_SLOTS, block_size=DSC_BLOCK,
+                           max_len=DSC_MAX_LEN, paged=paged)
+        cont[paged] = run_continuous(
+            f"fused/ragged {'paged' if paged else 'ring'}", params, cfg, scfg,
+            "fused", dev, requests=DSC_REQUESTS, **kw)
+    check(cont[True][0] == cont[False][0],
+          "deepseek fused/ragged: paged tokens differ from the ring's")
+    print(f"continuous deepseek-v2-236b paged vs ring: tokens bit-equal; "
+          f"{cont[True][1]['tok_s']:.1f} vs {cont[False][1]['tok_s']:.1f} tok/s, "
+          f"per-token p50 {cont[True][1]['token_p50'] * 1e3:.2f} vs "
+          f"{cont[False][1]['token_p50'] * 1e3:.2f} ms", flush=True)
+    race = {name: filled(params, cfg, ServeConfig(
+        slots=DSC_SLOTS, block_size=DSC_BLOCK, max_len=DSC_MAX_LEN,
+        paged=paged), "fused", dev, **kw)
+        for name, paged in (("paged", True), ("ring", False))}
+    tick_race("deepseek-v2-236b fused/ragged", race)
+    per_tick = profile_tick("fused/ragged paged", race["paged"])
+    del race
+    cont_launches = {k: cont[True][2][k] + cont[False][2][k] for k in launches}
     print(f"deepseek serve phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     del params, prompt
     torch.cuda.empty_cache()
-    return launches
+    return launches, cont_launches, per_tick
 
 
 def rel_err(a, b):
@@ -2317,12 +2742,13 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _, routing = train_phase(dev)
     ep_launches = ep_phase(dev)
+    cb_launches, cb_tick = continuous_phase(dev)
     routing_ms = model_routing_phase(dev, routing)
     grad_oracle_phase(dev)
     starcoder2_logits_phase(dev)
     sc2_launches = starcoder2_serve_phase(dev)
     deepseek_logits_phase(dev)
-    ds_launches = deepseek_serve_phase(dev)
+    ds_launches, dsc_launches, dsc_tick = deepseek_serve_phase(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2345,8 +2771,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "launches": launches[name],
             "launches_by_path": {"fastmoe-gpt serving": launches[name],
+                                 "fastmoe-gpt continuous serving": cb_launches[name],
+                                 "deepseek-v2-236b continuous serving": dsc_launches[name],
                                  "fastmoe-gpt training": train_launches[name],
                                  "fastmoe-gpt EP training 1x1": ep_launches[name]},
+            "launches_per_tick": {**{f"fastmoe-gpt {k}": v.get(name, 0)
+                                     for k, v in cb_tick.items()},
+                                  "deepseek-v2-236b fused/ragged paged":
+                                      dsc_tick.get(name, 0)},
             "max_abs_err": errs[(name, "bfloat16", "decode")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2375,6 +2807,7 @@ def main() -> int:
                       ("flash_attention_bwd", "src/repro/models/attention.py:67")):
         t = fa_timed[(name, "starcoder2")]
         by_path = {"fastmoe-gpt serving": launches[name],
+                   "fastmoe-gpt continuous serving": cb_launches[name],
                    "fastmoe-gpt training": train_launches[name],
                    "fastmoe-gpt EP training 1x1": ep_launches[name],
                    "starcoder2-15b serving": sc2_launches[name]}
@@ -2394,12 +2827,16 @@ def main() -> int:
         t = fa_timed[(kname, name)]
         rep = ("src/repro/kernels/flash_attention.py:73" if kname.endswith("fwd")
                else "src/repro/models/attention.py:67")
-        runs = ds_launches[kname] if kname.endswith("fwd") else 0
+        fwd = kname.endswith("fwd")
+        runs = ds_launches[kname] if fwd else 0
         B, S, H, KV, dk, dv, _ = shape
         kernels.append({
             "name": f"{kname} (dk {dk}, dv {dv})", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": rep,
-            "launches": runs, "launches_by_path": {"deepseek-v2-236b serving": runs},
+            "launches": runs, "launches_by_path": {
+                "deepseek-v2-236b serving": runs,
+                "deepseek-v2-236b continuous serving":
+                    dsc_launches[kname] if fwd else 0},
             "max_abs_err": fa_errs[(kname, "bfloat16", name)],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

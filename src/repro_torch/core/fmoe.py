@@ -13,7 +13,9 @@ implementations:
 and expert parallelism across ranks (§3.2, Fig 2): a ``DistConfig`` over a
 ``launch.mesh.Mesh`` runs the counts all-to-all, the payload all-to-all,
 the local experts, the return all-to-all and the combine, for both
-dispatches, on ``torch.distributed``.  Rank ``m`` of the model axis holds
+dispatches, on ``torch.distributed``; or, for decode, the psum mode (every
+rank computes its own experts on all of the tokens and one all-reduce adds
+them).  Rank ``m`` of the model axis holds
 experts ``[m * E_local, (m + 1) * E_local)``.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.core.balance import (MoEMetrics, load_balance_loss,
                                       load_metrics, router_z_loss)
 from repro_torch.core.gate import route_tokens, router_init
 from repro_torch.kernels import ops
+from repro_torch.optim.adamw import tree_leaves
 
 
 class DistConfig(NamedTuple):
@@ -38,9 +41,10 @@ class DistConfig(NamedTuple):
 
     mode "a2a" (tokens sharded over the expert axis too, the paper's §3.2
     all-to-all) when ``expert_axis`` is among ``token_axes``; otherwise
-    "psum", which is not ported (ROADMAP §1 item 5).  ``x`` given to
-    ``fmoe_apply`` is this rank's token shard; ranks hold contiguous token
-    blocks in rank order.
+    "psum" (decode: every rank of the model axis holds the same tokens,
+    computes its own experts, and one all-reduce sums the outputs; serving
+    only).  ``x`` given to ``fmoe_apply`` is this rank's token shard; ranks
+    hold contiguous token blocks in rank order.
 
       overlap_chunks — the §5.2 pipelined exchange: 0 or 1 runs the serial
         exchange; more raises (ROADMAP §1 item 2).
@@ -87,6 +91,24 @@ class DistConfig(NamedTuple):
         return self.mesh.axes_size(self.expert_axes)
 
 
+def moe_dist(cfg, mesh, num_tokens: int) -> DistConfig | None:
+    """The expert-parallel mode for this (model config, mesh, global token
+    count).
+
+    a2a (the paper's §3.2 exchange) when the tokens split evenly over every
+    rank; otherwise the psum mode, tokens sharded over data where they
+    split (serving only: ``fmoe_apply`` refuses to train through it).
+    None when the config has no MoE or its experts do not split over the
+    model axis."""
+    if cfg.moe is None or cfg.moe.num_experts % mesh.shape["model"]:
+        return None
+    if num_tokens % mesh.size == 0:
+        return DistConfig(mesh, tuple(mesh.axis_names))
+    d_axes = tuple(a for a in mesh.axis_names if a == "data")
+    return DistConfig(mesh, d_axes if num_tokens % mesh.axes_size(d_axes) == 0
+                      else ())
+
+
 # where each option the port does not carry yet is queued (ROADMAP.md §1)
 _NOT_CARRIED = {"tp_axis": "expert-internal tensor parallelism (ROADMAP §1 "
                            "item 1)",
@@ -115,11 +137,16 @@ def _check_dist(dist: DistConfig) -> None:
         raise NotImplementedError(
             f"DistConfig.overlap_chunks={dist.overlap_chunks} is the §5.2 "
             f"overlap (ROADMAP §1 item 2), not ported to repro_torch yet")
-    if dist.mode != "a2a":
+
+
+def _check_psum_serving(params: dict, x: torch.Tensor) -> None:
+    """The psum mode serves; its backward is not carried."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in tree_leaves(params))):
         raise NotImplementedError(
-            f"psum mode (token_axes {dist.token_axes!r} without the expert "
-            f"axis) is decode at scale (ROADMAP §1 item 5), not ported to "
-            f"repro_torch yet")
+            "training through the psum mode (ROADMAP §1 item 1) is not "
+            "ported to repro_torch yet: call it under torch.no_grad(), or "
+            "train with token_axes that hold the expert axis (a2a)")
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +438,65 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     return y, metrics
 
 
+def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
+              act: str, expert_fn: Callable, dist: DistConfig,
+              impl: str = "einsum"):
+    """Tokens not sharded over the expert axis (decode): every rank gates
+    all of its tokens, computes only its own experts, and one all-reduce
+    (SUM) of the combined (t, d) over the model group adds the ranks'
+    parts.  No all-to-all.
+
+    capacity: the rank's (E_local, C, d) slice of the dispatch buffer, its
+    output placed in an otherwise zero (E, C, d) buffer for the combine;
+    ragged: the rank's contiguous segment of the expert-sorted rows, shifted
+    to offset 0 (``scatter_rows``) for the grouped kernels on the rank's
+    group sizes (rows past them come out zero) and back
+    (``gather_rows_fill``) — dropless, as the local path.  load, drop_frac,
+    aux and z are the means over ``token_axes``.  At world size 1 this is
+    the local path bit for bit: the segment is every row at offset 0 and
+    the all-reduce of a one-rank group is an identity."""
+    mp = dist.expert_parallelism
+    m = dist.mesh.coords()[1]
+    E = cfg.num_experts
+    E_local = E // mp
+    mine = slice(m * E_local, (m + 1) * E_local)
+    t = x.shape[0]
+    g = route_tokens(router, x, cfg)
+    if cfg.dispatch == "ragged":
+        n = t * cfg.top_k
+        plan = D.make_ragged_plan(g.expert_ids, E)
+        x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
+        gs_local = plan.group_sizes[mine]
+        # each sorted row's place in this rank's segment; n (dropped) outside
+        d = torch.arange(n, device=x.device) - plan.group_sizes[:m * E_local].sum()
+        dest = torch.where((d >= 0) & (d < gs_local.sum()), d, n)
+        ys = RAGGED_FNS[impl](experts, D.scatter_rows(x_sorted, dest, n),
+                              gs_local, act)
+        y = D.combine_ragged(D.gather_rows_fill(ys, dest), plan,
+                             g.combine_weights)
+        load, drop = load_metrics(plan.group_sizes, None, n)
+    else:
+        C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
+        plan = D.make_capacity_plan(g.expert_ids, E, C)
+        buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+        out_local = expert_fn(experts, buf[mine], act)
+        out = out_local.new_zeros(E, C, out_local.shape[-1])
+        out[mine] = out_local
+        y = D.combine_capacity(out, plan, g.combine_weights)
+        load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
+    y = y.contiguous()  # gloo reduces contiguous buffers only
+    torch.distributed.all_reduce(y, group=dist.mesh.group(dist.expert_axis))
+    aux = load_balance_loss(g.probs, g.expert_ids, E)
+    z = router_z_loss(g.logits)
+    ranks = dist.mesh.axes_size(dist.token_axes)
+    if ranks > 1:  # the means over the token ranks, in one all-reduce
+        red = torch.cat([load, torch.stack([aux, z, drop]).float()])
+        torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
+        red = red / ranks
+        load, (aux, z, drop) = red[:E], red[E:]
+    return y, MoEMetrics(aux, z, load, drop)
+
+
 def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                act: str = "swiglu", dist=None, impl: str = "einsum"):
     """Apply the MoE FFN to ``x`` of shape (..., d_model).
@@ -418,12 +504,15 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     Returns ``(y, MoEMetrics)``.  ``impl`` selects the expert kernels
     ("einsum" | "pallas" | "fused") on both dispatch modes.  ``dist=None``
     (or a ``DistConfig`` without a mesh) runs the single-worker §4 path;
-    a ``DistConfig`` over a mesh runs the §3.2 exchange, with ``x`` this
-    rank's token shard and ``params["experts"]`` its expert shard.  The
+    a ``DistConfig`` over a mesh runs the §3.2 exchange (a2a) or the psum
+    mode, with ``x`` this rank's token shard and ``params["experts"]`` its
+    expert shard.  The
     shared and dense residual FFNs run on the local tokens.
     """
     if dist is not None:
         _check_dist(dist)
+        if dist.mesh is not None and dist.mode == "psum":
+            _check_psum_serving(params, x)
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
@@ -431,6 +520,9 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     if dist is None or dist.mesh is None:
         y, metrics = _moe_local(xf, router, experts, cfg, act, expert_fn,
                                 impl=impl)
+    elif dist.mode == "psum":
+        y, metrics = _moe_psum(xf, router, experts, cfg, act, expert_fn, dist,
+                               impl=impl)
     elif cfg.dispatch == "ragged":
         y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
                                      impl=impl)

@@ -1,10 +1,21 @@
-"""Greedy serving: one prefill pass over the prompts, then one decode step
-per token, for a static batch.
+"""Serving: a static batch (one prefill pass over the prompts, then one
+decode step per token, greedy or sampled) and continuous batching over a
+request stream (``launch/scheduler.ContinuousBatcher``, paged KV cache).
 
     python -m repro_torch.launch.serve --arch fastmoe-gpt [--reduced] \
         --batch 8 --prompt_len 128 --gen 32 --impl fused --dispatch ragged \
-        [--device cpu] [--seed 0]
+        [--temperature 0.8] [--device cpu] [--seed 0]
+    python -m repro_torch.launch.serve --continuous --requests 24 --slots 8 \
+        --block_size 16 --prompt_len 128 --gen 32 [--max_len 160] \
+        [--policy static] [--device cpu]
 
+Expert-parallel decode in the psum mode over a 1xM mesh of ranks, one
+process each (gloo on the CPU, NCCL with one card a rank):
+
+    torchrun --nproc_per_node 2 -m repro_torch.launch.serve --continuous \
+        --mesh 1x2 --device cpu --reduced
+
+Every rank runs the same loop on the same requests; rank 0 prints.
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel, fused = the fused FFN kernel); ``--dispatch`` the MoE
 dispatch (capacity | ragged).  Runs on the GPU unless ``--device cpu``.
@@ -15,11 +26,16 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
+from repro_torch import interop
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fmoe import moe_dist
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import init_distributed, make_local_mesh
+from repro_torch.launch.serve_api import Request, ServeConfig
 from repro_torch.models import lm
 
 SWA_CAP = 8192  # ring-buffer cap for the long-context sliding-window variant
@@ -43,17 +59,59 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def check_serving_mesh(data: int) -> None:
+    """The port serves 1xM meshes: every rank holds every token."""
+    if data > 1:
+        raise NotImplementedError(
+            f"serving over a data axis of {data} needs a batcher per data "
+            f"group (ROADMAP §1 item 5), not ported to repro_torch yet; use a "
+            f"1xM mesh")
+
+
+def decode_dist(cfg: ModelConfig, mesh, batch: int):
+    """The MoE layers' ``DistConfig`` for decode over ``mesh``, pinned to
+    the psum mode: the model axis leaves the token axes, and the data axis
+    stays a token axis only where the batch splits over it.  None when the
+    config has no MoE or its experts do not split over the model axis."""
+    d = moe_dist(cfg, mesh, batch)
+    if d is None or d.mode == "psum":
+        return d
+    tok = tuple(a for a in d.token_axes if a not in d.expert_axes)
+    if mesh.axes_size(tok) > 1 and batch % mesh.axes_size(tok):
+        tok = ()
+    return d._replace(token_axes=tok)
+
+
+def sample(logits: torch.Tensor, temperature: float = 0.0,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) tokens: the argmax at temperature 0, else
+    one draw a row from softmax(logits / temperature) with ``generator``
+    (on the logits' device)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)[:, None]
+    if generator is None:
+        raise ValueError("temperature sampling takes an explicit "
+                         "torch.Generator")
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
+
+
 def generate(params, cfg: ModelConfig, prompt, steps: int, *,
              cache_len: int = 256, impl: str = "fused",
              use_prefill: bool = True, device="cuda",
-             timings: dict | None = None) -> torch.Tensor:
-    """Greedy decoding: (B, S) prompt -> (B, S + steps) tokens.
+             timings: dict | None = None, temperature: float = 0.0,
+             generator: torch.Generator | None = None,
+             dist=None) -> torch.Tensor:
+    """Greedy or sampled decoding: (B, S) prompt -> (B, S + steps) tokens.
 
     ``use_prefill=True`` fills the cache with one full pass over the prompt
     (the serving path); otherwise the prompt goes in token by token (the
-    cross-check: both paths must agree).  A ``timings`` dict, when given,
-    receives ``prefill_s`` and the per-token ``decode_s`` list, each taken
-    after a device synchronize."""
+    cross-check: both paths must agree).  ``temperature`` > 0 samples each
+    token from softmax(logits / temperature) with ``generator`` (a
+    ``torch.Generator`` on the device); 0, the default, is greedy.
+    ``dist``: the MoE layers' ``DistConfig`` (``decode_dist``).  A
+    ``timings`` dict, when given, receives ``prefill_s`` and the per-token
+    ``decode_s`` list, each taken after a device synchronize."""
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
@@ -61,21 +119,20 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
 
     def step(tok, pos, cache):
         return lm.decode_step(params, cfg, tok, pos, cache, impl=impl,
-                              device=dev)
+                              device=dev, dist=dist)
 
-    def greedy(logits):
-        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+    def next_token(logits):
+        return sample(logits[:, -1], temperature, generator).to(prompt.dtype)
 
     t0 = time.perf_counter()
     if use_prefill:
         logits, cache, _ = lm.prefill(params, cfg, prompt, cache, impl=impl,
-                                      device=dev)
-        out = [prompt]
+                                      device=dev, dist=dist)
     else:
         for pos in range(S):
             logits, cache, _ = step(prompt[:, pos:pos + 1], pos, cache)
-        out = [prompt]
-    tok = greedy(logits)
+    out = [prompt]
+    tok = next_token(logits)
     out.append(tok)
     if timings is not None:
         _sync(dev)
@@ -84,7 +141,7 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     for pos in range(S, S + steps - 1):
         t0 = time.perf_counter()
         logits, cache, _ = step(tok, pos, cache)
-        tok = greedy(logits)
+        tok = next_token(logits)
         out.append(tok)
         if timings is not None:
             _sync(dev)
@@ -92,41 +149,160 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     return torch.cat(out, dim=1)
 
 
+def request_stream(cfg: ModelConfig, *, prompt_len: int, gen: int,
+                   num_requests: int, seed: int = 1) -> list:
+    """The synthetic stream of ``serve --continuous``, drawn as the JAX
+    package draws it: prompt lengths in (prompt_len // 2, prompt_len],
+    tokens uniform over the vocabulary, ``gen`` new tokens each."""
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(num_requests):
+        s = max(1, prompt_len - int(rng.randint(0, max(prompt_len // 2, 1))))
+        reqs.append(Request(
+            id=i, prompt=rng.randint(0, cfg.vocab_size, s).astype(np.int64),
+            max_new_tokens=gen))
+    return reqs
+
+
+def _pct(sorted_vals: list, q: float) -> float:
+    return sorted_vals[min(len(sorted_vals) - 1, int(len(sorted_vals) * q))]
+
+
+def serving_stats(completions: list, seconds: float, ticks: int) -> dict:
+    """Requests, generated tokens and tok/s, ticks, time to first token and
+    per-token latency (the gaps after the first token), p50 and p99."""
+    toks = sum(len(c.tokens) for c in completions)
+    ttft = sorted(c.ttft for c in completions) or [0.0]
+    lats = sorted(x for c in completions for x in c.latencies[1:]) or [0.0]
+    return {"requests": len(completions), "tokens": toks, "seconds": seconds,
+            "tok_s": toks / max(seconds, 1e-9), "ticks": ticks,
+            "ttft_p50": _pct(ttft, 0.5), "ttft_p99": _pct(ttft, 0.99),
+            "token_p50": _pct(lats, 0.5), "token_p99": _pct(lats, 0.99)}
+
+
+def format_stats(s: dict) -> str:
+    return (f"{s['requests']} requests, {s['tokens']} tokens in "
+            f"{s['seconds']:.3f} s ({s['tok_s']:.1f} tok/s) over {s['ticks']} "
+            f"ticks; TTFT p50 {s['ttft_p50'] * 1e3:.1f} ms p99 "
+            f"{s['ttft_p99'] * 1e3:.1f} ms; per-token p50 "
+            f"{s['token_p50'] * 1e3:.2f} ms p99 {s['token_p99'] * 1e3:.2f} ms")
+
+
+def serve_continuous(params, cfg: ModelConfig, scfg: ServeConfig, *,
+                     prompt_len: int, gen: int, num_requests: int,
+                     impl: str = "fused", device="cuda", mesh=None):
+    """Drive the continuous batcher over ``request_stream``: every request
+    submitted at the start, then ticks until all are done.  Returns
+    ``(batcher, serving_stats(...))``."""
+    from repro_torch.launch.scheduler import ContinuousBatcher
+
+    batcher = ContinuousBatcher(params, cfg, scfg, mesh=mesh, impl=impl,
+                                device=device)
+    reqs = request_stream(cfg, prompt_len=prompt_len, gen=gen,
+                          num_requests=num_requests)
+    t0 = time.time()
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    dt = time.time() - t0
+    return batcher, serving_stats(batcher.completions, dt, batcher.ticks)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="fastmoe-gpt")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="the static batch, and the slots when --slots is "
+                         "not given")
     ap.add_argument("--prompt_len", type=int, default=128)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--impl", default="fused", choices=["einsum", "pallas", "fused"])
     ap.add_argument("--dispatch", default="ragged", choices=["capacity", "ragged"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample the static batch's tokens at this "
+                         "temperature (0 = greedy)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a synthetic request stream by continuous "
+                         "batching (launch/scheduler) instead of one static "
+                         "batch")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="requests for --continuous (0 = 3x slots)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="decode slots (ServeConfig.slots; default --batch)")
+    ap.add_argument("--block_size", type=int, default=None,
+                    help="paged KV cache block rows (ServeConfig.block_size)")
+    ap.add_argument("--max_len", type=int, default=None,
+                    help="per-request prompt + gen cap (default prompt_len "
+                         "+ gen)")
+    ap.add_argument("--policy", default=None, choices=["continuous", "static"],
+                    help="admission policy (static = admit only when every "
+                         "slot is free)")
+    ap.add_argument("--mesh", default="",
+                    help="1xM: expert-parallel decode in the psum mode, one "
+                         "rank a process (run under torchrun)")
     args = ap.parse_args(argv)
 
-    dev = resolve(args.device)
+    scfg = ServeConfig.from_args(args)
+    if args.max_len is None:
+        scfg.max_len = args.prompt_len + args.gen
+    if args.continuous and args.temperature:
+        raise ValueError("the continuous batcher decodes greedily; "
+                         "--temperature applies to the static batch")
+    if not scfg.mesh:
+        return _run(args, scfg, resolve(args.device), None)
+    data, model = scfg.mesh_shape()
+    check_serving_mesh(data)
+    dev = init_distributed(args.device)
+    try:
+        _run(args, scfg, dev, make_local_mesh(data, model))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
+    lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
     if cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+    # every rank makes the whole params from the seed and keeps its shard
     params = lm.init_params(cfg, seed=args.seed, device=dev)
+    if mesh is not None:
+        params = interop.shard_params(params, mesh)
+    where = f"{dev}" + (f", mesh {scfg.mesh} (psum)" if mesh else "")
+    if args.continuous:
+        batcher, stats = serve_continuous(
+            params, cfg, scfg, prompt_len=args.prompt_len, gen=args.gen,
+            num_requests=args.requests or 3 * scfg.slots, impl=args.impl,
+            device=dev, mesh=mesh)
+        if lead:
+            print(f"{cfg.name} on {where}, continuous ({scfg.policy}, "
+                  f"{'paged' if scfg.paged else 'ring'}, {scfg.slots} slots): "
+                  + format_stats(stats))
+            print(min(batcher.completions, key=lambda c: c.request_id).tokens)
+        return
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
     timings: dict = {}
     seq = generate(params, cfg, prompt, args.gen, impl=args.impl, device=dev,
                    cache_len=cache_len_for(cfg, args.prompt_len + args.gen),
-                   timings=timings)
+                   timings=timings, temperature=args.temperature,
+                   generator=gen,
+                   dist=decode_dist(cfg, mesh, args.batch) if mesh else None)
     dec = sorted(timings["decode_s"]) or [0.0]
     p50 = dec[len(dec) // 2]
-    print(f"{cfg.name} on {dev}: prefill {args.batch}x{args.prompt_len} in "
-          f"{timings['prefill_s'] * 1e3:.1f} ms; decode p50 {p50 * 1e3:.2f} "
-          f"ms/step ({args.batch / max(p50, 1e-9):.1f} tok/s) over "
-          f"{len(timings['decode_s'])} steps")
-    print(seq[0].tolist())
+    if lead:
+        print(f"{cfg.name} on {where}: prefill {args.batch}x{args.prompt_len} "
+              f"in {timings['prefill_s'] * 1e3:.1f} ms; decode p50 "
+              f"{p50 * 1e3:.2f} ms/step ({args.batch / max(p50, 1e-9):.1f} "
+              f"tok/s) over {len(timings['decode_s'])} steps")
+        print(seq[0].tolist())
 
 
 if __name__ == "__main__":

@@ -37,12 +37,11 @@ import torch.distributed
 from repro_torch import interop
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.fmoe import DistConfig
+from repro_torch.core.fmoe import moe_dist
 from repro_torch.core.sync import sync_grads
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
-from repro_torch.launch.mesh import (all_axes, data_axes, init_distributed,
-                                     make_local_mesh)
+from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models import lm
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -51,22 +50,6 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def moe_dist(cfg: ModelConfig, mesh, num_tokens: int) -> DistConfig | None:
-    """The expert-parallel mode for this (config, mesh, global token count).
-
-    a2a (the paper's §3.2 exchange) when the tokens split evenly over every
-    rank; otherwise the reference's psum mode, which ``fmoe_apply``
-    refuses (ROADMAP §1 item 5).  None when the config has no MoE or its
-    experts do not split over the model axis."""
-    if cfg.moe is None or cfg.moe.num_experts % mesh.shape["model"]:
-        return None
-    if num_tokens % mesh.size == 0:
-        return DistConfig(mesh, all_axes(mesh))
-    d_axes = data_axes(mesh)
-    return DistConfig(mesh, d_axes if num_tokens % mesh.axes_size(d_axes) == 0
-                      else ())
 
 
 def _rank_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Attention blocks: GQA and MLA (DeepSeek-V2), full-sequence (prefill)
-and one-token decode against a ring-buffer cache.
+and one-token decode against a ring-buffer cache or a paged block pool.
 
 In the JAX package's ``(B, S, H, d)`` layout.  ``blockwise_attention``
 computes what the JAX blockwise online-softmax scan computes through the
@@ -10,6 +10,9 @@ softmax in f32 over the ring.  The cache keeps each
 entry's absolute position beside it (-1 = empty, masked); RoPE is applied
 at write time.  Decode writes the cache in place — the JAX version returns
 a new cache; the port updates the tensors it was given and returns them.
+The paged decodes (continuous batching) read and write one pool of blocks
+shared by every slot through per-slot block tables (see "Paged KV cache"
+below).
 
 MLA caches only the compressed latent (kv_lora) and the shared rope key;
 prefill materialises per-head keys (dk = nope + rope) and values (dv) from
@@ -142,19 +145,130 @@ def _fill_ring(cache, rows: tuple, start: int):
     return cache
 
 
+def _gqa_decode_qkv(params: dict, x: torch.Tensor, posb: torch.Tensor,
+                    cfg: AttentionConfig):
+    """q (B, 1, H, dk), k and v (B, 1, KV, d) of one decode token a
+    sequence, q and k roped at its position posb (B,)."""
+    B = x.shape[0]
+    q = linear(params["wq"], x).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    k = linear(params["wk"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(params["wv"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q, posb[:, None], cfg.rope_theta)
+    k = apply_rope(k, posb[:, None], cfg.rope_theta)
+    return q, k, v
+
+
 def gqa_decode(params: dict, x: torch.Tensor, cache: KVCache, pos,
                cfg: AttentionConfig, *, window: int):
     """One-token decode; writes (k, v, pos) into each sequence's ring slot
     pos[b] % W of ``cache`` in place and returns (y, cache)."""
     B = x.shape[0]
     posb = _per_seq_pos(pos, B, x.device)
-    q = linear(params["wq"], x).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    k = linear(params["wk"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(params["wv"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, posb[:, None], cfg.rope_theta)
-    k = apply_rope(k, posb[:, None], cfg.rope_theta)
+    q, k, v = _gqa_decode_qkv(params, x, posb, cfg)
     cache = _write_slots(cache, (k[:, 0], v[:, 0]), posb)
     out = decode_attention(q, cache.k, cache.v, cache.positions,
+                           posb[:, None], window)
+    return linear(params["wo"], out.reshape(B, 1, -1)), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (continuous batching)
+# ---------------------------------------------------------------------------
+#
+# The pool replaces the per-slot ring with shared physical blocks of
+# ``block_size`` rows; each decode slot owns a block *table* mapping its
+# logical block j (positions [j*bs, (j+1)*bs)) to a pool row.  Entry order
+# in the gathered per-slot view equals the absolute position, and empty or
+# stale entries carry position -1, so decode_attention gives them an exact
+# zero softmax weight: the paged read equals a ring of length
+# blocks_per_slot * block_size bit for bit.
+#
+# Pool row 0 is the null block (never written; positions -1) that
+# unallocated table entries point at; row 1 is the scratch block that takes
+# the writes of idle slots (table rows all null).  Idle slots write the
+# scratch block at the same offsets, and a CUDA index_put_ with duplicate
+# indices keeps an arbitrary one: harmless, as no table holds the scratch
+# block.
+
+NULL_BLOCK = 0
+SCRATCH_BLOCK = 1
+RESERVED_BLOCKS = 2
+
+
+class PagedKVCache(NamedTuple):
+    k: torch.Tensor  # (P, bs, KV, dk) shared block pool
+    v: torch.Tensor  # (P, bs, KV, dv)
+    positions: torch.Tensor  # (P, bs) absolute positions, -1 empty
+
+
+class PagedMLACache(NamedTuple):
+    ckv: torch.Tensor  # (P, bs, kv_lora)
+    kr: torch.Tensor  # (P, bs, qk_rope)
+    positions: torch.Tensor  # (P, bs)
+
+
+def gqa_init_paged(num_blocks: int, block_size: int, cfg: AttentionConfig,
+                   dtype, *, device) -> PagedKVCache:
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device),
+                        torch.full((num_blocks, block_size), -1,
+                                   dtype=torch.int32, device=device))
+
+
+def mla_init_paged(num_blocks: int, block_size: int, cfg: AttentionConfig,
+                   dtype, *, device) -> PagedMLACache:
+    return PagedMLACache(
+        torch.zeros(num_blocks, block_size, cfg.kv_lora_rank, dtype=dtype,
+                    device=device),
+        torch.zeros(num_blocks, block_size, cfg.qk_rope_head_dim, dtype=dtype,
+                    device=device),
+        torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                   device=device))
+
+
+def _paged_target(tables: torch.Tensor, posb: torch.Tensor, bs: int):
+    """(pb, off): each slot's write target.  Null-block entries (idle slots,
+    positions past the table) go to the scratch block."""
+    nb = tables.shape[1]
+    blk = torch.clamp(torch.div(posb, bs, rounding_mode="floor"), 0, nb - 1)
+    pb = tables[torch.arange(posb.shape[0], device=posb.device), blk].long()
+    pb = torch.where(pb == NULL_BLOCK, SCRATCH_BLOCK, pb)
+    return pb, posb % bs
+
+
+def _paged_view(pool_leaf: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Each slot's contiguous view: (P, bs, ...) x (B, nb) -> (B, nb*bs, ...).
+    Entry index == absolute position."""
+    g = pool_leaf[tables.long()]  # (B, nb, bs, ...)
+    B, nb, bs = g.shape[:3]
+    return g.reshape(B, nb * bs, *g.shape[3:])
+
+
+def _write_paged(cache, rows: tuple, tables: torch.Tensor, posb: torch.Tensor):
+    """Decode: write each slot's new row of every pooled tensor (all but
+    ``positions``, in order) and its position at its paged target, in
+    place."""
+    pb, off = _paged_target(tables, posb, cache.positions.shape[1])
+    for buf, row in zip(cache[:-1], rows):
+        buf[pb, off] = row.to(buf.dtype)
+    cache.positions[pb, off] = posb.to(cache.positions.dtype)
+    return cache
+
+
+def gqa_decode_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
+                     tables: torch.Tensor, pos, cfg: AttentionConfig, *,
+                     window: int):
+    """One-token decode against the shared block pool.  ``tables`` (B, nb)
+    maps each slot's logical blocks to pool rows (0 = unallocated).
+    Writes the pool in place and returns (y, cache)."""
+    B = x.shape[0]
+    posb = _per_seq_pos(pos, B, x.device)
+    q, k, v = _gqa_decode_qkv(params, x, posb, cfg)
+    cache = _write_paged(cache, (k[:, 0], v[:, 0]), tables, posb)
+    out = decode_attention(q, _paged_view(cache.k, tables),
+                           _paged_view(cache.v, tables),
+                           _paged_view(cache.positions, tables),
                            posb[:, None], window)
     return linear(params["wo"], out.reshape(B, 1, -1)), cache
 
@@ -260,6 +374,19 @@ def fill_mla_cache(cache: MLACache, ckv: torch.Tensor, kr: torch.Tensor, *,
     return _fill_ring(cache, (ckv, kr), start)
 
 
+def _mla_decode_inputs(params: dict, x: torch.Tensor, posb: torch.Tensor,
+                       cfg: AttentionConfig):
+    """(q_nope, q_rope (B, 1, H, *), ckv (B, kv_lora), kr (B, rope)) of one
+    decode token a sequence, roped at its position posb (B,)."""
+    B, rope = x.shape[0], cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    q_rope = apply_rope(q_rope, posb[:, None], cfg.rope_theta)
+    ckv = linear(params["w_dkv"], x)[:, 0]
+    kr = linear(params["w_kr"], x).reshape(B, 1, 1, rope)
+    kr = apply_rope(kr, posb[:, None], cfg.rope_theta)[:, 0, 0]
+    return q_nope, q_rope, ckv, kr
+
+
 def mla_decode(params: dict, x: torch.Tensor, cache: MLACache, pos,
                cfg: AttentionConfig, *, window: int):
     """Absorbed-form one-token decode: writes (ckv, kr, pos) into each
@@ -267,30 +394,47 @@ def mla_decode(params: dict, x: torch.Tensor, cache: MLACache, pos,
     cached latents (W_uk absorbed into q) and maps the attended latent
     through W_uv, in f32 einsums; scale (nope + rope)^-1/2.  ``pos``:
     scalar or (B,).  Returns (y, cache)."""
-    B = x.shape[0]
-    H, rope = cfg.num_heads, cfg.qk_rope_head_dim
-    posb = _per_seq_pos(pos, B, x.device)
-    q_nope, q_rope = _mla_q(params, x, cfg)  # (B, 1, H, *)
-    q_rope = apply_rope(q_rope, posb[:, None], cfg.rope_theta)
-    ckv = linear(params["w_dkv"], x)[:, 0]  # (B, kv_lora)
-    kr = linear(params["w_kr"], x).reshape(B, 1, 1, rope)
-    kr = apply_rope(kr, posb[:, None], cfg.rope_theta)[:, 0, 0]  # (B, rope)
+    posb = _per_seq_pos(pos, x.shape[0], x.device)
+    q_nope, q_rope, ckv, kr = _mla_decode_inputs(params, x, posb, cfg)
     cache = _write_slots(cache, (ckv, kr), posb)
+    out = _mla_absorbed(params, q_nope, q_rope, cache.ckv, cache.kr,
+                        cache.positions, posb, cfg, window)
+    return linear(params["wo"], out.to(x.dtype)), cache
 
+
+def _mla_absorbed(params: dict, q_nope, q_rope, ckv, kr, positions, posb,
+                  cfg: AttentionConfig, window: int) -> torch.Tensor:
+    """The absorbed-form attention of one query a sequence against cached
+    latents ckv (B, W, kv_lora), kr (B, W, rope) at ``positions`` (B, W),
+    in f32 einsums; returns (B, 1, H * v) f32."""
+    B, H = q_nope.shape[0], cfg.num_heads
     q_eff = torch.einsum("bhd,hrd->bhr", q_nope[:, 0].float(),
                          params["w_uk"].float())
-    s = torch.einsum("bhr,bwr->bhw", q_eff, cache.ckv.float())
-    s = s + torch.einsum("bhd,bwd->bhw", q_rope[:, 0].float(),
-                         cache.kr.float())
-    s = s * (cfg.qk_nope_head_dim + rope) ** -0.5
-    dist = posb[:, None] - cache.positions
-    valid = (cache.positions >= 0) & (dist >= 0) & (dist < window)
+    s = torch.einsum("bhr,bwr->bhw", q_eff, ckv.float())
+    s = s + torch.einsum("bhd,bwd->bhw", q_rope[:, 0].float(), kr.float())
+    s = s * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    dist = posb[:, None] - positions
+    valid = (positions >= 0) & (dist >= 0) & (dist < window)
     s = s.masked_fill(~valid[:, None, :], _NEG)
     p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhw,bwr->bhr", p, cache.ckv.float())
+    o_lat = torch.einsum("bhw,bwr->bhr", p, ckv.float())
     out = torch.einsum("bhr,hrd->bhd", o_lat, params["w_uv"].float())
-    out = out.reshape(B, 1, H * cfg.v_head_dim).to(x.dtype)
-    return linear(params["wo"], out), cache
+    return out.reshape(B, 1, H * cfg.v_head_dim)
+
+
+def mla_decode_paged(params: dict, x: torch.Tensor, cache: PagedMLACache,
+                     tables: torch.Tensor, pos, cfg: AttentionConfig, *,
+                     window: int):
+    """Absorbed-form MLA decode against the shared latent block pool:
+    ``mla_decode`` with the slot's latents read through its block table.
+    Writes the pool in place and returns (y, cache)."""
+    posb = _per_seq_pos(pos, x.shape[0], x.device)
+    q_nope, q_rope, ckv, kr = _mla_decode_inputs(params, x, posb, cfg)
+    cache = _write_paged(cache, (ckv, kr), tables, posb)
+    out = _mla_absorbed(params, q_nope, q_rope, _paged_view(cache.ckv, tables),
+                        _paged_view(cache.kr, tables),
+                        _paged_view(cache.positions, tables), posb, cfg, window)
+    return linear(params["wo"], out.to(x.dtype)), cache
 
 
 def mla_init_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, *,

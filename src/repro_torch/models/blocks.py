@@ -99,11 +99,19 @@ def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cache, pos, *, window: int, impl: str = "einsum",
-                       dist=None):
-    """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None)."""
-    decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
-    h, cache = decode(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cache,
-                      pos, cfg.attention, window=window)
+                       dist=None, block_tables=None):
+    """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None).
+    ``block_tables`` (B, nb) reads and writes the cache as the paged block
+    pool (``layer_paged_cache``) instead of per-slot rings."""
+    xn = apply_norm(p["norm1"], x, cfg.norm)
+    if block_tables is not None:
+        decode = A.mla_decode_paged if _is_mla(cfg) else A.gqa_decode_paged
+        h, cache = decode(p["attn"], xn, cache, block_tables, pos,
+                          cfg.attention, window=window)
+    else:
+        decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
+        h, cache = decode(p["attn"], xn, cache, pos, cfg.attention,
+                          window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
                             impl, dist)
@@ -116,3 +124,12 @@ def layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
     _check_family(cfg)
     init = A.mla_init_cache if _is_mla(cfg) else A.gqa_init_cache
     return init(batch, cache_len, cfg.attention, dtype, device=device)
+
+
+def layer_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                      dtype, *, device):
+    """A PagedKVCache, or for MLA a PagedMLACache of latents: the layer's
+    block pool shared by every decode slot."""
+    _check_family(cfg)
+    init = A.mla_init_paged if _is_mla(cfg) else A.gqa_init_paged
+    return init(num_blocks, block_size, cfg.attention, dtype, device=device)

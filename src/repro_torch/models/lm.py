@@ -7,6 +7,7 @@ Public API:
   loss_fn(params, cfg, batch, impl=, device=, dist=)   -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
   init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
+  init_paged_cache(cfg, num_blocks, block_size, device=) -> list of pools
   decode_step(params, cfg, tokens, pos, cache,...) -> (logits, cache, metrics)
 
 Params mirror the JAX tree, except that ``params["layers"]`` is a list of
@@ -25,7 +26,9 @@ outlives its layer.  The decode cache is updated in place.
 With ``dist`` (a ``core.fmoe.DistConfig`` over a mesh) ``forward`` and
 ``loss_fn`` run this rank's batch rows, and every MoE layer exchanges its
 tokens with the other ranks; under remat each layer's exchange runs again
-in the backward, on every rank in the same order.
+in the backward, on every rank in the same order.  ``prefill`` and
+``decode_step`` take the psum mode (serving): every rank holds all of the
+tokens and computes its own experts, and the layer sums over the ranks.
 """
 from __future__ import annotations
 
@@ -141,9 +144,11 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
-            impl: str = "einsum", device="cuda"):
+            impl: str = "einsum", device="cuda", dist=None):
     """tokens (B, S) + empty cache -> (logits (B, S, V), filled cache,
-    metrics).  Decoding then continues at position S with decode_step."""
+    metrics).  Decoding then continues at position S with decode_step.
+    ``dist``: the MoE layers' ``DistConfig`` (serving takes the psum mode,
+    ``launch.serve.decode_dist``)."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params["embed"], tokens, dtype)
@@ -151,7 +156,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
     new_cache = []
     for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
         x, c_l, m = B.layer_apply_prefill(cast_params(p_l, dtype), cfg, x, c_l,
-                                          window=window, impl=impl)
+                                          window=window, impl=impl, dist=dist)
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         x = x.to(dtype)
@@ -169,21 +174,51 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
             for _ in range(cfg.num_layers)]
 
 
+def supports_paged(cfg: ModelConfig) -> bool:
+    """Whether the config's decode cache pages: every family the port
+    serves (dense and moe, GQA or MLA) does."""
+    return cfg.attention is not None and cfg.family in ("dense", "moe")
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                     device="cuda") -> list:
+    """One block pool per layer (PagedKVCache; PagedMLACache for MLA), in
+    ``cfg.dtype``, shared by every decode slot through the block tables
+    given to ``decode_step(block_tables=...)``.  Rows 0 and 1 are the
+    reserved null and scratch blocks (``models/attention``)."""
+    if not supports_paged(cfg):
+        raise NotImplementedError(
+            f"paged KV cache is not supported for family {cfg.family!r}")
+    dev = resolve(device)
+    dtype = getattr(torch, cfg.dtype)
+    return [B.layer_paged_cache(cfg, num_blocks, block_size, dtype, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
 def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
-                impl: str = "einsum", device="cuda"):
+                impl: str = "einsum", device="cuda", dist=None,
+                block_tables=None):
     """tokens (B, 1) at absolute position ``pos`` (scalar or (B,)) ->
-    (logits (B, 1, V), cache updated in place, metrics)."""
+    (logits (B, 1, V), cache updated in place, metrics).
+
+    ``dist``: the MoE layers' ``DistConfig`` (serving takes the psum mode,
+    ``launch.serve.decode_dist``).  ``block_tables`` (B, nb) reads and
+    writes the cache as the paged block pools of ``init_paged_cache``
+    instead of per-slot rings."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params["embed"], tokens, dtype)
     cache_len = cache[0].positions.shape[-1]
+    if block_tables is not None:
+        cache_len *= block_tables.shape[1]  # the view: table width x block
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
     for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
         x, c_l, m = B.layer_apply_decode(cast_params(p_l, dtype), cfg, x, c_l,
                                          pos,
                                          window=min(window, cache_len),
-                                         impl=impl)
+                                         impl=impl, dist=dist,
+                                         block_tables=block_tables)
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         x = x.to(dtype)

@@ -649,3 +649,51 @@ def test_fused_ffn_bwd_smem_matches_the_kernel(dev, kind):
                     fb.dx_smem(bm, gated)
         else:
             assert lib.fused_ffn_bwd_smem(1, 0, int(gated)) == fb.dw_smem(gated)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl,dispatch", [("fused", "ragged"),
+                                           ("pallas", "capacity")])
+def test_continuous_paged_equals_ring(dev, dtype, impl, dispatch):
+    """Reduced fastmoe-gpt (2 layers, d_model 256: heads of 64, which the
+    flash kernels take) served by continuous batching through the kernels:
+    the paged pool's greedy tokens equal the ring's bit for bit over a
+    stream with admissions, retires, idle slots and partial tail blocks
+    (max_len 48 = 6 blocks of 8), the kernels launched, and the null block
+    of every pool unwritten."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    from repro_torch.launch.serve_api import Request, ServeConfig
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    cfg = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=256)
+    cfg = dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, dispatch=dispatch))
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    reqs = [(i, rng.randint(0, cfg.vocab_size, rng.randint(3, 20)),
+             int(rng.randint(2, 12))) for i in range(9)]
+    expert = {"fused": ff.fused_ffn, "pallas": gg.grouped_gemm
+              if dtype == "bfloat16" else gg.grouped_gemm_simple}[impl]
+    kernel = (fa.flash_attention_fwd, expert)
+    out = {}
+    for paged in (True, False):
+        before = [k.launches for k in kernel]
+        b = ContinuousBatcher(params, cfg, ServeConfig(
+            slots=3, max_len=48, block_size=8, paged=paged), impl=impl,
+            device=dev)
+        for i, p, n in reqs:
+            b.submit(Request(id=i, prompt=p, max_new_tokens=n, arrival=0.0))
+        b.run()
+        out[paged] = {c.request_id: c.tokens for c in b.completions}
+        assert all(k.launches > n for k, n in zip(kernel, before))
+        if paged:
+            for pool in b.pool:
+                assert (pool.positions[A.NULL_BLOCK] == -1).all()
+                assert not pool.k[A.NULL_BLOCK].any()
+    assert sorted(out[True]) == list(range(len(reqs)))
+    assert out[True] == out[False]

@@ -33,8 +33,19 @@ holds the results to the JAX package:
   group and different across model ranks;
 * *world size 1* (1x1): the exchange is an identity, and the EP path's
   loss and every gradient equal the local path's bit for bit, as do the
-  params after one train step;
-* refusals of what the slice does not carry, and the ``torchrun`` CLI.
+  params after one train step; and psum decode equals local decode;
+* *psum layer matrix* (1x2 and 1x4 with ``token_axes=()``, 2x2 with
+  ``("data",)``): the same {capacity, ragged} x {einsum, pallas, fused}
+  cases in the psum mode (every rank of a model group holds the same
+  tokens, under ``torch.no_grad()``: the mode serves only), ``y``,
+  ``load`` and ``drop_frac`` against JAX's single-rank layer at 1e-5 —
+  the reference's own psum cell (``tests/test_distributed.py``);
+* *psum decode* (1x2): reduced ``fastmoe-gpt`` decoding greedily through
+  ``lm.decode_step(dist=serve.decode_dist(...))``, logits against the JAX
+  package's distributed ``lm.decode_step`` on fake CPU devices at 1e-4,
+  greedy tokens equal;
+* refusals of what the slice does not carry, and the ``torchrun`` CLIs of
+  training and of continuous serving.
 """
 import datetime
 import json
@@ -54,7 +65,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 180  # seconds a spawn of ranks may take before it is killed
 STORE_TIMEOUT = datetime.timedelta(seconds=150)  # a collective's own limit
 MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
-TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model"],
+TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model", "decode"],
          "2x2": ["layer", "model", "drops"], "1x4": ["layer"]}
 DISPATCHES = ("capacity", "ragged")
 IMPLS = ("einsum", "pallas", "fused")
@@ -65,6 +76,7 @@ DROP_BOUND = 24  # rows per peer shard: 64 rows a rank over 2 peers drop
 MODEL_B, MODEL_S = 4, 16
 LAYER = dict(num_experts=8, top_k=2, d_expert_hidden=64, capacity_factor=8.0)
 LR, WARMUP, TOTAL = 1e-3, 2, 10
+DECODE_STEPS, DECODE_CACHE = 6, 8  # psum decode: greedy steps, ring length
 
 
 def _flatten(tree, prefix=""):
@@ -157,6 +169,23 @@ def _layer_task(spec, job, mesh, out):
         for k, v in _flatten(tree).items():
             out[f"{key}/grad/{k}"] = v
         out[f"{key}/grad/x"] = grads[-1]
+    # the psum mode: a model group holds the same tokens, its data row's
+    # block of them where the mesh has a data axis
+    data = mesh.shape["data"]
+    token_axes = ("data",) if data > 1 else ()
+    t = x.shape[0] // data
+    d = mesh.coords()[0]
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            cfg = MoEConfig(dispatch=dispatch, **LAYER)
+            dist = fmoe.DistConfig(mesh, token_axes)
+            assert dist.mode == "psum"
+            with torch.no_grad():
+                y, m = fmoe.fmoe_apply(params, x[d * t:(d + 1) * t], cfg,
+                                       act="swiglu", dist=dist, impl=impl)
+            key = f"psum/{dispatch}/{impl}"
+            out.update({f"{key}/y": y, f"{key}/load": m.load,
+                        f"{key}/drop_frac": m.drop_frac})
 
 
 def _model_task(spec, job, mesh, out):
@@ -198,8 +227,9 @@ def _model_task(spec, job, mesh, out):
 
 
 def _bit_equal_task(spec, job, mesh, out):
-    """At world size 1 the EP path must be the local path, bit for bit."""
-    from repro_torch.launch import train
+    """At world size 1 the EP path must be the local path, bit for bit, and
+    psum decode the local decode."""
+    from repro_torch.launch import serve, train
     from repro_torch.models import lm
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import tree_leaves
@@ -228,10 +258,53 @@ def _bit_equal_task(spec, job, mesh, out):
             out[f"{key}/step"] = np.asarray(all(
                 torch.equal(a, b) for a, b in zip(res["local"][1],
                                                   res["ep"][1])))
+            # serving: psum decode against local decode
+            params = lm.init_params(cfg, seed=0, device="cpu")
+            ddist = serve.decode_dist(cfg, mesh, MODEL_B)
+            (l0, t0), (l1, t1) = (_decode_greedy(params, cfg, impl, d)
+                                  for d in (None, ddist))
+            out[f"{key}/psum_decode"] = np.asarray(
+                ddist.mode == "psum" and torch.equal(l0, l1)
+                and torch.equal(t0, t1))
+
+
+def _decode_greedy(params, cfg, impl, dist, device="cpu"):
+    """DECODE_STEPS greedy steps of ``lm.decode_step`` from the first
+    token of ``_tokens(0)``: (logits (steps, B, V), fed tokens)."""
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, MODEL_B, DECODE_CACHE, device=device)
+    tok = torch.from_numpy(_tokens(0)[:, :1]).to(device)
+    logits_all, toks = [], [tok]
+    with torch.no_grad():
+        for pos in range(DECODE_STEPS):
+            logits, cache, _ = lm.decode_step(params, cfg, tok, pos, cache,
+                                              impl=impl, device=device,
+                                              dist=dist)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            logits_all.append(logits[:, 0])
+            toks.append(tok)
+    return torch.stack(logits_all), torch.cat(toks, 1)
+
+
+def _decode_task(spec, job, mesh, out):
+    """psum decode of the reduced model, each rank its expert shard."""
+    from repro_torch import interop
+    from repro_torch.launch import serve
+
+    params_np = _unflatten(dict(np.load(job / "model_params.npz")))
+    for dispatch in DISPATCHES:
+        cfg = _model_cfg(dispatch)
+        dist = serve.decode_dist(cfg, mesh, MODEL_B)
+        assert dist.mode == "psum" and dist.token_axes == ("data",)
+        params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+        logits, toks = _decode_greedy(params, cfg, MODEL_IMPL[dispatch], dist)
+        out[f"decode/{dispatch}/logits"] = logits
+        out[f"decode/{dispatch}/tokens"] = toks
 
 
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
-              "bit_equal": _bit_equal_task}
+              "bit_equal": _bit_equal_task, "decode": _decode_task}
 
 
 def _rank_main(job: Path, rank: int) -> None:
@@ -372,6 +445,25 @@ if {drops!r}:
                          impl="fused")
     out["drops/y"], out["drops/drop_frac"] = y, m.drop_frac
     out["drops/load"] = m.load
+if {decode!r}:
+    from repro.launch.serve import decode_dist
+    for dispatch in T.DISPATCHES:
+        cfg = T._model_cfg(dispatch, "repro")
+        ddist = decode_dist(cfg, mesh, T.MODEL_B)
+        assert ddist.mode == "psum", ddist
+        step = jax.jit(lambda p, t, pos, c: lm.decode_step(p, cfg, t, pos, c,
+                                                           dist=ddist))
+        cache = lm.init_cache(cfg, T.MODEL_B, T.DECODE_CACHE)
+        tok = jnp.asarray(T._tokens(0)[:, :1])
+        logits_all, toks = [], [tok]
+        with mesh:
+            for pos in range(T.DECODE_STEPS):
+                logits, cache, _ = step(params, tok, jnp.int32(pos), cache)
+                tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+                logits_all.append(logits[:, 0])
+                toks.append(tok)
+        out["decode/" + dispatch + "/logits"] = jnp.stack(logits_all)
+        out["decode/" + dispatch + "/tokens"] = jnp.concatenate(toks, 1)
 np.savez({dest!r}, **{{k: np.asarray(v) for k, v in out.items()}})
 print("jax distributed ok")
 """
@@ -384,7 +476,8 @@ def _jax_dist(job: Path, name: str, box: dict):
     try:
         du.run(JAX_DIST.format(tests=str(ROOT / "tests"), mesh=MESHES[name],
                                params=str(job / "model_params.npz"),
-                               drops="drops" in TASKS[name], dest=str(dest)),
+                               drops="drops" in TASKS[name],
+                               decode="decode" in TASKS[name], dest=str(dest)),
                devices=4, timeout=SPAWN_TIMEOUT)
         box[name] = dict(np.load(dest))
     except Exception as e:  # reported by the tests that read it
@@ -471,6 +564,49 @@ def test_layer_matrix_matches_jax_single_rank(ep, name):
                 if dispatch == "ragged":
                     assert float(r[f"layer/{key}/drop_frac"]) == 0.0
     assert world == MESHES[name][0] * MESHES[name][1]
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2", "1x4"])
+def test_psum_layer_matrix_matches_jax_single_rank(ep, name):
+    """The psum mode: each model group's ranks agree exactly (the
+    all-reduce hands every rank the same sum), and the data rows' outputs,
+    concatenated, match the single-rank layer."""
+    ranks = _ranks(ep, name)
+    data, model = MESHES[name]
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            key = f"{dispatch}/{impl}"
+            ref = ep["oracle"][key]
+            for rank, r in enumerate(ranks):
+                lead = ranks[rank - rank % model]
+                np.testing.assert_array_equal(r[f"psum/{key}/y"],
+                                              lead[f"psum/{key}/y"], key)
+                np.testing.assert_allclose(r[f"psum/{key}/load"], ref["load"],
+                                           rtol=1e-5, atol=1e-6, err_msg=key)
+                np.testing.assert_allclose(r[f"psum/{key}/drop_frac"],
+                                           ref["drop_frac"], atol=1e-6)
+                if dispatch == "ragged":
+                    assert float(r[f"psum/{key}/drop_frac"]) == 0.0
+            y = np.concatenate([ranks[d * model][f"psum/{key}/y"]
+                                for d in range(data)])
+            np.testing.assert_allclose(y, ref["y"].reshape(y.shape),
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_psum_decode_matches_jax_distributed(ep, dispatch):
+    """Reduced fastmoe-gpt, 1x2, greedy psum decode: every step's logits
+    against the JAX package's distributed decode_step at 1e-4, the greedy
+    tokens equal, and both ranks equal."""
+    ranks = _ranks(ep, "1x2")
+    ref = _jax_dist_result(ep, "1x2")
+    key = f"decode/{dispatch}"
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{key}/logits"], ref[f"{key}/logits"],
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(r[f"{key}/tokens"], ref[f"{key}/tokens"])
+        np.testing.assert_array_equal(r[f"{key}/logits"],
+                                      ranks[0][f"{key}/logits"])
 
 
 @pytest.mark.parametrize("name", ["1x2", "2x2", "1x4"])
@@ -575,12 +711,21 @@ def test_world_size_1_is_the_local_path_bit_for_bit(ep, dispatch, impl):
     assert bool(r[f"bit_equal/{dispatch}/{impl}/step"]), "norm or params"
 
 
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_world_size_1_psum_decode_is_local_decode(ep, dispatch, impl):
+    r = _ranks(ep, "1x1")[0]
+    assert bool(r[f"bit_equal/{dispatch}/{impl}/psum_decode"]), \
+        "psum decode logits or tokens differ from the local path's"
+
+
 REFUSED = {
     "overlap_chunks": (dict(overlap_chunks=2), "item 2"),
     "wire_dtype": (dict(wire_dtype="bf16"), "item 2"),
     "tp_axis": (dict(tp_axis="data"), "item 1"),
     "placement": (dict(placement=object()), "item 4"),
-    "psum_mode": (dict(token_axes=("data",)), "item 5"),
+    "psum_mode": (dict(token_axes=("data",)),
+                  "training through the psum mode"),
     "node_axis": (dict(node_axis="node"), "item 6"),
     "inter_bound": (dict(inter_bound=8), "item 6"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
@@ -600,8 +745,10 @@ def test_unsupported_options_raise(what):
     cfg = MoEConfig(**LAYER)
     gen = torch.Generator().manual_seed(0)
     params = fmoe.fmoe_init(gen, 32, cfg, device="cpu")
+    # the psum mode serves: it refuses autograd recording
+    x = torch.zeros(8, 32, requires_grad=what == "psum_mode")
     with pytest.raises(NotImplementedError, match=item):
-        fmoe.fmoe_apply(params, torch.zeros(8, 32), cfg, dist=dist)
+        fmoe.fmoe_apply(params, x, cfg, dist=dist)
 
 
 def test_local_carrier_is_the_local_path():
@@ -653,6 +800,53 @@ def test_train_cli_under_torchrun():
     assert len(lines) == 2, out.stdout  # rank 0 logs alone
     losses = [float(ln.split("loss")[1].split()[0]) for ln in lines]
     assert 5.0 < losses[0] < 8.0 and losses[1] < losses[0], losses
+
+
+def test_batcher_refuses_a_data_axis():
+    """Serving with a mesh takes 1xM meshes: a data axis needs a batcher
+    per data group (ROADMAP §1 item 5)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    from repro_torch.launch.serve_api import ServeConfig
+    from repro_torch.models import lm
+
+    cfg = _model_cfg("ragged")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ContinuousBatcher(params, cfg, ServeConfig(slots=2), mesh=Mesh(2, 2),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ContinuousBatcher(params, cfg, ServeConfig(slots=2, mesh="2x2"),
+                          device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["continuous", "static"])
+def test_serve_cli_under_torchrun(mode):
+    """The README's command: serving over a 1x2 mesh of gloo ranks in the
+    psum mode, continuous (every request served) or one static batch,
+    rank 0 printing alone, the first sequence's greedy tokens those of the
+    single-process run."""
+    cmd = ["-m", "repro_torch.launch.serve", "--device", "cpu", "--reduced",
+           "--prompt_len", "8", "--gen", "4"]
+    cmd += (["--continuous", "--slots", "2", "--requests", "3",
+             "--block_size", "4"] if mode == "continuous" else ["--batch", "2"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    runs = [subprocess.run([sys.executable] + pre + cmd + post,
+                           capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=SPAWN_TIMEOUT)
+            for pre, post in (([], []),
+                              (["-m", "torch.distributed.run", "--standalone",
+                                "--nproc_per_node", "2"], ["--mesh", "1x2"]))]
+    for out in runs:
+        assert out.returncode == 0, out.stderr[-3000:]
+    lines = [out.stdout.strip().splitlines() for out in runs]
+    assert len(lines[0]) == len(lines[1]) == 2, [o.stdout for o in runs]
+    assert "mesh 1x2 (psum)" in lines[1][0]
+    if mode == "continuous":
+        for ln in (lines[0][0], lines[1][0]):
+            assert "3 requests, 12 tokens" in ln, ln
+    assert lines[0][1] == lines[1][1]  # the first sequence's tokens
 
 
 @pytest.mark.cuda

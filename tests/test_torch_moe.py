@@ -132,10 +132,12 @@ def test_fmoe_apply_matches_jax(impl, dispatch):
 
 
 def test_fmoe_apply_with_a_mesh_raises():
-    """Expert parallelism over a mesh is ported (tests/test_torch_ep.py);
-    a mesh whose tokens do not shard over the expert axis (psum mode,
-    decode at scale) is not, and raises before any collective."""
+    """Expert parallelism over a mesh is ported (tests/test_torch_ep.py),
+    and so is the psum mode (tokens not sharded over the expert axis) for
+    serving; training through the psum mode is not, and a call under
+    autograd raises before any collective."""
     cfg = MoEConfig(num_experts=2, d_expert_hidden=8)
     dist = tfmoe.DistConfig(Mesh(1, 2), ("data",))
+    x = torch.zeros(2, 4, requires_grad=True)
     with pytest.raises(NotImplementedError, match="psum mode"):
-        tfmoe.fmoe_apply({}, torch.zeros(2, 4), cfg, dist=dist)
+        tfmoe.fmoe_apply({}, x, cfg, dist=dist)

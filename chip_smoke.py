@@ -19,7 +19,12 @@
    labelled reference line, the unfused FFN by PyTorch calls
    (torch._grouped_mm, GELU, torch._grouped_mm); also at the shapes of
    continuous serving (batch-1 prefills, ragged and capacity, and a
-   tick's rows; KERNEL_MODELS);
+   tick's rows; KERNEL_MODELS); the token shuffle at each ragged routing
+   and at the training rows (4096): both gather kernels (by destination;
+   source-major through the ragged plan's slot_rows, the main path's)
+   bitwise, the combine with the weights in the rows' dtype bit-identical
+   to f32 weights, and the gather's gradient in slot order against row
+   order, timed beside index_select and embedding_bag;
 3. holds the reduced f32 model served through the kernels on the card
    against the same model on the CPU (the plain path the CPU tests hold
    against the JAX package);
@@ -66,7 +71,8 @@
    the difference, peak memory, launches per step);
 10. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
-   on plain attention);
+   on plain attention), and fused/ragged's step-0 loss and every gradient
+   leaf equal bit for bit through either gather kernel (k = 2);
 11. holds the flash-attention kernels (forward; backward dq, dk, dv — the
    bf16 backward twice, bit-equal over the runs where its dQ has a slot
    per kv tile, at the fastmoe-gpt shapes, and each run to the tolerance
@@ -321,7 +327,8 @@ def routed(tokens: int, k: int, lo: int, dev, experts: int = E):
 # fastmoe-gpt: decode is 8 tokens' top-2 (16 rows) one token short,
 # prefill 1024 tokens (2048 rows) 4 tokens short with experts 0..9 empty,
 # so both hold the edges (rows past the groups, empty experts); every
-# kernel on the ragged rows.  deepseek-v2-236b (SwiGLU, top-6 of 160): the
+# kernel on the ragged rows; the token shuffle also at the training rows
+# (8 x 256 tokens top-2: 4096 rows).  deepseek-v2-236b (SwiGLU, top-6 of 160): the
 # rows of its two serving paths at batch 2 and a 4096-token prompt,
 # fused/ragged (the fused FFN and the token shuffle on 12 and 49152 rows)
 # and pallas/capacity (the grouped GEMM on 160 equal groups of C rows, C
@@ -339,6 +346,7 @@ KERNEL_MODELS = {
     "": ((E, D, H, 2), ("grouped_gemm", "fused_ffn", "shuffle"), {
         "decode": (7, 0, 16, GPT_KERNELS, True),
         "prefill": (1020, 10, 2048, GPT_KERNELS, True),
+        "train": (2048, 0, 4096, ("shuffle",), True),
         "batch-1 prefill 65": (65, 0, 130, GPT_KERNELS, False),
         "batch-1 prefill 128": (128, 0, 256, GPT_KERNELS, True),
         "capacity batch-1 prefill 65": (65, None, None, CAP_KERNELS, False),
@@ -378,14 +386,16 @@ def kernel_phase(dev, flush):
         ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
         lib_ms = time_ms(lib, flush) if lib is not None else None
         b_ms, b_by = bound(nbytes, flops, peak)
-        timed[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=lib_ms)
         dev_ms = device_ms(kern)
-        lib_dev = f"{device_ms(lib):.4f} ms" if lib is not None else "n/a"
+        lib_dev = device_ms(lib) if lib is not None else None
+        timed[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib_ms,
+                                    device_ms=dev_ms, library_device_ms=lib_dev)
         print(f"kernel {name:16s} {shape:26s} bf16: {ms:.4f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})  plain {plain_ms:.4f} ms  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; device "
-              f"(profiler, L2 warm) {dev_ms:.4f} ms, library {lib_dev}",
+              f"(profiler, L2 warm) {dev_ms:.4f} ms, library "
+              f"{'n/a' if lib_dev is None else f'{lib_dev:.4f} ms'}",
               flush=True)
 
     for model, ((nE, nD, nH, k), timed_names, routings) in KERNEL_MODELS.items():
@@ -436,38 +446,8 @@ def kernel_phase(dev, flush):
 
                 e, offs = 2, torch.cumsum(gs, 0).to(torch.int32)
                 if "shuffle" in names:
-                    # the token shuffle on this routing: tokens -> expert
-                    # order -> back
-                    plan = Dsp.make_ragged_plan(ids, nE)
-                    rows = plan.token_rows
-                    xt = randn(T, nD, dtype=dtype)
-                    got = ts.gather_rows(xt, rows)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got, ts.gather_rows_plain(xt, rows)),
-                          f"gather_rows {dn} {shape}: not bitwise equal")
-                    errs[("gather_rows", dn, shape)] = 0.0
-                    inv = torch.empty_like(plan.sort_idx)
-                    inv[plan.sort_idx] = torch.arange(inv.numel(), device=dev)
-                    idx = inv.reshape(T, k).to(torch.int32)
-                    w = torch.softmax(randn(T, k), -1)
-                    src = randn(k * T, nD, dtype=dtype)
-                    got = ts.combine_topk(src, idx, w)
-                    torch.cuda.synchronize()
-                    errs[("combine_topk", dn, shape)] = close(
-                        f"combine_topk {dn} {shape}", got,
-                        ts.combine_topk_plain(src, idx, w), tol)
-                    if "shuffle" in timing:
-                        measure("gather_rows", shape,
-                                lambda: ts.gather_rows(xt, rows),
-                                lambda: ts.gather_rows_plain(xt, rows),
-                                e * nD * (int(rows.unique().numel()) + rows.numel())
-                                + 4 * rows.numel(), 0, "bfloat16",
-                                lib=lambda: torch.index_select(xt, 0, rows))
-                        measure("combine_topk", shape,
-                                lambda: ts.combine_topk(src, idx, w),
-                                lambda: ts.combine_topk_plain(src, idx, w),
-                                e * nD * (int(idx.unique().numel()) + T)
-                                + 8 * idx.numel(), 2 * idx.numel() * nD, "float32")
+                    shuffle_case(shape, dn, tol, ids, nE, k, T, nD, dtype,
+                                 randn, "shuffle" in timing, errs, measure)
 
                 if "grouped_gemm" in timing:
                     measure("grouped_gemm", shape, *cases["grouped_gemm"],
@@ -487,6 +467,76 @@ def kernel_phase(dev, flush):
           f"{KERNEL_TOL['bfloat16']}, f32 tol {KERNEL_TOL['float32']}, gather "
           f"bitwise)", flush=True)
     return errs, timed
+
+
+def shuffle_case(shape, dn, tol, ids, nE, k, T, nD, dtype, randn, timing,
+                 errs, measure):
+    """The token shuffle on one routing: tokens -> expert order -> back.
+    Both gather kernels (by destination through token_rows; source-major
+    through the plan's slot_rows, the main path) bitwise against the plain
+    gather; the combine with the weights as the main path passes them
+    (rounded to the rows' dtype) bit-identical to the same weights in f32,
+    and within tol of its plain version; the gather's gradient through
+    slot_rows (slot order) against the sort of token_rows (row order), bit
+    for bit at k = 2.  Timed beside index_select and embedding_bag."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import dispatch as Dsp
+    from repro_torch.kernels import token_shuffle as ts
+    plan = Dsp.make_ragged_plan(ids, nE)
+    rows, slots = plan.token_rows, plan.slot_rows
+    xt = randn(T, nD, dtype=dtype)
+    check(ts.by_source_fits(xt, slots), f"{shape}: rows the source-major "
+                                        f"gather does not take")
+    gathers = {"gather_rows": (lambda: ts.gather_rows(xt, rows),
+                               lambda: ts.gather_rows_plain(xt, rows)),
+               "gather_rows_by_source": (
+                   lambda: ts.gather_rows(xt, rows, slots),
+                   lambda: ts.gather_rows_by_source_plain(xt, slots))}
+    ref = ts.gather_rows_plain(xt, rows)
+    for name, (kern, plain) in gathers.items():
+        before = (ts.gather_rows.launches, ts.gather_rows_by_source.launches)
+        got = kern()
+        torch.cuda.synchronize()
+        ran = (ts.gather_rows.launches - before[0],
+               ts.gather_rows_by_source.launches - before[1])
+        check(ran == ((1, 0) if name == "gather_rows" else (0, 1)),
+              f"{name} {dn} {shape}: launched {ran} (by destination, source)")
+        check(torch.equal(got, ref) and torch.equal(plain(), ref),
+              f"{name} {dn} {shape}: not bitwise equal")
+        errs[(name, dn, shape)] = 0.0
+    w = torch.softmax(randn(T, k), -1).to(dtype)  # as combine_ragged passes them
+    src = randn(k * T, nD, dtype=dtype)
+    got = ts.combine_topk(src, slots, w)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ts.combine_topk(src, slots, w.float())),
+          f"combine_topk {dn} {shape}: {dn} weights differ from f32 weights")
+    errs[("combine_topk", dn, shape)] = close(
+        f"combine_topk {dn} {shape}", got,
+        ts.combine_topk_plain(src, slots, w), tol)
+    dy = randn(k * T, nD, dtype=dtype)
+    by_slot = ts.combine_topk(dy, slots)
+    by_row = ts.combine_topk(dy, torch.argsort(rows, stable=True)
+                             .reshape(T, k).to(torch.int32))
+    torch.cuda.synchronize()
+    if k <= 2:
+        check(torch.equal(by_slot, by_row), f"gather gradient {dn} {shape}: "
+                                            f"slot order differs from row order")
+    else:
+        close(f"gather gradient {dn} {shape}", by_slot, by_row, tol)
+    if not timing:
+        return
+    e = 2
+    gbytes = e * nD * (int(rows.unique().numel()) + rows.numel()) + 4 * rows.numel()
+    for name, (kern, plain) in gathers.items():
+        measure(name, shape, kern, plain, gbytes, 0, "bfloat16",
+                lib=lambda: torch.index_select(xt, 0, rows))
+    measure("combine_topk", shape, lambda: ts.combine_topk(src, slots, w),
+            lambda: ts.combine_topk_plain(src, slots, w),
+            e * nD * (int(slots.unique().numel()) + T)
+            + (4 + w.element_size()) * slots.numel(), 2 * slots.numel() * nD,
+            "float32", lib=lambda: F.embedding_bag(
+                slots, src, per_sample_weights=w, mode="sum"))
 
 
 def grouped_mm_call(x, w, offs):
@@ -971,8 +1021,8 @@ def small_reference(dev):
           f"{worst:.3e} (tol {SMALL_TOL})", flush=True)
 
 
-SERVE_KERNELS = ("grouped_gemm", "gather_rows", "combine_topk", "fused_ffn",
-                 "flash_attention_fwd")
+SERVE_KERNELS = ("grouped_gemm", "gather_rows_by_source", "combine_topk",
+                 "fused_ffn", "flash_attention_fwd")
 # the first versions, for f32 and shapes the ring kernels do not take: no
 # model path may run them
 SIMPLE_KERNELS = ("grouped_gemm_simple", "fused_ffn_simple",
@@ -988,6 +1038,7 @@ def counters():
     return {"grouped_gemm": gg.grouped_gemm,
             "grouped_gemm_simple": gg.grouped_gemm_simple,
             "gather_rows": ts.gather_rows,
+            "gather_rows_by_source": ts.gather_rows_by_source,
             "combine_topk": ts.combine_topk, "fused_ffn": ff.fused_ffn,
             "fused_ffn_simple": ff.fused_ffn_simple,
             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx,
@@ -1185,7 +1236,8 @@ CB_PSUM = (("fused", "ragged"), ("pallas", "capacity"))
 DSC_SLOTS, DSC_BLOCK, DSC_MAX_LEN, DSC_REQUESTS, DSC_PROMPT, DSC_GEN = \
     4, 64, 1088, 8, 1024, 64
 CB_ROUNDS = 12  # steady ticks a batcher in the in-turn comparisons
-CB_KERNELS = {"fused": ("fused_ffn", "gather_rows", "combine_topk",
+SHUFFLE_KERNELS = ("gather_rows", "gather_rows_by_source", "combine_topk")
+CB_KERNELS = {"fused": ("fused_ffn", "gather_rows_by_source", "combine_topk",
                         "flash_attention_fwd"),
               "pallas": ("grouped_gemm", "flash_attention_fwd")}
 
@@ -1916,7 +1968,7 @@ def train_phase(dev):
             if impl == "fused" else ["grouped_gemm"]
         needed += ["flash_attention_fwd", "flash_attention_bwd"]
         if dispatch == "ragged":
-            needed += ["gather_rows", "combine_topk"]
+            needed += ["gather_rows_by_source", "combine_topk"]
         for name in needed:
             check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
@@ -2058,7 +2110,7 @@ def ep_phase(dev):
                 if impl == "fused" else ["grouped_gemm"]
             needed += ["flash_attention_fwd", "flash_attention_bwd"]
             if dispatch == "ragged":
-                needed += ["gather_rows", "combine_topk"]
+                needed += ["gather_rows_by_source", "combine_topk"]
             for name in needed:
                 check(runs[name] > 0, f"EP {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
@@ -2235,6 +2287,8 @@ def grad_oracle_phase(dev):
                 loss, _, grads = train.loss_and_grads(params, cfg, batch,
                                                       impl=impl, device=dev)
             d = _grad_dists(grads, oracle)
+            if (impl, dispatch) == ("fused", "ragged"):
+                gather_routes_agree(params, cfg, batch, dev, loss, grads)
             del grads
             med, worst = statistics.median(d), max(d)
             print(f"grads {impl}/{dispatch} bf16 vs f32 einsum oracle "
@@ -2251,6 +2305,45 @@ def grad_oracle_phase(dev):
         del oracle
     del params
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def gather_by_destination():
+    """The ragged dispatch's gather on the per-destination kernel, its
+    gradient summing each token's rows in row order: the route before the
+    plan carried slot_rows."""
+    from repro_torch.core import dispatch as Dsp
+    from repro_torch.kernels import ops
+    by_source = Dsp.dispatch_ragged
+    Dsp.dispatch_ragged = lambda x, plan: ops.gather_tokens(x, plan.token_rows)
+    try:
+        yield
+    finally:
+        Dsp.dispatch_ragged = by_source
+
+
+def gather_routes_agree(params, cfg, batch, dev, loss, grads):
+    """fastmoe-gpt's step-0 loss and every gradient leaf through the
+    source-major gather (slot order) equal the per-destination route's (row
+    order) bit for bit: k = 2, so a token's two rows add alike in either
+    order."""
+    import torch
+    from repro_torch.kernels import token_shuffle as ts
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    before = ts.gather_rows_by_source.launches
+    with gather_by_destination():
+        loss_d, _, grads_d = train.loss_and_grads(params, cfg, batch,
+                                                  impl="fused", device=dev)
+    check(ts.gather_rows_by_source.launches == before,
+          "the per-destination reference ran the source-major gather")
+    pairs = list(zip(tree_leaves(grads), tree_leaves(grads_d)))
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    print(f"grads fused/ragged, source-major gather vs per destination: "
+          f"loss {'equal' if torch.equal(loss, loss_d) else 'UNEQUAL'}, "
+          f"{equal} of {len(pairs)} gradient leaves bit-equal", flush=True)
+    check(torch.equal(loss, loss_d) and equal == len(pairs),
+          "fused/ragged step-0 gradients differ between the gather routes")
 
 
 # ---------------------------------------------------------------------------
@@ -2759,6 +2852,8 @@ def main() -> int:
                          "src/repro/kernels/grouped_gemm.py:49"),
         "gather_rows": ("src/repro_torch/csrc/token_shuffle.cu",
                         "src/repro/kernels/token_shuffle.py:29"),
+        "gather_rows_by_source": ("src/repro_torch/csrc/token_shuffle.cu",
+                                  "src/repro/kernels/token_shuffle.py:29"),
         "combine_topk": ("src/repro_torch/csrc/token_shuffle.cu",
                          "src/repro/kernels/token_shuffle.py:56"),
         "fused_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
@@ -2767,6 +2862,8 @@ def main() -> int:
     kernels = []
     for name, (source, rep) in replaces.items():
         t = timed[(name, "decode")]
+        by_shape = {shape: v for (n, shape), v in timed.items()
+                    if n == name and name in SHUFFLE_KERNELS}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "launches": launches[name],
@@ -2782,7 +2879,8 @@ def main() -> int:
             "max_abs_err": errs[(name, "bfloat16", "decode")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": "decode, batch 8, bf16"})
+            "shape": "decode, batch 8, bf16",
+            **({"by_shape": by_shape} if by_shape else {})})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
         kind = name[-2:]

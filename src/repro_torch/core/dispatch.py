@@ -7,7 +7,10 @@ Two realizations, as in the JAX package:
 * ``ragged`` — expert-sorted token array + group sizes, no drops.  Here the
   scatter (``dispatch_ragged``) and the gate-weighted gather
   (``combine_ragged``) are the two token-shuffle kernels
-  (``repro_torch.kernels.token_shuffle``).
+  (``repro_torch.kernels.token_shuffle``).  The plan carries the sort's
+  inverse, ``slot_rows`` (the sorted row of each (token, slot)), made once
+  a plan: the scatter walks it source-major, reading each token once, and
+  the gather reads each token's k rows through it.
 
 and the plans of the expert-parallel ragged exchange (``make_ragged_xplan``,
 ``ragged_recv_compact``), whose packing and compaction are plain index
@@ -102,6 +105,8 @@ class RaggedPlan(NamedTuple):
     sort_idx: torch.Tensor  # (T*k,) int64 — stable argsort of flat expert ids
     group_sizes: torch.Tensor  # (E,) int32
     token_rows: torch.Tensor  # (T*k,) int32 — source token per sorted row
+    slot_rows: torch.Tensor  # (T, k) int32 — sorted row of each (token,
+    # slot): sort_idx's inverse, so token_rows[slot_rows[t, j]] == t
 
 
 def make_ragged_plan(expert_ids: torch.Tensor, num_experts: int) -> RaggedPlan:
@@ -110,27 +115,25 @@ def make_ragged_plan(expert_ids: torch.Tensor, num_experts: int) -> RaggedPlan:
     sort_idx = torch.argsort(flat, stable=True)
     group_sizes = torch.bincount(flat, minlength=num_experts).to(torch.int32)
     token_rows = torch.div(sort_idx, k, rounding_mode="floor").to(torch.int32)
-    return RaggedPlan(sort_idx, group_sizes, token_rows)
+    n = sort_idx.numel()
+    slot_rows = torch.empty(n, dtype=torch.int32, device=flat.device).scatter_(
+        0, sort_idx, torch.arange(n, dtype=torch.int32, device=flat.device))
+    return RaggedPlan(sort_idx, group_sizes, token_rows, slot_rows.reshape(T, k))
 
 
 def dispatch_ragged(x: torch.Tensor, plan: RaggedPlan) -> torch.Tensor:
     """Gather tokens (T, d) into expert-sorted order (T*k, d) — the
-    ``gather_rows`` kernel."""
-    return ops.gather_tokens(x, plan.token_rows)
+    ``gather_rows`` kernel, source-major through ``plan.slot_rows``."""
+    return ops.gather_tokens(x, plan.token_rows, plan.slot_rows)
 
 
 def combine_ragged(y_sorted: torch.Tensor, plan: RaggedPlan,
                    combine_weights: torch.Tensor) -> torch.Tensor:
     """Un-sort expert outputs (T*k, dout) and weighted-sum the k slots — the
     ``combine_topk`` kernel, reading slot (t, j) from sorted row
-    ``inverse(sort_idx)[t*k + j]``.  The weights are rounded to the output
-    dtype first, as the JAX einsum does."""
-    T, k = combine_weights.shape
-    inv = torch.empty_like(plan.sort_idx)
-    inv[plan.sort_idx] = torch.arange(plan.sort_idx.numel(),
-                                      device=inv.device)
-    idx = inv.reshape(T, k).to(torch.int32)
-    return ops.combine_tokens(y_sorted, idx,
+    ``plan.slot_rows[t, j]``.  The weights are rounded to the output dtype
+    first, as the JAX einsum does; the kernel reads them as they are."""
+    return ops.combine_tokens(y_sorted, plan.slot_rows,
                               combine_weights.to(y_sorted.dtype))
 
 

@@ -18,7 +18,8 @@ Each op is a ``torch.autograd.Function`` whose backward runs kernels too:
   ``repro/kernels/ops.py`` ``_ffn_bwd`` does;
 * ``gather_tokens`` / ``combine_tokens`` — each one's backward is the other
   kernel: the gradient of a gather of every token into its k rows is the
-  sum of those rows (``combine_topk`` with weight 1), and the gradient of
+  sum of those rows (``combine_topk`` with weights of 1, over the ragged
+  plan's ``slot_rows`` where the caller passes them), and the gradient of
   the gate-weighted combine with respect to its rows is each row's token
   gradient times its weight (``combine_topk`` with k = 1);
 * ``flash_attention`` — the forward kernel saves (q, k, v, o, lse) and
@@ -128,29 +129,36 @@ def fused_grouped_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
 
 class _GatherTokens(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, x, idx, slot_rows):
+        ctx.save_for_backward(idx, slot_rows)
         ctx.num_tokens = x.shape[0]
-        return ts.gather_rows(x, idx)
+        return ts.gather_rows(x, idx, slot_rows)
 
     @staticmethod
     def backward(ctx, dy):
-        (idx,) = ctx.saved_tensors
+        idx, slot_rows = ctx.saved_tensors
         T = ctx.num_tokens
-        if idx.numel() % T:
+        if idx.numel() % T or (slot_rows is not None
+                               and slot_rows.shape[0] != T):
             raise ValueError(f"gather_tokens: the gradient needs every token "
                              f"gathered k times; {idx.numel()} rows of {T}")
-        # the k rows that hold each token, in row order
-        rows = torch.argsort(idx, stable=True).reshape(T, -1).to(torch.int32)
-        ones = torch.ones(rows.shape, dtype=torch.float32, device=dy.device)
-        return ts.combine_topk(dy.contiguous(), rows, ones), None
+        if slot_rows is None:  # the k rows that hold each token, in row order
+            slot_rows = torch.argsort(idx, stable=True).reshape(T, -1).to(
+                torch.int32)
+        return ts.combine_topk(dy.contiguous(), slot_rows), None, None
 
 
-def gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_tokens(x: torch.Tensor, idx: torch.Tensor,
+                  slot_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Expert-sort scatter (paper Fig 4): y[i] = x[idx[i]].  The gradient
     takes the ragged dispatch's layout: each of the T tokens appears in
-    len(idx) / T rows."""
-    return _GatherTokens.apply(x, idx.to(torch.int32))
+    len(idx) / T rows.  ``slot_rows`` (T, k), idx's inverse (the ragged
+    plan's table), puts the forward on the source-major kernel and spares
+    the backward its sort; the backward then sums a token's rows in slot
+    order, not row order (the same sum for k <= 2)."""
+    if slot_rows is not None:
+        slot_rows = slot_rows.to(torch.int32)
+    return _GatherTokens.apply(x, idx.to(torch.int32), slot_rows)
 
 
 class _CombineTokens(torch.autograd.Function):

@@ -22,7 +22,7 @@ shapes.  Skips on hosts without a card; on the GPU machine:
 Tolerances: bf16 outputs come from f32 sums of identical bf16 products
 rounded once, so kernel and plain differ by at most a bf16 ulp where a sum
 straddles a rounding boundary (rtol/atol 2e-2); f32 by reassociation
-(1e-4).  The gather is a copy: bitwise.
+(1e-4).  The gather is a copy: bitwise, on both of its kernels.
 """
 import pytest
 
@@ -220,6 +220,87 @@ def test_combine_topk(dev, dtype, k, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ts.combine_topk_plain(src, idx, w),
                                **TOL[dtype])
+
+
+def _ragged_tables(dev, T, k, E, seed):
+    """(token_rows, slot_rows) of a real ragged plan on the card."""
+    from repro_torch.core import dispatch as D
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.rand(T, E, generator=g).topk(k, dim=-1).indices.to(dev)
+    plan = D.make_ragged_plan(ids, E)
+    return plan.token_rows, plan.slot_rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [3, 36, 1024, 5120])
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_gather_rows_by_source(dev, dtype, d, k):
+    """The ragged dispatch's gather through slot_rows: bitwise equal to the
+    plain gather; 16-byte rows take the source-major kernel, others (bf16
+    at d 3 and 36) the per-destination kernel, by shape."""
+    token_rows, slot_rows = _ragged_tables(dev, 300, k, 16, d + k)
+    x = torch.randn(300, d, device=dev).to(dtype)
+    fits = d * x.element_size() % 16 == 0
+    assert ts.by_source_fits(x, slot_rows) == fits
+    before = (ts.gather_rows.launches, ts.gather_rows_by_source.launches)
+    got = ts.gather_rows(x, token_rows, slot_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.gather_rows_plain(x, token_rows))
+    assert (ts.gather_rows.launches - before[0],
+            ts.gather_rows_by_source.launches - before[1]) == \
+        ((0, 1) if fits else (1, 0))
+    if fits:
+        assert torch.equal(ts.gather_rows_by_source_plain(x, slot_rows), got)
+
+
+@pytest.mark.parametrize("T,d,k", [(2, 5120, 6), (8, 1024, 2), (1000, 1024, 2),
+                                   (1000, 5120, 6), (300, 8, 1), (40, 6144, 3)])
+def test_gather_rows_by_source_items(dev, T, d, k):
+    """Both item sizes (a lane's one chunk where the rows are few, four
+    otherwise), rows of one 16-byte chunk (f32 at d 8: half a warp's
+    lanes idle) to 24 KB (f32 at d 6144), bitwise."""
+    token_rows, slot_rows = _ragged_tables(dev, T, k, 40, T + d)
+    x = torch.randn(T, d, device=dev)
+    got = ts.gather_rows_by_source(x, slot_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.gather_rows_plain(x, token_rows))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,d", [(1, 1024), (2, 36), (6, 5120), (40, 64)])
+def test_combine_topk_weight_dtypes(dev, dtype, k, d):
+    """Weights read as stored: bf16 weights give the bits of the same
+    weights cast to f32, no weights the bits of weights of 1; both within
+    the tolerance of the plain version (k 40: more slots than a warp)."""
+    src = torch.randn(64, d, device=dev).to(dtype)
+    idx = torch.randint(0, 64, (30, k), device=dev, dtype=torch.int32)
+    idx[0, 0] = 64  # past the rows: adds nothing
+    w = torch.rand(30, k, device=dev).to(torch.bfloat16)
+    got = ts.combine_topk(src, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.combine_topk(src, idx, w.float()))
+    torch.testing.assert_close(
+        got, ts.combine_topk_plain(src, idx.clamp(max=63), w * (idx < 64)),
+        **TOL[dtype])
+    ones = ts.combine_topk(src, idx, None)
+    assert torch.equal(ones, ts.combine_topk(src, idx, torch.ones_like(w)))
+
+
+@pytest.mark.parametrize("k", [2, 6])
+def test_gather_backward_through_slot_rows(dev, k):
+    """The gather's gradient through the plan's table (slot order) against
+    the sort of token_rows (row order): bit for bit at k = 2, within the
+    f32 tolerance at k = 6."""
+    from repro_torch.kernels import ops
+    token_rows, slot_rows = _ragged_tables(dev, 500, k, 24, 90 + k)
+    x = torch.randn(500, 256, device=dev, requires_grad=True)
+    dy = torch.randn(500 * k, 256, device=dev)
+    grads = [torch.autograd.grad(ops.gather_tokens(x, token_rows, s), x, dy)[0]
+             for s in (slot_rows, None)]
+    if k == 2:
+        assert torch.equal(*grads)
+    else:
+        torch.testing.assert_close(*grads, **TOL[torch.float32])
 
 
 # (B, Sq, Skv, H, KV, d, window, q_offset, causal): tails of both tile

@@ -43,7 +43,8 @@
    sum(group_sizes), a hidden tail, swiglu and a skewed routing (one
    expert over the dW kernel's 64-row batch) — bf16 on the ring kernels,
    f32 on the first versions, as the launch counters must show, and the
-   first versions in bf16 too, called directly — and times them beside
+   first versions in bf16 too, called directly — and at the hidden shards
+   of tp (1024 and 512 at the capacity rows) — and times them beside
    their bounds by events and device time, with the first versions on the
    same inputs (also at the skewed routing), an unfused reference by
    PyTorch calls
@@ -62,13 +63,20 @@
    holding them against their plain versions at its most skewed layer;
 9. runs expert parallelism (the §3.2 exchange, repro_torch.launch.mesh and
    core.sync) over a 1x1 mesh, a world-size-1 NCCL group in this process:
-   the same 10-layer model and batch through the EP path of fused/ragged,
-   fused/capacity and pallas/ragged, whose step-0 loss and every gradient
-   leaf must equal the local path's bit for bit (the exchange is an
-   identity at world size 1), with the launch counters set to 0 just
-   before each EP run and read just after; then times the EP AdamW step
-   against the local one (fused/ragged, fused/capacity: median of 5 steps,
-   the difference, peak memory, launches per step);
+   the same 10-layer model and batch through the EP paths — a2a and the
+   psum mode for fused/ragged, fused/capacity and pallas/ragged,
+   expert-internal tensor parallelism (tp) for fused/capacity and
+   pallas/capacity —, whose step-0 loss and every gradient leaf, then the
+   loss, grad norm and params after one AdamW step from a fresh init, must
+   equal the local path's bit for bit (the exchange, the all-reduce, the
+   all-gather and the reduce-scatter are copies at world size 1), with
+   the launch counters set to 0 just before each EP run and read just
+   after; then times the EP AdamW steps against the local one in turns
+   (fused/ragged, fused/capacity: median of 5 steps, the differences,
+   peak memory, launches per step); then makes full 12-layer fastmoe-gpt
+   in f32 whole and per rank (the 4 ranks of a 1x4 mesh, rank (1, 2) of
+   a 2x4 mesh with tp), each shard bit-equal to the whole's slice, with
+   each init's seconds and peak memory;
 10. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
    on plain attention), and fused/ragged's step-0 loss and every gradient
@@ -172,6 +180,12 @@ TRAIN_COMBOS = [("fused", "capacity"), ("fused", "ragged"), ("pallas", "ragged")
 EP_COMBOS = (("fused", "ragged"), ("fused", "capacity"), ("pallas", "ragged"))
 EP_TIMED = (("fused", "ragged"), ("fused", "capacity"))
 EP_STEPS = 5
+# the EP paths held bit for bit against the local path at 1x1 besides a2a:
+# the psum mode (token_axes ("data",)) for each of EP_COMBOS, and
+# expert-internal tensor parallelism (tp_axis "data", capacity only)
+TP_COMBOS = (("fused", "capacity"), ("pallas", "capacity"))
+# hidden shards H / D of fastmoe-gpt's experts under tp on 2 and 4 data ranks
+TP_HIDDEN = (1024, 512)
 # kernel vs plain version on the same inputs: bf16 outputs are rounded once
 # from f32 sums of identical products, so they differ by at most a bf16 ulp
 # where a sum straddles a rounding boundary (plus one hidden-tile ulp in the
@@ -336,7 +350,11 @@ def routed(tokens: int, k: int, lo: int, dev, experts: int = E):
 # serving's shapes: a request's batch-1 prefill (fastmoe-gpt prompts of
 # 65-128 tokens, ragged and capacity; deepseek's of 513-1024), the
 # capacity buffer of an 8-slot fastmoe-gpt tick, and the 24 rows of a
-# 4-slot deepseek tick.
+# 4-slot deepseek tick.  Expert-internal tensor parallelism (capacity
+# only) hands a data rank the hidden slice H / D of fastmoe-gpt's experts:
+# 1024 over 2 ranks, 512 over 4, at the training rows' capacity buffer
+# (checked here in both dtypes; timed, with the backward, in
+# bwd_kernel_phase).
 GPT_KERNELS = ("grouped_gemm", "grouped_gemm_wo", "fused_ffn",
                "fused_ffn_swiglu", "shuffle")
 CAP_KERNELS = ("grouped_gemm", "grouped_gemm_wo", "fused_ffn")
@@ -361,6 +379,9 @@ KERNEL_MODELS = {
         "batch-1 prefill 513": (513, 0, 3078, DS_RAGGED, False),
         "batch-1 prefill 1024": (1024, 0, 6144, DS_RAGGED, True),
         "tick 4 slots": (4, 0, 24, DS_RAGGED, False)}),
+    **{f"tp h{h} ": ((E, D, h, 2), (), {
+        "capacity train": (2048, None, None, CAP_KERNELS, False)})
+       for h in TP_HIDDEN},
 }
 
 
@@ -1628,7 +1649,9 @@ def bwd_kernel_phase(dev, flush):
     (4088 of 4096 rows, 6 empty experts); capacity: 96 x C = 56 rows, each
     expert's slots past its load zero; tail: the ragged rows with H = 2000
     (a 80-wide last hidden tile); skewed: the ragged rows with expert 7
-    over five of the dW kernel's 64-row batches (bf16, gelu)."""
+    over five of the dW kernel's 64-row batches (bf16, gelu); capacity tp
+    h1024 / h512: the capacity rows at the hidden shards TP_HIDDEN
+    (checked and timed as capacity, without the unfused reference)."""
     import torch
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_ffn_bwd as fb
@@ -1651,15 +1674,18 @@ def bwd_kernel_phase(dev, flush):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         tol = KERNEL_TOL[dn]
-        for hid in (H, 2000):
+        for hid in (H, 2000, *TP_HIDDEN):
             wi = randn(E, D, hid, scale=D ** -0.5, dtype=dtype)
             wu = randn(E, D, hid, scale=D ** -0.5, dtype=dtype)
             wo = randn(E, hid, D, scale=hid ** -0.5, dtype=dtype)
+            tp = hid in TP_HIDDEN
             for shape, (M, gs, fill) in shapes.items():
-                if (hid != H and shape != "ragged") or (
+                if (hid == 2000 and shape != "ragged") or (
+                        tp and shape != "capacity") or (
                         shape == "skewed" and (hid != H or dtype != torch.bfloat16)):
                     continue
-                name = shape if hid == H else "tail"
+                name = (shape if hid == H else f"{shape} tp h{hid}" if tp
+                        else "tail")
                 n, used = int(gs.sum()), int((gs > 0).sum())
                 x = randn(M, D, dtype=dtype)
                 if fill is None:
@@ -1772,8 +1798,10 @@ def bwd_kernel_phase(dev, flush):
                           f"library n/a; device (profiler, L2 warm) {dev_ms:.4f} ms"
                           f"{first}", flush=True)
                 offs = torch.cumsum(gs, 0).to(torch.int32)
-                unfused_ffn(f"fused_ffn {name}", x, wi, wo, offs, flush)
-                unfused_ffn_bwd(f"fused_ffn_bwd {name}", x, wi, wo, dy, offs, flush)
+                if not tp:
+                    unfused_ffn(f"fused_ffn {name}", x, wi, wo, offs, flush)
+                    unfused_ffn_bwd(f"fused_ffn_bwd {name}", x, wi, wo, dy,
+                                    offs, flush)
                 # the pallas path on the same rows: forward x @ wi and dX =
                 # dy @ wi^T on the grouped GEMM (w read transposed in place),
                 # beside torch._grouped_mm (given wi.transpose(1, 2) for dX);
@@ -1811,7 +1839,7 @@ def bwd_kernel_phase(dev, flush):
                           flush=True)
                 gemm_dw = time_ms(lambda: gg.grouped_dw_plain(x, gx, gs, E), flush, 5)
                 print(f"pallas backward {name}: grouped dW, plain per-group "
-                      f"product {gemm_dw:.4f} ms (one (E, 1024, 2048) weight)",
+                      f"product {gemm_dw:.4f} ms (one (E, {D}, {hid}) weight)",
                       flush=True)
                 del gx
             del wi, wu, wo
@@ -1964,12 +1992,7 @@ def train_phase(dev):
               + " ".join(f"{v:.4f}" for v in losses), flush=True)
         print(f"  launches {impl}/{dispatch} ({TRAIN_WARM + TRAIN_STEPS} steps): "
               f"{json.dumps(launches)}", flush=True)
-        needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
-            if impl == "fused" else ["grouped_gemm"]
-        needed += ["flash_attention_fwd", "flash_attention_bwd"]
-        if dispatch == "ragged":
-            needed += ["gather_rows_by_source", "combine_topk"]
-        for name in needed:
+        for name in needed_kernels(impl, dispatch):
             check(launches[name] > 0, f"train {impl}/{dispatch}: kernel {name} "
                                       f"was never launched")
         for simple in SIMPLE_KERNELS:
@@ -2034,16 +2057,50 @@ def group_sizes_tap(out: list):
         ops.fused_grouped_ffn = orig
 
 
+def ep_dists(cfg, mesh, impl, dispatch):
+    """The EP paths of one (impl, dispatch) at 1x1: a2a (``moe_dist``, for
+    EP_COMBOS), the psum mode over ("data",) (EP_COMBOS) and
+    expert-internal tensor parallelism (TP_COMBOS)."""
+    from repro_torch.core import fmoe
+    from repro_torch.launch import train
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dists = {}
+    if (impl, dispatch) in EP_COMBOS:
+        dists["a2a"] = train.moe_dist(cfg, mesh, tokens)
+        dists["psum"] = fmoe.DistConfig(mesh, ("data",))
+    if (impl, dispatch) in TP_COMBOS:
+        dists["tp"] = train.moe_dist(cfg, mesh, tokens, expert_tp=True)
+    want = {"a2a": ("a2a", None), "psum": ("psum", None), "tp": ("a2a", "data")}
+    for name, d in dists.items():
+        check(d is not None and (d.mode, d.tp_axis) == want[name],
+              f"EP {impl}/{dispatch}: no {name} dist ({d})")
+    return dists
+
+
+def needed_kernels(impl, dispatch):
+    """The hand-written kernels a training path must launch."""
+    needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
+        if impl == "fused" else ["grouped_gemm"]
+    needed += ["flash_attention_fwd", "flash_attention_bwd"]
+    if dispatch == "ragged":
+        needed += ["gather_rows_by_source", "combine_topk"]
+    return needed
+
+
 def ep_phase(dev):
     """Expert parallelism over a 1x1 mesh: a world-size-1 NCCL process group
     in this process (a HashStore), full-width fastmoe-gpt at TRAIN_LAYERS
     layers, 8 x 256 tokens.  At world size 1 the exchange is an identity
     (the send buffer is the sorted rows, the compaction and the capacity
-    buffer unchanged), so for each of EP_COMBOS the EP path's step-0 loss
-    and every gradient leaf must equal the local path's (``dist=None``) bit
-    for bit.  Then the EP AdamW step is timed against the local one
-    (EP_TIMED).  The launch counters are set to 0 just before each EP run
-    and read just after; returns their sums."""
+    buffer unchanged), the psum mode's all-reduce too and tp's all-gather
+    and reduce-scatter are copies, so for each path (``ep_dists``: a2a and
+    psum for EP_COMBOS, tp for TP_COMBOS) the step-0 loss and every
+    gradient leaf must equal the local path's (``dist=None``) bit for bit,
+    with at most two gradient trees live; then (``ep_step_equal``) the grad
+    norm and the params after one AdamW step.  Then the EP AdamW steps are
+    timed against the local one in turns (EP_TIMED).  The launch counters
+    are set to 0 just before each EP run and read just after; returns
+    their sums per path."""
     import torch
     import torch.distributed as tdist
     from repro_torch.configs import get_config
@@ -2055,90 +2112,97 @@ def ep_phase(dev):
     from repro_torch.optim.adamw import tree_leaves
 
     init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    totals = {name: {k: 0 for k in counters()} for name in ("a2a", "psum", "tp")}
     try:
         mesh = make_local_mesh(1, 1)
         base = dataclasses.replace(get_config("fastmoe-gpt"),
                                    num_layers=TRAIN_LAYERS)
         data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
         batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
-        tokens = TRAIN_BATCH * TRAIN_SEQ
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         params = lm.init_params(base, seed=0, device=dev,
                                 param_dtype=base.param_dtype)
         n_params = sum(t.numel() for t in tree_leaves(params))
-        total = {k: 0 for k in counters()}
 
-        def counted(fn, ep=True):
+        def counted(fn, path=None):
             for f in counters().values():
                 f.launches = 0
             out = fn()
             torch.cuda.synchronize()
             runs = {k: f.launches for k, f in counters().items()}
-            for k, v in runs.items():
-                total[k] += v if ep else 0
+            if path is not None:
+                for k, v in runs.items():
+                    totals[path][k] += v
             return out, runs
 
-        for impl, dispatch in EP_COMBOS:
+        combos = list(EP_COMBOS) + [c for c in TP_COMBOS if c not in EP_COMBOS]
+        for impl, dispatch in combos:
             cfg = with_dispatch(base, dispatch)
-            dist = train.moe_dist(cfg, mesh, tokens)
-            check(dist is not None and dist.mode == "a2a",
-                  f"EP {impl}/{dispatch}: no a2a dist")
             loss_l, _, g_local = train.loss_and_grads(params, cfg, batch,
                                                       impl=impl, device=dev)
-            (loss_e, _, g_ep), runs = counted(lambda: train.loss_and_grads(
-                params, cfg, batch, impl=impl, device=dev, dist=dist))
-            pairs = list(zip(tree_leaves(g_local), tree_leaves(g_ep)))
-            unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
-            worst = max((float((a.float() - b.float()).abs().max())
-                         for i, (a, b) in enumerate(pairs) if i in unequal),
-                        default=0.0)
-            peak = torch.cuda.max_memory_allocated(dev)
-            print(f"EP {impl}/{dispatch} 1x1 (NCCL, world size 1): step-0 loss "
-                  f"{float(loss_e):.6f}, local {float(loss_l):.6f}, "
-                  f"{'equal' if torch.equal(loss_l, loss_e) else 'UNEQUAL'}; "
-                  f"{len(pairs) - len(unequal)} of {len(pairs)} gradient leaves "
-                  f"bit-equal (max |diff| {worst:.3e}); peak memory with two "
-                  f"sets of f32 grads {peak / 1e9:.2f} GB ({n_params / 1e9:.3f} "
-                  f"B params: {4 * n_params / 1e9:.1f} GB each for params and "
-                  f"each set)", flush=True)
-            check(torch.equal(loss_l, loss_e),
-                  f"EP {impl}/{dispatch}: step-0 loss differs from the local path")
-            check(not unequal, f"EP {impl}/{dispatch}: gradient leaves {unequal} "
-                               f"differ from the local path")
-            needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
-                if impl == "fused" else ["grouped_gemm"]
-            needed += ["flash_attention_fwd", "flash_attention_bwd"]
-            if dispatch == "ragged":
-                needed += ["gather_rows_by_source", "combine_topk"]
-            for name in needed:
-                check(runs[name] > 0, f"EP {impl}/{dispatch}: kernel {name} "
-                                      f"was never launched")
-            for simple in SIMPLE_KERNELS:
-                check(runs[simple] == 0, f"EP {impl}/{dispatch}: {simple} ran "
-                                         f"at a model shape")
-            del g_local, g_ep, pairs
+            for name, dist in ep_dists(cfg, mesh, impl, dispatch).items():
+                (loss_e, _, g_ep), runs = counted(lambda: train.loss_and_grads(
+                    params, cfg, batch, impl=impl, device=dev, dist=dist), name)
+                pairs = list(zip(tree_leaves(g_local), tree_leaves(g_ep)))
+                unequal = [i for i, (a, b) in enumerate(pairs)
+                           if not torch.equal(a, b)]
+                worst = max((float((a.float() - b.float()).abs().max())
+                             for i, (a, b) in enumerate(pairs) if i in unequal),
+                            default=0.0)
+                peak = torch.cuda.max_memory_allocated(dev)
+                print(f"EP {name} {impl}/{dispatch} 1x1 (NCCL, world size 1, "
+                      f"token_axes {dist.token_axes}, tp_axis {dist.tp_axis}): "
+                      f"step-0 loss {float(loss_e):.6f}, local "
+                      f"{float(loss_l):.6f}, "
+                      f"{'equal' if torch.equal(loss_l, loss_e) else 'UNEQUAL'}; "
+                      f"{len(pairs) - len(unequal)} of {len(pairs)} gradient "
+                      f"leaves bit-equal (max |diff| {worst:.3e}); peak memory "
+                      f"with two sets of f32 grads {peak / 1e9:.2f} GB "
+                      f"({n_params / 1e9:.3f} B params: "
+                      f"{4 * n_params / 1e9:.1f} GB each for params and each "
+                      f"set)", flush=True)
+                check(torch.equal(loss_l, loss_e), f"EP {name} {impl}/{dispatch}: "
+                      f"step-0 loss differs from the local path")
+                check(not unequal, f"EP {name} {impl}/{dispatch}: gradient "
+                                   f"leaves {unequal} differ from the local path")
+                for k in needed_kernels(impl, dispatch):
+                    check(runs[k] > 0, f"EP {name} {impl}/{dispatch}: kernel "
+                                       f"{k} was never launched")
+                for simple in SIMPLE_KERNELS:
+                    check(runs[simple] == 0, f"EP {name} {impl}/{dispatch}: "
+                                             f"{simple} ran at a model shape")
+                del g_ep, pairs
+                torch.cuda.empty_cache()
+            del g_local
             torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+        for impl, dispatch in combos:
+            ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted)
 
         opt = AdamW()
-        state = opt.init(params)
         for impl, dispatch in EP_TIMED:
+            # fresh params and moments: the paths take turns on one batch
+            params = lm.init_params(base, seed=0, device=dev,
+                                    param_dtype=base.param_dtype)
+            state = opt.init(params)
             cfg = with_dispatch(base, dispatch)
-            dist = train.moe_dist(cfg, mesh, tokens)
+            dists = {"local": None, **ep_dists(cfg, mesh, impl, dispatch)}
             steps = {name: train.make_train_step(cfg, opt, dist=d, impl=impl,
                                                  device=dev)
-                     for name, d in (("local", None), ("ep", dist))}
+                     for name, d in dists.items()}
             times = {name: [] for name in steps}
             peaks = {name: 0 for name in steps}
             per_step: dict = {}
-            for step in range(1 + EP_STEPS):  # the two paths in turn
+            for step in range(1 + EP_STEPS):  # the paths in turn
                 for name, step_fn in steps.items():
                     torch.cuda.reset_peak_memory_stats(dev)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     (params, state, m), runs = counted(
                         lambda: step_fn(params, state, batch, step),
-                        ep=name == "ep")
+                        None if name == "local" else name)
                     wall = time.perf_counter() - t0
                     loss = float(m["loss"])
                     check(math.isfinite(loss) and 3.0 < loss < 20.0,
@@ -2149,30 +2213,158 @@ def ep_phase(dev):
                         times[name].append(wall * 1e3)
                         per_step[name] = runs
             med = {name: statistics.median(v) for name, v in times.items()}
-            launches = sum(per_step["ep"].values())
-            print(f"EP train step {impl}/{dispatch} 1x1 vs local, "
-                  f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
-                  f"{TRAIN_SEQ}, AdamW included: EP {med['ep']:.1f} ms, local "
-                  f"{med['local']:.1f} ms median of {EP_STEPS} "
-                  f"(EP - local {med['ep'] - med['local']:+.1f} ms; EP "
-                  + " ".join(f"{v:.1f}" for v in times["ep"]) + "; local "
-                  + " ".join(f"{v:.1f}" for v in times["local"])
-                  + f"); peak memory EP {peaks['ep'] / 1e9:.2f} GB, local "
-                  f"{peaks['local'] / 1e9:.2f} GB; kernel launches per EP step "
-                  f"{launches} ({json.dumps({k: v for k, v in per_step['ep'].items() if v})}), "
-                  f"per local step "
-                  f"{sum(per_step['local'].values())}", flush=True)
+            for name in steps:
+                if name == "local":
+                    continue
+                launches = sum(per_step[name].values())
+                print(f"EP train step {name} {impl}/{dispatch} 1x1 vs local, "
+                      f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
+                      f"{TRAIN_SEQ}, AdamW included, in turns with "
+                      f"{', '.join(steps)}: {name} {med[name]:.1f} ms, local "
+                      f"{med['local']:.1f} ms median of {EP_STEPS} ({name} - "
+                      f"local {med[name] - med['local']:+.1f} ms; {name} "
+                      + " ".join(f"{v:.1f}" for v in times[name]) + "; local "
+                      + " ".join(f"{v:.1f}" for v in times["local"])
+                      + f"); peak memory {name} {peaks[name] / 1e9:.2f} GB, "
+                      f"local {peaks['local'] / 1e9:.2f} GB; kernel launches "
+                      f"per {name} step {launches} "
+                      f"({json.dumps({k: v for k, v in per_step[name].items() if v})}), "
+                      f"per local step {sum(per_step['local'].values())}",
+                      flush=True)
             for name, step_fn in steps.items():
                 params, state = profile_ep_step(
                     f"{name} {impl}/{dispatch}", step_fn, params, state,
                     batch, 1 + EP_STEPS)
-        del params, state, opt
+            del params, state
+            torch.cuda.empty_cache()
+        del opt
     finally:
         tdist.destroy_process_group()
     torch.cuda.empty_cache()
-    print(f"main path launches (EP training, 1x1): {json.dumps(total)}",
-          flush=True)
-    return total
+    for name, total in totals.items():
+        print(f"main path launches (EP training {name}, 1x1): "
+              f"{json.dumps(total)}", flush=True)
+    return totals
+
+
+def ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted):
+    """One AdamW step of the local path and of each EP path of (impl,
+    dispatch) at 1x1, each from a fresh init (seed 0; the EP paths' params
+    made by ``lm.init_params(mesh=...)``) and fresh moments: the loss, the
+    grad norm and every param after the step must equal the local step's
+    bit for bit.  The local step's params wait in host memory, so the card
+    holds one set of params, moments and grads at a time."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = with_dispatch(base, dispatch)
+    ref = None
+    for name, dist in {"local": None, **ep_dists(cfg, mesh, impl, dispatch)}.items():
+        params = lm.init_params(base, seed=0, device=dev,
+                                param_dtype=base.param_dtype,
+                                mesh=None if dist is None else mesh,
+                                expert_tp=dist is not None and dist.expert_tp)
+        opt = AdamW()
+        state = opt.init(params)
+        step_fn = train.make_train_step(cfg, opt, dist=dist, impl=impl,
+                                        device=dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (params, state, m), runs = counted(
+            lambda: step_fn(params, state, batch, 0),
+            None if dist is None else name)
+        print(f"EP {name} {impl}/{dispatch} 1x1 AdamW step from a fresh init: "
+              f"params and moments {held / 2 ** 30:.2f} GiB, step peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
+              flush=True)
+        leaves = tree_leaves(params)
+        if ref is None:
+            # detached: a copy that keeps a grad_fn keeps the param alive
+            ref = (m["loss"], m["grad_norm"], [t.detach().cpu() for t in leaves])
+        else:
+            unequal = [i for i, (a, b) in enumerate(zip(ref[2], leaves))
+                       if not torch.equal(a.to(dev, non_blocking=True), b)]
+            same = (torch.equal(ref[0], m["loss"]),
+                    torch.equal(ref[1], m["grad_norm"]))
+            print(f"EP {name} {impl}/{dispatch} 1x1 AdamW step: loss "
+                  f"{float(m['loss']):.6f} {'equal' if same[0] else 'UNEQUAL'}, "
+                  f"grad norm {float(m['grad_norm']):.6f} "
+                  f"{'equal' if same[1] else 'UNEQUAL'}, "
+                  f"{len(leaves) - len(unequal)} of {len(leaves)} params after "
+                  f"the step bit-equal to the local step's", flush=True)
+            check(all(same) and not unequal,
+                  f"EP {name} {impl}/{dispatch}: after one AdamW step "
+                  f"(loss, norm equal: {same}) params {unequal} differ from "
+                  f"the local step's")
+            for k in needed_kernels(impl, dispatch):
+                check(runs[k] > 0, f"EP step {name} {impl}/{dispatch}: kernel "
+                                   f"{k} was never launched")
+        del params, state, opt, leaves, step_fn
+        torch.cuda.empty_cache()
+
+
+# per-rank init: (data, model, expert_tp, rank) shards of full 12-layer
+# fastmoe-gpt held against the whole init's slices
+INIT_SHARDS = tuple((1, 4, False, r) for r in range(4)) + ((2, 4, True, 6),)
+
+
+def init_phase(dev):
+    """Per-rank init of full 12-layer fastmoe-gpt in f32 (4.986 B params,
+    ~19.9 GB): the whole from seed 0, then each INIT_SHARDS rank's own
+    shard (``lm.init_params(mesh=Mesh(data, model, rank))``, a mesh without
+    process groups), which must equal ``interop.shard_params`` of the
+    whole bit for bit: the 4 model ranks of a 1x4 mesh, and rank (1, 2) of
+    a 2x4 mesh under expert-internal tensor parallelism.  Prints each
+    init's time and the peak memory it added."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import tagged_leaves
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+
+    cfg = get_config("fastmoe-gpt")
+    torch.cuda.empty_cache()
+
+    def timed_init(**kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        p = lm.init_params(cfg, seed=0, device=dev,
+                           param_dtype=cfg.param_dtype, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = sum(t.numel() for _, t in tagged_leaves(p))
+        return p, n, secs, torch.cuda.max_memory_allocated(dev) - base
+
+    whole, n_whole, secs, peak = timed_init()
+    draws = cfg.num_layers * cfg.moe.num_experts * 2
+    print(f"init fastmoe-gpt {cfg.num_layers} layers f32, whole: "
+          f"{n_whole / 1e9:.3f} B params, {secs:.3f} s ({draws} expert draws), "
+          f"peak memory {peak / 1e9:.2f} GB", flush=True)
+    for data, model, tp, rank in INIT_SHARDS:
+        mesh = Mesh(data, model, rank)
+        shard, n, secs, peak = timed_init(mesh=mesh, expert_tp=tp)
+        shard = dict(tagged_leaves(shard))
+        want = dict(tagged_leaves(interop.shard_params(whole, mesh,
+                                                       expert_tp=tp)))
+        check(shard.keys() == want.keys(), f"init shard {mesh}: leaves differ")
+        unequal = [k for k in shard if not torch.equal(shard[k], want[k])]
+        print(f"init fastmoe-gpt shard {data}x{model} rank {mesh.coords()} "
+              f"{'(expert tp) ' if tp else ''}: {n / 1e9:.3f} B params, "
+              f"{secs:.3f} s, peak memory {peak / 1e9:.2f} GB; "
+              f"{len(shard) - len(unequal)} of {len(shard)} leaves bit-equal "
+              f"to the whole init's slices", flush=True)
+        check(not unequal, f"init shard {mesh} tp={tp}: leaves {unequal} "
+                           f"differ from the whole's slices")
+        del shard, want
+        torch.cuda.empty_cache()
+    del whole
+    torch.cuda.empty_cache()
 
 
 def profile_ep_step(label, step_fn, params, state, batch, step):
@@ -2799,6 +2991,20 @@ def ptxas_report(libs) -> None:
                       f"{name}: spills registers ({'; '.join(info)})")
 
 
+def tp_shards(bwd_timed, name):
+    """A kernel's times at the hidden shards of expert-internal tensor
+    parallelism (the training rows' capacity buffer), where timed."""
+    shards = {f"capacity h{h}": bwd_timed[(name, f"capacity tp h{h}")]
+              for h in TP_HIDDEN if (name, f"capacity tp h{h}") in bwd_timed}
+    return {"tp_shards": shards} if shards else {}
+
+
+def ep_by_path(ep_launches, name):
+    """A kernel's launches on each EP training path at 1x1."""
+    return {f"fastmoe-gpt EP training 1x1{'' if path == 'a2a' else ' ' + path}":
+            runs[name] for path, runs in ep_launches.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2835,6 +3041,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _, routing = train_phase(dev)
     ep_launches = ep_phase(dev)
+    init_phase(dev)
     cb_launches, cb_tick = continuous_phase(dev)
     routing_ms = model_routing_phase(dev, routing)
     grad_oracle_phase(dev)
@@ -2871,7 +3078,7 @@ def main() -> int:
                                  "fastmoe-gpt continuous serving": cb_launches[name],
                                  "deepseek-v2-236b continuous serving": dsc_launches[name],
                                  "fastmoe-gpt training": train_launches[name],
-                                 "fastmoe-gpt EP training 1x1": ep_launches[name]},
+                                 **ep_by_path(ep_launches, name)},
             "launches_per_tick": {**{f"fastmoe-gpt {k}": v.get(name, 0)
                                      for k, v in cb_tick.items()},
                                   "deepseek-v2-236b fused/ragged paged":
@@ -2880,7 +3087,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "decode, batch 8, bf16",
-            **({"by_shape": by_shape} if by_shape else {})})
+            **({"by_shape": by_shape} if by_shape else {}),
+            **tp_shards(bwd_timed, name)})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
         kind = name[-2:]
@@ -2890,7 +3098,7 @@ def main() -> int:
             "source": "src/repro_torch/csrc/fused_ffn_bwd.cu", "replaces": rep,
             "launches": train_launches[name],
             "launches_by_path": {"fastmoe-gpt training": train_launches[name],
-                                 "fastmoe-gpt EP training 1x1": ep_launches[name]},
+                                 **ep_by_path(ep_launches, name)},
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2900,6 +3108,7 @@ def main() -> int:
             "skewed_ms": bwd_timed[("fused_ffn_bwd", "skewed")][kind],
             "model_routing_ms": routing_ms[kind],
             "model_routing_first_version_ms": routing_ms[kind + "_first"],
+            **tp_shards(bwd_timed, name),
             "shape": "train, 2048 tokens top-2 = 4096 ragged rows, bf16"})
     for name, rep in (("flash_attention_fwd", "src/repro/kernels/flash_attention.py:73"),
                       ("flash_attention_bwd", "src/repro/models/attention.py:67")):
@@ -2907,7 +3116,7 @@ def main() -> int:
         by_path = {"fastmoe-gpt serving": launches[name],
                    "fastmoe-gpt continuous serving": cb_launches[name],
                    "fastmoe-gpt training": train_launches[name],
-                   "fastmoe-gpt EP training 1x1": ep_launches[name],
+                   **ep_by_path(ep_launches, name),
                    "starcoder2-15b serving": sc2_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",

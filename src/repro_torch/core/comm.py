@@ -3,7 +3,11 @@ exchange, over ``torch.distributed`` on the expert axis's process group.
 
 The payload exchanges are differentiable: the backward of the tiled
 all-to-all is the same exchange of the gradient, since that exchange is
-its own inverse.  The counts carry no gradient.  The hierarchical
+its own inverse.  So are the psum mode's all-reduce (its backward is the
+all-reduce of the gradient, what ``jax.lax.psum`` transposes to under the
+reference's ``shard_map(check_vma=False)``) and expert-internal tensor
+parallelism's row all-gather and reduce-scatter (each the other's
+backward).  The counts carry no gradient.  The hierarchical
 ``*_intra`` / ``*_inter`` variants of the reference are not ported
 (ROADMAP §1 item 6).
 """
@@ -36,6 +40,83 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable tiled all-to-all over dim 0 (its size = the group's)."""
     return _AllToAll.apply(x, group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()  # a fresh buffer: reduced in place
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable SUM over ``group``; the gradient is summed too."""
+    return _AllReduceSum.apply(x, group)
+
+
+# The tiled gather and scatter work on dim 0 of a contiguous buffer, so a
+# row dim of an (E_local, rows, d) buffer is moved to the front (a copy)
+# and back (a view).
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],
+                        *xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // dist.get_world_size(group),
+                        *xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather along ``dim``: rank i's rows land in block i.  Its
+    backward reduce-scatters (SUM) the gradient."""
+    return _AllGatherRows.apply(x, group, dim)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Tiled reduce-scatter (SUM) along ``dim``: rank i keeps block i of the
+    sum.  Its backward all-gathers the gradient."""
+    return _ReduceScatterRows.apply(x, group, dim)
 
 
 def exchange_counts(counts: torch.Tensor, group) -> torch.Tensor:

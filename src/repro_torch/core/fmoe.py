@@ -13,10 +13,12 @@ implementations:
 and expert parallelism across ranks (§3.2, Fig 2): a ``DistConfig`` over a
 ``launch.mesh.Mesh`` runs the counts all-to-all, the payload all-to-all,
 the local experts, the return all-to-all and the combine, for both
-dispatches, on ``torch.distributed``; or, for decode, the psum mode (every
-rank computes its own experts on all of the tokens and one all-reduce adds
-them).  Rank ``m`` of the model axis holds
-experts ``[m * E_local, (m + 1) * E_local)``.
+dispatches, on ``torch.distributed``; or the psum mode (every rank
+computes its own experts on all of its tokens and one all-reduce adds
+them), which serves and trains.  Rank ``m`` of the model axis holds
+experts ``[m * E_local, (m + 1) * E_local)``; under expert-internal tensor
+parallelism (``tp_axis``) rank ``d`` of the data axis holds hidden units
+``[d * H_local, (d + 1) * H_local)`` of each of them.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from repro_torch.core.balance import (MoEMetrics, load_balance_loss,
                                       load_metrics, router_z_loss)
 from repro_torch.core.gate import route_tokens, router_init
 from repro_torch.kernels import ops
-from repro_torch.optim.adamw import tree_leaves
 
 
 class DistConfig(NamedTuple):
@@ -41,11 +42,17 @@ class DistConfig(NamedTuple):
 
     mode "a2a" (tokens sharded over the expert axis too, the paper's §3.2
     all-to-all) when ``expert_axis`` is among ``token_axes``; otherwise
-    "psum" (decode: every rank of the model axis holds the same tokens,
-    computes its own experts, and one all-reduce sums the outputs; serving
-    only).  ``x`` given to ``fmoe_apply`` is this rank's token shard; ranks
-    hold contiguous token blocks in rank order.
+    "psum" (every rank of the model axis holds the same tokens, computes
+    its own experts, and one all-reduce sums the outputs; its backward
+    all-reduces the gradient, so it trains too).  ``x`` given to
+    ``fmoe_apply`` is this rank's token shard; ranks hold contiguous token
+    blocks in rank order.
 
+      tp_axis — expert-internal tensor parallelism ("data", capacity
+        dispatch, a2a mode): each expert's hidden dim stays sharded over
+        the data axis; the rows are all-gathered over it before the expert
+        FFN and the partial outputs reduce-scattered back.  The psum mode
+        ignores it, as the reference does.
       overlap_chunks — the §5.2 pipelined exchange: 0 or 1 runs the serial
         exchange; more raises (ROADMAP §1 item 2).
       ragged_bound — rows per peer shard of the ragged exchange: 0 = T_local
@@ -53,8 +60,8 @@ class DistConfig(NamedTuple):
         (counted in ``drop_frac``).
 
     The reference's other fields are carried so that a caller's setting is
-    refused, never ignored: ``tp_axis``, ``placement``, ``wire_dtype``,
-    ``node_axis``, ``inter_bound``, ``fsdp_axis`` and ``router`` raise
+    refused, never ignored: ``placement``, ``wire_dtype``, ``node_axis``,
+    ``inter_bound``, ``fsdp_axis`` and ``router`` raise
     ``NotImplementedError`` unless left at their defaults.
     """
 
@@ -90,29 +97,37 @@ class DistConfig(NamedTuple):
     def expert_parallelism(self) -> int:
         return self.mesh.axes_size(self.expert_axes)
 
+    @property
+    def expert_tp(self) -> bool:
+        """Whether the expert stacks are hidden-sharded over ``tp_axis``:
+        set, and in the a2a mode (the psum mode ignores it)."""
+        return self.tp_axis is not None and self.mode == "a2a"
 
-def moe_dist(cfg, mesh, num_tokens: int) -> DistConfig | None:
-    """The expert-parallel mode for this (model config, mesh, global token
-    count).
 
-    a2a (the paper's §3.2 exchange) when the tokens split evenly over every
-    rank; otherwise the psum mode, tokens sharded over data where they
-    split (serving only: ``fmoe_apply`` refuses to train through it).
-    None when the config has no MoE or its experts do not split over the
-    model axis."""
+def moe_dist(cfg, mesh, num_rows: int, *,
+             expert_tp: bool = False) -> DistConfig | None:
+    """The expert-parallel mode for this (model config, mesh, global count
+    of the rows that are split over the ranks: a layer's tokens, or the
+    train entry's whole sequences).
+
+    a2a (the paper's §3.2 exchange) when the rows split evenly over every
+    rank; otherwise the psum mode, rows sharded over data where they split
+    and else held whole by every rank.  ``expert_tp`` (the reference's
+    ``opts={"expert_tp": True}``) sets ``tp_axis="data"`` in the a2a mode;
+    the psum fallbacks leave it None.  None when the config has no MoE or
+    its experts do not split over the model axis."""
     if cfg.moe is None or cfg.moe.num_experts % mesh.shape["model"]:
         return None
-    if num_tokens % mesh.size == 0:
-        return DistConfig(mesh, tuple(mesh.axis_names))
+    if num_rows % mesh.size == 0:
+        return DistConfig(mesh, tuple(mesh.axis_names),
+                          tp_axis="data" if expert_tp else None)
     d_axes = tuple(a for a in mesh.axis_names if a == "data")
-    return DistConfig(mesh, d_axes if num_tokens % mesh.axes_size(d_axes) == 0
+    return DistConfig(mesh, d_axes if num_rows % mesh.axes_size(d_axes) == 0
                       else ())
 
 
 # where each option the port does not carry yet is queued (ROADMAP.md §1)
-_NOT_CARRIED = {"tp_axis": "expert-internal tensor parallelism (ROADMAP §1 "
-                           "item 1)",
-                "placement": "placement (ROADMAP §1 item 4)",
+_NOT_CARRIED = {"placement": "placement (ROADMAP §1 item 4)",
                 "wire_dtype": "the §5.2 overlap (ROADMAP §1 item 2)",
                 "node_axis": "the hierarchical exchange (ROADMAP §1 item 6)",
                 "inter_bound": "the hierarchical exchange (ROADMAP §1 item 6)",
@@ -137,16 +152,9 @@ def _check_dist(dist: DistConfig) -> None:
         raise NotImplementedError(
             f"DistConfig.overlap_chunks={dist.overlap_chunks} is the §5.2 "
             f"overlap (ROADMAP §1 item 2), not ported to repro_torch yet")
-
-
-def _check_psum_serving(params: dict, x: torch.Tensor) -> None:
-    """The psum mode serves; its backward is not carried."""
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in tree_leaves(params))):
-        raise NotImplementedError(
-            "training through the psum mode (ROADMAP §1 item 1) is not "
-            "ported to repro_torch yet: call it under torch.no_grad(), or "
-            "train with token_axes that hold the expert axis (a2a)")
+    if dist.tp_axis not in (None, "data"):
+        raise ValueError(f"expert-internal tensor parallelism shards the "
+                         f"hidden dim over 'data', not {dist.tp_axis!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -154,24 +162,57 @@ def _check_psum_serving(params: dict, x: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _ffn_init(gen: torch.Generator, num: int, d: int, h: int, act: str, *,
-              device, dtype=torch.float32) -> dict:
-    """Expert FFN weights in the JAX layout: wi (num, d, h), wo (num, h, d);
-    ``num == 0`` drops the expert dim (a dense FFN)."""
-    si, so = d ** -0.5, h ** -0.5
-    shape_i, shape_o = ((num, d, h), (num, h, d)) if num else ((d, h), (h, d))
+def _ffn_leaves(act: str) -> tuple:
+    """The FFN's weight names, in tree order."""
+    return ("wi_gate", "wi_up", "wo") if act == "swiglu" else ("wi", "wo")
 
-    def normal(shape, scale):
-        t = torch.randn(shape, generator=gen, device=device) * scale
-        return t.to(dtype)
 
+def _ffn_init(gen: torch.Generator, d: int, h: int, act: str, *, device,
+              dtype=torch.float32) -> dict:
+    """Dense FFN weights in the JAX layout: wi (d, h), wo (h, d)."""
+    return {name: (torch.randn((h, d) if name == "wo" else (d, h),
+                               generator=gen, device=device)
+                   * (h if name == "wo" else d) ** -0.5).to(dtype)
+            for name in _ffn_leaves(act)}
+
+
+_M64 = (1 << 64) - 1
+
+
+def expert_seed(*parts: int) -> int:
+    """A 63-bit generator seed mixed from integers (splitmix64 rounds)."""
+    h = 0x9E3779B97F4A7C15
+    for v in parts:
+        h = ((h ^ (v & _M64)) * 0xBF58476D1CE4E5B9) & _M64
+        h = ((h ^ (h >> 31)) * 0x94D049BB133111EB) & _M64
+        h ^= h >> 29
+    return h >> 1
+
+
+def _expert_init(key: int, num: int, d: int, h: int, act: str, *, device,
+                 dtype=torch.float32, experts: slice = slice(None),
+                 hidden: slice = slice(None)) -> dict:
+    """Routed expert stacks in the JAX layout, wi (num, d, h) and wo (num,
+    h, d), or the shard ``experts`` x ``hidden`` of them.
+
+    Expert ``e`` of leaf ``i`` is drawn alone from a generator seeded by
+    ``expert_seed(key, i, e)``, so a rank draws only its experts, one at a
+    time, and its shard equals the whole stack's slice bit for bit."""
+    ids = range(num)[experts]
+    hid = range(h)[hidden]
+    gen = torch.Generator(device=device)
     p = {}
-    if act == "swiglu":
-        p["wi_gate"] = normal(shape_i, si)
-        p["wi_up"] = normal(shape_i, si)
-    else:
-        p["wi"] = normal(shape_i, si)
-    p["wo"] = normal(shape_o, so)
+    for i, name in enumerate(_ffn_leaves(act)):
+        wo = name == "wo"
+        shape, scale = ((h, d), h ** -0.5) if wo else ((d, h), d ** -0.5)
+        out = torch.empty((len(ids), len(hid), d) if wo
+                          else (len(ids), d, len(hid)), dtype=dtype,
+                          device=device)
+        for j, e in enumerate(ids):
+            gen.manual_seed(expert_seed(key, i, e))
+            w = torch.randn(shape, generator=gen, device=device) * scale
+            out[j] = w[hidden] if wo else w[:, hidden]
+        p[name] = out
     return p
 
 
@@ -275,20 +316,30 @@ RAGGED_FNS: dict[str, Callable] = {
 
 def fmoe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
               act: str = "swiglu", d_ff_dense: int = 0, device,
-              dtype=torch.float32) -> dict:
-    """Parameters for one MoE FFN block (the router is always f32)."""
+              dtype=torch.float32, expert_key: int | None = None,
+              shard: tuple = (slice(None), slice(None))) -> dict:
+    """Parameters for one MoE FFN block (the router is always f32).
+
+    The router and the shared and dense FFNs are drawn from ``gen``; the
+    routed experts from ``expert_key`` (default: drawn from ``gen``), one
+    expert at a time (``_expert_init``), ``shard`` = (experts, hidden
+    units) of them (``launch.mesh.Mesh.expert_shard``)."""
+    if expert_key is None:
+        expert_key = int(torch.randint(1 << 62, (1,), generator=gen,
+                                       device=device))
     params = {
         "router": router_init(gen, d_model, cfg, device=device),
-        "experts": _ffn_init(gen, cfg.num_experts, d_model,
-                             cfg.d_expert_hidden, act, device=device,
-                             dtype=dtype),
+        "experts": _expert_init(expert_key, cfg.num_experts, d_model,
+                                cfg.d_expert_hidden, act, device=device,
+                                dtype=dtype, experts=shard[0],
+                                hidden=shard[1]),
     }
     if cfg.num_shared_experts:
         params["shared"] = _ffn_init(
-            gen, 0, d_model, cfg.num_shared_experts * cfg.d_expert_hidden,
+            gen, d_model, cfg.num_shared_experts * cfg.d_expert_hidden,
             act, device=device, dtype=dtype)
     if cfg.dense_residual:
-        params["dense"] = _ffn_init(gen, 0, d_model,
+        params["dense"] = _ffn_init(gen, d_model,
                                     d_ff_dense or cfg.d_expert_hidden, act,
                                     device=device, dtype=dtype)
     return params
@@ -344,8 +395,13 @@ def _dist_metrics(dist: DistConfig, load_part: torch.Tensor, aux, z, drop,
     load_global = red[:E]
     load = load_global / load_global.sum().clamp_min(1.0)
     aux_pm, z_pm, drop_pm = red[E:] / n
-    return MoEMetrics(aux + (aux_pm - aux.detach()), z + (z_pm - z.detach()),
-                      load, drop_pm)
+    return MoEMetrics(_keep_grad(aux, aux_pm), _keep_grad(z, z_pm), load,
+                      drop_pm)
+
+
+def _keep_grad(v: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``value`` forward, ``v``'s gradient backward."""
+    return v + (value - v.detach())
 
 
 def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
@@ -366,12 +422,22 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     plan = D.make_capacity_plan(g.expert_ids, E, C)
     buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
 
+    def compute(b):  # (E_local, rows, d), row-independent
+        if not dist.tp_axis:
+            return expert_fn(experts, b, act)
+        # expert-internal tensor parallelism: the tp ranks hold different
+        # rows and each a slice of every expert's hidden units (the act is
+        # per hidden unit, so the FFN splits over them exactly); gather the
+        # rows, compute the partial outputs, reduce-scatter them back
+        tp = dist.mesh.group(dist.tp_axis)
+        out = expert_fn(experts, comm.all_gather_rows(b, tp, 1), act)
+        return comm.reduce_scatter_rows(out, tp, 1)
+
     n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
     incoming = pipeline.counts_all_to_all(plan.load.reshape(mp, E_local),
                                           group, mp)  # per source rank
     out = pipeline.pipelined_expert_exchange(
-        buf.reshape(mp, E_local, C, d), group, mp, n_chunks,
-        lambda b: expert_fn(experts, b, act))
+        buf.reshape(mp, E_local, C, d), group, mp, n_chunks, compute)
     y = D.combine_capacity(out.reshape(E, C, -1), plan, g.combine_weights)
 
     # the global load: my experts' received counts in my model slot, summed
@@ -441,10 +507,10 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
 def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
               act: str, expert_fn: Callable, dist: DistConfig,
               impl: str = "einsum"):
-    """Tokens not sharded over the expert axis (decode): every rank gates
-    all of its tokens, computes only its own experts, and one all-reduce
-    (SUM) of the combined (t, d) over the model group adds the ranks'
-    parts.  No all-to-all.
+    """Tokens not sharded over the expert axis (decode, and batches that do
+    not split over every rank): every rank gates all of its tokens,
+    computes only its own experts, and one all-reduce (SUM) of the combined
+    (t, d) over the model group adds the ranks' parts.  No all-to-all.
 
     capacity: the rank's (E_local, C, d) slice of the dispatch buffer, its
     output placed in an otherwise zero (E, C, d) buffer for the combine;
@@ -454,7 +520,14 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     (``gather_rows_fill``) — dropless, as the local path.  load, drop_frac,
     aux and z are the means over ``token_axes``.  At world size 1 this is
     the local path bit for bit: the segment is every row at offset 0 and
-    the all-reduce of a one-rank group is an identity."""
+    the all-reduce of a one-rank group is an identity.
+
+    Training: the all-reduce's backward sums the ranks' gradients of ``y``,
+    so each model rank's experts, router and upstream take M times their
+    part of its data block's gradient (M ranks in the model group hold the
+    same loss); aux and z keep the rank's own gradient.  ``core.sync``'s
+    sum over the world (experts: over data) divided by the world size is
+    then the mean over the data blocks, as in the a2a mode."""
     mp = dist.expert_parallelism
     m = dist.mesh.coords()[1]
     E = cfg.num_experts
@@ -484,16 +557,16 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         out[mine] = out_local
         y = D.combine_capacity(out, plan, g.combine_weights)
         load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
-    y = y.contiguous()  # gloo reduces contiguous buffers only
-    torch.distributed.all_reduce(y, group=dist.mesh.group(dist.expert_axis))
+    y = comm.all_reduce_sum(y, dist.mesh.group(dist.expert_axis))
     aux = load_balance_loss(g.probs, g.expert_ids, E)
     z = router_z_loss(g.logits)
     ranks = dist.mesh.axes_size(dist.token_axes)
     if ranks > 1:  # the means over the token ranks, in one all-reduce
-        red = torch.cat([load, torch.stack([aux, z, drop]).float()])
+        red = torch.cat([load, torch.stack([aux, z, drop]).detach().float()])
         torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
         red = red / ranks
-        load, (aux, z, drop) = red[:E], red[E:]
+        load, drop = red[:E], red[E + 2]
+        aux, z = _keep_grad(aux, red[E]), _keep_grad(z, red[E + 1])
     return y, MoEMetrics(aux, z, load, drop)
 
 
@@ -506,13 +579,17 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     (or a ``DistConfig`` without a mesh) runs the single-worker §4 path;
     a ``DistConfig`` over a mesh runs the §3.2 exchange (a2a) or the psum
     mode, with ``x`` this rank's token shard and ``params["experts"]`` its
-    expert shard.  The
+    expert shard (its hidden slice of them under ``tp_axis``).  The
     shared and dense residual FFNs run on the local tokens.
     """
     if dist is not None:
         _check_dist(dist)
-        if dist.mesh is not None and dist.mode == "psum":
-            _check_psum_serving(params, x)
+        if dist.mesh is not None and dist.tp_axis and cfg.dispatch == "ragged":
+            # as the reference: the grouped ragged kernels take flat sorted
+            # rows, to which the capacity path's per-row tp gather and
+            # scatter do not apply
+            raise NotImplementedError(
+                "ragged dispatch + expert-internal TP (use capacity)")
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])

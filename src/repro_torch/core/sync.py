@@ -7,13 +7,15 @@ its tag's group.  In the port every param but the routed expert stacks is
 replicated on every rank (``world``); the expert stacks are sharded over
 the model axis on their expert dim and replicated over the data axis
 (``none``: no sync across expert peers, a sync over ``data`` when the
-mesh has one).  The reference derives the tag from a PartitionSpec; here
-the param's path decides.
+mesh has one), or, under expert-internal tensor parallelism, sharded over
+the data axis on their hidden dim too (``tp``: no sync at all).  The
+reference derives the tag from a PartitionSpec; here the param's path and
+the ``DistConfig`` decide.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
+import torch.distributed
 
 
 def tagged_leaves(tree, path: str = ""):
@@ -30,43 +32,64 @@ def tagged_leaves(tree, path: str = ""):
         yield path, tree
 
 
-def fastmoe_tag(path: str) -> str:
-    """``none`` for a routed expert stack (a leaf under an "experts" key),
-    ``world`` for everything else: router, attention, norms, embedding,
-    head, shared and dense residual FFNs."""
-    return "none" if "experts" in path.split("/") else "world"
+def fastmoe_tag(path: str, dist=None) -> str:
+    """``world`` for a leaf outside the routed expert stacks (router,
+    attention, norms, embedding, head, shared and dense residual FFNs); for
+    a routed expert stack (a leaf under an "experts" key) ``tp`` where
+    ``dist`` (a ``core.fmoe.DistConfig``) shards it over ``tp_axis`` too
+    (``dist.expert_tp``), else ``none``."""
+    if "experts" not in path.split("/"):
+        return "world"
+    return "tp" if dist is not None and dist.expert_tp else "none"
 
 
-def sync_grads(grads, mesh):
-    """All-reduce every gradient in place within its tag's group and
-    return ``grads``.
+def sync_grads(grads, dist):
+    """All-reduce every gradient in place within its tag's group under
+    ``dist`` (a ``core.fmoe.DistConfig`` over a mesh) and return
+    ``grads``.
 
     Each rank's loss is the mean over its own tokens, so the step's
     gradient is the mean of the ranks' gradients: a ``world`` leaf takes
-    the SUM over the world / world size.  An expert leaf takes the SUM
-    over the data group / the *world* size, since the exchange's backward
-    already summed the other model ranks' contributions into it."""
+    the SUM over the world / world size.  An expert leaf (``none``) takes
+    the SUM over the data group / the *world* size, since the exchange's
+    backward already summed the other model ranks' contributions into it.
+    A ``tp`` expert leaf takes no all-reduce, only the division: each data
+    rank holds another hidden slice, and the row all-gather's backward
+    already summed every data rank's rows into it.
+
+    The psum mode needs nothing else: there the M ranks of a model group
+    hold the same rows and loss, and the all-reduce's backward hands each
+    M times its part of that loss's gradient (experts: M times the whole),
+    so the SUM over the world (experts: over data) is M times the sum over
+    the data blocks, and / world is their mean."""
+    mesh = dist.mesh
     world = mesh.size
     groups = {"world": mesh.group(mesh.axis_names),
-              "none": mesh.group("data")}
+              "none": mesh.group("data"), "tp": None}
     for path, g in tagged_leaves(grads):
-        dist.all_reduce(g, group=groups[fastmoe_tag(path)])
+        group = groups[fastmoe_tag(path, dist)]
+        if group is not None:
+            torch.distributed.all_reduce(g, group=group)
         if world > 1:
             g.div_(world)
     return grads
 
 
-def sharded_sq_norms(tree, mesh) -> list:
-    """Per leaf, the f32 sum of squares of the *whole* gradient: an expert
-    leaf's squares are summed over the model group (each rank holds its
-    shard), a ``world`` leaf's are its own.  One all-reduce."""
+def sharded_sq_norms(tree, dist) -> list:
+    """Per leaf, the f32 sum of squares of the *whole* gradient under
+    ``dist``: an expert leaf's squares are summed over the ranks that hold
+    its shards (``none``: the model group; ``tp``: the world), a ``world``
+    leaf's are its own.  One all-reduce per expert tag."""
+    mesh = dist.mesh
     tagged = list(tagged_leaves(tree))
     sq = [torch.sum(torch.square(leaf.float())) for _, leaf in tagged]
-    expert = [i for i, (path, _) in enumerate(tagged)
-              if fastmoe_tag(path) == "none"]
-    if expert:
-        summed = torch.stack([sq[i] for i in expert])
-        dist.all_reduce(summed, group=mesh.group("model"))
-        for j, i in enumerate(expert):
-            sq[i] = summed[j]
+    for tag, group in (("none", mesh.group("model")),
+                       ("tp", mesh.group(mesh.axis_names))):
+        idx = [i for i, (path, _) in enumerate(tagged)
+               if fastmoe_tag(path, dist) == tag]
+        if idx:
+            summed = torch.stack([sq[i] for i in idx])
+            torch.distributed.all_reduce(summed, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
     return sq

@@ -8,7 +8,11 @@ per-layer dicts here.  Every parity test builds its torch params through
 :func:`from_jax`.  With a mesh, a rank keeps its shard: the routed expert
 stacks sliced on their expert dim, rank ``m`` of the model axis holding
 experts ``[m * E_local, (m + 1) * E_local)`` (``P("model", None, None)``
-in the reference), everything else whole.
+in the reference), everything else whole; with ``expert_tp`` also on
+their hidden dim over the data axis (``wi*`` dim 2, ``wo`` dim 1: the
+reference's ``P("model", None, "data")`` and ``P("model", "data",
+None)``).  ``models.lm.init_params(mesh=...)`` draws the same shards
+without the whole.
 """
 from __future__ import annotations
 
@@ -34,38 +38,43 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def shard_params(params: dict, mesh, rank: int | None = None) -> dict:
+def shard_params(params: dict, mesh, rank: int | None = None, *,
+                 expert_tp: bool = False) -> dict:
     """The rank's shard of whole params (``rank`` defaults to the mesh's
     own): each routed expert stack sliced on dim 0 to the rank's experts,
-    every other leaf as it is.  A slice is a copy, so the whole stack can
-    be freed."""
-    mp = mesh.shape["model"]
-    if mp == 1:
+    and with ``expert_tp`` on its hidden dim to the rank's hidden units
+    (``launch.mesh.Mesh.expert_shard``); every other leaf as it is.  A
+    slice is a copy, so the whole stack can be freed."""
+    if mesh.shape["model"] == 1 and not (expert_tp and mesh.shape["data"] > 1):
         return params
-    m = mesh.coords(rank)[1]
 
     def shard(path, t):
-        if fastmoe_tag(path) != "none":
+        if fastmoe_tag(path) == "world":
             return t
-        e_local = t.shape[0] // mp
-        return t[m * e_local:(m + 1) * e_local].clone()
+        dim = 1 if path.split("/")[-1] == "wo" else 2
+        experts, hidden = mesh.expert_shard(t.shape[0], t.shape[dim],
+                                            tp=expert_tp, rank=rank)
+        return t[experts].narrow(dim, hidden.start,
+                                 hidden.stop - hidden.start).clone()
 
     shards = iter([shard(path, t) for path, t in tagged_leaves(params)])
     return tree_map(lambda _: next(shards), params)
 
 
 def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda", mesh=None,
-             rank: int | None = None) -> dict:
+             rank: int | None = None, expert_tp: bool = False) -> dict:
     """JAX param tree (numpy leaves, stacked layers) -> port params, in the
     dtypes JAX has them (f32 masters; ``repro_torch.models.lm`` casts the
     layers to ``cfg.dtype`` at use).  With ``mesh``, the shard of ``rank``
-    (default: the mesh's own; :func:`shard_params`)."""
+    (default: the mesh's own; :func:`shard_params`, ``expert_tp`` as
+    there)."""
     dev = resolve(device)
     out = {k: _map(lambda a: _to_torch(a, dev), v)
            for k, v in params_np.items() if k != "layers"}
     out["layers"] = [_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev),
                           params_np["layers"]) for i in range(cfg.num_layers)]
-    return out if mesh is None else shard_params(out, mesh, rank)
+    return (out if mesh is None
+            else shard_params(out, mesh, rank, expert_tp=expert_tp))
 
 
 def to_jax(params: dict) -> dict:

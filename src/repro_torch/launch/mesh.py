@@ -53,6 +53,23 @@ class Mesh:
         r = self.rank if rank is None else rank
         return divmod(r, self.shape["model"])
 
+    def expert_shard(self, num_experts: int, hidden: int, *, tp: bool = False,
+                     rank: int | None = None) -> tuple:
+        """(experts, hidden units) of ``rank``'s shard of a routed expert
+        stack, as slices: rank ``m`` of the model axis holds experts ``[m *
+        E_local, (m + 1) * E_local)``; under expert-internal tensor
+        parallelism (``tp``) rank ``d`` of the data axis holds hidden units
+        ``[d * H_local, (d + 1) * H_local)`` of them, else all."""
+        d, m = self.coords(rank)
+        mp, dp = self.shape["model"], self.shape["data"] if tp else 1
+        if num_experts % mp or hidden % dp:
+            raise ValueError(f"{num_experts} experts of hidden {hidden} do "
+                             f"not shard over mesh {self.shape}"
+                             f"{' (tp)' if tp else ''}")
+        e, h = num_experts // mp, hidden // dp
+        return (slice(m * e, (m + 1) * e),
+                slice(d * h, (d + 1) * h) if tp else slice(0, hidden))
+
     def axes_size(self, axes) -> int:
         n = 1
         for a in _as_axes(axes):

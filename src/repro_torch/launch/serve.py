@@ -29,7 +29,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import interop
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fmoe import moe_dist
@@ -270,10 +269,8 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
     if cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
-    # every rank makes the whole params from the seed and keeps its shard
-    params = lm.init_params(cfg, seed=args.seed, device=dev)
-    if mesh is not None:
-        params = interop.shard_params(params, mesh)
+    # each rank makes its own shard from the seed
+    params = lm.init_params(cfg, seed=args.seed, device=dev, mesh=mesh)
     where = f"{dev}" + (f", mesh {scfg.mesh} (psum)" if mesh else "")
     if args.continuous:
         batcher, stats = serve_continuous(

@@ -10,10 +10,17 @@ Expert parallelism over a (data, model) mesh of ranks, one process each:
 
     torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 2x2 \
         --device cpu --reduced --steps 2
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 1x4 \
+        --device cpu --reduced --batch 2      # the psum mode
 
-(gloo on the CPU, NCCL with one card a rank on the GPU).  Each rank takes
-its contiguous block of the global batch's rows and its model-axis shard
-of the expert stacks; the logged loss is the mean over the ranks.
+(gloo on the CPU, NCCL with one card a rank on the GPU).  Each rank makes
+its own shard of the params from the seed (``lm.init_params(mesh=...)``):
+its model-axis shard of the expert stacks, everything else whole.  When
+the batch's rows split over every rank, each rank takes its contiguous
+block of them and the MoE layers exchange tokens (a2a); otherwise the
+psum mode: the ranks of a model group share their data row's block (or,
+where the rows do not split over data either, every row).  The logged
+loss is the mean over the ranks.
 
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel in both directions, fused = the fused FFN kernel
@@ -34,7 +41,6 @@ import time
 import torch
 import torch.distributed
 
-from repro_torch import interop
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fmoe import moe_dist
@@ -52,13 +58,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _rank_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's contiguous block of the global batch's rows."""
-    if tokens.shape[0] % mesh.size:
+def _rank_rows(tokens: torch.Tensor, dist) -> torch.Tensor:
+    """This rank's contiguous block of the global batch's rows over
+    ``dist.token_axes``: with ("data", "model") the rank's own block, with
+    ("data",) its data coordinate's (the same on every model rank), with
+    () every row."""
+    mesh = dist.mesh
+    n = mesh.axes_size(dist.token_axes)
+    if tokens.shape[0] % n:
         raise ValueError(f"batch {tokens.shape[0]} does not split over "
-                         f"{mesh.size} ranks")
-    b = tokens.shape[0] // mesh.size
-    return tokens[mesh.rank * b:(mesh.rank + 1) * b]
+                         f"{n} ranks of {dist.token_axes}")
+    i = 0  # the rank's index over the token axes, in mesh order
+    for a, c in zip(mesh.axis_names, mesh.coords()):
+        if a in dist.token_axes:
+            i = i * mesh.shape[a] + c
+    b = tokens.shape[0] // n
+    return tokens[i * b:(i + 1) * b]
 
 
 def _mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -108,17 +123,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
     ``timings=``, a dict that gains ``fwd_s``, ``bwd_s`` and ``opt_s``.
 
     ``dist`` (``moe_dist``) runs expert parallelism: every rank is given
-    the global batch and takes its rows, its params are its shard
-    (``interop.shard_params``), the gradients are synced as FastMoE does
-    (``core.sync.sync_grads``) before AdamW, and the metrics are the means
-    over the ranks."""
+    the global batch and takes its rows over ``dist.token_axes``, its
+    params are its shard (``lm.init_params(mesh=...)``), the gradients are
+    synced as FastMoE does (``core.sync.sync_grads``) before AdamW, and the
+    metrics are the means over the ranks."""
     dev = resolve(device)
     mesh = dist.mesh if dist is not None else None
 
     def train_step(params, opt_state, batch, step, *, timings=None):
         tokens = torch.as_tensor(batch["tokens"])
         if mesh is not None:
-            tokens = _rank_rows(tokens, mesh)
+            tokens = _rank_rows(tokens, dist)
         if tokens.shape[0] % num_microbatches:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{num_microbatches} equal microbatches")
@@ -141,12 +156,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
             loss, aux = loss * inv, {k: v * inv for k, v in aux.items()}
         t0 = time.perf_counter()
         if mesh is not None:
-            sync_grads(grads, mesh)
+            sync_grads(grads, dist)
             loss = _mean_over_ranks(loss, mesh)
             aux["ce"] = _mean_over_ranks(aux["ce"], mesh)
         lr_scale = warmup_cosine(step, warmup=warmup, total=total_steps)
         params, opt_state, gnorm = opt.update(grads, opt_state, params,
-                                              lr_scale=lr_scale, mesh=mesh)
+                                              lr_scale=lr_scale, dist=dist)
         if timings is not None:
             _sync(dev)
             timings["opt_s"] = timings.get("opt_s", 0.0) + time.perf_counter() - t0
@@ -200,18 +215,24 @@ def _run(args, dev: torch.device, mesh) -> None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
     opt = AdamW(lr=args.lr)
-    # every rank makes the whole params from the seed and keeps its shard
-    params = lm.init_params(cfg, seed=args.seed, device=dev,
-                            param_dtype=cfg.param_dtype)
     dist = None
     if mesh is not None:
-        dist = moe_dist(cfg, mesh, args.batch * args.seq)
+        # a rank takes whole sequences, so the mode follows the row count:
+        # rows that split over every rank exchange tokens (a2a), others
+        # fall back to the psum mode
+        dist = moe_dist(cfg, mesh, args.batch)
         if dist is None:
             raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
                              f" experts do not split over the model axis of "
                              f"{args.mesh}, and data parallelism without "
                              f"experts is not ported")
-        params = interop.shard_params(params, mesh)
+    # each rank makes its own shard from the seed
+    params = lm.init_params(cfg, seed=args.seed, device=dev,
+                            param_dtype=cfg.param_dtype, mesh=mesh,
+                            expert_tp=dist is not None and dist.expert_tp)
+    if lead and dist is not None:
+        print(f"mesh {args.mesh} ({dist.mode} over {dist.token_axes})",
+              flush=True)
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, dist=dist,
                               num_microbatches=args.microbatches,

@@ -38,9 +38,11 @@ def layer_windows(cfg: ModelConfig) -> list:
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
-               dtype=torch.float32) -> dict:
+               dtype=torch.float32, expert_key: int | None = None,
+               shard: tuple = (slice(None), slice(None))) -> dict:
     """One decoder layer.  Norm and router params are f32; the rest
-    ``dtype``."""
+    ``dtype``.  ``expert_key`` and ``shard``: the routed experts'
+    (``core.fmoe.fmoe_init``)."""
     _check_family(cfg)
     d = cfg.d_model
     p = {"norm1": norm_init(d, cfg.norm, device=device),
@@ -49,9 +51,10 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
              gen, d, cfg.attention, device=device, dtype=dtype)}
     if cfg.moe is not None:
         p["ffn"] = fmoe_init(gen, d, cfg.moe, act=cfg.act, d_ff_dense=cfg.d_ff,
-                             device=device, dtype=dtype)
+                             device=device, dtype=dtype, expert_key=expert_key,
+                             shard=shard)
     else:
-        p["ffn"] = _ffn_init(gen, 0, d, cfg.d_ff, cfg.act, device=device,
+        p["ffn"] = _ffn_init(gen, d, cfg.d_ff, cfg.act, device=device,
                              dtype=dtype)
     return p
 

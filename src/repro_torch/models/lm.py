@@ -2,7 +2,7 @@
 or MLA attention).
 
 Public API:
-  init_params(cfg, seed=, device=, param_dtype=)   -> params
+  init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=) -> params
   forward(params, cfg, tokens, impl=, device=, dist=)  -> (logits, MoEMetrics)
   loss_fn(params, cfg, batch, impl=, device=, dist=)   -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balance import MoEMetrics
+from repro_torch.core.fmoe import expert_seed
 from repro_torch.device import resolve
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
@@ -52,18 +53,32 @@ def cast_params(p, dtype):
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                param_dtype: str | None = None) -> dict:
+                param_dtype: str | None = None, mesh=None,
+                expert_tp: bool = False) -> dict:
     """Random params from ``seed`` (the JAX package's distributions and
-    scales; a torch generator, so not its numbers).  Layers are made one at
+    scales; torch generators, so not its numbers).  Layers are made one at
     a time in f32 and kept in ``param_dtype``: by default ``cfg.dtype``, the
-    serving layout; training passes ``cfg.param_dtype`` (f32 masters)."""
+    serving layout; training passes ``cfg.param_dtype`` (f32 masters).
+
+    Every leaf but the routed expert stacks comes from one generator seeded
+    by ``seed``; expert ``e`` of leaf ``i`` of layer ``l``'s stacks from a
+    generator seeded by (seed, l, i, e) alone.  So with ``mesh`` (a
+    ``launch.mesh.Mesh``; shape and rank suffice, no process group) a rank
+    makes only its shard, its experts one at a time, and that shard equals
+    ``interop.shard_params(init_params(...), mesh, expert_tp=expert_tp)``
+    of the whole bit for bit."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, param_dtype or cfg.dtype)
+    shard = (slice(None), slice(None))
+    if mesh is not None and cfg.moe is not None:
+        shard = mesh.expert_shard(cfg.moe.num_experts, cfg.moe.d_expert_hidden,
+                                  tp=expert_tp)
     p = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
-        "layers": [cast_params(B.layer_init(gen, cfg, device=dev), dtype)
-                   for _ in range(cfg.num_layers)],
+        "layers": [cast_params(B.layer_init(
+            gen, cfg, device=dev, expert_key=expert_seed(seed, layer),
+            shard=shard), dtype) for layer in range(cfg.num_layers)],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:

@@ -39,13 +39,14 @@ class AdamWState(NamedTuple):
     nu: dict
 
 
-def global_norm(tree, mesh=None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32.  With a ``mesh``,
-    the norm of the whole gradient: each rank holds only its shard of an
-    expert leaf, so those squares are summed over the model group
+def global_norm(tree, dist=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  With ``dist`` (a
+    ``core.fmoe.DistConfig`` over a mesh), the norm of the whole gradient:
+    each rank holds only its shard of an expert leaf, so those squares are
+    summed over the ranks that hold the shards
     (``core.sync.sharded_sq_norms``), and every rank clips alike."""
-    if mesh is not None:
-        return torch.sqrt(sum(sharded_sq_norms(tree, mesh)))
+    if dist is not None:
+        return torch.sqrt(sum(sharded_sq_norms(tree, dist)))
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
 
@@ -66,11 +67,11 @@ class AdamW(NamedTuple):
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, *,
-               lr_scale: float = 1.0, mesh=None):
+               lr_scale: float = 1.0, dist=None):
         """Returns (params, state, grad_norm); params and the moments are
-        updated in place, and ``grads`` is used as scratch.  ``mesh``: the
+        updated in place, and ``grads`` is used as scratch.  ``dist``: the
         grads are a rank's synced shards (``global_norm``)."""
-        gnorm = global_norm(grads, mesh)
+        gnorm = global_norm(grads, dist)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),

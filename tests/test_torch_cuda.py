@@ -5,7 +5,9 @@ widths and its routing of other shapes to the simple kernel, the fused
 FFN's ring kernel (all acts, hidden tails, empty groups, the decode,
 prefill and training row counts at full width) and its simple route, its
 backward kernels (the dX and dW ring kernels over the same cases, an
-expert over the dW kernel's 64-row batch, and their simple route), and
+expert over the dW kernel's 64-row batch, and their simple route), the
+expert kernels at the hidden shards of expert-internal tensor
+parallelism (1024 and 512 of fastmoe-gpt's 2048), and
 flash attention (tails of both tile sizes, window 1, GQA, non-causal, a
 query offset, one query row; the bf16 forward at both of its tile choices,
 also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
@@ -683,6 +685,42 @@ def test_fused_ffn_bwd_ring_kernels_model_rows(dev, act, M, bm):
     del dx
     _check_dw(fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act),
               fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act), gs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H", [1024, 512])
+def test_expert_kernels_at_tp_hidden_shards(dev, dtype, H):
+    """Expert-internal tensor parallelism hands each data rank a hidden
+    slice of fastmoe-gpt's 2048 (1024 over 2 ranks, 512 over 4): the fused
+    FFN forward, its dX and dW and the grouped GEMM (x @ wi, h @ wo, and dX
+    reading wi transposed) at the training rows' capacity buffer (96
+    experts x 56 slots, slots past a load of ~43 zero), against their plain
+    versions; bf16 on the ring kernels."""
+    E, K, N, C = 96, 1024, 1024, 56
+    loads = [C - (e % 3) * 7 for e in range(E)]
+    x, gs, ws, wo, dy = _ffn_inputs(dev, dtype, "gelu", E * C, K, H, N,
+                                    [C] * E)
+    slot = torch.arange(C, device=dev)
+    empty = slot[None] >= torch.tensor(loads, device=dev)[:, None]
+    x.view(E, C, K)[empty] = 0
+    if dtype == torch.bfloat16:
+        assert ff.route(x, ws, wo) == "ring" == fb.route(x, ws, wo, dy)
+    got = ff.fused_ffn(x, ws, wo, gs, "gelu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, "gelu"),
+                               **TOL[dtype])
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "gelu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        dx, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "gelu"), **TOL[dtype])
+    _check_dw(fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "gelu"),
+              fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "gelu"), gs)
+    h = torch.randn(E * C, H, device=dev).to(dtype)
+    for a, w, trans in ((x, ws[0], False), (h, wo, False), (h, ws[0], True)):
+        out = gg.grouped_gemm(a, w, gs, trans)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, gg.grouped_gemm_plain(a, w, gs, trans),
+                                   **TOL[dtype])
 
 
 @pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32", "f32_wide"])

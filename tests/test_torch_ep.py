@@ -24,28 +24,39 @@ holds the results to the JAX package:
 * *model* (1x2, 2x2): reduced ``fastmoe-gpt`` with ``remat="full"``, the
   step-0 loss, aux and z loss, every gradient leaf after ``sync_grads``,
   the global grad norm, and two train steps' losses against the JAX
-  package's distributed ``lm.loss_fn(dist=DistConfig(mesh, ("data",
-  "model")))`` on fake CPU devices (``tests/dist_utils.run``) at 1e-4 (of
-  the leaf's largest magnitude for gradients) — a sharded aux loss is the
-  mean of per-shard losses and capacity drops are decided per rank, so the
-  single-rank model is not the counterpart; and the sync semantics:
-  ``world`` leaves equal on every rank, expert leaves equal within a data
-  group and different across model ranks;
+  package's distributed ``lm.loss_fn`` under the same ``DistConfig`` on
+  fake CPU devices (``tests/dist_utils.run``) at 1e-4 (of the leaf's
+  largest magnitude for gradients) — a sharded aux loss is the mean of
+  per-shard losses and capacity drops are decided per rank, so the
+  single-rank model is not the counterpart: a2a (``("data", "model")``)
+  and the psum mode (``()`` on 1x2, ``("data",)`` on 2x2); and the sync
+  semantics: ``world`` leaves equal on every rank, expert leaves equal
+  within a data group and different across model ranks;
+* *tensor parallelism* (2x2, capacity, ``tp_axis="data"``): the layer for
+  each impl (``y``, ``load``, the gradients of ``sum(y * r)``, each rank
+  its hidden slice of its experts) against the JAX package's layer with
+  the same ``tp_axis`` at 1e-5, the model against its distributed
+  ``loss_fn`` at 1e-4, and the sync semantics (a tp expert leaf differs
+  across data ranks; the grad norm is the whole gradient's);
 * *world size 1* (1x1): the exchange is an identity, and the EP path's
   loss and every gradient equal the local path's bit for bit, as do the
-  params after one train step; and psum decode equals local decode;
+  params after one train step — a2a, the psum mode, and tp (capacity);
+  and psum decode equals local decode;
 * *psum layer matrix* (1x2 and 1x4 with ``token_axes=()``, 2x2 with
   ``("data",)``): the same {capacity, ragged} x {einsum, pallas, fused}
   cases in the psum mode (every rank of a model group holds the same
-  tokens, under ``torch.no_grad()``: the mode serves only), ``y``,
-  ``load`` and ``drop_frac`` against JAX's single-rank layer at 1e-5 —
-  the reference's own psum cell (``tests/test_distributed.py``);
+  tokens), ``y``, ``load`` and ``drop_frac`` against JAX's single-rank
+  layer at 1e-5 — the reference's own psum cell
+  (``tests/test_distributed.py``) — and the gradients against
+  ``jax.grad`` of it at 1e-5 of each leaf's largest magnitude;
 * *psum decode* (1x2): reduced ``fastmoe-gpt`` decoding greedily through
   ``lm.decode_step(dist=serve.decode_dist(...))``, logits against the JAX
   package's distributed ``lm.decode_step`` on fake CPU devices at 1e-4,
   greedy tokens equal;
-* refusals of what the slice does not carry, and the ``torchrun`` CLIs of
-  training and of continuous serving.
+* refusals of what the slice does not carry (ragged dispatch with tp
+  among them), and the ``torchrun`` CLIs of training (a2a, and the psum
+  mode where 2 rows do not split over 4 ranks) and of continuous
+  serving.
 """
 import datetime
 import json
@@ -62,11 +73,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-SPAWN_TIMEOUT = 180  # seconds a spawn of ranks may take before it is killed
+SPAWN_TIMEOUT = 300  # seconds a spawn of ranks may take before it is killed
 STORE_TIMEOUT = datetime.timedelta(seconds=150)  # a collective's own limit
 MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model", "decode"],
-         "2x2": ["layer", "model", "drops"], "1x4": ["layer"]}
+         "2x2": ["layer", "model", "drops", "tp"], "1x4": ["layer"]}
 DISPATCHES = ("capacity", "ragged")
 IMPLS = ("einsum", "pallas", "fused")
 # model level: the port's impl per dispatch; the JAX side runs einsum (its
@@ -143,92 +154,120 @@ def _layer_task(spec, job, mesh, out):
     rows = slice(mesh.rank * t, (mesh.rank + 1) * t)
     whole = _unflatten({k: torch.from_numpy(v) for k, v in inp.items()
                         if k.startswith(("router/", "experts/"))})
-    params = interop.shard_params(whole, mesh)
-    leaves = [params["router"]["w"]] + list(params["experts"].values())
-    cases = [(dp, impl, 0) for dp in DISPATCHES for impl in IMPLS]
-    if "drops" in spec["tasks"]:
-        cases.append(("ragged", "fused", DROP_BOUND))
-    for dispatch, impl, bound in cases:
+
+    def run(key, params, dist, dispatch, impl, rows, grads=True):
+        """y, load, drop_frac and the synced gradients of sum(y * r) over
+        the rank's rows."""
         cfg = MoEConfig(dispatch=dispatch, **LAYER)
-        dist = fmoe.DistConfig(mesh, ("data", "model"), ragged_bound=bound)
-        p = {"router": {"w": leaves[0].clone().requires_grad_()},
-             "experts": {k: v.clone().requires_grad_()
-                         for k, v in params["experts"].items()}}
+        p = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
+             for k, v in params.items()}
         xs = x[rows].clone().requires_grad_()
         y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl)
-        key = f"drops/{dispatch}/{impl}" if bound else f"layer/{dispatch}/{impl}"
         out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
                     f"{key}/drop_frac": m.drop_frac})
-        if bound:
-            continue
+        if not grads:
+            return
         g_leaves = [p["router"]["w"]] + list(p["experts"].values())
-        grads = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs])
-        tree = {"router": {"w": grads[0]},
-                "experts": dict(zip(p["experts"], grads[1:-1]))}
-        sync_grads(tree, mesh)
+        g = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs])
+        tree = {"router": {"w": g[0]},
+                "experts": dict(zip(p["experts"], g[1:-1]))}
+        sync_grads(tree, dist)
         for k, v in _flatten(tree).items():
             out[f"{key}/grad/{k}"] = v
-        out[f"{key}/grad/x"] = grads[-1]
+        out[f"{key}/grad/x"] = g[-1]
+
+    params = interop.shard_params(whole, mesh)
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            run(f"layer/{dispatch}/{impl}", params,
+                fmoe.DistConfig(mesh, ("data", "model")), dispatch, impl, rows)
+    if "drops" in spec["tasks"]:
+        run("drops/ragged/fused", params,
+            fmoe.DistConfig(mesh, ("data", "model"), ragged_bound=DROP_BOUND),
+            "ragged", "fused", rows, grads=False)
     # the psum mode: a model group holds the same tokens, its data row's
     # block of them where the mesh has a data axis
     data = mesh.shape["data"]
-    token_axes = ("data",) if data > 1 else ()
+    dist = fmoe.DistConfig(mesh, ("data",) if data > 1 else ())
+    assert dist.mode == "psum"
     t = x.shape[0] // data
     d = mesh.coords()[0]
     for dispatch in DISPATCHES:
         for impl in IMPLS:
-            cfg = MoEConfig(dispatch=dispatch, **LAYER)
-            dist = fmoe.DistConfig(mesh, token_axes)
-            assert dist.mode == "psum"
-            with torch.no_grad():
-                y, m = fmoe.fmoe_apply(params, x[d * t:(d + 1) * t], cfg,
-                                       act="swiglu", dist=dist, impl=impl)
-            key = f"psum/{dispatch}/{impl}"
-            out.update({f"{key}/y": y, f"{key}/load": m.load,
-                        f"{key}/drop_frac": m.drop_frac})
+            run(f"psum/{dispatch}/{impl}", params, dist, dispatch, impl,
+                slice(d * t, (d + 1) * t))
+    if "tp" in spec["tasks"]:  # expert-internal tensor parallelism
+        dist = fmoe.DistConfig(mesh, ("data", "model"), tp_axis="data")
+        tp_params = interop.shard_params(whole, mesh, expert_tp=True)
+        for impl in IMPLS:
+            run(f"tp_layer/capacity/{impl}", tp_params, dist, "capacity", impl,
+                rows)
 
 
-def _model_task(spec, job, mesh, out):
+def _model_run(key, params_np, cfg, dist, impl, out):
+    """Reduced fastmoe-gpt under ``dist`` from the JAX params: the step-0
+    loss, aux, every synced gradient leaf and the grad norm, then two
+    train steps' losses."""
     from repro_torch import interop
     from repro_torch.core.sync import sync_grads
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import global_norm
 
+    params = interop.from_jax(params_np, cfg, device="cpu", mesh=dist.mesh,
+                              expert_tp=dist.expert_tp)
+    rows = train._rank_rows(torch.from_numpy(_tokens(0)), dist)
+    loss, aux, grads = train.loss_and_grads(
+        params, cfg, {"tokens": rows}, impl=impl, device="cpu", dist=dist)
+    sync_grads(grads, dist)
+    out[f"{key}/loss"] = train._mean_over_ranks(loss, dist.mesh)
+    for k in ("aux_loss", "z_loss", "drop_frac", "load"):
+        out[f"{key}/{k}"] = aux[k]
+    out[f"{key}/grad_norm"] = global_norm(grads, dist)
+    for k, v in _flatten(interop.to_jax(grads)).items():
+        out[f"{key}/grad/{k}"] = v
+    opt = AdamW(lr=LR)
+    step_fn = train.make_train_step(cfg, opt, dist=dist, warmup=WARMUP,
+                                    total_steps=TOTAL, impl=impl,
+                                    device="cpu")
+    state = opt.init(params)
+    losses = []
+    for step in range(2):
+        params, state, m = step_fn(
+            params, state, {"tokens": torch.from_numpy(_tokens(step))}, step)
+        losses.append(float(m["loss"]))
+    out[f"{key}/losses"] = np.asarray(losses)
+
+
+def _model_task(spec, job, mesh, out):
+    """a2a (the rows split over every rank: ``moe_dist`` picks it) and the
+    psum mode over the data axis's blocks, or over () without one."""
+    from repro_torch.core import fmoe
+    from repro_torch.launch import train
+
     params_np = _unflatten(dict(np.load(job / "model_params.npz")))
+    psum = fmoe.DistConfig(mesh, ("data",) if mesh.shape["data"] > 1 else ())
     for dispatch in DISPATCHES:
-        impl = MODEL_IMPL[dispatch]
         cfg = _model_cfg(dispatch)
-        dist = train.moe_dist(cfg, mesh, MODEL_B * MODEL_S)
-        params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
-        rows = train._rank_rows(torch.from_numpy(_tokens(0)), mesh)
-        loss, aux, grads = train.loss_and_grads(
-            params, cfg, {"tokens": rows}, impl=impl, device="cpu", dist=dist)
-        sync_grads(grads, mesh)
-        key = f"model/{dispatch}"
-        out[f"{key}/loss"] = train._mean_over_ranks(loss, mesh)
-        for k in ("aux_loss", "z_loss", "drop_frac", "load"):
-            out[f"{key}/{k}"] = aux[k]
-        out[f"{key}/grad_norm"] = global_norm(grads, mesh)
-        for k, v in _flatten(interop.to_jax(grads)).items():
-            out[f"{key}/grad/{k}"] = v
-        opt = AdamW(lr=LR)
-        step_fn = train.make_train_step(cfg, opt, dist=dist, warmup=WARMUP,
-                                        total_steps=TOTAL, impl=impl,
-                                        device="cpu")
-        state = opt.init(params)
-        losses = []
-        for step in range(2):
-            params, state, m = step_fn(
-                params, state, {"tokens": torch.from_numpy(_tokens(step))},
-                step)
-            losses.append(float(m["loss"]))
-        out[f"{key}/losses"] = np.asarray(losses)
+        dist = train.moe_dist(cfg, mesh, MODEL_B)
+        assert dist.mode == "a2a"
+        _model_run(f"model/{dispatch}", params_np, cfg, dist,
+                   MODEL_IMPL[dispatch], out)
+        _model_run(f"psum_model/{dispatch}", params_np, cfg, psum,
+                   MODEL_IMPL[dispatch], out)
+    if "tp" in spec["tasks"]:
+        cfg = _model_cfg("capacity")
+        dist = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
+        assert dist.tp_axis == "data" and dist.expert_tp
+        for impl in IMPLS:
+            _model_run(f"tp_model/{impl}", params_np, cfg, dist, impl, out)
 
 
 def _bit_equal_task(spec, job, mesh, out):
-    """At world size 1 the EP path must be the local path, bit for bit, and
-    psum decode the local decode."""
+    """At world size 1 the EP path (a2a, the psum mode and, for capacity,
+    expert-internal tensor parallelism) must be the local path, bit for
+    bit, and psum decode the local decode."""
+    from repro_torch.core import fmoe
     from repro_torch.launch import serve, train
     from repro_torch.models import lm
     from repro_torch.optim import AdamW
@@ -236,13 +275,18 @@ def _bit_equal_task(spec, job, mesh, out):
 
     for dispatch in DISPATCHES:
         cfg = _model_cfg(dispatch)
-        dist = train.moe_dist(cfg, mesh, MODEL_B * MODEL_S)
+        dists = {"local": None, "ep": train.moe_dist(cfg, mesh, MODEL_B),
+                 "psum": fmoe.DistConfig(mesh, ("data",))}
+        if dispatch == "capacity":
+            dists["tp"] = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
         batch = {"tokens": torch.from_numpy(_tokens(0))}
         for impl in IMPLS:
             res = {}
-            for name, d in (("local", None), ("ep", dist)):
-                params = lm.init_params(cfg, seed=0, device="cpu",
-                                        param_dtype=cfg.param_dtype)
+            for name, d in dists.items():
+                params = lm.init_params(
+                    cfg, seed=0, device="cpu", param_dtype=cfg.param_dtype,
+                    mesh=None if d is None else mesh,
+                    expert_tp=d is not None and d.expert_tp)
                 loss, _, grads = train.loss_and_grads(
                     params, cfg, batch, impl=impl, device="cpu", dist=d)
                 opt = AdamW(lr=LR)
@@ -252,12 +296,14 @@ def _bit_equal_task(spec, job, mesh, out):
                 res[name] = ([loss] + tree_leaves(grads),
                              [m["grad_norm"]] + tree_leaves(params))
             key = f"bit_equal/{dispatch}/{impl}"
-            out[f"{key}/grads"] = np.asarray(all(
-                torch.equal(a, b) for a, b in zip(res["local"][0],
-                                                  res["ep"][0])))
-            out[f"{key}/step"] = np.asarray(all(
-                torch.equal(a, b) for a, b in zip(res["local"][1],
-                                                  res["ep"][1])))
+            for name in list(dists)[1:]:
+                sub = key if name == "ep" else f"{key}/{name}"
+                out[f"{sub}/grads"] = np.asarray(all(
+                    torch.equal(a, b) for a, b in zip(res["local"][0],
+                                                      res[name][0])))
+                out[f"{sub}/step"] = np.asarray(all(
+                    torch.equal(a, b) for a, b in zip(res["local"][1],
+                                                      res[name][1])))
             # serving: psum decode against local decode
             params = lm.init_params(cfg, seed=0, device="cpu")
             ddist = serve.decode_dist(cfg, mesh, MODEL_B)
@@ -418,14 +464,14 @@ mesh = make_local_mesh(data, model)
 dist = fmoe.DistConfig(mesh, ("data", "model"))
 params = jax.tree.map(jnp.asarray, T._unflatten(dict(np.load({params!r}))))
 out = {{}}
-for dispatch in T.DISPATCHES:
-    cfg = T._model_cfg(dispatch, "repro")
+
+
+def model_run(key, cfg, dist):
     vg = jax.jit(jax.value_and_grad(
         lambda p, t: lm.loss_fn(p, cfg, {{"tokens": t}}, dist=dist,
                                 impl="einsum"), has_aux=True))
     with mesh:
         (loss, aux), grads = vg(params, jnp.asarray(T._tokens(0)))
-    key = "model/" + dispatch
     out[key + "/loss"] = loss
     for k in ("aux_loss", "z_loss", "drop_frac", "load"):
         out[key + "/" + k] = aux[k]
@@ -439,13 +485,39 @@ for dispatch in T.DISPATCHES:
     with mesh:
         (loss1, _), _ = vg(p1, jnp.asarray(T._tokens(1)))
     out[key + "/losses"] = np.asarray([float(loss), float(loss1)])
-if {drops!r}:
+
+
+parts = {parts!r}
+psum = fmoe.DistConfig(mesh, ("data",) if data > 1 else ())
+for dispatch in T.DISPATCHES:
+    cfg = T._model_cfg(dispatch, "repro")
+    if "a2a" in parts:
+        model_run("model/" + dispatch, cfg, dist)
+    if "psum" in parts:
+        model_run("psum_model/" + dispatch, cfg, psum)
+if "tp" in parts:
+    tp = dist._replace(tp_axis="data")
+    model_run("tp_model", T._model_cfg("capacity", "repro"), tp)
+    env = du.moe_env()
+    r = jnp.asarray(np.load({layer!r})["r"])
+
+    def f(p, x):
+        y, m = fmoe.fmoe_apply(p, x, env.cfg, dist=tp)
+        return (y * r).sum(), (y, m)
+    with mesh:
+        (_, (y, m)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(env.params, env.x)
+    out["tp_layer/y"], out["tp_layer/load"] = y, m.load
+    out["tp_layer/drop_frac"], out["tp_layer/grad/x"] = m.drop_frac, gx
+    for k, v in T._flatten(jax.tree.map(np.asarray, gp)).items():
+        out["tp_layer/grad/" + k] = v
+if "drops" in parts:
     env = du.moe_env(dispatch="ragged")
     y, m = du.dist_apply(env, mesh, dist._replace(ragged_bound=T.DROP_BOUND),
                          impl="fused")
     out["drops/y"], out["drops/drop_frac"] = y, m.drop_frac
     out["drops/load"] = m.load
-if {decode!r}:
+if "decode" in parts:
     from repro.launch.serve import decode_dist
     for dispatch in T.DISPATCHES:
         cfg = T._model_cfg(dispatch, "repro")
@@ -469,19 +541,27 @@ print("jax distributed ok")
 """
 
 
-def _jax_dist(job: Path, name: str, box: dict):
-    """The JAX package's distributed runs of one mesh, on fake devices."""
+# The JAX package's distributed runs per mesh, each tuple one process (so
+# that they run concurrently): the a2a model, the psum model, the tp model
+# and layer, forced drops, psum decode
+JAX_PARTS = {"1x2": (("a2a", "decode"), ("psum",)),
+             "2x2": (("a2a", "drops"), ("psum",), ("tp",))}
+
+
+def _jax_dist(job: Path, name: str, parts: tuple, box: dict):
+    """One process of the JAX package's distributed runs of one mesh, on
+    fake devices."""
     import dist_utils as du
-    dest = job / f"jax_{name}.npz"
+    dest = job / f"jax_{name}_{'_'.join(parts)}.npz"
     try:
         du.run(JAX_DIST.format(tests=str(ROOT / "tests"), mesh=MESHES[name],
                                params=str(job / "model_params.npz"),
-                               drops="drops" in TASKS[name],
-                               decode="decode" in TASKS[name], dest=str(dest)),
+                               layer=str(job / "layer.npz"), parts=parts,
+                               dest=str(dest)),
                devices=4, timeout=SPAWN_TIMEOUT)
-        box[name] = dict(np.load(dest))
+        box[(name, parts)] = dict(np.load(dest))
     except Exception as e:  # reported by the tests that read it
-        box[name] = e
+        box[(name, parts)] = e
 
 
 @pytest.fixture(scope="module")
@@ -505,8 +585,9 @@ def ep(tmp_path_factory):
             {"mesh": [data, model], "tasks": TASKS[name]}))
         waits[name] = (job, _spawn(job, data * model))
     jax_box: dict = {}
-    threads = [threading.Thread(target=_jax_dist, args=(root / n, n, jax_box))
-               for n in MESHES if "model" in TASKS[n]]
+    threads = [threading.Thread(target=_jax_dist,
+                                args=(root / n, n, parts, jax_box))
+               for n, jobs in JAX_PARTS.items() for parts in jobs]
     for th in threads:
         th.start()
     oracle = _jax_layer_oracle(env, r)
@@ -529,8 +610,11 @@ def _ranks(ep, name):
 
 
 def _jax_dist_result(ep, name):
-    res = ep["jax"].get(name)
-    assert isinstance(res, dict), res
+    res = {}
+    for parts in JAX_PARTS[name]:
+        part = ep["jax"].get((name, parts))
+        assert isinstance(part, dict), (parts, part)
+        res.update(part)
     return res
 
 
@@ -634,6 +718,35 @@ def test_layer_grads_match_jax(ep, name):
                                     f"{key} rank {rank} {leaf}")
 
 
+@pytest.mark.parametrize("name", ["1x2", "2x2", "1x4"])
+def test_psum_layer_grads_match_jax(ep, name):
+    """The psum mode's gradients of sum(y * r) against jax.grad of the
+    single-rank layer, at 1e-5 of each leaf's largest magnitude.  The M
+    ranks of a model group share one objective (their data block's), and
+    the all-reduce's backward hands each M times its part: so the synced
+    router and expert gradients are the whole objective's divided by the
+    D data blocks, and a block's input gradient is its model group's sum
+    divided by M."""
+    ranks = _ranks(ep, name)
+    data, model = MESHES[name]
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            key = f"psum/{dispatch}/{impl}"
+            ref = ep["oracle"][f"{dispatch}/{impl}"]["grad"]
+            xg = np.concatenate([
+                sum(ranks[d * model + m][f"{key}/grad/x"]
+                    for m in range(model)) / model for d in range(data)])
+            _close_to_scale(xg, ref["x"].reshape(xg.shape), 1e-5, f"{key} x")
+            for rank, r in enumerate(ranks):
+                _close_to_scale(data * r[f"{key}/grad/router/w"],
+                                ref["router/w"], 1e-5, f"{key} router")
+                for leaf in ("wi_gate", "wi_up", "wo"):
+                    want = _expert_slice(ref[f"experts/{leaf}"], leaf, rank,
+                                         MESHES[name])
+                    _close_to_scale(data * r[f"{key}/grad/experts/{leaf}"],
+                                    want, 1e-5, f"{key} rank {rank} {leaf}")
+
+
 def test_forced_drops_match_jax_distributed(ep):
     ranks = _ranks(ep, "2x2")
     ref = _jax_dist_result(ep, "2x2")
@@ -649,32 +762,103 @@ def test_forced_drops_match_jax_distributed(ep):
                                    ref["drops/load"], rtol=1e-6)
 
 
+def _expert_slice(want, path, rank, mesh, tp=False, lead=0):
+    """The rank's shard of a whole expert leaf (``lead`` dims before the
+    expert dim): its experts, and under ``tp`` its hidden slice (``wi*``
+    the last dim, ``wo`` the one before it)."""
+    data, model = mesh
+    d, m = divmod(rank, model)
+    e = want.shape[lead] // model
+    want = want[(slice(None),) * lead + (slice(m * e, (m + 1) * e),)]
+    if tp:
+        dim = want.ndim - (2 if path.endswith("wo") else 1)
+        h = want.shape[dim] // data
+        want = np.take(want, np.arange(d * h, (d + 1) * h), axis=dim)
+    return want
+
+
+def _assert_model(name, ranks, ref, key, ref_key=None, tp=False):
+    """Every rank's step-0 loss, aux and z loss, drop fraction, load, every
+    synced gradient leaf (expert leaves held to the rank's shard), and the
+    losses of two AdamW steps against the JAX package's."""
+    ref_key = ref_key or key
+    for rank, r in enumerate(ranks):
+        for k in ("loss", "aux_loss", "z_loss", "drop_frac", "losses"):
+            np.testing.assert_allclose(r[f"{key}/{k}"], ref[f"{ref_key}/{k}"],
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(r[f"{key}/load"], ref[f"{ref_key}/load"],
+                                   atol=1e-6)
+        grads = _sub(r, f"{key}/grad")
+        jgrads = _sub(ref, f"{ref_key}/grad")
+        assert grads.keys() == jgrads.keys()
+        for path, g in grads.items():
+            want = jgrads[path]
+            if "/experts/" in path:  # (L, E_local, ...) of (L, E, ...)
+                want = _expert_slice(want, path, rank, MESHES[name], tp, 1)
+            _close_to_scale(g, want, 1e-4, f"{name} {key} rank {rank} {path}")
+
+
 @pytest.mark.parametrize("name", ["1x2", "2x2"])
 @pytest.mark.parametrize("dispatch", DISPATCHES)
 def test_model_matches_jax_distributed(ep, name, dispatch):
     """Reduced fastmoe-gpt with remat: step-0 loss, aux and z loss, drop
     fraction, load, every synced gradient leaf (expert leaves held to
     their slice), and the losses of two AdamW steps."""
-    ranks = _ranks(ep, name)
-    ref = _jax_dist_result(ep, name)
-    model = MESHES[name][1]
-    key = f"model/{dispatch}"
+    _assert_model(name, _ranks(ep, name), _jax_dist_result(ep, name),
+                  f"model/{dispatch}")
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_psum_model_matches_jax_distributed(ep, name, dispatch):
+    """Training through the psum mode: reduced fastmoe-gpt with remat over
+    token_axes () on 1x2 (every rank holds every row) and ("data",) on
+    2x2 (a model group shares its data row's block), against the JAX
+    package's distributed loss_fn under the same DistConfig, as the
+    a2a case."""
+    _assert_model(name, _ranks(ep, name), _jax_dist_result(ep, name),
+                  f"psum_model/{dispatch}")
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_tp_model_matches_jax_distributed(ep, impl):
+    """Expert-internal tensor parallelism (capacity, 2x2, tp_axis "data"):
+    each rank holds half of its experts' hidden units; the model against
+    the JAX package's distributed loss_fn with the same tp_axis (its
+    einsum experts)."""
+    _assert_model("2x2", _ranks(ep, "2x2"), _jax_dist_result(ep, "2x2"),
+                  f"tp_model/{impl}", "tp_model", tp=True)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_tp_layer_matches_jax(ep, impl):
+    """The tp layer (capacity, 2x2) against the JAX package's layer with
+    tp_axis="data" (einsum): y, load and drop fraction at 1e-5, and the
+    gradients of sum(y * r) (the input rows; the router after sync_grads;
+    each rank's hidden slice of its experts) times the world size, at 1e-5
+    of each leaf's largest magnitude."""
+    ranks = _ranks(ep, "2x2")
+    ref = _sub(_jax_dist_result(ep, "2x2"), "tp_layer")
+    key = f"tp_layer/capacity/{impl}"
+    world = len(ranks)
+    y = np.concatenate([r[f"{key}/y"] for r in ranks])
+    np.testing.assert_allclose(y, ref["y"].reshape(y.shape), rtol=1e-5,
+                               atol=1e-5)
+    xg = np.concatenate([r[f"{key}/grad/x"] for r in ranks])
+    _close_to_scale(xg, ref["grad/x"].reshape(xg.shape), 1e-5, "x")
     for rank, r in enumerate(ranks):
-        for k in ("loss", "aux_loss", "z_loss", "drop_frac", "losses"):
-            np.testing.assert_allclose(r[f"{key}/{k}"], ref[f"{key}/{k}"],
-                                       rtol=1e-4, atol=1e-6, err_msg=k)
-        np.testing.assert_allclose(r[f"{key}/load"], ref[f"{key}/load"],
+        np.testing.assert_allclose(r[f"{key}/load"], ref["load"], rtol=1e-5,
                                    atol=1e-6)
-        grads = _sub(r, f"{key}/grad")
-        jgrads = _sub(ref, f"{key}/grad")
-        assert grads.keys() == jgrads.keys()
-        m = rank % model
-        for path, g in grads.items():
-            want = jgrads[path]
-            if "/experts/" in path:  # (L, E_local, ...) of (L, E, ...)
-                e = want.shape[1] // model
-                want = want[:, m * e:(m + 1) * e]
-            _close_to_scale(g, want, 1e-4, f"{name} {key} rank {rank} {path}")
+        np.testing.assert_allclose(r[f"{key}/drop_frac"], ref["drop_frac"],
+                                   atol=1e-6)
+        _close_to_scale(world * r[f"{key}/grad/router/w"],
+                        ref["grad/router/w"], 1e-5, f"rank {rank} router")
+        for leaf in ("wi_gate", "wi_up", "wo"):
+            want = _expert_slice(ref[f"grad/experts/{leaf}"], leaf, rank,
+                                 MESHES["2x2"], tp=True)
+            got = r[f"{key}/grad/experts/{leaf}"]
+            assert got.shape == want.shape, (leaf, got.shape, want.shape)
+            _close_to_scale(world * got, want, 1e-5, f"rank {rank} {leaf}")
 
 
 @pytest.mark.parametrize("name", ["1x2", "2x2"])
@@ -703,6 +887,72 @@ def test_sync_semantics_and_grad_norm(ep, name):
                                        ref[f"{key}/grad_norm"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+def test_psum_sync_semantics_and_grad_norm(ep, name):
+    """The psum mode after sync_grads: world leaves identical on every
+    rank, expert leaves identical within a data group and different across
+    model ranks; the global grad norm equals JAX's."""
+    ranks = _ranks(ep, name)
+    ref = _jax_dist_result(ep, name)
+    model = MESHES[name][1]
+    for dispatch in DISPATCHES:
+        key = f"psum_model/{dispatch}"
+        grads = [_sub(r, f"{key}/grad") for r in ranks]
+        for path in grads[0]:
+            for rank, g in enumerate(grads):
+                if "/experts/" not in path:
+                    np.testing.assert_array_equal(g[path], grads[0][path], path)
+                    continue
+                peer = (rank + model) % len(ranks)  # same m, next data index
+                np.testing.assert_array_equal(g[path], grads[peer][path], path)
+                other = rank - rank % model + (rank + 1) % model
+                assert not np.allclose(g[path], grads[other][path]), path
+        for r in ranks:
+            np.testing.assert_allclose(r[f"{key}/grad_norm"],
+                                       ref[f"{key}/grad_norm"], rtol=1e-5)
+
+
+def test_tp_sync_semantics_and_grad_norm(ep):
+    """Under expert-internal tensor parallelism (2x2) sync_grads leaves a
+    tp expert leaf unreduced: it differs across data ranks (each holds
+    another hidden slice) and across model ranks, while world leaves are
+    identical on every rank; the grad norm, summed over every rank's
+    shard, is the whole gradient's (JAX's)."""
+    ranks = _ranks(ep, "2x2")
+    ref = _jax_dist_result(ep, "2x2")
+    for impl in IMPLS:
+        key = f"tp_model/{impl}"
+        grads = [_sub(r, f"{key}/grad") for r in ranks]
+        for path in grads[0]:
+            for rank, g in enumerate(grads[1:], 1):
+                if "/experts/" in path:
+                    assert not np.allclose(g[path], grads[0][path]), path
+                else:
+                    np.testing.assert_array_equal(g[path], grads[0][path], path)
+        for r in ranks:
+            np.testing.assert_allclose(r[f"{key}/grad_norm"],
+                                       ref["tp_model/grad_norm"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_world_size_1_psum_train_is_local_bit_for_bit(ep, dispatch, impl):
+    """At world size 1 the psum mode's train step is the local one: step-0
+    loss and gradients, the grad norm and the params after one step."""
+    r = _ranks(ep, "1x1")[0]
+    assert bool(r[f"bit_equal/{dispatch}/{impl}/psum/grads"]), "loss or a grad"
+    assert bool(r[f"bit_equal/{dispatch}/{impl}/psum/step"]), "norm or params"
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_world_size_1_tp_train_is_local_bit_for_bit(ep, impl):
+    """At world size 1 the tp train step (capacity) is the local one: its
+    all-gather and reduce-scatter are copies."""
+    r = _ranks(ep, "1x1")[0]
+    assert bool(r[f"bit_equal/capacity/{impl}/tp/grads"]), "loss or a grad"
+    assert bool(r[f"bit_equal/capacity/{impl}/tp/step"]), "norm or params"
+
+
 @pytest.mark.parametrize("dispatch", DISPATCHES)
 @pytest.mark.parametrize("impl", IMPLS)
 def test_world_size_1_is_the_local_path_bit_for_bit(ep, dispatch, impl):
@@ -722,10 +972,9 @@ def test_world_size_1_psum_decode_is_local_decode(ep, dispatch, impl):
 REFUSED = {
     "overlap_chunks": (dict(overlap_chunks=2), "item 2"),
     "wire_dtype": (dict(wire_dtype="bf16"), "item 2"),
-    "tp_axis": (dict(tp_axis="data"), "item 1"),
     "placement": (dict(placement=object()), "item 4"),
-    "psum_mode": (dict(token_axes=("data",)),
-                  "training through the psum mode"),
+    # as the reference: tp takes the capacity dispatch
+    "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
     "node_axis": (dict(node_axis="node"), "item 6"),
     "inter_bound": (dict(inter_bound=8), "item 6"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
@@ -742,11 +991,11 @@ def test_unsupported_options_raise(what):
     kw, item = REFUSED[what]
     kw = {"token_axes": ("data", "model"), **kw}
     dist = fmoe.DistConfig(Mesh(1, 2), **kw)
-    cfg = MoEConfig(**LAYER)
+    cfg = MoEConfig(dispatch="ragged" if what == "ragged_tp" else "capacity",
+                    **LAYER)
     gen = torch.Generator().manual_seed(0)
     params = fmoe.fmoe_init(gen, 32, cfg, device="cpu")
-    # the psum mode serves: it refuses autograd recording
-    x = torch.zeros(8, 32, requires_grad=what == "psum_mode")
+    x = torch.zeros(8, 32)
     with pytest.raises(NotImplementedError, match=item):
         fmoe.fmoe_apply(params, x, cfg, dist=dist)
 
@@ -784,22 +1033,71 @@ def test_serial_exchange_refuses_chunks_and_psum_from_moe_dist():
     assert train.moe_dist(cfg, Mesh(1, 3), 63) is None  # 4 experts, 3 ranks
 
 
-def test_train_cli_under_torchrun():
-    """The README's command, 4 ranks of gloo on a 2x2 mesh: exits 0 with a
-    falling loss."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "4", "-m", "repro_torch.launch.train",
-           "--mesh", "2x2", "--device", "cpu", "--reduced", "--steps", "2",
-           "--log_every", "1"]
+def _train_cli(*args, ranks=4):
+    """The train CLI (under torchrun with ``ranks`` gloo ranks when ``ranks
+    > 1``): (stdout lines, the logged losses)."""
+    pre = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(ranks)] if ranks > 1 else [])
+    cmd = [sys.executable, *pre, "-m", "repro_torch.launch.train",
+           "--device", "cpu", "--reduced", "--steps", "2", "--log_every", "1",
+           *args]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     out = subprocess.run(cmd, capture_output=True, text=True, env=env,
                          cwd=ROOT, timeout=SPAWN_TIMEOUT)
     assert out.returncode == 0, out.stderr[-3000:]
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("step")]
-    assert len(lines) == 2, out.stdout  # rank 0 logs alone
-    losses = [float(ln.split("loss")[1].split()[0]) for ln in lines]
+    lines = out.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step")]
+    assert len(steps) == 2, out.stdout  # rank 0 logs alone
+    return lines, [float(ln.split("loss")[1].split()[0]) for ln in steps]
+
+
+def test_train_cli_under_torchrun():
+    """The README's command, 4 ranks of gloo on a 2x2 mesh: 8 rows split
+    over every rank (a2a); exits 0 with a falling loss.  At the default
+    learning rate the first step's update (warmup: 1/100 of 3e-4) moves the
+    loss less than the next batch does, so the step is taken at 3e-2,
+    where it falls by ~0.4."""
+    lines, losses = _train_cli("--mesh", "2x2", "--lr", "0.03")
+    assert "mesh 2x2 (a2a over ('data', 'model'))" in lines, lines
     assert 5.0 < losses[0] < 8.0 and losses[1] < losses[0], losses
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_train_cli_psum_under_torchrun(mesh):
+    """A batch of 2 rows does not split over 4 ranks: the train CLI takes
+    the psum mode over ("data",), as the reference's moe_dist does.  On
+    1x4 the data axis has one rank, so every rank holds every row and the
+    logged losses are the single-process run's (ragged, so dropless) to
+    1e-4 and the 4-decimal print; on 2x2 a model group shares its data
+    row's one row."""
+    args = ["--batch", "2", "--seq", "16", "--dispatch", "ragged"]
+    lines, losses = _train_cli("--mesh", mesh, *args)
+    assert f"mesh {mesh} (psum over ('data',))" in lines, lines
+    assert all(5.0 < v < 8.0 for v in losses), losses
+    if mesh == "1x4":
+        _, single = _train_cli(*args, ranks=1)
+        np.testing.assert_allclose(losses, single, rtol=0, atol=1e-4 + 1e-6)
+
+
+def test_moe_dist_modes_and_expert_tp():
+    """moe_dist: a2a where the rows split over every rank, carrying
+    tp_axis="data" under expert_tp; the psum fallbacks (over data, or
+    over ()) leave tp_axis None; a tp_axis in the psum mode shards
+    nothing."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import fmoe
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = reduced(get_config("fastmoe-gpt"))
+    mesh = Mesh(2, 2)
+    dist = fmoe.moe_dist(cfg, mesh, 4, expert_tp=True)
+    assert (dist.mode, dist.tp_axis, dist.expert_tp) == ("a2a", "data", True)
+    assert fmoe.moe_dist(cfg, mesh, 4).tp_axis is None
+    for rows, axes in ((2, ("data",)), (3, ())):
+        dist = fmoe.moe_dist(cfg, mesh, rows, expert_tp=True)
+        assert (dist.mode, dist.token_axes, dist.tp_axis) == ("psum", axes, None)
+    assert not fmoe.DistConfig(mesh, ("data",), tp_axis="data").expert_tp
 
 
 def test_batcher_refuses_a_data_axis():
@@ -851,17 +1149,21 @@ def test_serve_cli_under_torchrun(mode):
 
 @pytest.mark.cuda
 def test_world_size_1_bit_equal_on_the_card(tmp_path):
-    """NCCL at world size 1 with the CUDA kernels: the EP path's loss and
-    gradients equal the local path's bit for bit."""
+    """NCCL at world size 1 with the CUDA kernels: the EP paths' loss and
+    gradients, and the grad norm and params after one train step, equal
+    the local path's bit for bit — a2a, the psum mode and, for capacity,
+    expert-internal tensor parallelism."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (on the GPU machine: python -m pytest "
                     "--noconftest -m cuda tests/test_torch_ep.py, or python3 "
                     "chip_smoke.py, whose EP phase checks the same at full "
                     "width)")
     import torch.distributed as tdist
+    from repro_torch.core import fmoe
     from repro_torch.launch import train
     from repro_torch.launch.mesh import init_distributed, make_local_mesh
     from repro_torch.models import lm
+    from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import tree_leaves
 
     dev = init_distributed("cuda", rank=0, world_size=1,
@@ -870,18 +1172,31 @@ def test_world_size_1_bit_equal_on_the_card(tmp_path):
     try:
         mesh = make_local_mesh(1, 1)
         for dispatch, impl in (("capacity", "fused"), ("ragged", "fused"),
-                               ("ragged", "pallas")):
+                               ("ragged", "pallas"), ("capacity", "pallas")):
             cfg = _model_cfg(dispatch, d_model=256)  # heads of 64
-            params = lm.init_params(cfg, seed=0, device=dev,
-                                    param_dtype=cfg.param_dtype)
+            dists = {"local": None, "a2a": train.moe_dist(cfg, mesh, MODEL_B),
+                     "psum": fmoe.DistConfig(mesh, ("data",))}
+            if dispatch == "capacity":
+                dists["tp"] = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
             batch = {"tokens": torch.from_numpy(_tokens(0)).to(dev)}
-            res = [train.loss_and_grads(params, cfg, batch, impl=impl,
-                                        device=dev, dist=d)
-                   for d in (None, train.moe_dist(cfg, mesh, MODEL_B * MODEL_S))]
-            (l0, _, g0), (l1, _, g1) = res
-            assert torch.equal(l0, l1), (dispatch, impl)
-            for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
-                assert torch.equal(a, b), (dispatch, impl)
+            res = {}
+            for name, d in dists.items():
+                params = lm.init_params(
+                    cfg, seed=0, device=dev, param_dtype=cfg.param_dtype,
+                    mesh=None if d is None else mesh,
+                    expert_tp=d is not None and d.expert_tp)
+                loss, _, grads = train.loss_and_grads(
+                    params, cfg, batch, impl=impl, device=dev, dist=d)
+                opt = AdamW(lr=LR)
+                step_fn = train.make_train_step(cfg, opt, dist=d, impl=impl,
+                                                device=dev)
+                params, _, m = step_fn(params, opt.init(params), batch, 0)
+                res[name] = ([loss, *tree_leaves(grads), m["grad_norm"],
+                              *tree_leaves(params)])
+            for name in list(dists)[1:]:
+                assert len(res[name]) == len(res["local"])
+                for i, (a, b) in enumerate(zip(res["local"], res[name])):
+                    assert torch.equal(a, b), (dispatch, impl, name, i)
     finally:
         tdist.destroy_process_group()
 

@@ -22,7 +22,6 @@ from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.core import dispatch as TD  # noqa: E402
 from repro_torch.core import fmoe as tfmoe  # noqa: E402
 from repro_torch.core import gate as tgate  # noqa: E402
-from repro_torch.launch.mesh import Mesh  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -132,12 +131,36 @@ def test_fmoe_apply_matches_jax(impl, dispatch):
 
 
 def test_fmoe_apply_with_a_mesh_raises():
-    """Expert parallelism over a mesh is ported (tests/test_torch_ep.py),
-    and so is the psum mode (tokens not sharded over the expert axis) for
-    serving; training through the psum mode is not, and a call under
-    autograd raises before any collective."""
-    cfg = MoEConfig(num_experts=2, d_expert_hidden=8)
-    dist = tfmoe.DistConfig(Mesh(1, 2), ("data",))
-    x = torch.zeros(2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="psum mode"):
-        tfmoe.fmoe_apply({}, x, cfg, dist=dist)
+    """The psum mode (tokens not sharded over the expert axis) trains: under
+    autograd it records a graph through its all-reduce, here over a
+    world-size-1 gloo group in this process, whose output and gradients
+    are the local path's bit for bit.  What a mesh still refuses is held by
+    ``tests/test_torch_ep.py::test_unsupported_options_raise``; the
+    multi-rank gradients by its psum cases."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+
+    assert not tdist.is_initialized()
+    init_distributed("cpu", rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        dist = tfmoe.DistConfig(make_local_mesh(1, 1), ("data",))
+        assert dist.mode == "psum"
+        cfg = MoEConfig(num_experts=2, d_expert_hidden=8)
+        gen = torch.Generator().manual_seed(0)
+        params = tfmoe.fmoe_init(gen, 4, cfg, device="cpu")
+        x = torch.randn(2, 3, 4, generator=gen)
+        r = torch.randn(2, 3, 4, generator=gen)
+        res = []
+        for d in (dist, None):
+            p = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
+                 for k, v in params.items()}
+            xs = x.clone().requires_grad_()
+            y, m = tfmoe.fmoe_apply(p, xs, cfg, dist=d)
+            assert y.grad_fn is not None and m.aux_loss.grad_fn is not None
+            leaves = [p["router"]["w"], *p["experts"].values(), xs]
+            res.append([y] + list(torch.autograd.grad(
+                (y * r).sum() + m.aux_loss + m.z_loss, leaves)))
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+    finally:
+        tdist.destroy_process_group()

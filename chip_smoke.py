@@ -15,7 +15,7 @@
    path's shapes (d 1024, H 2048, 96 experts; gelu, plus swiglu) in bf16
    and f32, with ragged group sizes, empty groups and sum(group_sizes) < M,
    and times kernel, plain version and the library call where one exists
-   (events, and the device time alone from torch.profiler), and, as a
+   (events, and the device time alone: device_ms), and, as a
    labelled reference line, the unfused FFN by PyTorch calls
    (torch._grouped_mm, GELU, torch._grouped_mm); also at the shapes of
    continuous serving (batch-1 prefills, ragged and capacity, and a
@@ -77,6 +77,22 @@
    in f32 whole and per rank (the 4 ranks of a 1x4 mesh, rank (1, 2) of
    a 2x4 mesh with tp), each shard bit-equal to the whole's slice, with
    each init's seconds and peak memory;
+9b. (ep_overlap) runs the §5.2 smart schedule over the same 1x1 NCCL mesh
+   and model: fused/capacity and pallas/capacity at 2 and 4 chunks (C =
+   56: chunks of 28 and 14 rows a source) and fused/ragged at 4, each with
+   the exchange decomposed (at one rank no collective) and undecomposed
+   (one async NCCL all-to-all a chunk), whose step-0 loss must equal the
+   serial exchange's bit for bit and whose gradients stay within the bf16
+   rule's slack of the serial path's, with the launch counters set to 0
+   just before each run and read just after; the bf16 wire at full width
+   (the identity on a bf16 payload) bit-equal to serial; the AdamW steps
+   of fused/capacity at 2 and 4 chunks timed against serial in turns and
+   profiled; the reduced f32 model's bf16 wire (the cast real) equal
+   across schedules and within WIRE_ATOL of the f32 wire; and the fused
+   FFN forward, dX, dW and the grouped GEMM at the chunk rows (96 x 28, 96
+   x 14, beside 96 x 56), each chunk's rows bit-equal to the whole
+   launch's, timed beside their bounds.  The two-level exchange needs at
+   least 4 ranks and is not run (one line says so);
 10. holds one step's gradients of each kernel path (full width, 2 layers)
    no further from an f32 einsum oracle than the bf16 einsum path is (both
    on plain attention), and fused/ragged's step-0 loss and every gradient
@@ -147,6 +163,7 @@ beside it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -163,6 +180,10 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by the
 # unit the kernels use — bf16 on the tensor cores, f32 on the FMA units.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20  # H100 SXM L2
+# device_ms's first spin (~50 ms at 1.98 GHz): the host issues the timed
+# reps behind it
+SPIN_CYCLES = 100_000_000
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 E, D, H = 96, 1024, 2048  # fastmoe-gpt experts, d_model, expert hidden
@@ -186,6 +207,27 @@ EP_STEPS = 5
 TP_COMBOS = (("fused", "capacity"), ("pallas", "capacity"))
 # hidden shards H / D of fastmoe-gpt's experts under tp on 2 and 4 data ranks
 TP_HIDDEN = (1024, 512)
+# the §5.2 smart schedule at 1x1 (ep_overlap): (impl, dispatch, chunks)
+# against the serial exchange, each also with the undecomposed exchange
+# (one async NCCL all-to-all a chunk).  C = 56 capacity rows an expert, so
+# chunks of 28 and 14 rows a source; the flat ragged exchange chunks its
+# bound (the expert compute waits for every chunk).  fused/capacity is
+# timed in turns at each depth against serial.
+OVERLAP_CASES = (("fused", "capacity", 2), ("fused", "capacity", 4),
+                 ("pallas", "capacity", 2), ("pallas", "capacity", 4),
+                 ("fused", "ragged", 4))
+OVERLAP_TIMED = ("fused", "capacity")
+CAP_ROWS, CHUNK_ROWS = 56, (28, 14)
+# A chunked capacity step against the serial one: the forward and dX are
+# bit-equal (a chunk launches with the whole buffer's hidden split), so
+# every gradient leaf but the experts' equals serial's bit for bit.  The
+# expert leaves take each chunk's dW, rounded to bf16, added a chunk at a
+# time: a few bf16 roundings apart (2^-8 = 3.9e-3 relative each).  On an
+# H100 their worst relative L2 to serial read 2.61e-3 at 2 chunks and
+# 3.24e-3 at 4; held to 1e-2.  One expert's dW wrong in a stacked leaf of
+# 96 moves it by ~sqrt(1/96) = 0.1.
+OVERLAP_EXPERT_L2 = 1e-2
+WIRE_ATOL = 0.05  # the bf16 wire's loss against the f32 wire's, reduced f32
 # kernel vs plain version on the same inputs: bf16 outputs are rounded once
 # from f32 sums of identical products, so they differ by at most a bf16 ulp
 # where a sum straddles a rounding boundary (plus one hidden-tile ulp in the
@@ -296,22 +338,105 @@ def time_ms(fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Summed device time of the kernels and memsets one call of fn runs,
-    mean over reps, from torch.profiler, L2 warm.  Where the host takes
-    longer to issue a call than the device to run it (small shapes, and
-    autograd around a library call), the event time above holds host time
-    too; this is the device's part alone."""
+def device_ms(fn, reps: int = 10, floor: float = 0.0, what: str = "") -> float:
+    """Device time of one call of fn, mean over reps, L2 warm.  The reps
+    are issued while the stream waits behind a spin kernel, so the CUDA
+    events around them time the device alone, the reps back to back;
+    where the host takes longer to issue a call than the device to run it
+    (small shapes, and autograd around a library call), time_ms above holds
+    host time too.  Fails unless the spin outlasted the issuing (a host
+    sync in fn would defeat it), and unless the time is above 0 and above
+    ``floor``, the least time the work can take (``device_floor``).  Not
+    from torch.profiler: on the card's machine it drops kernel records
+    from a window — at its start, at its end or all of them — early in a
+    run as well as late."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    spin = SPIN_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        hidden = not start.query()  # the device still spinning
+        end.synchronize()
+        if hidden:
+            ms = start.elapsed_time(end) / reps
+            check(ms > 0 and ms >= floor, f"device time {what}: {ms:.4f} ms, "
+                  f"under the least the work can take ({floor:.4f} ms)")
+            return ms
+        spin *= 4
+    raise SmokeFailure(f"device time {what}: the host did not issue {reps} "
+                       f"calls within a {spin // 4} cycle spin")
+
+
+# each counter of counters() counts launches of one kernel of these names
+KERNEL_EVENTS = {
+    "grouped_gemm": ("grouped_gemm_mma_kernel", "grouped_gemm_simple_kernel"),
+    "gather_rows": ("gather_rows_kernel",),
+    "gather_rows_by_source": ("gather_rows_by_source_kernel",),
+    "combine_topk": ("combine_topk_kernel",),
+    "fused_ffn": ("fused_ffn_ring_kernel", "fused_ffn_simple_kernel"),
+    "fused_ffn_bwd_dx": ("fused_ffn_bwd_dx_ring_kernel",
+                         "fused_ffn_bwd_dx_simple_kernel"),
+    "fused_ffn_bwd_dw": ("fused_ffn_bwd_dw_ring_kernel",
+                         "fused_ffn_bwd_dw_simple_kernel"),
+    "flash_attention_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
+    "flash_attention_bwd": ("flash_bwd_mma_kernel", "flash_bwd_dkdv_kernel"),
+}
+PROFILE_PAD_S = 0.05  # idle host time before and after a profiled block
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler (host and device) around a block timed on the host
+    clock.  Yields a dict that holds on exit: ``wall`` (s), ``kernels``
+    (the CUDA events), ``busy`` (their device ms), ``by_name``, ``prof``,
+    ``runs`` (the launch counters' increments over the block) and
+    ``capture``, a note.  The profiler drops kernel records on the card's
+    machine (device_ms), most at a window's start, so the block runs
+    between idle host spans, and the hand-written kernels' events are
+    counted against the launches their counters saw: where fewer came
+    back, the note says so, and the times are lower bounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    before = {k: f.launches for k, f in counters().items()}
+    out: dict = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        yield out
         torch.cuda.synchronize()
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+        out["wall"] = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
+    runs = {k: f.launches - before[k] for k, f in counters().items()}
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    want = sum(runs[k] for k in KERNEL_EVENTS)
+    seen = sum(n for name, n in collections.Counter(e.name for e in kernels).items()
+               if any(p in name for v in KERNEL_EVENTS.values() for p in v))
+    out.update(prof=prof, kernels=kernels, by_name=by_name, runs=runs,
+               busy=sum(by_name.values()),
+               capture=f"hand-written kernels: {seen} of {want} launched came "
+                       f"back" + ("" if seen == want else
+                                  " (the profiler dropped kernels: the "
+                                  "kernel times are lower bounds)"))
+
+
+def device_floor(nbytes: float, flops: float, dtype_name: str) -> float:
+    """The least device time of work that moves nbytes and does flops, L2
+    warm: all but the L2's share of the bytes at the memory rate, or the
+    operations at the peak rate, whichever is longer."""
+    return max((nbytes - L2_BYTES) / HBM_BYTES_PER_S * 1e3,
+               flops / PEAK_FLOPS[dtype_name] * 1e3, 0.0)
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -407,15 +532,17 @@ def kernel_phase(dev, flush):
         ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
         lib_ms = time_ms(lib, flush) if lib is not None else None
         b_ms, b_by = bound(nbytes, flops, peak)
-        dev_ms = device_ms(kern)
-        lib_dev = device_ms(lib) if lib is not None else None
+        fl = device_floor(nbytes, flops, peak)
+        dev_ms = device_ms(kern, floor=fl, what=f"{name} {shape}")
+        lib_dev = (device_ms(lib, floor=fl, what=f"library {name} {shape}")
+                   if lib is not None else None)
         timed[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms,
                                     device_ms=dev_ms, library_device_ms=lib_dev)
         print(f"kernel {name:16s} {shape:26s} bf16: {ms:.4f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})  plain {plain_ms:.4f} ms  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; device "
-              f"(profiler, L2 warm) {dev_ms:.4f} ms, library "
+              f"(L2 warm) {dev_ms:.4f} ms, library "
               f"{'n/a' if lib_dev is None else f'{lib_dev:.4f} ms'}",
               flush=True)
 
@@ -598,8 +725,8 @@ def unfused_ffn(label, x, wi, wo, offs, flush):
         print(f"reference {label}: unfused FFN not timed: {exc}"[:300], flush=True)
         return
     print(f"reference {label}: unfused FFN (torch._grouped_mm + GELU + "
-          f"torch._grouped_mm) {time_ms(run, flush):.4f} ms, device (profiler, "
-          f"L2 warm) {device_ms(run):.4f} ms", flush=True)
+          f"torch._grouped_mm) {time_ms(run, flush):.4f} ms, device ("
+          f"L2 warm) {device_ms(run, what=label):.4f} ms", flush=True)
 
 
 def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush):
@@ -639,8 +766,8 @@ def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush):
         except RuntimeError as exc:
             parts.append(f"{what} not timed: {exc}"[:200])
             continue
-        parts.append(f"{what} {time_ms(run, flush):.4f} ms, device (profiler, "
-                     f"L2 warm) {device_ms(run):.4f} ms")
+        parts.append(f"{what} {time_ms(run, flush):.4f} ms, device ("
+                     f"L2 warm) {device_ms(run, what=label):.4f} ms")
     print(f"reference {label}: unfused backward (torch._grouped_mm, GELU', "
           f"torch._grouped_mm): " + "; ".join(parts), flush=True)
 
@@ -805,7 +932,7 @@ def flash_small_shapes(dev):
         sdpa = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         parts.append(f"{label} ({B}x{S}x{H}) {ours:.4f} ms, SDPA {sdpa:.4f} ms")
-    print("flash forward small shapes, device (profiler, L2 warm): "
+    print("flash forward small shapes, device (L2 warm): "
           + "; ".join(parts), flush=True)
 
 
@@ -909,13 +1036,16 @@ def flash_time(name, q, k, v, o, lse, do, kw, flush, kernels, heads=0):
         ms = time_ms(kern, flush, reps)
         plain_ms = time_ms(plain, flush, plain_reps)
         lib_ms = time_ms(lib, flush, plain_reps) if lib is not None else None
-        dev_ms = device_ms(kern, dev_reps) if dev_reps else None
-        lib_dev = device_ms(lib, dev_reps) if dev_reps and lib is not None else None
+        fl = device_floor(nbytes, flops, "bfloat16")
+        dev_ms = (device_ms(kern, dev_reps, fl, f"{kname} {name}") if dev_reps
+                  else None)
+        lib_dev = (device_ms(lib, dev_reps, fl, f"SDPA {kname} {name}")
+                   if dev_reps and lib is not None else None)
         timed[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms, device_ms=dev_ms,
                             library_device_ms=lib_dev)
         on_device = "" if dev_ms is None else (
-            f"; device (profiler, L2 warm) {dev_ms:.4f} ms, SDPA "
+            f"; device (L2 warm) {dev_ms:.4f} ms, SDPA "
             + ("n/a" if lib_dev is None else f"{lib_dev:.4f} ms"))
         print(f"kernel {kname} {name:10s} bf16 {B}x{S} {H}/{KV} heads x dk {dk} "
               f"dv {dv}, window {window}: {ms:.4f} ms  bound {b_ms:.4f} ms "
@@ -1200,31 +1330,21 @@ def profile_step(params, cfg, prompt, impl, cache_len, dev):
     """One decode step under torch.profiler: wall time, summed kernel time
     (so the device's busy share), kernel launches and the top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
     cache = lm.init_cache(cfg, prompt.shape[0], cache_len, device=dev)
     lp, cache, _ = lm.prefill(params, cfg, prompt, cache, impl=impl, device=dev)
     tok = torch.argmax(lp[:, -1], -1)[:, None]
     for pos in range(prompt.shape[1], prompt.shape[1] + 2):  # warm
         lm.decode_step(params, cfg, tok, pos, cache, impl=impl, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profiled() as p:
         lm.decode_step(params, cfg, tok, prompt.shape[1] + 2, cache, impl=impl,
                        device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3  # us -> ms
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall, busy = p["wall"], p["busy"]
+    top = sorted(p["by_name"].items(), key=lambda kv: -kv[1])[:6]
     print(f"profile decode step {cfg.name} {impl}/{cfg.moe.dispatch} (profiler "
           f"on): wall "
           f"{wall * 1e3:.2f} ms, kernels {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% "
-          f"busy), {len(kernels)} kernel launches; top: "
+          f"busy), {len(p['kernels'])} kernel launches; {p['capture']}; top: "
           + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top), flush=True)
 
 
@@ -1352,25 +1472,17 @@ def profile_tick(label, b) -> dict:
     wall, kernel time and busy share, CUDA launches, and the hand-written
     kernels' launches that tick (counters at 0 just before the tick, read
     just after; returned, those launched)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profiled() as p:
         active = b.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     runs = {k: fn.launches for k, fn in counters().items()}
     check(active == b.B and not b.queue, f"{label}: the tick was not steady")
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
+    wall, busy = p["wall"], p["busy"]
     print(f"profile continuous tick {b.cfg.name} {label} (profiler on): wall "
           f"{wall * 1e3:.2f} ms, kernels {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} kernel "
-          f"launches; hand-written a tick: "
+          f"({100 * busy / (wall * 1e3):.1f}% busy), {len(p['kernels'])} kernel "
+          f"launches; {p['capture']}; hand-written a tick: "
           f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
     return {k: v for k, v in runs.items() if v}
 
@@ -1617,7 +1729,15 @@ def bwd_routing_times(label, x, ws, wo, dy, gs, flush):
             "dx_first": lambda: fb.fused_ffn_bwd_dx_simple(*args),
             "dw_first": lambda: fb.fused_ffn_bwd_dw_simple(*args)}
     t = {k: time_ms(fn, flush) for k, fn in runs.items()}
-    t.update(dx_device=device_ms(runs["dx"]), dw_device=device_ms(runs["dw"]))
+    (M, K), E_, H_ = x.shape, wo.shape[0], wo.shape[1]
+    n, used = int(gs.sum()), int((gs > 0).sum())
+    wbytes = used * 2 * K * H_ * 2
+    t.update(dx_device=device_ms(runs["dx"], floor=device_floor(
+                 2 * 3 * M * K + wbytes + 4 * E_, 6 * n * K * H_, "bfloat16"),
+                 what=f"fused_ffn_bwd_dx {label}"),
+             dw_device=device_ms(runs["dw"], floor=device_floor(
+                 2 * 2 * M * K + wbytes + 4 * 2 * E_ * K * H_ + 4 * E_,
+                 8 * n * K * H_, "bfloat16"), what=f"fused_ffn_bwd_dw {label}"))
     sizes = gs.tolist()
     # each dW batch after an expert's first reads back and rewrites the f32
     # (DW_CHUNK x K) dwi and (DW_CHUNK x N) dwo slices of its hidden chunks
@@ -1780,7 +1900,8 @@ def bwd_kernel_phase(dev, flush):
                 del got
                 for kname, (kern, plain, nbytes, flops, simple) in cases.items():
                     ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 5)
-                    dev_ms = device_ms(kern)
+                    fl = device_floor(nbytes, flops, "bfloat16")
+                    dev_ms = device_ms(kern, floor=fl, what=f"{kname} {name}")
                     b_ms, b_by = bound(nbytes, flops, "bfloat16")
                     timed[(kname, name)] = dict(ms=ms, plain_ms=plain_ms,
                                                 bound_ms=b_ms, bound_by=b_by,
@@ -1789,13 +1910,14 @@ def bwd_kernel_phase(dev, flush):
                     if simple is not None:  # the first version, same inputs
                         timed[(kname, name)].update(
                             first_version_ms=time_ms(simple, flush),
-                            first_version_device_ms=device_ms(simple))
+                            first_version_device_ms=device_ms(
+                                simple, floor=fl, what=f"{kname} {name} first"))
                         first = (f"; first version {timed[(kname, name)]['first_version_ms']:.4f}"
                                  f" ms, device {timed[(kname, name)]['first_version_device_ms']:.4f} ms")
                     print(f"kernel {kname} {name:8s} bf16: {ms:.4f} ms  bound "
                           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
                           f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  "
-                          f"library n/a; device (profiler, L2 warm) {dev_ms:.4f} ms"
+                          f"library n/a; device (L2 warm) {dev_ms:.4f} ms"
                           f"{first}", flush=True)
                 offs = torch.cumsum(gs, 0).to(torch.int32)
                 if not tp:
@@ -1852,6 +1974,16 @@ def bwd_kernel_phase(dev, flush):
           f"bf16 tol {DW_TOL['bfloat16']} and relative Frobenius <= {DW_FRO}, "
           f"f32 tol {DW_TOL['float32']})", flush=True)
     return errs, timed
+
+
+def leaf_paths(tree, path: str = "") -> list:
+    """(path, leaf) pairs of a params tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in leaf_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{path}/{i}")]
+    return [(path, tree)]
 
 
 def _grad_dists(grads, oracle):
@@ -2013,27 +2145,17 @@ def profile_train_step(label, step_fn, params, state, data, dev, routing=None):
     (the device's busy share), kernel launches and the top kernels; with a
     ``routing`` list, each fused FFN call's group sizes are put in it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
-    torch.cuda.synchronize()
     tap = contextlib.nullcontext() if routing is None else group_sizes_tap(routing)
-    with tap, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with tap, profiled() as p:
         step_fn(params, state, batch, TRAIN_WARM + TRAIN_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    wall, busy, by_name, kernels = p["wall"], p["busy"], p["by_name"], p["kernels"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     ffn_bwd = {k: sum(t for n, t in by_name.items() if f"fused_ffn_bwd_{k}" in n)
                for k in ("dx", "dw")}
     print(f"profile train step {label} (profiler on): wall {wall * 1e3:.1f} ms, kernels "
           f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
-          f"{len(kernels)} kernel launches; fused FFN backward dX "
+          f"{len(kernels)} kernel launches; {p['capture']}; fused FFN backward dX "
           f"{ffn_bwd['dx']:.2f} ms, dW {ffn_bwd['dw']:.2f} ms; top: "
           + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
 
@@ -2047,9 +2169,9 @@ def group_sizes_tap(out: list):
     from repro_torch.kernels import ops
     orig = ops.fused_grouped_ffn
 
-    def tap(x, ws, wo, group_sizes, act="swiglu"):
+    def tap(x, ws, wo, group_sizes, act="swiglu", plan_rows=0):
         out.append(group_sizes.detach())
-        return orig(x, ws, wo, group_sizes, act)
+        return orig(x, ws, wo, group_sizes, act, plan_rows)
     ops.fused_grouped_ffn = tap
     try:
         yield
@@ -2306,6 +2428,330 @@ def ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted):
         torch.cuda.empty_cache()
 
 
+def overlap_phase(dev):
+    """The §5.2 smart schedule over a 1x1 mesh (a world-size-1 NCCL group in
+    this process), full-width fastmoe-gpt at TRAIN_LAYERS layers, 8 x 256
+    tokens.  For each OVERLAP_CASES (impl, dispatch, chunks), with the
+    exchange decomposed (at one rank no collective: the shifts are a copy)
+    and undecomposed (one async NCCL all-to-all a chunk, waited on right
+    before its output is read, where a missing wait shows as a wrong
+    result): the step-0 loss must equal the serial exchange's bit for bit,
+    and so must every gradient leaf, but for the expert leaves of a chunked
+    capacity step, which are held to OVERLAP_EXPERT_L2 (relative L2 to
+    serial).  The bf16 wire at full width is the identity (the payload is
+    bf16): bit-equal to serial.  The launch counters are set to 0 just
+    before each chunked run and read just after.  Then the AdamW steps of
+    OVERLAP_TIMED at 2 and 4 chunks (and 4 undecomposed) are timed against
+    serial in turns, one chunked step profiled; the reduced f32 model's
+    bf16 wire (where the cast is real) held across schedules; and the
+    expert kernels timed at the chunk rows.  Returns (launches summed over
+    the chunked runs, the chunk-row kernel times)."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    totals = {k: 0 for k in counters()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    try:
+        mesh = make_local_mesh(1, 1)
+        base = dataclasses.replace(get_config("fastmoe-gpt"),
+                                   num_layers=TRAIN_LAYERS)
+        data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+        batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+        torch.cuda.empty_cache()
+        params = lm.init_params(base, seed=0, device=dev,
+                                param_dtype=base.param_dtype)
+
+        def counted(fn):
+            for f in counters().values():
+                f.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            runs = {k: f.launches for k, f in counters().items()}
+            for k, v in runs.items():
+                totals[k] += v
+            return out, runs
+
+        combos = list(dict.fromkeys((i, d) for i, d, _ in OVERLAP_CASES))
+        for impl, dispatch in combos:
+            cfg = with_dispatch(base, dispatch)
+            serial = train.moe_dist(cfg, mesh, tokens)
+            check(serial.mode == "a2a" and not serial.overlap_chunks,
+                  f"overlap {impl}/{dispatch}: no serial a2a dist ({serial})")
+            loss_s, _, g_s = train.loss_and_grads(params, cfg, batch,
+                                                  impl=impl, device=dev,
+                                                  dist=serial)
+            variants = [(n, dec) for i, d, n in OVERLAP_CASES
+                        if (i, d) == (impl, dispatch) for dec in (None, False)]
+            if (impl, dispatch) == OVERLAP_TIMED:
+                variants.append((0, "wire"))
+            for n, dec in variants:
+                dist = (serial._replace(wire_dtype="bf16") if dec == "wire"
+                        else serial._replace(overlap_chunks=n, decompose=dec))
+                label = ("bf16 wire (serial)" if dec == "wire" else
+                         f"{n} chunks {'undecomposed' if dec is False else 'decomposed'}")
+                (loss_c, _, g_c), runs = counted(lambda: train.loss_and_grads(
+                    params, cfg, batch, impl=impl, device=dev, dist=dist))
+                paths = [p for p, _ in leaf_paths(g_c)]
+                pairs = list(zip(tree_leaves(g_c), tree_leaves(g_s)))
+                expert = {i for i, p in enumerate(paths) if "/experts/" in p}
+                check(len(expert) == 2 * TRAIN_LAYERS,
+                      f"overlap: {len(expert)} expert gradient leaves")
+                unequal = {i for i, (a, b) in enumerate(pairs)
+                           if not torch.equal(a, b)}
+                dists = _grad_dists(*zip(*pairs))
+                worst = max(dists[i] for i in expert)
+                may_differ = (expert if dispatch == "capacity" and dec != "wire"
+                              else set())
+                print(f"overlap {impl}/{dispatch} 1x1 {label}: step-0 loss "
+                      f"{float(loss_c):.6f}, serial {float(loss_s):.6f}, "
+                      f"{'equal' if torch.equal(loss_c, loss_s) else 'UNEQUAL'}; "
+                      f"{len(pairs) - len(unequal)} of {len(pairs)} gradient "
+                      f"leaves bit-equal (rule: all but the "
+                      f"{len(may_differ)} expert leaves of chunked capacity); "
+                      f"expert leaves' relative L2 to serial max {worst:.2e} "
+                      f"(rule: <= {OVERLAP_EXPERT_L2}); launches "
+                      f"{json.dumps({k: v for k, v in runs.items() if v})}",
+                      flush=True)
+                check(torch.equal(loss_c, loss_s), f"overlap {impl}/{dispatch} "
+                      f"{label}: step-0 loss differs from the serial exchange")
+                check(unequal <= may_differ, f"overlap {impl}/{dispatch} "
+                      f"{label}: gradient leaves differ from serial's: "
+                      f"{[paths[i] for i in sorted(unequal - may_differ)]}")
+                check(worst <= OVERLAP_EXPERT_L2, f"overlap {impl}/{dispatch} "
+                      f"{label}: expert gradients {worst:.2e} from serial's")
+                for k in needed_kernels(impl, dispatch):
+                    check(runs[k] > 0, f"overlap {impl}/{dispatch} {label}: "
+                                       f"kernel {k} was never launched")
+                for simple in SIMPLE_KERNELS:
+                    check(runs[simple] == 0, f"overlap {impl}/{dispatch}: "
+                                             f"{simple} ran at a model shape")
+                del g_c, pairs
+                torch.cuda.empty_cache()
+            del g_s
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+        overlap_times(dev, base, mesh, batch)
+        small_wire_check(dev, mesh)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"main path launches (EP training overlap, 1x1): {json.dumps(totals)}",
+          flush=True)
+    return totals, chunk_kernel_times(dev)
+
+
+def overlap_times(dev, base, mesh, batch):
+    """OVERLAP_TIMED's AdamW steps, serial and at 2 and 4 chunks (4 also
+    undecomposed), in turns on one set of params and moments: medians of
+    EP_STEPS after a warm step, and one profiled step each of serial and 4
+    chunks."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+
+    impl, dispatch = OVERLAP_TIMED
+    cfg = with_dispatch(base, dispatch)
+    serial = train.moe_dist(cfg, mesh, TRAIN_BATCH * TRAIN_SEQ)
+    dists = {"serial": serial,
+             "2 chunks": serial._replace(overlap_chunks=2),
+             "4 chunks": serial._replace(overlap_chunks=4),
+             "4 chunks undecomposed": serial._replace(overlap_chunks=4,
+                                                      decompose=False)}
+    params = lm.init_params(base, seed=0, device=dev,
+                            param_dtype=base.param_dtype)
+    opt = AdamW()
+    state = opt.init(params)
+    steps = {name: train.make_train_step(cfg, opt, dist=d, impl=impl,
+                                         device=dev)
+             for name, d in dists.items()}
+    times = {name: [] for name in steps}
+    for step in range(1 + EP_STEPS):  # the paths in turn
+        for name, step_fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch, step)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+            check(math.isfinite(loss) and 3.0 < loss < 20.0,
+                  f"overlap timing {name}: loss {loss}")
+            if step:
+                times[name].append(wall * 1e3)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    for name in steps:
+        if name == "serial":
+            continue
+        print(f"overlap train step {impl}/{dispatch} 1x1 {name} vs serial, "
+              f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
+              f"{TRAIN_SEQ}, AdamW included, in turns with {', '.join(steps)}: "
+              f"{name} {med[name]:.1f} ms, serial {med['serial']:.1f} ms "
+              f"median of {EP_STEPS} ({name} - serial "
+              f"{med[name] - med['serial']:+.1f} ms; {name} "
+              + " ".join(f"{v:.1f}" for v in times[name]) + "; serial "
+              + " ".join(f"{v:.1f}" for v in times["serial"]) + ")",
+              flush=True)
+    for name in ("serial", "4 chunks", "4 chunks undecomposed"):
+        params, state = profile_ep_step(f"overlap {name} {impl}/{dispatch}",
+                                        steps[name], params, state, batch,
+                                        1 + EP_STEPS)
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def small_wire_check(dev, mesh):
+    """The bf16 wire where the cast is real: the reduced f32 model (2
+    layers, remat on), fused, both dispatches, over the 1x1 NCCL mesh.  The
+    wire's step-0 loss is the same, bit for bit, serial, at 2 chunks
+    decomposed (no collective: the casts alone) and undecomposed (an NCCL
+    all-to-all of bf16 a chunk); it differs from the f32 wire's loss by
+    more than 0 and at most WIRE_ATOL; its gradients are finite."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(reduced(get_config("fastmoe-gpt"), num_layers=2,
+                                       d_model=256), remat="full")
+    tokens = torch.from_numpy(next(SyntheticLM(base.vocab_size, 32, seed=0)
+                                   .batches(4))["tokens"]).to(dev)
+    for dispatch in ("capacity", "ragged"):
+        cfg = with_dispatch(base, dispatch)
+        params = lm.init_params(cfg, seed=0, device=dev,
+                                param_dtype=cfg.param_dtype)
+        serial = train.moe_dist(cfg, mesh, 4)
+        loss32, _, _ = train.loss_and_grads(params, cfg, {"tokens": tokens},
+                                            impl="fused", device=dev,
+                                            dist=serial)
+        wire = serial._replace(wire_dtype="bf16")
+        losses = []
+        for d in (wire, wire._replace(overlap_chunks=2),
+                  wire._replace(overlap_chunks=2, decompose=False)):
+            loss, _, grads = train.loss_and_grads(
+                params, cfg, {"tokens": tokens}, impl="fused", device=dev,
+                dist=d)
+            check(all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+                  f"bf16 wire {dispatch}: gradients not finite")
+            losses.append(loss)
+        diff = abs(float(losses[0]) - float(loss32))
+        same = all(torch.equal(v, losses[0]) for v in losses)
+        print(f"bf16 wire, reduced f32 fastmoe-gpt fused/{dispatch} 1x1: loss "
+              f"{float(losses[0]):.7f} (serial, 2 chunks, 2 chunks "
+              f"undecomposed {'bit-equal' if same else 'UNEQUAL'}), f32 wire "
+              f"{float(loss32):.7f}, |diff| {diff:.3e} (0 < diff <= "
+              f"{WIRE_ATOL})", flush=True)
+        check(same, f"bf16 wire {dispatch}: schedules give different losses")
+        check(0 < diff <= WIRE_ATOL, f"bf16 wire {dispatch}: |loss - f32 "
+                                     f"wire's| {diff:.3e}")
+
+
+def chunk_kernel_times(dev):
+    """The expert kernels at the §5.2 schedule's chunk rows: fastmoe-gpt's
+    96 x 56 capacity buffer (bf16, gelu, H 2048) whole and cut into chunks
+    of 28 and 14 rows an expert, launched with the whole buffer's hidden
+    split (``plan_rows``): the fused FFN forward, its dX and dW, and the
+    grouped GEMM (x @ wi), each timed by events (L2 flushed) beside its
+    bound, its plain version and, for the grouped GEMM,
+    torch._grouped_mm.  A chunk's forward, dX and grouped GEMM rows must
+    equal the whole launch's bit for bit (the row tile changes, a row's
+    arithmetic does not)."""
+    import torch
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    from repro_torch.kernels import grouped_gemm as gg
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+    M0 = E * CAP_ROWS
+    x, dy = randn(M0, D), randn(M0, D)
+    wi, wo = randn(E, D, H, scale=D ** -0.5), randn(E, H, D, scale=H ** -0.5)
+    ws, b = (wi,), 2
+    whole = {"fused_ffn": ff.fused_ffn(x, ws, wo, torch.full(
+                 (E,), CAP_ROWS, dtype=torch.int32, device=dev), "gelu"),
+             "fused_ffn_bwd_dx": fb.fused_ffn_bwd_dx(x, ws, wo, dy, torch.full(
+                 (E,), CAP_ROWS, dtype=torch.int32, device=dev), "gelu"),
+             "grouped_gemm": gg.grouped_gemm(x, wi, torch.full(
+                 (E,), CAP_ROWS, dtype=torch.int32, device=dev))}
+    timed = {}
+    for rows in (CAP_ROWS, *CHUNK_ROWS):
+        M = E * rows
+        gs = torch.full((E,), rows, dtype=torch.int32, device=dev)
+
+        def cut(t):
+            return t.view(E, CAP_ROWS, -1)[:, :rows].reshape(M, -1)
+        xc, dyc = cut(x), cut(dy)
+        p = ff.plan(M, E, H, split_rows=M0)
+        wbytes = E * 2 * D * H * b
+        cases = {
+            "fused_ffn": (lambda: ff.fused_ffn(xc, ws, wo, gs, "gelu", M0),
+                          lambda: ff.fused_ffn_plain(xc, ws, wo, gs, "gelu"),
+                          b * 2 * M * D + wbytes + 4 * E, 4 * M * D * H, None),
+            "fused_ffn_bwd_dx": (
+                lambda: fb.fused_ffn_bwd_dx(xc, ws, wo, dyc, gs, "gelu", M0),
+                lambda: fb.fused_ffn_bwd_dx_plain(xc, ws, wo, dyc, gs, "gelu"),
+                b * 3 * M * D + wbytes + 4 * E, 6 * M * D * H, None),
+            "fused_ffn_bwd_dw": (
+                lambda: fb.fused_ffn_bwd_dw(xc, ws, wo, dyc, gs, "gelu"),
+                lambda: fb.fused_ffn_bwd_dw_plain(xc, ws, wo, dyc, gs, "gelu"),
+                b * 2 * M * D + wbytes + 4 * 2 * E * D * H + 4 * E,
+                8 * M * D * H, None),
+            "grouped_gemm": (
+                lambda: gg.grouped_gemm(xc, wi, gs),
+                lambda: gg.grouped_gemm_plain(xc, wi, gs),
+                b * (M * D + E * D * H + M * H) + 4 * E, 2 * M * D * H,
+                grouped_mm_call(xc, wi, torch.cumsum(gs, 0).to(torch.int32))),
+        }
+        for name, want in whole.items():
+            got = cases[name][0]()
+            torch.cuda.synchronize()
+            check(torch.equal(got, cut(want)), f"{name} at {E} x {rows} chunk "
+                  f"rows differs from the whole {E} x {CAP_ROWS} launch's rows")
+            del got
+        # dW sums over a chunk's rows: held to its plain version instead
+        dws, dwo = cases["fused_ffn_bwd_dw"][0]()
+        rws, rwo = cases["fused_ffn_bwd_dw"][1]()
+        tag, dw_err = f"fused_ffn_bwd_dw at {E} x {rows} chunk rows", 0.0
+        for a, r in zip((*dws, dwo), (*rws, rwo)):
+            dw_err = max(dw_err, close(tag, a, r, DW_TOL["bfloat16"]))
+            frobenius(tag, a, r, DW_FRO)
+        del dws, dwo, rws, rwo
+        for name, (kern, plain, nbytes, flops, lib) in cases.items():
+            ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 3)
+            dev_ms = device_ms(kern, floor=device_floor(nbytes, flops, "bfloat16"),
+                               what=f"{name} chunk {E}x{rows}")
+            lib_ms = time_ms(lib, flush) if lib is not None else None
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            timed[(name, rows)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib_ms)
+            err = (f"  max |err| vs plain {dw_err:.3e} (DW_TOL, DW_FRO)"
+                   if name == "fused_ffn_bwd_dw" else "")
+            print(f"kernel {name} chunk {E}x{rows} bf16 (of {E}x{CAP_ROWS}; "
+                  f"fused plan bm {p.bm} hc {p.hc} splits {p.splits}): "
+                  f"{ms:.4f} ms  device {dev_ms:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by}, {nbytes / 1e6:.0f} MB, {flops / 1e9:.1f} GFLOP, "
+                  f"{ms / b_ms:.2f}x bound)  plain {plain_ms:.4f} ms  library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}{err}",
+                  flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    return timed
+
+
 # per-rank init: (data, model, expert_tp, rank) shards of full 12-layer
 # fastmoe-gpt held against the whole init's slices
 INIT_SHARDS = tuple((1, 4, False, r) for r in range(4)) + ((2, 4, True, 6),)
@@ -2371,18 +2817,10 @@ def profile_ep_step(label, step_fn, params, state, batch, step):
     """One train step under torch.profiler: wall, kernel time and busy
     share, CUDA launches (all, and NCCL's with their device time), host
     syncs, and the host ops with the most self time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profiled() as p:
         params, state, _ = step_fn(params, state, batch, step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    wall, busy, kernels, prof = p["wall"], p["busy"], p["kernels"], p["prof"]
     events = prof.events()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
     nccl = [e for e in kernels if "nccl" in e.name.lower()]
     syncs = sum(1 for e in events if e.name in (
         "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"))
@@ -2392,7 +2830,7 @@ def profile_ep_step(label, step_fn, params, state, batch, step):
           f"({100 * busy / (wall * 1e3):.1f}% busy), {len(kernels)} kernel "
           f"launches, of them {len(nccl)} NCCL "
           f"({sum(e.device_time for e in nccl) / 1e3:.2f} ms device), {syncs} "
-          f"host syncs; host self time: "
+          f"host syncs; {p['capture']}; host self time: "
           + "; ".join(f"{a.key[:40]} {a.self_cpu_time_total / 1e3:.1f} ms "
                       f"x{a.count}" for a in host[:8]), flush=True)
     return params, state
@@ -2589,34 +3027,26 @@ def profile_prefill(params, cfg, dev, batch, prompt, cache_len,
     device's busy share), the flash forward's part of it, and the top
     kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(3))
     with torch.no_grad():
-        for warm in (True, False):
-            cache = lm.init_cache(cfg, batch, cache_len, device=dev)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         ) if not warm else contextlib.nullcontext() as prof:
-                t0 = time.perf_counter()
-                lm.prefill(params, cfg, tokens, cache, impl=impl, device=dev)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            del cache
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+        cache = lm.init_cache(cfg, batch, cache_len, device=dev)
+        lm.prefill(params, cfg, tokens, cache, impl=impl, device=dev)  # warm
+        del cache
+        cache = lm.init_cache(cfg, batch, cache_len, device=dev)
+        with profiled() as p:
+            lm.prefill(params, cfg, tokens, cache, impl=impl, device=dev)
+        del cache
+    wall, busy, by_name, kernels = p["wall"], p["busy"], p["by_name"], p["kernels"]
     flash = sum(t for n, t in by_name.items() if "flash_fwd" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"profile {cfg.name} prefill {impl}/{getattr(cfg.moe, 'dispatch', '-')}, "
           f"{cfg.num_layers} layers, {batch}x{prompt} (profiler on): wall "
           f"{wall * 1e3:.1f} ms, "
           f"kernels {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy), "
-          f"{len(kernels)} kernel launches; flash forward {flash:.2f} ms "
+          f"{len(kernels)} kernel launches; {p['capture']}; flash forward "
+          f"{flash:.2f} ms "
           f"({100 * flash / busy:.1f}% of kernel time); top: "
           + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
 
@@ -2999,6 +3429,13 @@ def tp_shards(bwd_timed, name):
     return {"tp_shards": shards} if shards else {}
 
 
+def chunk_rows(chunk_ms, name):
+    """A kernel's times at the §5.2 schedule's chunk rows, where timed."""
+    rows = {f"capacity {E}x{r}": chunk_ms[(name, r)]
+            for r in (CAP_ROWS, *CHUNK_ROWS) if (name, r) in chunk_ms}
+    return {"overlap_chunk_rows": rows} if rows else {}
+
+
 def ep_by_path(ep_launches, name):
     """A kernel's launches on each EP training path at 1x1."""
     return {f"fastmoe-gpt EP training 1x1{'' if path == 'a2a' else ' ' + path}":
@@ -3041,6 +3478,10 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _, routing = train_phase(dev)
     ep_launches = ep_phase(dev)
+    ep_launches["overlap"], chunk_ms = overlap_phase(dev)
+    print("hierarchical (two-level) exchange: not run here; it needs 1 < "
+          "nodes < ranks, at least 4 ranks, and this machine has one card "
+          "(the CPU tests hold it over gloo)", flush=True)
     init_phase(dev)
     cb_launches, cb_tick = continuous_phase(dev)
     routing_ms = model_routing_phase(dev, routing)
@@ -3088,7 +3529,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "decode, batch 8, bf16",
             **({"by_shape": by_shape} if by_shape else {}),
-            **tp_shards(bwd_timed, name)})
+            **tp_shards(bwd_timed, name), **chunk_rows(chunk_ms, name)})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
         kind = name[-2:]
@@ -3108,7 +3549,7 @@ def main() -> int:
             "skewed_ms": bwd_timed[("fused_ffn_bwd", "skewed")][kind],
             "model_routing_ms": routing_ms[kind],
             "model_routing_first_version_ms": routing_ms[kind + "_first"],
-            **tp_shards(bwd_timed, name),
+            **tp_shards(bwd_timed, name), **chunk_rows(chunk_ms, name),
             "shape": "train, 2048 tokens top-2 = 4096 ragged rows, bf16"})
     for name, rep in (("flash_attention_fwd", "src/repro/kernels/flash_attention.py:73"),
                       ("flash_attention_bwd", "src/repro/models/attention.py:67")):

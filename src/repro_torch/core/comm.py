@@ -7,39 +7,26 @@ its own inverse.  So are the psum mode's all-reduce (its backward is the
 all-reduce of the gradient, what ``jax.lax.psum`` transposes to under the
 reference's ``shard_map(check_vma=False)``) and expert-internal tensor
 parallelism's row all-gather and reduce-scatter (each the other's
-backward).  The counts carry no gradient.  The hierarchical
-``*_intra`` / ``*_inter`` variants of the reference are not ported
-(ROADMAP §1 item 6).
+backward).  The counts carry no gradient.  The ragged exchange takes the
+§5.2 schedule's chunks, shift decomposition and wire dtype
+(``core/pipeline``), and the two-level exchange of a node mesh its intra-
+node hop (``*_intra``) and slim inter-node hop (``*_inter``).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Tiled dim-0 all-to-all: slice i of ``x`` goes to rank i of
-    ``group``; slice j of the result came from rank j."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
-
-
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
+from repro_torch.core import pipeline
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Differentiable tiled all-to-all over dim 0 (its size = the group's)."""
-    return _AllToAll.apply(x, group)
+    """Differentiable tiled all-to-all over dim 0 (its size = the group's):
+    slice i of ``x`` goes to rank i of ``group``; slice j of the result
+    came from rank j.  The undecomposed ``pipeline.Exchange``, waited on at
+    once."""
+    return pipeline.exchange(x, group, dist.get_world_size(group),
+                             decompose=False)
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -123,7 +110,7 @@ def exchange_counts(counts: torch.Tensor, group) -> torch.Tensor:
     """Fig 2 step 1: counts (E,) of local assignments per expert, E = mp *
     E_local -> (mp, E_local) counts arriving from each source rank."""
     mp = dist.get_world_size(group)
-    return _all_to_all(counts.reshape(mp, -1), group)
+    return pipeline.counts_all_to_all(counts.reshape(mp, -1), group, mp)
 
 
 def exchange_tokens(buf: torch.Tensor, group) -> torch.Tensor:
@@ -145,28 +132,110 @@ def return_tokens(out: torch.Tensor, group) -> torch.Tensor:
 
 
 def exchange_ragged(send: torch.Tensor, counts: torch.Tensor, group, mp: int,
-                    *, n_chunks: int = 1, wire_dtype=None):
+                    *, n_chunks: int = 1, wire_dtype=None, decompose=None):
     """The ragged (dropless) exchange, forward direction.
 
     send: (mp, bound, d) pad-to-max-per-peer shards; counts: (mp, E_local)
     kept rows per (destination rank, its expert), the valid lengths of the
     shards.  Returns ``(recv, incoming)``: the shards received from each
     source rank and the counts that came with them (which size the
-    receiver's compaction, ``dispatch.ragged_recv_compact``)."""
-    from repro_torch.core import pipeline
-
-    incoming = pipeline.counts_all_to_all(counts, group, mp)
+    receiver's compaction, ``dispatch.ragged_recv_compact``).  With
+    ``n_chunks > 1`` the payload moves in micro-shards, and it and the
+    counts take the decomposed exchange unless ``decompose`` is False."""
+    decompose = n_chunks > 1 if decompose is None else decompose
+    incoming = pipeline.counts_all_to_all(counts, group, mp,
+                                          decompose=decompose)
     recv = pipeline.ragged_pipelined_exchange(send, group, mp, n_chunks,
-                                              wire_dtype=wire_dtype)
+                                              wire_dtype=wire_dtype,
+                                              decompose=decompose)
     return recv, incoming
 
 
 def return_ragged(out: torch.Tensor, group, mp: int, *, n_chunks: int = 1,
-                  wire_dtype=None) -> torch.Tensor:
+                  wire_dtype=None, decompose=None) -> torch.Tensor:
     """Inverse of :func:`exchange_ragged`'s payload: (mp, bound, d_out)
     expert outputs go back to their source ranks, into the slots they were
-    sent from."""
-    from repro_torch.core import pipeline
+    sent from (the tiled exchange is its own inverse)."""
+    return pipeline.chunked_all_to_all(
+        out, group, mp, n_chunks, wire_dtype=wire_dtype,
+        decompose=n_chunks > 1 if decompose is None else decompose)
 
-    return pipeline.chunked_all_to_all(out, group, mp, n_chunks,
-                                       wire_dtype=wire_dtype)
+
+def exchange_ragged_intra(send: torch.Tensor, counts: torch.Tensor,
+                          inner_group, n_inner: int, *,
+                          decompose: bool = False, wire_dtype=None):
+    """Hop 1 of the two-level ragged exchange: aggregate within the node.
+
+    send: (n_nodes, n_inner, bound, d) per-peer shards, peers node-major
+    (rank = node * n_inner + inner); counts: (n_nodes, n_inner, E_local)
+    the matching kept-row counts.  Both take a dim-1 exchange over the
+    node-local group, after which this rank is its node's forwarding agent
+    for its own inner slot: entry ``[o, s]`` is sibling ``s``'s shard (and
+    counts) for rank ``(o, my_inner)`` of every node ``o``, ready for the
+    node-level compaction (``dispatch.make_hier_agg``)."""
+    shards = pipeline.all_to_all_dim1(send, inner_group, n_inner,
+                                      decompose=decompose,
+                                      wire_dtype=wire_dtype)
+    with torch.no_grad():
+        cnt = pipeline.all_to_all_dim1(counts, inner_group, n_inner,
+                                       decompose=decompose)
+    return shards, cnt
+
+
+def return_ragged_intra(out: torch.Tensor, inner_group, n_inner: int, *,
+                        decompose: bool = False,
+                        wire_dtype=None) -> torch.Tensor:
+    """Inverse of :func:`exchange_ragged_intra`'s payload hop: the
+    de-aggregated (n_nodes, n_inner, bound, d_out) outputs go back to their
+    source siblings (the dim-1 exchange is its own inverse)."""
+    return pipeline.all_to_all_dim1(out, inner_group, n_inner,
+                                    decompose=decompose, wire_dtype=wire_dtype)
+
+
+def exchange_ragged_inter(slim: torch.Tensor, kept_counts: torch.Tensor,
+                          node_group, n_nodes: int, *, n_chunks: int = 1,
+                          wire_dtype=None, decompose=None):
+    """Hop 2 of the two-level ragged exchange: the slim inter-node leg.
+
+    slim: (n_nodes, inter_bound, d) aggregated per-node shards (the rows
+    truly needed, then tail padding); kept_counts: (n_nodes, n_inner,
+    E_local) at per-source-rank granularity, so the receiver rebuilds the
+    flat path's compaction exactly.  The payload moves the bounded shards
+    (the reference's ``lax.ragged_all_to_all`` branch, valid prefixes
+    only, has no counterpart here).  Returns ``(recv, incoming)`` like
+    :func:`exchange_ragged`."""
+    decompose = n_chunks > 1 if decompose is None else decompose
+    incoming = pipeline.counts_all_to_all(
+        kept_counts.reshape(n_nodes, -1), node_group, n_nodes,
+        decompose=decompose).reshape(kept_counts.shape)
+    recv = pipeline.ragged_pipelined_exchange(slim, node_group, n_nodes,
+                                              n_chunks, wire_dtype=wire_dtype,
+                                              decompose=decompose)
+    return recv, incoming
+
+
+def return_ragged_inter(out: torch.Tensor, node_group, n_nodes: int, *,
+                        n_chunks: int = 1, wire_dtype=None,
+                        decompose=None) -> torch.Tensor:
+    """Inverse of :func:`exchange_ragged_inter`'s payload leg: each rank
+    returns what it received and gets back what it sent."""
+    return pipeline.chunked_all_to_all(
+        out, node_group, n_nodes, n_chunks, wire_dtype=wire_dtype,
+        decompose=n_chunks > 1 if decompose is None else decompose)
+
+
+def hierarchical_all_to_all(buf: torch.Tensor, inner_group,
+                            outer_group) -> torch.Tensor:
+    """Two hops for a node mesh: buf (n_outer, n_inner, ...), dim 0 the
+    destination outer rank and dim 1 the destination inner rank.  First
+    the node-local exchange over dim 1 (each inner rank then holds its
+    node's traffic for one inner-peer slot), then one aggregated exchange
+    over dim 0 across nodes.  Differentiable."""
+    buf = pipeline.all_to_all_dim1(buf, inner_group, buf.shape[1])
+    return all_to_all(buf, outer_group)
+
+
+def all_to_all_bf16(buf: torch.Tensor, group) -> torch.Tensor:
+    """The tiled dim-0 all-to-all with the payload cast to bf16 across the
+    wire (half the bytes of f32) and back to its own dtype."""
+    return all_to_all(buf.to(torch.bfloat16), group).to(buf.dtype)

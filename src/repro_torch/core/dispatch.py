@@ -13,9 +13,11 @@ Two realizations, as in the JAX package:
   the gather reads each token's k rows through it.
 
 and the plans of the expert-parallel ragged exchange (``make_ragged_xplan``,
-``ragged_recv_compact``), whose packing and compaction are plain index
-copies (``scatter_rows``, ``gather_rows_fill``), as the reference's
-scatters and gathers are.
+``ragged_recv_compact``) and of its two-level form on a node mesh
+(``make_hier_agg``, ``ragged_recv_compact_hier``, ``hier_chunk_plans``),
+pure index arithmetic on the device with no host sync, whose packing and
+compaction are plain index copies (``scatter_rows``, ``gather_rows_fill``),
+as the reference's scatters and gathers are.
 """
 from __future__ import annotations
 
@@ -219,6 +221,133 @@ def ragged_recv_compact(incoming: torch.Tensor, bound: int):
     valid = j < src_tot[s]
     dest = e_off[e] + prior[s, e] + (j - in_off[s, e])
     dest = torch.where(valid, dest, torch.full_like(dest, mp * bound))
+    return dest.to(torch.int32), gs.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Two-level (hierarchical) ragged exchange — node-level aggregation
+# ---------------------------------------------------------------------------
+#
+# On a mesh with a node axis the flat per-peer shards first move within the
+# node (a dim-1 exchange): each rank is then its node's forwarding agent for
+# its own inner slot, holding every sibling's shard for rank (o, my_inner)
+# of every node o.  The agent packs the n_inner valid prefixes into one
+# slim shard per destination node (``inter_bound`` rows), so the inter-node
+# exchange carries only the rows truly needed.  The receiver rebuilds the
+# flat path's expert-sorted compact array (source-rank-major within an
+# expert), so the two paths are bit-exact when nothing drops.
+
+
+class HierAggPlan(NamedTuple):
+    """Forwarding-agent geometry: n_inner padded shards -> one slim shard."""
+
+    agg_dest: torch.Tensor  # (n_nodes*n_inner*bound,) int32 — slot in the
+    # flat (n_nodes*inter_bound) slim buffer; == n_nodes*inter_bound when
+    # the row is padding or over the inter bound
+    kept_counts: torch.Tensor  # (n_nodes, n_inner, E_local) int32 — rows
+    # that fit the inter bound, per (dest node, source sibling, expert)
+    dropped: torch.Tensor  # () f32 — rows this agent dropped at the bound
+
+
+def make_hier_agg(cnt_agg: torch.Tensor, bound: int,
+                  inter_bound: int) -> HierAggPlan:
+    """Pack per-sibling padded shards into slim per-node shards.
+
+    cnt_agg: (n_nodes, n_inner, E_local), after the intra counts hop, the
+    kept-row counts of sibling ``s``'s shard for destination node ``o``
+    (each shard a valid prefix of ``cnt_agg[o, s].sum()`` rows padded to
+    ``bound``).  The sibling prefixes follow each other in sibling order
+    inside the slim shard; ``inter_bound`` cuts the trailing rows of an
+    over-full node shard, counted in ``dropped``."""
+    n_nodes, n_inner, e_local = cnt_agg.shape
+    cnt = cnt_agg.to(torch.int64)
+    seg = cnt.sum(-1)  # (n_nodes, n_inner) valid prefix lengths
+    off = torch.cumsum(seg, dim=1) - seg  # sibling offsets in the slim shard
+    idx = torch.arange(n_nodes * n_inner * bound, dtype=torch.int64,
+                       device=cnt.device)
+    o = idx // (n_inner * bound)
+    s = (idx // bound) % n_inner
+    b = idx % bound
+    pos = off[o, s] + b
+    valid = (b < seg[o, s]) & (pos < inter_bound)
+    agg_dest = torch.where(valid, o * inter_bound + pos,
+                           torch.full_like(idx, n_nodes * inter_bound))
+    # experts fill each sibling run in order, so the bound cuts trailing
+    # (sibling, expert) segments: make_ragged_xplan's clip pattern
+    e_off = off[..., None] + (torch.cumsum(cnt, dim=-1) - cnt)
+    kept = torch.minimum(torch.clamp(inter_bound - e_off, min=0), cnt)
+    dropped = (cnt.sum() - kept.sum()).to(torch.float32)
+    return HierAggPlan(agg_dest.to(torch.int32), kept.to(torch.int32), dropped)
+
+
+def _hier_slots(incoming: torch.Tensor, inter_bound: int):
+    """Per flat slot (n_nodes*inter_bound,) of the received slim shards:
+    source node ``i``, source sibling ``s``, row ``r`` within the sibling's
+    run, expert ``e``, and validity.  incoming: (n_nodes, n_inner, E_local)
+    kept counts from every source rank (node-major); shard ``i`` holds
+    sibling-major runs, each expert-sorted with lengths ``incoming[i, s]``."""
+    n_nodes, n_inner, e_local = incoming.shape
+    inc = incoming.to(torch.int64)
+    seg = inc.sum(-1)  # (n_nodes, n_inner)
+    soff = torch.cumsum(seg, dim=1) - seg
+    cum_sib = torch.cumsum(seg, dim=1)  # inclusive
+    cum_e = torch.cumsum(inc, dim=-1)  # inclusive, within a sibling
+    idx = torch.arange(n_nodes * inter_bound, dtype=torch.int64,
+                       device=inc.device)
+    i, q = idx // inter_bound, idx % inter_bound
+    s = (q[:, None] >= cum_sib[i]).sum(dim=1).clamp(0, n_inner - 1)
+    r = q - soff[i, s]
+    e = (r[:, None] >= cum_e[i, s]).sum(dim=1).clamp(0, e_local - 1)
+    valid = q < cum_sib[i, n_inner - 1]
+    return i, s, r, e, valid
+
+
+def ragged_recv_compact_hier(incoming: torch.Tensor, inter_bound: int):
+    """Two-level counterpart of :func:`ragged_recv_compact`: maps each
+    received slim slot to its row of the same expert-sorted compact array
+    the flat path builds (source-rank-major within an expert, ranks
+    node-major).  Returns ``(dest (n_nodes*inter_bound,) int32, group_sizes
+    (E_local,) int32)``; invalid slots map to ``n_nodes*inter_bound``."""
+    n_nodes, n_inner, e_local = incoming.shape
+    inc = incoming.to(torch.int64)
+    flat_cnt = inc.reshape(n_nodes * n_inner, e_local)  # source-rank major
+    gs = flat_cnt.sum(dim=0)
+    e_off = torch.cumsum(gs, dim=0) - gs
+    prior = torch.cumsum(flat_cnt, dim=0) - flat_cnt  # earlier sources' rows
+    in_off = torch.cumsum(inc, dim=-1) - inc  # within-sibling expert offsets
+    i, s, r, e, valid = _hier_slots(incoming, inter_bound)
+    dest = e_off[e] + prior[i * n_inner + s, e] + (r - in_off[i, s, e])
+    dest = torch.where(valid, dest, torch.full_like(dest,
+                                                    n_nodes * inter_bound))
+    return dest.to(torch.int32), gs.to(torch.int32)
+
+
+def hier_chunk_plans(incoming: torch.Tensor, inter_bound: int,
+                     n_chunks: int):
+    """Per-chunk compaction maps for the expert compute per received chunk.
+
+    Chunk ``c`` of the inter-node exchange delivers slots ``[c*w,
+    (c+1)*w)`` of every source node's slim shard (``w = inter_bound //
+    n_chunks``); its valid rows form their own expert-sorted mini array, so
+    the grouped kernels can run on chunk ``c`` while chunk ``c+1`` is in
+    flight.  Returns ``(dest (n_chunks, n_nodes*w) int32, gs (n_chunks,
+    E_local) int32)``; ``dest`` maps a chunk's slots (node-major) into its
+    mini array (invalid -> ``n_nodes*w``)."""
+    n_nodes, n_inner, e_local = incoming.shape
+    w = inter_bound // n_chunks
+    _, _, _, e, valid = _hier_slots(incoming, inter_bound)
+
+    def by_chunk(t):  # flat slots (i, q) -> (chunk c, node i, q within c)
+        return t.reshape(n_nodes, n_chunks, w).transpose(0, 1).reshape(
+            n_chunks, n_nodes * w)
+    e_c, v_c = by_chunk(e), by_chunk(valid)
+    onehot = F.one_hot(e_c, e_local) * v_c[..., None]
+    gs = onehot.sum(dim=1)  # (n_chunks, E_local)
+    g_off = torch.cumsum(gs, dim=-1) - gs
+    before = torch.cumsum(onehot, dim=1) - onehot  # earlier slots per expert
+    dest = (torch.gather(g_off, 1, e_c)
+            + torch.gather(before, 2, e_c[..., None])[..., 0])
+    dest = torch.where(v_c, dest, torch.full_like(dest, n_nodes * w))
     return dest.to(torch.int32), gs.to(torch.int32)
 
 

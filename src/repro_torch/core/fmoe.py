@@ -16,12 +16,17 @@ the local experts, the return all-to-all and the combine, for both
 dispatches, on ``torch.distributed``; or the psum mode (every rank
 computes its own experts on all of its tokens and one all-reduce adds
 them), which serves and trains.  Rank ``m`` of the model axis holds
-experts ``[m * E_local, (m + 1) * E_local)``; under expert-internal tensor
+experts ``[m * E_local, (m + 1) * E_local)`` (on a node mesh, index ``m``
+over ``("node", "model")``, node-major); under expert-internal tensor
 parallelism (``tp_axis``) rank ``d`` of the data axis holds hidden units
-``[d * H_local, (d + 1) * H_local)`` of each of them.
+``[d * H_local, (d + 1) * H_local)`` of each of them.  The exchange runs
+the §5.2 smart schedule (``overlap_chunks``, ``core/pipeline``) with an
+optional narrower wire dtype, and on a node mesh the ragged exchange runs
+two-level (``node_axis``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -40,34 +45,57 @@ from repro_torch.kernels import ops
 class DistConfig(NamedTuple):
     """How the MoE layer is distributed over a ``launch.mesh.Mesh``.
 
-    mode "a2a" (tokens sharded over the expert axis too, the paper's §3.2
-    all-to-all) when ``expert_axis`` is among ``token_axes``; otherwise
-    "psum" (every rank of the model axis holds the same tokens, computes
+    mode "a2a" (tokens sharded over the expert axes too, the paper's §3.2
+    all-to-all) when every expert axis is among ``token_axes``; otherwise
+    "psum" (every rank of the expert group holds the same tokens, computes
     its own experts, and one all-reduce sums the outputs; its backward
     all-reduces the gradient, so it trains too).  ``x`` given to
     ``fmoe_apply`` is this rank's token shard; ranks hold contiguous token
-    blocks in rank order.
+    blocks in rank order.  ``expert_axis`` is "model", or ``("node",
+    "model")`` on a node mesh (the mesh's ``expert_axes``).
 
       tp_axis — expert-internal tensor parallelism ("data", capacity
         dispatch, a2a mode): each expert's hidden dim stays sharded over
         the data axis; the rows are all-gathered over it before the expert
         FFN and the partial outputs reduce-scattered back.  The psum mode
         ignores it, as the reference does.
-      overlap_chunks — the §5.2 pipelined exchange: 0 or 1 runs the serial
-        exchange; more raises (ROADMAP §1 item 2).
+      overlap_chunks — the §5.2 smart schedule: split the payload into this
+        many micro-shards (of the capacity, the ragged bound, or the slim
+        inter-node bound) and pipeline the exchanges with the expert
+        compute (``core/pipeline``).  0 or 1 = serial; a count that does
+        not divide the dim falls back to the nearest that does.  Bit-exact
+        against serial in the forward.
+      wire_dtype — cast exchange payloads to this dtype across the wire
+        only ("bf16" halves f32 bytes; the identity for a bf16 payload).
       ragged_bound — rows per peer shard of the ragged exchange: 0 = T_local
         * k, which never drops; a smaller bound drops the rows past it
         (counted in ``drop_frac``).
+      node_axis — the two-level ragged exchange: the inter-node axis
+        ("node"), which must lead ``expert_axis``.  The exchange then
+        aggregates within the node (a hop over the node-local axes) and
+        sends slim per-node shards over this axis, which carry only the
+        rows truly needed.  Bit-exact against the flat exchange.  None, or
+        a mesh without the axis, keeps the flat exchange.
+      inter_bound — rows per slim per-node shard: 0 = n_inner *
+        ragged_bound, which never drops there; a smaller bound drops the
+        rows past it at the forwarding agent (also in ``drop_frac``).
+      decompose — whether a chunked exchange takes the shifts of point-to-
+        point sends (None: when chunked, as the reference) or one
+        all-to-all a chunk (False).  The reference has it as an argument of
+        its pipeline only; here it is a field because it is the one way a
+        train step reaches the undecomposed exchange, and at one rank the
+        shifts issue no collective: the card's single-rank runs take
+        False to drive an async NCCL all-to-all a chunk, where a missing
+        wait shows as a wrong result.
 
     The reference's other fields are carried so that a caller's setting is
-    refused, never ignored: ``placement``, ``wire_dtype``, ``node_axis``,
-    ``inter_bound``, ``fsdp_axis`` and ``router`` raise
-    ``NotImplementedError`` unless left at their defaults.
+    refused, never ignored: ``placement``, ``fsdp_axis`` and ``router``
+    raise ``NotImplementedError`` unless left at their defaults.
     """
 
     mesh: Any
     token_axes: tuple
-    expert_axis: str = "model"
+    expert_axis: Any = "model"
     tp_axis: Optional[str] = None
     fsdp_axis: Optional[str] = None
     placement: Any = None
@@ -77,6 +105,7 @@ class DistConfig(NamedTuple):
     node_axis: Optional[str] = None
     inter_bound: int = 0
     router: Optional[str] = None
+    decompose: Optional[bool] = None
 
     @classmethod
     def local(cls) -> "DistConfig":
@@ -85,7 +114,8 @@ class DistConfig(NamedTuple):
 
     @property
     def expert_axes(self) -> tuple:
-        return (self.expert_axis if isinstance(self.expert_axis, tuple)
+        return (tuple(self.expert_axis) if isinstance(self.expert_axis,
+                                                      (tuple, list))
                 else (self.expert_axis,))
 
     @property
@@ -103,34 +133,54 @@ class DistConfig(NamedTuple):
         set, and in the a2a mode (the psum mode ignores it)."""
         return self.tp_axis is not None and self.mode == "a2a"
 
+    def decomposed(self, n_chunks: int) -> bool:
+        """Whether an exchange split into ``n_chunks`` takes the shifts."""
+        return n_chunks > 1 if self.decompose is None else self.decompose
 
-def moe_dist(cfg, mesh, num_rows: int, *,
-             expert_tp: bool = False) -> DistConfig | None:
+
+def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
+             overlap_chunks: int = 0, wire_dtype: Optional[str] = None,
+             ragged_bound=0, inter_bound: int = 0) -> DistConfig | None:
     """The expert-parallel mode for this (model config, mesh, global count
     of the rows that are split over the ranks: a layer's tokens, or the
     train entry's whole sequences).
 
     a2a (the paper's §3.2 exchange) when the rows split evenly over every
     rank; otherwise the psum mode, rows sharded over data where they split
-    and else held whole by every rank.  ``expert_tp`` (the reference's
-    ``opts={"expert_tp": True}``) sets ``tp_axis="data"`` in the a2a mode;
-    the psum fallbacks leave it None.  None when the config has no MoE or
-    its experts do not split over the model axis."""
-    if cfg.moe is None or cfg.moe.num_experts % mesh.shape["model"]:
+    and else held whole by every rank.  The experts shard over the mesh's
+    ``expert_axes``: "model", or ("node", "model") on a node mesh, whose
+    ragged exchange then runs two-level (``node_axis="node"``).  The
+    reference's options: ``expert_tp`` (``tp_axis="data"``),
+    ``overlap_chunks``, ``wire_dtype``, ``ragged_bound`` and
+    ``inter_bound``, all in the a2a mode; the psum fallbacks leave them
+    unset.  ``ragged_bound="auto"`` calibrates from the load monitor,
+    which is not ported (ROADMAP §1 item 4).  None when the config has no
+    MoE or its experts do not split over the expert axes."""
+    if ragged_bound == "auto":
+        raise NotImplementedError(
+            "ragged_bound='auto' calibrates the bounds from the LoadMonitor, "
+            "placement's module (ROADMAP §1 item 4), not ported to "
+            "repro_torch yet; give a number of rows")
+    axes = mesh.expert_axes
+    if cfg.moe is None or cfg.moe.num_experts % mesh.axes_size(axes):
         return None
+    expert_axis = axes if len(axes) > 1 else axes[0]
+    node = "node" if "node" in axes else None
     if num_rows % mesh.size == 0:
         return DistConfig(mesh, tuple(mesh.axis_names),
-                          tp_axis="data" if expert_tp else None)
+                          expert_axis=expert_axis,
+                          tp_axis="data" if expert_tp else None,
+                          overlap_chunks=int(overlap_chunks or 0),
+                          wire_dtype=wire_dtype or None,
+                          ragged_bound=int(ragged_bound or 0),
+                          node_axis=node, inter_bound=int(inter_bound or 0))
     d_axes = tuple(a for a in mesh.axis_names if a == "data")
     return DistConfig(mesh, d_axes if num_rows % mesh.axes_size(d_axes) == 0
-                      else ())
+                      else (), expert_axis=expert_axis)
 
 
 # where each option the port does not carry yet is queued (ROADMAP.md §1)
 _NOT_CARRIED = {"placement": "placement (ROADMAP §1 item 4)",
-                "wire_dtype": "the §5.2 overlap (ROADMAP §1 item 2)",
-                "node_axis": "the hierarchical exchange (ROADMAP §1 item 6)",
-                "inter_bound": "the hierarchical exchange (ROADMAP §1 item 6)",
                 "fsdp_axis": "sharding (ROADMAP §1 item 9)",
                 "router": "the routing zoo (ROADMAP §1 item 3)"}
 
@@ -142,16 +192,13 @@ def _check_dist(dist: DistConfig) -> None:
             raise NotImplementedError(
                 f"DistConfig.{field}={getattr(dist, field)!r} is {item}, not "
                 f"ported to repro_torch yet")
+    pipeline.wire_torch_dtype(dist.wire_dtype)  # refuses an unknown name
     if dist.mesh is None:
         return
-    if dist.expert_axes != ("model",):
+    if dist.expert_axes != dist.mesh.expert_axes:
         raise ValueError(f"the port's mesh has axes {dist.mesh.axis_names}; "
-                         f"experts shard over 'model', not "
+                         f"experts shard over {dist.mesh.expert_axes}, not "
                          f"{dist.expert_axis!r}")
-    if dist.overlap_chunks > 1:
-        raise NotImplementedError(
-            f"DistConfig.overlap_chunks={dist.overlap_chunks} is the §5.2 "
-            f"overlap (ROADMAP §1 item 2), not ported to repro_torch yet")
     if dist.tp_axis not in (None, "data"):
         raise ValueError(f"expert-internal tensor parallelism shards the "
                          f"hidden dim over 'data', not {dist.tp_axis!r}")
@@ -263,13 +310,17 @@ def expert_ffn_pallas(params: dict, xs: torch.Tensor, act: str) -> torch.Tensor:
     return ys.reshape(E, n, -1)
 
 
-def expert_ffn_fused(params: dict, xs: torch.Tensor, act: str) -> torch.Tensor:
+def expert_ffn_fused(params: dict, xs: torch.Tensor, act: str, *,
+                     plan_rows: int = 0) -> torch.Tensor:
     """expert_fn backed by the fused GEMM1+act+GEMM2 kernel: the (M, H)
-    hidden activation never reaches device memory."""
+    hidden activation never reaches device memory.  ``plan_rows``: the
+    rows the kernels plan their hidden split for (0 = the E * n given;
+    the §5.2 schedule's micro-shards pass the whole buffer's)."""
     E, n, d = xs.shape
     flat = xs.reshape(E * n, d)
     ys = ops.fused_grouped_ffn(flat, _expert_ws(params, act), params["wo"],
-                               _equal_sizes(E, n, xs.device), act)
+                               _equal_sizes(E, n, xs.device), act,
+                               plan_rows=plan_rows)
     return ys.reshape(E, n, -1)
 
 
@@ -292,9 +343,9 @@ def ragged_ffn_two_pass(params: dict, xs: torch.Tensor,
 
 
 def ragged_ffn_fused(params: dict, xs: torch.Tensor, group_sizes: torch.Tensor,
-                     act: str) -> torch.Tensor:
+                     act: str, *, plan_rows: int = 0) -> torch.Tensor:
     return ops.fused_grouped_ffn(xs, _expert_ws(params, act), params["wo"],
-                                 group_sizes, act)
+                                 group_sizes, act, plan_rows=plan_rows)
 
 
 def _ragged_einsum(params, xs, group_sizes, act):
@@ -406,13 +457,18 @@ def _keep_grad(v: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
              act: str, expert_fn: Callable, dist: DistConfig):
-    """Tokens sharded over every mesh axis, experts over the model axis.
+    """Tokens sharded over every mesh axis, experts over the expert axes.
 
     Per rank: gate -> dispatch into (E, C, d), C from the local token count
     -> the counts all-to-all (Fig 2's "exchange sizes", which feeds the
-    load metric) -> the payload all-to-all -> the local experts on
-    (E_local, mp*C, d) -> the return all-to-all -> combine."""
-    group = dist.mesh.group(dist.expert_axis)
+    load metric) -> the payload exchange -> the local experts on
+    (E_local, mp*C, d) -> the return exchange -> combine.  With
+    ``overlap_chunks > 1`` the exchanges and the expert compute run as the
+    §5.2 smart schedule over capacity micro-shards; the fused kernels then
+    plan each micro-shard's hidden split for the whole buffer's rows, so a
+    row's sums do not depend on the chunking."""
+    mesh = dist.mesh
+    group = mesh.group(dist.expert_axes)
     mp = dist.expert_parallelism
     E = cfg.num_experts
     E_local = E // mp
@@ -421,28 +477,35 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
     plan = D.make_capacity_plan(g.expert_ids, E, C)
     buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
+    tp = mesh.group(dist.tp_axis) if dist.tp_axis else None
+    if n_chunks > 1 and expert_fn is expert_ffn_fused:
+        tp_size = mesh.axes_size(dist.tp_axis) if tp else 1
+        expert_fn = functools.partial(expert_ffn_fused,
+                                      plan_rows=E_local * mp * C * tp_size)
 
     def compute(b):  # (E_local, rows, d), row-independent
-        if not dist.tp_axis:
+        if tp is None:
             return expert_fn(experts, b, act)
         # expert-internal tensor parallelism: the tp ranks hold different
         # rows and each a slice of every expert's hidden units (the act is
         # per hidden unit, so the FFN splits over them exactly); gather the
         # rows, compute the partial outputs, reduce-scatter them back
-        tp = dist.mesh.group(dist.tp_axis)
         out = expert_fn(experts, comm.all_gather_rows(b, tp, 1), act)
         return comm.reduce_scatter_rows(out, tp, 1)
 
-    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
+    decompose = dist.decomposed(n_chunks)
     incoming = pipeline.counts_all_to_all(plan.load.reshape(mp, E_local),
-                                          group, mp)  # per source rank
+                                          group, mp, decompose=decompose)
     out = pipeline.pipelined_expert_exchange(
-        buf.reshape(mp, E_local, C, d), group, mp, n_chunks, compute)
+        buf.reshape(mp, E_local, C, d), group, mp, n_chunks, compute,
+        wire_dtype=dist.wire_dtype, decompose=decompose)
     y = D.combine_capacity(out.reshape(E, C, -1), plan, g.combine_weights)
 
-    # the global load: my experts' received counts in my model slot, summed
-    # over the token ranks (an all-gather over model, a psum over data)
-    m = dist.mesh.coords()[1]
+    # the global load: my experts' received counts in my expert slot,
+    # summed over the token ranks (an all-gather over the expert axes, a
+    # psum over data)
+    m = mesh.axis_index(dist.expert_axes)
     load_part = x.new_zeros(E, dtype=torch.float32)
     load_part[m * E_local:(m + 1) * E_local] = incoming.sum(0).float()
     _, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
@@ -453,6 +516,124 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     return y, metrics
 
 
+class _PinnedBackward(torch.autograd.Function):
+    """``run(slim, weights)`` forward, and the gradient of ``serial(slim,
+    weights)`` backward: the serial leg recomputed under grad and
+    differentiated (the reference's ``custom_vjp`` around the inter-node
+    leg's per-chunk compute, which keeps both directions bit-exact against
+    the flat exchange)."""
+
+    @staticmethod
+    def forward(ctx, run, serial, slim, *weights):
+        ctx.serial = serial
+        ctx.save_for_backward(slim, *weights)
+        return run(slim, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        wants = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w)
+                   for t, w in zip(ctx.saved_tensors, wants)]
+            out = ctx.serial(ins[0], tuple(ins[1:]))
+            need = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, need, g) if need else ())
+        return (None, None, *(next(got) if w else None for w in wants))
+
+
+def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
+                   B: int, E_local: int):
+    """The two-level ragged exchange on a node mesh, from the flat (mp, B,
+    d) send shards to the returned (mp, B, d_out) ones: the intra-node hop
+    (every rank becomes its node's forwarding agent for its inner slot),
+    the agents' slim per-node shards (``make_hier_agg``), the inter-node
+    leg with the expert compute (serial or chunked; per received chunk for
+    ``pallas`` and ``fused``, its backward pinned to the serial leg's),
+    the de-aggregation and the intra-node return.  Returns (ret, rows the
+    agent dropped at the inter bound)."""
+    mesh = dist.mesh
+    mp, _, d = send.shape
+    node_ax = dist.node_axis
+    if dist.expert_axes[0] != node_ax:
+        raise ValueError(f"node_axis {node_ax!r} must lead expert_axes "
+                         f"{dist.expert_axes!r} (ranks are node-major)")
+    n_nodes = mesh.shape[node_ax]
+    n_inner = mp // n_nodes
+    inner_g = mesh.group(tuple(a for a in dist.expert_axes if a != node_ax))
+    node_g = mesh.group(node_ax)
+    IB = dist.inter_bound or n_inner * B  # slim shard rows (0: no drops)
+    # the inter-node leg is chunked; the node-local hops run serially, and
+    # decomposed alongside
+    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, IB)
+    decomp = dist.decomposed(n_chunks)
+    wire = dist.wire_dtype
+    shards, cnt_agg = comm.exchange_ragged_intra(
+        send.reshape(n_nodes, n_inner, B, d),
+        xplan.peer_counts.reshape(n_nodes, n_inner, E_local), inner_g,
+        n_inner, decompose=decomp, wire_dtype=wire)
+    aplan = D.make_hier_agg(cnt_agg, B, IB)
+    slim = D.scatter_rows(shards.reshape(-1, d), aplan.agg_dest,
+                          n_nodes * IB).reshape(n_nodes, IB, d)
+    if n_chunks > 1 and impl in ("pallas", "fused"):
+        # each inter chunk's counts are known before its payload lands, so
+        # the grouped kernels run on chunk c while chunk c+1 is in flight;
+        # the fused kernels plan each chunk's hidden split for the whole
+        # leg's rows.  Splitting dW over chunks would reassociate its f32
+        # sums, so the backward is the serial leg's.
+        w = IB // n_chunks
+        incoming = pipeline.counts_all_to_all(
+            aplan.kept_counts.reshape(n_nodes, -1), node_g, n_nodes,
+            decompose=decomp).reshape(cnt_agg.shape)
+        cplan, gs_local = D.ragged_recv_compact_hier(incoming, IB)
+        cdest, cgs = D.hier_chunk_plans(incoming, IB, n_chunks)
+        fn = RAGGED_FNS[impl]
+        if impl == "fused":
+            fn = functools.partial(ragged_ffn_fused, plan_rows=n_nodes * IB)
+        names = list(experts)
+        ex = dict(wire_dtype=wire, decompose=decomp)
+
+        def serial_leg(slim_, ws):
+            p = dict(zip(names, ws))
+            recv = pipeline.chunked_all_to_all(slim_, node_g, n_nodes,
+                                               n_chunks, **ex)
+            xs = D.scatter_rows(recv.reshape(-1, d), cplan, n_nodes * IB)
+            out = D.gather_rows_fill(fn(p, xs, gs_local, act), cplan)
+            return pipeline.chunked_all_to_all(
+                out.reshape(n_nodes, IB, -1), node_g, n_nodes, n_chunks, **ex)
+
+        def chunked_leg(slim_, ws):
+            p = dict(zip(names, ws))
+
+            def chunk_fn(rc, c):
+                mini = D.scatter_rows(rc.reshape(-1, d), cdest[c],
+                                      n_nodes * w)
+                ys = fn(p, mini, cgs[c], act)
+                return D.gather_rows_fill(ys, cdest[c]).reshape(n_nodes, w, -1)
+            return pipeline.hier_ragged_pipeline(slim_, node_g, n_nodes,
+                                                 n_chunks, chunk_fn, **ex)
+
+        ret_slim = _PinnedBackward.apply(chunked_leg, serial_leg, slim,
+                                         *experts.values())
+    else:
+        ex = dict(n_chunks=n_chunks, wire_dtype=wire, decompose=decomp)
+        recv, incoming = comm.exchange_ragged_inter(
+            slim, aplan.kept_counts, node_g, n_nodes, **ex)
+        cplan, gs_local = D.ragged_recv_compact_hier(incoming, IB)
+        xs = D.scatter_rows(recv.reshape(-1, d), cplan, n_nodes * IB)
+        ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
+        out = D.gather_rows_fill(ys, cplan)
+        ret_slim = comm.return_ragged_inter(
+            out.reshape(n_nodes, IB, -1), node_g, n_nodes, **ex)
+    # de-aggregate (the outputs back to the padded sibling shards), then
+    # invert the intra hop: ret lands in the flat (mp, B) shard layout
+    d_out = ret_slim.shape[-1]
+    padded = D.gather_rows_fill(ret_slim.reshape(-1, d_out), aplan.agg_dest)
+    ret = comm.return_ragged_intra(
+        padded.reshape(n_nodes, n_inner, B, d_out), inner_g, n_inner,
+        decompose=decomp, wire_dtype=wire)
+    return ret.reshape(mp, B, d_out), aplan.dropped
+
+
 def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
                     cfg: MoEConfig, act: str, dist: DistConfig,
                     impl: str = "einsum"):
@@ -460,17 +641,20 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
 
       1. the counts all-to-all: each rank tells peer p how many rows it
          routed to each of p's experts;
-      2. the payload all-to-all: the expert-sorted rows in (mp, bound, d)
+      2. the payload exchange: the expert-sorted rows in (mp, bound, d)
          pad-to-max-per-peer shards (``dist.ragged_bound``; 0 = T_local*k,
-         which never drops);
+         which never drops), micro-sharded with ``overlap_chunks``;
       3. the receiver compacts the valid prefixes into one expert-sorted
          array and runs the grouped kernels (``RAGGED_FNS[impl]``);
-      4. the return all-to-all brings the rows back into the slots they
+      4. the return exchange brings the rows back into the slots they
          were sent from, and ``combine_ragged`` applies the gate weights.
 
-    The packing and compaction are plain index copies, with a zero row for
-    the drop sentinel, as the reference's scatters and gathers are."""
-    group = dist.mesh.group(dist.expert_axis)
+    On a node mesh with ``node_axis`` the exchange runs two-level
+    (:func:`_hier_exchange`), bit-exact against this flat one when nothing
+    drops.  The packing and compaction are plain index copies, with a zero
+    row for the drop sentinel, as the reference's scatters and gathers
+    are."""
+    mesh = dist.mesh
     mp = dist.expert_parallelism
     E = cfg.num_experts
     t, d = x.shape
@@ -482,21 +666,32 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     xplan = D.make_ragged_xplan(plan.group_sizes, n, E, mp, B)
     send = D.scatter_rows(x_sorted, xplan.send_dest, mp * B).reshape(mp, B, d)
 
-    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, B)
-    recv, incoming = comm.exchange_ragged(send, xplan.peer_counts, group, mp,
-                                          n_chunks=n_chunks)
-    # source-major within an expert = global token order, as ranks hold
-    # contiguous token blocks in rank order
-    cplan, gs_local = D.ragged_recv_compact(incoming, B)
-    xs = D.scatter_rows(recv.reshape(mp * B, d), cplan, mp * B)
-    ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
-    out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
-    ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp,
-                             n_chunks=n_chunks)
+    node_ax = dist.node_axis
+    n_nodes = (mesh.shape[node_ax] if node_ax in dist.expert_axes else 1)
+    agg_dropped = 0.0
+    if 1 < n_nodes < mp:
+        ret, agg_dropped = _hier_exchange(send, xplan, experts, act, dist,
+                                          impl, B, E // mp)
+    else:
+        group = mesh.group(dist.expert_axes)
+        n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, B)
+        ex = dict(n_chunks=n_chunks, wire_dtype=dist.wire_dtype,
+                  decompose=dist.decomposed(n_chunks))
+        recv, incoming = comm.exchange_ragged(send, xplan.peer_counts, group,
+                                              mp, **ex)
+        # source-major within an expert = global token order, as ranks hold
+        # contiguous token blocks in rank order
+        cplan, gs_local = D.ragged_recv_compact(incoming, B)
+        xs = D.scatter_rows(recv.reshape(mp * B, d), cplan, mp * B)
+        ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
+        out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
+        ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp, **ex)
     y_sorted = D.gather_rows_fill(ret.reshape(mp * B, -1), xplan.send_dest)
     y = D.combine_ragged(y_sorted, plan, g.combine_weights)
 
-    dropped = (xplan.num_owned_rows - xplan.keep.sum()).float()
+    # rows over the peer bound, and those the forwarding agent dropped at
+    # the inter bound: the mean over the ranks is the global fraction
+    dropped = (xplan.num_owned_rows - xplan.keep.sum()).float() + agg_dropped
     metrics = _dist_metrics(
         dist, plan.group_sizes,
         load_balance_loss(g.probs, g.expert_ids, E), router_z_loss(g.logits),
@@ -529,7 +724,7 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     sum over the world (experts: over data) divided by the world size is
     then the mean over the data blocks, as in the a2a mode."""
     mp = dist.expert_parallelism
-    m = dist.mesh.coords()[1]
+    m = dist.mesh.axis_index(dist.expert_axes)
     E = cfg.num_experts
     E_local = E // mp
     mine = slice(m * E_local, (m + 1) * E_local)
@@ -557,7 +752,7 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         out[mine] = out_local
         y = D.combine_capacity(out, plan, g.combine_weights)
         load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
-    y = comm.all_reduce_sum(y, dist.mesh.group(dist.expert_axis))
+    y = comm.all_reduce_sum(y, dist.mesh.group(dist.expert_axes))
     aux = load_balance_loss(g.probs, g.expert_ids, E)
     z = router_z_loss(g.logits)
     ranks = dist.mesh.axes_size(dist.token_axes)

@@ -5,7 +5,8 @@ FastMoE tags every parameter ``world`` / ``data parallel`` / ``none`` and
 its ``DistributedGroupedDataParallel`` all-reduces each gradient within
 its tag's group.  In the port every param but the routed expert stacks is
 replicated on every rank (``world``); the expert stacks are sharded over
-the model axis on their expert dim and replicated over the data axis
+the model axis (on a node mesh over node and model) on their expert dim
+and replicated over the data axis
 (``none``: no sync across expert peers, a sync over ``data`` when the
 mesh has one), or, under expert-internal tensor parallelism, sharded over
 the data axis on their hidden dim too (``tp``: no sync at all).  The
@@ -78,12 +79,12 @@ def sync_grads(grads, dist):
 def sharded_sq_norms(tree, dist) -> list:
     """Per leaf, the f32 sum of squares of the *whole* gradient under
     ``dist``: an expert leaf's squares are summed over the ranks that hold
-    its shards (``none``: the model group; ``tp``: the world), a ``world``
-    leaf's are its own.  One all-reduce per expert tag."""
+    its shards (``none``: the expert axes' group; ``tp``: the world), a
+    ``world`` leaf's are its own.  One all-reduce per expert tag."""
     mesh = dist.mesh
     tagged = list(tagged_leaves(tree))
     sq = [torch.sum(torch.square(leaf.float())) for _, leaf in tagged]
-    for tag, group in (("none", mesh.group("model")),
+    for tag, group in (("none", mesh.group(dist.expert_axes)),
                        ("tp", mesh.group(mesh.axis_names))):
         idx = [i for i, (path, _) in enumerate(tagged)
                if fastmoe_tag(path, dist) == tag]

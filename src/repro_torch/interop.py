@@ -8,7 +8,8 @@ per-layer dicts here.  Every parity test builds its torch params through
 :func:`from_jax`.  With a mesh, a rank keeps its shard: the routed expert
 stacks sliced on their expert dim, rank ``m`` of the model axis holding
 experts ``[m * E_local, (m + 1) * E_local)`` (``P("model", None, None)``
-in the reference), everything else whole; with ``expert_tp`` also on
+in the reference; on a node mesh index ``n * model + m`` over ``("node",
+"model")``, node-major), everything else whole; with ``expert_tp`` also on
 their hidden dim over the data axis (``wi*`` dim 2, ``wo`` dim 1: the
 reference's ``P("model", None, "data")`` and ``P("model", "data",
 None)``).  ``models.lm.init_params(mesh=...)`` draws the same shards
@@ -45,7 +46,8 @@ def shard_params(params: dict, mesh, rank: int | None = None, *,
     and with ``expert_tp`` on its hidden dim to the rank's hidden units
     (``launch.mesh.Mesh.expert_shard``); every other leaf as it is.  A
     slice is a copy, so the whole stack can be freed."""
-    if mesh.shape["model"] == 1 and not (expert_tp and mesh.shape["data"] > 1):
+    if (mesh.axes_size(mesh.expert_axes) == 1
+            and not (expert_tp and mesh.shape["data"] > 1)):
         return params
 
     def shard(path, t):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.grouped_gemm import rows_matmul
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"fused_ffn": [_P] * 7 + [_I] * 9 + [_P],
@@ -57,8 +58,8 @@ def activate(g: torch.Tensor, u, act: str) -> torch.Tensor:
 def fused_ffn_plain(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                     group_sizes: torch.Tensor, act: str) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: f32 products (f64 for f64
-    inputs), the hidden rounded to x's dtype before the second product;
-    rows past the groups are zero."""
+    inputs, ``grouped_gemm.rows_matmul``), the hidden rounded to x's dtype
+    before the second product; rows past the groups are zero."""
     check_gating(ws, act)
     M = x.shape[0]
     acc = torch.promote_types(x.dtype, torch.float32)
@@ -68,10 +69,10 @@ def fused_ffn_plain(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
         end = min(start + size, M)
         if end > start:
             xe = x[start:end].to(acc)
-            g = xe @ ws[0][e].to(acc)
-            u = xe @ ws[1][e].to(acc) if len(ws) == 2 else None
+            g = rows_matmul(xe, ws[0][e].to(acc))
+            u = rows_matmul(xe, ws[1][e].to(acc)) if len(ws) == 2 else None
             h = activate(g, u, act).to(x.dtype).to(acc)
-            y[start:end] = (h @ wo[e].to(acc)).to(x.dtype)
+            y[start:end] = rows_matmul(h, wo[e].to(acc)).to(x.dtype)
         start = end
     return y
 
@@ -85,8 +86,15 @@ class Plan(NamedTuple):
     splits: int
 
 
-def plan(M: int, E: int, H: int, gated: bool = False) -> Plan:
+def plan(M: int, E: int, H: int, gated: bool = False,
+         split_rows: int = 0) -> Plan:
     """The ring kernel's tiles for M rows over E experts and hidden H.
+
+    ``split_rows`` (0 = M) is the row count the hidden split is planned
+    for: a launch on a part of a larger buffer (a micro-shard of the §5.2
+    schedule) passes the whole buffer's rows, so every row sums the same
+    f32 partials in the same order as in the whole buffer's launch.  The
+    row tile ``bm`` follows M and does not change a row's arithmetic.
 
     ``bm`` is the smallest row tile that holds an expert of average size
     (ceil(M / E) rows, at most 64), so an expert's weights are streamed
@@ -96,13 +104,16 @@ def plan(M: int, E: int, H: int, gated: bool = False) -> Plan:
     per expert the rows can reach (min(M, E)) or per ``bm`` rows, whichever
     is more; each split adds an f32 (M, N) partial to write and read back,
     so no more splits than that."""
-    per_group = math.ceil(M / max(E, 1))
-    bm = next((b for b in ROW_TILES if b >= per_group), ROW_TILES[-1])
-    row_tiles = max(math.ceil(M / bm), min(M, E), 1)
+    def row_tile(m):
+        per_group = math.ceil(m / max(E, 1))
+        return next((b for b in ROW_TILES if b >= per_group), ROW_TILES[-1])
+
+    S = split_rows or M
+    row_tiles = max(math.ceil(S / row_tile(S)), min(S, E), 1)
     chunks = [c for c in HIDDEN_CHUNKS if not (gated and c > 128)]
     hc = next((c for c in chunks
                if row_tiles * math.ceil(H / c) >= 2 * _build.SMS), chunks[-1])
-    return Plan(bm, hc, math.ceil(H / hc))
+    return Plan(row_tile(M), hc, math.ceil(H / hc))
 
 
 def route(x: torch.Tensor, ws: tuple, wo: torch.Tensor) -> str:
@@ -141,7 +152,8 @@ def _check(what, x, ws, wo, group_sizes, act):
 
 
 def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
-                     group_sizes: torch.Tensor, act: str) -> torch.Tensor:
+                     group_sizes: torch.Tensor, act: str,
+                     plan_rows: int = 0) -> torch.Tensor:
     """The simple kernel (f32 or bf16, any K, H, N): :func:`fused_ffn`'s
     route for f32 and for shapes the ring kernel does not take."""
     M, K, H, N, E = _check("fused_ffn_simple", x, ws, wo, group_sizes, act)
@@ -149,7 +161,7 @@ def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        splits = simple_splits(M, E, H)
+        splits = simple_splits(plan_rows or M, E, H)
         partial = torch.empty(splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None
@@ -165,19 +177,22 @@ def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
 
 
 def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
-              group_sizes: torch.Tensor, act: str) -> torch.Tensor:
+              group_sizes: torch.Tensor, act: str,
+              plan_rows: int = 0) -> torch.Tensor:
     """x (M, K); ws (wi,) or (wi_gate, wi_up), each (E, K, H); wo (E, H, N);
-    group_sizes (E,) int32 summing to <= M.  ``fused_ffn.launches`` counts
-    every kernel launch, ``fused_ffn_simple.launches`` the simple kernel's."""
+    group_sizes (E,) int32 summing to <= M.  ``plan_rows`` (0 = M): the
+    rows the hidden split is planned for (:func:`plan`'s ``split_rows``).
+    ``fused_ffn.launches`` counts every kernel launch,
+    ``fused_ffn_simple.launches`` the simple kernel's."""
     if x.device.type == "cpu":
         return fused_ffn_plain(x, ws, wo, group_sizes, act)
     M, K, H, N, E = _check("fused_ffn", x, ws, wo, group_sizes, act)
     if route(x, ws, wo) == "simple":
-        return fused_ffn_simple(x, ws, wo, group_sizes, act)
+        return fused_ffn_simple(x, ws, wo, group_sizes, act, plan_rows)
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        p = plan(M, E, H, gated=len(ws) == 2)
+        p = plan(M, E, H, gated=len(ws) == 2, split_rows=plan_rows)
         partial = torch.empty(p.splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None

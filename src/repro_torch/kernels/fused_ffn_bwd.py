@@ -205,7 +205,7 @@ def _weights(ws):
     return ws[0].data_ptr(), ws[1].data_ptr() if len(ws) == 2 else None
 
 
-def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act):
+def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act, plan_rows=0):
     """The first-version dX kernel (f32 or bf16, any K, H, N):
     :func:`fused_ffn_bwd_dx`'s route for f32 and for shapes the ring kernel
     does not take."""
@@ -214,7 +214,7 @@ def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act):
     dx = torch.empty_like(x)
     if M and K:
         lib = _build.load("fused_ffn_bwd", _SIGS)
-        splits = ff.simple_splits(M, E, H)
+        splits = ff.simple_splits(plan_rows or M, E, H)
         partial = torch.empty(splits, M, K, dtype=torch.float32,
                               device=x.device)
         wi, wu = _weights(ws)
@@ -230,9 +230,11 @@ def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act):
 
 def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                      dy: torch.Tensor, group_sizes: torch.Tensor,
-                     act: str) -> torch.Tensor:
+                     act: str, plan_rows: int = 0) -> torch.Tensor:
     """dX (M, K) in x's dtype; x (M, K), ws (wi,) or (wi_gate, wi_up) each
-    (E, K, H), wo (E, H, N), dy (M, N), group_sizes (E,) int32.
+    (E, K, H), wo (E, H, N), dy (M, N), group_sizes (E,) int32.  The ring
+    kernel's split does not depend on M; ``plan_rows`` (0 = M) pins the
+    first version's (``fused_ffn.fused_ffn``'s argument).
     ``fused_ffn_bwd_dx.launches`` counts every kernel launch,
     ``fused_ffn_bwd_dx_simple.launches`` the first version's."""
     if x.device.type == "cpu":
@@ -240,7 +242,8 @@ def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     M, K, H, N, E, _ = _check("fused_ffn_bwd_dx", x, ws, wo, dy, group_sizes,
                               act)
     if route(x, ws, wo, dy) == "simple":
-        return fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act)
+        return fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act,
+                                       plan_rows)
     dx = torch.empty_like(x)
     if M and K:
         lib = _build.load("fused_ffn_bwd", _SIGS)

@@ -57,12 +57,24 @@ def route(x: torch.Tensor, w: torch.Tensor, trans_w: bool = False) -> str:
     return "simple"
 
 
+def rows_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` computed so that a row's result does not depend on how many
+    rows ``a`` has, as the kernels' rows do not: torch's CPU matmul takes a
+    matrix-vector route for a single row, whose last bit differs from the
+    same row's in a taller product, so one row is computed as two.  (At
+    the widths of the CPU tests a taller product keeps each row's sum;
+    wider ones may block by the row count as well.)"""
+    if a.shape[0] == 1 and a.device.type == "cpu":
+        return (a.expand(2, -1) @ b)[:1]
+    return a @ b
+
+
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                        group_sizes: torch.Tensor,
                        trans_w: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: one f32 product per group
-    (f64 for f64 inputs), rounded to x's dtype; rows past the groups are
-    zero."""
+    (f64 for f64 inputs, :func:`rows_matmul`), rounded to x's dtype; rows
+    past the groups are zero."""
     M = x.shape[0]
     acc = torch.promote_types(x.dtype, torch.float32)
     y = torch.zeros(M, w.shape[1 if trans_w else 2], dtype=x.dtype,
@@ -72,7 +84,8 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
         end = min(start + size, M)
         if end > start:
             we = w[e].T if trans_w else w[e]
-            y[start:end] = (x[start:end].to(acc) @ we.to(acc)).to(x.dtype)
+            y[start:end] = rows_matmul(x[start:end].to(acc),
+                                       we.to(acc)).to(x.dtype)
         start = end
     return y
 

@@ -95,10 +95,10 @@ def ffn_two_pass(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group_sizes, act, wo, *ws):
+    def forward(ctx, x, group_sizes, act, plan_rows, wo, *ws):
         ctx.save_for_backward(x, group_sizes, wo, *ws)
-        ctx.act = act
-        return ff.fused_ffn(x, ws, wo, group_sizes, act)
+        ctx.act, ctx.plan_rows = act, plan_rows
+        return ff.fused_ffn(x, ws, wo, group_sizes, act, plan_rows)
 
     @staticmethod
     def backward(ctx, dy):
@@ -109,22 +109,25 @@ class _FusedFFN(torch.autograd.Function):
         dws = [None] * len(ws)
         dwo = None
         if ctx.needs_input_grad[0]:
-            dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, group_sizes, ctx.act)
+            dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, group_sizes, ctx.act,
+                                     ctx.plan_rows)
         if any(ctx.needs_input_grad[3:]):
             dw32, dwo32 = fb.fused_ffn_bwd_dw(x, ws, wo, dy, group_sizes,
                                               ctx.act)
             dws = [d.to(w.dtype) for d, w in zip(dw32, ws)]
             dwo = dwo32.to(wo.dtype)
-        return (dx, None, None, dwo, *dws)
+        return (dx, None, None, None, dwo, *dws)
 
 
 def fused_grouped_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
-                      group_sizes: torch.Tensor, act: str = "swiglu"
-                      ) -> torch.Tensor:
+                      group_sizes: torch.Tensor, act: str = "swiglu",
+                      plan_rows: int = 0) -> torch.Tensor:
     """y[i] = act(x[i] @ wi[g(i)]) @ wo[g(i)] with the hidden tile on chip,
-    in both directions."""
+    in both directions.  ``plan_rows`` (0 = the rows of x): the rows the
+    kernels plan their hidden split for (``fused_ffn.plan``)."""
     ff.check_gating(tuple(ws), act)
-    return _FusedFFN.apply(x, group_sizes.to(torch.int32), act, wo, *ws)
+    return _FusedFFN.apply(x, group_sizes.to(torch.int32), act,
+                           int(plan_rows), wo, *ws)
 
 
 class _GatherTokens(torch.autograd.Function):

@@ -123,7 +123,8 @@ class ContinuousBatcher:
             serve.check_serving_mesh(data)
             mesh = make_local_mesh(data, model)
         if mesh is not None:
-            serve.check_serving_mesh(mesh.shape["data"])
+            serve.check_serving_mesh(mesh.shape["data"],
+                                     mesh.shape.get("node", 1))
         self.params = params
         self.cfg = cfg
         self.scfg = scfg

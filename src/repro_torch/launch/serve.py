@@ -58,8 +58,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def check_serving_mesh(data: int) -> None:
-    """The port serves 1xM meshes: every rank holds every token."""
+def check_serving_mesh(data: int, node: int = 1) -> None:
+    """The port serves 1xM meshes: every rank holds every token.  A node
+    axis is refused: the two-level exchange is a training path, and the
+    reference's serving has none."""
+    if node > 1:
+        raise NotImplementedError(
+            f"serving over a node axis of {node}: the reference's serve has "
+            f"no node path (the two-level exchange trains); use a 1xM mesh")
     if data > 1:
         raise NotImplementedError(
             f"serving over a data axis of {data} needs a batcher per data "

@@ -79,10 +79,16 @@ class ServeConfig:
         return self.slots * self.blocks_per_slot + 2
 
     def mesh_shape(self) -> Optional[tuple]:
-        """Parsed (data, model) mesh dims, or None for one device."""
+        """Parsed (data, model) mesh dims, or None for one device.  A
+        (data, node, model) mesh is refused: the reference's serving has
+        no node path."""
         if not self.mesh:
             return None
-        d, m = (int(v) for v in self.mesh.lower().split("x"))
+        dims = [int(v) for v in self.mesh.lower().split("x")]
+        if len(dims) == 3:
+            from repro_torch.launch.serve import check_serving_mesh
+            check_serving_mesh(dims[0], node=dims[1])
+        d, m = dims
         return d, m
 
     @classmethod

@@ -12,6 +12,11 @@ Expert parallelism over a (data, model) mesh of ranks, one process each:
         --device cpu --reduced --steps 2
     torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 1x4 \
         --device cpu --reduced --batch 2      # the psum mode
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 2x2 \
+        --device cpu --reduced --overlap_chunks 2 --wire_dtype bf16
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 1x2x2 \
+        --device cpu --reduced --dispatch ragged --impl fused \
+        --overlap_chunks 2 --inter_bound 64   # two-level exchange
 
 (gloo on the CPU, NCCL with one card a rank on the GPU).  Each rank makes
 its own shard of the params from the seed (``lm.init_params(mesh=...)``):
@@ -20,7 +25,12 @@ the batch's rows split over every rank, each rank takes its contiguous
 block of them and the MoE layers exchange tokens (a2a); otherwise the
 psum mode: the ranks of a model group share their data row's block (or,
 where the rows do not split over data either, every row).  The logged
-loss is the mean over the ranks.
+loss is the mean over the ranks.  ``--mesh DxNxM`` adds a node axis: the
+experts shard over (node, model) and the ragged exchange runs two-level.
+``--overlap_chunks`` runs the §5.2 smart schedule, ``--wire_dtype bf16``
+narrows the exchange payloads, ``--ragged_bound`` and ``--inter_bound``
+size the ragged and slim inter-node shards (0 = never drop); the psum
+mode ignores these, as the reference does.
 
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel in both directions, fused = the fused FFN kernel
@@ -191,15 +201,27 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="DATAxMODEL expert parallelism, one rank a process "
-                         "(run under torchrun)")
+                    help="DATAxMODEL or DATAxNODExMODEL expert parallelism, "
+                         "one rank a process (run under torchrun)")
+    ap.add_argument("--overlap_chunks", type=int, default=0,
+                    help="§5.2 pipelined exchange micro-shards (0/1 = serial)")
+    ap.add_argument("--wire_dtype", default="", choices=["", "bf16"],
+                    help="exchange payload dtype across the wire")
+    ap.add_argument("--ragged_bound", default="0",
+                    help="rows per peer shard of the ragged exchange "
+                         "(0 = never drop)")
+    ap.add_argument("--inter_bound", type=int, default=0,
+                    help="rows per slim inter-node shard (0 = never drop)")
     args = ap.parse_args(argv)
     if not args.mesh:
         return _run(args, resolve(args.device), None)
-    data, model = (int(v) for v in args.mesh.lower().split("x"))
+    dims = [int(v) for v in args.mesh.lower().split("x")]
+    if len(dims) not in (2, 3):
+        raise ValueError(f"--mesh {args.mesh}: DxM or DxNxM")
+    data, model, node = dims[0], dims[-1], dims[1] if len(dims) == 3 else 1
     dev = init_distributed(args.device)
     try:
-        _run(args, dev, make_local_mesh(data, model))
+        _run(args, dev, make_local_mesh(data, model, node))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -220,10 +242,15 @@ def _run(args, dev: torch.device, mesh) -> None:
         # a rank takes whole sequences, so the mode follows the row count:
         # rows that split over every rank exchange tokens (a2a), others
         # fall back to the psum mode
-        dist = moe_dist(cfg, mesh, args.batch)
+        rb = args.ragged_bound
+        dist = moe_dist(cfg, mesh, args.batch,
+                        overlap_chunks=args.overlap_chunks,
+                        wire_dtype=args.wire_dtype or None,
+                        ragged_bound=rb if rb == "auto" else int(rb),
+                        inter_bound=args.inter_bound)
         if dist is None:
             raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
-                             f" experts do not split over the model axis of "
+                             f" experts do not split over the expert axes of "
                              f"{args.mesh}, and data parallelism without "
                              f"experts is not ported")
     # each rank makes its own shard from the seed

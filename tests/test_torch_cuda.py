@@ -7,7 +7,9 @@ prefill and training row counts at full width) and its simple route, its
 backward kernels (the dX and dW ring kernels over the same cases, an
 expert over the dW kernel's 64-row batch, and their simple route), the
 expert kernels at the hidden shards of expert-internal tensor
-parallelism (1024 and 512 of fastmoe-gpt's 2048), and
+parallelism (1024 and 512 of fastmoe-gpt's 2048), the §5.2 schedule's
+capacity micro-shards (a chunk's launch equal to the whole buffer's rows
+bit for bit), and
 flash attention (tails of both tile sizes, window 1, GQA, non-causal, a
 query offset, one query row; the bf16 forward at both of its tile choices,
 also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
@@ -535,6 +537,50 @@ def test_fused_ffn_ring_kernel_model_rows(dev, act, M, bm):
     torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),
                                **TOL[torch.bfloat16])
     assert not got[int(gs.sum()):].any()
+
+
+# (E, C, chunk rows, K, H, N): fastmoe-gpt's training buffer (96 x 56) cut
+# into the chunks of 2 and 4 micro-shards, and 8 experts of 320 rows whose
+# 80-row chunks would plan another hidden split (hc 64, 32 partials, where
+# the whole buffer's launch takes 256 and 8) unless given the whole's rows
+CHUNK_CASES = [(96, 56, 28, 1024, 2048, 1024), (96, 56, 14, 1024, 2048, 1024),
+               (8, 320, 80, 256, 2048, 256)]
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,C,rows,K,H,N", CHUNK_CASES)
+def test_chunk_launches_equal_the_whole_buffers_rows(dev, act, E, C, rows, K,
+                                                     H, N):
+    """A capacity buffer (E, C) cut into micro-shards of ``rows`` a expert,
+    each launched alone with ``plan_rows`` = the whole buffer's rows: the
+    fused FFN's output and its dX, and the grouped GEMM's output, equal the
+    whole launch's rows bit for bit.  The row tile ``bm`` follows the
+    chunk's rows and does not change a row's arithmetic; the hidden split
+    follows ``plan_rows``, so a row sums the same partials in the same
+    order.  (dW sums over rows: a chunk's is a part of the whole's.)"""
+    M = E * C
+    x, gs, ws, wo, dy = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N,
+                                    [C] * E)
+    gated = act == "swiglu"
+    whole = ff.fused_ffn(x, ws, wo, gs, act)
+    whole_dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+    whole_gg = gg.grouped_gemm(x, ws[0], gs)
+    cs = torch.full((E,), rows, dtype=torch.int32, device=dev)
+    for c in range(C // rows):
+        part = slice(c * rows, (c + 1) * rows)
+
+        def cut(t):
+            return t.view(E, C, -1)[:, part].reshape(E * rows, -1)
+        assert (ff.plan(E * rows, E, H, gated, split_rows=M).splits
+                == ff.plan(M, E, H, gated).splits)
+        got = ff.fused_ffn(cut(x), ws, wo, cs, act, plan_rows=M)
+        got_dx = fb.fused_ffn_bwd_dx(cut(x), ws, wo, cut(dy), cs, act,
+                                     plan_rows=M)
+        got_gg = gg.grouped_gemm(cut(x), ws[0], cs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cut(whole)), (c, "forward")
+        assert torch.equal(got_dx, cut(whole_dx)), (c, "dX")
+        assert torch.equal(got_gg, cut(whole_gg)), (c, "grouped GEMM")
 
 
 @pytest.mark.parametrize("case", ["K36", "H100", "misaligned", "f32", "f32_wide"])

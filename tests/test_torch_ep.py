@@ -76,8 +76,11 @@ ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 300  # seconds a spawn of ranks may take before it is killed
 STORE_TIMEOUT = datetime.timedelta(seconds=150)  # a collective's own limit
 MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
-TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model", "decode"],
-         "2x2": ["layer", "model", "drops", "tp"], "1x4": ["layer"]}
+# the node mesh of the two-level exchange: (data, node, model)
+NODE_MESHES = {"1x2x2": (1, 2, 2)}
+TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model", "decode", "overlap"],
+         "2x2": ["layer", "model", "drops", "tp", "overlap"], "1x4": ["layer"],
+         "1x2x2": ["hier"]}
 DISPATCHES = ("capacity", "ragged")
 IMPLS = ("einsum", "pallas", "fused")
 # model level: the port's impl per dispatch; the JAX side runs einsum (its
@@ -88,6 +91,15 @@ MODEL_B, MODEL_S = 4, 16
 LAYER = dict(num_experts=8, top_k=2, d_expert_hidden=64, capacity_factor=8.0)
 LR, WARMUP, TOTAL = 1e-3, 2, 10
 DECODE_STEPS, DECODE_CACHE = 6, 8  # psum decode: greedy steps, ring length
+OVERLAP_CHUNKS = (2, 3, 4)  # the §5.2 schedule's depths (3 falls back to 2
+# where the capacity or bound does not divide by it)
+CHUNK_GRAD_ATOL = 1e-6  # chunked gradients against serial (dW summed a
+# chunk at a time reassociates its f32 sums): the reference's own bound
+WIRE_ATOL = 0.05  # the bf16 wire against f32, as the reference holds it
+# inter bounds of the two-level exchange at these inputs: the tightest that
+# drops nothing (40 of the 128 rows a slim shard may hold), and one that
+# makes the forwarding agents drop (6.6% of the rows)
+HIER_IB, HIER_DROP_IB = 40, 32
 
 
 def _flatten(tree, prefix=""):
@@ -140,41 +152,54 @@ def _tokens(step):
 # ---------------------------------------------------------------------------
 
 
-def _layer_task(spec, job, mesh, out):
-    from repro_torch import interop
-    from repro_torch.configs.base import MoEConfig
-    from repro_torch.core import fmoe
-    from repro_torch.core.sync import sync_grads
-
+def _layer_inputs(job, mesh):
+    """The layer's inputs: x and r (T, d) whole, the whole router and
+    expert params, and this rank's rows of the a2a mode."""
     inp = dict(np.load(job / "layer.npz"))
     d = inp["x"].shape[-1]
     x = torch.from_numpy(inp["x"]).reshape(-1, d)
     r = torch.from_numpy(inp["r"]).reshape(-1, d)
     t = x.shape[0] // mesh.size
-    rows = slice(mesh.rank * t, (mesh.rank + 1) * t)
     whole = _unflatten({k: torch.from_numpy(v) for k, v in inp.items()
                         if k.startswith(("router/", "experts/"))})
+    return x, r, whole, slice(mesh.rank * t, (mesh.rank + 1) * t)
+
+
+def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
+               grads=True):
+    """y, load, drop_frac and the synced gradients of sum(y * r) over the
+    rank's rows."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import fmoe
+    from repro_torch.core.sync import sync_grads
+
+    cfg = MoEConfig(dispatch=dispatch, **LAYER)
+    p = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
+         for k, v in params.items()}
+    xs = x[rows].clone().requires_grad_()
+    y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl)
+    out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
+                f"{key}/drop_frac": m.drop_frac})
+    if not grads:
+        return
+    g_leaves = [p["router"]["w"]] + list(p["experts"].values())
+    g = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs])
+    tree = {"router": {"w": g[0]},
+            "experts": dict(zip(p["experts"], g[1:-1]))}
+    sync_grads(tree, dist)
+    for k, v in _flatten(tree).items():
+        out[f"{key}/grad/{k}"] = v
+    out[f"{key}/grad/x"] = g[-1]
+
+
+def _layer_task(spec, job, mesh, out):
+    from repro_torch import interop
+    from repro_torch.core import fmoe
+
+    x, r, whole, rows = _layer_inputs(job, mesh)
 
     def run(key, params, dist, dispatch, impl, rows, grads=True):
-        """y, load, drop_frac and the synced gradients of sum(y * r) over
-        the rank's rows."""
-        cfg = MoEConfig(dispatch=dispatch, **LAYER)
-        p = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
-             for k, v in params.items()}
-        xs = x[rows].clone().requires_grad_()
-        y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl)
-        out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
-                    f"{key}/drop_frac": m.drop_frac})
-        if not grads:
-            return
-        g_leaves = [p["router"]["w"]] + list(p["experts"].values())
-        g = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs])
-        tree = {"router": {"w": g[0]},
-                "experts": dict(zip(p["experts"], g[1:-1]))}
-        sync_grads(tree, dist)
-        for k, v in _flatten(tree).items():
-            out[f"{key}/grad/{k}"] = v
-        out[f"{key}/grad/x"] = g[-1]
+        _layer_run(key, params, dist, dispatch, impl, x, r, rows, out, grads)
 
     params = interop.shard_params(whole, mesh)
     for dispatch in DISPATCHES:
@@ -202,6 +227,111 @@ def _layer_task(spec, job, mesh, out):
         for impl in IMPLS:
             run(f"tp_layer/capacity/{impl}", tp_params, dist, "capacity", impl,
                 rows)
+
+
+# options the port refused before the §5.2 schedule and the two-level
+# exchange: each now runs (on a mesh without a node axis, node_axis and
+# inter_bound keep the flat exchange, as the reference's)
+FORMER_REFUSALS = {"overlap_chunks": dict(overlap_chunks=2),
+                   "wire_dtype": dict(wire_dtype="bf16"),
+                   "node_axis": dict(node_axis="node"),
+                   "inter_bound": dict(inter_bound=8)}
+
+
+def _overlap_task(spec, job, mesh, out):
+    """The §5.2 schedule: the layer matrix at each of OVERLAP_CHUNKS, with
+    the undecomposed exchange (one all-to-all a chunk) at 4, and with the
+    bf16 wire; tp with chunks (2x2); the options the port refused before;
+    the reduced model with chunks against the JAX package (2x2)."""
+    from repro_torch import interop
+    from repro_torch.core import fmoe
+    from repro_torch.launch import train
+
+    x, r, whole, rows = _layer_inputs(job, mesh)
+    params = interop.shard_params(whole, mesh)
+    base = fmoe.DistConfig(mesh, ("data", "model"))
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            runs = {f"overlap{n}": dict(overlap_chunks=n)
+                    for n in OVERLAP_CHUNKS}
+            runs["overlap4_undecomposed"] = dict(overlap_chunks=4,
+                                                 decompose=False)
+            runs["wire"] = dict(wire_dtype="bf16")
+            for name, kw in runs.items():
+                _layer_run(f"{name}/{dispatch}/{impl}", params,
+                           base._replace(**kw), dispatch, impl, x, r, rows,
+                           out)
+    for what, kw in FORMER_REFUSALS.items():
+        _layer_run(f"former/{what}", params, base._replace(**kw), "ragged",
+                   "fused", x, r, rows, out)
+    if "tp" in spec["tasks"]:
+        tp_params = interop.shard_params(whole, mesh, expert_tp=True)
+        for impl in IMPLS:
+            _layer_run(f"tp_overlap/capacity/{impl}", tp_params,
+                       base._replace(tp_axis="data", overlap_chunks=2),
+                       "capacity", impl, x, r, rows, out)
+        params_np = _unflatten(dict(np.load(job / "model_params.npz")))
+        for dispatch in DISPATCHES:
+            cfg = _model_cfg(dispatch)
+            dist = train.moe_dist(cfg, mesh, MODEL_B, overlap_chunks=2)
+            assert dist.mode == "a2a" and dist.overlap_chunks == 2
+            _model_run(f"overlap_model/{dispatch}", params_np, cfg, dist,
+                       MODEL_IMPL[dispatch], out)
+
+
+def _hier_task(spec, job, mesh, out):
+    """The two-level exchange on a (data, node, model) mesh: for each impl,
+    the flat exchange and the two-level one at overlap_chunks 0 and 4 and
+    inter bounds 0 and HIER_IB (ragged); capacity on the node mesh (a flat
+    exchange over (node, model)); the agents' drops at HIER_DROP_IB; the
+    bf16 wire over both levels against the flat exchange's."""
+    from repro_torch import interop
+    from repro_torch.core import fmoe
+
+    x, r, whole, rows = _layer_inputs(job, mesh)
+    params = interop.shard_params(whole, mesh)
+    hier = fmoe.DistConfig(mesh, tuple(mesh.axis_names),
+                           expert_axis=("node", "model"), node_axis="node")
+    flat = hier._replace(node_axis=None)
+
+    def run(key, dist, dispatch="ragged", impl="fused", grads=True):
+        _layer_run(key, params, dist, dispatch, impl, x, r, rows, out, grads)
+
+    for impl in IMPLS:
+        for oc in (0, 4):
+            run(f"flat/{oc}/{impl}", flat._replace(overlap_chunks=oc),
+                impl=impl)
+            for ib in (0, HIER_IB):
+                run(f"hier/{oc}/{ib}/{impl}",
+                    hier._replace(overlap_chunks=oc, inter_bound=ib),
+                    impl=impl)
+        run(f"hier_capacity/{impl}", hier, "capacity", impl)
+    run("hier_drops", hier._replace(overlap_chunks=2,
+                                    inter_bound=HIER_DROP_IB),
+        impl="einsum", grads=False)
+    run("hier_wire", hier._replace(wire_dtype="bf16", inter_bound=HIER_IB))
+    run("flat_wire", flat._replace(wire_dtype="bf16"))
+    # the comm helpers nothing calls: rank r's (n_nodes, n_inner, 3) block
+    # of a seeded (ranks, n_nodes, n_inner, 3) array
+    from repro_torch.core import comm
+    buf = torch.from_numpy(_comm_input()[mesh.rank])
+    out["comm/hierarchical"] = comm.hierarchical_all_to_all(
+        buf, mesh.group("model"), mesh.group("node"))
+    experts = mesh.group(("node", "model"))
+    out["comm/bf16"] = comm.all_to_all_bf16(
+        buf.reshape(4, -1), experts).reshape(buf.shape)
+    # Fig 2's steps over (node, model): 8 experts' counts and (4, 2, 3)
+    # capacity buffers of 4 experts, exchanged and returned
+    tokens = buf.reshape(4, 1, 3).expand(4, 2, 3).contiguous()
+    out["comm/counts"] = comm.exchange_counts(
+        (buf.reshape(-1)[:8] * 10).round().to(torch.int32), experts)
+    out["comm/tokens"] = comm.exchange_tokens(tokens, experts)
+    out["comm/returned"] = comm.return_tokens(out["comm/tokens"], experts)
+
+
+def _comm_input():
+    return np.random.default_rng(5).standard_normal((4, 2, 2, 3)).astype(
+        np.float32)
 
 
 def _model_run(key, params_np, cfg, dist, impl, out):
@@ -279,6 +409,11 @@ def _bit_equal_task(spec, job, mesh, out):
                  "psum": fmoe.DistConfig(mesh, ("data",))}
         if dispatch == "capacity":
             dists["tp"] = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
+        # the §5.2 schedule at world size 1: no collective (decomposed), or
+        # one all-to-all a chunk
+        chunked = train.moe_dist(cfg, mesh, MODEL_B, overlap_chunks=2)
+        dists["overlap"] = chunked
+        dists["overlap_undecomposed"] = chunked._replace(decompose=False)
         batch = {"tokens": torch.from_numpy(_tokens(0))}
         for impl in IMPLS:
             res = {}
@@ -301,6 +436,11 @@ def _bit_equal_task(spec, job, mesh, out):
                 out[f"{sub}/grads"] = np.asarray(all(
                     torch.equal(a, b) for a, b in zip(res["local"][0],
                                                       res[name][0])))
+                out[f"{sub}/loss_equal"] = np.asarray(torch.equal(
+                    res["local"][0][0], res[name][0][0]))
+                out[f"{sub}/grad_diff"] = np.asarray(max(
+                    float((a - b).abs().max()) for a, b in
+                    zip(res["local"][0][1:], res[name][0][1:])))
                 out[f"{sub}/step"] = np.asarray(all(
                     torch.equal(a, b) for a, b in zip(res["local"][1],
                                                       res[name][1])))
@@ -350,7 +490,8 @@ def _decode_task(spec, job, mesh, out):
 
 
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
-              "bit_equal": _bit_equal_task, "decode": _decode_task}
+              "bit_equal": _bit_equal_task, "decode": _decode_task,
+              "overlap": _overlap_task, "hier": _hier_task}
 
 
 def _rank_main(job: Path, rank: int) -> None:
@@ -359,12 +500,12 @@ def _rank_main(job: Path, rank: int) -> None:
 
     torch.set_num_threads(1)
     spec = json.loads((job / "job.json").read_text())
-    data, model = spec["mesh"]
-    world = data * model
+    data, model, node = spec["mesh"]
+    world = data * node * model
     init_distributed("cpu", rank=rank, world_size=world,
                      store=tdist.FileStore(str(job / "store"), world),
                      timeout=STORE_TIMEOUT)
-    mesh = make_local_mesh(data, model)
+    mesh = make_local_mesh(data, model, node)
     out: dict = {}
     for task in spec["tasks"]:
         if task in RANK_TASKS:
@@ -564,6 +705,74 @@ def _jax_dist(job: Path, name: str, parts: tuple, box: dict):
         box[(name, parts)] = e
 
 
+JAX_HIER = """
+import sys
+import numpy as np, jax
+sys.path.insert(0, {tests!r})
+import dist_utils as du
+import test_torch_ep as T
+from repro.core import fmoe
+env = du.moe_env(dispatch="ragged")
+mesh = du.make_mesh(1, 2, node=2)  # (data, node, model) = (1, 2, 2)
+hier = fmoe.DistConfig(mesh, ("data", "node", "model"),
+                       expert_axis=("node", "model"), node_axis="node")
+out = {{}}
+# chunked, so that every leg is a ppermute (XLA:CPU has no ragged
+# all-to-all for the serial inter leg)
+for key, oc, ib in (("tight", 4, T.HIER_IB), ("drops", 2, T.HIER_DROP_IB)):
+    y, m = du.dist_apply(env, mesh, hier._replace(overlap_chunks=oc,
+                                                  inter_bound=ib))
+    out["hier_" + key + "/y"], out["hier_" + key + "/drop_frac"] = y, m.drop_frac
+# the comm helpers, each rank its block (rank = node * 2 + model)
+from jax.sharding import PartitionSpec as P
+from repro import compat
+from repro.core import comm
+spec = P(("data", "node", "model"))
+for key, fn in (("hierarchical",
+                 lambda b: comm.hierarchical_all_to_all(b, "model", "node")),
+                ("bf16", lambda b: comm.all_to_all_bf16(
+                    b.reshape(4, -1), ("node", "model")).reshape(b.shape))):
+    f = compat.shard_map(lambda b, fn=fn: fn(b[0])[None], mesh=mesh,
+                         in_specs=spec, out_specs=spec)
+    with mesh:
+        out["comm/" + key] = jax.jit(f)(T._comm_input())
+EXP = ("node", "model")
+
+
+def fig2(b):
+    b = b[0]
+    tokens = jnp.broadcast_to(b.reshape(4, 1, 3), (4, 2, 3))
+    counts = jnp.round(b.reshape(-1)[:8] * 10).astype(jnp.int32)
+    sent = comm.exchange_tokens(tokens, EXP)
+    return (comm.exchange_counts(counts, EXP)[None], sent[None],
+            comm.return_tokens(sent, EXP)[None])
+
+
+import jax.numpy as jnp
+f = compat.shard_map(fig2, mesh=mesh, in_specs=spec,
+                     out_specs=(spec, spec, spec))
+with mesh:
+    out["comm/counts"], out["comm/tokens"], out["comm/returned"] = (
+        jax.jit(f)(T._comm_input()))
+np.savez({dest!r}, **{{k: np.asarray(v) for k, v in out.items()}})
+print("jax hier ok")
+"""
+
+
+def _jax_hier(root: Path, box: dict):
+    """The JAX package's two-level layer on a 1x2x2 mesh of fake devices
+    (einsum experts, the ragged dispatch), where every leg is a ppermute:
+    HIER_IB at 4 chunks, HIER_DROP_IB at 2."""
+    import dist_utils as du
+    dest = root / "jax_hier.npz"
+    try:
+        du.run(JAX_HIER.format(tests=str(ROOT / "tests"), dest=str(dest)),
+               devices=4, timeout=SPAWN_TIMEOUT)
+        box["hier"] = dict(np.load(dest))
+    except Exception as e:  # reported by the tests that read it
+        box["hier"] = e
+
+
 @pytest.fixture(scope="module")
 def ep(tmp_path_factory):
     """Runs every spawn and the JAX counterparts once, concurrently."""
@@ -576,25 +785,28 @@ def ep(tmp_path_factory):
         np.asarray, jlm.init_params(jax.random.PRNGKey(0), jcfg))))
     env, r = _jax_layer_inputs(root)
     waits = {}
-    for name, (data, model) in MESHES.items():
+    shapes = {**{n: (d, m, 1) for n, (d, m) in MESHES.items()},
+              **{n: (d, m, k) for n, (d, k, m) in NODE_MESHES.items()}}
+    for name, (data, model, node) in shapes.items():
         job = root / name
         job.mkdir()
         for f in ("layer.npz", "model_params.npz"):
             (job / f).symlink_to(root / f)
         (job / "job.json").write_text(json.dumps(
-            {"mesh": [data, model], "tasks": TASKS[name]}))
-        waits[name] = (job, _spawn(job, data * model))
+            {"mesh": [data, model, node], "tasks": TASKS[name]}))
+        waits[name] = (job, _spawn(job, data * model * node))
     jax_box: dict = {}
     threads = [threading.Thread(target=_jax_dist,
                                 args=(root / n, n, parts, jax_box))
                for n, jobs in JAX_PARTS.items() for parts in jobs]
+    threads.append(threading.Thread(target=_jax_hier, args=(root, jax_box)))
     for th in threads:
         th.start()
     oracle = _jax_layer_oracle(env, r)
     runs = {}
     for name, (job, wait) in waits.items():
         ok, log = wait()
-        world = MESHES[name][0] * MESHES[name][1]
+        world = int(np.prod(shapes[name]))
         runs[name] = dict(ok=ok, log=log, ranks=[
             dict(np.load(job / f"rank{i}.npz")) if ok else None
             for i in range(world)])
@@ -969,14 +1181,238 @@ def test_world_size_1_psum_decode_is_local_decode(ep, dispatch, impl):
         "psum decode logits or tokens differ from the local path's"
 
 
+def _grads(r, key):
+    return _sub(r, f"{key}/grad")
+
+
+def _assert_same_run(r, key, ref_key, grad_atol=None):
+    """``key``'s y, load and drop fraction equal ``ref_key``'s bit for bit;
+    its gradients too, or within ``grad_atol``."""
+    for k in ("y", "load", "drop_frac"):
+        np.testing.assert_array_equal(r[f"{key}/{k}"], r[f"{ref_key}/{k}"],
+                                      f"{key} {k}")
+    got, want = _grads(r, key), _grads(r, ref_key)
+    assert got.keys() == want.keys() and got
+    for path, g in got.items():
+        if grad_atol is None:
+            np.testing.assert_array_equal(g, want[path], f"{key} {path}")
+        else:
+            np.testing.assert_allclose(g, want[path], rtol=0, atol=grad_atol,
+                                       err_msg=f"{key} {path}")
+
+
+@pytest.mark.parametrize("chunks", OVERLAP_CHUNKS)
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+def test_overlap_layer_equals_serial(ep, name, chunks):
+    """The §5.2 schedule at each depth, for {capacity, ragged} x {einsum,
+    pallas, fused} (plain versions on the CPU): y, load and drop fraction
+    equal the serial exchange's bit for bit, and the gradients of sum(y *
+    r) are within CHUNK_GRAD_ATOL (each chunk's dW adds in chunk order); y
+    against JAX's single-rank layer at 1e-5."""
+    ranks = _ranks(ep, name)
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            key = f"{dispatch}/{impl}"
+            for r in ranks:
+                _assert_same_run(r, f"overlap{chunks}/{key}", f"layer/{key}",
+                                 CHUNK_GRAD_ATOL)
+            y = np.concatenate([r[f"overlap{chunks}/{key}/y"] for r in ranks])
+            ref = ep["oracle"][key]["y"]
+            np.testing.assert_allclose(y, ref.reshape(y.shape), rtol=1e-5,
+                                       atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+def test_undecomposed_chunks_equal_the_shifts(ep, name):
+    """At 4 chunks the exchange as one all-to-all a chunk (``decompose=
+    False``) equals the point-to-point shifts bit for bit, forward and
+    gradients."""
+    for r in _ranks(ep, name):
+        for dispatch in DISPATCHES:
+            for impl in IMPLS:
+                key = f"{dispatch}/{impl}"
+                _assert_same_run(r, f"overlap4_undecomposed/{key}",
+                                 f"overlap4/{key}")
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+def test_bf16_wire_is_near_f32_and_not_equal(ep, name):
+    """The bf16 wire rounds the f32 payloads each way: y within WIRE_ATOL
+    of the f32 wire's, and not equal to it."""
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            key = f"{dispatch}/{impl}"
+            got = np.concatenate([r[f"wire/{key}/y"] for r in _ranks(ep, name)])
+            want = np.concatenate([r[f"layer/{key}/y"]
+                                   for r in _ranks(ep, name)])
+            diff = float(np.abs(got - want).max())
+            assert 0 < diff < WIRE_ATOL, (key, diff)
+
+
+@pytest.mark.parametrize("what", list(FORMER_REFUSALS))
+def test_formerly_refused_options_run(ep, what):
+    """overlap_chunks, wire_dtype, node_axis and inter_bound run (ragged,
+    fused, 1x2): the first equals the serial exchange bit for bit in the
+    forward, the wire within WIRE_ATOL; on a mesh without a node axis the
+    last two keep the flat exchange, bit for bit."""
+    for r in _ranks(ep, "1x2"):
+        key, ref = f"former/{what}", "layer/ragged/fused"
+        if what == "wire_dtype":
+            diff = float(np.abs(r[f"{key}/y"] - r[f"{ref}/y"]).max())
+            assert 0 < diff < WIRE_ATOL, diff
+        else:
+            _assert_same_run(r, key, ref, None if what != "overlap_chunks"
+                             else CHUNK_GRAD_ATOL)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_overlap_tp_layer_equals_serial(ep, impl):
+    """Chunks under expert-internal tensor parallelism (capacity, 2x2): the
+    rows of each chunk all-gathered over data and scattered back; equal to
+    the serial tp layer, gradients within CHUNK_GRAD_ATOL."""
+    for r in _ranks(ep, "2x2"):
+        _assert_same_run(r, f"tp_overlap/capacity/{impl}",
+                         f"tp_layer/capacity/{impl}", CHUNK_GRAD_ATOL)
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_overlap_model_matches_jax_distributed(ep, dispatch):
+    """Reduced fastmoe-gpt with remat at 2 chunks (2x2): the step-0 loss
+    equals the serial exchange's bit for bit, and everything against the
+    JAX package's serial distributed loss_fn as the serial case (1e-4)."""
+    ranks = _ranks(ep, "2x2")
+    _assert_model("2x2", ranks, _jax_dist_result(ep, "2x2"),
+                  f"overlap_model/{dispatch}", f"model/{dispatch}")
+    for r in ranks:
+        np.testing.assert_array_equal(r[f"overlap_model/{dispatch}/loss"],
+                                      r[f"model/{dispatch}/loss"])
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_world_size_1_overlap_train_matches_local(ep, dispatch, impl):
+    """At world size 1, 2 chunks (no collective: the shifts of one rank are
+    a copy; or one all-to-all a chunk): the step-0 loss equals the local
+    path's bit for bit, the gradients within CHUNK_GRAD_ATOL."""
+    r = _ranks(ep, "1x1")[0]
+    for name in ("overlap", "overlap_undecomposed"):
+        key = f"bit_equal/{dispatch}/{impl}/{name}"
+        assert bool(r[f"{key}/loss_equal"]), name
+        assert float(r[f"{key}/grad_diff"]) <= CHUNK_GRAD_ATOL, name
+
+
+def _hier_ranks(ep):
+    return _ranks(ep, "1x2x2")
+
+
+@pytest.mark.parametrize("ib", [0, HIER_IB])
+@pytest.mark.parametrize("oc", [0, 4])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hier_equals_flat_bit_for_bit(ep, impl, oc, ib):
+    """The two-level exchange on 1x2x2 (2 nodes x 2 inner ranks) equals
+    the flat exchange over (node, model) bit for bit, forward and
+    gradients, serial and at 4 chunks (pallas and fused: the expert
+    compute per received chunk, its backward the serial leg's), with the
+    slim shards at n_inner * bound and at the tightest bound that drops
+    nothing; y against JAX's single-rank layer at 1e-5."""
+    ranks = _hier_ranks(ep)
+    for r in ranks:
+        _assert_same_run(r, f"hier/{oc}/{ib}/{impl}", f"flat/{oc}/{impl}")
+        assert float(r[f"hier/{oc}/{ib}/{impl}/drop_frac"]) == 0.0
+        if oc:  # the flat exchange in chunks: serial's forward, grads near
+            _assert_same_run(r, f"flat/{oc}/{impl}", f"flat/0/{impl}",
+                             CHUNK_GRAD_ATOL)
+    y = np.concatenate([r[f"hier/{oc}/{ib}/{impl}/y"] for r in ranks])
+    ref = ep["oracle"][f"ragged/{impl}"]["y"]
+    np.testing.assert_allclose(y, ref.reshape(y.shape), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hier_grads_and_node_capacity_match_jax(ep, impl):
+    """On 1x2x2, rank n * 2 + m holds expert block n * 2 + m: the
+    two-level layer's gradients of sum(y * r) and the capacity dispatch
+    (a flat exchange over (node, model)) against jax.grad of the
+    single-rank layer at 1e-5 of each leaf's largest magnitude."""
+    ranks = _hier_ranks(ep)
+    world = len(ranks)
+    for dispatch, key in (("ragged", f"hier/4/{HIER_IB}/{impl}"),
+                          ("capacity", f"hier_capacity/{impl}")):
+        ref = ep["oracle"][f"{dispatch}/{impl}"]
+        y = np.concatenate([r[f"{key}/y"] for r in ranks])
+        np.testing.assert_allclose(y, ref["y"].reshape(y.shape), rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
+        xg = np.concatenate([r[f"{key}/grad/x"] for r in ranks])
+        _close_to_scale(xg, ref["grad"]["x"].reshape(xg.shape), 1e-5, key)
+        for rank, r in enumerate(ranks):
+            _close_to_scale(world * r[f"{key}/grad/router/w"],
+                            ref["grad"]["router/w"], 1e-5, f"{key} router")
+            for leaf in ("wi_gate", "wi_up", "wo"):
+                want = _expert_slice(ref["grad"][f"experts/{leaf}"], leaf,
+                                     rank, (1, world))
+                _close_to_scale(world * r[f"{key}/grad/experts/{leaf}"],
+                                want, 1e-5, f"{key} rank {rank} {leaf}")
+
+
+def test_hier_matches_jax_two_level_and_its_drops(ep):
+    """Against the JAX package's two-level layer on the same 1x2x2 mesh
+    where it runs here (chunked: every leg a ppermute): at HIER_IB and 4
+    chunks y at 1e-5 and nothing dropped; at HIER_DROP_IB and 2 chunks the
+    forwarding agents drop the same rows (drop fraction equal) and y
+    agrees at 1e-5."""
+    ranks = _hier_ranks(ep)
+    ref = ep["jax"].get("hier")
+    assert isinstance(ref, dict), ref
+    y = np.concatenate([r[f"hier/4/{HIER_IB}/einsum/y"] for r in ranks])
+    np.testing.assert_allclose(y, ref["hier_tight/y"].reshape(y.shape),
+                               rtol=1e-5, atol=1e-5)
+    assert float(ref["hier_tight/drop_frac"]) == 0.0
+    y = np.concatenate([r["hier_drops/y"] for r in ranks])
+    np.testing.assert_allclose(y, ref["hier_drops/y"].reshape(y.shape),
+                               rtol=1e-5, atol=1e-5)
+    for r in ranks:
+        drop = float(r["hier_drops/drop_frac"])
+        assert drop > 0.05, drop  # the inter bound really drops rows
+        np.testing.assert_allclose(drop, float(ref["hier_drops/drop_frac"]),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("fn", ["hierarchical", "bf16", "counts", "tokens",
+                                "returned"])
+def test_comm_helpers_match_jax(ep, fn):
+    """``comm.hierarchical_all_to_all`` (the node-local hop over dim 1,
+    then the aggregated one over dim 0 across nodes),
+    ``comm.all_to_all_bf16`` and Fig 2's ``exchange_counts``,
+    ``exchange_tokens`` and ``return_tokens`` over (node, model) on 1x2x2
+    equal the JAX package's under shard_map on the same mesh, rank by
+    rank, bit for bit; the returned tokens are the sent ones."""
+    ref = ep["jax"].get("hier")
+    assert isinstance(ref, dict), ref
+    got = np.stack([r[f"comm/{fn}"] for r in _hier_ranks(ep)])
+    np.testing.assert_array_equal(got, ref[f"comm/{fn}"])
+    if fn == "bf16":  # rank r's slice s is rank s's slice r, rounded
+        f32 = _comm_input().reshape(4, 4, 3).transpose(1, 0, 2)
+        got = got.reshape(f32.shape)
+        assert not np.array_equal(got, f32)
+        np.testing.assert_allclose(got, f32, rtol=2 ** -8, atol=0)
+    if fn == "returned":
+        sent = np.broadcast_to(_comm_input().reshape(4, 4, 1, 3), got.shape)
+        np.testing.assert_array_equal(got, sent)
+
+
+def test_hier_bf16_wire_equals_flat_bf16_wire(ep):
+    """Both levels cast at the same points: the two-level exchange with the
+    bf16 wire (at HIER_IB) equals the flat exchange's bf16 wire bit for
+    bit, and sits within WIRE_ATOL of the f32 wire, not equal to it."""
+    for r in _hier_ranks(ep):
+        _assert_same_run(r, "hier_wire", "flat_wire")
+        diff = float(np.abs(r["hier_wire/y"] - r["flat/0/fused/y"]).max())
+        assert 0 < diff < WIRE_ATOL, diff
+
+
 REFUSED = {
-    "overlap_chunks": (dict(overlap_chunks=2), "item 2"),
-    "wire_dtype": (dict(wire_dtype="bf16"), "item 2"),
     "placement": (dict(placement=object()), "item 4"),
     # as the reference: tp takes the capacity dispatch
     "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
-    "node_axis": (dict(node_axis="node"), "item 6"),
-    "inter_bound": (dict(inter_bound=8), "item 6"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
     "router": (dict(router="gumbel"), "item 3"),
 }
@@ -1015,18 +1451,15 @@ def test_local_carrier_is_the_local_path():
 
 
 def test_serial_exchange_refuses_chunks_and_psum_from_moe_dist():
+    """moe_dist's modes by the rows; its one refusal left is the bounds'
+    calibration from the load monitor (item 4)."""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core import pipeline
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
 
-    x = torch.zeros(2, 4, 3)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pipeline.chunked_all_to_all(x, None, 2, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pipeline.pipelined_expert_exchange(x[:, None], None, 2, 1,
-                                           lambda b: b, wire_dtype="bf16")
     cfg = reduced(get_config("fastmoe-gpt"))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        train.moe_dist(cfg, Mesh(2, 2), 64, ragged_bound="auto")
     mesh = Mesh(2, 2)
     assert train.moe_dist(cfg, mesh, 64).mode == "a2a"
     assert train.moe_dist(cfg, mesh, 62).mode == "psum"  # 62 % 4 != 0
@@ -1078,6 +1511,24 @@ def test_train_cli_psum_under_torchrun(mesh):
     if mesh == "1x4":
         _, single = _train_cli(*args, ranks=1)
         np.testing.assert_allclose(losses, single, rtol=0, atol=1e-4 + 1e-6)
+
+
+_FLAT_LOSSES: dict = {}
+
+
+@pytest.mark.parametrize("extra", [[], ["--overlap_chunks", "2", "--impl",
+                                       "fused", "--inter_bound", "256"]])
+def test_train_cli_node_mesh_matches_flat(extra):
+    """The README's two-level command at sequences of 64: 4 ranks on a
+    1x2x2 mesh (ragged) print the same losses as on 1x4, serially and at 2
+    chunks with slim shards of 256 rows (half the default n_inner * bound,
+    dropless at these batches)."""
+    args = ["--dispatch", "ragged", "--seq", "64"]
+    lines, hier = _train_cli("--mesh", "1x2x2", *args, *extra)
+    assert "mesh 1x2x2 (a2a over ('data', 'node', 'model'))" in lines, lines
+    if not _FLAT_LOSSES:
+        _FLAT_LOSSES["1x4"] = _train_cli("--mesh", "1x4", *args)[1]
+    assert hier == _FLAT_LOSSES["1x4"], (hier, _FLAT_LOSSES)
 
 
 def test_moe_dist_modes_and_expert_tp():
@@ -1197,6 +1648,68 @@ def test_world_size_1_bit_equal_on_the_card(tmp_path):
                 assert len(res[name]) == len(res["local"])
                 for i, (a, b) in enumerate(zip(res["local"], res[name])):
                     assert torch.equal(a, b), (dispatch, impl, name, i)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _leaf_paths(tree, path=""):
+    """The paths of a params tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in _leaf_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+@pytest.mark.cuda
+def test_chunked_step_on_the_card(tmp_path):
+    """The §5.2 schedule at world size 1 on the card (NCCL), reduced
+    fastmoe-gpt at d_model 256 with the CUDA kernels: at 2 and 4 chunks,
+    the undecomposed exchange (one async NCCL all-to-all a chunk) among
+    them, the step-0 loss equals the serial exchange's bit for bit, and so
+    does every gradient leaf but the expert leaves of a chunked capacity
+    step, which take a chunk's dW at a time: those are held to a relative
+    L2 distance of 1e-2 to serial's (chip_smoke.py's OVERLAP_EXPERT_L2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU machine: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_ep.py, or python3 "
+                    "chip_smoke.py, whose ep_overlap phase checks the same "
+                    "at full width)")
+    import torch.distributed as tdist
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    dev = init_distributed("cuda", rank=0, world_size=1,
+                           store=tdist.FileStore(str(tmp_path / "store"), 1),
+                           timeout=STORE_TIMEOUT)
+    try:
+        mesh = make_local_mesh(1, 1)
+        for dispatch, impl in (("capacity", "fused"), ("capacity", "pallas"),
+                               ("ragged", "fused")):
+            cfg = _model_cfg(dispatch, d_model=256)
+            batch = {"tokens": torch.from_numpy(_tokens(0)).to(dev)}
+            params = lm.init_params(cfg, seed=0, device=dev,
+                                    param_dtype=cfg.param_dtype, mesh=mesh)
+            serial = train.moe_dist(cfg, mesh, MODEL_B)
+            loss0, _, g0 = train.loss_and_grads(params, cfg, batch, impl=impl,
+                                                device=dev, dist=serial)
+            for n in (2, 4):
+                for decompose in (None, False):
+                    d = serial._replace(overlap_chunks=n, decompose=decompose)
+                    loss, _, g = train.loss_and_grads(
+                        params, cfg, batch, impl=impl, device=dev, dist=d)
+                    assert torch.equal(loss, loss0), (dispatch, impl, n)
+                    for path, a, b in zip(_leaf_paths(g), tree_leaves(g),
+                                          tree_leaves(g0)):
+                        if dispatch == "capacity" and "/experts/" in path:
+                            dist = float((a.float() - b.float()).norm()
+                                         / b.float().norm().clamp_min(1e-30))
+                            assert dist <= 1e-2, (impl, n, path, dist)
+                        else:
+                            assert torch.equal(a, b), (dispatch, impl, n, path)
     finally:
         tdist.destroy_process_group()
 

@@ -153,7 +153,29 @@
    (a world-size-1 NCCL group in this process) for fused/ragged and
    pallas/capacity, failing unless its tokens equal the local path's bit
    for bit, with steady ticks of both in turns, the pallas/capacity
-   tick's logits held as above and a profiled tick of each batcher.
+   tick's logits held as above and a profiled tick of each batcher;
+17. (after step 15; slice 13) the routing zoo on full-width fastmoe-gpt
+   (``router_phase``: noisy_topk, gumbel and frozen on ragged,
+   expert_choice on capacity and ragged, each fused and pallas): 2-layer
+   gradients within the bf16 einsum floor of the f32 oracle; at 10
+   layers the step-0 loss and every gradient leaf (the main path, counters
+   at 0 just before and read just after) bit-equal to a second run and to
+   a2a and psum over a 1x1 NCCL mesh; AdamW steps timed, frozen after the
+   distilling ones; switch-base-128 (``switch_phase``: top-1, 128
+   experts) served whole for {fused, pallas} x {ragged, capacity}, logits
+   against the f32 oracle, and trained at 4 of 12 layers (the k = 1
+   backward); arctic-480b at 2 of 35 layers (``arctic_phase``: each
+   expert cast to bf16 as it is drawn) served 2 x 2048 + 16 steps, layer
+   0's MoE block with its dense residual against an f32 oracle computed
+   expert by expert; smollm-360m, granite-3-2b and qwen2-72b (24 of 80
+   layers) served 2 x 2048 + 16 steps with prefill logits against the f32
+   plain path (``dense_phase``); deepseek-v2-236b trained at every width,
+   2 of 60 layers and 32 of 160 routed experts (``deepseek_train_phase``:
+   gradients against the f32 oracle, the flash backward at (192, 128) and
+   the fused dX / dW at K 5120, H 1536 counted on the main path, AdamW
+   steps timed); and, in the kernel phases, the fused FFN, dX and dW at
+   deepseek's training rows (``ds_bwd_kernel_phase``) and the unfused
+   SwiGLU references at deepseek's rows.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -256,6 +278,14 @@ SERVE_REL_SLACK, SERVE_ABS_SLACK, SERVE_AGREE_SLACK = 1.25, 0.01, 0.05
 DW_TOL = {"bfloat16": dict(rtol=2e-2, atol=0.25),
           "float32": KERNEL_TOL["float32"]}
 DW_FRO = 1e-3
+# At deepseek-v2's widths (K 5120, wo scaled by H^-0.5 = 1536^-0.5) |dg|
+# reaches ~24, where a bf16 ulp is 2^-3, and |x| ~6.4: one flipped
+# rounding moves an output by up to ~0.8, past DW_TOL's atol (derived at
+# fastmoe-gpt's |dg| ~3-11).  There dW is held elementwise to that one-ulp
+# bound, ulp(max |dg|) x max |x| (``dw_ulp_atol``; on an NVIDIA H100 80GB
+# HBM3 at 700 W the ring kernel and the first version part from the plain
+# version alike: max |err| 0.60, relative Frobenius 2.5e-4), and as a
+# whole to DW_FRO.
 # Flash attention against its plain version.  At the starcoder2 shape a
 # row averages ~4096 keys, so a typical |o| is ~0.02, at or below the bf16
 # atol: the elementwise tolerance alone would pass a wrong bf16 kernel.  So
@@ -609,6 +639,9 @@ def kernel_phase(dev, flush):
                                 + 4 * nE, 2 * (ws + 1) * n * nD * nH, "bfloat16")
                 if "fused_ffn" in timing:
                     unfused_ffn(f"fused_ffn {shape}", x, wi, wo, offs, flush)
+                if "fused_ffn_swiglu" in timing:
+                    unfused_ffn(f"fused_ffn_swiglu {shape}", x, wi, wo, offs,
+                                flush, wu=wu)
             del wi, wu, wo, x, h
             torch.cuda.empty_cache()
     print(f"kernel checks passed: {len(errs)} cases (bf16 tol "
@@ -703,12 +736,12 @@ def grouped_mm_call(x, w, offs):
     return lambda: fn(x, w, offs=offs)
 
 
-def unfused_ffn(label, x, wi, wo, offs, flush):
-    """A reference line, not the library column: the fastmoe-gpt FFN as
-    three PyTorch calls (torch._grouped_mm, tanh GELU, torch._grouped_mm),
-    which write the (M, H) hidden to device memory; it shows whether fusion
-    pays.  Events and device time, or a note where this PyTorch lacks the
-    grouped product."""
+def unfused_ffn(label, x, wi, wo, offs, flush, wu=None):
+    """A reference line, not the library column: the expert FFN as PyTorch
+    calls (torch._grouped_mm, tanh GELU, torch._grouped_mm; with ``wu``
+    SwiGLU, two grouped products into silu(g) * u), which write the (M, H)
+    hidden to device memory; it shows whether fusion pays.  Events and
+    device time, or a note where this PyTorch lacks the grouped product."""
     import torch
     import torch.nn.functional as F
     fn = getattr(torch, "_grouped_mm", None)
@@ -717,26 +750,34 @@ def unfused_ffn(label, x, wi, wo, offs, flush):
         return
 
     def run():
-        h = F.gelu(fn(x, wi, offs=offs), approximate="tanh")
+        if wu is None:
+            h = F.gelu(fn(x, wi, offs=offs), approximate="tanh")
+        else:
+            h = F.silu(fn(x, wi, offs=offs)) * fn(x, wu, offs=offs)
         return fn(h, wo, offs=offs)
     try:
         run()
     except RuntimeError as exc:
         print(f"reference {label}: unfused FFN not timed: {exc}"[:300], flush=True)
         return
-    print(f"reference {label}: unfused FFN (torch._grouped_mm + GELU + "
-          f"torch._grouped_mm) {time_ms(run, flush):.4f} ms, device ("
-          f"L2 warm) {device_ms(run, what=label):.4f} ms", flush=True)
+    act = "GELU" if wu is None else "SwiGLU"
+    ms, dev_ms = time_ms(run, flush), device_ms(run, what=label)
+    print(f"reference {label}: unfused FFN (torch._grouped_mm + {act} + "
+          f"torch._grouped_mm) {ms:.4f} ms, device (L2 warm) {dev_ms:.4f} "
+          f"ms", flush=True)
+    return ms, dev_ms
 
 
-def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush):
-    """A reference line, not the library column: the fastmoe-gpt FFN's
-    backward by PyTorch calls, each half recomputing what it needs as the
-    fused kernels do, the (M, H) hidden in device memory.  dX: g = x wi and
-    dh = dy wo^T (torch._grouped_mm), dg = gelu'(g) dh, dX = dg wi^T.  dW:
-    g, dh, dg and h = gelu(g) likewise, then dwi = x^T dg and dwo = h^T dy
-    by torch._grouped_mm with the offsets on the contracted rows, where this
-    PyTorch takes them (else the line says so).  Events and device time."""
+def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush, wu=None):
+    """A reference line, not the library column: the expert FFN's backward
+    by PyTorch calls, each half recomputing what it needs as the fused
+    kernels do, the (M, H) hidden in device memory.  dX: g = x wi and dh =
+    dy wo^T (torch._grouped_mm), dg = gelu'(g) dh, dX = dg wi^T.  dW: g,
+    dh, dg and h = gelu(g) likewise, then dwi = x^T dg and dwo = h^T dy by
+    torch._grouped_mm with the offsets on the contracted rows, where this
+    PyTorch takes them (else the line says so).  With ``wu`` (SwiGLU) also
+    u = x wu, du, dX += du wu^T and dwu = x^T du.  Events and device
+    time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_ffn_bwd as fb
@@ -745,31 +786,43 @@ def unfused_ffn_bwd(label, x, wi, wo, dy, offs, flush):
         print(f"reference {label}: torch._grouped_mm is not in this PyTorch")
         return
     wo_t, wi_t = wo.transpose(1, 2), wi.transpose(1, 2)
+    act = "gelu" if wu is None else "swiglu"
 
     def grads():
         g = fn(x, wi, offs=offs)
+        u = None if wu is None else fn(x, wu, offs=offs)
         dh = fn(dy, wo_t, offs=offs)
-        dg, _ = fb.act_vjp(g.float(), None, dh.float(), "gelu")
-        return g, dg.to(x.dtype)
+        dg, du = fb.act_vjp(g.float(), None if u is None else u.float(),
+                            dh.float(), act)
+        return g, u, dg.to(x.dtype), None if du is None else du.to(x.dtype)
 
     def dx_run():
-        return fn(grads()[1], wi_t, offs=offs)
+        _, _, dg, du = grads()
+        dx = fn(dg, wi_t, offs=offs)
+        return dx if du is None else dx + fn(du, wu.transpose(1, 2), offs=offs)
 
     def dw_run():
-        g, dg = grads()
-        h = F.gelu(g.float(), approximate="tanh").to(x.dtype)
-        return fn(x.t(), dg, offs=offs), fn(h.t(), dy, offs=offs)
-    parts = []
+        g, u, dg, du = grads()
+        if u is None:
+            h = F.gelu(g.float(), approximate="tanh").to(x.dtype)
+        else:
+            h = (F.silu(g.float()) * u.float()).to(x.dtype)
+        out = (fn(x.t(), dg, offs=offs), fn(h.t(), dy, offs=offs))
+        return out if du is None else out + (fn(x.t(), du, offs=offs),)
+    parts, out = [], {}
     for what, run in (("dX", dx_run), ("dW", dw_run)):
         try:
             run()
         except RuntimeError as exc:
             parts.append(f"{what} not timed: {exc}"[:200])
             continue
-        parts.append(f"{what} {time_ms(run, flush):.4f} ms, device ("
-                     f"L2 warm) {device_ms(run, what=label):.4f} ms")
-    print(f"reference {label}: unfused backward (torch._grouped_mm, GELU', "
-          f"torch._grouped_mm): " + "; ".join(parts), flush=True)
+        out[what] = (time_ms(run, flush), device_ms(run, what=label))
+        parts.append(f"{what} {out[what][0]:.4f} ms, device (L2 warm) "
+                     f"{out[what][1]:.4f} ms")
+    print(f"reference {label}: unfused backward (torch._grouped_mm, "
+          f"{'GELU' if wu is None else 'SwiGLU'}', torch._grouped_mm): "
+          + "; ".join(parts), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2199,12 +2252,16 @@ def ep_dists(cfg, mesh, impl, dispatch):
     return dists
 
 
-def needed_kernels(impl, dispatch):
-    """The hand-written kernels a training path must launch."""
+def needed_kernels(impl, dispatch, router="topk"):
+    """The hand-written kernels a training path must launch: expert-choice
+    gathers its picks on the by-destination kernel and sums their gradient
+    with combine_topk, on either dispatch."""
     needed = ["fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw"] \
         if impl == "fused" else ["grouped_gemm"]
     needed += ["flash_attention_fwd", "flash_attention_bwd"]
-    if dispatch == "ragged":
+    if router == "expert_choice":
+        needed += ["gather_rows", "combine_topk"]
+    elif dispatch == "ragged":
         needed += ["gather_rows_by_source", "combine_topk"]
     return needed
 
@@ -3303,6 +3360,727 @@ def deepseek_serve_phase(dev):
     return launches, cont_launches, per_tick
 
 
+# ---------------------------------------------------------------------------
+# The routing zoo, the five configs of slice 13, deepseek-v2 training
+# ---------------------------------------------------------------------------
+
+# (router, dispatch) on 10-layer fastmoe-gpt, each in ROUTER_IMPLS: the
+# exploration routers and frozen on the ragged headline, expert-choice on
+# both dispatches; frozen last, so its timed step follows the distilling
+# ones (w_frozen trained by the noisy_topk and gumbel steps)
+ROUTER_CASES = (("noisy_topk", "ragged"), ("gumbel", "ragged"),
+                ("expert_choice", "capacity"), ("expert_choice", "ragged"),
+                ("frozen", "ragged"))
+ROUTER_IMPLS = ("fused", "pallas")
+ROUTER_STEPS = 2  # timed AdamW steps a case, after a warm one
+ROUTER_ORACLE_LAYERS = 2  # the gradient oracle's depth, as grad_oracle_phase
+# switch-base-128: served whole (12 layers, 7.3 B params in bf16), trained
+# cut to 4 layers (f32 params, grads, AdamW moments: 16 B a param, ~39 GB)
+SWITCH_TRAIN_LAYERS = 4
+# arctic-480b: 2 of 35 layers (a layer's 128 experts are 13.4 B params,
+# 26.8 GB in bf16), 2 x 2048 prompts, 16 decode steps
+ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_GEN = 2, 2, 2048, 16
+# the dense configs: (name, layers or None for all), 2 x 2048, 16 steps;
+# qwen2-72b at 24 of 80 layers (1.76 GB a layer in bf16, ~10 GB of f32
+# embed and head)
+DENSE_RUNS = (("smollm-360m", None), ("granite-3-2b", None),
+              ("qwen2-72b", 24))
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 2, 2048, 16
+# deepseek-v2-236b training: every width (d 5120, MLA (192, 128), expert
+# hidden 1536, top-6, 2 shared), 2 of 60 layers and 32 of 160 routed
+# experts: 2.95 B params, 47 GB at 16 B a param
+DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS = 2, 32
+DS_TRAIN_BATCH, DS_TRAIN_SEQ = 4, 512
+DS_TRAIN_STEPS = 2
+
+
+def with_router(cfg, router, dispatch, **kw):
+    return dataclasses.replace(cfg, **kw, moe=dataclasses.replace(
+        cfg.moe, router=router, dispatch=dispatch))
+
+
+def grads_within_floor(label, params, cfg, batch, dev, paths, seed=None):
+    """One step's gradients of each kernel path (``paths``: impls) against
+    the f32 einsum oracle on the same weights, held to the bf16 einsum
+    path's own distance (GRAD_*); the oracle and the bf16 einsum path run
+    the plain attention.  ``seed``: the routers' exploration seed, the same
+    draw on every path.  Returns the kernel paths' launch counts."""
+    import torch
+    from repro_torch.launch import train
+
+    kw = dict(device=dev, router_seed=seed)
+    with plain_attention():
+        loss_o, _, oracle = train.loss_and_grads(
+            params, dataclasses.replace(cfg, dtype="float32"), batch,
+            impl="einsum", **kw)
+    floor, launches = None, {}
+    for impl in ("einsum", *paths):
+        for fn in counters().values():
+            fn.launches = 0
+        with plain_attention() if impl == "einsum" else contextlib.nullcontext():
+            loss, _, grads = train.loss_and_grads(params, cfg, batch,
+                                                  impl=impl, **kw)
+        torch.cuda.synchronize()
+        if impl != "einsum":
+            launches[impl] = {k: fn.launches for k, fn in counters().items()}
+        d = _grad_dists(grads, oracle)
+        del grads
+        med, worst = statistics.median(d), max(d)
+        print(f"grads {label} {impl} bf16 vs f32 einsum oracle: per-leaf "
+              f"relative L2 median {med:.4f} max {worst:.4f} over {len(d)} "
+              f"leaves; loss {float(loss):.4f} (oracle {float(loss_o):.4f})",
+              flush=True)
+        check(math.isfinite(float(loss)), f"{label} {impl}: loss {loss}")
+        if floor is None:
+            floor = (med, worst)
+            continue
+        check(med <= GRAD_REL_SLACK * floor[0] + GRAD_MED_SLACK
+              and worst <= GRAD_REL_SLACK * floor[1] + GRAD_MAX_SLACK,
+              f"{label} {impl} gradients further from the f32 oracle than "
+              f"the bf16 einsum path (floor {floor})")
+    del oracle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def router_phase(dev):
+    """The routing zoo on full-width fastmoe-gpt (8 x 256 tokens), every
+    ROUTER_CASES x ROUTER_IMPLS: (1) at ROUTER_ORACLE_LAYERS layers, the
+    gradients against the f32 oracle (``grads_within_floor``); (2) at
+    TRAIN_LAYERS layers, the step-0 loss and every gradient leaf of the
+    local path (the main path: counters at 0 just before, read just
+    after) equal to a second run's and to the a2a and psum paths' over a
+    1x1 NCCL mesh, bit for bit; (3) AdamW steps of each, timed.  One param
+    tree (noisy_topk's, which carries w_noise and w_frozen) serves every
+    router; a router leaves the leaves it does not read at a zero
+    gradient.  The exploration routers draw from the train step's seed."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.core import fmoe
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(get_config("fastmoe-gpt"), num_layers=TRAIN_LAYERS)
+    data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+    batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+    seed = fmoe.expert_seed(17, 0, 0)  # the train step's draw at step 0
+    small = with_router(base, "noisy_topk", "ragged",
+                        num_layers=ROUTER_ORACLE_LAYERS)
+    params = lm.init_params(small, seed=0, device=dev, param_dtype="float32")
+    for router, dispatch in ROUTER_CASES:
+        grads_within_floor(f"{router} {dispatch} ({ROUTER_ORACLE_LAYERS} "
+                           f"layers, full width)", params,
+                           with_router(small, router, dispatch), batch, dev,
+                           ROUTER_IMPLS, seed)
+    del params
+    torch.cuda.empty_cache()
+
+    launches = {}
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        mesh = make_local_mesh(1, 1)
+        params = lm.init_params(with_router(base, "noisy_topk", "ragged"),
+                                seed=0, device=dev, param_dtype="float32")
+        for router, dispatch in ROUTER_CASES:
+            cfg = with_router(base, router, dispatch)
+            for impl in ROUTER_IMPLS:
+                label = f"{router} {impl}/{dispatch}"
+                kw = dict(impl=impl, device=dev, router_seed=seed)
+                for fn in counters().values():
+                    fn.launches = 0
+                loss, _, ref = train.loss_and_grads(params, cfg, batch, **kw)
+                torch.cuda.synchronize()
+                runs = {k: fn.launches for k, fn in counters().items()}
+                launches[label] = runs
+                for k in needed_kernels(impl, dispatch, router):
+                    check(runs[k] > 0, f"router {label}: kernel {k} was never "
+                                       f"launched")
+                for simple in SIMPLE_KERNELS:
+                    check(runs[simple] == 0, f"router {label}: {simple} ran at "
+                                             f"a model shape")
+                verdicts = []
+                for name, dist in (("again", None),
+                                   ("a2a", train.moe_dist(
+                                       cfg, mesh, TRAIN_BATCH * TRAIN_SEQ)),
+                                   ("psum", fmoe.DistConfig(mesh, ("data",)))):
+                    loss_e, _, g = train.loss_and_grads(params, cfg, batch,
+                                                        dist=dist, **kw)
+                    pairs = list(zip(tree_leaves(ref), tree_leaves(g)))
+                    equal = sum(torch.equal(a, b) for a, b in pairs)
+                    same = torch.equal(loss, loss_e)
+                    verdicts.append(f"{name} loss {'equal' if same else 'UNEQUAL'}"
+                                    f", {equal} of {len(pairs)} leaves")
+                    check(same and equal == len(pairs),
+                          f"router {label}: the {name} run's step-0 loss or "
+                          f"gradients differ from the local run's")
+                    del g, pairs
+                print(f"router {label} ({TRAIN_LAYERS}-layer fastmoe-gpt, "
+                      f"{TRAIN_BATCH}x{TRAIN_SEQ}): step-0 loss "
+                      f"{float(loss):.6f}; bit-equal to the local run: "
+                      + "; ".join(verdicts) + f"; launches "
+                      f"{json.dumps({k: v for k, v in runs.items() if v})}",
+                      flush=True)
+                del ref
+                torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+
+    opt = AdamW()
+    state = opt.init(params)
+    step = 0
+    for router, dispatch in ROUTER_CASES:
+        cfg = with_router(base, router, dispatch)
+        for impl in ROUTER_IMPLS:
+            step_fn = train.make_train_step(cfg, opt, impl=impl, device=dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            times, losses = [], []
+            for i in range(1 + ROUTER_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batch, step)
+                losses.append(float(m["loss"]))
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                step += 1
+                check(math.isfinite(losses[-1]) and 3.0 < losses[-1] < 20.0,
+                      f"router {router} {impl}/{dispatch} step: loss "
+                      f"{losses[-1]}")
+            print(f"router train step {router} {impl}/{dispatch}: "
+                  f"{statistics.median(times):.1f} ms median of {ROUTER_STEPS} "
+                  f"(" + " ".join(f"{v:.1f}" for v in times) + f"), AdamW "
+                  f"included; peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+                  f"losses " + " ".join(f"{v:.4f}" for v in losses),
+                  flush=True)
+    del params, state, opt
+    torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in launches.values()) for k in counters()}
+    print(f"main path launches (routers, step 0 of {len(launches)} paths): "
+          f"{json.dumps(total)}", flush=True)
+    return total
+
+
+def switch_phase(dev):
+    """switch-base-128 (top-1, topk_softmax, no renormalize, GELU, 128
+    experts) served whole: BATCH x PROMPT prompts, GEN steps, {fused,
+    pallas} x {ragged, capacity}, the counters at 0 just before and read
+    just after; the prefill and first decode logits of each kernel path
+    against the f32 einsum oracle within the bf16 einsum path's distance;
+    then cut to SWITCH_TRAIN_LAYERS layers, one step's gradients of
+    fused/ragged (the k = 1 backward) against the f32 oracle and AdamW
+    steps timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = get_config("switch-base-128")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"switch-base-128: {n / 1e9:.3f} B params (layers bf16) made from "
+          f"seed 0 in {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    prompt = torch.randint(0, base.vocab_size, (BATCH, PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    cache_len = serve.cache_len_for(base, PROMPT + GEN)
+    combos = [("fused", "ragged"), ("pallas", "ragged"),
+              ("fused", "capacity"), ("pallas", "capacity")]
+    for impl, dispatch in combos:
+        serve.generate(params, with_dispatch(base, dispatch), prompt[:, :8], 2,
+                       impl=impl, cache_len=16, device=dev)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    results = {}
+    for impl, dispatch in combos:
+        timings: dict = {}
+        seq = serve.generate(params, with_dispatch(base, dispatch), prompt, GEN,
+                             impl=impl, cache_len=cache_len, device=dev,
+                             timings=timings)
+        check(seq.shape == (BATCH, PROMPT + GEN)
+              and bool(((seq >= 0) & (seq < base.vocab_size)).all()),
+              f"switch {impl}/{dispatch}: bad tokens")
+        results[(impl, dispatch)] = timings
+    serving = {k: fn.launches for k, fn in counters().items()}
+    print(f"main path launches (switch-base-128 serving): "
+          f"{json.dumps(serving)}", flush=True)
+    for name in SERVE_KERNELS:
+        check(serving[name] > 0, f"switch serving never launched {name}")
+    for simple in SIMPLE_KERNELS:
+        check(serving[simple] == 0, f"switch serving ran {simple}")
+    for (impl, dispatch), t in results.items():
+        dec = statistics.median(t["decode_s"])
+        print(f"serve switch-base-128 {impl}/{dispatch}: prefill {BATCH}x"
+              f"{PROMPT} {t['prefill_s'] * 1e3:.2f} ms; decode "
+              f"{dec * 1e3:.3f} ms/step median over {len(t['decode_s'])} "
+              f"({BATCH / dec:.1f} tok/s); peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    params32 = dict(params, layers=[lm.cast_params(p, torch.float32)
+                                    for p in params["layers"]])
+    for dispatch in ("ragged", "capacity"):
+        cfg = with_dispatch(base, dispatch)
+        with plain_attention():
+            oracle = first_logits(params32, dataclasses.replace(
+                cfg, dtype="float32"), prompt, "einsum", cache_len, dev)
+        paths = {}
+        for impl in ("einsum", "fused", "pallas"):
+            with plain_attention() if impl == "einsum" else contextlib.nullcontext():
+                lp, ld, _, _ = first_logits(params, cfg, prompt, impl,
+                                            cache_len, dev, tok=oracle[2])
+            paths[f"{'plain' if impl == 'einsum' else 'kernel'} bf16 {impl}"] = \
+                torch.cat([lp, ld], dim=1)
+        logits_within_floor(f"switch-base-128 12 layers, {BATCH}x{PROMPT} "
+                            f"prefill + first decode, {dispatch}",
+                            torch.cat([oracle[0], oracle[1]], dim=1), paths,
+                            SERVE_REL_SLACK, SERVE_ABS_SLACK, SERVE_AGREE_SLACK)
+        del oracle, paths
+    del params, params32
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(with_dispatch(base, "ragged"),
+                              num_layers=SWITCH_TRAIN_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev, param_dtype="float32")
+    n = sum(t.numel() for t in tree_leaves(params))
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+    batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+    training = grads_within_floor(
+        f"switch-base-128 {SWITCH_TRAIN_LAYERS} layers ragged", params, cfg,
+        batch, dev, ("fused",))["fused"]
+    for k in ("fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+              "gather_rows_by_source", "combine_topk", "flash_attention_bwd"):
+        check(training[k] > 0, f"switch training never launched {k}")
+    opt = AdamW()
+    state = opt.init(params)
+    step_fn = train.make_train_step(cfg, opt, impl="fused", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step)
+        loss = float(m["loss"])
+        check(math.isfinite(loss), f"switch train step {step}: loss {loss}")
+        if step:
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"train switch-base-128 fused/ragged, {SWITCH_TRAIN_LAYERS} of 12 "
+          f"layers ({n / 1e9:.3f} B f32 params), {TRAIN_BATCH}x{TRAIN_SEQ}: "
+          f"step {statistics.median(times):.1f} ms median of {len(times)}, "
+          f"AdamW included; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"step-0 launches {json.dumps({k: v for k, v in training.items() if v})}",
+          flush=True)
+    del params, state, opt, step_fn
+    torch.cuda.empty_cache()
+    return serving, training
+
+
+@contextlib.contextmanager
+def expertwise_f32():
+    """An ``impl="f32"`` for ``fmoe_apply``: each expert's weights cast to
+    f32 one at a time, its rows multiplied in f32 (capacity buffers and
+    ragged groups) — the f32 oracle of a layer whose experts do not fit the
+    card in f32."""
+    import torch
+    from repro_torch.core import fmoe
+
+    def one(experts, e):
+        return {k: v[e].float() for k, v in experts.items()}
+
+    def capacity(experts, buf, act):
+        return torch.stack([fmoe.dense_ffn(one(experts, e), buf[e].float(),
+                                           act) for e in range(buf.shape[0])])
+
+    def ragged(experts, xs, gs, act):
+        out = torch.zeros(xs.shape[0], experts["wo"].shape[-1],
+                          device=xs.device)
+        lo = 0
+        for e, n in enumerate(gs.tolist()):
+            if n:
+                out[lo:lo + n] = fmoe.dense_ffn(one(experts, e),
+                                                xs[lo:lo + n].float(), act)
+            lo += n
+        return out
+    fmoe.EXPERT_FNS["f32"], fmoe.RAGGED_FNS["f32"] = capacity, ragged
+    try:
+        yield
+    finally:
+        del fmoe.EXPERT_FNS["f32"], fmoe.RAGGED_FNS["f32"]
+
+
+def arctic_phase(dev):
+    """arctic-480b at full width, ARCTIC_LAYERS of 35 layers (bf16, each
+    expert cast as it is drawn), served greedily: ARCTIC_BATCH prompts of
+    ARCTIC_PROMPT tokens, ARCTIC_GEN steps, fused/ragged and
+    pallas/capacity, the counters at 0 just before and read just after;
+    then layer 0's MoE block (128 experts top-2 and the dense residual
+    FFN) on the prompt's hidden states, each kernel path against an f32
+    oracle computed expert by expert, within the bf16 einsum path's
+    distance (one layer in f32 is ~54 GB: the whole-model f32 oracle does
+    not fit the card)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fmoe
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import apply_norm, embed_lookup
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(get_config("arctic-480b"),
+                               num_layers=ARCTIC_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"arctic-480b: {ARCTIC_LAYERS} of 35 layers, {n / 1e9:.3f} B params "
+          f"(bf16 layers) made from seed 0 in {time.perf_counter() - t0:.1f} s,"
+          f" init peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+          flush=True)
+    prompt = torch.randint(0, base.vocab_size, (ARCTIC_BATCH, ARCTIC_PROMPT),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    combos = (("fused", "ragged"), ("pallas", "capacity"))
+    cache_len = ARCTIC_PROMPT + ARCTIC_GEN
+    for impl, dispatch in combos:
+        serve.generate(params, with_dispatch(base, dispatch), prompt[:, :8], 2,
+                       impl=impl, cache_len=16, device=dev)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    for impl, dispatch in combos:
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        seq = serve.generate(params, with_dispatch(base, dispatch), prompt,
+                             ARCTIC_GEN, impl=impl, cache_len=cache_len,
+                             device=dev, timings=timings)
+        check(seq.shape == (ARCTIC_BATCH, ARCTIC_PROMPT + ARCTIC_GEN)
+              and bool(((seq >= 0) & (seq < base.vocab_size)).all()),
+              f"arctic {impl}/{dispatch}: bad tokens")
+        dec = statistics.median(timings["decode_s"])
+        print(f"serve arctic-480b {impl}/{dispatch} ({ARCTIC_LAYERS} layers): "
+              f"prefill {ARCTIC_BATCH}x{ARCTIC_PROMPT} "
+              f"{timings['prefill_s'] * 1e3:.2f} ms; decode {dec * 1e3:.3f} "
+              f"ms/step median over {len(timings['decode_s'])}; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    serving = {k: fn.launches for k, fn in counters().items()}
+    print(f"main path launches (arctic-480b serving): {json.dumps(serving)}",
+          flush=True)
+    for name in SERVE_KERNELS:
+        check(serving[name] > 0, f"arctic serving never launched {name}")
+
+    # layer 0's MoE block on the prompt's hidden states after its attention
+    with torch.no_grad():
+        p0 = params["layers"][0]
+        x = embed_lookup(params["embed"], prompt, torch.bfloat16)
+        from repro_torch.models import attention as A
+        x = x + A.gqa_apply(p0["attn"], apply_norm(p0["norm1"], x, base.norm),
+                            base.attention, window=1 << 30)
+        h = apply_norm(p0["norm2"], x, base.norm)
+        ffn = p0["ffn"]
+        check("dense" in ffn, "arctic's MoE block has no dense residual")
+        ffn32 = {"router": lm.cast_params(ffn["router"], torch.float32),
+                 "experts": ffn["experts"],
+                 "dense": lm.cast_params(ffn["dense"], torch.float32)}
+        for impl, dispatch in combos:
+            moe = dataclasses.replace(base.moe, dispatch=dispatch)
+            with expertwise_f32():
+                oracle = fmoe.fmoe_apply(ffn32, h.float(), moe, act=base.act,
+                                         impl="f32")[0]
+            paths = {"plain bf16": fmoe.fmoe_apply(ffn, h, moe, act=base.act,
+                                                   impl="einsum")[0],
+                     f"kernel bf16 {impl}/{dispatch}": fmoe.fmoe_apply(
+                         ffn, h, moe, act=base.act, impl=impl)[0]}
+            logits_within_floor(f"arctic-480b layer 0 MoE block with the "
+                                f"dense residual, {ARCTIC_BATCH}x"
+                                f"{ARCTIC_PROMPT} tokens, {dispatch}",
+                                oracle.float(), {k: v.float() for k, v in
+                                                 paths.items()},
+                                SERVE_REL_SLACK, SERVE_ABS_SLACK, 1.0)
+            del oracle, paths
+    del params
+    torch.cuda.empty_cache()
+    return serving
+
+
+def dense_phase(dev):
+    """The dense configs at full width (DENSE_RUNS; qwen2-72b cut to 24 of
+    80 layers), each served greedily: DENSE_BATCH prompts of DENSE_PROMPT
+    tokens, DENSE_GEN steps, the counters at 0 just before and read just
+    after (the flash forward once a layer a prefill); then the prefill
+    logits of the kernel path (flash attention) against the f32 plain path
+    on the same weights (each layer cast to f32 at use), within the bf16
+    plain path's distance (SC2_*: no experts to switch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    launches = {}
+    for name, layers in DENSE_RUNS:
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = lm.init_params(cfg, seed=0, device=dev)
+        n = sum(t.numel() for t in tree_leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT),
+                               device=dev, generator=torch.Generator(
+                                   device=dev).manual_seed(8))
+        cache_len = serve.cache_len_for(cfg, DENSE_PROMPT + DENSE_GEN)
+        serve.generate(params, cfg, prompt[:, :8], 2, cache_len=16, device=dev)
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        timings: dict = {}
+        seq = serve.generate(params, cfg, prompt, DENSE_GEN,
+                             cache_len=cache_len, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        runs = {k: fn.launches for k, fn in counters().items()}
+        launches[name] = runs
+        check(seq.shape == (DENSE_BATCH, DENSE_PROMPT + DENSE_GEN)
+              and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+              f"{name}: bad tokens")
+        check(runs["flash_attention_fwd"] == cfg.num_layers,
+              f"{name}: the prefill launched the flash forward "
+              f"{runs['flash_attention_fwd']} times over {cfg.num_layers} "
+              f"layers")
+        dec = statistics.median(timings["decode_s"])
+        a = cfg.attention
+        print(f"serve {name} ({cfg.num_layers} layers, {n / 1e9:.3f} B params, "
+              f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}): "
+              f"prefill {DENSE_BATCH}x{DENSE_PROMPT} "
+              f"{timings['prefill_s'] * 1e3:.2f} ms; decode {dec * 1e3:.3f} "
+              f"ms/step median over {len(timings['decode_s'])}; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches "
+              f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+        with torch.no_grad():
+            with plain_attention():
+                oracle = lm.forward(params, dataclasses.replace(
+                    cfg, dtype="float32"), prompt, device=dev)[0]
+                plain = lm.forward(params, cfg, prompt, device=dev)[0]
+            kern = lm.forward(params, cfg, prompt, device=dev)[0]
+        logits_within_floor(f"{name} {cfg.num_layers} layers, {DENSE_BATCH}x"
+                            f"{DENSE_PROMPT}", oracle,
+                            {"plain bf16": plain, "kernel bf16": kern},
+                            SC2_REL_SLACK, 0.0, SC2_AGREE_SLACK)
+        del params, oracle, plain, kern
+        torch.cuda.empty_cache()
+    return launches
+
+
+def deepseek_train_phase(dev):
+    """deepseek-v2-236b trained at every width, DS_TRAIN_LAYERS of 60
+    layers with DS_TRAIN_EXPERTS of 160 routed experts (f32 masters, bf16
+    compute), fused/ragged, DS_TRAIN_BATCH x DS_TRAIN_SEQ tokens: the
+    step-0 loss and every gradient leaf against the f32 einsum oracle
+    (plain attention) within the bf16 einsum path's distance, the kernel
+    path counted (counters at 0 just before, read just after: the flash
+    backward at MLA's (192, 128), the fused FFN dX and dW at K 5120 / H
+    1536 SwiGLU), then AdamW steps timed with peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(base, num_layers=DS_TRAIN_LAYERS,
+                              moe=dataclasses.replace(
+                                  base.moe, num_experts=DS_TRAIN_EXPERTS,
+                                  dispatch="ragged"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, seed=0, device=dev, param_dtype="float32")
+    n = sum(t.numel() for t in tree_leaves(params))
+    data = SyntheticLM(cfg.vocab_size, DS_TRAIN_SEQ, seed=0).batches(
+        DS_TRAIN_BATCH)
+    batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+    print(f"deepseek-v2-236b training: {DS_TRAIN_LAYERS} of 60 layers, "
+          f"{DS_TRAIN_EXPERTS} of 160 routed experts, every width: "
+          f"{n / 1e9:.3f} B f32 params ({16 * n / 1e9:.1f} GB at 16 B a "
+          f"param)", flush=True)
+    runs = grads_within_floor(
+        f"deepseek-v2-236b {DS_TRAIN_LAYERS} layers {DS_TRAIN_EXPERTS} "
+        f"experts ragged, {DS_TRAIN_BATCH}x{DS_TRAIN_SEQ}", params, cfg, batch,
+        dev, ("fused",))["fused"]
+    for k in ("fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+              "flash_attention_fwd", "flash_attention_bwd",
+              "gather_rows_by_source", "combine_topk"):
+        check(runs[k] > 0, f"deepseek training never launched {k}")
+    for simple in SIMPLE_KERNELS:
+        check(runs[simple] == 0, f"deepseek training ran {simple}")
+    opt = AdamW()
+    state = opt.init(params)
+    step_fn = train.make_train_step(cfg, opt, impl="fused", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for step in range(1 + DS_TRAIN_STEPS):
+        timings: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step, timings=timings)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]), f"deepseek step {step}: loss "
+                                         f"{losses[-1]}")
+        if step:
+            times.append(((time.perf_counter() - t0) * 1e3, timings))
+    med = statistics.median(t for t, _ in times)
+    split = {k: statistics.median(t[k] for _, t in times)
+             for k in ("fwd_s", "bwd_s", "opt_s")}
+    print(f"train deepseek-v2-236b fused/ragged: step {med:.1f} ms median of "
+          f"{len(times)} ({DS_TRAIN_BATCH * DS_TRAIN_SEQ / med * 1e3:.0f} "
+          f"tokens/s; forward {split['fwd_s'] * 1e3:.1f} ms, backward "
+          f"{split['bwd_s'] * 1e3:.1f} ms, optimizer "
+          f"{split['opt_s'] * 1e3:.1f} ms), AdamW included; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; losses "
+          + " ".join(f"{v:.4f}" for v in losses) + f"; step-0 launches "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+    del params, state, opt, step_fn
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dw_ulp_atol(x, ws, wo, dy, gs, act) -> float:
+    """One bf16 ulp of the largest |dg| (|du|) the dW recompute rounds,
+    times the largest |x|: what one flipped rounding of an intermediate
+    moves a dW output by (see DW_TOL)."""
+    import torch
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    top, lo = 0.0, 0
+    for e, n in enumerate(gs.tolist()):
+        if n:
+            xe, dye = x[lo:lo + n].float(), dy[lo:lo + n].float()
+            dg, du = fb.act_vjp(xe @ ws[0][e].float(),
+                                xe @ ws[1][e].float() if len(ws) == 2 else None,
+                                dye @ wo[e].float().T, act)
+            top = max(top, float(dg.abs().max()),
+                      0.0 if du is None else float(du.abs().max()))
+        lo += n
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return max(DW_TOL["bfloat16"]["atol"], ulp * float(x.abs().max()))
+
+
+def ds_bwd_kernel_phase(dev, flush):
+    """The fused FFN at deepseek-v2's training rows (DS_TRAIN_BATCH x
+    DS_TRAIN_SEQ tokens' top-6 over DS_TRAIN_EXPERTS experts: 12288 rows,
+    K 5120, H 1536, SwiGLU, bf16): forward, dX and dW against their plain
+    versions (the ring kernels, as the counters show), timed beside their
+    bounds, the plain versions and the unfused references by
+    torch._grouped_mm."""
+    import torch
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_ffn_bwd as fb
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    nE, K, Hh, k = DS_TRAIN_EXPERTS, 5120, 1536, 6
+    T = DS_TRAIN_BATCH * DS_TRAIN_SEQ
+    M = T * k
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    ids = routed(T, k, 0, dev, nE)
+    gs = torch.bincount(ids.flatten(), minlength=nE).to(torch.int32)
+    n, used = int(gs.sum()), int((gs > 0).sum())
+    wi, wu = randn(nE, K, Hh, scale=K ** -0.5), randn(nE, K, Hh, scale=K ** -0.5)
+    wo = randn(nE, Hh, K, scale=Hh ** -0.5)
+    x, dy = randn(M, K), randn(M, K)
+    ws = (wi, wu)
+    tol = KERNEL_TOL["bfloat16"]
+    before = bwd_counts()
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "swiglu")
+    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "swiglu")
+    y = ff.fused_ffn(x, ws, wo, gs, "swiglu")
+    torch.cuda.synchronize()
+    check(bwd_counts() == (before[0] + 1, before[1], before[2] + 1, before[3]),
+          f"deepseek training rows: the backward did not take the ring "
+          f"kernels ({before} -> {bwd_counts()})")
+    errs = {"fused_ffn_bwd_dx": close(
+        "fused_ffn_bwd_dx deepseek train", dx,
+        fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "swiglu"), tol)}
+    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "swiglu")
+    dw_tol = dict(DW_TOL["bfloat16"],
+                  atol=dw_ulp_atol(x, ws, wo, dy, gs, "swiglu"))
+    print(f"fused_ffn_bwd_dw deepseek train: elementwise tolerance {dw_tol} "
+          f"(one bf16 ulp of the largest |dg| times the largest |x|)",
+          flush=True)
+    e2 = 0.0
+    for a, b in zip((*dws, dwo), (*rws, rwo)):
+        e2 = max(e2, close("fused_ffn_bwd_dw deepseek train", a, b, dw_tol))
+        fro = ((a - b).norm() / b.norm()).item()
+        check(fro <= DW_FRO, f"fused_ffn_bwd_dw deepseek train: relative "
+                             f"Frobenius error {fro:.2e}")
+    errs["fused_ffn_bwd_dw"] = e2
+    errs["fused_ffn"] = close("fused_ffn_swiglu deepseek train", y,
+                              ff.fused_ffn_plain(x, ws, wo, gs, "swiglu"), tol)
+    del dx, dws, dwo, rws, rwo, y
+    wbytes = used * 3 * K * Hh * 2
+    cases = {
+        "fused_ffn_bwd_dx": (
+            lambda: fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "swiglu"),
+            lambda: fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "swiglu"),
+            2 * 3 * M * K + wbytes + 4 * nE, 8 * n * K * Hh),
+        "fused_ffn_bwd_dw": (
+            lambda: fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "swiglu"),
+            lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "swiglu"),
+            2 * 2 * M * K + wbytes + 4 * 3 * nE * K * Hh + 4 * nE,
+            12 * n * K * Hh),
+        "fused_ffn": (
+            lambda: ff.fused_ffn(x, ws, wo, gs, "swiglu"),
+            lambda: ff.fused_ffn_plain(x, ws, wo, gs, "swiglu"),
+            2 * 2 * M * K + wbytes + 4 * nE, 6 * n * K * Hh),
+    }
+    timed = {}
+    p = fb.plan_bwd(M, nE, Hh)
+    print(f"plan_bwd deepseek train ({M} rows, {used} experts with rows, "
+          f"largest {int(gs.max())}): dX row tile {p.bm}, {p.splits} splits",
+          flush=True)
+    for kname, (kern, plain, nbytes, flops) in cases.items():
+        ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 3)
+        fl = device_floor(nbytes, flops, "bfloat16")
+        dev_ms = device_ms(kern, floor=fl, what=f"{kname} deepseek train")
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        timed[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                            max_abs_err=errs[kname])
+        print(f"kernel {kname} deepseek train bf16: {ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
+              f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  library "
+              f"n/a; device (L2 warm) {dev_ms:.4f} ms", flush=True)
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    ref = unfused_ffn("fused_ffn_swiglu deepseek train", x, wi, wo, offs,
+                      flush, wu=wu)
+    if ref:
+        timed["fused_ffn"]["unfused_ms"], timed["fused_ffn"]["unfused_device_ms"] = ref
+    ref = unfused_ffn_bwd("fused_ffn_bwd deepseek train", x, wi, wo, dy, offs,
+                          flush, wu=wu) or {}
+    for what, kname in (("dX", "fused_ffn_bwd_dx"), ("dW", "fused_ffn_bwd_dw")):
+        if what in ref:
+            timed[kname]["unfused_ms"], timed[kname]["unfused_device_ms"] = \
+                ref[what]
+    del x, dy, wi, wu, wo
+    torch.cuda.empty_cache()
+    return timed
+
+
 def rel_err(a, b):
     """Relative L2 error of each position's logit vector, flattened."""
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
@@ -3470,6 +4248,7 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)
     bwd_errs, bwd_timed = bwd_kernel_phase(dev, flush)
+    ds_bwd = ds_bwd_kernel_phase(dev, flush)
     fa_errs, fa_timed = flash_phase(dev, flush)
     del flush
     small_reference(dev)
@@ -3490,6 +4269,17 @@ def main() -> int:
     sc2_launches = starcoder2_serve_phase(dev)
     deepseek_logits_phase(dev)
     ds_launches, dsc_launches, dsc_tick = deepseek_serve_phase(dev)
+    zoo_launches = router_phase(dev)
+    sw_launches, sw_train_launches = switch_phase(dev)
+    arctic_launches = arctic_phase(dev)
+    dense_launches = dense_phase(dev)
+    dst_launches = deepseek_train_phase(dev)
+    slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
+               zoo_launches,
+               "switch-base-128 serving": sw_launches,
+               "switch-base-128 training": sw_train_launches,
+               "arctic-480b serving": arctic_launches,
+               **{f"{n} serving": v for n, v in dense_launches.items()}}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3519,7 +4309,10 @@ def main() -> int:
                                  "fastmoe-gpt continuous serving": cb_launches[name],
                                  "deepseek-v2-236b continuous serving": dsc_launches[name],
                                  "fastmoe-gpt training": train_launches[name],
-                                 **ep_by_path(ep_launches, name)},
+                                 **ep_by_path(ep_launches, name),
+                                 **{k: v[name] for k, v in slice13.items()},
+                                 "deepseek-v2-236b training":
+                                     dst_launches[name]},
             "launches_per_tick": {**{f"fastmoe-gpt {k}": v.get(name, 0)
                                      for k, v in cb_tick.items()},
                                   "deepseek-v2-236b fused/ragged paged":
@@ -3529,6 +4322,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "decode, batch 8, bf16",
             **({"by_shape": by_shape} if by_shape else {}),
+            **({"deepseek_train": ds_bwd["fused_ffn"]} if name == "fused_ffn"
+               else {}),
             **tp_shards(bwd_timed, name), **chunk_rows(chunk_ms, name)})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
@@ -3539,7 +4334,11 @@ def main() -> int:
             "source": "src/repro_torch/csrc/fused_ffn_bwd.cu", "replaces": rep,
             "launches": train_launches[name],
             "launches_by_path": {"fastmoe-gpt training": train_launches[name],
-                                 **ep_by_path(ep_launches, name)},
+                                 **ep_by_path(ep_launches, name),
+                                 **{k: v[name] for k, v in slice13.items()},
+                                 "deepseek-v2-236b training":
+                                     dst_launches[name]},
+            "deepseek_train": ds_bwd[name],
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3558,7 +4357,8 @@ def main() -> int:
                    "fastmoe-gpt continuous serving": cb_launches[name],
                    "fastmoe-gpt training": train_launches[name],
                    **ep_by_path(ep_launches, name),
-                   "starcoder2-15b serving": sc2_launches[name]}
+                   "starcoder2-15b serving": sc2_launches[name],
+                   **{k: v[name] for k, v in slice13.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": rep,
@@ -3569,22 +4369,23 @@ def main() -> int:
             "shape": "one starcoder2-15b kv group: 2 x 8192, 12 heads over 1 "
                      "kv head x 128, window 4096, bf16"})
     # MLA's instances (dk 192, dv 128): the forward runs once a layer in
-    # each deepseek prefill; no main path runs the backward at this pair
-    # (deepseek training on the card is not ported), so its launches are 0
+    # each deepseek prefill and training forward, the backward once a layer
+    # in each deepseek training step
     for name, (shape, kname, _) in FLASH_FULL.items():
         t = fa_timed[(kname, name)]
         rep = ("src/repro/kernels/flash_attention.py:73" if kname.endswith("fwd")
                else "src/repro/models/attention.py:67")
         fwd = kname.endswith("fwd")
-        runs = ds_launches[kname] if fwd else 0
+        runs = ds_launches[kname] if fwd else dst_launches[kname]
         B, S, H, KV, dk, dv, _ = shape
         kernels.append({
             "name": f"{kname} (dk {dk}, dv {dv})", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": rep,
             "launches": runs, "launches_by_path": {
-                "deepseek-v2-236b serving": runs,
+                "deepseek-v2-236b serving": ds_launches[kname] if fwd else 0,
                 "deepseek-v2-236b continuous serving":
-                    dsc_launches[kname] if fwd else 0},
+                    dsc_launches[kname] if fwd else 0,
+                "deepseek-v2-236b training": dst_launches[kname]},
             "max_abs_err": fa_errs[(kname, "bfloat16", name)],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

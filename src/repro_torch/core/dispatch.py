@@ -140,6 +140,81 @@ def combine_ragged(y_sorted: torch.Tensor, plan: RaggedPlan,
 
 
 # ---------------------------------------------------------------------------
+# Expert-choice dispatch — exact capacities by construction
+# ---------------------------------------------------------------------------
+#
+# Each expert picks its top-C tokens, so every expert buffer is exactly C
+# rows: no padding, no drops, a flat load.  Dispatch is a gather
+# ``x[token_idx]`` into the (E, C, d) grid the capacity machinery exchanges,
+# and the ragged layout is the uniform case ``group_sizes == C``.  A token
+# may be taken by any number of experts, so the gather's gradient and the
+# combine sum a variable count of rows a token: both in a fixed order
+# (``ops.token_table``), deterministic on the card.
+
+
+def ec_capacity(num_tokens: int, num_experts: int,
+                capacity_factor: float) -> int:
+    """Rows each expert picks: floor(T * cf / E), at least 1 and at most T
+    (top-C over T tokens needs C <= T), as the reference."""
+    return max(1, min(num_tokens,
+                      int(num_tokens * capacity_factor / num_experts)))
+
+
+def gather_ec(x: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
+    """x (T, d) -> (*token_idx.shape, d): the rows the experts picked,
+    through the by-destination ``gather_rows`` kernel
+    (``ops.gather_rows_any``)."""
+    return ops.gather_rows_any(x, token_idx).reshape(*token_idx.shape,
+                                                     x.shape[-1])
+
+
+class _CombineEC(torch.autograd.Function):
+    """y[t] = sum over (e, c) with token_idx[e, c] == t of w[e, c] *
+    out[e, c], in logical (e, c) order through ``ops.token_table``."""
+
+    @staticmethod
+    def forward(ctx, out, token_idx, weights, num_tokens):
+        E, C, dout = out.shape
+        flat = out.reshape(E * C, dout)
+        w = weights.reshape(-1).to(out.dtype)
+        table = ops.token_table(token_idx, num_tokens).long()
+        rows = torch.cat([flat * w[:, None], flat.new_zeros(1, dout)])
+        ctx.save_for_backward(out, token_idx, weights)
+        return rows[table].sum(1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, token_idx, weights = ctx.saved_tensors
+        dy_rows = dy[token_idx.reshape(-1).long()].reshape(out.shape)
+        d_out = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_out = dy_rows * weights.to(out.dtype)[..., None]
+        if ctx.needs_input_grad[2]:
+            d_w = (dy_rows * out).sum(-1).to(weights.dtype)
+        return d_out, None, d_w, None
+
+
+def combine_ec(out: torch.Tensor, token_idx: torch.Tensor,
+               weights: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """The weighted scatter-add of expert outputs (E, C, dout) back to
+    token order (plain torch, as the reference's).  ``out`` must be in
+    logical expert order, so the order of a token's sum does not depend on
+    the expert layout."""
+    return _CombineEC.apply(out, token_idx, weights, int(num_tokens))
+
+
+def ec_to_physical(token_idx: torch.Tensor, table=None) -> torch.Tensor:
+    """The (E, C) token grid from logical to physical expert order (a row
+    permutation).  Only the identity layout is carried: a placement table
+    waits for placement (ROADMAP §1 item 4)."""
+    if table is not None:
+        raise NotImplementedError(
+            "expert-choice with a placement table is placement (ROADMAP §1 "
+            "item 4), not ported to repro_torch yet")
+    return token_idx
+
+
+# ---------------------------------------------------------------------------
 # Cross-rank ragged plans — the expert-parallel dropless exchange (§3.2)
 # ---------------------------------------------------------------------------
 #

@@ -26,6 +26,7 @@ two-level (``node_axis``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -38,7 +39,9 @@ from repro_torch.core import dispatch as D
 from repro_torch.core import pipeline
 from repro_torch.core.balance import (MoEMetrics, load_balance_loss,
                                       load_metrics, router_z_loss)
-from repro_torch.core.gate import route_tokens, router_init
+from repro_torch.core.gate import (EXPLORING, ROUTERS, expert_choice_forward,
+                                   route_tokens, router_distill_loss,
+                                   router_init)
 from repro_torch.kernels import ops
 
 
@@ -88,9 +91,12 @@ class DistConfig(NamedTuple):
         False to drive an async NCCL all-to-all a chunk, where a missing
         wait shows as a wrong result.
 
+      router — the routing variant for this distribution in place of
+        ``MoEConfig.router`` (None: the config's), as the reference's.
+
     The reference's other fields are carried so that a caller's setting is
-    refused, never ignored: ``placement``, ``fsdp_axis`` and ``router``
-    raise ``NotImplementedError`` unless left at their defaults.
+    refused, never ignored: ``placement`` and ``fsdp_axis`` raise
+    ``NotImplementedError`` unless left at their defaults.
     """
 
     mesh: Any
@@ -181,8 +187,7 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
 
 # where each option the port does not carry yet is queued (ROADMAP.md §1)
 _NOT_CARRIED = {"placement": "placement (ROADMAP §1 item 4)",
-                "fsdp_axis": "sharding (ROADMAP §1 item 9)",
-                "router": "the routing zoo (ROADMAP §1 item 3)"}
+                "fsdp_axis": "sharding (ROADMAP §1 item 9)"}
 
 
 def _check_dist(dist: DistConfig) -> None:
@@ -401,10 +406,58 @@ def fmoe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
 # ---------------------------------------------------------------------------
 
 
+def _aux_loss(router: dict, x: torch.Tensor, g, cfg: MoEConfig) -> torch.Tensor:
+    """The balance loss, plus the StableMoE stage-1 distillation term
+    whenever a frozen router-to-be rides along and the router is not
+    ``frozen`` (its gradient reaches only ``w_frozen``)."""
+    aux = load_balance_loss(g.probs, g.expert_ids, cfg.num_experts)
+    if cfg.router != "frozen" and "w_frozen" in router:
+        aux = aux + router_distill_loss(router, x, g)
+    return aux
+
+
+def _ec_route(router: dict, x: torch.Tensor, cfg: MoEConfig):
+    """Expert-choice routing shared by the MoE paths: (C, token_idx (E, C),
+    weights (E, C), logits).  Under a2a each rank's experts pick from the
+    tokens that rank holds, as the reference's."""
+    C = D.ec_capacity(x.shape[0], cfg.num_experts, cfg.capacity_factor)
+    token_idx, weights, _, logits = expert_choice_forward(router, x, cfg,
+                                                          capacity=C)
+    return C, D.ec_to_physical(token_idx), weights, logits
+
+
+def _ec_flat_load(E: int, device) -> torch.Tensor:
+    """Expert-choice load is flat by construction: every expert takes
+    exactly C rows."""
+    return torch.full((E,), 1.0 / E, device=device)
+
+
+def _ec_metrics(x: torch.Tensor, logits: torch.Tensor, E: int) -> MoEMetrics:
+    z = x.new_zeros((), dtype=torch.float32)
+    return MoEMetrics(z, router_z_loss(logits), _ec_flat_load(E, x.device), z)
+
+
+def _ec_uniform(E: int, C: int, device) -> torch.Tensor:
+    return torch.full((E,), C, dtype=torch.int32, device=device)
+
+
 def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
-               act: str, expert_fn: Callable, impl: str = "einsum"):
+               act: str, expert_fn: Callable, impl: str = "einsum",
+               noise_seed=None):
     T = x.shape[0]
-    g = route_tokens(router, x, cfg)
+    E = cfg.num_experts
+    if cfg.router == "expert_choice":
+        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+        if cfg.dispatch == "ragged":
+            # the uniform-ragged case: group_sizes == C everywhere
+            xs = D.gather_ec(x, token_idx.reshape(-1))  # (E*C, d)
+            out = RAGGED_FNS[impl](experts, xs, _ec_uniform(E, C, x.device),
+                                   act).reshape(E, C, -1)
+        else:
+            out = expert_fn(experts, D.gather_ec(x, token_idx), act)
+        return (D.combine_ec(out, token_idx, ec_w, T),
+                _ec_metrics(x, logits, E))
+    g = route_tokens(router, x, cfg, noise_seed=noise_seed)
     if cfg.dispatch == "ragged":
         plan = D.make_ragged_plan(g.expert_ids, cfg.num_experts)
         xs = D.dispatch_ragged(x, plan)  # (T*k, d) expert-sorted
@@ -418,7 +471,7 @@ def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         out = expert_fn(experts, buf, act)  # per-expert GeMM
         y = D.combine_capacity(out, plan, g.combine_weights)  # gather
         load, drop = load_metrics(plan.load, plan.keep, T * cfg.top_k)
-    metrics = MoEMetrics(load_balance_loss(g.probs, g.expert_ids, cfg.num_experts),
+    metrics = MoEMetrics(_aux_loss(router, x, g, cfg),
                          router_z_loss(g.logits), load, drop)
     return y, metrics
 
@@ -455,8 +508,18 @@ def _keep_grad(v: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     return v + (value - v.detach())
 
 
+def _noise_rows(dist: DistConfig, t: int) -> tuple:
+    """(start, total) of this rank's t tokens in the token set of its
+    token axes (ranks hold contiguous blocks in rank order): the rows of
+    the exploration draw that are this rank's, so that every mesh routes
+    as the single rank would on the whole."""
+    return (dist.mesh.axis_index(dist.token_axes) * t,
+            dist.mesh.axes_size(dist.token_axes) * t)
+
+
 def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
-             act: str, expert_fn: Callable, dist: DistConfig):
+             act: str, expert_fn: Callable, dist: DistConfig,
+             noise_seed=None):
     """Tokens sharded over every mesh axis, experts over the expert axes.
 
     Per rank: gate -> dispatch into (E, C, d), C from the local token count
@@ -466,17 +529,27 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     ``overlap_chunks > 1`` the exchanges and the expert compute run as the
     §5.2 smart schedule over capacity micro-shards; the fused kernels then
     plan each micro-shard's hidden split for the whole buffer's rows, so a
-    row's sums do not depend on the chunking."""
+    row's sums do not depend on the chunking.  Expert-choice fills the
+    same (E, C, d) grid by a gather of the picked rows (exact capacities,
+    nothing dropped) and combines with ``combine_ec``."""
     mesh = dist.mesh
     group = mesh.group(dist.expert_axes)
     mp = dist.expert_parallelism
     E = cfg.num_experts
     E_local = E // mp
     t, d = x.shape
-    g = route_tokens(router, x, cfg)
-    C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
-    plan = D.make_capacity_plan(g.expert_ids, E, C)
-    buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+    ec = cfg.router == "expert_choice"
+    if ec:
+        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+        buf = D.gather_ec(x, token_idx)  # (E, C, d)
+        assigned = _ec_uniform(E, C, x.device)
+    else:
+        g = route_tokens(router, x, cfg, noise_seed=noise_seed,
+                         noise_rows=_noise_rows(dist, t))
+        C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
+        plan = D.make_capacity_plan(g.expert_ids, E, C)
+        buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+        assigned = plan.load
     n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
     tp = mesh.group(dist.tp_axis) if dist.tp_axis else None
     if n_chunks > 1 and expert_fn is expert_ffn_fused:
@@ -495,12 +568,15 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         return comm.reduce_scatter_rows(out, tp, 1)
 
     decompose = dist.decomposed(n_chunks)
-    incoming = pipeline.counts_all_to_all(plan.load.reshape(mp, E_local),
+    incoming = pipeline.counts_all_to_all(assigned.reshape(mp, E_local),
                                           group, mp, decompose=decompose)
     out = pipeline.pipelined_expert_exchange(
         buf.reshape(mp, E_local, C, d), group, mp, n_chunks, compute,
-        wire_dtype=dist.wire_dtype, decompose=decompose)
-    y = D.combine_capacity(out.reshape(E, C, -1), plan, g.combine_weights)
+        wire_dtype=dist.wire_dtype, decompose=decompose).reshape(E, C, -1)
+    if ec:
+        y = D.combine_ec(out, token_idx, ec_w, t)
+    else:
+        y = D.combine_capacity(out, plan, g.combine_weights)
 
     # the global load: my experts' received counts in my expert slot,
     # summed over the token ranks (an all-gather over the expert axes, a
@@ -508,11 +584,14 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     m = mesh.axis_index(dist.expert_axes)
     load_part = x.new_zeros(E, dtype=torch.float32)
     load_part[m * E_local:(m + 1) * E_local] = incoming.sum(0).float()
+    if ec:
+        zero = x.new_zeros((), dtype=torch.float32)
+        return y, _dist_metrics(dist, load_part, zero, router_z_loss(logits),
+                                zero, E)
     _, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
     metrics = _dist_metrics(
-        dist, load_part,
-        load_balance_loss(g.probs, g.expert_ids, E), router_z_loss(g.logits),
-        drop, E)
+        dist, load_part, _aux_loss(router, x, g, cfg),
+        router_z_loss(g.logits), drop, E)
     return y, metrics
 
 
@@ -636,7 +715,7 @@ def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
 
 def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
                     cfg: MoEConfig, act: str, dist: DistConfig,
-                    impl: str = "einsum"):
+                    impl: str = "einsum", noise_seed=None):
     """Dropless expert parallelism — the load-sized exchange.
 
       1. the counts all-to-all: each rank tells peer p how many rows it
@@ -653,17 +732,27 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     (:func:`_hier_exchange`), bit-exact against this flat one when nothing
     drops.  The packing and compaction are plain index copies, with a zero
     row for the drop sentinel, as the reference's scatters and gathers
-    are."""
+    are.  Expert-choice is the uniform case: its (E, C) grid flattened
+    expert-major, group sizes C."""
     mesh = dist.mesh
     mp = dist.expert_parallelism
     E = cfg.num_experts
     t, d = x.shape
-    g = route_tokens(router, x, cfg)
-    n = t * cfg.top_k
-    plan = D.make_ragged_plan(g.expert_ids, E)
-    x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
+    ec = cfg.router == "expert_choice"
+    if ec:
+        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+        n = E * C
+        gs = _ec_uniform(E, C, x.device)
+        x_sorted = D.gather_ec(x, token_idx.reshape(-1))  # (n, d)
+    else:
+        g = route_tokens(router, x, cfg, noise_seed=noise_seed,
+                         noise_rows=_noise_rows(dist, t))
+        n = t * cfg.top_k
+        plan = D.make_ragged_plan(g.expert_ids, E)
+        gs = plan.group_sizes
+        x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
     B = dist.ragged_bound or n
-    xplan = D.make_ragged_xplan(plan.group_sizes, n, E, mp, B)
+    xplan = D.make_ragged_xplan(gs, n, E, mp, B)
     send = D.scatter_rows(x_sorted, xplan.send_dest, mp * B).reshape(mp, B, d)
 
     node_ax = dist.node_axis
@@ -687,21 +776,23 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
         out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
         ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp, **ex)
     y_sorted = D.gather_rows_fill(ret.reshape(mp * B, -1), xplan.send_dest)
-    y = D.combine_ragged(y_sorted, plan, g.combine_weights)
+    if ec:
+        y = D.combine_ec(y_sorted.reshape(E, C, -1), token_idx, ec_w, t)
+        aux = x.new_zeros((), dtype=torch.float32)
+        z = router_z_loss(logits)
+    else:
+        y = D.combine_ragged(y_sorted, plan, g.combine_weights)
+        aux, z = _aux_loss(router, x, g, cfg), router_z_loss(g.logits)
 
     # rows over the peer bound, and those the forwarding agent dropped at
     # the inter bound: the mean over the ranks is the global fraction
     dropped = (xplan.num_owned_rows - xplan.keep.sum()).float() + agg_dropped
-    metrics = _dist_metrics(
-        dist, plan.group_sizes,
-        load_balance_loss(g.probs, g.expert_ids, E), router_z_loss(g.logits),
-        dropped / n, E)
-    return y, metrics
+    return y, _dist_metrics(dist, gs, aux, z, dropped / n, E)
 
 
 def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
               act: str, expert_fn: Callable, dist: DistConfig,
-              impl: str = "einsum"):
+              impl: str = "einsum", noise_seed=None):
     """Tokens not sharded over the expert axis (decode, and batches that do
     not split over every rank): every rank gates all of its tokens,
     computes only its own experts, and one all-reduce (SUM) of the combined
@@ -729,7 +820,11 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     E_local = E // mp
     mine = slice(m * E_local, (m + 1) * E_local)
     t = x.shape[0]
-    g = route_tokens(router, x, cfg)
+    if cfg.router == "expert_choice":
+        return _moe_psum_ec(x, router, experts, cfg, act, expert_fn, dist,
+                            impl)
+    g = route_tokens(router, x, cfg, noise_seed=noise_seed,
+                     noise_rows=_noise_rows(dist, t))
     if cfg.dispatch == "ragged":
         n = t * cfg.top_k
         plan = D.make_ragged_plan(g.expert_ids, E)
@@ -753,20 +848,64 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         y = D.combine_capacity(out, plan, g.combine_weights)
         load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
     y = comm.all_reduce_sum(y, dist.mesh.group(dist.expert_axes))
-    aux = load_balance_loss(g.probs, g.expert_ids, E)
-    z = router_z_loss(g.logits)
+    return y, _psum_metrics(dist, MoEMetrics(_aux_loss(router, x, g, cfg),
+                                             router_z_loss(g.logits), load,
+                                             drop))
+
+
+def _psum_metrics(dist: DistConfig, m: MoEMetrics) -> MoEMetrics:
+    """The psum mode's metrics: the means over the token ranks, in one
+    all-reduce (aux and z keep the rank's own gradient)."""
     ranks = dist.mesh.axes_size(dist.token_axes)
-    if ranks > 1:  # the means over the token ranks, in one all-reduce
-        red = torch.cat([load, torch.stack([aux, z, drop]).detach().float()])
-        torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
-        red = red / ranks
-        load, drop = red[:E], red[E + 2]
-        aux, z = _keep_grad(aux, red[E]), _keep_grad(z, red[E + 1])
-    return y, MoEMetrics(aux, z, load, drop)
+    if ranks == 1:
+        return m
+    E = m.load.shape[0]
+    red = torch.cat([m.load, torch.stack([m.aux_loss, m.z_loss, m.drop_frac])
+                     .detach().float()])
+    torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
+    red = red / ranks
+    return MoEMetrics(_keep_grad(m.aux_loss, red[E]),
+                      _keep_grad(m.z_loss, red[E + 1]), red[:E], red[E + 2])
+
+
+def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
+                 cfg: MoEConfig, act: str, expert_fn: Callable,
+                 dist: DistConfig, impl: str = "einsum"):
+    """Expert-choice in the psum mode: every rank of the model group routes
+    the same tokens to the same (E, C) grid, computes its own experts' rows
+    of it (zeros elsewhere), and one all-reduce of the grid over the model
+    group adds the disjoint blocks (exact: the other ranks add zeros); the
+    combine then runs in logical order, as the local path's."""
+    mp = dist.expert_parallelism
+    m = dist.mesh.axis_index(dist.expert_axes)
+    E = cfg.num_experts
+    E_local = E // mp
+    mine = slice(m * E_local, (m + 1) * E_local)
+    t = x.shape[0]
+    C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+    group = dist.mesh.group(dist.expert_axes)
+    if cfg.dispatch == "ragged":
+        n = E * C
+        x_sorted = D.gather_ec(x, token_idx.reshape(-1))  # (n, d)
+        i = torch.arange(n, device=x.device) - m * E_local * C
+        dest = torch.where((i >= 0) & (i < E_local * C), i, n)
+        ys = RAGGED_FNS[impl](experts, D.scatter_rows(x_sorted, dest, n),
+                              _ec_uniform(E_local, C, x.device), act)
+        out = comm.all_reduce_sum(D.gather_rows_fill(ys, dest), group)
+        out = out.reshape(E, C, -1)
+    else:
+        buf = D.gather_ec(x, token_idx)  # (E, C, d)
+        out_local = expert_fn(experts, buf[mine], act)
+        out = out_local.new_zeros(E, C, out_local.shape[-1])
+        out[mine] = out_local
+        out = comm.all_reduce_sum(out, group)
+    y = D.combine_ec(out, token_idx, ec_w, t)
+    return y, _psum_metrics(dist, _ec_metrics(x, logits, E))
 
 
 def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
-               act: str = "swiglu", dist=None, impl: str = "einsum"):
+               act: str = "swiglu", dist=None, impl: str = "einsum",
+               noise_seed: Optional[int] = None):
     """Apply the MoE FFN to ``x`` of shape (..., d_model).
 
     Returns ``(y, MoEMetrics)``.  ``impl`` selects the expert kernels
@@ -776,30 +915,46 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     mode, with ``x`` this rank's token shard and ``params["experts"]`` its
     expert shard (its hidden slice of them under ``tp_axis``).  The
     shared and dense residual FFNs run on the local tokens.
+
+    ``cfg.router`` (or ``dist.router`` where set) picks the router on every
+    path.  ``noise_seed`` arms the exploration of ``noisy_topk`` and
+    ``gumbel`` (``gate.route_tokens``): a rank draws its rows of the noise
+    over its token axes' whole token set, so any mesh routes as one rank
+    would.  Expert-choice picks from the tokens a rank holds.
     """
     if dist is not None:
         _check_dist(dist)
+        if dist.router is not None and dist.router != cfg.router:
+            # the dist channel pins the routing variant (serve-time frozen
+            # routing, say) without touching the model config
+            cfg = dataclasses.replace(cfg, router=dist.router)
         if dist.mesh is not None and dist.tp_axis and cfg.dispatch == "ragged":
             # as the reference: the grouped ragged kernels take flat sorted
             # rows, to which the capacity path's per-row tp gather and
             # scatter do not apply
             raise NotImplementedError(
                 "ragged dispatch + expert-internal TP (use capacity)")
+    if cfg.router not in ROUTERS:
+        raise ValueError(f"unknown router {cfg.router!r}; one of {ROUTERS}")
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     router, experts = params["router"], params["experts"]
+    if cfg.router not in EXPLORING:
+        noise_seed = None  # every other router runs without a draw
+    kw = dict(noise_seed=noise_seed)
     if dist is None or dist.mesh is None:
         y, metrics = _moe_local(xf, router, experts, cfg, act, expert_fn,
-                                impl=impl)
+                                impl=impl, **kw)
     elif dist.mode == "psum":
         y, metrics = _moe_psum(xf, router, experts, cfg, act, expert_fn, dist,
-                               impl=impl)
+                               impl=impl, **kw)
     elif cfg.dispatch == "ragged":
         y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
-                                     impl=impl)
+                                     impl=impl, **kw)
     else:
-        y, metrics = _moe_a2a(xf, router, experts, cfg, act, expert_fn, dist)
+        y, metrics = _moe_a2a(xf, router, experts, cfg, act, expert_fn, dist,
+                              **kw)
     for k in ("shared", "dense"):
         if k in params:
             y = y + dense_ffn(params[k], xf, act)

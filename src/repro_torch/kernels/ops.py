@@ -17,7 +17,8 @@ Each op is a ``torch.autograd.Function`` whose backward runs kernels too:
   (``kernels.fused_ffn_bwd``); dW is cast to the weight dtype as
   ``repro/kernels/ops.py`` ``_ffn_bwd`` does;
 * ``gather_tokens`` / ``combine_tokens`` — each one's backward is the other
-  kernel: the gradient of a gather of every token into its k rows is the
+  kernel (``gather_rows_any``, expert-choice's gather of a variable count
+  of rows a token, sums them by ``combine_topk`` too): the gradient of a gather of every token into its k rows is the
   sum of those rows (``combine_topk`` with weights of 1, over the ragged
   plan's ``slot_rows`` where the caller passes them), and the gradient of
   the gate-weighted combine with respect to its rows is each row's token
@@ -162,6 +163,47 @@ def gather_tokens(x: torch.Tensor, idx: torch.Tensor,
     if slot_rows is not None:
         slot_rows = slot_rows.to(torch.int32)
     return _GatherTokens.apply(x, idx.to(torch.int32), slot_rows)
+
+
+def token_table(idx: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """(T, kmax) int32: the rows of ``idx`` (n,) that hold each of
+    ``num_tokens`` tokens, in row order, padded with n (one host sync for
+    kmax, the most rows a token has)."""
+    n = idx.numel()
+    idx = idx.reshape(-1).long()
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=num_tokens)
+    kmax = int(counts.max()) if n else 0
+    start = torch.cumsum(counts, 0) - counts
+    tok = idx[order]
+    pos = torch.arange(n, device=idx.device) - start[tok]
+    table = torch.full((num_tokens, max(kmax, 1)), n, dtype=torch.int32,
+                       device=idx.device)
+    table[tok, pos] = order.to(torch.int32)
+    return table
+
+
+class _GatherAny(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_tokens = x.shape[0]
+        return ts.gather_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (idx,) = ctx.saved_tensors
+        table = token_table(idx, ctx.num_tokens)
+        dy = torch.cat([dy.contiguous(), dy.new_zeros(1, dy.shape[1])])
+        return ts.combine_topk(dy, table), None
+
+
+def gather_rows_any(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[idx[i]] where a row of x may be taken any number of times
+    (expert-choice's gather), on the by-destination ``gather_rows`` kernel.
+    The gradient sums each token's rows in row order with ``combine_topk``
+    over :func:`token_table`, a fixed order: deterministic, no atomics."""
+    return _GatherAny.apply(x, idx.reshape(-1).to(torch.int32))
 
 
 class _CombineTokens(torch.autograd.Function):

@@ -18,7 +18,8 @@ process each (gloo on the CPU, NCCL with one card a rank):
 Every rank runs the same loop on the same requests; rank 0 prints.
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel, fused = the fused FFN kernel); ``--dispatch`` the MoE
-dispatch (capacity | ragged).  Runs on the GPU unless ``--device cpu``.
+dispatch (capacity | ragged); ``--router`` the routing variant (serving
+draws no noise, so gumbel routes as topk).  Runs on the GPU unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fmoe import moe_dist
+from repro_torch.core.gate import ROUTERS
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.launch.serve_api import Request, ServeConfig
@@ -224,6 +226,9 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--impl", default="fused", choices=["einsum", "pallas", "fused"])
     ap.add_argument("--dispatch", default="ragged", choices=["capacity", "ragged"])
+    ap.add_argument("--router", default="", choices=["", *ROUTERS],
+                    help="override the MoE routing variant (no noise is "
+                         "drawn at decode: gumbel routes as topk)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -273,8 +278,9 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
     if cfg.moe is not None:
-        cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=args.dispatch,
+            router=args.router or cfg.moe.router))
     # each rank makes its own shard from the seed
     params = lm.init_params(cfg, seed=args.seed, device=dev, mesh=mesh)
     where = f"{dev}" + (f", mesh {scfg.mesh} (psum)" if mesh else "")

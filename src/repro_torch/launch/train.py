@@ -32,6 +32,13 @@ narrows the exchange payloads, ``--ragged_bound`` and ``--inter_bound``
 size the ragged and slim inter-node shards (0 = never drop); the psum
 mode ignores these, as the reference does.
 
+``--router`` overrides the MoE routing variant (topk, noisy_topk, gumbel,
+expert_choice, frozen); the exploration routers draw their noise from
+(17, step, microbatch, layer).  ``--freeze_router_at N`` is StableMoE's
+second stage: at step N a distilling router (noisy_topk or gumbel) hands
+the routing to its distilled ``w_frozen`` (the config flips to
+``frozen`` and the step is rebuilt).
+
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel in both directions, fused = the fused FFN kernel
 forward and the fused dX / grouped dW kernels backward); ``--dispatch``
@@ -53,7 +60,8 @@ import torch.distributed
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.fmoe import moe_dist
+from repro_torch.core.fmoe import expert_seed, moe_dist
+from repro_torch.core.gate import EXPLORING, ROUTERS
 from repro_torch.core.sync import sync_grads
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
@@ -94,25 +102,27 @@ def _mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
                    impl: str = "einsum", device="cuda", timings=None,
-                   dist=None):
+                   dist=None, router_seed: int | None = None):
     """(loss, aux, grads): ``lm.loss_fn`` and its gradient with respect to
-    every param leaf (a tree like ``params``).  A ``timings`` dict, when
+    every param leaf (a tree like ``params``; zeros for a leaf the loss
+    does not reach, as ``jax.grad`` gives: the frozen router's ``w``).  A ``timings`` dict, when
     given, gains the forward and backward seconds (``fwd_s``, ``bwd_s``),
     each taken after a device synchronize.  With ``dist``, ``batch`` holds
     this rank's rows and the loss and grads are the rank's own, unsynced
-    (``core.sync.sync_grads``)."""
+    (``core.sync.sync_grads``).  ``router_seed``: ``lm.forward``'s."""
     dev = resolve(device)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     t0 = time.perf_counter()
     loss, aux = lm.loss_fn(params, cfg, batch, impl=impl, device=dev,
-                           dist=dist)
+                           dist=dist, router_seed=router_seed)
     if timings is not None:
         _sync(dev)
         t1 = time.perf_counter()
         timings["fwd_s"] = timings.get("fwd_s", 0.0) + t1 - t0
-    flat = torch.autograd.grad(loss, leaves)
+    flat = torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
     if timings is not None:
         _sync(dev)
         timings["bwd_s"] = timings.get("bwd_s", 0.0) + time.perf_counter() - t1
@@ -136,9 +146,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
     the global batch and takes its rows over ``dist.token_axes``, its
     params are its shard (``lm.init_params(mesh=...)``), the gradients are
     synced as FastMoE does (``core.sync.sync_grads``) before AdamW, and the
-    metrics are the means over the ranks."""
+    metrics are the means over the ranks.
+
+    The exploration routers (noisy_topk, gumbel) draw their noise from
+    ``expert_seed(17, step, microbatch)`` (per layer from that,
+    ``lm.forward``): deterministic and the same on a resumed run; every
+    other router runs without a draw."""
     dev = resolve(device)
     mesh = dist.mesh if dist is not None else None
+    explore = cfg.moe is not None and cfg.moe.router in EXPLORING
 
     def train_step(params, opt_state, batch, step, *, timings=None):
         tokens = torch.as_tensor(batch["tokens"])
@@ -149,9 +165,11 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
                              f"{num_microbatches} equal microbatches")
         micro = tokens.reshape(num_microbatches, -1, *tokens.shape[1:])
         grads = loss = aux = None
-        for mb in micro:
+        for j, mb in enumerate(micro):
+            seed = expert_seed(17, step, j) if explore else None
             l, a, g = loss_and_grads(params, cfg, {"tokens": mb}, impl=impl,
-                                     device=dev, timings=timings, dist=dist)
+                                     device=dev, timings=timings, dist=dist,
+                                     router_seed=seed)
             if grads is None:
                 grads, loss, aux = g, l, a
             else:
@@ -198,6 +216,12 @@ def main(argv=None) -> None:
                     choices=["einsum", "pallas", "fused"])
     ap.add_argument("--dispatch", default="", choices=["", "capacity", "ragged"],
                     help="override the MoE dispatch mode")
+    ap.add_argument("--router", default="", choices=["", *ROUTERS],
+                    help="override the MoE routing variant")
+    ap.add_argument("--freeze_router_at", type=int, default=0,
+                    help="StableMoE's second stage: at this step the "
+                         "distilled router w_frozen takes over the routing "
+                         "(needs --router noisy_topk or gumbel)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
@@ -236,6 +260,14 @@ def _run(args, dev: torch.device, mesh) -> None:
     if args.dispatch and cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+    if args.router and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, router=args.router))
+    if args.freeze_router_at and (cfg.moe is None
+                                  or cfg.moe.router not in EXPLORING):
+        raise SystemExit("--freeze_router_at needs a distilling router "
+                         "(--router noisy_topk or gumbel) so params carry "
+                         "w_frozen")
     opt = AdamW(lr=args.lr)
     dist = None
     if mesh is not None:
@@ -261,14 +293,27 @@ def _run(args, dev: torch.device, mesh) -> None:
         print(f"mesh {args.mesh} ({dist.mode} over {dist.token_axes})",
               flush=True)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, dist=dist,
-                              num_microbatches=args.microbatches,
-                              impl=args.impl, device=dev)
+
+    def build(cfg):
+        return make_train_step(cfg, opt, dist=dist,
+                               num_microbatches=args.microbatches,
+                               impl=args.impl, device=dev)
+    step_fn = build(cfg)
     batches = SyntheticLM(cfg.vocab_size, args.seq, seed=args.seed).batches(
         args.batch)
     t0 = time.time()
     for step in range(args.steps):
         batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
+        if (args.freeze_router_at and step >= args.freeze_router_at
+                and cfg.moe.router != "frozen"):
+            # StableMoE stage 2: route through w_frozen from here on, a
+            # config flip (the params already carry the distilled router)
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, router="frozen"))
+            step_fn = build(cfg)
+            if lead:
+                print(f"step {step:5d} router frozen: gate-id tables are "
+                      f"now stable", flush=True)
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
         if lead and step % args.log_every == 0:
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} "

@@ -60,22 +60,24 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
 
 
 def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str,
-               dist=None):
+               dist=None, noise_seed=None):
     if cfg.moe is not None:
-        return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl, dist=dist)
+        return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl, dist=dist,
+                          noise_seed=noise_seed)
     return dense_ffn(p, x, cfg.act), None
 
 
 def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
-                    impl: str = "einsum", dist=None):
+                    impl: str = "einsum", dist=None, noise_seed=None):
     """x (B, S, d) -> (x, MoEMetrics | None).  ``dist``: the MoE layer's
-    ``core.fmoe.DistConfig`` (x is then this rank's batch rows)."""
+    ``core.fmoe.DistConfig`` (x is then this rank's batch rows);
+    ``noise_seed``: the layer's exploration seed (``fmoe_apply``)."""
     attn = A.mla_apply if _is_mla(cfg) else A.gqa_apply
     h = attn(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg.attention,
              window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist)
+                            impl, dist, noise_seed)
     return x + h, metrics
 
 

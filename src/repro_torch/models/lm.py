@@ -3,8 +3,10 @@ or MLA attention).
 
 Public API:
   init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=) -> params
-  forward(params, cfg, tokens, impl=, device=, dist=)  -> (logits, MoEMetrics)
-  loss_fn(params, cfg, batch, impl=, device=, dist=)   -> (loss, aux dict)
+  forward(params, cfg, tokens, impl=, device=, dist=, router_seed=)
+                                                   -> (logits, MoEMetrics)
+  loss_fn(params, cfg, batch, impl=, device=, dist=, router_seed=)
+                                                   -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
   init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
   init_paged_cache(cfg, num_blocks, block_size, device=) -> list of pools
@@ -57,8 +59,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 expert_tp: bool = False) -> dict:
     """Random params from ``seed`` (the JAX package's distributions and
     scales; torch generators, so not its numbers).  Layers are made one at
-    a time in f32 and kept in ``param_dtype``: by default ``cfg.dtype``, the
-    serving layout; training passes ``cfg.param_dtype`` (f32 masters).
+    a time, each weight drawn in f32 and stored in ``param_dtype`` (a routed
+    expert as it is drawn, so a layer never exists whole in f32: one of
+    arctic-480b's is ~54 GB so): by default ``cfg.dtype``, the serving
+    layout; training passes ``cfg.param_dtype`` (f32 masters).
 
     Every leaf but the routed expert stacks comes from one generator seeded
     by ``seed``; expert ``e`` of leaf ``i`` of layer ``l``'s stacks from a
@@ -77,8 +81,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     p = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
         "layers": [cast_params(B.layer_init(
-            gen, cfg, device=dev, expert_key=expert_seed(seed, layer),
-            shard=shard), dtype) for layer in range(cfg.num_layers)],
+            gen, cfg, device=dev, dtype=dtype,
+            expert_key=expert_seed(seed, layer), shard=shard), dtype)
+            for layer in range(cfg.num_layers)],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -109,42 +114,52 @@ def _n_experts(cfg: ModelConfig) -> int:
 
 
 def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
-               impl: str, dist):
+               impl: str, dist, noise_seed=None):
     dtype = getattr(torch, cfg.dtype)
     x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
-                             impl=impl, dist=dist)
+                             impl=impl, dist=dist, noise_seed=noise_seed)
     return x.to(dtype), m
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
-            device="cuda", dist=None):
-    """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over layers)."""
+            device="cuda", dist=None, router_seed: int | None = None):
+    """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over layers).
+
+    ``router_seed`` arms the exploration of the noisy_topk and gumbel
+    routers: layer ``l`` draws its noise from ``expert_seed(router_seed,
+    l)`` inside the layer, so the remat recompute draws the same (an
+    integer, never a stateful generator, enters the checkpoint).  None
+    routes deterministically, the eval and serving stance."""
     tokens = _inputs(params, tokens, device)
     x = embed_lookup(params["embed"], tokens, getattr(torch, cfg.dtype))
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for p_l, window in zip(params["layers"], B.layer_windows(cfg)):
+    for layer, (p_l, window) in enumerate(zip(params["layers"],
+                                              B.layer_windows(cfg))):
+        seed = None if router_seed is None else expert_seed(router_seed, layer)
         if remat:
             x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl, dist,
-                              use_reentrant=False)
+                              seed, use_reentrant=False)
         else:
-            x, m = _layer_seq(p_l, cfg, x, window, impl, dist)
+            x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed)
         metrics = _accumulate(metrics, m)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), metrics
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            impl: str = "einsum", device="cuda", dist=None):
+            impl: str = "einsum", device="cuda", dist=None,
+            router_seed: int | None = None):
     """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
     ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
     {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
     load}), drop_frac and load averaged over layers.  With ``dist``, the
     batch is this rank's rows and ``ce`` their mean; the MoE metrics are
-    already the means over every rank (``fmoe_apply``)."""
+    already the means over every rank (``fmoe_apply``).  ``router_seed``:
+    see :func:`forward`."""
     tokens = _inputs(params, batch["tokens"], device)
     logits, metrics = forward(params, cfg, tokens, impl=impl, device=device,
-                              dist=dist)
+                              dist=dist, router_seed=router_seed)
     V = logits.shape[-1]
     ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
                          tokens[:, 1:].reshape(-1).long())

@@ -862,3 +862,112 @@ def test_continuous_paged_equals_ring(dev, dtype, impl, dispatch):
                 assert not pool.k[A.NULL_BLOCK].any()
     assert sorted(out[True]) == list(range(len(reqs)))
     assert out[True] == out[False]
+
+
+def _moe_case(dev, router, dispatch, top_k=2, policy="softmax_topk",
+              renormalize=True, E=16, d=256, h=512, T=512, act="gelu"):
+    """A bf16 MoE layer on the card (params from a seed) and its input."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import fmoe
+
+    cfg = MoEConfig(num_experts=E, top_k=top_k, d_expert_hidden=h,
+                    router=router, dispatch=dispatch, gate_policy=policy,
+                    renormalize=renormalize, capacity_factor=1.25)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = fmoe.fmoe_init(g, d, cfg, act=act, device=dev,
+                            dtype=torch.bfloat16)
+    x = torch.randn(T, d, generator=g, device=dev).to(torch.bfloat16)
+    return cfg, params, x
+
+
+def _layer_fwd_bwd(params, x, cfg, impl, act="gelu"):
+    """y and the gradients of sum(y * r) w.r.t. every leaf and x."""
+    from repro_torch.core import fmoe
+
+    p = {k: {n: t.detach().clone().requires_grad_() for n, t in v.items()}
+         for k, v in params.items()}
+    xs = x.detach().clone().requires_grad_()
+    y, _ = fmoe.fmoe_apply(p, xs, cfg, act=act, impl=impl)
+    r = torch.randn(y.shape, generator=torch.Generator(
+        device=y.device).manual_seed(1), device=y.device).to(y.dtype)
+    leaves = [t for v in p.values() for t in v.values()] + [xs]
+    return [y, *torch.autograd.grad((y.float() * r.float()).sum(), leaves,
+                                    allow_unused=True,
+                                    materialize_grads=True)]
+
+
+def test_ec_gather_and_combine_are_deterministic(dev):
+    """Expert-choice's gather (the by-destination kernel; its gradient sums
+    a variable count of rows a token with combine_topk in row order) and
+    combine_ec at fastmoe-gpt's training shape (2048 tokens, 96 experts, C
+    26): forward bitwise the plain gather, gradients bit-equal over two
+    runs and within bf16 of the f32 sums."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.core import gate
+
+    T, E, d = 2048, 96, 1024
+    g = torch.Generator(device=dev).manual_seed(3)
+    probs = torch.softmax(torch.randn(T, E, generator=g, device=dev), -1)
+    C = D.ec_capacity(T, E, 1.25)
+    w, idx = gate.topk_lower_index(probs.T, C)
+    x = torch.randn(T, d, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(E, C, d, generator=g, device=dev).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        before = ts.gather_rows.launches, ts.combine_topk.launches
+        xs = x.clone().requires_grad_()
+        out = D.gather_ec(xs, idx)
+        assert torch.equal(out, x[idx])
+        (dx,) = torch.autograd.grad(out, xs, dy)
+        assert (ts.gather_rows.launches, ts.combine_topk.launches) == (
+            before[0] + 1, before[1] + 1)
+        o = dy.clone().requires_grad_()
+        wv = w.clone().requires_grad_()
+        y = D.combine_ec(o, idx, wv, T)
+        gy = torch.randn(y.shape, generator=torch.Generator(
+            device=dev).manual_seed(4), device=dev).to(y.dtype)
+        runs.append([dx, y, *torch.autograd.grad(y, [o, wv], gy)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    want = torch.zeros(T, d, device=dev).index_add_(
+        0, idx.reshape(-1), dy.reshape(-1, d).float())
+    torch.testing.assert_close(runs[0][0].float(), want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dispatch", ["capacity", "ragged"])
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_ec_layer_repeats_bit_for_bit(dev, impl, dispatch):
+    """An expert-choice layer's forward and every gradient repeat bit for
+    bit on the card, and sit within bf16 of the einsum path."""
+    cfg, params, x = _moe_case(dev, "expert_choice", dispatch)
+    a, b = (_layer_fwd_bwd(params, x, cfg, impl) for _ in range(2))
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    ref = _layer_fwd_bwd(params, x, cfg, "einsum")
+    torch.testing.assert_close(a[0].float(), ref[0].float(), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("dispatch,impl", [("ragged", "fused"),
+                                           ("capacity", "pallas"),
+                                           ("ragged", "pallas"),
+                                           ("capacity", "fused")])
+def test_top1_paths(dev, dispatch, impl):
+    """The k = 1 paths of switch-base-128 (topk_softmax, no renormalize,
+    GELU, 128 experts): the source-major gather and the combine at k = 1,
+    the expert kernels, and their backward, against the einsum path within
+    bf16, and repeating bit for bit."""
+    cfg, params, x = _moe_case(dev, "topk", dispatch, top_k=1,
+                               policy="topk_softmax", renormalize=False,
+                               E=128, d=768, h=3072, T=1024)
+    before = (ts.gather_rows_by_source.launches, ts.combine_topk.launches)
+    a = _layer_fwd_bwd(params, x, cfg, impl)
+    if dispatch == "ragged":
+        assert ts.gather_rows_by_source.launches > before[0]
+        assert ts.combine_topk.launches > before[1]
+    b = _layer_fwd_bwd(params, x, cfg, impl)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    ref = _layer_fwd_bwd(params, x, cfg, "einsum")
+    torch.testing.assert_close(a[0].float(), ref[0].float(), rtol=5e-2,
+                               atol=5e-2)

@@ -53,6 +53,18 @@ holds the results to the JAX package:
   ``lm.decode_step(dist=serve.decode_dist(...))``, logits against the JAX
   package's distributed ``lm.decode_step`` on fake CPU devices at 1e-4,
   greedy tokens equal;
+* *the routing zoo* (1x2, 2x2, 1x4): noisy_topk and gumbel with a seed,
+  expert_choice and frozen, a2a and the psum mode, both dispatches
+  (fused): ``y``, ``load``, ``drop_frac`` and the gradients (every router
+  leaf) against the single-rank oracle at 1e-5 — the port's own local
+  layer with the same seed for the exploration routers (a rank draws its
+  rows of the whole token set's noise; that layer is held to JAX's with
+  JAX's draw in ``tests/test_torch_routers.py``), JAX's single-rank layer
+  for frozen, and JAX's layer applied to each token shard for
+  expert-choice, whose experts pick from the tokens a rank holds; at 1x1
+  each router's a2a and psum step (loss, gradients, params after AdamW)
+  equals the local one bit for bit, and a noisy and an expert-choice step
+  repeat bit for bit;
 * refusals of what the slice does not carry (ragged dispatch with tp
   among them), and the ``torchrun`` CLIs of training (a2a, and the psum
   mode where 2 rows do not split over 4 ranks) and of continuous
@@ -78,9 +90,13 @@ STORE_TIMEOUT = datetime.timedelta(seconds=150)  # a collective's own limit
 MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 # the node mesh of the two-level exchange: (data, node, model)
 NODE_MESHES = {"1x2x2": (1, 2, 2)}
-TASKS = {"1x1": ["bit_equal"], "1x2": ["layer", "model", "decode", "overlap"],
-         "2x2": ["layer", "model", "drops", "tp", "overlap"], "1x4": ["layer"],
-         "1x2x2": ["hier"]}
+TASKS = {"1x1": ["bit_equal"],
+         "1x2": ["layer", "model", "decode", "overlap", "zoo"],
+         "2x2": ["layer", "model", "drops", "tp", "overlap", "zoo"],
+         "1x4": ["layer", "zoo"], "1x2x2": ["hier"]}
+# the routers other than topk, and the exploration seed of the zoo task
+ZOO = ("noisy_topk", "gumbel", "expert_choice", "frozen")
+ZOO_SEED = 11
 DISPATCHES = ("capacity", "ragged")
 IMPLS = ("einsum", "pallas", "fused")
 # model level: the port's impl per dispatch; the JAX side runs einsum (its
@@ -166,26 +182,30 @@ def _layer_inputs(job, mesh):
 
 
 def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
-               grads=True):
+               grads=True, router="topk", noise_seed=None):
     """y, load, drop_frac and the synced gradients of sum(y * r) over the
-    rank's rows."""
+    rank's rows (every router leaf; zeros for one the router leaves
+    unused)."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.core import fmoe
     from repro_torch.core.sync import sync_grads
 
-    cfg = MoEConfig(dispatch=dispatch, **LAYER)
+    cfg = MoEConfig(dispatch=dispatch, router=router, **LAYER)
     p = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
          for k, v in params.items()}
     xs = x[rows].clone().requires_grad_()
-    y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl)
+    y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl,
+                           noise_seed=noise_seed)
     out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
                 f"{key}/drop_frac": m.drop_frac})
     if not grads:
         return
-    g_leaves = [p["router"]["w"]] + list(p["experts"].values())
-    g = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs])
-    tree = {"router": {"w": g[0]},
-            "experts": dict(zip(p["experts"], g[1:-1]))}
+    g_leaves = list(p["router"].values()) + list(p["experts"].values())
+    g = torch.autograd.grad((y * r[rows]).sum(), g_leaves + [xs],
+                            allow_unused=True, materialize_grads=True)
+    nr = len(p["router"])
+    tree = {"router": dict(zip(p["router"], g[:nr])),
+            "experts": dict(zip(p["experts"], g[nr:-1]))}
     sync_grads(tree, dist)
     for k, v in _flatten(tree).items():
         out[f"{key}/grad/{k}"] = v
@@ -227,6 +247,38 @@ def _layer_task(spec, job, mesh, out):
         for impl in IMPLS:
             run(f"tp_layer/capacity/{impl}", tp_params, dist, "capacity", impl,
                 rows)
+
+
+def _zoo_params(whole, job):
+    """The whole layer params with the zoo's router leaves (w_noise,
+    w_frozen) beside ``w``."""
+    inp = np.load(job / "layer.npz")
+    router = {**whole["router"],
+              **{k: torch.from_numpy(inp[f"zoo/{k}"])
+                 for k in ("w_noise", "w_frozen")}}
+    return {**whole, "router": router}
+
+
+def _zoo_task(spec, job, mesh, out):
+    """Every router but topk, a2a and the psum mode, both dispatches: the
+    layer's y, metrics and synced gradients (``_layer_run``)."""
+    from repro_torch import interop
+    from repro_torch.core import fmoe
+
+    x, r, whole, rows = _layer_inputs(job, mesh)
+    params = interop.shard_params(_zoo_params(whole, job), mesh)
+    data = mesh.shape["data"]
+    t = x.shape[0] // data
+    d = mesh.coords()[0]
+    modes = {"a2a": (fmoe.DistConfig(mesh, ("data", "model")), rows),
+             "psum": (fmoe.DistConfig(mesh, ("data",) if data > 1 else ()),
+                      slice(d * t, (d + 1) * t))}
+    for router in ZOO:
+        for dispatch in DISPATCHES:
+            for mode, (dist, rws) in modes.items():
+                _layer_run(f"zoo/{mode}/{router}/{dispatch}", params, dist,
+                           dispatch, "fused", x, r, rws, out, router=router,
+                           noise_seed=ZOO_SEED)
 
 
 # options the port refused before the §5.2 schedule and the two-level
@@ -452,6 +504,48 @@ def _bit_equal_task(spec, job, mesh, out):
             out[f"{key}/psum_decode"] = np.asarray(
                 ddist.mode == "psum" and torch.equal(l0, l1)
                 and torch.equal(t0, t1))
+        _zoo_bit_equal(cfg, mesh, dispatch, out)
+
+
+def _zoo_bit_equal(cfg, mesh, dispatch, out):
+    """Each router of the zoo at world size 1 (fused): the a2a and psum
+    train steps' loss and gradients, then the grad norm and params after
+    one AdamW step, equal the local step's bit for bit; the local step run
+    twice too (the exploration routers draw from the step's seed)."""
+    import dataclasses
+
+    from repro_torch.core import fmoe
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    batch = {"tokens": torch.from_numpy(_tokens(0))}
+    for router in ZOO:
+        rcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router=router))
+        dists = {"local": None, "again": None,
+                 "ep": train.moe_dist(rcfg, mesh, MODEL_B),
+                 "psum": fmoe.DistConfig(mesh, ("data",))}
+        res = {}
+        for name, d in dists.items():
+            params = lm.init_params(rcfg, seed=0, device="cpu",
+                                    param_dtype=rcfg.param_dtype,
+                                    mesh=None if d is None else mesh)
+            opt = AdamW(lr=LR)
+            step_fn = train.make_train_step(rcfg, opt, dist=d, impl="fused",
+                                            device="cpu")
+            loss, _, grads = train.loss_and_grads(
+                params, rcfg, batch, impl="fused", device="cpu", dist=d,
+                router_seed=fmoe.expert_seed(17, 0, 0))
+            params, _, m = step_fn(params, opt.init(params), batch, 0)
+            res[name] = [loss, *tree_leaves(grads), m["grad_norm"],
+                         *tree_leaves(params)]
+        for name in ("again", "ep", "psum"):
+            out[f"zoo_bit_equal/{router}/{dispatch}/{name}"] = np.asarray(
+                len(res[name]) == len(res["local"]) and all(
+                    torch.equal(a, b) for a, b in zip(res["local"],
+                                                      res[name])))
 
 
 def _decode_greedy(params, cfg, impl, dist, device="cpu"):
@@ -491,7 +585,7 @@ def _decode_task(spec, job, mesh, out):
 
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
               "bit_equal": _bit_equal_task, "decode": _decode_task,
-              "overlap": _overlap_task, "hier": _hier_task}
+              "overlap": _overlap_task, "hier": _hier_task, "zoo": _zoo_task}
 
 
 def _rank_main(job: Path, rank: int) -> None:
@@ -560,9 +654,79 @@ def _jax_layer_inputs(job: Path):
     import dist_utils as du
     env = du.moe_env()
     r = jax.random.normal(jax.random.PRNGKey(7), env.x.shape)
+    d, e = env.params["router"]["w"].shape
+    g = np.random.default_rng(23)
+    zoo = {"zoo/w_noise": (g.standard_normal((d, e)) * 0.1 * d ** -0.5),
+           "zoo/w_frozen": g.standard_normal((d, e)) * d ** -0.5}
     np.savez(job / "layer.npz", x=np.asarray(env.x), r=np.asarray(r),
+             **{k: v.astype(np.float32) for k, v in zoo.items()},
              **_flatten(jax.tree.map(np.asarray, env.params)))
     return env, r
+
+
+def _zoo_oracle(root: Path):
+    """The single-rank oracles of the zoo task, per (router, dispatch,
+    token shards): y, load, drop_frac and the gradients of sum(y * r) —
+    the port's local layer with the task's seed (noisy_topk, gumbel), JAX's
+    single-rank layer (frozen), and JAX's layer on each of 1, 2 or 4 token
+    shards (expert_choice)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    import dist_utils as du
+    from repro.core import fmoe as jfmoe
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import fmoe as tfmoe
+
+    inp = dict(np.load(root / "layer.npz"))
+    d = inp["x"].shape[-1]
+    x, r = inp["x"].reshape(-1, d), inp["r"].reshape(-1, d)
+    params = _unflatten({k: v for k, v in inp.items()
+                         if k.startswith(("router/", "experts/"))})
+    params["router"].update({k: inp[f"zoo/{k}"]
+                             for k in ("w_noise", "w_frozen")})
+    env = du.moe_env()
+    ref = {}
+    for dispatch in DISPATCHES:
+        for router in ("noisy_topk", "gumbel"):
+            cfg = MoEConfig(dispatch=dispatch, router=router, **LAYER)
+            p = {k: {n: torch.from_numpy(np.array(t)).requires_grad_()
+                     for n, t in v.items()} for k, v in params.items()}
+            xs = torch.from_numpy(x).requires_grad_()
+            y, m = tfmoe.fmoe_apply(p, xs, cfg, act="swiglu", impl="fused",
+                                    noise_seed=ZOO_SEED)
+            leaves = [t for v in p.values() for t in v.values()]
+            g = torch.autograd.grad((y * torch.from_numpy(r)).sum(),
+                                    leaves + [xs], allow_unused=True,
+                                    materialize_grads=True)
+            names = [f"{k}/{n}" for k, v in p.items() for n in v]
+            ref[(router, dispatch, 1)] = dict(
+                y=y.detach().numpy(), load=m.load.numpy(),
+                drop_frac=m.drop_frac.numpy(),
+                grad={**{k: t.numpy() for k, t in zip(names, g)},
+                      "x": g[-1].numpy()})
+        jcfg = dataclasses.replace(env.cfg, dispatch=dispatch)
+        jp = jax.tree.map(jnp.asarray, params)
+        for router, shards in (("frozen", (1,)),
+                               ("expert_choice", (1, 2, 4))):
+            rc = dataclasses.replace(jcfg, router=router)
+            for n in shards:
+                def f(p, xx):
+                    xs = xx.reshape(n, -1, d)
+                    outs = [jfmoe.fmoe_apply(p, xs[i], rc, act="swiglu")
+                            for i in range(n)]
+                    y = jnp.concatenate([o[0] for o in outs])
+                    return (y * r).sum(), (y, outs[0][1])
+                (_, (y, m)), (gp, gx) = jax.value_and_grad(
+                    f, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+                ref[(router, dispatch, n)] = dict(
+                    y=np.asarray(y), load=np.asarray(m.load),
+                    drop_frac=np.asarray(m.drop_frac),
+                    grad={**_flatten(jax.tree.map(np.asarray, gp)),
+                          "x": np.asarray(gx)})
+    return ref
 
 
 def _jax_layer_oracle(env, r):
@@ -803,6 +967,7 @@ def ep(tmp_path_factory):
     for th in threads:
         th.start()
     oracle = _jax_layer_oracle(env, r)
+    zoo = _zoo_oracle(root)
     runs = {}
     for name, (job, wait) in waits.items():
         ok, log = wait()
@@ -812,7 +977,7 @@ def ep(tmp_path_factory):
             for i in range(world)])
     for th in threads:
         th.join(SPAWN_TIMEOUT)
-    return dict(runs=runs, jax=jax_box, oracle=oracle)
+    return dict(runs=runs, jax=jax_box, oracle=oracle, zoo=zoo)
 
 
 def _ranks(ep, name):
@@ -1414,7 +1579,9 @@ REFUSED = {
     # as the reference: tp takes the capacity dispatch
     "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
-    "router": (dict(router="gumbel"), "item 3"),
+    # the zoo is carried (ROADMAP §1 item 3, done): a router outside it
+    # is what the dist channel refuses
+    "router": (dict(router="switch"), "unknown router"),
 }
 
 
@@ -1432,8 +1599,75 @@ def test_unsupported_options_raise(what):
     gen = torch.Generator().manual_seed(0)
     params = fmoe.fmoe_init(gen, 32, cfg, device="cpu")
     x = torch.zeros(8, 32)
-    with pytest.raises(NotImplementedError, match=item):
+    error = ValueError if what == "router" else NotImplementedError
+    with pytest.raises(error, match=item):
         fmoe.fmoe_apply(params, x, cfg, dist=dist)
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2", "1x4"])
+@pytest.mark.parametrize("router", ZOO)
+def test_zoo_layer_matches_single_rank_oracle(ep, name, router):
+    """Each router in the a2a and psum modes, both dispatches: y, load and
+    drop_frac at 1e-5, and the gradients (synced, as the layer matrix's)
+    at 1e-5 of each leaf's scale, against the oracle of ``_zoo_oracle``:
+    expert-choice's a2a against its layer on each rank's token block, its
+    psum mode against the layer on each data block."""
+    ranks = _ranks(ep, name)
+    data, model = MESHES[name]
+    world = data * model
+    for dispatch in DISPATCHES:
+        for mode in ("a2a", "psum"):
+            key = f"zoo/{mode}/{router}/{dispatch}"
+            shards = 1
+            if router == "expert_choice":
+                shards = world if mode == "a2a" else data
+            ref = ep["zoo"][(router, dispatch, shards)]
+            if mode == "a2a":
+                y = np.concatenate([r[f"{key}/y"] for r in ranks])
+                xg = np.concatenate([r[f"{key}/grad/x"] for r in ranks])
+                scale = world
+            else:
+                y = np.concatenate([ranks[d * model][f"{key}/y"]
+                                    for d in range(data)])
+                xg = np.concatenate([
+                    sum(ranks[d * model + m][f"{key}/grad/x"]
+                        for m in range(model)) / model for d in range(data)])
+                scale = data
+            np.testing.assert_allclose(y, ref["y"].reshape(y.shape),
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+            _close_to_scale(xg, ref["grad"]["x"].reshape(xg.shape), 1e-5,
+                            f"{key} x")
+            for rank, r in enumerate(ranks):
+                np.testing.assert_allclose(r[f"{key}/load"], ref["load"],
+                                           rtol=1e-5, atol=1e-6, err_msg=key)
+                np.testing.assert_allclose(r[f"{key}/drop_frac"],
+                                           ref["drop_frac"], atol=1e-6)
+                for leaf in ("w", "w_noise", "w_frozen"):
+                    _close_to_scale(scale * r[f"{key}/grad/router/{leaf}"],
+                                    ref["grad"][f"router/{leaf}"], 1e-5,
+                                    f"{key} router {leaf}")
+                for leaf in ("wi_gate", "wi_up", "wo"):
+                    want = _expert_slice(ref["grad"][f"experts/{leaf}"], leaf,
+                                         rank, MESHES[name])
+                    _close_to_scale(scale * r[f"{key}/grad/experts/{leaf}"],
+                                    want, 1e-5, f"{key} rank {rank} {leaf}")
+            if router == "expert_choice":
+                for r in ranks:
+                    np.testing.assert_array_equal(r[f"{key}/load"],
+                                                  np.full(8, 1 / 8, np.float32))
+                    assert float(r[f"{key}/drop_frac"]) == 0.0
+
+
+@pytest.mark.parametrize("router", ZOO)
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_world_size_1_zoo_is_the_local_path_bit_for_bit(ep, router,
+                                                        dispatch):
+    """At world size 1 each router's a2a and psum train steps equal the
+    local one bit for bit (loss, gradients, grad norm and params after
+    AdamW), and the local step repeats bit for bit."""
+    r = _ranks(ep, "1x1")[0]
+    for name in ("again", "ep", "psum"):
+        assert bool(r[f"zoo_bit_equal/{router}/{dispatch}/{name}"]), name
 
 
 def test_local_carrier_is_the_local_path():

@@ -67,9 +67,17 @@ def test_gate_matches_jax_with_ties(policy, renorm):
 
 
 def test_router_other_than_topk_raises():
-    cfg = MoEConfig(router="gumbel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every router of the zoo routes now (tests/test_torch_routers.py);
+    a name outside it is refused by the gate, its init and the layer."""
+    cfg = MoEConfig(router="switch", num_experts=8, d_expert_hidden=8)
+    with pytest.raises(ValueError, match="unknown router"):
         tgate.route_tokens({"w": torch.zeros(4, 8)}, torch.zeros(2, 4), cfg)
+    with pytest.raises(ValueError, match="unknown router"):
+        tgate.router_init(torch.Generator(), 4, cfg, device="cpu")
+    params = tfmoe.fmoe_init(torch.Generator(), 4, MoEConfig(
+        num_experts=8, d_expert_hidden=8), device="cpu")
+    with pytest.raises(ValueError, match="unknown router"):
+        tfmoe.fmoe_apply(params, torch.zeros(2, 4), cfg)
 
 
 def test_capacity_plan_with_overflow_matches_jax():

@@ -175,7 +175,27 @@
    the fused dX / dW at K 5120, H 1536 counted on the main path, AdamW
    steps timed); and, in the kernel phases, the fused FFN, dX and dW at
    deepseek's training rows (``ds_bwd_kernel_phase``) and the unfused
-   SwiGLU references at deepseek's rows.
+   SwiGLU references at deepseek's rows;
+18. (slice 14) expert placement on full-width fastmoe-gpt at 10 layers
+   over a 1x1 NCCL mesh (``placement_phase``): forced plans, (a) a seeded
+   permutation per layer and (b) (a) with 8 shadowed experts, for
+   {fused, pallas} x {capacity, ragged} in a2a (and (a) locally on
+   fused/ragged): the
+   step-0 loss and every gradient leaf in logical order against the
+   unplaced step's (bit for bit under (a); under (b) the loss and
+   non-expert leaves bit for bit, the expert leaves within
+   PLACE_EXPERT_L2), the shadowed experts' launch counted (every expert
+   kernel twice as often under (b)); (c), (b) with the exchange's
+   capacity at 0.75, its drop fraction against the host's count; the
+   AdamW steps of each plan timed in turns on fused/ragged and
+   pallas/capacity; the migration of the whole
+   params and AdamW state (ms, peak memory, the round trip bit-equal); a
+   ReplanHook's forced switch to (a) mid-run bit-equal to the unplaced
+   run (losses, grad norm, params); ``train --mesh 1x1 --replan_every 4
+   --ragged_bound auto`` (no replan at one rank, the bound 0) timed
+   against the CLI without the hook; and the fused FFN, its dX and the
+   grouped GEMM at the placed launches' shapes against their plain
+   versions.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -4199,6 +4219,570 @@ def ptxas_report(libs) -> None:
                       f"{name}: spills registers ({'; '.join(info)})")
 
 
+# ---------------------------------------------------------------------------
+# Expert placement (slice 14)
+# ---------------------------------------------------------------------------
+
+
+# the placed train steps: each path under plan (a) (a seeded permutation
+# per layer) and plan (b) ((a) with the last PLACE_SHADOW physical slots
+# shadowed) over a 1x1 NCCL mesh, and locally under (a)
+PLACE_COMBOS = (("fused", "capacity"), ("fused", "ragged"),
+                ("pallas", "capacity"), ("pallas", "ragged"))
+PLACE_LOCAL = ("fused", "ragged")  # the combo (a) also runs locally
+# the combos whose AdamW steps are timed: one capacity, one ragged
+PLACE_TIMED = (("fused", "ragged"), ("pallas", "capacity"))
+PLACE_SHADOW, PLACE_SHRINK, PLACE_SEED = 8, 0.75, 14
+PLACE_STEPS = 3  # timed AdamW steps a case, in turns, after a warm one
+# Under (b) the shadowed experts are a launch of their own, planned for the
+# whole (E, C) buffer's rows (the chunked steps' rule), so the forward and
+# dX are bit-equal to the unplaced step's and with them the loss and every
+# gradient leaf but the experts': each expert's dW then sums its rows in
+# a launch of another shape, held as a chunked step's expert leaves are
+# (relative L2 to the unplaced step's).
+PLACE_EXPERT_L2 = OVERLAP_EXPERT_L2
+PLACE_CLI_STEPS, PLACE_CLI_EVERY = 12, 4
+
+
+def placement_plans(num_layers: int):
+    """Plans (a), (b), (c) for fastmoe-gpt at one rank: (a) a seeded random
+    permutation per layer, (b) (a) with PLACE_SHADOW shadowed experts, (c)
+    (b) with the exchange's capacity scaled by PLACE_SHRINK."""
+    import numpy as np
+    from repro_torch import placement as P
+    rng = np.random.default_rng(PLACE_SEED)
+    perms = [tuple(int(i) for i in rng.permutation(E))
+             for _ in range(num_layers)]
+    a = P.per_layer_placement([P.ExpertPlacement(E, 1, p) for p in perms])
+    b = P.per_layer_placement([p._replace(num_shadow=PLACE_SHADOW)
+                               for p in a.layers])
+    c = P.per_layer_placement([p._replace(capacity_scale=PLACE_SHRINK)
+                               for p in b.layers])
+    return a, b, c
+
+
+def row_fingerprints(tree) -> list:
+    """Per expert leaf, a 64-bit fingerprint of each expert's row: its
+    int32 bit patterns weighted by a fixed pseudo-random vector, summed in
+    int64 (a row moved, or a bit changed, shows; a permutation of rows
+    keeps the multiset of row sums, which the row order then pins)."""
+    import torch
+    out = []
+    weights = {}
+    for path, leaf in leaf_paths(tree):
+        if "/experts/" not in path:
+            continue
+        n = leaf[0].numel()
+        if n not in weights:
+            g = torch.Generator(device=leaf.device).manual_seed(n)
+            weights[n] = torch.randint(1, 1 << 20, (n,), generator=g,
+                                       device=leaf.device)
+        bits = leaf.detach().view(torch.int32).reshape(leaf.shape[0], -1)
+        out.append((bits.long() * weights[n]).sum(1))
+    return out
+
+
+def placement_kernels(dev, flush):
+    """The kernels at the placed launches' shapes (fastmoe-gpt, 8 x 256
+    tokens, C = 56): the fused FFN and its dX on the shadowed experts'
+    buffer (8 x 56 rows) planned for the whole buffer's 96 x 56, each held
+    to its plain version and its rows bit-equal to the same rows of the
+    whole buffer's launch; the grouped GEMM on the owned buffer at plan
+    (c)'s shrunk capacity (88 x 48).  Times beside bounds."""
+    import torch
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_ffn_bwd as fb
+    from repro_torch.kernels import grouped_gemm as gg
+
+    g = torch.Generator(device=dev).manual_seed(PLACE_SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+    C, S = CAP_ROWS, PLACE_SHADOW
+    wi = randn(E, D, H, scale=D ** -0.5)
+    wo = randn(E, H, D, scale=H ** -0.5)
+    x = randn(E * C, D)
+    dy = randn(E * C, D)
+    whole = torch.full((E,), C, dtype=torch.int32, device=dev)
+    sh = whole[:S]
+    xs, dys = x[(E - S) * C:], dy[(E - S) * C:]
+    out = {}
+    y_whole = ff.fused_ffn(x, (wi,), wo, whole, "gelu")
+    dx_whole = fb.fused_ffn_bwd_dx(x, (wi,), wo, dy, whole, "gelu")
+    cases = {
+        "fused_ffn": (lambda: ff.fused_ffn(xs, (wi[E - S:],), wo[E - S:], sh,
+                                           "gelu", E * C),
+                      lambda: ff.fused_ffn_plain(xs, (wi[E - S:],), wo[E - S:],
+                                                 sh, "gelu"),
+                      y_whole[(E - S) * C:], 2 * S * C * D * H * 2,
+                      xs.numel() * 2 + 2 * S * D * H * 2 + xs.numel() * 2),
+        "fused_ffn_bwd_dx": (
+            lambda: fb.fused_ffn_bwd_dx(xs, (wi[E - S:],), wo[E - S:], dys,
+                                        sh, "gelu", E * C),
+            lambda: fb.fused_ffn_bwd_dx_plain(xs, (wi[E - S:],), wo[E - S:],
+                                              dys, sh, "gelu"),
+            dx_whole[(E - S) * C:], 3 * S * C * D * H * 2,
+            3 * xs.numel() * 2 + 2 * S * D * H * 2),
+    }
+    Cm = 48  # plan (c): 8 * ceil(56 * 0.75 / 8)
+    xo = randn((E - S) * Cm, D)
+    owned = torch.full((E - S,), Cm, dtype=torch.int32, device=dev)
+    cases["grouped_gemm"] = (
+        lambda: gg.grouped_gemm(xo, wi[:E - S], owned),
+        lambda: gg.grouped_gemm_plain(xo, wi[:E - S], owned),
+        None, 2 * xo.shape[0] * D * H,
+        xo.numel() * 2 + (E - S) * D * H * 2 + xo.shape[0] * H * 2)
+    libs = {"grouped_gemm": grouped_mm_call(
+        xo, wi[:E - S], torch.cumsum(owned, 0, dtype=torch.int32))}
+    for name, (kern, plain, want, flops, nbytes) in cases.items():
+        got = kern()
+        err = close(f"placement {name}", got, plain(),
+                    KERNEL_TOL["bfloat16"])
+        if want is not None:
+            check(torch.equal(got, want), f"placement {name}: the shadowed "
+                  f"launch's rows differ from the whole buffer's launch's")
+        ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
+        lib = libs.get(name)
+        lib_ms = time_ms(lib, flush) if lib is not None else None
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+        print(f"kernel {name:16s} placement "
+              f"{'shadow 8 x 56 (plan rows 96 x 56)' if want is not None else 'owned 88 x 48'}"
+              f" bf16: {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plain "
+              f"{plain_ms:.4f} ms  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; max |err| "
+              f"{err:.3e}"
+              + ("; rows bit-equal to the whole launch's" if want is not None
+                 else ""), flush=True)
+    return out
+
+
+def placement_phase(dev):
+    """Expert placement (ROADMAP §1 item 4) on full-width fastmoe-gpt at
+    TRAIN_LAYERS layers, 8 x 256 tokens, over a 1x1 mesh (a world-size-1
+    NCCL group in this process).  At one rank no plan pays for itself, so
+    the card drives forced plans (``placement_plans``): for each of
+    PLACE_COMBOS the step-0 loss and every gradient leaf, mapped back to
+    logical order, against the unplaced a2a step's (under (a) bit for bit,
+    a2a and, on PLACE_LOCAL, local; under (b) the loss and non-expert
+    leaves bit for bit, the expert leaves within PLACE_EXPERT_L2), the
+    launch counters at 0 just before each placed run and read just after
+    (under (b) every expert kernel launches twice as often: the shadowed
+    experts' launch); (c)'s drop fraction against the host's count from
+    the routing and the two capacities; the AdamW steps of each plan timed
+    in turns on PLACE_TIMED; the migration of the whole params and AdamW
+    state (ms, peak memory, the round trip bit-equal by row fingerprints); a ReplanHook whose forced
+    switch to (a) mid-run gives the unplaced run's next loss, grad norm
+    and params bit for bit, and whose monitor resolves
+    ``ragged_bound="auto"`` to 0; then ``train --mesh 1x1 --replan_every
+    --ragged_bound auto`` against the same CLI without the hook.  Returns
+    the launches summed over the placed runs and the kernel times."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import placement as P
+    from repro_torch.configs import get_config
+    from repro_torch.core import fmoe
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    kernel_times = placement_kernels(dev, flush)
+    del flush
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    totals = {k: 0 for k in counters()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    plan_a, plan_b, plan_c = placement_plans(TRAIN_LAYERS)
+    try:
+        mesh = make_local_mesh(1, 1)
+        base = dataclasses.replace(get_config("fastmoe-gpt"),
+                                   num_layers=TRAIN_LAYERS)
+        data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+        batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+        torch.cuda.empty_cache()
+        params = lm.init_params(base, seed=0, device=dev,
+                                param_dtype=base.param_dtype)
+
+        def counted(fn, add=True):
+            for f in counters().values():
+                f.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            runs = {k: f.launches for k, f in counters().items()}
+            if add:
+                for k, v in runs.items():
+                    totals[k] += v
+            return out, runs
+
+        expert_kernels = ("fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+                          "grouped_gemm")
+        for impl, dispatch in PLACE_COMBOS:
+            cfg = with_dispatch(base, dispatch)
+            plain = train.moe_dist(cfg, mesh, tokens)
+            (loss_u, _, g_u), runs_u = counted(lambda: train.loss_and_grads(
+                params, cfg, batch, impl=impl, device=dev, dist=plain), False)
+            paths = [p for p, _ in leaf_paths(g_u)]
+            expert = {i for i, p in enumerate(paths) if "/experts/" in p}
+            cases = [("a", plan_a, plain._replace(placement=plan_a)),
+                     ("b", plan_b, plain._replace(placement=plan_b))]
+            if (impl, dispatch) == PLACE_LOCAL:
+                cases.insert(1, ("a local", plan_a,
+                                 fmoe.DistConfig.local(plan_a)))
+            for label, plan, dist in cases:
+                P.from_logical(params, plan)
+                (loss_p, _, g_p), runs = counted(
+                    lambda: train.loss_and_grads(params, cfg, batch,
+                                                 impl=impl, device=dev,
+                                                 dist=dist))
+                P.to_logical(params, plan)
+                P.to_logical(g_p, plan)
+                pairs = list(zip(tree_leaves(g_p), tree_leaves(g_u)))
+                unequal = {i for i, (a, b) in enumerate(pairs)
+                           if not torch.equal(a, b)}
+                worst = max(_grad_dists(*zip(*pairs))[i] for i in expert)
+                may_differ = expert if plan is plan_b else set()
+                ratio = {k: runs[k] / runs_u[k] for k in expert_kernels
+                         if runs_u[k]}
+                print(f"placement {impl}/{dispatch} plan ({label}) 1x1: "
+                      f"step-0 loss {float(loss_p):.6f}, unplaced "
+                      f"{float(loss_u):.6f}, "
+                      f"{'equal' if torch.equal(loss_p, loss_u) else 'UNEQUAL'}; "
+                      f"{len(pairs) - len(unequal)} of {len(pairs)} gradient "
+                      f"leaves bit-equal after to_logical (rule: all"
+                      f"{' but the expert leaves' if may_differ else ''}); "
+                      f"expert leaves' relative L2 max {worst:.2e}; expert "
+                      f"kernel launches / unplaced {json.dumps(ratio)}; "
+                      f"launches {json.dumps({k: v for k, v in runs.items() if v})}",
+                      flush=True)
+                check(torch.equal(loss_p, loss_u), f"placement {impl}/"
+                      f"{dispatch} ({label}): step-0 loss differs")
+                check(unequal <= may_differ, f"placement {impl}/{dispatch} "
+                      f"({label}): gradient leaves differ: "
+                      f"{[paths[i] for i in sorted(unequal - may_differ)]}")
+                check(worst <= PLACE_EXPERT_L2, f"placement {impl}/{dispatch}"
+                      f" ({label}): expert gradients {worst:.2e} away")
+                want = 2 if plan is plan_b else 1  # the shadowed launch
+                check(all(v == want for v in ratio.values()),
+                      f"placement {impl}/{dispatch} ({label}): expert kernel "
+                      f"launches {ratio} x the unplaced, not {want}")
+                for k in needed_kernels(impl, dispatch):
+                    check(runs[k] > 0, f"placement {impl}/{dispatch} "
+                                       f"({label}): kernel {k} never launched")
+                for simple in SIMPLE_KERNELS:
+                    check(runs[simple] == 0, f"placement {impl}/{dispatch}: "
+                                             f"{simple} ran at a model shape")
+                del g_p, pairs
+                torch.cuda.empty_cache()
+            del g_u
+            torch.cuda.empty_cache()
+        placement_drops(dev, base, mesh, batch, params, plan_c, counted)
+        del params
+        torch.cuda.empty_cache()
+        placement_times(dev, base, mesh, batch, (plan_a, plan_b), counted)
+        placement_switch(dev, base, mesh, plan_a)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    placement_cli(dev)
+    print(f"main path launches (placed training, 1x1): {json.dumps(totals)}",
+          flush=True)
+    print(f"placement phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals, kernel_times
+
+
+def placement_drops(dev, base, mesh, batch, params, plan_c, counted):
+    """Plan (c) on fused/capacity: the forward's drop fraction against the
+    host's count of the rows past their expert's capacity (the owned
+    experts' shrunk one, the shadowed experts' full one), slot-major in
+    each layer's physical routing, as the capacity plan assigns them."""
+    import numpy as np
+    import torch
+    from repro_torch import placement as P
+    from repro_torch.core import dispatch as Dsp
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = with_dispatch(base, "capacity")
+    dist = train.moe_dist(cfg, mesh, TRAIN_BATCH * TRAIN_SEQ,
+                          placement=plan_c)
+    seen = []
+    orig = Dsp.make_capacity_plan
+
+    def tap(ids, num_experts, capacity):
+        seen.append((ids.detach().cpu().numpy(), np.asarray(capacity)))
+        return orig(ids, num_experts, capacity)
+    P.from_logical(params, plan_c)
+    Dsp.make_capacity_plan = tap
+    try:
+        with torch.no_grad():
+            (_, aux), _ = counted(lambda: lm.loss_fn(
+                params, cfg, batch, impl="fused", device=dev, dist=dist),
+                False)
+    finally:
+        Dsp.make_capacity_plan = orig
+        P.to_logical(params, plan_c)
+    check(len(seen) == TRAIN_LAYERS, f"placement (c): {len(seen)} plans")
+    drops = []
+    for ids, caps in seen:
+        arrivals = np.zeros(E, np.int64)
+        kept = 0
+        for e in ids.T.reshape(-1):  # slot-major
+            kept += arrivals[e] < caps[e]
+            arrivals[e] += 1
+        drops.append(1.0 - kept / ids.size)
+    host = float(np.mean(drops))
+    got = float(aux["drop_frac"])
+    print(f"placement fused/capacity plan (c) (owned capacity "
+          f"{int(seen[0][1].min())}, shadowed {int(seen[0][1].max())}): "
+          f"drop_frac {got:.6f}, host count {host:.6f} (layers "
+          + " ".join(f"{d:.4f}" for d in drops) + ")", flush=True)
+    check(host > 0 and abs(got - host) <= 1e-6,
+          f"placement (c): drop_frac {got} against the host's {host}")
+
+
+def placement_times(dev, base, mesh, batch, plans, counted):
+    """Each PLACE_TIMED path's AdamW step unplaced and under (a) and (b),
+    in turns on one set of params and moments (migrated between the turns,
+    untimed), PLACE_STEPS timed after a warm one; then the migration of
+    the whole 10-layer params and AdamW state from logical order to (b)
+    and back: ms, peak memory, and the round trip bit-equal by row
+    fingerprints."""
+    import torch
+    from repro_torch import placement as P
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+
+    opt = AdamW()
+    params = lm.init_params(base, seed=0, device=dev,
+                            param_dtype=base.param_dtype)
+    state = opt.init(params)
+    names = ("unplaced", "a", "b")
+    for impl, dispatch in PLACE_TIMED:
+        cfg = with_dispatch(base, dispatch)
+        plain = train.moe_dist(cfg, mesh, TRAIN_BATCH * TRAIN_SEQ)
+        steps = {n: train.make_train_step(
+            cfg, opt, dist=plain._replace(placement=pl), impl=impl,
+            device=dev) for n, pl in zip(names, (None, *plans))}
+        times = {n: [] for n in names}
+        launches = {}
+        for rnd in range(1 + PLACE_STEPS):
+            for n, pl in zip(names, (None, *plans)):
+                if pl is not None:
+                    for t in (params, state.mu, state.nu):
+                        P.from_logical(t, pl)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (params, state, m), runs = counted(
+                    lambda: steps[n](params, state, batch, rnd), False)
+                wall = time.perf_counter() - t0
+                check(math.isfinite(float(m["loss"])),
+                      f"placement timing {n}: loss not finite")
+                if pl is not None:
+                    for t in (params, state.mu, state.nu):
+                        P.to_logical(t, pl)
+                if rnd:
+                    times[n].append(wall * 1e3)
+                    launches[n] = sum(runs.values())
+        med = {n: statistics.median(v) for n, v in times.items()}
+        print(f"placement train step {impl}/{dispatch} 1x1, {TRAIN_LAYERS}-"
+              f"layer fastmoe-gpt, batch {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW "
+              f"included, in turns: "
+              + ", ".join(f"{n} {med[n]:.1f} ms ({' '.join(f'{v:.1f}' for v in times[n])}; "
+                          f"{launches[n]} launches)" for n in names)
+              + f"; (a) - unplaced {med['a'] - med['unplaced']:+.1f} ms, (b)"
+              f" - unplaced {med['b'] - med['unplaced']:+.1f} ms", flush=True)
+    before = [row_fingerprints(t) for t in (params, state.mu, state.nu)]
+    for label, plan in (("a", plans[0]), ("b", plans[1])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        for t in (params, state.mu, state.nu):
+            P.from_logical(t, plan)
+        torch.cuda.synchronize()
+        there = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        moved = sum(not torch.equal(x, y) for x, y in
+                    zip(before[0], row_fingerprints(params)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for t in (params, state.mu, state.nu):
+            P.to_logical(t, plan)
+        torch.cuda.synchronize()
+        back = (time.perf_counter() - t0) * 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        after = [row_fingerprints(t) for t in (params, state.mu, state.nu)]
+        same = all(torch.equal(x, y) for b_, a_ in zip(before, after)
+                   for x, y in zip(b_, a_))
+        print(f"placement migrate plan ({label}): params and AdamW moments of "
+              f"{TRAIN_LAYERS}-layer fastmoe-gpt ({held / 1e9:.2f} GB held), "
+              f"to the plan {there:.1f} ms, back {back:.1f} ms; peak memory "
+              f"of the migrations {peak / 1e9:.2f} GB (+"
+              f"{(peak - held) / 1e9:.2f} GB scratch); "
+              f"{moved} of {len(before[0])} expert param leaves moved; round "
+              f"trip {'bit-equal' if same else 'DIFFERS'} (row fingerprints "
+              f"of every expert leaf of params, mu and nu)", flush=True)
+        check(same, f"placement migrate ({label}): the round trip differs")
+        check(moved == len(before[0]), f"placement migrate ({label}): only "
+              f"{moved} expert leaves moved")
+        check(peak < 80e9, f"placement migrate: peak {peak / 1e9:.1f} GB")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def placement_switch(dev, base, mesh, plan_a):
+    """fused/ragged: run A trains 3 unplaced steps from seed 0; run B
+    trains 2 through a ReplanHook's step, forces ``hook._switch`` to plan
+    (a) (params and moments migrated, the step rebuilt) and takes the
+    third under it.  Run B's losses, its third step's grad norm, and its
+    params after it mapped to logical order must equal run A's bit for
+    bit.  The hook's monitor, fed the real loads, resolves
+    ``ragged_bound="auto"`` to the dropless 0 at one rank."""
+    import torch
+    from repro_torch import placement as P
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = with_dispatch(base, "ragged")
+    opt = AdamW()
+    runs, observe_ms = [], []
+    for forced in (False, True):
+        params = lm.init_params(base, seed=0, device=dev,
+                                param_dtype=base.param_dtype)
+        state = opt.init(params)
+        hook = train.ReplanHook(cfg, opt, mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                every=PLACE_CLI_EVERY,
+                                opts=dict(impl="fused", device=dev))
+        step_fn = hook.build()
+        losses = []
+        for step in range(3):
+            if forced and step == 2:
+                params, state, step_fn = hook._switch(hook.placement, plan_a,
+                                                      params, state)
+            params, state, m = step_fn(params, state, batch_of(base, step, dev),
+                                       step)
+            losses.append(m["loss"])
+            if not forced:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hook.observe(step, m, params, state)
+                observe_ms.append((time.perf_counter() - t0) * 1e3)
+        norm = m["grad_norm"]
+        if forced:
+            P.to_logical(params, plan_a)
+            unequal = [i for i, (a, b) in enumerate(zip(runs[0][2],
+                                                        tree_leaves(params)))
+                       if not torch.equal(a.to(dev), b)]
+            same = [torch.equal(a, b) for a, b in zip(runs[0][0], losses)]
+            print(f"placement ReplanHook forced switch to plan (a) before "
+                  f"step 2 (fused/ragged): losses "
+                  + " ".join(f"{float(v):.6f}" for v in losses)
+                  + f", unplaced run " + " ".join(f"{float(v):.6f}"
+                                                  for v in runs[0][0])
+                  + f" (equal {same}); step-2 grad norm "
+                  f"{'equal' if torch.equal(norm, runs[0][1]) else 'UNEQUAL'}; "
+                  f"{len(unequal)} of {len(runs[0][2])} params after it "
+                  f"differ in logical order", flush=True)
+            check(all(same) and torch.equal(norm, runs[0][1]) and not unequal,
+                  f"placement forced switch: losses {same}, params {unequal}")
+        else:
+            auto = train.moe_dist(cfg, mesh, TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                  ragged_bound="auto",
+                                  load_monitor=hook.monitor)
+            print(f"placement ReplanHook at 1x1: monitor fed {hook.monitor.steps} "
+                  f"steps (imbalance {hook.monitor.imbalance:.2f}; observe "
+                  + " ".join(f"{v:.2f}" for v in observe_ms)
+                  + f" ms of host time a step, after a synchronize), "
+                  f"{hook.controller.replans} replans, ragged_bound='auto' "
+                  f"resolves to {auto.ragged_bound}", flush=True)
+            check(auto.ragged_bound == 0 and hook.controller.replans == 0,
+                  f"placement hook at 1x1: bound {auto.ragged_bound}, "
+                  f"{hook.controller.replans} replans")
+            runs.append((losses, norm, [t.detach().cpu()
+                                        for t in tree_leaves(params)]))
+        del params, state, step_fn, hook
+        torch.cuda.empty_cache()
+
+
+def batch_of(cfg, step: int, dev):
+    """SyntheticLM's batch ``step`` of 8 x 256 tokens from seed 0."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+    for _ in range(step):
+        next(data)
+    return {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+
+
+def placement_cli(dev):
+    """``train --mesh 1x1 --replan_every 4 --ragged_bound auto --steps 12``
+    (fused/ragged, 10 layers) and the same without the hook, in turns
+    (hook, none), in this process over a world-size-1 NCCL
+    group on localhost (the CLI's own init): the hook's runs record no
+    replan, the bound resolves to 0, and the step times with and without
+    the hook (the log's per-step ms, hook included, median of steps 2-11)
+    are printed."""
+    import contextlib as cl
+    import io
+    import os
+    import socket
+    import torch
+    from repro_torch.launch import train
+
+    common = ["--arch", "fastmoe-gpt", "--num_layers", str(TRAIN_LAYERS),
+              "--mesh", "1x1", "--dispatch", "ragged", "--impl", "fused",
+              "--steps", str(PLACE_CLI_STEPS), "--log_every", "1",
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    med = collections.defaultdict(list)
+    hook = ["--replan_every", str(PLACE_CLI_EVERY), "--ragged_bound", "auto"]
+    for label, extra in (("with the hook", hook), ("without", [])):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            train.main(common + extra)
+        lines = buf.getvalue().splitlines()
+        step_ms = [float(ln.rsplit(", ", 1)[1].split()[0]) for ln in lines
+                   if ln.startswith("step") and " loss " in ln]
+        check(len(step_ms) == PLACE_CLI_STEPS, f"placement CLI {label}: "
+              f"{len(step_ms)} step lines")
+        med[label].append(statistics.median(step_ms[2:]))
+        mesh_line = next(ln for ln in lines if ln.startswith("mesh"))
+        place = [ln for ln in lines if ln.startswith("placement:")]
+        print(f"placement train CLI {label} ({' '.join(extra) or 'no hook'}): "
+              f"{mesh_line}; {place[0] if place else 'no placement line'}; "
+              f"step {med[label][-1]:.1f} ms median of steps 2-"
+              f"{PLACE_CLI_STEPS - 1} (" + " ".join(f"{v:.1f}" for v in step_ms)
+              + "); losses "
+              + " ".join(ln.split()[3] for ln in lines
+                         if ln.startswith("step") and " loss " in ln),
+              flush=True)
+        if extra:
+            check("ragged bound 0" in mesh_line and place
+                  and place[0].startswith("placement: 0 replans"),
+                  f"placement CLI: {mesh_line} / {place}")
+        torch.cuda.empty_cache()
+    hooked, plain = (statistics.mean(med[k]) for k in ("with the hook",
+                                                       "without"))
+    print(f"placement train CLI in turns (hook, none): with the "
+          f"hook {' '.join(f'{v:.1f}' for v in med['with the hook'])} ms, "
+          f"without {' '.join(f'{v:.1f}' for v in med['without'])} ms; "
+          f"difference of the means {hooked - plain:+.1f} ms", flush=True)
+
+
 def tp_shards(bwd_timed, name):
     """A kernel's times at the hidden shards of expert-internal tensor
     parallelism (the training rows' capacity buffer), where timed."""
@@ -4274,12 +4858,16 @@ def main() -> int:
     arctic_launches = arctic_phase(dev)
     dense_launches = dense_phase(dev)
     dst_launches = deepseek_train_phase(dev)
+    place_launches, place_kernels = placement_phase(dev)
     slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
                zoo_launches,
                "switch-base-128 serving": sw_launches,
                "switch-base-128 training": sw_train_launches,
                "arctic-480b serving": arctic_launches,
-               **{f"{n} serving": v for n, v in dense_launches.items()}}
+               **{f"{n} serving": v for n, v in dense_launches.items()},
+               "fastmoe-gpt placed training (1x1, step 0: plans a and b "
+               "in a2a, a locally on fused/ragged)":
+                   place_launches}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4324,6 +4912,8 @@ def main() -> int:
             **({"by_shape": by_shape} if by_shape else {}),
             **({"deepseek_train": ds_bwd["fused_ffn"]} if name == "fused_ffn"
                else {}),
+            **({"placement": place_kernels[name]} if name in place_kernels
+               else {}),
             **tp_shards(bwd_timed, name), **chunk_rows(chunk_ms, name)})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):
@@ -4339,6 +4929,8 @@ def main() -> int:
                                  "deepseek-v2-236b training":
                                      dst_launches[name]},
             "deepseek_train": ds_bwd[name],
+            **({"placement": place_kernels[name]} if name in place_kernels
+               else {}),
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

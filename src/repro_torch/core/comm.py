@@ -132,23 +132,26 @@ def return_tokens(out: torch.Tensor, group) -> torch.Tensor:
 
 
 def exchange_ragged(send: torch.Tensor, counts: torch.Tensor, group, mp: int,
-                    *, n_chunks: int = 1, wire_dtype=None, decompose=None):
+                    *, n_chunks: int = 1, wire_dtype=None, decompose=None,
+                    fill_fn=None):
     """The ragged (dropless) exchange, forward direction.
 
     send: (mp, bound, d) pad-to-max-per-peer shards; counts: (mp, E_local)
     kept rows per (destination rank, its expert), the valid lengths of the
-    shards.  Returns ``(recv, incoming)``: the shards received from each
-    source rank and the counts that came with them (which size the
-    receiver's compaction, ``dispatch.ragged_recv_compact``).  With
-    ``n_chunks > 1`` the payload moves in micro-shards, and it and the
-    counts take the decomposed exchange unless ``decompose`` is False."""
+    shards.  Returns ``(recv, incoming, fill_out)``: the shards received
+    from each source rank, the counts that came with them (which size the
+    receiver's compaction, ``dispatch.ragged_recv_compact``), and what
+    ``fill_fn`` (the shadowed experts, run in the first chunk's wire
+    bubble) returned, or None.  With ``n_chunks > 1`` the payload moves in
+    micro-shards, and it and the counts take the decomposed exchange
+    unless ``decompose`` is False."""
     decompose = n_chunks > 1 if decompose is None else decompose
     incoming = pipeline.counts_all_to_all(counts, group, mp,
                                           decompose=decompose)
-    recv = pipeline.ragged_pipelined_exchange(send, group, mp, n_chunks,
-                                              wire_dtype=wire_dtype,
-                                              decompose=decompose)
-    return recv, incoming
+    recv, fill_out = pipeline.ragged_pipelined_exchange(
+        send, group, mp, n_chunks, fill_fn=fill_fn, wire_dtype=wire_dtype,
+        decompose=decompose)
+    return recv, incoming, fill_out
 
 
 def return_ragged(out: torch.Tensor, group, mp: int, *, n_chunks: int = 1,
@@ -194,7 +197,7 @@ def return_ragged_intra(out: torch.Tensor, inner_group, n_inner: int, *,
 
 def exchange_ragged_inter(slim: torch.Tensor, kept_counts: torch.Tensor,
                           node_group, n_nodes: int, *, n_chunks: int = 1,
-                          wire_dtype=None, decompose=None):
+                          wire_dtype=None, decompose=None, fill_fn=None):
     """Hop 2 of the two-level ragged exchange: the slim inter-node leg.
 
     slim: (n_nodes, inter_bound, d) aggregated per-node shards (the rows
@@ -202,16 +205,16 @@ def exchange_ragged_inter(slim: torch.Tensor, kept_counts: torch.Tensor,
     E_local) at per-source-rank granularity, so the receiver rebuilds the
     flat path's compaction exactly.  The payload moves the bounded shards
     (the reference's ``lax.ragged_all_to_all`` branch, valid prefixes
-    only, has no counterpart here).  Returns ``(recv, incoming)`` like
-    :func:`exchange_ragged`."""
+    only, has no counterpart here).  Returns ``(recv, incoming,
+    fill_out)`` like :func:`exchange_ragged`."""
     decompose = n_chunks > 1 if decompose is None else decompose
     incoming = pipeline.counts_all_to_all(
         kept_counts.reshape(n_nodes, -1), node_group, n_nodes,
         decompose=decompose).reshape(kept_counts.shape)
-    recv = pipeline.ragged_pipelined_exchange(slim, node_group, n_nodes,
-                                              n_chunks, wire_dtype=wire_dtype,
-                                              decompose=decompose)
-    return recv, incoming
+    recv, fill_out = pipeline.ragged_pipelined_exchange(
+        slim, node_group, n_nodes, n_chunks, fill_fn=fill_fn,
+        wire_dtype=wire_dtype, decompose=decompose)
+    return recv, incoming, fill_out
 
 
 def return_ragged_inter(out: torch.Tensor, node_group, n_nodes: int, *,

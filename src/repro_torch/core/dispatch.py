@@ -21,9 +21,11 @@ as the reference's scatters and gathers are.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -53,23 +55,44 @@ class CapacityPlan(NamedTuple):
 
 
 def make_capacity_plan(expert_ids: torch.Tensor, num_experts: int,
-                       capacity: int) -> CapacityPlan:
+                       capacity) -> CapacityPlan:
     """Assign buffer positions with slot-major priority (top-1 choices first),
-    matching GShard so lower-k choices survive overflow."""
+    matching GShard so lower-k choices survive overflow.
+
+    ``capacity`` is an int or a per-expert sequence (placement shrinks the
+    exchanged experts' buffers apart from the shadowed ones'); the buffer
+    width ``plan.capacity`` is the largest, and a row past its own
+    expert's capacity drops (position == width)."""
     T, k = expert_ids.shape
+    if isinstance(capacity, (int, np.integer)):
+        caps, width = None, int(capacity)
+    else:
+        caps_np = np.asarray(capacity, np.int64)
+        if caps_np.shape != (num_experts,):
+            raise ValueError(f"capacities {caps_np.shape} for {num_experts} "
+                             f"experts")
+        caps, width = caps_np, int(caps_np.max())
     flat = expert_ids.T.reshape(-1)  # slot-major (k*T,)
     onehot = F.one_hot(flat, num_experts)  # (kT, E)
     pos_in_expert = torch.cumsum(onehot, dim=0) - onehot
     pos = pos_in_expert.gather(1, flat[:, None])[:, 0]
-    keep = pos < capacity
-    pos = torch.where(keep, pos, torch.full_like(pos, capacity))
+    keep = pos < (width if caps is None
+                  else _caps_on(tuple(caps.tolist()), str(flat.device))[flat])
+    pos = torch.where(keep, pos, torch.full_like(pos, width))
     load = onehot.sum(0)
 
     def unflatten(a):
         return a.reshape(k, T).T
 
     return CapacityPlan(expert_ids, unflatten(pos), unflatten(keep), load,
-                        int(capacity))
+                        width)
+
+
+@functools.lru_cache(maxsize=64)
+def _caps_on(caps: tuple, device: str) -> torch.Tensor:
+    """Per-expert capacities on ``device``, made once: a copy from pageable
+    host memory would wait for the stream at every layer."""
+    return torch.tensor(caps, dtype=torch.int64, device=device)
 
 
 def dispatch_capacity(x: torch.Tensor, plan: CapacityPlan,
@@ -204,14 +227,103 @@ def combine_ec(out: torch.Tensor, token_idx: torch.Tensor,
 
 
 def ec_to_physical(token_idx: torch.Tensor, table=None) -> torch.Tensor:
-    """The (E, C) token grid from logical to physical expert order (a row
-    permutation).  Only the identity layout is carried: a placement table
-    waits for placement (ROADMAP §1 item 4)."""
-    if table is not None:
-        raise NotImplementedError(
-            "expert-choice with a placement table is placement (ROADMAP §1 "
-            "item 4), not ported to repro_torch yet")
-    return token_idx
+    """The (E, C) token grid from logical to physical expert order: row
+    ``table[e]`` of the result is logical expert e's (uniform capacities
+    make it a row permutation).  ``table``: the placement's logical ->
+    physical ids (None = identity)."""
+    if table is None:
+        return token_idx
+    return torch.empty_like(token_idx).index_copy_(0, table.long(), token_idx)
+
+
+# ---------------------------------------------------------------------------
+# Expert placement on the data plane: gate-id tables and the shadow split
+# ---------------------------------------------------------------------------
+#
+# A placement (``repro_torch.placement.plan``) lays the experts out in a
+# physical order: owned experts in slots ``[0, num_owned)``, contiguous per
+# rank, and the shadowed experts, replicated on every expert-parallel rank,
+# in ``[num_owned, E)``.  Shadowed rows are left out of the exchange and
+# computed on the rank's own rows.  The layer reads a plan's tables and
+# geometry only, so nothing here depends on the planner.
+
+
+@functools.lru_cache(maxsize=256)
+def _table_on(plan, device: str) -> torch.Tensor:
+    return torch.as_tensor(
+        np.asarray(plan.logical_to_physical).astype(np.int64), device=device)
+
+
+def device_index_table(plan, device) -> torch.Tensor:
+    """A plan's logical -> physical gate-id table(s) as an int64 tensor on
+    ``device``: (E,) for a shared plan, (L, E) for a per-layer one.  Made
+    once per (plan, device): a copy from pageable host memory waits for
+    the stream, which a train step must not do at every layer."""
+    return _table_on(plan, str(torch.device(device)))
+
+
+class ShadowSpec(NamedTuple):
+    """Split geometry of one (placement, per-rank capacity) pair."""
+
+    num_experts: int
+    num_owned: int
+    main_capacity: int  # exchange buffer rows per owned expert
+    shadow_capacity: int  # local buffer rows per shadowed expert
+
+    @property
+    def num_shadow(self) -> int:
+        return self.num_experts - self.num_owned
+
+    @property
+    def width(self) -> int:
+        """Dispatch buffer width (the largest per-expert capacity in use)."""
+        if self.num_shadow == 0:
+            return self.main_capacity
+        return max(self.main_capacity, self.shadow_capacity)
+
+    @property
+    def capacities(self) -> np.ndarray:
+        """Per-expert capacity in physical order."""
+        caps = np.full(self.num_experts, self.main_capacity, np.int32)
+        caps[self.num_owned:] = self.shadow_capacity
+        return caps
+
+    def a2a_elems(self, d_model: int) -> int:
+        """Per-rank elements exchanged in one direction (for reporting)."""
+        return self.num_owned * self.main_capacity * d_model
+
+
+def shadow_spec(placement, num_experts: int, capacity: int) -> ShadowSpec:
+    """Geometry under ``placement`` (an ``ExpertPlacement``; the identity
+    geometry when None)."""
+    if placement is None:
+        return ShadowSpec(num_experts, num_experts, capacity, capacity)
+    if placement.num_experts != num_experts:
+        raise ValueError((placement.num_experts, num_experts))
+    return ShadowSpec(num_experts, placement.num_owned,
+                      placement.main_capacity(capacity), capacity)
+
+
+def split_buffer(buf: torch.Tensor, spec: ShadowSpec):
+    """(E, width, d) dispatch buffer -> (owned exchange part, local shadow
+    part), views of ``buf``."""
+    main = buf[:spec.num_owned, :spec.main_capacity]
+    shadow = buf[spec.num_owned:, :spec.shadow_capacity]
+    return main, shadow
+
+
+def merge_outputs(out_main: torch.Tensor, out_shadow, spec: ShadowSpec
+                  ) -> torch.Tensor:
+    """The expert outputs reassembled into the (E, width, dout) combine
+    buffer (rows past an expert's capacity zero)."""
+    if spec.num_shadow == 0 and spec.main_capacity == spec.width:
+        return out_main
+    d_out = out_main.shape[-1]
+    out = out_main.new_zeros(spec.num_experts, spec.width, d_out)
+    out[:spec.num_owned, :spec.main_capacity] = out_main
+    if out_shadow is not None and spec.num_shadow:
+        out[spec.num_owned:, :spec.shadow_capacity] = out_shadow
+    return out
 
 
 # ---------------------------------------------------------------------------

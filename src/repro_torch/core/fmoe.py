@@ -23,6 +23,13 @@ parallelism (``tp_axis``) rank ``d`` of the data axis holds hidden units
 the §5.2 smart schedule (``overlap_chunks``, ``core/pipeline``) with an
 optional narrower wire dtype, and on a node mesh the ragged exchange runs
 two-level (``node_axis``).
+
+Under an expert placement (``DistConfig.placement``, ``repro_torch.
+placement``) the expert stacks are in the plan's physical order and the
+gate's logical ids go through its table; in the a2a mode the shadowed hot
+experts (the physical tail, replicated on every rank after its owned
+block) are computed on the rank's own rows, outside the exchange, in its
+first wire bubble.  The loads come back in logical order.
 """
 from __future__ import annotations
 
@@ -93,10 +100,21 @@ class DistConfig(NamedTuple):
 
       router — the routing variant for this distribution in place of
         ``MoEConfig.router`` (None: the config's), as the reference's.
+      placement — an ``ExpertPlacement`` (``repro_torch.placement``): the
+        expert params are in its physical order (``placement.migrate``),
+        the gate's ids go through its logical -> physical table, and in
+        the a2a mode its shadowed experts run replicated outside the
+        exchange, which carries the owned experts at the plan's (possibly
+        shrunk) capacity.  At the model level it may be a
+        ``PerLayerPlacement``; ``models.lm`` splits it into the shared
+        geometry (which rides here) and each layer's table
+        (``fmoe_apply``'s ``l2p``).  The psum mode refuses a placement
+        (ROADMAP §1 item 5), and shadowing refuses ``tp_axis``, as the
+        reference does.
 
-    The reference's other fields are carried so that a caller's setting is
-    refused, never ignored: ``placement`` and ``fsdp_axis`` raise
-    ``NotImplementedError`` unless left at their defaults.
+    The reference's ``fsdp_axis`` is carried so that a caller's setting is
+    refused, never ignored: it raises ``NotImplementedError`` unless left
+    at its default.
     """
 
     mesh: Any
@@ -114,9 +132,10 @@ class DistConfig(NamedTuple):
     decompose: Optional[bool] = None
 
     @classmethod
-    def local(cls) -> "DistConfig":
-        """Single-worker carrier: no mesh, no collectives."""
-        return cls(None, ())
+    def local(cls, placement=None) -> "DistConfig":
+        """Single-worker carrier: no mesh, no collectives; the way a
+        placement rides to the single-worker path."""
+        return cls(None, (), placement=placement)
 
     @property
     def expert_axes(self) -> tuple:
@@ -146,10 +165,11 @@ class DistConfig(NamedTuple):
 
 def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
              overlap_chunks: int = 0, wire_dtype: Optional[str] = None,
-             ragged_bound=0, inter_bound: int = 0) -> DistConfig | None:
+             ragged_bound=0, inter_bound: int = 0, placement=None,
+             load_monitor=None, seq_len: int = 1) -> DistConfig | None:
     """The expert-parallel mode for this (model config, mesh, global count
     of the rows that are split over the ranks: a layer's tokens, or the
-    train entry's whole sequences).
+    train entry's whole sequences of ``seq_len`` tokens).
 
     a2a (the paper's §3.2 exchange) when the rows split evenly over every
     rank; otherwise the psum mode, rows sharded over data where they split
@@ -159,35 +179,52 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
     reference's options: ``expert_tp`` (``tp_axis="data"``),
     ``overlap_chunks``, ``wire_dtype``, ``ragged_bound`` and
     ``inter_bound``, all in the a2a mode; the psum fallbacks leave them
-    unset.  ``ragged_bound="auto"`` calibrates from the load monitor,
-    which is not ported (ROADMAP §1 item 4).  None when the config has no
-    MoE or its experts do not split over the expert axes."""
-    if ragged_bound == "auto":
-        raise NotImplementedError(
-            "ragged_bound='auto' calibrates the bounds from the LoadMonitor, "
-            "placement's module (ROADMAP §1 item 4), not ported to "
-            "repro_torch yet; give a number of rows")
+    unset.  ``placement`` rides on every mode (the psum mode refuses it in
+    ``fmoe_apply``, ROADMAP §1 item 5).
+
+    ``ragged_bound="auto"`` sizes the ragged shards from ``load_monitor``'s
+    EMAs (``LoadMonitor.suggest_ragged_bound``, drop-guarded; and on a node
+    mesh the slim inter-node shards too, unless ``inter_bound`` is given):
+    a cold or missing monitor, or a bound that covers every local row,
+    resolves to the dropless 0.  None when the config has no MoE or its
+    experts do not split over the expert axes."""
     axes = mesh.expert_axes
-    if cfg.moe is None or cfg.moe.num_experts % mesh.axes_size(axes):
+    ep = mesh.axes_size(axes)
+    if cfg.moe is None or cfg.moe.num_experts % ep:
         return None
     expert_axis = axes if len(axes) > 1 else axes[0]
     node = "node" if "node" in axes else None
+    ib = int(inter_bound or 0)
+    if ragged_bound == "auto":
+        t_local = (num_rows * seq_len // mesh.size
+                   if num_rows % mesh.size == 0 else 0)
+        ragged_bound = 0
+        if load_monitor is not None and t_local:
+            k = cfg.moe.top_k
+            ragged_bound = load_monitor.suggest_ragged_bound(t_local, k, ep)
+            if ragged_bound >= t_local * k:
+                ragged_bound = 0  # dropless: the canonical 0
+            if node and ragged_bound and not ib:
+                # a slim shard pools n_inner source ranks' rows; the peak is
+                # still one rank block's share of them
+                ib = load_monitor.suggest_ragged_bound(
+                    t_local * (ep // mesh.shape["node"]), k, ep)
     if num_rows % mesh.size == 0:
         return DistConfig(mesh, tuple(mesh.axis_names),
                           expert_axis=expert_axis,
                           tp_axis="data" if expert_tp else None,
+                          placement=placement,
                           overlap_chunks=int(overlap_chunks or 0),
                           wire_dtype=wire_dtype or None,
                           ragged_bound=int(ragged_bound or 0),
-                          node_axis=node, inter_bound=int(inter_bound or 0))
+                          node_axis=node, inter_bound=ib)
     d_axes = tuple(a for a in mesh.axis_names if a == "data")
     return DistConfig(mesh, d_axes if num_rows % mesh.axes_size(d_axes) == 0
-                      else (), expert_axis=expert_axis)
+                      else (), expert_axis=expert_axis, placement=placement)
 
 
 # where each option the port does not carry yet is queued (ROADMAP.md §1)
-_NOT_CARRIED = {"placement": "placement (ROADMAP §1 item 4)",
-                "fsdp_axis": "sharding (ROADMAP §1 item 9)"}
+_NOT_CARRIED = {"fsdp_axis": "sharding (ROADMAP §1 item 9)"}
 
 
 def _check_dist(dist: DistConfig) -> None:
@@ -207,6 +244,51 @@ def _check_dist(dist: DistConfig) -> None:
     if dist.tp_axis not in (None, "data"):
         raise ValueError(f"expert-internal tensor parallelism shards the "
                          f"hidden dim over 'data', not {dist.tp_axis!r}")
+
+
+def _check_placement(place, cfg: MoEConfig, dist: DistConfig) -> None:
+    """Refuse a plan this layer cannot run: a per-layer plan (split by
+    ``models.lm``), another expert count or rank count, the psum mode
+    (ROADMAP §1 item 5), shadowing with ``tp_axis``, or owned experts that
+    do not split over the ranks."""
+    if hasattr(place, "geometry"):  # a PerLayerPlacement
+        raise TypeError(
+            "fmoe_apply applies one layer; split a PerLayerPlacement into its "
+            "geometry and per-layer l2p tables (models.lm does this for the "
+            "whole stack)")
+    if place.num_experts != cfg.num_experts:
+        raise ValueError(f"placement has {place.num_experts} experts, config "
+                         f"has {cfg.num_experts}")
+    if dist.mesh is None:
+        return
+    if dist.mode == "psum":
+        raise NotImplementedError(
+            "a placement in the psum mode (the slot-wise reduction, shadowed "
+            "experts outside it) is ROADMAP §1 item 5, not ported to "
+            "repro_torch yet")
+    mp = dist.expert_parallelism
+    if place.num_ranks != mp:
+        raise ValueError(f"placement built for {place.num_ranks} ranks, mesh "
+                         f"expert parallelism is {mp}")
+    if place.num_shadow:
+        if dist.tp_axis:
+            raise NotImplementedError(
+                "expert shadowing with expert-internal TP (tp_axis) is "
+                "refused, as the reference refuses it (ROADMAP §1 item 4)")
+        if place.num_owned % mp or place.num_owned == 0:
+            raise ValueError(f"owned experts {place.num_owned} must be a "
+                             f"positive multiple of {mp}")
+
+
+def _route_table(place, l2p, device):
+    """The logical -> physical gate-id table of one layer: ``l2p`` (this
+    layer's row of a per-layer plan) where given, else the shared plan's
+    table; None for the identity routing."""
+    if l2p is not None:
+        return torch.as_tensor(l2p, device=device).long()
+    if place is not None and not place.is_identity:
+        return D.device_index_table(place, device)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -416,14 +498,21 @@ def _aux_loss(router: dict, x: torch.Tensor, g, cfg: MoEConfig) -> torch.Tensor:
     return aux
 
 
-def _ec_route(router: dict, x: torch.Tensor, cfg: MoEConfig):
-    """Expert-choice routing shared by the MoE paths: (C, token_idx (E, C),
-    weights (E, C), logits).  Under a2a each rank's experts pick from the
-    tokens that rank holds, as the reference's."""
+def _ec_route(router: dict, x: torch.Tensor, cfg: MoEConfig, table=None):
+    """Expert-choice routing shared by the MoE paths: (C, token_idx (E, C)
+    in logical order, the same grid in physical order, weights (E, C),
+    logits).  Under a2a each rank's experts pick from the tokens that rank
+    holds, as the reference's."""
     C = D.ec_capacity(x.shape[0], cfg.num_experts, cfg.capacity_factor)
     token_idx, weights, _, logits = expert_choice_forward(router, x, cfg,
                                                           capacity=C)
-    return C, D.ec_to_physical(token_idx), weights, logits
+    return C, token_idx, D.ec_to_physical(token_idx, table), weights, logits
+
+
+def _logical(out: torch.Tensor, table) -> torch.Tensor:
+    """Physical expert rows -> logical order (the combines sum a token's
+    rows in logical order, whatever the layout)."""
+    return out if table is None else out[table]
 
 
 def _ec_flat_load(E: int, device) -> torch.Tensor:
@@ -443,36 +532,40 @@ def _ec_uniform(E: int, C: int, device) -> torch.Tensor:
 
 def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
                act: str, expert_fn: Callable, impl: str = "einsum",
-               noise_seed=None):
+               noise_seed=None, table=None):
+    """The single-worker §4 path.  ``table``: a placement's logical ->
+    physical gate ids (the experts are in its physical order); the load
+    comes back in logical order."""
     T = x.shape[0]
     E = cfg.num_experts
     if cfg.router == "expert_choice":
-        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+        C, token_idx, ti_phys, ec_w, logits = _ec_route(router, x, cfg, table)
         if cfg.dispatch == "ragged":
             # the uniform-ragged case: group_sizes == C everywhere
-            xs = D.gather_ec(x, token_idx.reshape(-1))  # (E*C, d)
+            xs = D.gather_ec(x, ti_phys.reshape(-1))  # (E*C, d)
             out = RAGGED_FNS[impl](experts, xs, _ec_uniform(E, C, x.device),
                                    act).reshape(E, C, -1)
         else:
-            out = expert_fn(experts, D.gather_ec(x, token_idx), act)
-        return (D.combine_ec(out, token_idx, ec_w, T),
+            out = expert_fn(experts, D.gather_ec(x, ti_phys), act)
+        return (D.combine_ec(_logical(out, table), token_idx, ec_w, T),
                 _ec_metrics(x, logits, E))
     g = route_tokens(router, x, cfg, noise_seed=noise_seed)
+    expert_ids = g.expert_ids if table is None else table[g.expert_ids]
     if cfg.dispatch == "ragged":
-        plan = D.make_ragged_plan(g.expert_ids, cfg.num_experts)
+        plan = D.make_ragged_plan(expert_ids, cfg.num_experts)
         xs = D.dispatch_ragged(x, plan)  # (T*k, d) expert-sorted
         ys = RAGGED_FNS[impl](experts, xs, plan.group_sizes, act)
         y = D.combine_ragged(ys, plan, g.combine_weights)
         load, drop = load_metrics(plan.group_sizes, None, T * cfg.top_k)
     else:
         C = D.expert_capacity(T, cfg.num_experts, cfg.top_k, cfg.capacity_factor)
-        plan = D.make_capacity_plan(g.expert_ids, cfg.num_experts, C)
+        plan = D.make_capacity_plan(expert_ids, cfg.num_experts, C)
         buf = D.dispatch_capacity(x, plan, cfg.num_experts)  # scatter (Fig 4)
         out = expert_fn(experts, buf, act)  # per-expert GeMM
         y = D.combine_capacity(out, plan, g.combine_weights)  # gather
         load, drop = load_metrics(plan.load, plan.keep, T * cfg.top_k)
     metrics = MoEMetrics(_aux_loss(router, x, g, cfg),
-                         router_z_loss(g.logits), load, drop)
+                         router_z_loss(g.logits), _logical(load, table), drop)
     return y, metrics
 
 
@@ -482,21 +575,21 @@ def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
 
 
 def _dist_metrics(dist: DistConfig, load_part: torch.Tensor, aux, z, drop,
-                  E: int) -> MoEMetrics:
+                  E: int, table=None) -> MoEMetrics:
     """The layer's metrics over every token rank, in one all-reduce.
 
-    ``load_part`` (E,) is this rank's share of the global assigned load
-    (summed over the token ranks it is the global count per expert);
-    aux, z and drop are this rank's and come back as their mean over the
-    token ranks.  The aux and z losses keep their local gradient: the train
-    step's gradient sync sums every rank's loss, which is the gradient of
-    the mean."""
+    ``load_part`` (E,) is this rank's share of the global assigned load in
+    physical order (summed over the token ranks it is the global count per
+    expert; ``table`` then puts it in logical order); aux, z and drop are
+    this rank's and come back as their mean over the token ranks.  The aux
+    and z losses keep their local gradient: the train step's gradient sync
+    sums every rank's loss, which is the gradient of the mean."""
     group = dist.mesh.group(dist.token_axes)
     n = dist.mesh.axes_size(dist.token_axes)
     red = torch.cat([load_part.float(),
                      torch.stack([aux, z, drop]).detach().float()])
     torch.distributed.all_reduce(red, group=group)
-    load_global = red[:E]
+    load_global = _logical(red[:E], table)
     load = load_global / load_global.sum().clamp_min(1.0)
     aux_pm, z_pm, drop_pm = red[E:] / n
     return MoEMetrics(_keep_grad(aux, aux_pm), _keep_grad(z, z_pm), load,
@@ -519,7 +612,7 @@ def _noise_rows(dist: DistConfig, t: int) -> tuple:
 
 def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
              act: str, expert_fn: Callable, dist: DistConfig,
-             noise_seed=None):
+             noise_seed=None, shadow=None, table=None):
     """Tokens sharded over every mesh axis, experts over the expert axes.
 
     Per rank: gate -> dispatch into (E, C, d), C from the local token count
@@ -527,35 +620,53 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     load metric) -> the payload exchange -> the local experts on
     (E_local, mp*C, d) -> the return exchange -> combine.  With
     ``overlap_chunks > 1`` the exchanges and the expert compute run as the
-    §5.2 smart schedule over capacity micro-shards; the fused kernels then
-    plan each micro-shard's hidden split for the whole buffer's rows, so a
-    row's sums do not depend on the chunking.  Expert-choice fills the
-    same (E, C, d) grid by a gather of the picked rows (exact capacities,
-    nothing dropped) and combines with ``combine_ec``."""
+    §5.2 smart schedule over capacity micro-shards.  The fused kernels plan
+    every launch's hidden split for the whole (E, C) buffer's rows, so a
+    row's sums depend neither on the chunking nor on the placement.
+    Expert-choice fills the same (E, C, d) grid by a gather of the picked
+    rows (exact capacities, nothing dropped) and combines with
+    ``combine_ec`` in logical order.
+
+    Under ``dist.placement`` (``experts`` the rank's owned block,
+    ``shadow`` the shadowed experts, ``table`` the gate-id table): the
+    owned slots ``[0, E_ns)`` take the exchange at the plan's main
+    capacity, and the shadowed slots are computed on the rank's own rows
+    at the full capacity, a launch of their own issued in the first wire
+    bubble (``placement.shadow``)."""
     mesh = dist.mesh
     group = mesh.group(dist.expert_axes)
     mp = dist.expert_parallelism
     E = cfg.num_experts
-    E_local = E // mp
     t, d = x.shape
+    place = dist.placement
     ec = cfg.router == "expert_choice"
     if ec:
-        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
-        buf = D.gather_ec(x, token_idx)  # (E, C, d)
+        C, token_idx, ti_phys, ec_w, logits = _ec_route(router, x, cfg, table)
+        # exact uniform capacities: a shrink would only drop
+        spec = D.shadow_spec(place, E, C)._replace(main_capacity=C,
+                                                 shadow_capacity=C)
+        buf = D.gather_ec(x, ti_phys)  # (E, C, d)
         assigned = _ec_uniform(E, C, x.device)
     else:
         g = route_tokens(router, x, cfg, noise_seed=noise_seed,
                          noise_rows=_noise_rows(dist, t))
         C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
-        plan = D.make_capacity_plan(g.expert_ids, E, C)
-        buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
+        spec = D.shadow_spec(place, E, C)
+        expert_ids = g.expert_ids if table is None else table[g.expert_ids]
+        caps = C if place is None else tuple(int(c) for c in spec.capacities)
+        plan = D.make_capacity_plan(expert_ids, E, caps)
+        buf = D.dispatch_capacity(x, plan, E)  # (E, width, d)
         assigned = plan.load
-    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, C)
+    E_ns = spec.num_owned  # physical slots [0, E_ns) take the exchange
+    E_local = E_ns // mp
+    Cm = spec.main_capacity
+    buf, buf_shadow = D.split_buffer(buf, spec)
+    n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, Cm)
     tp = mesh.group(dist.tp_axis) if dist.tp_axis else None
-    if n_chunks > 1 and expert_fn is expert_ffn_fused:
+    if expert_fn is expert_ffn_fused:
         tp_size = mesh.axes_size(dist.tp_axis) if tp else 1
         expert_fn = functools.partial(expert_ffn_fused,
-                                      plan_rows=E_local * mp * C * tp_size)
+                                      plan_rows=E * C * tp_size)
 
     def compute(b):  # (E_local, rows, d), row-independent
         if tp is None:
@@ -567,31 +678,37 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         out = expert_fn(experts, comm.all_gather_rows(b, tp, 1), act)
         return comm.reduce_scatter_rows(out, tp, 1)
 
+    fill_fn = None
+    if spec.num_shadow:
+        def fill_fn():  # every rank, its own rows, no exchange
+            return expert_fn(shadow, buf_shadow, act)
     decompose = dist.decomposed(n_chunks)
-    incoming = pipeline.counts_all_to_all(assigned.reshape(mp, E_local),
+    incoming = pipeline.counts_all_to_all(assigned[:E_ns].reshape(mp, E_local),
                                           group, mp, decompose=decompose)
-    out = pipeline.pipelined_expert_exchange(
-        buf.reshape(mp, E_local, C, d), group, mp, n_chunks, compute,
-        wire_dtype=dist.wire_dtype, decompose=decompose).reshape(E, C, -1)
+    out, out_shadow = pipeline.pipelined_expert_exchange(
+        buf.reshape(mp, E_local, Cm, d), group, mp, n_chunks, compute,
+        fill_fn=fill_fn, wire_dtype=dist.wire_dtype, decompose=decompose)
+    out = D.merge_outputs(out.reshape(E_ns, Cm, -1), out_shadow, spec)
     if ec:
-        y = D.combine_ec(out, token_idx, ec_w, t)
+        y = D.combine_ec(_logical(out, table), token_idx, ec_w, t)
     else:
         y = D.combine_capacity(out, plan, g.combine_weights)
 
-    # the global load: my experts' received counts in my expert slot,
-    # summed over the token ranks (an all-gather over the expert axes, a
-    # psum over data)
+    # the global load in physical order: my owned experts' received counts
+    # in my slots and the shadowed experts' local assignments, summed over
+    # the token ranks (an all-gather over the expert axes, a psum over data)
     m = mesh.axis_index(dist.expert_axes)
     load_part = x.new_zeros(E, dtype=torch.float32)
     load_part[m * E_local:(m + 1) * E_local] = incoming.sum(0).float()
+    load_part[E_ns:] = assigned[E_ns:].float()
     if ec:
         zero = x.new_zeros((), dtype=torch.float32)
         return y, _dist_metrics(dist, load_part, zero, router_z_loss(logits),
-                                zero, E)
+                                zero, E, table)
     _, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
     metrics = _dist_metrics(
         dist, load_part, _aux_loss(router, x, g, cfg),
-        router_z_loss(g.logits), drop, E)
+        router_z_loss(g.logits), drop, E, table)
     return y, metrics
 
 
@@ -621,15 +738,17 @@ class _PinnedBackward(torch.autograd.Function):
 
 
 def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
-                   B: int, E_local: int):
+                   B: int, E_local: int, fill_fn=None):
     """The two-level ragged exchange on a node mesh, from the flat (mp, B,
     d) send shards to the returned (mp, B, d_out) ones: the intra-node hop
     (every rank becomes its node's forwarding agent for its inner slot),
     the agents' slim per-node shards (``make_hier_agg``), the inter-node
     leg with the expert compute (serial or chunked; per received chunk for
     ``pallas`` and ``fused``, its backward pinned to the serial leg's),
-    the de-aggregation and the intra-node return.  Returns (ret, rows the
-    agent dropped at the inter bound)."""
+    the de-aggregation and the intra-node return.  ``fill_fn`` (the
+    shadowed experts) runs in the inter leg's first wire bubble, or just
+    before the per-chunk leg, as the reference's.  Returns (ret, rows the
+    agent dropped at the inter bound, fill_out)."""
     mesh = dist.mesh
     mp, _, d = send.shape
     node_ax = dist.node_axis
@@ -689,14 +808,15 @@ def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
                 ys = fn(p, mini, cgs[c], act)
                 return D.gather_rows_fill(ys, cdest[c]).reshape(n_nodes, w, -1)
             return pipeline.hier_ragged_pipeline(slim_, node_g, n_nodes,
-                                                 n_chunks, chunk_fn, **ex)
+                                                 n_chunks, chunk_fn, **ex)[0]
 
+        fill_out = fill_fn() if fill_fn is not None else None
         ret_slim = _PinnedBackward.apply(chunked_leg, serial_leg, slim,
                                          *experts.values())
     else:
         ex = dict(n_chunks=n_chunks, wire_dtype=wire, decompose=decomp)
-        recv, incoming = comm.exchange_ragged_inter(
-            slim, aplan.kept_counts, node_g, n_nodes, **ex)
+        recv, incoming, fill_out = comm.exchange_ragged_inter(
+            slim, aplan.kept_counts, node_g, n_nodes, fill_fn=fill_fn, **ex)
         cplan, gs_local = D.ragged_recv_compact_hier(incoming, IB)
         xs = D.scatter_rows(recv.reshape(-1, d), cplan, n_nodes * IB)
         ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
@@ -710,12 +830,13 @@ def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
     ret = comm.return_ragged_intra(
         padded.reshape(n_nodes, n_inner, B, d_out), inner_g, n_inner,
         decompose=decomp, wire_dtype=wire)
-    return ret.reshape(mp, B, d_out), aplan.dropped
+    return ret.reshape(mp, B, d_out), aplan.dropped, fill_out
 
 
 def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
                     cfg: MoEConfig, act: str, dist: DistConfig,
-                    impl: str = "einsum", noise_seed=None):
+                    impl: str = "einsum", noise_seed=None, shadow=None,
+                    table=None):
     """Dropless expert parallelism — the load-sized exchange.
 
       1. the counts all-to-all: each rank tells peer p how many rows it
@@ -733,41 +854,63 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     drops.  The packing and compaction are plain index copies, with a zero
     row for the drop sentinel, as the reference's scatters and gathers
     are.  Expert-choice is the uniform case: its (E, C) grid flattened
-    expert-major, group sizes C."""
+    expert-major, group sizes C.
+
+    Under ``dist.placement`` the rows of the shadowed experts, the sorted
+    tail ``[num_owned_rows, n)``, never cross the wire: shifted to offset
+    0 they go through the grouped kernels over the ``shadow`` stacks, a
+    launch of its own issued in the first wire bubble (planned, for
+    ``fused``, for the exchange compute's rows)."""
     mesh = dist.mesh
     mp = dist.expert_parallelism
     E = cfg.num_experts
     t, d = x.shape
+    place = dist.placement
+    E_ns = E if place is None else place.num_owned  # the rest: shadowed
     ec = cfg.router == "expert_choice"
     if ec:
-        C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+        C, token_idx, ti_phys, ec_w, logits = _ec_route(router, x, cfg, table)
         n = E * C
         gs = _ec_uniform(E, C, x.device)
-        x_sorted = D.gather_ec(x, token_idx.reshape(-1))  # (n, d)
+        x_sorted = D.gather_ec(x, ti_phys.reshape(-1))  # (n, d)
     else:
         g = route_tokens(router, x, cfg, noise_seed=noise_seed,
                          noise_rows=_noise_rows(dist, t))
         n = t * cfg.top_k
-        plan = D.make_ragged_plan(g.expert_ids, E)
+        expert_ids = g.expert_ids if table is None else table[g.expert_ids]
+        plan = D.make_ragged_plan(expert_ids, E)  # physical-order sort
         gs = plan.group_sizes
         x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
     B = dist.ragged_bound or n
-    xplan = D.make_ragged_xplan(gs, n, E, mp, B)
+    xplan = D.make_ragged_xplan(gs, n, E_ns, mp, B)
     send = D.scatter_rows(x_sorted, xplan.send_dest, mp * B).reshape(mp, B, d)
+
+    fill_fn = shadow_dest = None
+    if E_ns < E:
+        i = torch.arange(n, device=x.device)
+        shadow_dest = torch.where(i >= xplan.num_owned_rows,
+                                  i - xplan.num_owned_rows, n)
+        xs_sh = D.scatter_rows(x_sorted, shadow_dest, n)
+        fn = RAGGED_FNS[impl]
+        if impl == "fused":
+            fn = functools.partial(ragged_ffn_fused, plan_rows=mp * B)
+
+        def fill_fn():  # every rank, its own rows, no exchange
+            return fn(shadow, xs_sh, gs[E_ns:], act)
 
     node_ax = dist.node_axis
     n_nodes = (mesh.shape[node_ax] if node_ax in dist.expert_axes else 1)
     agg_dropped = 0.0
     if 1 < n_nodes < mp:
-        ret, agg_dropped = _hier_exchange(send, xplan, experts, act, dist,
-                                          impl, B, E // mp)
+        ret, agg_dropped, fill_out = _hier_exchange(
+            send, xplan, experts, act, dist, impl, B, E_ns // mp, fill_fn)
     else:
         group = mesh.group(dist.expert_axes)
         n_chunks = pipeline.resolve_chunks(dist.overlap_chunks or 1, B)
         ex = dict(n_chunks=n_chunks, wire_dtype=dist.wire_dtype,
                   decompose=dist.decomposed(n_chunks))
-        recv, incoming = comm.exchange_ragged(send, xplan.peer_counts, group,
-                                              mp, **ex)
+        recv, incoming, fill_out = comm.exchange_ragged(
+            send, xplan.peer_counts, group, mp, fill_fn=fill_fn, **ex)
         # source-major within an expert = global token order, as ranks hold
         # contiguous token blocks in rank order
         cplan, gs_local = D.ragged_recv_compact(incoming, B)
@@ -776,8 +919,11 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
         out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
         ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp, **ex)
     y_sorted = D.gather_rows_fill(ret.reshape(mp * B, -1), xplan.send_dest)
+    if fill_fn is not None:
+        y_sorted = y_sorted + D.gather_rows_fill(fill_out, shadow_dest)
     if ec:
-        y = D.combine_ec(y_sorted.reshape(E, C, -1), token_idx, ec_w, t)
+        y = D.combine_ec(_logical(y_sorted.reshape(E, C, -1), table),
+                         token_idx, ec_w, t)
         aux = x.new_zeros((), dtype=torch.float32)
         z = router_z_loss(logits)
     else:
@@ -787,7 +933,7 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     # rows over the peer bound, and those the forwarding agent dropped at
     # the inter bound: the mean over the ranks is the global fraction
     dropped = (xplan.num_owned_rows - xplan.keep.sum()).float() + agg_dropped
-    return y, _dist_metrics(dist, gs, aux, z, dropped / n, E)
+    return y, _dist_metrics(dist, gs, aux, z, dropped / n, E, table)
 
 
 def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
@@ -882,7 +1028,7 @@ def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
     E_local = E // mp
     mine = slice(m * E_local, (m + 1) * E_local)
     t = x.shape[0]
-    C, token_idx, ec_w, logits = _ec_route(router, x, cfg)
+    C, token_idx, _, ec_w, logits = _ec_route(router, x, cfg)
     group = dist.mesh.group(dist.expert_axes)
     if cfg.dispatch == "ragged":
         n = E * C
@@ -905,7 +1051,7 @@ def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
 
 def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                act: str = "swiglu", dist=None, impl: str = "einsum",
-               noise_seed: Optional[int] = None):
+               noise_seed: Optional[int] = None, l2p=None):
     """Apply the MoE FFN to ``x`` of shape (..., d_model).
 
     Returns ``(y, MoEMetrics)``.  ``impl`` selects the expert kernels
@@ -916,12 +1062,23 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     expert shard (its hidden slice of them under ``tp_axis``).  The
     shared and dense residual FFNs run on the local tokens.
 
+    ``dist.placement`` (an ``ExpertPlacement``): ``params["experts"]`` are
+    in its physical order (on a mesh: the rank's owned block, then the
+    shadowed experts), and routing stays in logical expert space through
+    its table; ``DistConfig.local(placement=plan)`` carries it to the
+    single-worker path.  ``l2p`` is this layer's logical -> physical table
+    when the plan is per-layer (``models.lm`` splits a
+    ``PerLayerPlacement`` into the shared geometry on ``dist.placement``
+    and the per-layer tables); a ``PerLayerPlacement`` itself is refused
+    here.
+
     ``cfg.router`` (or ``dist.router`` where set) picks the router on every
     path.  ``noise_seed`` arms the exploration of ``noisy_topk`` and
     ``gumbel`` (``gate.route_tokens``): a rank draws its rows of the noise
     over its token axes' whole token set, so any mesh routes as one rank
     would.  Expert-choice picks from the tokens a rank holds.
     """
+    place = None
     if dist is not None:
         _check_dist(dist)
         if dist.router is not None and dist.router != cfg.router:
@@ -934,27 +1091,51 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
             # scatter do not apply
             raise NotImplementedError(
                 "ragged dispatch + expert-internal TP (use capacity)")
+        place = dist.placement
+        if place is not None:
+            _check_placement(place, cfg, dist)
+            if place.is_identity:
+                place = None
+                dist = dist._replace(placement=None)
     if cfg.router not in ROUTERS:
         raise ValueError(f"unknown router {cfg.router!r}; one of {ROUTERS}")
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     router, experts = params["router"], params["experts"]
+    table = _route_table(place, l2p, x.device)
     if cfg.router not in EXPLORING:
         noise_seed = None  # every other router runs without a draw
     kw = dict(noise_seed=noise_seed)
     if dist is None or dist.mesh is None:
         y, metrics = _moe_local(xf, router, experts, cfg, act, expert_fn,
-                                impl=impl, **kw)
+                                impl=impl, table=table, **kw)
     elif dist.mode == "psum":
         y, metrics = _moe_psum(xf, router, experts, cfg, act, expert_fn, dist,
                                impl=impl, **kw)
-    elif cfg.dispatch == "ragged":
-        y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
-                                     impl=impl, **kw)
     else:
-        y, metrics = _moe_a2a(xf, router, experts, cfg, act, expert_fn, dist,
-                              **kw)
+        shadow = {}
+        if place is not None and place.num_shadow:
+            # the shadowed experts: the tail of the rank's stacks
+            own = place.num_owned // dist.expert_parallelism
+            for k, v in experts.items():
+                if v.shape[0] != own + place.num_shadow:
+                    raise ValueError(
+                        f"experts/{k} holds {v.shape[0]} experts; the plan "
+                        f"puts {own} owned + {place.num_shadow} shadowed on "
+                        f"a rank (placement.migrate lays them out)")
+            # one split: its backward writes each leaf's gradient once
+            parts = {k: v.split([own, place.num_shadow])
+                     for k, v in experts.items()}
+            experts = {k: v[0] for k, v in parts.items()}
+            shadow = {k: v[1] for k, v in parts.items()}
+        kw.update(shadow=shadow, table=table)
+        if cfg.dispatch == "ragged":
+            y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
+                                         impl=impl, **kw)
+        else:
+            y, metrics = _moe_a2a(xf, router, experts, cfg, act, expert_fn,
+                                  dist, **kw)
     for k in ("shared", "dense"):
         if k in params:
             y = y + dense_ffn(params[k], xf, act)

@@ -27,8 +27,14 @@ given (the capacity dim never regroups an expert's rows), and the
 decomposed exchange moves the same bytes to the same slots.  ``wire_dtype``
 casts a payload to that dtype across the exchange only.
 
-Not ported: the shadow filler ``fill_fn`` (placement, ROADMAP §1 item 4)
-and ``wire_fraction``, read only by the telemetry counters (item 7).
+``fill_fn`` is the shadowed experts' exchange-free compute (placement,
+``placement/shadow.py``): it is issued after the first chunk's exchange
+starts and before that exchange is waited on, so on the card it fills the
+first wire bubble.  Its autograd graph is its own; no collective runs in
+it, so the ranks' collectives keep their order in the backward.
+
+Not ported: ``wire_fraction``, read only by the telemetry counters
+(ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -219,19 +225,30 @@ def resolve_chunks(requested: int, capacity: int) -> int:
     return n
 
 
+def _fill(fill_fn):
+    return fill_fn() if fill_fn is not None else None
+
+
 def ragged_pipelined_exchange(send: torch.Tensor, group, mp: int,
-                              n_chunks: int = 1, *, wire_dtype=None,
-                              decompose=None) -> torch.Tensor:
+                              n_chunks: int = 1, *, fill_fn=None,
+                              wire_dtype=None, decompose=None):
     """Forward half of the ragged (dropless) exchange, micro-sharded.
 
     send: (mp, bound, d) pad-to-max-per-peer shards.  With ``n_chunks >
     1`` the bound dim splits into decomposed micro-shards, all in flight
     together.  The expert compute is not interleaved per chunk: the
     grouped kernels need the compacted expert-sorted rows, which exist
-    only after every shard lands.  ``decompose`` None: when chunked."""
-    return chunked_all_to_all(
-        send, group, mp, n_chunks, wire_dtype=wire_dtype,
-        decompose=n_chunks > 1 if decompose is None else decompose)
+    only after every shard lands.  ``fill_fn`` (the shadowed experts) runs
+    once the first chunk's exchange is issued.  ``decompose`` None: when
+    chunked.  Returns ``(recv, fill_out | None)``."""
+    ex = dict(wire_dtype=wire_dtype,
+              decompose=n_chunks > 1 if decompose is None else decompose)
+    chunks = torch.chunk(send, n_chunks, dim=1) if n_chunks > 1 else [send]
+    recv = [Exchange(chunks[0], group, mp, **ex)]  # S0
+    fill_out = _fill(fill_fn)  # the shadowed experts fill S0's bubble
+    recv += [Exchange(c, group, mp, **ex) for c in chunks[1:]]
+    out = [r.result() for r in recv]
+    return (out[0] if n_chunks <= 1 else torch.cat(out, dim=1)), fill_out
 
 
 def all_to_all_dim1(x: torch.Tensor, group, mp: int, *,
@@ -247,7 +264,7 @@ def all_to_all_dim1(x: torch.Tensor, group, mp: int, *,
 
 def hier_ragged_pipeline(send: torch.Tensor, group, mp: int, n_chunks: int,
                          chunk_fn: Callable[[torch.Tensor, int], torch.Tensor],
-                         *, wire_dtype=None, decompose=None) -> torch.Tensor:
+                         *, fill_fn=None, wire_dtype=None, decompose=None):
     """Inter-node leg of the two-level ragged exchange, with the expert
     compute per received chunk.
 
@@ -256,36 +273,43 @@ def hier_ragged_pipeline(send: torch.Tensor, group, mp: int, n_chunks: int,
     received rows, (mp, w, d) -> (mp, w, d_out) with ``w = inter_bound //
     n_chunks``, through its own mini-compaction
     (``dispatch.hier_chunk_plans``).  The smart schedule on this leg alone:
-    S_{c+1} is issued before C_c and R_c right after it.  Returns (mp,
-    inter_bound, d_out).  ``decompose`` None: when chunked."""
+    S_{c+1} is issued before C_c and R_c right after it; ``fill_fn`` (the
+    shadowed experts) runs after S0 is issued.  Returns ``(ret (mp,
+    inter_bound, d_out), fill_out | None)``.  ``decompose`` None: when
+    chunked."""
     decompose = n_chunks > 1 if decompose is None else decompose
     ex = dict(decompose=decompose, wire_dtype=wire_dtype)
     if n_chunks <= 1:
-        recv = exchange(send, group, mp, **ex)
-        return exchange(chunk_fn(recv, 0), group, mp, **ex)
+        s0 = Exchange(send, group, mp, **ex)
+        fill_out = _fill(fill_fn)
+        return exchange(chunk_fn(s0.result(), 0), group, mp, **ex), fill_out
     chunks = torch.chunk(send, n_chunks, dim=1)
     recv = [Exchange(chunks[0], group, mp, **ex)]  # S0 warms the pipeline
     outs = []
+    fill_out = None
     for c in range(n_chunks):
         if c + 1 < n_chunks:
             recv.append(Exchange(chunks[c + 1], group, mp, **ex))  # S_{c+1}
+        if c == 0:
+            fill_out = _fill(fill_fn)  # the shadowed experts fill S0's bubble
         y = chunk_fn(recv[c].result(), c)  # C_c
         outs.append(Exchange(y, group, mp, **ex))  # R_c
-    return torch.cat([o.result() for o in outs], dim=1)
+    return torch.cat([o.result() for o in outs], dim=1), fill_out
 
 
 def pipelined_expert_exchange(
         buf: torch.Tensor, group, mp: int, n_chunks: int,
         compute_fn: Callable[[torch.Tensor], torch.Tensor], *,
-        wire_dtype=None, decompose: bool = True) -> torch.Tensor:
+        fill_fn=None, wire_dtype=None, decompose: bool = True):
     """Dispatch exchange -> expert compute -> return exchange, pipelined.
 
     buf: (mp, E_local, C, d), dim 0 the destination rank.  ``compute_fn``
     takes (E_local, rows, d) rows, source-major within an expert, and
     returns (E_local, rows, d_out), row-independent (the caller wraps any
-    tp gather and scatter).  Returns (mp, E_local, C, d_out), dim 0 the
-    expert's rank.  ``n_chunks == 1`` is the serial schedule: one exchange
-    each way."""
+    tp gather and scatter).  ``fill_fn``: exchange-free local work (the
+    shadowed experts) issued once S0 is in flight.  Returns ``(out (mp,
+    E_local, C, d_out), dim 0 the expert's rank, fill_out | None)``.
+    ``n_chunks == 1`` is the serial schedule: one exchange each way."""
     mp_, E_local, C, d = buf.shape
     assert mp_ == mp and C % n_chunks == 0, (buf.shape, mp, n_chunks)
     ex = dict(decompose=decompose, wire_dtype=wire_dtype)
@@ -296,15 +320,19 @@ def pipelined_expert_exchange(
         return y.reshape(E_local, mp, rows, -1).transpose(0, 1)
 
     if n_chunks <= 1:
-        recv = exchange(buf, group, mp, **ex)
-        return exchange(compute(recv, C), group, mp, **ex)
+        s0 = Exchange(buf, group, mp, **ex)
+        fill_out = _fill(fill_fn)
+        return exchange(compute(s0.result(), C), group, mp, **ex), fill_out
     Cc = C // n_chunks
     chunks = torch.chunk(buf, n_chunks, dim=2)
     recv = [Exchange(chunks[0], group, mp, **ex)]  # S0 warms the pipeline
     outs = []
+    fill_out = None
     for i in range(n_chunks):
         if i + 1 < n_chunks:
             recv.append(Exchange(chunks[i + 1], group, mp, **ex))  # S_{i+1}
+        if i == 0:
+            fill_out = _fill(fill_fn)  # the shadowed experts fill S0's bubble
         y = compute(recv[i].result(), Cc)  # C_i
         outs.append(Exchange(y, group, mp, **ex))  # R_i
-    return torch.cat([o.result() for o in outs], dim=2)
+    return torch.cat([o.result() for o in outs], dim=2), fill_out

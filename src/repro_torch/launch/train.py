@@ -39,6 +39,23 @@ second stage: at step N a distilling router (noisy_topk or gumbel) hands
 the routing to its distilled ``w_frozen`` (the config flips to
 ``frozen`` and the step is rebuilt).
 
+Expert placement (the paper's §6 load-balance loop): ``--replan_every N``
+feeds a ``LoadMonitor`` from the steps' loads and every N steps asks the
+``PlacementController`` for a plan whose modeled step time pays for its
+migration; a plan it takes migrates the live params and AdamW state
+(``placement.migrate``) and rebuilds the step under it, on probation
+(``ReplanProbation``): a loss or drop regression rolls it back and
+blacklists it.  ``--per_layer_plans`` plans each layer from its own load;
+``--ragged_bound auto`` sizes the ragged shards from the monitor's EMAs at
+every rebuild (needs ``--replan_every``).  The hook runs in the a2a mode:
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --mesh 1x4 \
+        --device cpu --reduced --dispatch ragged --replan_every 4 \
+        --ragged_bound auto
+
+At one rank no plan pays (shadowing saves no wire there), so the planner
+keeps the identity layout.
+
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel in both directions, fused = the fused FFN kernel
 forward and the fused dX / grouped dW kernels backward); ``--dispatch``
@@ -60,8 +77,11 @@ import torch.distributed
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.balance import MoEMetrics
+from repro_torch.core.dispatch import expert_capacity
 from repro_torch.core.fmoe import expert_seed, moe_dist
 from repro_torch.core.gate import EXPLORING, ROUTERS
+from repro_torch.core.monitor import LoadMonitor
 from repro_torch.core.sync import sync_grads
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
@@ -69,6 +89,8 @@ from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models import lm
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.placement import (PlacementController, ReplanProbation,
+                                   load_calibration, migrate)
 
 
 def _sync(dev: torch.device) -> None:
@@ -199,6 +221,162 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
     return train_step
 
 
+def build_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
+                     seq_len: int, *, num_microbatches: int = 1,
+                     opts: dict | None = None, placement=None):
+    """The train step for ``mesh`` under ``placement`` (the reference's
+    ``jit_train_step``, which re-jits; here the step is rebuilt).
+
+    ``opts``: ``moe_dist``'s options (``overlap_chunks``, ``wire_dtype``,
+    ``ragged_bound`` ("auto" calibrates from ``load_monitor``),
+    ``inter_bound``, ``expert_tp``, ``load_monitor``) and the step's
+    ``impl`` and ``device``.  Returns (step_fn, dist)."""
+    opts = dict(opts or {})
+    impl = opts.pop("impl", "einsum")
+    device = opts.pop("device", "cuda")
+    dist = moe_dist(cfg, mesh, global_batch, seq_len=seq_len,
+                    placement=placement, **opts)
+    return make_train_step(cfg, opt, dist=dist,
+                           num_microbatches=num_microbatches, impl=impl,
+                           device=device), dist
+
+
+class ReplanHook:
+    """Closes the load-balance loop: LoadMonitor -> PlacementController ->
+    migrate the params and AdamW state -> rebuild the train step under the
+    new layout.
+
+    Call :meth:`observe` every step with the step's metrics; when the
+    controller decides a placement pays for its migration, the hook
+    permutes the live trees (in place, one leaf at a time; across the
+    ranks over the expert axes) and returns the rebuilt step.  The monitor
+    takes the loads every ``sync_every`` steps (one host transfer then).
+
+    Rollback: every accepted replan opens a probation window
+    (:class:`~repro_torch.placement.ReplanProbation`).  If the loss or the
+    drop fraction after it regresses against the EMAs from before it, the
+    migration is inverted, the step rebuilt under the old plan, and the
+    plan blacklisted in the controller.  No replan is taken while a
+    probation is open.  ``sink=`` (the telemetry sink) is ROADMAP §1
+    item 7: refused.
+
+    ``opts``: :func:`build_train_step`'s; with ``ragged_bound="auto"`` the
+    caller puts ``load_monitor=hook.monitor`` in the same dict, so every
+    rebuild re-sizes the bounds."""
+
+    def __init__(self, cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
+                 seq_len: int, *, every: int = 200,
+                 num_microbatches: int = 1, opts: dict | None = None,
+                 per_layer: bool = False, sink=None):
+        self.cfg, self.opt, self.mesh = cfg, opt, mesh
+        self.global_batch, self.seq_len = global_batch, seq_len
+        self.num_microbatches = num_microbatches
+        self.opts = opts if opts is not None else {}
+        self.per_layer = per_layer
+        moe = cfg.moe
+        # a plan executes only in the a2a mode (the psum mode refuses it)
+        probe = moe_dist(cfg, mesh, global_batch)
+        self.enabled = probe is not None and probe.mode == "a2a"
+        ranks = probe.expert_parallelism if self.enabled else 1
+        # the tokens one gate sees: the rank's rows of a microbatch
+        t_local = max(1, global_batch * seq_len // mesh.size
+                      // num_microbatches)
+        cap = expert_capacity(t_local, moe.num_experts, moe.top_k,
+                              moe.capacity_factor)
+        L = cfg.num_layers if per_layer else 0
+        self.monitor = LoadMonitor(moe.num_experts, num_layers=L, sink=sink)
+        wire_bytes = 2 if self.opts.get("wire_dtype") == "bf16" else 4
+        self.controller = PlacementController(
+            self.monitor, ranks, d_model=cfg.d_model,
+            d_hidden=moe.d_expert_hidden, capacity=cap,
+            capacity_factor=moe.capacity_factor,
+            every=every if self.enabled else 0, bytes_per_elem=wire_bytes,
+            num_layers=L, constants=load_calibration())
+        self.sync_every = max(1, every // 16)
+        # a window of a quarter of the replan period (4-64 steps), at the
+        # probation's own loss and drop tolerances
+        self.probation = ReplanProbation(window=max(4, min(64, every // 4)),
+                                         sink=sink)
+        # the host-side loss and drop EMAs: the baselines probation judges
+        self._loss_ema: float | None = None
+        self._drop_ema: float | None = None
+
+    @property
+    def placement(self):
+        return self.controller.current
+
+    def build(self, placement=None):
+        """The train step under ``placement`` (default: the current)."""
+        return build_train_step(
+            self.cfg, self.opt, self.mesh, self.global_batch, self.seq_len,
+            num_microbatches=self.num_microbatches, opts=self.opts,
+            placement=self.placement if placement is None else placement)[0]
+
+    def _switch(self, old, new, params, opt_state):
+        """Permute the live state from ``old``'s physical order into
+        ``new``'s and rebuild the step under ``new`` (replan and rollback
+        alike)."""
+        for tree in (params, opt_state.mu, opt_state.nu):
+            migrate(tree, old, new, mesh=self.mesh)
+        return params, opt_state, self.build(new)
+
+    def observe(self, step: int, metrics: dict, params, opt_state, *,
+                loss: float | None = None, drop: float | None = None):
+        """Returns (params, opt_state, the rebuilt step or None).  ``loss``
+        and ``drop`` are the step's host scalars where the caller has them,
+        else they are read from ``metrics``; they feed the probation."""
+        if (self.per_layer and self.controller.every
+                and "load_layers" not in metrics and "load" in metrics):
+            raise ValueError(
+                "ReplanHook(per_layer=True) needs metrics['load_layers'] "
+                "(the (L, E) stack loss_fn returns); got only 'load'")
+        if loss is None and "loss" in metrics:
+            loss = float(metrics["loss"])
+        if drop is None and "drop_frac" in metrics:
+            drop = float(metrics["drop_frac"])
+        ema = lambda old, v: v if old is None else 0.9 * old + 0.1 * v
+        if loss is not None:
+            self._loss_ema = ema(self._loss_ema, loss)
+        if drop is not None:
+            self._drop_ema = ema(self._drop_ema, drop)
+        load_key = "load_layers" if self.per_layer else "load"
+        if (load_key in metrics and self.controller.every
+                and step % self.sync_every == 0):
+            self.monitor.update(MoEMetrics(
+                0.0, 0.0, _host(metrics[load_key]),
+                _host(metrics.get("drop_frac", 0.0))))
+        if self.probation.active:
+            decision = self.probation.observe(step, loss=loss, drop=drop)
+            if decision.rollback:
+                params, opt_state, step_fn = self._switch(
+                    decision.new_plan, decision.old_plan, params, opt_state)
+                self.controller.rollback(decision.old_plan, decision.new_plan)
+                if self.mesh.rank == 0:
+                    print(f"step {step:5d} replan ROLLBACK: {decision.reason} "
+                          f"(plan blacklisted)", flush=True)
+                return params, opt_state, step_fn
+            if self.probation.active:  # still on probation: no replan
+                return params, opt_state, None
+        old = self.controller.current
+        new = self.controller.maybe_replan(step)
+        if new is None:
+            return params, opt_state, None
+        params, opt_state, step_fn = self._switch(old, new, params, opt_state)
+        # a replan must not introduce drops, even where none were seen
+        self.probation.start(
+            step, old, new, baseline_loss=self._loss_ema,
+            baseline_drop=self._drop_ema if self._drop_ema is not None
+            else 0.0)
+        return params, opt_state, step_fn
+
+
+def _host(v):
+    """A metric as host numpy (one device transfer)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().float().cpu().numpy()
+    return v
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="fastmoe-gpt")
@@ -233,10 +411,25 @@ def main(argv=None) -> None:
                     help="exchange payload dtype across the wire")
     ap.add_argument("--ragged_bound", default="0",
                     help="rows per peer shard of the ragged exchange "
-                         "(0 = never drop)")
+                         "(0 = never drop; 'auto' = from the load monitor's "
+                         "EMAs at every replan rebuild, needs "
+                         "--replan_every)")
+    ap.add_argument("--replan_every", type=int, default=0,
+                    help="steps between expert-placement replans (0 = off; "
+                         "needs --mesh and the a2a mode)")
+    ap.add_argument("--per_layer_plans", action="store_true",
+                    help="plan the placement per layer, each from its own "
+                         "load (needs --replan_every)")
     ap.add_argument("--inter_bound", type=int, default=0,
                     help="rows per slim inter-node shard (0 = never drop)")
     args = ap.parse_args(argv)
+    if args.ragged_bound == "auto" and not args.replan_every:
+        raise SystemExit("--ragged_bound auto calibrates from the load "
+                         "monitor: it needs --replan_every")
+    if (args.replan_every or args.per_layer_plans) and not args.mesh:
+        raise SystemExit("--replan_every / --per_layer_plans need --mesh")
+    if args.per_layer_plans and not args.replan_every:
+        raise SystemExit("--per_layer_plans needs --replan_every")
     if not args.mesh:
         return _run(args, resolve(args.device), None)
     dims = [int(v) for v in args.mesh.lower().split("x")]
@@ -269,57 +462,101 @@ def _run(args, dev: torch.device, mesh) -> None:
                          "(--router noisy_topk or gumbel) so params carry "
                          "w_frozen")
     opt = AdamW(lr=args.lr)
-    dist = None
+    hook = None
+    opts = dict(impl=args.impl, device=dev)
     if mesh is not None:
         # a rank takes whole sequences, so the mode follows the row count:
         # rows that split over every rank exchange tokens (a2a), others
         # fall back to the psum mode
         rb = args.ragged_bound
-        dist = moe_dist(cfg, mesh, args.batch,
-                        overlap_chunks=args.overlap_chunks,
-                        wire_dtype=args.wire_dtype or None,
-                        ragged_bound=rb if rb == "auto" else int(rb),
-                        inter_bound=args.inter_bound)
-        if dist is None:
-            raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
-                             f" experts do not split over the expert axes of "
-                             f"{args.mesh}, and data parallelism without "
-                             f"experts is not ported")
+        opts.update(overlap_chunks=args.overlap_chunks,
+                    wire_dtype=args.wire_dtype or None,
+                    ragged_bound=rb if rb == "auto" else int(rb),
+                    inter_bound=args.inter_bound)
+        if args.replan_every and cfg.moe is not None:
+            hook = ReplanHook(cfg, opt, mesh, args.batch, args.seq,
+                              every=args.replan_every,
+                              num_microbatches=args.microbatches, opts=opts,
+                              per_layer=args.per_layer_plans)
+            if not hook.enabled:
+                if lead:
+                    print("replan disabled: placement needs the a2a expert "
+                          "path", flush=True)
+                hook = None
+            else:
+                # ragged_bound=auto: every rebuild re-sizes from the monitor
+                opts["load_monitor"] = hook.monitor
+
+    def build(cfg):
+        if mesh is None:
+            return make_train_step(cfg, opt, num_microbatches=args.microbatches,
+                                   impl=args.impl, device=dev), None
+        return build_train_step(
+            cfg, opt, mesh, args.batch, args.seq,
+            num_microbatches=args.microbatches, opts=opts,
+            placement=hook.placement if hook is not None else None)
+    step_fn, dist = build(cfg)
+    if mesh is not None and dist is None:
+        raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
+                         f" experts do not split over the expert axes of "
+                         f"{args.mesh}, and data parallelism without "
+                         f"experts is not ported")
     # each rank makes its own shard from the seed
     params = lm.init_params(cfg, seed=args.seed, device=dev,
                             param_dtype=cfg.param_dtype, mesh=mesh,
                             expert_tp=dist is not None and dist.expert_tp)
     if lead and dist is not None:
-        print(f"mesh {args.mesh} ({dist.mode} over {dist.token_axes})",
+        auto = (f", ragged bound {dist.ragged_bound}"
+                if args.ragged_bound == "auto" else "")
+        print(f"mesh {args.mesh} ({dist.mode} over {dist.token_axes}{auto})",
               flush=True)
     opt_state = opt.init(params)
-
-    def build(cfg):
-        return make_train_step(cfg, opt, dist=dist,
-                               num_microbatches=args.microbatches,
-                               impl=args.impl, device=dev)
-    step_fn = build(cfg)
     batches = SyntheticLM(cfg.vocab_size, args.seq, seed=args.seed).batches(
         args.batch)
     t0 = time.time()
+    tw, since = time.perf_counter(), 0  # the window since the last log line
     for step in range(args.steps):
         batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
         if (args.freeze_router_at and step >= args.freeze_router_at
                 and cfg.moe.router != "frozen"):
             # StableMoE stage 2: route through w_frozen from here on, a
-            # config flip (the params already carry the distilled router)
+            # config flip (the params already carry the distilled router);
+            # the step is rebuilt under the live placement
             cfg = dataclasses.replace(
                 cfg, moe=dataclasses.replace(cfg.moe, router="frozen"))
-            step_fn = build(cfg)
+            step_fn, _ = build(cfg)
+            if hook is not None:
+                hook.cfg = cfg  # later rebuilds keep the frozen gate
             if lead:
                 print(f"step {step:5d} router frozen: gate-id tables are "
                       f"now stable", flush=True)
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        if hook is not None:
+            params, opt_state, new_fn = hook.observe(step, metrics, params,
+                                                     opt_state)
+            if new_fn is not None:
+                step_fn = new_fn
+                p = hook.placement
+                if lead:
+                    print(f"step {step:5d} replan: shadow={p.num_shadow} "
+                          f"cap_scale={p.capacity_scale:.2f} "
+                          f"imbalance={hook.monitor.imbalance:.2f}",
+                          flush=True)
+        since += 1
         if lead and step % args.log_every == 0:
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            # the mean wall ms of the steps since the last line: the host
+            # floats below wait for the card to finish them all
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            now = time.perf_counter()
+            print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"({time.time() - t0:.1f}s, "
+                  f"{(now - tw) * 1e3 / since:.1f} ms/step)", flush=True)
+            tw, since = now, 0
     if lead:
+        if hook is not None:
+            c = hook.controller
+            print(f"placement: {c.replans} replans, {c.rollbacks} rollbacks, "
+                  f"{c.flat_skips} flat skips", flush=True)
         print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
 
 

@@ -60,24 +60,26 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
 
 
 def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str,
-               dist=None, noise_seed=None):
+               dist=None, noise_seed=None, l2p=None):
     if cfg.moe is not None:
         return fmoe_apply(p, x, cfg.moe, act=cfg.act, impl=impl, dist=dist,
-                          noise_seed=noise_seed)
+                          noise_seed=noise_seed, l2p=l2p)
     return dense_ffn(p, x, cfg.act), None
 
 
 def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
-                    impl: str = "einsum", dist=None, noise_seed=None):
+                    impl: str = "einsum", dist=None, noise_seed=None,
+                    l2p=None):
     """x (B, S, d) -> (x, MoEMetrics | None).  ``dist``: the MoE layer's
     ``core.fmoe.DistConfig`` (x is then this rank's batch rows);
-    ``noise_seed``: the layer's exploration seed (``fmoe_apply``)."""
+    ``noise_seed``: the layer's exploration seed; ``l2p``: the layer's
+    gate-id table under a per-layer placement (``fmoe_apply``)."""
     attn = A.mla_apply if _is_mla(cfg) else A.gqa_apply
     h = attn(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg.attention,
              window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist, noise_seed)
+                            impl, dist, noise_seed, l2p)
     return x + h, metrics
 
 

@@ -3,8 +3,9 @@ or MLA attention).
 
 Public API:
   init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=) -> params
-  forward(params, cfg, tokens, impl=, device=, dist=, router_seed=)
-                                                   -> (logits, MoEMetrics)
+  forward(params, cfg, tokens, impl=, device=, dist=, router_seed=,
+          layer_loads=)                            -> (logits, MoEMetrics[,
+                                                       (L, E) loads])
   loss_fn(params, cfg, batch, impl=, device=, dist=, router_seed=)
                                                    -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
@@ -31,6 +32,11 @@ tokens with the other ranks; under remat each layer's exchange runs again
 in the backward, on every rank in the same order.  ``prefill`` and
 ``decode_step`` take the psum mode (serving): every rank holds all of the
 tokens and computes its own experts, and the layer sums over the ranks.
+
+A placement on ``dist`` (``repro_torch.placement``) needs the params in
+its physical order (``placement.migrate``); a ``PerLayerPlacement`` is
+split into its shared geometry, which rides on the layers' ``dist``, and
+each layer's gate-id table (``_layer_tables``).
 """
 from __future__ import annotations
 
@@ -39,12 +45,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch as D
 from repro_torch.core.balance import MoEMetrics
 from repro_torch.core.fmoe import expert_seed
 from repro_torch.device import resolve
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
                                        linear, linear_init, norm_init, unembed)
+from repro_torch.placement.plan import PerLayerPlacement
 
 
 def cast_params(p, dtype):
@@ -114,16 +122,35 @@ def _n_experts(cfg: ModelConfig) -> int:
 
 
 def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
-               impl: str, dist, noise_seed=None):
+               impl: str, dist, noise_seed=None, l2p=None):
     dtype = getattr(torch, cfg.dtype)
     x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
-                             impl=impl, dist=dist, noise_seed=noise_seed)
+                             impl=impl, dist=dist, noise_seed=noise_seed,
+                             l2p=l2p)
     return x.to(dtype), m
 
 
+def _layer_tables(cfg: ModelConfig, dist, device):
+    """Split a per-layer placement riding on ``dist``: returns (``dist``
+    with the plan's shared geometry, the (L, E) logical -> physical tables
+    on ``device``), or (``dist``, None) for no plan or a shared one."""
+    place = None if dist is None else dist.placement
+    if not isinstance(place, PerLayerPlacement):
+        return dist, None
+    place.validate()
+    if place.num_layers != cfg.num_layers:
+        raise ValueError(f"per-layer placement has {place.num_layers} "
+                         f"layers, config has {cfg.num_layers}")
+    return dist._replace(placement=place.geometry), D.device_index_table(
+        place, device)
+
+
 def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
-            device="cuda", dist=None, router_seed: int | None = None):
-    """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over layers).
+            device="cuda", dist=None, router_seed: int | None = None,
+            layer_loads: bool = False):
+    """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over
+    layers), and with ``layer_loads`` the (L, E) stack of the layers' loads
+    (logical expert order) as well.
 
     ``router_seed`` arms the exploration of the noisy_topk and gumbel
     routers: layer ``l`` draws its noise from ``expert_seed(router_seed,
@@ -132,19 +159,30 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
     routes deterministically, the eval and serving stance."""
     tokens = _inputs(params, tokens, device)
     x = embed_lookup(params["embed"], tokens, getattr(torch, cfg.dtype))
+    dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
+    loads = []
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for layer, (p_l, window) in enumerate(zip(params["layers"],
                                               B.layer_windows(cfg))):
         seed = None if router_seed is None else expert_seed(router_seed, layer)
+        l2p = None if tables is None else tables[layer]
         if remat:
             x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl, dist,
-                              seed, use_reentrant=False)
+                              seed, l2p, use_reentrant=False)
         else:
-            x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed)
+            x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed, l2p)
         metrics = _accumulate(metrics, m)
+        if m is not None:
+            loads.append(m.load.detach())
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, cfg, x), metrics
+    logits = _logits(params, cfg, x)
+    if not layer_loads:
+        return logits, metrics
+    if not loads:
+        return logits, metrics, x.new_zeros(cfg.num_layers, _n_experts(cfg),
+                                            dtype=torch.float32)
+    return logits, metrics, torch.stack(loads)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -153,13 +191,16 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
     ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
     {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
-    load}), drop_frac and load averaged over layers.  With ``dist``, the
+    load, load_layers}), drop_frac and load averaged over layers.  With ``dist``, the
     batch is this rank's rows and ``ce`` their mean; the MoE metrics are
-    already the means over every rank (``fmoe_apply``).  ``router_seed``:
-    see :func:`forward`."""
+    already the means over every rank (``fmoe_apply``).  ``aux`` also holds
+    ``load_layers``, the (L, E) stack of the layers' loads in logical
+    order (the per-layer planner's input).  ``router_seed``: see
+    :func:`forward`."""
     tokens = _inputs(params, batch["tokens"], device)
-    logits, metrics = forward(params, cfg, tokens, impl=impl, device=device,
-                              dist=dist, router_seed=router_seed)
+    logits, metrics, loads = forward(params, cfg, tokens, impl=impl,
+                                     device=device, dist=dist,
+                                     router_seed=router_seed, layer_loads=True)
     V = logits.shape[-1]
     ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
                          tokens[:, 1:].reshape(-1).long())
@@ -169,7 +210,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
         loss = loss + (cfg.moe.balance_loss_weight * metrics.aux_loss
                        + cfg.moe.z_loss_weight * metrics.z_loss) / L
     aux = {"ce": ce, "aux_loss": metrics.aux_loss, "z_loss": metrics.z_loss,
-           "drop_frac": metrics.drop_frac / L, "load": metrics.load / L}
+           "drop_frac": metrics.drop_frac / L, "load": metrics.load / L,
+           "load_layers": loads}
     return loss, aux
 
 

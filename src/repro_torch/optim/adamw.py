@@ -40,15 +40,15 @@ class AdamWState(NamedTuple):
 
 
 def global_norm(tree, dist=None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32.  With ``dist`` (a
-    ``core.fmoe.DistConfig`` over a mesh), the norm of the whole gradient:
-    each rank holds only its shard of an expert leaf, so those squares are
-    summed over the ranks that hold the shards
-    (``core.sync.sharded_sq_norms``), and every rank clips alike."""
-    if dist is not None:
-        return torch.sqrt(sum(sharded_sq_norms(tree, dist)))
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+    """sqrt of the sum of every leaf's squares, in f32, an expert leaf's
+    summed expert by expert in logical order (``core.sync.
+    sharded_sq_norms``).  With ``dist`` (a ``core.fmoe.DistConfig``) over a
+    mesh, the norm of the whole gradient: each rank holds only its shard of
+    an expert leaf, so its experts' squares are gathered from the ranks
+    that hold them, and every rank clips alike; under a placement, its
+    tables put the experts in logical order, so a placed step clips as the
+    unplaced one does."""
+    return torch.sqrt(sum(sharded_sq_norms(tree, dist)))
 
 
 class AdamW(NamedTuple):

@@ -9,7 +9,9 @@ expert over the dW kernel's 64-row batch, and their simple route), the
 expert kernels at the hidden shards of expert-internal tensor
 parallelism (1024 and 512 of fastmoe-gpt's 2048), the §5.2 schedule's
 capacity micro-shards (a chunk's launch equal to the whole buffer's rows
-bit for bit), and
+bit for bit), the shadowed experts' launch of expert placement (its rows
+bit-equal to the whole buffer's launch, and a placed layer over a 1x1
+NCCL mesh against its plain version and the unplaced layer), and
 flash attention (tails of both tile sizes, window 1, GQA, non-causal, a
 query offset, one query row; the bf16 forward at both of its tile choices,
 also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
@@ -971,3 +973,79 @@ def test_top1_paths(dev, dispatch, impl):
     ref = _layer_fwd_bwd(params, x, cfg, "einsum")
     torch.testing.assert_close(a[0].float(), ref[0].float(), rtol=5e-2,
                                atol=5e-2)
+
+
+@pytest.mark.parametrize("H", [2048, 512])
+def test_shadow_launch_rows_equal_the_whole_launch(dev, H):
+    """The shadowed experts' launch of a placed step (the last 8 of 96
+    experts' capacity rows, planned for the whole buffer's rows): the fused
+    FFN and its dX on it equal the same rows of the whole buffer's launch
+    bit for bit, and the plain version within bf16."""
+    E, C, d, S = 96, 56, 1024, 8
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    wi = (torch.randn(E, d, H, generator=g, device=dev) * d ** -0.5).to(bf)
+    wo = (torch.randn(E, H, d, generator=g, device=dev) * H ** -0.5).to(bf)
+    x = torch.randn(E * C, d, generator=g, device=dev).to(bf)
+    dy = torch.randn(E * C, d, generator=g, device=dev).to(bf)
+    whole = torch.full((E,), C, dtype=torch.int32, device=dev)
+    tail = slice((E - S) * C, None)
+    ws = (wi[E - S:],)
+    y = ff.fused_ffn(x, (wi,), wo, whole, "gelu")
+    y_s = ff.fused_ffn(x[tail], ws, wo[E - S:], whole[:S], "gelu", E * C)
+    assert torch.equal(y_s, y[tail])
+    torch.testing.assert_close(
+        y_s, ff.fused_ffn_plain(x[tail], ws, wo[E - S:], whole[:S], "gelu"),
+        **TOL[bf])
+    dx = fb.fused_ffn_bwd_dx(x, (wi,), wo, dy, whole, "gelu")
+    dx_s = fb.fused_ffn_bwd_dx(x[tail], ws, wo[E - S:], dy[tail], whole[:S],
+                               "gelu", E * C)
+    assert torch.equal(dx_s, dx[tail])
+
+
+@pytest.mark.parametrize("dispatch", ["capacity", "ragged"])
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_placed_layer_on_the_card(dev, impl, dispatch):
+    """A bf16 layer over a 1x1 NCCL mesh under a plan that permutes the
+    experts and shadows 4 of them (their own launch, counted): its output
+    equals the unplaced local layer's bit for bit, and its output and
+    input gradient stay within bf16 of the placed layer's plain version
+    (einsum) on the card."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.core import fmoe
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.placement import ExpertPlacement, from_logical
+
+    cfg, params, x = _moe_case(dev, "topk", dispatch)
+    E = cfg.num_experts
+    perm = tuple(int(i) for i in np.random.default_rng(2).permutation(E))
+    plan = ExpertPlacement(E, 1, perm, num_shadow=4)
+    placed = from_logical({k: {n: t.clone() for n, t in v.items()}
+                           for k, v in params.items()}, plan)
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        dist = fmoe.DistConfig(make_local_mesh(1, 1), ("data", "model"),
+                               placement=plan)
+        counter = ff.fused_ffn if impl == "fused" else gg.grouped_gemm
+        before = counter.launches
+        y0, _ = fmoe.fmoe_apply(params, x, cfg, act="gelu", impl=impl)
+        mid = counter.launches
+        y1, _ = fmoe.fmoe_apply(placed, x, cfg, act="gelu", impl=impl,
+                                dist=dist)
+        torch.cuda.synchronize()
+        assert counter.launches - mid == 2 * (mid - before)  # the shadow launch
+        assert torch.equal(y0, y1)
+        outs = []
+        for i in (impl, "einsum"):
+            xs = x.clone().requires_grad_()
+            y, _ = fmoe.fmoe_apply(placed, xs, cfg, act="gelu", impl=i,
+                                   dist=dist)
+            (gx,) = torch.autograd.grad(y.float().sum(), xs)
+            outs.append((y, gx))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a.float(), b.float(), rtol=5e-2,
+                                       atol=5e-2)
+    finally:
+        tdist.destroy_process_group()

@@ -91,9 +91,9 @@ MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 # the node mesh of the two-level exchange: (data, node, model)
 NODE_MESHES = {"1x2x2": (1, 2, 2)}
 TASKS = {"1x1": ["bit_equal"],
-         "1x2": ["layer", "model", "decode", "overlap", "zoo"],
+         "1x2": ["layer", "model", "decode", "overlap", "zoo", "placement"],
          "2x2": ["layer", "model", "drops", "tp", "overlap", "zoo"],
-         "1x4": ["layer", "zoo"], "1x2x2": ["hier"]}
+         "1x4": ["layer", "zoo", "placement"], "1x2x2": ["hier", "placement"]}
 # the routers other than topk, and the exploration seed of the zoo task
 ZOO = ("noisy_topk", "gumbel", "expert_choice", "frozen")
 ZOO_SEED = 11
@@ -116,6 +116,12 @@ WIRE_ATOL = 0.05  # the bf16 wire against f32, as the reference holds it
 # drops nothing (40 of the 128 rows a slim shard may hold), and one that
 # makes the forwarding agents drop (6.6% of the rows)
 HIER_IB, HIER_DROP_IB = 40, 32
+# placement: the layer's experts permuted by PLACE_SEED's permutation, the
+# last mp of them shadowed; PLACE_SHRINK the exchange's capacity scale that
+# makes the owned experts drop rows (main capacity 16 rows of 128 on 1x2, 8
+# of 64 on 1x4, against ~16 and ~8 arrivals an expert)
+PLACE_SEED, PLACE_SHRINK = 31, 0.1
+HOOK_STEPS, HOOK_LOSSES = 8, (6.0, 6.0, 6.0, 9.0, 9.0, 9.0, 6.0, 6.0)
 
 
 def _flatten(tree, prefix=""):
@@ -279,6 +285,139 @@ def _zoo_task(spec, job, mesh, out):
                 _layer_run(f"zoo/{mode}/{router}/{dispatch}", params, dist,
                            dispatch, "fused", x, r, rws, out, router=router,
                            noise_seed=ZOO_SEED)
+
+
+def _place_plan(P, mp: int, scale: float = 1.0, seed: int = PLACE_SEED,
+                num_shadow: int | None = None):
+    """The placement task's plan in package ``P`` (``repro.placement`` or
+    ``repro_torch.placement``): a seeded permutation of the layer's
+    experts, the last ``mp`` shadowed (``num_shadow`` to override)."""
+    E = LAYER["num_experts"]
+    perm = tuple(int(i) for i in np.random.default_rng(seed).permutation(E))
+    return P.ExpertPlacement(E, mp, perm,
+                             num_shadow=mp if num_shadow is None
+                             else num_shadow, capacity_scale=scale)
+
+
+def _rank_rows_of(whole_phys, plan, m: int):
+    """Rank ``m``'s expert rows of a whole leaf in ``plan``'s physical
+    order: its owned block, then the shadowed experts."""
+    en = plan.num_owned // plan.num_ranks
+    return np.concatenate([whole_phys[m * en:(m + 1) * en],
+                           whole_phys[plan.num_owned:]])
+
+
+def _placement_task(spec, job, mesh, out):
+    """Expert placement across ranks: the a2a layer under a plan with mp
+    shadowed experts (capacity and ragged, each impl, serial and at 2
+    chunks, expert-choice; flat, and two-level on the node mesh), a shrunk
+    exchange capacity that drops, migration between plans across the
+    ranks, and (1x2) one ReplanHook replan and its rollback."""
+    from repro_torch import interop
+    from repro_torch import placement as TP
+    from repro_torch.core import fmoe
+
+    x, r, whole, rows = _layer_inputs(job, mesh)
+    mp = mesh.axes_size(mesh.expert_axes)
+    m = mesh.axis_index(mesh.expert_axes)
+    node = "node" in mesh.axis_names
+    base = fmoe.DistConfig(mesh, tuple(mesh.axis_names),
+                           expert_axis=mesh.expert_axes if node else "model",
+                           node_axis="node" if node else None)
+
+    def placed(params, plan):
+        phys = TP.from_logical({k: {n: t.clone() for n, t in v.items()}
+                                for k, v in params.items()}, plan)
+        return {"router": phys["router"],
+                "experts": {n: torch.from_numpy(_rank_rows_of(
+                    t.numpy(), plan, m)) for n, t in phys["experts"].items()}}
+
+    plan = _place_plan(TP, mp)
+    params = placed(whole, plan)
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            for oc in (0, 2):
+                _layer_run(f"place/{dispatch}/{impl}/{oc}", params,
+                           base._replace(placement=plan, overlap_chunks=oc),
+                           dispatch, impl, x, r, rows, out,
+                           grads=oc == 0 or impl == "fused")
+        zoo = placed(_zoo_params(whole, job), plan)
+        _layer_run(f"place/ec/{dispatch}", zoo, base._replace(placement=plan),
+                   dispatch, "fused", x, r, rows, out, router="expert_choice")
+    if node:
+        return
+    shrunk = plan._replace(capacity_scale=PLACE_SHRINK)
+    for impl in IMPLS:
+        _layer_run(f"place/shrunk/{impl}", params,
+                   base._replace(placement=shrunk), "capacity", impl, x, r,
+                   rows, out, grads=False)
+
+    # migration across the ranks: a 2-layer tree and its AdamW state, from
+    # the identity shards through a per-layer plan with shadows to a shared
+    # plan without, and back to logical order
+    from repro_torch.optim import AdamWState
+    tree = {"layers": [whole, {k: {n: t * 2 for n, t in v.items()}
+                               for k, v in whole.items()}]}
+    shard = interop.shard_params(tree, mesh)
+    state = AdamWState(3, interop.shard_params(
+        {"layers": [{k: {n: t + 1 for n, t in v.items()}
+                     for k, v in layer.items()} for layer in tree["layers"]]},
+        mesh), {"layers": [{}, {}]})
+    plan_a = TP.per_layer_placement([_place_plan(TP, mp),
+                                     _place_plan(TP, mp, seed=PLACE_SEED + 1)])
+    plan_b = _place_plan(TP, mp, seed=PLACE_SEED + 2, num_shadow=0)
+    ident = TP.identity_placement(LAYER["num_experts"], mp)
+    for key, (old, new) in (("a", (ident, plan_a)), ("b", (plan_a, plan_b)),
+                            ("back", (plan_b, ident))):
+        for t in (shard, state):
+            TP.migrate(t, old, new, mesh=mesh)
+        for k, v in _flatten({"p": {str(i): l for i, l in
+                                    enumerate(shard["layers"])},
+                              "mu": {str(i): l for i, l in
+                                     enumerate(state.mu["layers"])}}).items():
+            if "/experts/" in k:  # a copy: a later step permutes in place
+                out[f"migrate/{key}/{k}"] = v.copy()
+    if mesh.shape == {"data": 1, "model": 2}:
+        _hook_run(mesh, out)
+
+
+def _hook_run(mesh, out):
+    """One ReplanHook replan (forced: ``min_gain=-10``) and its rollback on
+    a seeded skewed load and a loss series that regresses after the
+    replan, with real train steps between them under the rebuilt steps."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+
+    cfg = _model_cfg("capacity")
+    opt = AdamW(lr=LR)
+    hook = train.ReplanHook(cfg, opt, mesh, MODEL_B, MODEL_S, every=2,
+                            opts=dict(impl="einsum", device="cpu"))
+    hook.controller.min_gain = -10.0
+    params = lm.init_params(cfg, device="cpu", param_dtype="float32",
+                            mesh=mesh)
+    state = opt.init(params)
+    step_fn = hook.build()
+    skew = 1.0 / (np.arange(cfg.moe.num_experts) + 1) ** 1.5
+    events, losses = [], []
+    for step in range(HOOK_STEPS):
+        params, state, m = step_fn(
+            params, state, {"tokens": torch.from_numpy(_tokens(step))}, step)
+        losses.append(float(m["loss"]))
+        params, state, new_fn = hook.observe(
+            step, {"load": skew, "drop_frac": 0.0}, params, state,
+            loss=HOOK_LOSSES[step])
+        if new_fn is not None:
+            step_fn = new_fn
+            events.append([step, hook.controller.replans,
+                           hook.controller.rollbacks])
+            if hook.controller.rollbacks == 0:
+                p = hook.placement
+                out["hook/plan"] = np.asarray([*p.physical_to_logical,
+                                               p.num_shadow])
+    out["hook/events"] = np.asarray(events)
+    out["hook/losses"] = np.asarray(losses)
+    out["hook/final_identity"] = np.asarray(hook.placement.is_identity)
 
 
 # options the port refused before the §5.2 schedule and the two-level
@@ -585,7 +724,8 @@ def _decode_task(spec, job, mesh, out):
 
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
               "bit_equal": _bit_equal_task, "decode": _decode_task,
-              "overlap": _overlap_task, "hier": _hier_task, "zoo": _zoo_task}
+              "overlap": _overlap_task, "hier": _hier_task, "zoo": _zoo_task,
+              "placement": _placement_task}
 
 
 def _rank_main(job: Path, rank: int) -> None:
@@ -977,7 +1117,7 @@ def ep(tmp_path_factory):
             for i in range(world)])
     for th in threads:
         th.join(SPAWN_TIMEOUT)
-    return dict(runs=runs, jax=jax_box, oracle=oracle, zoo=zoo)
+    return dict(runs=runs, jax=jax_box, oracle=oracle, zoo=zoo, root=root)
 
 
 def _ranks(ep, name):
@@ -1574,8 +1714,278 @@ def test_hier_bf16_wire_equals_flat_bf16_wire(ep):
         assert 0 < diff < WIRE_ATOL, diff
 
 
+# ---------------------------------------------------------------------------
+# Expert placement across ranks
+# ---------------------------------------------------------------------------
+
+
+PLACE_MESHES = ["1x2", "1x4", "1x2x2"]
+
+
+def _mesh_shape(name):
+    if name in NODE_MESHES:
+        d, n, m = NODE_MESHES[name]
+        return d, n * m
+    return MESHES[name]
+
+
+def _physical(tree_logical: dict, plan) -> dict:
+    """Whole logical gradient leaves in ``plan``'s physical order."""
+    from repro_torch import placement as TP
+    t = {k: torch.from_numpy(np.array(v)) for k, v in tree_logical.items()}
+    TP.from_logical({"experts": t}, plan)
+    return {k: v.numpy() for k, v in t.items()}
+
+
+def _check_placed(ranks, key, ref, plan, rel=1e-5):
+    """y, load, drop_frac and the synced gradients (times the world: the
+    objective is the ranks' sum) against a whole-input oracle: each rank's
+    expert rows against the oracle's in the plan's physical order."""
+    world = len(ranks)
+    y = np.concatenate([r[f"{key}/y"] for r in ranks])
+    np.testing.assert_allclose(y, ref["y"].reshape(y.shape), rtol=rel,
+                               atol=rel, err_msg=key)
+    xg = np.concatenate([r[f"{key}/grad/x"] for r in ranks])
+    _close_to_scale(xg, ref["grad"]["x"].reshape(xg.shape), rel, f"{key} x")
+    phys = _physical({leaf: ref["grad"][f"experts/{leaf}"]
+                      for leaf in ("wi_gate", "wi_up", "wo")}, plan)
+    for rank, r in enumerate(ranks):
+        np.testing.assert_allclose(r[f"{key}/load"], ref["load"], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+        np.testing.assert_allclose(r[f"{key}/drop_frac"], ref["drop_frac"],
+                                   atol=1e-6)
+        _close_to_scale(world * r[f"{key}/grad/router/w"],
+                        ref["grad"]["router/w"], rel, f"{key} router")
+        m = rank % plan.num_ranks
+        for leaf, whole in phys.items():
+            _close_to_scale(world * r[f"{key}/grad/experts/{leaf}"],
+                            _rank_rows_of(whole, plan, m), rel,
+                            f"{key} rank {rank} {leaf}")
+
+
+@pytest.mark.parametrize("name", PLACE_MESHES)
+def test_placed_layer_matches_jax_single_rank(ep, name):
+    """The a2a layer under a plan that permutes the experts and shadows mp
+    of them (serial, and at 2 chunks with the filler in the first wire
+    bubble), capacity and ragged, each impl; on the node mesh the ragged
+    exchange is two-level: y, the load in logical order, drop_frac and
+    the gradients against JAX's single-rank layer at 1e-5.  The shadowed
+    experts' gradients agree on every rank (summed over the world)."""
+    from repro_torch import placement as TP
+    ranks = _ranks(ep, name)
+    mp = len(ranks) // _mesh_shape(name)[0]
+    plan = _place_plan(TP, mp)
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            for oc in (0, 2):
+                key = f"place/{dispatch}/{impl}/{oc}"
+                ref = ep["oracle"][f"{dispatch}/{impl}"]
+                if oc == 0 or impl == "fused":
+                    _check_placed(ranks, key, ref, plan)
+                else:
+                    y = np.concatenate([r[f"{key}/y"] for r in ranks])
+                    np.testing.assert_allclose(
+                        y, ref["y"].reshape(y.shape), rtol=1e-5, atol=1e-5)
+            for leaf in ("wi_gate", "wi_up", "wo"):
+                g = f"place/{dispatch}/{impl}/0/grad/experts/{leaf}"
+                for r in ranks[1:]:
+                    np.testing.assert_array_equal(r[g][-mp:], ranks[0][g][-mp:])
+
+
+@pytest.mark.parametrize("name", PLACE_MESHES)
+def test_placed_expert_choice_matches_its_shard_oracle(ep, name):
+    """Expert-choice under the plan (both dispatches, fused): the token
+    grid goes to physical order and the combine runs in logical order;
+    against JAX's layer on each rank's token block."""
+    from repro_torch import placement as TP
+    ranks = _ranks(ep, name)
+    mp = len(ranks) // _mesh_shape(name)[0]
+    plan = _place_plan(TP, mp)
+    for dispatch in DISPATCHES:
+        ref = dict(ep["zoo"][("expert_choice", dispatch, len(ranks))])
+        _check_placed(ranks, f"place/ec/{dispatch}", ref, plan)
+
+
+def _jax_shardwise(ranks_n: int, plan, impl="einsum"):
+    """JAX's shard-wise layer under ``plan``: on each rank's token block,
+    the reference's gate, its capacity plan with the per-expert capacities
+    (the owned experts at the plan's main capacity, the shadowed at the
+    full one), the experts and the combine — what the a2a layer computes
+    on a rank, without the exchange.  Returns (y, load, drop_frac)."""
+    import jax.numpy as jnp
+
+    import dist_utils as du
+    from repro.core import dispatch as JD
+    from repro.core import fmoe as jfmoe
+    from repro.core.balance import load_metrics
+    from repro.core.gate import route_tokens
+    from repro.placement import from_logical, shadow_spec
+
+    env = du.moe_env()
+    cfg = env.cfg
+    E, k = cfg.num_experts, cfg.top_k
+    d = env.x.shape[-1]
+    xs = env.x.reshape(ranks_n, -1, d)
+    t = xs.shape[1]
+    pp = from_logical(env.params, plan)
+    table = jnp.asarray(plan.logical_to_physical)
+    C = JD.expert_capacity(t, E, k, cfg.capacity_factor)
+    spec = shadow_spec(plan, E, C)
+    ys, loads, drops = [], 0, []
+    for i in range(ranks_n):
+        g = route_tokens(env.params["router"], xs[i], cfg)
+        p = JD.make_capacity_plan(table[g.expert_ids], E,
+                                  tuple(int(c) for c in spec.capacities))
+        out = jfmoe.EXPERT_FNS[impl](pp["experts"],
+                                     JD.dispatch_capacity(xs[i], p, E),
+                                     "swiglu")
+        ys.append(JD.combine_capacity(out, p, g.combine_weights))
+        loads = loads + p.load
+        drops.append(float(load_metrics(p.load, p.keep, t * k)[1]))
+    load = np.asarray(loads, np.float64)[np.asarray(table)]
+    return (np.concatenate([np.asarray(y) for y in ys]),
+            load / load.sum(), float(np.mean(drops)))
+
+
+@pytest.mark.parametrize("name", ["1x2", "1x4"])
+def test_shrunk_capacity_matches_jax_shardwise(ep, name):
+    """A shrunk exchange capacity (scale PLACE_SHRINK) drops the owned
+    experts' rows past it, the shadowed experts keep the full capacity:
+    y, the logical load and drop_frac against JAX's shard-wise layer."""
+    from repro import placement as JP
+    ranks = _ranks(ep, name)
+    mp = len(ranks)
+    y_ref, load_ref, drop_ref = _jax_shardwise(
+        mp, _place_plan(JP, mp, scale=PLACE_SHRINK))
+    assert drop_ref > 0.05, drop_ref  # the shrink really drops
+    for impl in IMPLS:
+        key = f"place/shrunk/{impl}"
+        y = np.concatenate([r[f"{key}/y"] for r in ranks])
+        np.testing.assert_allclose(y, y_ref.reshape(y.shape), rtol=1e-5,
+                                   atol=1e-5, err_msg=impl)
+        for r in ranks:
+            np.testing.assert_allclose(r[f"{key}/drop_frac"], drop_ref,
+                                       rtol=1e-6, err_msg=impl)
+            np.testing.assert_allclose(r[f"{key}/load"], load_ref, rtol=1e-6,
+                                       atol=1e-7, err_msg=impl)
+
+
+@pytest.mark.parametrize("name", ["1x2", "1x4"])
+def test_migration_across_ranks_is_the_single_process_migrate(ep, name):
+    """Each rank's expert rows after migrating its shard (a 2-layer tree
+    and the AdamW moments) from the identity layout to a per-layer plan
+    with shadows, then to a shared plan without, then back to logical
+    order: bit for bit the single-process migrate of the whole tree,
+    restricted to the rank's rows."""
+    from repro_torch import placement as TP
+    ranks = _ranks(ep, name)
+    mp = len(ranks)
+    inp = dict(np.load(ep["root"] / "layer.npz"))
+    whole = {k[len("experts/"):]: v for k, v in inp.items()
+             if k.startswith("experts/")}
+    trees = {"p": [whole, {n: v * 2 for n, v in whole.items()}]}
+    trees["mu"] = [{n: v + 1 for n, v in layer.items()}
+                   for layer in trees["p"]]
+    plan_a = TP.per_layer_placement([_place_plan(TP, mp),
+                                     _place_plan(TP, mp, seed=PLACE_SEED + 1)])
+    plan_b = _place_plan(TP, mp, seed=PLACE_SEED + 2, num_shadow=0)
+    ident = TP.identity_placement(LAYER["num_experts"], mp)
+    for name_, layers in trees.items():
+        t = {"layers": [{"experts": {n: torch.from_numpy(np.array(v))
+                                     for n, v in layer.items()}}
+                        for layer in layers]}
+        for key, (old, new) in (("a", (ident, plan_a)), ("b", (plan_a, plan_b)),
+                                ("back", (plan_b, ident))):
+            TP.migrate(t, old, new)
+            for i, layer in enumerate(t["layers"]):
+                lp = new.layers[i] if hasattr(new, "layers") else new
+                for n, v in layer["experts"].items():
+                    want = v.numpy()
+                    for rank, r in enumerate(ranks):
+                        got = r[f"migrate/{key}/{name_}/{i}/experts/{n}"]
+                        np.testing.assert_array_equal(
+                            got, _rank_rows_of(want, lp, rank),
+                            f"{key} {name_} {i} {n} rank {rank}")
+    for rank, r in enumerate(ranks):  # back to the start
+        e = LAYER["num_experts"] // mp
+        np.testing.assert_array_equal(
+            r["migrate/back/p/0/experts/wo"],
+            whole["wo"][rank * e:(rank + 1) * e])
+
+
+def test_replan_hook_replans_and_rolls_back_as_the_reference(ep):
+    """1x2: the port's ReplanHook, forced to accept (min_gain -10) on a
+    skewed load, replans at the reference's step to the reference's plan,
+    migrates the live state and keeps training; the loss series that
+    regresses after it rolls the plan back at the reference's step, and
+    the blacklisted plan is not proposed again.  The reference's
+    decisions come from its own LoadMonitor, PlacementController and
+    ReplanProbation fed the same series (the port's default constants)."""
+    from repro import placement as JP
+    from repro.core import monitor as jmon
+    from repro.core.balance import MoEMetrics
+    from repro.resilience import ReplanProbation
+    from repro_torch.core.dispatch import expert_capacity
+    from repro_torch.placement import CostConstants
+
+    ranks = _ranks(ep, "1x2")
+    cfg = _model_cfg("capacity")
+    moe = cfg.moe
+    mon = jmon.LoadMonitor(moe.num_experts)
+    cap = expert_capacity(MODEL_B * MODEL_S // 2, moe.num_experts, moe.top_k,
+                          moe.capacity_factor)
+    ctl = JP.PlacementController(
+        mon, 2, d_model=cfg.d_model, d_hidden=moe.d_expert_hidden,
+        capacity=cap, capacity_factor=moe.capacity_factor, every=2,
+        constants=JP.CostConstants(*CostConstants()[:3]))
+    ctl.min_gain = -10.0
+    prob = ReplanProbation(window=4)
+    skew = 1.0 / (np.arange(moe.num_experts) + 1) ** 1.5
+    ema, events, plan = None, [], None
+    for step in range(HOOK_STEPS):
+        loss = HOOK_LOSSES[step]
+        ema = loss if ema is None else 0.9 * ema + 0.1 * loss
+        mon.update(MoEMetrics(0.0, 0.0, skew, 0.0))
+        if prob.active:
+            dec = prob.observe(step, loss=loss, drop=0.0)
+            if dec.rollback:
+                ctl.rollback(dec.old_plan, dec.new_plan)
+                events.append([step, ctl.replans, ctl.rollbacks])
+                continue
+            if prob.active:
+                continue
+        old = ctl.current
+        new = ctl.maybe_replan(step)
+        if new is not None:
+            prob.start(step, old, new, baseline_loss=ema, baseline_drop=0.0)
+            events.append([step, ctl.replans, ctl.rollbacks])
+            plan = new
+    assert [e[2] for e in events] == [0, 1], events  # a replan, a rollback
+    for r in ranks:
+        np.testing.assert_array_equal(r["hook/events"], np.asarray(events))
+        np.testing.assert_array_equal(
+            r["hook/plan"], [*plan.physical_to_logical, plan.num_shadow])
+        assert bool(r["hook/final_identity"])
+        assert np.isfinite(r["hook/losses"]).all(), r["hook/losses"]
+
+
+def test_train_cli_replan_hook_under_torchrun():
+    """``train --mesh 1x2 --replan_every 2 --per_layer_plans --ragged_bound
+    auto`` (ragged) runs: the cold monitor resolves the bound to the
+    dropless 0, and the hook reports its replans."""
+    lines, losses = _train_cli("--mesh", "1x2", "--dispatch", "ragged",
+                               "--replan_every", "2", "--per_layer_plans",
+                               "--ragged_bound", "auto", ranks=2)
+    assert ("mesh 1x2 (a2a over ('data', 'model'), ragged bound 0)"
+            in lines), lines
+    assert any(ln.startswith("placement: 0 replans") for ln in lines), lines
+    assert all(5.0 < v < 8.0 for v in losses), losses
+
+
 REFUSED = {
-    "placement": (dict(placement=object()), "item 4"),
+    # placement is carried (ROADMAP §1 item 4, done) except in the psum
+    # mode, which is item 5
+    "placement": (dict(token_axes=(), placement="identity"), "item 5"),
     # as the reference: tp takes the capacity dispatch
     "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
@@ -1591,8 +2001,12 @@ def test_unsupported_options_raise(what):
     from repro_torch.core import fmoe
     from repro_torch.launch.mesh import Mesh
 
+    from repro_torch.placement import identity_placement
+
     kw, item = REFUSED[what]
     kw = {"token_axes": ("data", "model"), **kw}
+    if kw.get("placement") == "identity":
+        kw["placement"] = identity_placement(LAYER["num_experts"], 2)
     dist = fmoe.DistConfig(Mesh(1, 2), **kw)
     cfg = MoEConfig(dispatch="ragged" if what == "ragged_tp" else "capacity",
                     **LAYER)
@@ -1685,15 +2099,16 @@ def test_local_carrier_is_the_local_path():
 
 
 def test_serial_exchange_refuses_chunks_and_psum_from_moe_dist():
-    """moe_dist's modes by the rows; its one refusal left is the bounds'
-    calibration from the load monitor (item 4)."""
+    """moe_dist's modes by the rows; the bounds' calibration from the load
+    monitor (item 4, carried) resolves to the dropless 0 without a
+    monitor."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
 
     cfg = reduced(get_config("fastmoe-gpt"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.moe_dist(cfg, Mesh(2, 2), 64, ragged_bound="auto")
+    assert train.moe_dist(cfg, Mesh(2, 2), 64,
+                          ragged_bound="auto").ragged_bound == 0
     mesh = Mesh(2, 2)
     assert train.moe_dist(cfg, mesh, 64).mode == "a2a"
     assert train.moe_dist(cfg, mesh, 62).mode == "psum"  # 62 % 4 != 0

@@ -36,6 +36,22 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert not bad, bad
 
 
+def test_lower_layers_import_no_upper_layer():
+    """The MoE layer, gradient sync, the optimizer and the kernels import
+    nothing of the planner, the models or the entry points, at the top of a
+    module or inside a function."""
+    pkg = ROOT / "src" / "repro_torch"
+    upper = {"repro_torch.placement", "repro_torch.models",
+             "repro_torch.launch"}
+    files = [f for d in ("core", "optim", "kernels")
+             for f in sorted((pkg / d).rglob("*.py"))]
+    assert len(files) > 5
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
+           for m in _imported_modules(f)
+           if any(m == u or m.startswith(u + ".") for u in upper)]
+    assert not bad, bad
+
+
 def test_entry_points_raise_without_cuda():
     """Called without ``device`` on a host with no CUDA, every entry point
     raises instead of running on the CPU."""

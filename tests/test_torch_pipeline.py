@@ -7,8 +7,8 @@ process, against the JAX package.
   counts against the reference's,
   exactly, with inter bounds that keep every row and bounds that drop
   (the reference's own cases of ``tests/test_hier_a2a.py`` among them);
-* the wire dtype, ``moe_dist``'s options and its refusal of
-  ``ragged_bound="auto"``, the node mesh (coordinates, groups' axes, the
+* the wire dtype, ``moe_dist``'s options and its ``ragged_bound="auto"``
+  without a load monitor, the node mesh (coordinates, groups' axes, the
   expert shard node-major, per-rank init equal to the whole's slices) and
   serving's refusal of a node axis.
 
@@ -152,7 +152,8 @@ def test_wire_dtype_names():
 def test_moe_dist_carries_the_overlap_and_node_options():
     """moe_dist takes the reference's options into the a2a DistConfig and
     leaves them out of the psum fallbacks; a node mesh spans (node, model)
-    with node_axis "node"; ragged_bound "auto" names item 4."""
+    with node_axis "node"; ragged_bound "auto" without a load monitor is
+    the dropless 0 (item 4)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import fmoe, pipeline
     from repro_torch.launch.mesh import Mesh
@@ -176,8 +177,8 @@ def test_moe_dist_carries_the_overlap_and_node_options():
     assert (psum.overlap_chunks, psum.wire_dtype, psum.inter_bound,
             psum.node_axis) == (0, None, 0, None)
     assert fmoe.moe_dist(cfg, Mesh(1, 8, node=1), 8) is None  # 4 experts
-    with pytest.raises(NotImplementedError, match="item 4"):
-        fmoe.moe_dist(cfg, Mesh(2, 2), 8, ragged_bound="auto")
+    assert fmoe.moe_dist(cfg, Mesh(2, 2), 8,
+                         ragged_bound="auto").ragged_bound == 0
 
 
 def test_node_mesh_coordinates_and_expert_shard():

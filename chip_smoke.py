@@ -195,7 +195,24 @@
    --ragged_bound auto`` (no replan at one rank, the bound 0) timed
    against the CLI without the hook; and the fused FFN, its dX and the
    grouped GEMM at the placed launches' shapes against their plain
-   versions.
+   versions;
+19. (slice 15, after step 16 on its params, stream and 1x1 NCCL mesh:
+   ``serve_placement_phase``) serving under placement in the psum mode on
+   fused/ragged and pallas/capacity: each request's tokens under plans
+   (a) and (b) (8 shadowed experts outside the all-reduce) and with
+   ``apply_placement`` switching identity -> (b) after tick 8 and (b) ->
+   (a) after tick 16, each run a main path of its own, bit-equal to the
+   identity plan's (the slot-wise reduction); the first tick's logits
+   under (b) against the f32 oracle (the SERVE_* slack), the placed
+   tokens' agreement with the plain psum run's; a steady tick of the
+   plain psum, identity-placed and (b) batchers in turns and profiled;
+   ``serve --continuous --mesh 1x1 --replan_every 8`` (no replan at one
+   rank) against the CLI without the hook; the fused FFN on a tick's
+   owned segment and shadowed tail, the grouped GEMM on the capacity
+   tick's owned and shadowed buffers and combine_topk at k = 1 against
+   their plain versions beside their bounds; and (in step 18, on its
+   10-layer params) the placed psum train step under (a) and (b) against
+   the identity-placed step.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -1457,13 +1474,16 @@ CB_KERNELS = {"fused": ("fused_ffn", "gather_rows_by_source", "combine_topk",
 
 
 def run_continuous(label, params, cfg, scfg, impl, dev, *, prompt_len, gen,
-                   requests, mesh=None, mixed=False):
+                   requests, mesh=None, mixed=False, placement=None,
+                   switches=()):
     """The continuous batcher over serve.request_stream's requests (their
     output lengths redrawn from CB_MIXED_GEN when ``mixed``), all submitted
     at the start, with the launch counters set to 0 just before and read
     just after: every request served with its tokens, in the vocabulary,
-    the path's kernels launched and no first version.  Returns ({request
-    id: tokens}, serve.serving_stats, launches, peak bytes)."""
+    the path's kernels launched and no first version.  ``placement``: the
+    plan ``params`` are in; ``switches``: (tick, plan) pairs, each applied
+    (``apply_placement``) after that tick.  Returns ({request id: tokens},
+    serve.serving_stats, launches, peak bytes, the migrations' ms)."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
@@ -1480,11 +1500,22 @@ def run_continuous(label, params, cfg, scfg, impl, dev, *, prompt_len, gen,
     for fn in counters().values():
         fn.launches = 0
     batcher = ContinuousBatcher(params, cfg, scfg, mesh=mesh, impl=impl,
-                                device=dev)
+                                device=dev, placement=placement)
     t0 = time.time()
     for r in reqs:
         batcher.submit(r)
-    batcher.run()
+    switch, migrate_ms = dict(switches), []
+    while batcher.queue or any(s is not None for s in batcher.slots):
+        check(batcher.step() > 0 or not batcher.queue,
+              f"{label}: admission stalled")
+        if batcher.ticks in switch:
+            torch.cuda.synchronize()
+            t_mig = time.perf_counter()
+            batcher.apply_placement(switch[batcher.ticks])
+            torch.cuda.synchronize()
+            migrate_ms.append((time.perf_counter() - t_mig) * 1e3)
+    check(batcher.replans == len(switch),
+          f"{label}: {batcher.replans} replans, not {len(switch)}")
     stats = serve.serving_stats(batcher.completions, time.time() - t0,
                                 batcher.ticks)
     torch.cuda.synchronize()
@@ -1506,15 +1537,17 @@ def run_continuous(label, params, cfg, scfg, impl, dev, *, prompt_len, gen,
           f"average (prefills included); peak memory {peak / 1e9:.2f} GB; "
           f"kernel launches {json.dumps({k: v for k, v in launches.items() if v})}",
           flush=True)
-    return toks, stats, launches, peak
+    return toks, stats, launches, peak, migrate_ms
 
 
-def filled(params, cfg, scfg, impl, dev, *, prompt_len, gen, mesh=None):
+def filled(params, cfg, scfg, impl, dev, *, prompt_len, gen, mesh=None,
+           placement=None):
     """A batcher whose every slot holds a request of the stream (admitted
     by one tick), with ``gen`` - 2 ticks left before any retires."""
     from repro_torch.launch import serve
     from repro_torch.launch.scheduler import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, scfg, impl=impl, device=dev, mesh=mesh)
+    b = ContinuousBatcher(params, cfg, scfg, impl=impl, device=dev, mesh=mesh,
+                          placement=placement)
     for r in serve.request_stream(cfg, prompt_len=prompt_len, gen=gen,
                                   num_requests=scfg.slots):
         b.submit(r)
@@ -1561,10 +1594,12 @@ def profile_tick(label, b) -> dict:
 
 
 def tick_logits(label, b, params32) -> None:
-    """One steady tick's logits of a filled paged batcher (no mesh), from
-    copies of its pool at its tokens, positions and block tables, three
-    ways: its kernel path in bf16, the plain einsum path in bf16 (the
-    floor) and the f32 einsum oracle (``params32``, the pool cast to f32).
+    """One tick's logits of a paged batcher, from copies of its pool at its
+    tokens, positions and block tables, three ways: its kernel path in
+    bf16 and the plain einsum path in bf16 (the floor), both under the
+    batcher's decode dist (its mesh and placement, where it has them), and
+    the f32 einsum oracle with no dist (``params32``: logical order, the
+    pool cast to f32).
     Held as serve_phase holds the first decode step: the median per-slot
     relative error within SERVE_REL_SLACK x floor + SERVE_ABS_SLACK, argmax
     agreement no less than the floor's less SERVE_AGREE_SLACK."""
@@ -1574,13 +1609,14 @@ def tick_logits(label, b, params32) -> None:
     pos = torch.as_tensor(b.pos, device=b.dev)
     tables = torch.as_tensor(b.tables, device=b.dev)
 
-    def logits(params, cfg, impl):
+    def logits(params, cfg, impl, dist=None):
         dtype = getattr(torch, cfg.dtype)
         pool = [type(c)(*(t.to(dtype, copy=True) if t.is_floating_point()
                           else t.clone() for t in c)) for c in b.pool]
         with torch.no_grad():
             out, _, _ = lm.decode_step(params, cfg, toks, pos, pool, impl=impl,
-                                       device=b.dev, block_tables=tables)
+                                       device=b.dev, block_tables=tables,
+                                       dist=dist)
         check(out.shape == (b.B, 1, cfg.vocab_size)
               and bool(torch.isfinite(out).all()), f"{label}: {impl} logits malformed")
         return out[:, 0].float()
@@ -1588,7 +1624,7 @@ def tick_logits(label, b, params32) -> None:
     oracle = logits(params32, dataclasses.replace(b.cfg, dtype="float32"), "einsum")
     rows = {}
     for impl in ("einsum", b._impl):
-        got = logits(b.params, b.cfg, impl)
+        got = logits(b.params, b.cfg, impl, b._ddist)
         rows[impl] = (rel_err(got, oracle).median().item(),
                       (got.argmax(-1) == oracle.argmax(-1)).float().mean().item())
     (f_rel, f_agree), (k_rel, k_agree) = rows["einsum"], rows[b._impl]
@@ -1657,9 +1693,12 @@ def continuous_phase(dev):
     CB_PSUM, tokens bit-equal to the local path's, with steady ticks of
     both in turns; one steady tick's logits of fused/ragged and
     pallas/capacity against the f32 einsum oracle on the same pool; one
-    profiled steady tick of each path, local and psum.  Returns (the
-    launches summed over the runs, the hand-written launches of each
-    profiled tick, by the label of the batcher it ran on)."""
+    profiled steady tick of each path, local and psum; then, on the same
+    params, stream and mesh, serving under placement
+    (``serve_placement_phase``, and its CLI run after the group is gone).
+    Returns (the launches summed over the runs, the hand-written launches
+    of each profiled tick, by the label of the batcher it ran on, and the
+    placed serving's launches, ticks and kernel rows)."""
     import torch
     import torch.distributed as tdist
     from repro_torch.configs import get_config
@@ -1714,6 +1753,7 @@ def continuous_phase(dev):
     del race
 
     # ---- the psum mode at world size 1: bit-equal to the local path
+    plain = {}
     init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
     try:
         mesh = make_local_mesh(1, 1)
@@ -1742,15 +1782,20 @@ def continuous_phase(dev):
                 per_tick[f"{impl}/{dispatch} paged"] = profile_tick(
                     f"{impl}/{dispatch} paged", race["local"])
             per_tick[label] = profile_tick(label, race["psum"])
+            plain[(impl, dispatch)] = got[0]
             del race
+        print(f"continuous phase wall {time.perf_counter() - t_phase:.1f} s; "
+              f"hand-written launches a steady tick: {json.dumps(per_tick)}",
+              flush=True)
+        placed = serve_placement_phase(dev, base, params, params32, mesh, plain)
     finally:
         tdist.destroy_process_group()
-    del params32
-    print(f"continuous phase wall {time.perf_counter() - t_phase:.1f} s; "
-          f"hand-written launches a steady tick: {json.dumps(per_tick)}", flush=True)
-    del params
+    del params32, params
     torch.cuda.empty_cache()
-    return total, per_tick
+    placed["cli"] = serve_placement_cli()
+    print(f"serve placement phase wall "
+          f"{time.perf_counter() - placed['t0']:.1f} s", flush=True)
+    return total, per_tick, placed
 
 
 # ---------------------------------------------------------------------------
@@ -2242,9 +2287,9 @@ def group_sizes_tap(out: list):
     from repro_torch.kernels import ops
     orig = ops.fused_grouped_ffn
 
-    def tap(x, ws, wo, group_sizes, act="swiglu", plan_rows=0):
+    def tap(x, ws, wo, group_sizes, act="swiglu", **plan):
         out.append(group_sizes.detach())
-        return orig(x, ws, wo, group_sizes, act, plan_rows)
+        return orig(x, ws, wo, group_sizes, act, **plan)
     ops.fused_grouped_ffn = tap
     try:
         yield
@@ -4377,8 +4422,10 @@ def placement_phase(dev):
     switch to (a) mid-run gives the unplaced run's next loss, grad norm
     and params bit for bit, and whose monitor resolves
     ``ragged_bound="auto"`` to 0; then ``train --mesh 1x1 --replan_every
-    --ragged_bound auto`` against the same CLI without the hook.  Returns
-    the launches summed over the placed runs and the kernel times."""
+    --ragged_bound auto`` against the same CLI without the hook; and
+    (slice 15, ``placed_psum_train``) the placed psum train step under
+    (a) and (b) against the identity-placed one.  Returns the launches
+    summed over the placed runs and the kernel times."""
     import torch
     import torch.distributed as tdist
     from repro_torch import placement as P
@@ -4480,6 +4527,8 @@ def placement_phase(dev):
                 torch.cuda.empty_cache()
             del g_u
             torch.cuda.empty_cache()
+        placed_psum_train(dev, base, mesh, batch, params, (plan_a, plan_b),
+                          counted)
         placement_drops(dev, base, mesh, batch, params, plan_c, counted)
         del params
         torch.cuda.empty_cache()
@@ -4494,6 +4543,68 @@ def placement_phase(dev):
     print(f"placement phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return totals, kernel_times
+
+
+def placed_psum_train(dev, base, mesh, batch, params, plans, counted):
+    """(slice 15) The placed psum train step (fused/ragged, token axes
+    ("data",) over the 1x1 mesh): the step-0 loss and every gradient leaf,
+    mapped back to logical order, under plans (a) and (b) against the
+    identity-placed step's (the slot-wise reduction too): under (a) bit
+    for bit, under (b) the loss and the non-expert leaves bit for bit and
+    the expert leaves within PLACE_EXPERT_L2; the shadowed launch counted
+    (every expert kernel twice as often under (b))."""
+    import torch
+    from repro_torch import placement as P
+    from repro_torch.core import fmoe
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = with_dispatch(base, "ragged")
+    psum = fmoe.DistConfig(mesh, ("data",))
+    ident = P.identity_per_layer(E, 1, base.num_layers)
+
+    def step(dist):
+        return train.loss_and_grads(params, cfg, batch, impl="fused",
+                                    device=dev, dist=dist)
+    (loss_i, _, g_i), runs_i = counted(
+        lambda: step(psum._replace(placement=ident)))
+    paths = [p for p, _ in leaf_paths(g_i)]
+    expert = {i for i, p in enumerate(paths) if "/experts/" in p}
+    for label, plan in zip(("a", "b"), plans):
+        P.from_logical(params, plan)
+        (loss_p, _, g_p), runs = counted(
+            lambda: step(psum._replace(placement=plan)))
+        P.to_logical(params, plan)
+        P.to_logical(g_p, plan)
+        pairs = list(zip(tree_leaves(g_p), tree_leaves(g_i)))
+        unequal = {i for i, (u, v) in enumerate(pairs) if not torch.equal(u, v)}
+        worst = max(_grad_dists(*zip(*pairs))[i] for i in expert)
+        may_differ = expert if label == "b" else set()
+        ratio = {k: runs[k] / runs_i[k] for k in
+                 ("fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw")}
+        print(f"placement psum fused/ragged plan ({label}) 1x1: step-0 loss "
+              f"{float(loss_p):.6f}, identity-placed {float(loss_i):.6f}, "
+              f"{'equal' if torch.equal(loss_p, loss_i) else 'UNEQUAL'}; "
+              f"{len(pairs) - len(unequal)} of {len(pairs)} gradient leaves "
+              f"bit-equal after to_logical (rule: all"
+              f"{' but the expert leaves' if may_differ else ''}); expert "
+              f"leaves' relative L2 max {worst:.2e}; expert kernel launches / "
+              f"identity-placed {json.dumps(ratio)}; combine_topk "
+              f"{runs['combine_topk']} (identity-placed "
+              f"{runs_i['combine_topk']})", flush=True)
+        check(torch.equal(loss_p, loss_i), f"placement psum ({label}): the "
+                                           f"step-0 loss differs")
+        check(unequal <= may_differ, f"placement psum ({label}): gradient "
+              f"leaves differ: {[paths[i] for i in sorted(unequal - may_differ)]}")
+        check(worst <= PLACE_EXPERT_L2, f"placement psum ({label}): expert "
+                                        f"gradients {worst:.2e} away")
+        want = 2 if label == "b" else 1
+        check(all(v == want for v in ratio.values()),
+              f"placement psum ({label}): expert kernel launches {ratio}")
+        del g_p, pairs
+        torch.cuda.empty_cache()
+    del g_i
+    torch.cuda.empty_cache()
 
 
 def placement_drops(dev, base, mesh, batch, params, plan_c, counted):
@@ -4783,6 +4894,290 @@ def placement_cli(dev):
           f"difference of the means {hooked - plain:+.1f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# serving under placement (slice 15): the psum mode's slot-wise reduction,
+# shadowed experts outside it, mid-stream replans, and the serve-time hook
+# ---------------------------------------------------------------------------
+
+# continuous_phase's stream (CB_*) over its 1x1 NCCL mesh in the placed
+# psum mode, on these paths; plans (a) and (b) of placement_plans at the
+# full 12 layers; the switches identity -> (b) after tick 8 and (b) -> (a)
+# after tick 16; the CLI's replan period and its stream (8 requests)
+SP_COMBOS = CB_PSUM
+SP_SWITCH_TICKS = (8, 16)
+SP_REPLAN_EVERY, SP_CLI_REQUESTS = 8, 8
+
+
+def placed_copy(params, plan):
+    """``params`` with fresh expert leaves in ``plan``'s physical order
+    (every other leaf shared)."""
+    from repro_torch import placement as P
+    layers = [{**l, "ffn": {**l["ffn"], "experts": {
+        k: v.clone() for k, v in l["ffn"]["experts"].items()}}}
+        for l in params["layers"]]
+    return P.from_logical({**params, "layers": layers}, plan)
+
+
+def serve_placement_kernels(dev):
+    """The kernels at the placed psum tick's shapes (fastmoe-gpt, 8 slots,
+    top-2: 16 sorted rows over 96 experts, the last PLACE_SHADOW
+    shadowed): the fused FFN on the owned segment (88 groups) and on the
+    shadowed tail (8 groups), each launch planned for the whole buffer's
+    16 rows and 96 experts, its rows bit-equal to the whole launch's; the
+    grouped GEMM on the capacity tick's owned (88 x 8) and shadowed (8 x
+    8) buffers, likewise; and combine_topk at k = 1 (the slot-wise
+    combine: 16 rows, each one slot), bit-equal to its plain version.
+    Each against its plain version, timed beside its bound and the
+    library call where there is one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import dispatch as Dsp
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import token_shuffle as ts
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(PLACE_SEED + 1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+    S, n = PLACE_SHADOW, 2 * CB_SLOTS
+    wi, wo = randn(E, D, H, scale=D ** -0.5), randn(E, H, D, scale=H ** -0.5)
+    ids = routed(CB_SLOTS, 2, 0, dev, experts=E)
+    gs = torch.bincount(ids.reshape(-1), minlength=E).to(torch.int32)
+    lo = int(gs[:E - S].sum())
+    x = randn(n, D)
+    y_whole = ff.fused_ffn(x, (wi,), wo, gs, "gelu")
+    own, tail = torch.zeros_like(x), torch.zeros_like(x)
+    own[:lo], tail[:n - lo] = x[:lo], x[lo:]
+    busy = lambda sizes: int((sizes > 0).sum())  # experts whose weights move
+    C = Dsp.expert_capacity(CB_SLOTS, E, 2, 1.25)
+    xc = randn(E * C, D)
+    caps = torch.full((E,), C, dtype=torch.int32, device=dev)
+    h_whole = gg.grouped_gemm(xc, wi, caps)
+    cases = {
+        ("fused_ffn", "owned"): (
+            lambda: ff.fused_ffn(own, (wi[:E - S],), wo[:E - S], gs[:E - S],
+                                 "gelu", plan_rows=n, plan_groups=E),
+            lambda: ff.fused_ffn_plain(own, (wi[:E - S],), wo[:E - S],
+                                       gs[:E - S], "gelu"),
+            (y_whole[:lo], slice(0, lo)), 2 * lo * D * H * 2,
+            4 * n * D + busy(gs[:E - S]) * 2 * D * H * 2, None),
+        ("fused_ffn", "shadow"): (
+            lambda: ff.fused_ffn(tail, (wi[E - S:],), wo[E - S:], gs[E - S:],
+                                 "gelu", plan_rows=n, plan_groups=E),
+            lambda: ff.fused_ffn_plain(tail, (wi[E - S:],), wo[E - S:],
+                                       gs[E - S:], "gelu"),
+            (y_whole[lo:], slice(0, n - lo)), 2 * (n - lo) * D * H * 2,
+            4 * n * D + busy(gs[E - S:]) * 2 * D * H * 2, None),
+        ("grouped_gemm", "owned"): (
+            lambda: gg.grouped_gemm(xc[:(E - S) * C], wi[:E - S], caps[:E - S]),
+            lambda: gg.grouped_gemm_plain(xc[:(E - S) * C], wi[:E - S],
+                                          caps[:E - S]),
+            (h_whole[:(E - S) * C], slice(None)), 2 * (E - S) * C * D * H,
+            2 * (E - S) * (C * D + D * H + C * H),
+            grouped_mm_call(xc[:(E - S) * C], wi[:E - S],
+                            torch.cumsum(caps[:E - S], 0, dtype=torch.int32))),
+        ("grouped_gemm", "shadow"): (
+            lambda: gg.grouped_gemm(xc[(E - S) * C:], wi[E - S:], caps[:S]),
+            lambda: gg.grouped_gemm_plain(xc[(E - S) * C:], wi[E - S:],
+                                          caps[:S]),
+            (h_whole[(E - S) * C:], slice(None)), 2 * S * C * D * H,
+            2 * S * (C * D + D * H + C * H),
+            grouped_mm_call(xc[(E - S) * C:], wi[E - S:],
+                            torch.cumsum(caps[:S], 0, dtype=torch.int32))),
+    }
+    rows = torch.randperm(n, generator=g, device=dev).to(torch.int32)[:, None]
+    w = torch.rand(n, 1, generator=g, device=dev).to(torch.bfloat16)
+    cases[("combine_topk", "k=1")] = (
+        lambda: ts.combine_topk(y_whole, rows, w),
+        lambda: ts.combine_topk_plain(y_whole, rows, w),
+        None, n * D, 2 * (2 * n * D) + 6 * n,
+        lambda: F.embedding_bag(rows, y_whole, per_sample_weights=w,
+                                mode="sum"))
+    out = {}
+    for (name, part), (kern, plain, want, flops, nbytes, lib) in cases.items():
+        got = kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = close(f"serve placement {name} {part}", got, ref,
+                    KERNEL_TOL["bfloat16"])
+        if want is not None:
+            check(torch.equal(got[want[1]], want[0]), f"serve placement "
+                  f"{name} {part}: rows differ from the whole launch's")
+        if name == "combine_topk":
+            check(torch.equal(got, ref), "combine_topk k=1: not bit-equal to "
+                                         "its plain version")
+        ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
+        lib_ms = time_ms(lib, flush) if lib is not None else None
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        out.setdefault(name, {})[part] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, max_abs_err=err)
+        shape = {"fused_ffn": f"16 rows, {'88' if part == 'owned' else '8'} "
+                              f"groups (plan 16 x 96)",
+                 "grouped_gemm": f"{'88' if part == 'owned' else '8'} x {C}",
+                 "combine_topk": "16 rows x 1 slot"}[name]
+        print(f"kernel {name:16s} serve placement {part} {shape} bf16: "
+              f"{ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plain "
+              f"{plain_ms:.4f} ms  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; max |err| "
+              f"{err:.3e}" + ("; rows bit-equal to the whole launch's"
+                              if want is not None else "; bit-equal"
+                              if name == "combine_topk" else ""), flush=True)
+    del flush
+    return out
+
+
+def serve_placement_phase(dev, base, params, params32, mesh, plain):
+    """Serving under placement (ROADMAP §1 item 5) on continuous_phase's
+    params (full-width 12-layer fastmoe-gpt, bf16), stream (CB_*) and 1x1
+    NCCL mesh, in the placed psum mode, for SP_COMBOS: (i) each request's
+    tokens under the identity per-layer plan (the slot-wise reduction),
+    plan (a) (a seeded permutation per layer) and plan (b) ((a) with
+    PLACE_SHADOW shadowed experts outside the all-reduce), each a main path
+    of its own (counters at 0 just before, read just after), bit-equal to
+    the identity-placed run's; (ii) the identity run switched to (b) after
+    tick 8 and to (a) after tick 16 (``apply_placement``: the params
+    migrated in place, ms printed), bit-equal as well; (iii) the first
+    tick's logits under (b) (kernel path and bf16 einsum floor on the
+    slot-wise path) against the f32 einsum oracle by the SERVE_* slack, and
+    the placed tokens' agreement with the plain psum run's (``plain``);
+    (iv) a steady tick in turns (median of CB_ROUNDS) of the plain psum,
+    identity-placed and (b) batchers, and one profiled tick of each.
+    ``plain``: the plain psum runs' tokens by (impl, dispatch).  Returns
+    the launches, the profiled ticks' launches and the kernel rows
+    (``serve_placement_kernels``)."""
+    import torch
+    from repro_torch import placement as P
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    from repro_torch.launch.serve import request_stream
+    from repro_torch.launch.serve_api import ServeConfig
+
+    t0 = time.perf_counter()
+    kernels = serve_placement_kernels(dev)
+    L = base.num_layers
+    plan_a, plan_b, _ = placement_plans(L)
+    ident = P.identity_per_layer(E, 1, L)
+    plans = {"identity": ident, "a": plan_a, "b": plan_b}
+    scfg = ServeConfig(slots=CB_SLOTS, block_size=CB_BLOCK, max_len=CB_MAX_LEN)
+    kw = dict(prompt_len=CB_PROMPT, gen=CB_GEN)
+    total = {k: 0 for k in counters()}
+    per_tick = {}
+    for impl, dispatch in SP_COMBOS:
+        cfg = with_dispatch(base, dispatch)
+        runs = {}
+        for label, plan in (*plans.items(), ("switched", ident)):
+            p = params if label == "identity" else placed_copy(params, plan)
+            switches = ((zip(SP_SWITCH_TICKS, (plan_b, plan_a)))
+                        if label == "switched" else ())
+            runs[label] = run_continuous(
+                f"{impl}/{dispatch} placed ({label}) psum 1x1", p, cfg, scfg,
+                impl, dev, mesh=mesh, requests=CB_REQUESTS, placement=plan,
+                switches=tuple(switches), **kw)
+            for k, v in runs[label][2].items():
+                total[k] += v
+            del p
+            torch.cuda.empty_cache()
+        ref = runs["identity"][0]
+        first = {}
+        for label in ("a", "b", "switched"):
+            got = runs[label][0]
+            bad = [(i, j) for i in sorted(ref) for j, (u, v) in
+                   enumerate(zip(ref[i], got[i])) if u != v]
+            first[label] = bad[0] if bad else None
+        n_tok = sum(len(v) for v in ref.values())
+        agree = sum(u == v for i in ref for u, v in
+                    zip(ref[i], plain[(impl, dispatch)][i])) / n_tok
+        print(f"serve placement {impl}/{dispatch} psum 1x1, {CB_REQUESTS} "
+              f"requests, {n_tok} tokens: plans (a), (b) and the switches "
+              f"identity->(b)->(a) after ticks {SP_SWITCH_TICKS} against the "
+              f"identity plan: first differing (request, token) "
+              f"{json.dumps(first)} (null: bit-equal); tok/s "
+              + ", ".join(f"{k} {v[1]['tok_s']:.1f}" for k, v in runs.items())
+              + f"; migrations {' '.join(f'{v:.1f}' for v in runs['switched'][4])}"
+              f" ms; placed (slot-wise) tokens equal to the plain psum run's "
+              f"(combined reduction) {agree:.4f}", flush=True)
+        check(all(v is None for v in first.values()),
+              f"serve placement {impl}/{dispatch}: tokens differ from the "
+              f"identity plan's at {first}")
+        # (iii) the first tick's logits under (b)
+        pb = placed_copy(params, plan_b)
+        b = ContinuousBatcher(pb, cfg, scfg, mesh=mesh, impl=impl, device=dev,
+                              placement=plan_b)
+        for r in request_stream(cfg, num_requests=CB_SLOTS, **kw):
+            b.submit(r)
+        b._admit()
+        tick_logits(f"{impl}/{dispatch} placed (b) psum 1x1, first tick", b,
+                    params32)
+        del b
+        # (iv) steady ticks in turns: plain psum, identity-placed, (b)
+        race = {name: filled(p, cfg, scfg, impl, dev, mesh=mesh, placement=pl,
+                             **kw)
+                for name, p, pl in (("plain psum", params, None),
+                                    ("identity", params, ident),
+                                    ("b", pb, plan_b))}
+        med = tick_race(f"fastmoe-gpt {impl}/{dispatch} placed psum 1x1", race)
+        for name, bt in race.items():
+            per_tick[f"{impl}/{dispatch} placed psum 1x1 {name}"] = \
+                profile_tick(f"{impl}/{dispatch} placed psum 1x1 {name}", bt)
+        print(f"serve placement {impl}/{dispatch}: a steady tick identity "
+              f"{med['identity'] - med['plain psum']:+.2f} ms, (b) "
+              f"{med['b'] - med['plain psum']:+.2f} ms against the plain psum "
+              f"tick ({med['plain psum']:.2f} ms)", flush=True)
+        del race, pb
+        torch.cuda.empty_cache()
+    print(f"main path launches (placed continuous serving, psum 1x1): "
+          f"{json.dumps(total)}", flush=True)
+    return dict(launches=total, per_tick=per_tick, kernels=kernels, t0=t0)
+
+
+def serve_placement_cli():
+    """``serve --continuous --mesh 1x1 --replan_every SP_REPLAN_EVERY`` on
+    fused/ragged (full width, SP_CLI_REQUESTS requests of the CB_* stream)
+    and the same without the hook, in turns (hook, none), in this process
+    over a world-size-1 NCCL group on localhost (the CLI's own init): the
+    hook's run records no replan (at one rank the planner keeps the
+    identity) and both print their tok/s."""
+    import contextlib as cl
+    import io
+    import os
+    import socket
+    import torch
+    from repro_torch.launch import serve
+
+    common = ["--arch", "fastmoe-gpt", "--continuous", "--mesh", "1x1",
+              "--impl", "fused", "--dispatch", "ragged", "--slots",
+              str(CB_SLOTS), "--block_size", str(CB_BLOCK), "--max_len",
+              str(CB_MAX_LEN), "--prompt_len", str(CB_PROMPT), "--gen",
+              str(CB_GEN), "--requests", str(SP_CLI_REQUESTS)]
+    rates = {}
+    for label, extra in (("with the hook", ["--replan_every",
+                                            str(SP_REPLAN_EVERY)]),
+                         ("without", [])):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            serve.main(common + extra)
+        line = buf.getvalue().splitlines()[0]
+        rates[label] = float(line.split(" tok/s")[0].rsplit("(", 1)[1])
+        replans = line.rsplit("replans=", 1)[1]
+        print(f"serve placement CLI {label} ({' '.join(extra) or 'no hook'}): "
+              f"{line}", flush=True)
+        check(f"{SP_CLI_REQUESTS} requests" in line and replans == "0",
+              f"serve placement CLI {label}: {line}")
+        torch.cuda.empty_cache()
+    print(f"serve placement CLI in turns (hook, none): "
+          f"{rates['with the hook']:.1f} vs {rates['without']:.1f} tok/s",
+          flush=True)
+    return rates
+
+
 def tp_shards(bwd_timed, name):
     """A kernel's times at the hidden shards of expert-internal tensor
     parallelism (the training rows' capacity buffer), where timed."""
@@ -4846,7 +5241,7 @@ def main() -> int:
           "nodes < ranks, at least 4 ranks, and this machine has one card "
           "(the CPU tests hold it over gloo)", flush=True)
     init_phase(dev)
-    cb_launches, cb_tick = continuous_phase(dev)
+    cb_launches, cb_tick, served = continuous_phase(dev)
     routing_ms = model_routing_phase(dev, routing)
     grad_oracle_phase(dev)
     starcoder2_logits_phase(dev)
@@ -4866,8 +5261,10 @@ def main() -> int:
                "arctic-480b serving": arctic_launches,
                **{f"{n} serving": v for n, v in dense_launches.items()},
                "fastmoe-gpt placed training (1x1, step 0: plans a and b "
-               "in a2a, a locally on fused/ragged)":
-                   place_launches}
+               "in a2a and the psum mode, a locally on fused/ragged)":
+                   place_launches,
+               "fastmoe-gpt placed continuous serving (psum 1x1: identity, "
+               "a, b, switched)": served["launches"]}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4902,7 +5299,8 @@ def main() -> int:
                                  "deepseek-v2-236b training":
                                      dst_launches[name]},
             "launches_per_tick": {**{f"fastmoe-gpt {k}": v.get(name, 0)
-                                     for k, v in cb_tick.items()},
+                                     for k, v in {**cb_tick,
+                                                  **served["per_tick"]}.items()},
                                   "deepseek-v2-236b fused/ragged paged":
                                       dsc_tick.get(name, 0)},
             "max_abs_err": errs[(name, "bfloat16", "decode")],
@@ -4914,6 +5312,8 @@ def main() -> int:
                else {}),
             **({"placement": place_kernels[name]} if name in place_kernels
                else {}),
+            **({"serve_placement": served["kernels"][name]}
+               if name in served["kernels"] else {}),
             **tp_shards(bwd_timed, name), **chunk_rows(chunk_ms, name)})
     for name, rep in (("fused_ffn_bwd_dx", "src/repro/kernels/fused_ffn_bwd.py:190"),
                       ("fused_ffn_bwd_dw", "src/repro/kernels/fused_ffn_bwd.py:228")):

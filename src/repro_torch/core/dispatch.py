@@ -121,6 +121,24 @@ def combine_capacity(out_buf: torch.Tensor, plan: CapacityPlan,
     return torch.einsum("tk,tkd->td", w, gathered)
 
 
+def combine_capacity_slots(out_buf: torch.Tensor, plan: CapacityPlan,
+                           combine_weights: torch.Tensor) -> torch.Tensor:
+    """The per-slot weighted expert outputs (T, k, dout), no sum over k.
+
+    The placed psum mode reduces these over the ranks *before* summing a
+    token's k slots in a fixed order, so the result does not depend on
+    which rank served a slot: a k-sum on a rank (``combine_capacity``'s
+    einsum) may fuse a token's two co-located slots into one rounding.
+    Here every slot's product is rounded once, on whichever rank computes
+    it, and the sum over k is the same everywhere."""
+    T, k = plan.expert_ids.shape
+    E, _, dout = out_buf.shape
+    padded = torch.cat([out_buf, out_buf.new_zeros(E, 1, dout)], dim=1)
+    gathered = padded[plan.expert_ids.reshape(-1), plan.positions.reshape(-1)]
+    w = (combine_weights * plan.keep).to(gathered.dtype)
+    return w[:, :, None] * gathered.reshape(T, k, dout)
+
+
 # ---------------------------------------------------------------------------
 # Ragged (sorted) dispatch — FastMoE-faithful, no drops
 # ---------------------------------------------------------------------------
@@ -160,6 +178,21 @@ def combine_ragged(y_sorted: torch.Tensor, plan: RaggedPlan,
     first, as the JAX einsum does; the kernel reads them as they are."""
     return ops.combine_tokens(y_sorted, plan.slot_rows,
                               combine_weights.to(y_sorted.dtype))
+
+
+def combine_ragged_slots(y_sorted: torch.Tensor, plan: RaggedPlan,
+                         combine_weights: torch.Tensor) -> torch.Tensor:
+    """The ragged counterpart of :func:`combine_capacity_slots`: the
+    un-sorted per-slot weighted outputs (T, k, dout), the sum over k left
+    to the caller.  The ``combine_topk`` kernel at k = 1, one (token,
+    slot) a row: row ``t * k + j`` reads sorted row ``plan.slot_rows[t,
+    j]`` times ``w[t, j]``, multiplied in f32 and rounded once, which is
+    the rounded product of the two (a product of two bf16 values is exact
+    in f32)."""
+    T, k = combine_weights.shape
+    w = combine_weights.to(y_sorted.dtype).reshape(T * k, 1)
+    rows = ops.combine_tokens(y_sorted, plan.slot_rows.reshape(T * k, 1), w)
+    return rows.reshape(T, k, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +356,18 @@ def merge_outputs(out_main: torch.Tensor, out_shadow, spec: ShadowSpec
     out[:spec.num_owned, :spec.main_capacity] = out_main
     if out_shadow is not None and spec.num_shadow:
         out[spec.num_owned:, :spec.shadow_capacity] = out_shadow
+    return out
+
+
+def shadow_only(out_shadow: torch.Tensor, spec: ShadowSpec) -> torch.Tensor:
+    """(S, shadow_capacity, dout) shadow outputs alone in a zeroed (E,
+    width, dout) combine buffer: the placed psum mode's local addend.  The
+    shadowed slots are left out of the reduction over the ranks and taken
+    from this buffer instead (every rank of a model group holds the same
+    tokens, so it is the same on each of them)."""
+    out = out_shadow.new_zeros(spec.num_experts, spec.width,
+                               out_shadow.shape[-1])
+    out[spec.num_owned:, :spec.shadow_capacity] = out_shadow
     return out
 
 

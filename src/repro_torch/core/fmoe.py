@@ -26,10 +26,12 @@ two-level (``node_axis``).
 
 Under an expert placement (``DistConfig.placement``, ``repro_torch.
 placement``) the expert stacks are in the plan's physical order and the
-gate's logical ids go through its table; in the a2a mode the shadowed hot
-experts (the physical tail, replicated on every rank after its owned
-block) are computed on the rank's own rows, outside the exchange, in its
-first wire bubble.  The loads come back in logical order.
+gate's logical ids go through its table; the shadowed hot experts (the
+physical tail, replicated on every rank after its owned block) are
+computed on the rank's own rows: in the a2a mode outside the exchange, in
+its first wire bubble, and in the psum mode outside the all-reduce, which
+then reduces each (token, slot) apart so the output does not depend on
+the layout.  The loads come back in logical order.
 """
 from __future__ import annotations
 
@@ -108,9 +110,10 @@ class DistConfig(NamedTuple):
         shrunk) capacity.  At the model level it may be a
         ``PerLayerPlacement``; ``models.lm`` splits it into the shared
         geometry (which rides here) and each layer's table
-        (``fmoe_apply``'s ``l2p``).  The psum mode refuses a placement
-        (ROADMAP §1 item 5), and shadowing refuses ``tp_axis``, as the
-        reference does.
+        (``fmoe_apply``'s ``l2p``).  In the psum mode the shadowed experts
+        run on every rank outside the all-reduce, which turns slot-wise
+        (bit for bit the same output under any layout).  Shadowing refuses
+        ``tp_axis``, as the reference does.
 
     The reference's ``fsdp_axis`` is carried so that a caller's setting is
     refused, never ignored: it raises ``NotImplementedError`` unless left
@@ -179,8 +182,7 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
     reference's options: ``expert_tp`` (``tp_axis="data"``),
     ``overlap_chunks``, ``wire_dtype``, ``ragged_bound`` and
     ``inter_bound``, all in the a2a mode; the psum fallbacks leave them
-    unset.  ``placement`` rides on every mode (the psum mode refuses it in
-    ``fmoe_apply``, ROADMAP §1 item 5).
+    unset.  ``placement`` rides on every mode.
 
     ``ragged_bound="auto"`` sizes the ragged shards from ``load_monitor``'s
     EMAs (``LoadMonitor.suggest_ragged_bound``, drop-guarded; and on a node
@@ -248,9 +250,8 @@ def _check_dist(dist: DistConfig) -> None:
 
 def _check_placement(place, cfg: MoEConfig, dist: DistConfig) -> None:
     """Refuse a plan this layer cannot run: a per-layer plan (split by
-    ``models.lm``), another expert count or rank count, the psum mode
-    (ROADMAP §1 item 5), shadowing with ``tp_axis``, or owned experts that
-    do not split over the ranks."""
+    ``models.lm``), another expert count or rank count, shadowing with
+    ``tp_axis``, or owned experts that do not split over the ranks."""
     if hasattr(place, "geometry"):  # a PerLayerPlacement
         raise TypeError(
             "fmoe_apply applies one layer; split a PerLayerPlacement into its "
@@ -261,11 +262,6 @@ def _check_placement(place, cfg: MoEConfig, dist: DistConfig) -> None:
                          f"has {cfg.num_experts}")
     if dist.mesh is None:
         return
-    if dist.mode == "psum":
-        raise NotImplementedError(
-            "a placement in the psum mode (the slot-wise reduction, shadowed "
-            "experts outside it) is ROADMAP §1 item 5, not ported to "
-            "repro_torch yet")
     mp = dist.expert_parallelism
     if place.num_ranks != mp:
         raise ValueError(f"placement built for {place.num_ranks} ranks, mesh "
@@ -398,16 +394,17 @@ def expert_ffn_pallas(params: dict, xs: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def expert_ffn_fused(params: dict, xs: torch.Tensor, act: str, *,
-                     plan_rows: int = 0) -> torch.Tensor:
+                     plan_rows: int = 0, plan_groups: int = 0) -> torch.Tensor:
     """expert_fn backed by the fused GEMM1+act+GEMM2 kernel: the (M, H)
-    hidden activation never reaches device memory.  ``plan_rows``: the
-    rows the kernels plan their hidden split for (0 = the E * n given;
-    the §5.2 schedule's micro-shards pass the whole buffer's)."""
+    hidden activation never reaches device memory.  ``plan_rows`` and
+    ``plan_groups``: the rows and experts the kernels plan their hidden
+    split for (0 = the E * n and E given; the §5.2 schedule's micro-shards
+    and the placed psum mode's launches pass the whole buffer's)."""
     E, n, d = xs.shape
     flat = xs.reshape(E * n, d)
     ys = ops.fused_grouped_ffn(flat, _expert_ws(params, act), params["wo"],
                                _equal_sizes(E, n, xs.device), act,
-                               plan_rows=plan_rows)
+                               plan_rows=plan_rows, plan_groups=plan_groups)
     return ys.reshape(E, n, -1)
 
 
@@ -430,9 +427,11 @@ def ragged_ffn_two_pass(params: dict, xs: torch.Tensor,
 
 
 def ragged_ffn_fused(params: dict, xs: torch.Tensor, group_sizes: torch.Tensor,
-                     act: str, *, plan_rows: int = 0) -> torch.Tensor:
+                     act: str, *, plan_rows: int = 0,
+                     plan_groups: int = 0) -> torch.Tensor:
     return ops.fused_grouped_ffn(xs, _expert_ws(params, act), params["wo"],
-                                 group_sizes, act, plan_rows=plan_rows)
+                                 group_sizes, act, plan_rows=plan_rows,
+                                 plan_groups=plan_groups)
 
 
 def _ragged_einsum(params, xs, group_sizes, act):
@@ -936,13 +935,26 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     return y, _dist_metrics(dist, gs, aux, z, dropped / n, E, table)
 
 
+def _psum_fns(impl: str, expert_fn: Callable, rows: int, groups: int):
+    """The psum mode's (ragged, capacity) expert functions: for ``fused``
+    every launch (the rank's owned segment, the shadowed tail) plans its
+    hidden split for the whole buffer's ``rows`` and ``groups``, so a
+    row's sums do not depend on which launch holds its expert."""
+    if impl != "fused":
+        return RAGGED_FNS[impl], expert_fn
+    return (functools.partial(ragged_ffn_fused, plan_rows=rows,
+                              plan_groups=groups),
+            functools.partial(expert_ffn_fused, plan_rows=rows,
+                              plan_groups=groups))
+
+
 def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
               act: str, expert_fn: Callable, dist: DistConfig,
-              impl: str = "einsum", noise_seed=None):
+              impl: str = "einsum", noise_seed=None, shadow=None, table=None):
     """Tokens not sharded over the expert axis (decode, and batches that do
     not split over every rank): every rank gates all of its tokens,
-    computes only its own experts, and one all-reduce (SUM) of the combined
-    (t, d) over the model group adds the ranks' parts.  No all-to-all.
+    computes only its own experts, and one all-reduce (SUM) over the model
+    group adds the ranks' parts.  No all-to-all.
 
     capacity: the rank's (E_local, C, d) slice of the dispatch buffer, its
     output placed in an otherwise zero (E, C, d) buffer for the combine;
@@ -950,102 +962,178 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     to offset 0 (``scatter_rows``) for the grouped kernels on the rank's
     group sizes (rows past them come out zero) and back
     (``gather_rows_fill``) — dropless, as the local path.  load, drop_frac,
-    aux and z are the means over ``token_axes``.  At world size 1 this is
-    the local path bit for bit: the segment is every row at offset 0 and
-    the all-reduce of a one-rank group is an identity.
+    aux and z are the means over ``token_axes`` (the load averaged in
+    physical order, then put in logical order).  At world size 1 with no
+    placement this is the local path bit for bit: the segment is every row
+    at offset 0 and the all-reduce of a one-rank group is an identity.
+
+    Under a placement (``table`` the gate-id table, ``experts`` the rank's
+    block of the owned experts, ``shadow`` the shadowed ones): the owned
+    experts form rank blocks of ``num_owned // mp``; the shadowed experts
+    run on every rank on its own (identical) tokens, from its replicas,
+    and are added *after* the all-reduce.  The reduction is then slot-wise:
+    the per-slot weighted outputs (``combine_*_slots``, each rounded once,
+    on whichever rank serves the slot) are all-reduced, the shadow addend
+    added, and the k slots summed in a fixed order, so no rounding sees
+    which rank served a slot: permuting or shadowing experts leaves the
+    output bit for bit as it was.  Without a placement the cheaper combined
+    (t, d) all-reduce stays (the slot-wise one carries k times the
+    payload).  The capacity branch keeps the full capacity C whatever the
+    plan's shrink: there is no wire here, so a smaller buffer would only
+    drop rows.
 
     Training: the all-reduce's backward sums the ranks' gradients of ``y``,
-    so each model rank's experts, router and upstream take M times their
-    part of its data block's gradient (M ranks in the model group hold the
-    same loss); aux and z keep the rank's own gradient.  ``core.sync``'s
-    sum over the world (experts: over data) divided by the world size is
-    then the mean over the data blocks, as in the a2a mode."""
+    so each model rank's owned experts, router and upstream take M times
+    their part of its data block's gradient (M ranks in the model group
+    hold the same loss), the shadow path once on each of the M ranks; aux
+    and z keep the rank's own gradient.  ``core.sync``'s sum over the world
+    (owned experts: over data) divided by the world size is then the mean
+    over the data blocks, as in the a2a mode."""
     mp = dist.expert_parallelism
     m = dist.mesh.axis_index(dist.expert_axes)
     E = cfg.num_experts
-    E_local = E // mp
+    place = dist.placement
+    E_ns = E if place is None else place.num_owned  # the rest: shadowed
+    E_local = E_ns // mp
     mine = slice(m * E_local, (m + 1) * E_local)
     t = x.shape[0]
     if cfg.router == "expert_choice":
         return _moe_psum_ec(x, router, experts, cfg, act, expert_fn, dist,
-                            impl)
+                            impl, shadow, table)
     g = route_tokens(router, x, cfg, noise_seed=noise_seed,
                      noise_rows=_noise_rows(dist, t))
+    expert_ids = g.expert_ids if table is None else table[g.expert_ids]
+    group = dist.mesh.group(dist.expert_axes)
+    # the layout-invariant slot-wise reduction only under a placement
+    slotwise = table is not None or bool(shadow)
     if cfg.dispatch == "ragged":
         n = t * cfg.top_k
-        plan = D.make_ragged_plan(g.expert_ids, E)
+        ragged_fn, _ = _psum_fns(impl, expert_fn, n, E)
+        plan = D.make_ragged_plan(expert_ids, E)
         x_sorted = D.dispatch_ragged(x, plan)  # (n, d), the gather_rows kernel
-        gs_local = plan.group_sizes[mine]
-        # each sorted row's place in this rank's segment; n (dropped) outside
-        d = torch.arange(n, device=x.device) - plan.group_sizes[:m * E_local].sum()
-        dest = torch.where((d >= 0) & (d < gs_local.sum()), d, n)
-        ys = RAGGED_FNS[impl](experts, D.scatter_rows(x_sorted, dest, n),
-                              gs_local, act)
-        y = D.combine_ragged(D.gather_rows_fill(ys, dest), plan,
-                             g.combine_weights)
-        load, drop = load_metrics(plan.group_sizes, None, n)
+        gs = plan.group_sizes
+        offs = torch.cumsum(gs, 0) - gs  # each expert's first sorted row
+        i = torch.arange(n, device=x.device)
+
+        def segment(lo, count):  # sorted rows [lo, lo + count) -> [0, count)
+            return torch.where((i >= lo) & (i < lo + count), i - lo, n)
+
+        dest = segment(offs[m * E_local], gs[mine].sum())
+        ys = ragged_fn(experts, D.scatter_rows(x_sorted, dest, n), gs[mine],
+                       act)
+        y_sorted = D.gather_rows_fill(ys, dest)
+        if slotwise:
+            c = comm.all_reduce_sum(
+                D.combine_ragged_slots(y_sorted, plan, g.combine_weights),
+                group)
+            if shadow:  # the sorted tail [offs[E_ns], n), at offset 0
+                dest_sh = segment(offs[E_ns], n)
+                ys_sh = ragged_fn(shadow, D.scatter_rows(x_sorted, dest_sh, n),
+                                  gs[E_ns:], act)
+                c = c + D.combine_ragged_slots(
+                    D.gather_rows_fill(ys_sh, dest_sh), plan,
+                    g.combine_weights)
+            y = c.sum(1)
+        else:
+            y = comm.all_reduce_sum(
+                D.combine_ragged(y_sorted, plan, g.combine_weights), group)
+        load, drop = load_metrics(gs, None, n)
     else:
         C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
-        plan = D.make_capacity_plan(g.expert_ids, E, C)
-        buf = D.dispatch_capacity(x, plan, E)  # (E, C, d)
-        out_local = expert_fn(experts, buf[mine], act)
+        _, cap_fn = _psum_fns(impl, expert_fn, E * C, E)
+        # the full capacity for every expert: no wire, so no shrink
+        spec = D.shadow_spec(place, E, C)._replace(main_capacity=C)
+        plan = D.make_capacity_plan(expert_ids, E, C)
+        buf_main, buf_shadow = D.split_buffer(D.dispatch_capacity(x, plan, E),
+                                              spec)  # (E, C, d) scatter
+        out_local = cap_fn(experts, buf_main[mine], act)
         out = out_local.new_zeros(E, C, out_local.shape[-1])
-        out[mine] = out_local
-        y = D.combine_capacity(out, plan, g.combine_weights)
+        out[mine] = out_local  # the shadowed slots stay zero here
+        if slotwise:
+            c = comm.all_reduce_sum(
+                D.combine_capacity_slots(out, plan, g.combine_weights), group)
+            if shadow:
+                out_sh = cap_fn(shadow, buf_shadow, act)
+                c = c + D.combine_capacity_slots(D.shadow_only(out_sh, spec),
+                                                 plan, g.combine_weights)
+            y = c.sum(1)
+        else:
+            y = comm.all_reduce_sum(
+                D.combine_capacity(out, plan, g.combine_weights), group)
         load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
-    y = comm.all_reduce_sum(y, dist.mesh.group(dist.expert_axes))
     return y, _psum_metrics(dist, MoEMetrics(_aux_loss(router, x, g, cfg),
                                              router_z_loss(g.logits), load,
-                                             drop))
+                                             drop), table)
 
 
-def _psum_metrics(dist: DistConfig, m: MoEMetrics) -> MoEMetrics:
+def _psum_metrics(dist: DistConfig, m: MoEMetrics, table=None) -> MoEMetrics:
     """The psum mode's metrics: the means over the token ranks, in one
-    all-reduce (aux and z keep the rank's own gradient)."""
+    all-reduce (aux and z keep the rank's own gradient); the load, given
+    in physical order, comes back in logical order (``table``)."""
     ranks = dist.mesh.axes_size(dist.token_axes)
     if ranks == 1:
-        return m
+        return m._replace(load=_logical(m.load, table))
     E = m.load.shape[0]
     red = torch.cat([m.load, torch.stack([m.aux_loss, m.z_loss, m.drop_frac])
                      .detach().float()])
     torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
     red = red / ranks
     return MoEMetrics(_keep_grad(m.aux_loss, red[E]),
-                      _keep_grad(m.z_loss, red[E + 1]), red[:E], red[E + 2])
+                      _keep_grad(m.z_loss, red[E + 1]),
+                      _logical(red[:E], table), red[E + 2])
 
 
 def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
                  cfg: MoEConfig, act: str, expert_fn: Callable,
-                 dist: DistConfig, impl: str = "einsum"):
+                 dist: DistConfig, impl: str = "einsum", shadow=None,
+                 table=None):
     """Expert-choice in the psum mode: every rank of the model group routes
     the same tokens to the same (E, C) grid, computes its own experts' rows
     of it (zeros elsewhere), and one all-reduce of the grid over the model
-    group adds the disjoint blocks (exact: the other ranks add zeros); the
-    combine then runs in logical order, as the local path's."""
+    group adds the disjoint blocks (exact: the other ranks add zeros).
+    Under a placement the grid is in physical order (``table``), the
+    all-reduce carries the owned experts' rows, and the shadowed experts'
+    rows, computed on every rank, are appended outside it; the combine
+    then runs in logical order, as the local path's, so the result does
+    not depend on the layout."""
     mp = dist.expert_parallelism
     m = dist.mesh.axis_index(dist.expert_axes)
     E = cfg.num_experts
-    E_local = E // mp
+    place = dist.placement
+    E_ns = E if place is None else place.num_owned
+    E_local = E_ns // mp
     mine = slice(m * E_local, (m + 1) * E_local)
     t = x.shape[0]
-    C, token_idx, _, ec_w, logits = _ec_route(router, x, cfg)
+    C, token_idx, ti_phys, ec_w, logits = _ec_route(router, x, cfg, table)
     group = dist.mesh.group(dist.expert_axes)
+    ragged_fn, cap_fn = _psum_fns(impl, expert_fn, E * C, E)
     if cfg.dispatch == "ragged":
         n = E * C
-        x_sorted = D.gather_ec(x, token_idx.reshape(-1))  # (n, d)
-        i = torch.arange(n, device=x.device) - m * E_local * C
-        dest = torch.where((i >= 0) & (i < E_local * C), i, n)
-        ys = RAGGED_FNS[impl](experts, D.scatter_rows(x_sorted, dest, n),
-                              _ec_uniform(E_local, C, x.device), act)
-        out = comm.all_reduce_sum(D.gather_rows_fill(ys, dest), group)
-        out = out.reshape(E, C, -1)
+        x_sorted = D.gather_ec(x, ti_phys.reshape(-1))  # (n, d)
+        i = torch.arange(n, device=x.device)
+
+        def segment(lo, count):  # rows [lo, lo + count) -> [0, count)
+            return torch.where((i >= lo) & (i < lo + count), i - lo, n)
+
+        dest = segment(m * E_local * C, E_local * C)
+        ys = ragged_fn(experts, D.scatter_rows(x_sorted, dest, n),
+                       _ec_uniform(E_local, C, x.device), act)
+        rows = comm.all_reduce_sum(D.gather_rows_fill(ys, dest), group)
+        if shadow:  # the tail [E_ns * C, n), at offset 0
+            dest_sh = segment(E_ns * C, n)
+            ys_sh = ragged_fn(shadow, D.scatter_rows(x_sorted, dest_sh, n),
+                              _ec_uniform(E - E_ns, C, x.device), act)
+            rows = rows + D.gather_rows_fill(ys_sh, dest_sh)
+        out = rows.reshape(E, C, -1)
     else:
-        buf = D.gather_ec(x, token_idx)  # (E, C, d)
-        out_local = expert_fn(experts, buf[mine], act)
-        out = out_local.new_zeros(E, C, out_local.shape[-1])
+        buf = D.gather_ec(x, ti_phys)  # (E, C, d)
+        out_local = cap_fn(experts, buf[mine], act)
+        out = out_local.new_zeros(E_ns, C, out_local.shape[-1])
         out[mine] = out_local
         out = comm.all_reduce_sum(out, group)
-    y = D.combine_ec(out, token_idx, ec_w, t)
+        if E_ns < E:  # every rank, its own tokens, outside the reduction
+            out = torch.cat([out, cap_fn(shadow, buf[E_ns:], act)])
+    y = D.combine_ec(_logical(out, table), token_idx, ec_w, t)
     return y, _psum_metrics(dist, _ec_metrics(x, logits, E))
 
 
@@ -1064,8 +1152,8 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
 
     ``dist.placement`` (an ``ExpertPlacement``): ``params["experts"]`` are
     in its physical order (on a mesh: the rank's owned block, then the
-    shadowed experts), and routing stays in logical expert space through
-    its table; ``DistConfig.local(placement=plan)`` carries it to the
+    shadowed experts, in the a2a and the psum mode alike), and routing
+    stays in logical expert space through its table; ``DistConfig.local(placement=plan)`` carries it to the
     single-worker path.  ``l2p`` is this layer's logical -> physical table
     when the plan is per-layer (``models.lm`` splits a
     ``PerLayerPlacement`` into the shared geometry on ``dist.placement``
@@ -1110,9 +1198,6 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     if dist is None or dist.mesh is None:
         y, metrics = _moe_local(xf, router, experts, cfg, act, expert_fn,
                                 impl=impl, table=table, **kw)
-    elif dist.mode == "psum":
-        y, metrics = _moe_psum(xf, router, experts, cfg, act, expert_fn, dist,
-                               impl=impl, **kw)
     else:
         shadow = {}
         if place is not None and place.num_shadow:
@@ -1130,7 +1215,10 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
             experts = {k: v[0] for k, v in parts.items()}
             shadow = {k: v[1] for k, v in parts.items()}
         kw.update(shadow=shadow, table=table)
-        if cfg.dispatch == "ragged":
+        if dist.mode == "psum":
+            y, metrics = _moe_psum(xf, router, experts, cfg, act, expert_fn,
+                                   dist, impl=impl, **kw)
+        elif cfg.dispatch == "ragged":
             y, metrics = _moe_a2a_ragged(xf, router, experts, cfg, act, dist,
                                          impl=impl, **kw)
         else:

@@ -105,7 +105,13 @@ def sync_grads(grads, dist):
     hold the same rows and loss, and the all-reduce's backward hands each
     M times its part of that loss's gradient (experts: M times the whole),
     so the SUM over the world (experts: over data) is M times the sum over
-    the data blocks, and / world is their mean."""
+    the data blocks, and / world is their mean.  Under a placement the
+    shadowed experts run outside the all-reduce, once on each of the M
+    ranks on the same rows: each rank's ``shadow`` rows hold its data
+    block's gradient once, so their SUM over the world is again M times
+    the sum over the data blocks, and / world their mean; a ``world``
+    leaf (the router, upstream) takes M times the owned part and M times
+    the shadow part summed over its model group, the same mean."""
     mesh = dist.mesh
     world = mesh.size
     groups = {"world": mesh.group(mesh.axis_names),

@@ -87,14 +87,16 @@ class Plan(NamedTuple):
 
 
 def plan(M: int, E: int, H: int, gated: bool = False,
-         split_rows: int = 0) -> Plan:
+         split_rows: int = 0, split_groups: int = 0) -> Plan:
     """The ring kernel's tiles for M rows over E experts and hidden H.
 
-    ``split_rows`` (0 = M) is the row count the hidden split is planned
-    for: a launch on a part of a larger buffer (a micro-shard of the §5.2
-    schedule) passes the whole buffer's rows, so every row sums the same
-    f32 partials in the same order as in the whole buffer's launch.  The
-    row tile ``bm`` follows M and does not change a row's arithmetic.
+    ``split_rows`` (0 = M) and ``split_groups`` (0 = E) are the row and
+    expert counts the hidden split is planned for: a launch on a part of a
+    larger buffer (a micro-shard of the §5.2 schedule, the owned or the
+    shadowed experts of a placed psum layer) passes the whole buffer's, so
+    every row sums the same f32 partials in the same order as in the
+    whole buffer's launch.  The row tile ``bm`` follows M and E and does
+    not change a row's arithmetic.
 
     ``bm`` is the smallest row tile that holds an expert of average size
     (ceil(M / E) rows, at most 64), so an expert's weights are streamed
@@ -104,16 +106,16 @@ def plan(M: int, E: int, H: int, gated: bool = False,
     per expert the rows can reach (min(M, E)) or per ``bm`` rows, whichever
     is more; each split adds an f32 (M, N) partial to write and read back,
     so no more splits than that."""
-    def row_tile(m):
-        per_group = math.ceil(m / max(E, 1))
+    def row_tile(m, e):
+        per_group = math.ceil(m / max(e, 1))
         return next((b for b in ROW_TILES if b >= per_group), ROW_TILES[-1])
 
-    S = split_rows or M
-    row_tiles = max(math.ceil(S / row_tile(S)), min(S, E), 1)
+    S, G = split_rows or M, split_groups or E
+    row_tiles = max(math.ceil(S / row_tile(S, G)), min(S, G), 1)
     chunks = [c for c in HIDDEN_CHUNKS if not (gated and c > 128)]
     hc = next((c for c in chunks
                if row_tiles * math.ceil(H / c) >= 2 * _build.SMS), chunks[-1])
-    return Plan(row_tile(M), hc, math.ceil(H / hc))
+    return Plan(row_tile(M, E), hc, math.ceil(H / hc))
 
 
 def route(x: torch.Tensor, ws: tuple, wo: torch.Tensor) -> str:
@@ -153,7 +155,7 @@ def _check(what, x, ws, wo, group_sizes, act):
 
 def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                      group_sizes: torch.Tensor, act: str,
-                     plan_rows: int = 0) -> torch.Tensor:
+                     plan_rows: int = 0, plan_groups: int = 0) -> torch.Tensor:
     """The simple kernel (f32 or bf16, any K, H, N): :func:`fused_ffn`'s
     route for f32 and for shapes the ring kernel does not take."""
     M, K, H, N, E = _check("fused_ffn_simple", x, ws, wo, group_sizes, act)
@@ -161,7 +163,7 @@ def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        splits = simple_splits(plan_rows or M, E, H)
+        splits = simple_splits(plan_rows or M, plan_groups or E, H)
         partial = torch.empty(splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None
@@ -178,21 +180,24 @@ def fused_ffn_simple(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
 
 def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
               group_sizes: torch.Tensor, act: str,
-              plan_rows: int = 0) -> torch.Tensor:
+              plan_rows: int = 0, plan_groups: int = 0) -> torch.Tensor:
     """x (M, K); ws (wi,) or (wi_gate, wi_up), each (E, K, H); wo (E, H, N);
-    group_sizes (E,) int32 summing to <= M.  ``plan_rows`` (0 = M): the
-    rows the hidden split is planned for (:func:`plan`'s ``split_rows``).
+    group_sizes (E,) int32 summing to <= M.  ``plan_rows`` (0 = M) and
+    ``plan_groups`` (0 = E): the rows and experts the hidden split is
+    planned for (:func:`plan`'s ``split_rows`` and ``split_groups``).
     ``fused_ffn.launches`` counts every kernel launch,
     ``fused_ffn_simple.launches`` the simple kernel's."""
     if x.device.type == "cpu":
         return fused_ffn_plain(x, ws, wo, group_sizes, act)
     M, K, H, N, E = _check("fused_ffn", x, ws, wo, group_sizes, act)
     if route(x, ws, wo) == "simple":
-        return fused_ffn_simple(x, ws, wo, group_sizes, act, plan_rows)
+        return fused_ffn_simple(x, ws, wo, group_sizes, act, plan_rows,
+                                plan_groups)
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M and N:
         lib = _build.load("fused_ffn", _SIGS)
-        p = plan(M, E, H, gated=len(ws) == 2, split_rows=plan_rows)
+        p = plan(M, E, H, gated=len(ws) == 2, split_rows=plan_rows,
+                 split_groups=plan_groups)
         partial = torch.empty(p.splits, M, N, dtype=torch.float32,
                               device=x.device)
         wu = ws[1].data_ptr() if len(ws) == 2 else None

@@ -205,7 +205,8 @@ def _weights(ws):
     return ws[0].data_ptr(), ws[1].data_ptr() if len(ws) == 2 else None
 
 
-def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act, plan_rows=0):
+def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act, plan_rows=0,
+                            plan_groups=0):
     """The first-version dX kernel (f32 or bf16, any K, H, N):
     :func:`fused_ffn_bwd_dx`'s route for f32 and for shapes the ring kernel
     does not take."""
@@ -214,7 +215,7 @@ def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act, plan_rows=0):
     dx = torch.empty_like(x)
     if M and K:
         lib = _build.load("fused_ffn_bwd", _SIGS)
-        splits = ff.simple_splits(plan_rows or M, E, H)
+        splits = ff.simple_splits(plan_rows or M, plan_groups or E, H)
         partial = torch.empty(splits, M, K, dtype=torch.float32,
                               device=x.device)
         wi, wu = _weights(ws)
@@ -230,11 +231,13 @@ def fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act, plan_rows=0):
 
 def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                      dy: torch.Tensor, group_sizes: torch.Tensor,
-                     act: str, plan_rows: int = 0) -> torch.Tensor:
+                     act: str, plan_rows: int = 0,
+                     plan_groups: int = 0) -> torch.Tensor:
     """dX (M, K) in x's dtype; x (M, K), ws (wi,) or (wi_gate, wi_up) each
     (E, K, H), wo (E, H, N), dy (M, N), group_sizes (E,) int32.  The ring
-    kernel's split does not depend on M; ``plan_rows`` (0 = M) pins the
-    first version's (``fused_ffn.fused_ffn``'s argument).
+    kernel's split depends on neither M nor E; ``plan_rows`` (0 = M) and
+    ``plan_groups`` (0 = E) pin the first version's (``fused_ffn.
+    fused_ffn``'s arguments).
     ``fused_ffn_bwd_dx.launches`` counts every kernel launch,
     ``fused_ffn_bwd_dx_simple.launches`` the first version's."""
     if x.device.type == "cpu":
@@ -243,7 +246,7 @@ def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                               act)
     if route(x, ws, wo, dy) == "simple":
         return fused_ffn_bwd_dx_simple(x, ws, wo, dy, group_sizes, act,
-                                       plan_rows)
+                                       plan_rows, plan_groups)
     dx = torch.empty_like(x)
     if M and K:
         lib = _build.load("fused_ffn_bwd", _SIGS)

@@ -96,10 +96,10 @@ def ffn_two_pass(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group_sizes, act, plan_rows, wo, *ws):
+    def forward(ctx, x, group_sizes, act, plan, wo, *ws):
         ctx.save_for_backward(x, group_sizes, wo, *ws)
-        ctx.act, ctx.plan_rows = act, plan_rows
-        return ff.fused_ffn(x, ws, wo, group_sizes, act, plan_rows)
+        ctx.act, ctx.plan = act, plan
+        return ff.fused_ffn(x, ws, wo, group_sizes, act, *plan)
 
     @staticmethod
     def backward(ctx, dy):
@@ -111,7 +111,7 @@ class _FusedFFN(torch.autograd.Function):
         dwo = None
         if ctx.needs_input_grad[0]:
             dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, group_sizes, ctx.act,
-                                     ctx.plan_rows)
+                                     *ctx.plan)
         if any(ctx.needs_input_grad[3:]):
             dw32, dwo32 = fb.fused_ffn_bwd_dw(x, ws, wo, dy, group_sizes,
                                               ctx.act)
@@ -122,13 +122,15 @@ class _FusedFFN(torch.autograd.Function):
 
 def fused_grouped_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                       group_sizes: torch.Tensor, act: str = "swiglu",
-                      plan_rows: int = 0) -> torch.Tensor:
+                      plan_rows: int = 0, plan_groups: int = 0
+                      ) -> torch.Tensor:
     """y[i] = act(x[i] @ wi[g(i)]) @ wo[g(i)] with the hidden tile on chip,
-    in both directions.  ``plan_rows`` (0 = the rows of x): the rows the
-    kernels plan their hidden split for (``fused_ffn.plan``)."""
+    in both directions.  ``plan_rows`` (0 = the rows of x) and
+    ``plan_groups`` (0 = the experts of the weights): the rows and experts
+    the kernels plan their hidden split for (``fused_ffn.plan``)."""
     ff.check_gating(tuple(ws), act)
     return _FusedFFN.apply(x, group_sizes.to(torch.int32), act,
-                           int(plan_rows), wo, *ws)
+                           (int(plan_rows), int(plan_groups)), wo, *ws)
 
 
 class _GatherTokens(torch.autograd.Function):

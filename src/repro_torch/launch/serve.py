@@ -9,13 +9,21 @@ request stream (``launch/scheduler.ContinuousBatcher``, paged KV cache).
         --block_size 16 --prompt_len 128 --gen 32 [--max_len 160] \
         [--policy static] [--device cpu]
 
-Expert-parallel decode in the psum mode over a 1xM mesh of ranks, one
-process each (gloo on the CPU, NCCL with one card a rank):
+Expert-parallel decode in the psum mode over a DxM mesh of ranks, one
+process each (gloo on the CPU, NCCL with one card a rank), with expert
+placement: a serve-time replan every N ticks, or (static batch) a
+per-layer plan measured on the prompt:
 
     torchrun --nproc_per_node 2 -m repro_torch.launch.serve --continuous \
-        --mesh 1x2 --device cpu --reduced
+        --mesh 1x2 --device cpu --reduced --replan_every 2
+    torchrun --nproc_per_node 4 -m repro_torch.launch.serve --continuous \
+        --mesh 2x2 --device cpu --reduced
+    torchrun --nproc_per_node 2 -m repro_torch.launch.serve --mesh 1x2 \
+        --device cpu --reduced --per_layer_plans
 
-Every rank runs the same loop on the same requests; rank 0 prints.
+Every rank runs the same loop on the same requests; rank 0 prints.  On a
+DxM mesh each data group decodes its block of the slots (of the static
+batch's rows).
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel, fused = the fused FFN kernel); ``--dispatch`` the MoE
 dispatch (capacity | ragged); ``--router`` the routing variant (serving
@@ -32,12 +40,15 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dispatch import expert_capacity
 from repro_torch.core.fmoe import moe_dist
 from repro_torch.core.gate import ROUTERS
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.launch.serve_api import Request, ServeConfig
 from repro_torch.models import lm
+from repro_torch.placement import (from_logical, load_calibration,
+                                   plan_placement, plan_placement_per_layer)
 
 SWA_CAP = 8192  # ring-buffer cap for the long-context sliding-window variant
 
@@ -60,19 +71,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def check_serving_mesh(data: int, node: int = 1) -> None:
-    """The port serves 1xM meshes: every rank holds every token.  A node
-    axis is refused: the two-level exchange is a training path, and the
+def check_serving_mesh(node: int) -> None:
+    """The port serves DxM meshes (a batcher per data group).  A node axis
+    is refused: the two-level exchange is a training path, and the
     reference's serving has none."""
     if node > 1:
         raise NotImplementedError(
             f"serving over a node axis of {node}: the reference's serve has "
-            f"no node path (the two-level exchange trains); use a 1xM mesh")
-    if data > 1:
-        raise NotImplementedError(
-            f"serving over a data axis of {data} needs a batcher per data "
-            f"group (ROADMAP §1 item 5), not ported to repro_torch yet; use a "
-            f"1xM mesh")
+            f"no node path (the two-level exchange trains); use a DxM mesh")
 
 
 def decode_dist(cfg: ModelConfig, mesh, batch: int):
@@ -87,6 +93,53 @@ def decode_dist(cfg: ModelConfig, mesh, batch: int):
     if mesh.axes_size(tok) > 1 and batch % mesh.axes_size(tok):
         tok = ()
     return d._replace(token_axes=tok)
+
+
+def data_rows(rows: torch.Tensor, dist) -> torch.Tensor:
+    """This rank's block of a batch's ``rows`` under ``dist``: its data
+    group's B/D where "data" is among the token axes, else every row."""
+    if dist is None or "data" not in dist.token_axes:
+        return rows
+    n = rows.shape[0] // dist.mesh.shape["data"]
+    g = dist.mesh.axis_index("data")
+    return rows[g * n:(g + 1) * n]
+
+
+def plan_for_serving(params, cfg: ModelConfig, prompt, num_ranks: int, *,
+                     per_layer: bool = True, dist=None, impl: str = "einsum",
+                     device="cuda", constants=None):
+    """Measure each layer's expert load on the prompt and plan a decode
+    layout, as the reference's: one ``forward(layer_loads=True)`` over the
+    (B, S) prompt (this rank's data block of it under ``dist``, the decode
+    dist: the loads are then the means over the blocks), the per-layer
+    planner (or the shared one on the summed load) for inference
+    (``train=False``: no gradient sync to charge; ``shrink_capacity=
+    False``: the psum mode has no wire, so a shrink would only drop) at
+    the capacity of B rows, with ``constants`` (default: the card's,
+    ``load_calibration``).  Returns ``(plan, params)``, the params
+    migrated into the plan's physical order in place (across the expert
+    axes on ``dist``'s mesh).  The cost model rarely shadows here (in the
+    psum mode a shadow saves no wire bytes and replicates weight reads);
+    the per-layer permutation balances the owned compute."""
+    moe = cfg.moe
+    prompt = torch.as_tensor(prompt, device=resolve(device))
+    with torch.no_grad():
+        _, _, loads = lm.forward(params, cfg, data_rows(prompt, dist),
+                                 impl=impl, device=device, dist=dist,
+                                 layer_loads=True)
+    loads = loads.float().cpu().numpy()
+    kw = dict(d_model=cfg.d_model, d_hidden=moe.d_expert_hidden,
+              capacity=expert_capacity(prompt.shape[0], moe.num_experts,
+                                       moe.top_k, moe.capacity_factor),
+              capacity_factor=moe.capacity_factor, train=False,
+              shrink_capacity=False,
+              constants=load_calibration() if constants is None else constants)
+    if per_layer:
+        plan = plan_placement_per_layer(loads, num_ranks, **kw)
+    else:
+        plan = plan_placement(loads.sum(0), num_ranks, **kw)
+    return plan, from_logical(params, plan,
+                              mesh=None if dist is None else dist.mesh)
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -251,8 +304,17 @@ def main(argv=None) -> None:
                     help="admission policy (static = admit only when every "
                          "slot is free)")
     ap.add_argument("--mesh", default="",
-                    help="1xM: expert-parallel decode in the psum mode, one "
-                         "rank a process (run under torchrun)")
+                    help="DxM: expert-parallel decode in the psum mode, one "
+                         "rank a process (run under torchrun), a batcher "
+                         "per data group")
+    ap.add_argument("--replan_every", type=int, default=None,
+                    help="--continuous: decode ticks between serve-time "
+                         "placement replans (0 = off; an MoE config)")
+    ap.add_argument("--per_layer_plans", action="store_true",
+                    help="plan each layer apart: the serve-time replans "
+                         "of --continuous, and with --mesh (M > 1) the "
+                         "static batch, served under a per-layer plan "
+                         "measured on its prompt")
     args = ap.parse_args(argv)
 
     scfg = ServeConfig.from_args(args)
@@ -264,10 +326,12 @@ def main(argv=None) -> None:
     if not scfg.mesh:
         return _run(args, scfg, resolve(args.device), None)
     data, model = scfg.mesh_shape()
-    check_serving_mesh(data)
     dev = init_distributed(args.device)
     try:
         _run(args, scfg, dev, make_local_mesh(data, model))
+        # no rank tears its groups down while a peer's last collective on
+        # them is still in flight
+        torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
 
@@ -292,18 +356,27 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
         if lead:
             print(f"{cfg.name} on {where}, continuous ({scfg.policy}, "
                   f"{'paged' if scfg.paged else 'ring'}, {scfg.slots} slots): "
-                  + format_stats(stats))
+                  + format_stats(stats) + f"; replans={batcher.replans}")
             print(min(batcher.completions, key=lambda c: c.request_id).tokens)
         return
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    dist = decode_dist(cfg, mesh, args.batch) if mesh else None
+    if args.per_layer_plans and dist is not None and mesh.shape["model"] > 1:
+        plan, params = plan_for_serving(params, cfg, prompt,
+                                        dist.expert_parallelism, dist=dist,
+                                        impl=args.impl, device=dev)
+        dist = dist._replace(placement=plan)
+        if lead:
+            print(f"serving plan: shadow={plan.num_shadow} "
+                  f"cap_scale={plan.capacity_scale:.2f}")
     timings: dict = {}
-    seq = generate(params, cfg, prompt, args.gen, impl=args.impl, device=dev,
+    seq = generate(params, cfg, data_rows(prompt, dist), args.gen,
+                   impl=args.impl, device=dev,
                    cache_len=cache_len_for(cfg, args.prompt_len + args.gen),
                    timings=timings, temperature=args.temperature,
-                   generator=gen,
-                   dist=decode_dist(cfg, mesh, args.batch) if mesh else None)
+                   generator=gen, dist=dist)
     dec = sorted(timings["decode_s"]) or [0.0]
     p50 = dec[len(dec) // 2]
     if lead:

@@ -2,7 +2,7 @@
 chip script speak.
 
 ``ServeConfig`` carries the serving loop's knobs (decode slots, paged-cache
-block geometry, admission policy, mesh); ``Request`` is what a client
+block geometry, admission policy, mesh, replan cadence); ``Request`` is what a client
 submits; ``Completion`` is what comes back, with the timestamps every
 serving SLO is written against (queued / first token / done) and every
 token's emission time, so time to first token and per-token p50/p99 fall
@@ -39,12 +39,19 @@ class ServeConfig:
                    "static" (admit only when every slot is free: the
                    head-of-line-blocking baseline)
     mesh           "DxM" rank mesh for expert-parallel decode in the psum
-                   mode ("" = one device); the port serves 1xM meshes
+                   mode ("" = one device): a batcher per data group, each
+                   decoding its B/D of the slots over its model group
+    replan_every   decode ticks between placement-controller polls, fed
+                   the decode step's (L, E) expert loads
+                   (``scheduler.ServeReplanHook``); 0 = no serve-time
+                   replanning
+    per_layer_plans  plan each layer apart (a PerLayerPlacement) on the
+                   serve-time replans
     eos_id         optional early-stop token id
 
-    The reference's placement and telemetry knobs (replan_every,
-    per_layer_plans, metrics_out, trace) are not fields: placement and
-    telemetry are not ported (ROADMAP §1 items 4 and 7).
+    The reference's telemetry knobs (metrics_out, trace) are not fields:
+    the telemetry sinks are ROADMAP §1 item 7, not ported.  Its arch and
+    reduced fields are the CLI's flags here (``launch/serve.py``).
     """
 
     slots: int = 8
@@ -54,6 +61,8 @@ class ServeConfig:
     paged: bool = True
     policy: str = "continuous"
     mesh: str = ""
+    replan_every: int = 0
+    per_layer_plans: bool = True
     eos_id: Optional[int] = None
 
     def __post_init__(self):
@@ -87,7 +96,7 @@ class ServeConfig:
         dims = [int(v) for v in self.mesh.lower().split("x")]
         if len(dims) == 3:
             from repro_torch.launch.serve import check_serving_mesh
-            check_serving_mesh(dims[0], node=dims[1])
+            check_serving_mesh(dims[1])
         d, m = dims
         return d, m
 

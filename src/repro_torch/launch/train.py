@@ -274,7 +274,9 @@ class ReplanHook:
         self.opts = opts if opts is not None else {}
         self.per_layer = per_layer
         moe = cfg.moe
-        # a plan executes only in the a2a mode (the psum mode refuses it)
+        # as the reference's: the hook replans only in the a2a mode (the
+        # psum mode runs a given plan; serving replans it,
+        # launch/scheduler.ServeReplanHook)
         probe = moe_dist(cfg, mesh, global_batch)
         self.enabled = probe is not None and probe.mode == "a2a"
         ranks = probe.expert_parallelism if self.enabled else 1

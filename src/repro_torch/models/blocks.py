@@ -85,10 +85,11 @@ def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
 
 def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         cache, *, window: int, start: int = 0,
-                        impl: str = "einsum", dist=None):
+                        impl: str = "einsum", dist=None, l2p=None):
     """x (B, S, d), this layer's cache -> (x, filled cache, MoEMetrics|None).
     One full-sequence pass writes every position's K/V (MLA: latents) into
-    the cache so decoding can continue at position S."""
+    the cache so decoding can continue at position S.  ``l2p``: as
+    :func:`layer_apply_seq`'s."""
     xn = apply_norm(p["norm1"], x, cfg.norm)
     if _is_mla(cfg):
         h, (ckv, kr) = A.mla_apply(p["attn"], xn, cfg.attention,
@@ -100,16 +101,17 @@ def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
         cache = A.fill_kv_cache(cache, k, v, start=start)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist)
+                            impl, dist, l2p=l2p)
     return x + h, cache, metrics
 
 
 def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cache, pos, *, window: int, impl: str = "einsum",
-                       dist=None, block_tables=None):
+                       dist=None, block_tables=None, l2p=None):
     """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None).
     ``block_tables`` (B, nb) reads and writes the cache as the paged block
-    pool (``layer_paged_cache``) instead of per-slot rings."""
+    pool (``layer_paged_cache``) instead of per-slot rings.  ``l2p``: as
+    :func:`layer_apply_seq`'s."""
     xn = apply_norm(p["norm1"], x, cfg.norm)
     if block_tables is not None:
         decode = A.mla_decode_paged if _is_mla(cfg) else A.gqa_decode_paged
@@ -121,7 +123,7 @@ def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                           window=window)
     x = x + h
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist)
+                            impl, dist, l2p=l2p)
     return x + h, cache, metrics
 
 

@@ -11,7 +11,9 @@ Public API:
   prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
   init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
   init_paged_cache(cfg, num_blocks, block_size, device=) -> list of pools
-  decode_step(params, cfg, tokens, pos, cache,...) -> (logits, cache, metrics)
+  decode_step(params, cfg, tokens, pos, cache,..., layer_loads=)
+                                                   -> (logits, cache, metrics[,
+                                                       (L, E) loads])
 
 Params mirror the JAX tree, except that ``params["layers"]`` is a list of
 per-layer dicts (JAX stacks them on a leading L dim and scans; here a Python
@@ -36,7 +38,8 @@ tokens and computes its own experts, and the layer sums over the ranks.
 A placement on ``dist`` (``repro_torch.placement``) needs the params in
 its physical order (``placement.migrate``); a ``PerLayerPlacement`` is
 split into its shared geometry, which rides on the layers' ``dist``, and
-each layer's gate-id table (``_layer_tables``).
+each layer's gate-id table (``_layer_tables``), in ``forward``,
+``prefill`` and ``decode_step`` alike.
 """
 from __future__ import annotations
 
@@ -220,15 +223,19 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
     """tokens (B, S) + empty cache -> (logits (B, S, V), filled cache,
     metrics).  Decoding then continues at position S with decode_step.
     ``dist``: the MoE layers' ``DistConfig`` (serving takes the psum mode,
-    ``launch.serve.decode_dist``)."""
+    ``launch.serve.decode_dist``), a per-layer placement on it split into
+    the layers' tables as in :func:`forward`."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params["embed"], tokens, dtype)
+    dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
-    for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
-        x, c_l, m = B.layer_apply_prefill(cast_params(p_l, dtype), cfg, x, c_l,
-                                          window=window, impl=impl, dist=dist)
+    for layer, (p_l, window, c_l) in enumerate(zip(
+            params["layers"], B.layer_windows(cfg), cache)):
+        x, c_l, m = B.layer_apply_prefill(
+            cast_params(p_l, dtype), cfg, x, c_l, window=window, impl=impl,
+            dist=dist, l2p=None if tables is None else tables[layer])
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         x = x.to(dtype)
@@ -269,30 +276,44 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
                 impl: str = "einsum", device="cuda", dist=None,
-                block_tables=None):
+                block_tables=None, layer_loads: bool = False):
     """tokens (B, 1) at absolute position ``pos`` (scalar or (B,)) ->
-    (logits (B, 1, V), cache updated in place, metrics).
+    (logits (B, 1, V), cache updated in place, metrics), and with
+    ``layer_loads`` the (L, E) stack of the layers' loads (logical expert
+    order) as a fourth output: the serve-time replan's feed, as
+    :func:`forward`'s.
 
     ``dist``: the MoE layers' ``DistConfig`` (serving takes the psum mode,
-    ``launch.serve.decode_dist``).  ``block_tables`` (B, nb) reads and
-    writes the cache as the paged block pools of ``init_paged_cache``
-    instead of per-slot rings."""
+    ``launch.serve.decode_dist``; a per-layer placement on it is split
+    into the layers' tables).  ``block_tables`` (B, nb) reads and writes
+    the cache as the paged block pools of ``init_paged_cache`` instead of
+    per-slot rings."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params["embed"], tokens, dtype)
+    dist, tables = _layer_tables(cfg, dist, x.device)
     cache_len = cache[0].positions.shape[-1]
     if block_tables is not None:
         cache_len *= block_tables.shape[1]  # the view: table width x block
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
-    new_cache = []
-    for p_l, window, c_l in zip(params["layers"], B.layer_windows(cfg), cache):
-        x, c_l, m = B.layer_apply_decode(cast_params(p_l, dtype), cfg, x, c_l,
-                                         pos,
-                                         window=min(window, cache_len),
-                                         impl=impl, dist=dist,
-                                         block_tables=block_tables)
+    new_cache, loads = [], []
+    for layer, (p_l, window, c_l) in enumerate(zip(
+            params["layers"], B.layer_windows(cfg), cache)):
+        x, c_l, m = B.layer_apply_decode(
+            cast_params(p_l, dtype), cfg, x, c_l, pos,
+            window=min(window, cache_len), impl=impl, dist=dist,
+            block_tables=block_tables,
+            l2p=None if tables is None else tables[layer])
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
+        if m is not None:
+            loads.append(m.load)
         x = x.to(dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, cfg, x), new_cache, metrics
+    logits = _logits(params, cfg, x)
+    if not layer_loads:
+        return logits, new_cache, metrics
+    if not loads:
+        return logits, new_cache, metrics, x.new_zeros(
+            cfg.num_layers, _n_experts(cfg), dtype=torch.float32)
+    return logits, new_cache, metrics, torch.stack(loads)

@@ -22,7 +22,8 @@ from repro_torch.placement.plan import (ExpertPlacement, PerLayerPlacement,
                                         plan_placement_per_layer)
 from repro_torch.placement.probation import ProbationDecision, ReplanProbation
 from repro_torch.placement.shadow import (ShadowSpec, merge_outputs,
-                                          shadow_spec, split_buffer)
+                                          shadow_only, shadow_spec,
+                                          split_buffer)
 
 __all__ = [
     "CostConstants", "ExpertPlacement", "PerLayerPlacement",
@@ -32,5 +33,5 @@ __all__ = [
     "identity_placement", "load_calibration", "merge_outputs", "migrate",
     "per_layer_cost", "per_layer_placement", "placement_cost",
     "plan_placement", "plan_placement_per_layer", "router_index_table",
-    "shadow_spec", "split_buffer", "to_logical",
+    "shadow_only", "shadow_spec", "split_buffer", "to_logical",
 ]

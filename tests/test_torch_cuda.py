@@ -1049,3 +1049,104 @@ def test_placed_layer_on_the_card(dev, impl, dispatch):
                                        atol=5e-2)
     finally:
         tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_psum_tick_launches_equal_the_whole_launch(dev, impl):
+    """A decode tick of the placed psum mode at full width (8 slots, top-2:
+    16 sorted rows over 96 experts, 8 of them shadowed): the owned
+    segment's launch (88 groups) and the shadowed tail's (8 groups), each
+    planned for the whole buffer's rows and experts, equal the rows of the
+    whole buffer's launch bit for bit, and their plain versions within
+    bf16; ``combine_topk`` at k = 1 (the slot-wise combine) equals its
+    plain version bit for bit."""
+    E, S, n, d, H = 96, 8, 16, 1024, 2048
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    wi = (torch.randn(E, d, H, generator=g, device=dev) * d ** -0.5).to(bf)
+    wo = (torch.randn(E, H, d, generator=g, device=dev) * H ** -0.5).to(bf)
+    x = torch.randn(n, d, generator=g, device=dev).to(bf)
+    ids = torch.randint(0, E, (n,), generator=g, device=dev).sort().values
+    gs = torch.bincount(ids, minlength=E).to(torch.int32)
+    lo = int(gs[:E - S].sum())
+
+    def run(xs, w_i, w_o, sizes, **plan):
+        if impl == "fused":
+            return ff.fused_ffn(xs, (w_i,), w_o, sizes, "gelu", **plan)
+        h = ff.activate(gg.grouped_gemm(xs, w_i, sizes), None, "gelu")
+        return gg.grouped_gemm(h, w_o, sizes)
+
+    whole = run(x, wi, wo, gs)
+    plan = dict(plan_rows=n, plan_groups=E) if impl == "fused" else {}
+    own = torch.zeros_like(x)
+    own[:lo] = x[:lo]
+    tail = torch.zeros_like(x)
+    tail[:n - lo] = x[lo:]
+    y_own = run(own, wi[:E - S], wo[:E - S], gs[:E - S], **plan)
+    y_sh = run(tail, wi[E - S:], wo[E - S:], gs[E - S:], **plan)
+    torch.cuda.synchronize()
+    assert torch.equal(y_own[:lo], whole[:lo])
+    assert torch.equal(y_sh[:n - lo], whole[lo:])
+    torch.testing.assert_close(
+        y_sh, ff.fused_ffn_plain(tail, (wi[E - S:],), wo[E - S:], gs[E - S:],
+                                 "gelu"), **TOL[bf])
+    if impl == "fused":
+        assert (ff.plan(lo, E - S, H, split_rows=n, split_groups=E).hc
+                == ff.plan(n, E, H).hc
+                == ff.plan(n - lo, S, H, split_rows=n, split_groups=E).hc)
+    rows = torch.randperm(n, generator=g, device=dev).to(torch.int32)[:, None]
+    w = torch.rand(n, 1, generator=g, device=dev).to(bf)
+    got = ts.combine_topk(whole, rows, w)
+    assert torch.equal(got, ts.combine_topk_plain(whole, rows, w))
+
+
+@pytest.mark.parametrize("dispatch", ["capacity", "ragged"])
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_placed_psum_layer_on_the_card(dev, impl, dispatch):
+    """The psum mode over a 1x1 NCCL mesh in bf16 under a plan that
+    permutes the experts and shadows 4 of them (outside the all-reduce,
+    their own launch): bit for bit the identity plan's output (both
+    slot-wise), the ragged slot-wise combine on the ``combine_topk``
+    kernel; within bf16 of the unplaced psum layer (the combined
+    reduction) and of the placed layer's plain version (einsum)."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.core import fmoe
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.placement import (ExpertPlacement, from_logical,
+                                       identity_placement)
+
+    cfg, params, x = _moe_case(dev, "topk", dispatch)
+    E = cfg.num_experts
+    perm = tuple(int(i) for i in np.random.default_rng(2).permutation(E))
+    plan = ExpertPlacement(E, 1, perm, num_shadow=4)
+    placed = from_logical({k: {n: t.clone() for n, t in v.items()}
+                           for k, v in params.items()}, plan)
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        psum = fmoe.DistConfig(make_local_mesh(1, 1), ("data",))
+        counter = ff.fused_ffn if impl == "fused" else gg.grouped_gemm
+        kw = dict(act="gelu", impl=impl)
+        y0, _ = fmoe.fmoe_apply(params, x, cfg, dist=psum, **kw)
+        ident = identity_placement(E, 1)
+        y_id, _ = fmoe.fmoe_apply(params, x, cfg, **kw,
+                                  dist=psum._replace(placement=ident),
+                                  l2p=torch.arange(E, device=dev))
+        before, combines = counter.launches, ts.combine_topk.launches
+        y1, _ = fmoe.fmoe_apply(placed, x, cfg, dist=psum._replace(
+            placement=plan), **kw)
+        torch.cuda.synchronize()
+        assert counter.launches - before == 2 * (2 if impl == "pallas" else 1)
+        if dispatch == "ragged":
+            assert ts.combine_topk.launches - combines == 2  # owned, shadow
+        assert torch.equal(y1, y_id)
+        torch.testing.assert_close(y1.float(), y0.float(), rtol=2e-2,
+                                   atol=2e-2)
+        y_plain, _ = fmoe.fmoe_apply(placed, x, cfg, act="gelu",
+                                     impl="einsum",
+                                     dist=psum._replace(placement=plan))
+        torch.testing.assert_close(y1.float(), y_plain.float(), rtol=5e-2,
+                                   atol=5e-2)
+    finally:
+        tdist.destroy_process_group()

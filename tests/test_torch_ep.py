@@ -65,6 +65,19 @@ holds the results to the JAX package:
   each router's a2a and psum step (loss, gradients, params after AdamW)
   equals the local one bit for bit, and a noisy and an expert-choice step
   repeat bit for bit;
+* placement (1x2, 1x4, the node mesh 1x2x2): the a2a layer under a plan
+  with shadowed experts, shrunk capacities, migration across the ranks
+  and the ReplanHook; and the psum mode under it (1x2, 1x4): the placed
+  layer for each router, dispatch and impl against JAX's single-rank
+  layer and, on 1x2, its placed psum layer, bit-equal to the identity
+  plan's (the slot-wise reduction); the placed psum train step (1x2)
+  against JAX's distributed ``loss_fn`` under the same plan;
+* serving under placement: on 1x2 the reference's mid-stream replan cell
+  (the same stream with a plan switched in at tick 3 gives the tokens of
+  never switching, of the one-process batcher and of JAX's batcher), on
+  2x2 a batcher per data group (the one-process batcher's completions,
+  unplaced and switched, and JAX's 2x2 batcher's), and ``serve
+  --continuous --mesh 2x2 --replan_every 2`` under ``torchrun``;
 * refusals of what the slice does not carry (ragged dispatch with tp
   among them), and the ``torchrun`` CLIs of training (a2a, and the psum
   mode where 2 rows do not split over 4 ranks) and of continuous
@@ -91,8 +104,9 @@ MESHES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 # the node mesh of the two-level exchange: (data, node, model)
 NODE_MESHES = {"1x2x2": (1, 2, 2)}
 TASKS = {"1x1": ["bit_equal"],
-         "1x2": ["layer", "model", "decode", "overlap", "zoo", "placement"],
-         "2x2": ["layer", "model", "drops", "tp", "overlap", "zoo"],
+         "1x2": ["layer", "model", "decode", "overlap", "zoo", "placement",
+                 "serve"],
+         "2x2": ["layer", "model", "drops", "tp", "overlap", "zoo", "serve"],
          "1x4": ["layer", "zoo", "placement"], "1x2x2": ["hier", "placement"]}
 # the routers other than topk, and the exploration seed of the zoo task
 ZOO = ("noisy_topk", "gumbel", "expert_choice", "frozen")
@@ -121,6 +135,10 @@ HIER_IB, HIER_DROP_IB = 40, 32
 # makes the owned experts drop rows (main capacity 16 rows of 128 on 1x2, 8
 # of 64 on 1x4, against ~16 and ~8 arrivals an expert)
 PLACE_SEED, PLACE_SHRINK = 31, 0.1
+# serving under placement: the reference's mid-stream replan cell
+# (tests/test_scheduler.py): 8 requests over 4 slots, a per-layer plan
+# (a permutation per layer, 2 shadowed experts) switched in at tick 3
+SERVE_SWITCH, SERVE_PERMS = 3, ((1, 3, 0, 2), (2, 0, 3, 1))
 HOOK_STEPS, HOOK_LOSSES = 8, (6.0, 6.0, 6.0, 9.0, 9.0, 9.0, 6.0, 6.0)
 
 
@@ -188,7 +206,7 @@ def _layer_inputs(job, mesh):
 
 
 def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
-               grads=True, router="topk", noise_seed=None):
+               grads=True, router="topk", noise_seed=None, l2p=None):
     """y, load, drop_frac and the synced gradients of sum(y * r) over the
     rank's rows (every router leaf; zeros for one the router leaves
     unused)."""
@@ -201,7 +219,7 @@ def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
          for k, v in params.items()}
     xs = x[rows].clone().requires_grad_()
     y, m = fmoe.fmoe_apply(p, xs, cfg, act="swiglu", dist=dist, impl=impl,
-                           noise_seed=noise_seed)
+                           noise_seed=noise_seed, l2p=l2p)
     out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
                 f"{key}/drop_frac": m.drop_frac})
     if not grads:
@@ -346,6 +364,24 @@ def _placement_task(spec, job, mesh, out):
                    dispatch, "fused", x, r, rows, out, router="expert_choice")
     if node:
         return
+    # the psum mode (1xM: every rank holds every token) under the plan, and
+    # under the identity plan with its table (the slot-wise reduction
+    # too): each router, dispatch and impl
+    psum = fmoe.DistConfig(mesh, ())
+    ident = TP.identity_placement(LAYER["num_experts"], mp)
+    for router in ("topk", "expert_choice"):
+        src = whole if router == "topk" else _zoo_params(whole, job)
+        p_plan, p_ident = placed(src, plan), placed(src, ident)
+        for dispatch in DISPATCHES:
+            for impl in IMPLS:
+                key = f"place_psum/{router}/{dispatch}/{impl}"
+                _layer_run(key, p_plan, psum._replace(placement=plan),
+                           dispatch, impl, x, r, slice(None), out,
+                           router=router)
+                _layer_run(f"{key}/identity", p_ident,
+                           psum._replace(placement=ident), dispatch, impl, x,
+                           r, slice(None), out, grads=False, router=router,
+                           l2p=torch.arange(LAYER["num_experts"]))
     shrunk = plan._replace(capacity_scale=PLACE_SHRINK)
     for impl in IMPLS:
         _layer_run(f"place/shrunk/{impl}", params,
@@ -537,6 +573,9 @@ def _model_run(key, params_np, cfg, dist, impl, out):
 
     params = interop.from_jax(params_np, cfg, device="cpu", mesh=dist.mesh,
                               expert_tp=dist.expert_tp)
+    if dist.placement is not None:  # the identity shards -> the plan's
+        from repro_torch import placement as TP
+        TP.from_logical(params, dist.placement, mesh=dist.mesh)
     rows = train._rank_rows(torch.from_numpy(_tokens(0)), dist)
     loss, aux, grads = train.loss_and_grads(
         params, cfg, {"tokens": rows}, impl=impl, device="cpu", dist=dist)
@@ -576,6 +615,11 @@ def _model_task(spec, job, mesh, out):
                    MODEL_IMPL[dispatch], out)
         _model_run(f"psum_model/{dispatch}", params_np, cfg, psum,
                    MODEL_IMPL[dispatch], out)
+        if mesh.shape["data"] == 1:  # the placed psum train step
+            _model_run(f"place_psum_model/{dispatch}", params_np, cfg,
+                       psum._replace(placement=_serve_plan(
+                           mesh.shape["model"])),
+                       MODEL_IMPL[dispatch], out)
     if "tp" in spec["tasks"]:
         cfg = _model_cfg("capacity")
         dist = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
@@ -722,10 +766,72 @@ def _decode_task(spec, job, mesh, out):
         out[f"decode/{dispatch}/tokens"] = toks
 
 
+def _serve_plan(M: int, P=None):
+    """The serving cell's per-layer plan for ``M`` model ranks in package
+    ``P`` (default ``repro_torch.placement``)."""
+    if P is None:
+        from repro_torch import placement as P
+    E = len(SERVE_PERMS[0])
+    return P.per_layer_placement([P.ExpertPlacement(E, M, perm, num_shadow=2)
+                                  for perm in SERVE_PERMS])
+
+
+def _serve_requests(cfg):
+    rng = np.random.RandomState(0)
+    return [dict(id=i, prompt=rng.randint(0, cfg.vocab_size,
+                                          5 + (i % 6)).astype(np.int64),
+                 max_new_tokens=4 + (i % 5)) for i in range(8)]
+
+
+def _batcher_tokens(params, cfg, mesh, switch_at, placed):
+    """The port's batcher (4 slots, paged) on ``_serve_requests``: under the
+    identity per-layer plan from tick 0 where ``placed`` (switched to
+    ``_serve_plan`` after tick ``switch_at`` unless None), else unplaced.
+    Returns the completions' tokens as an (8, 8) array padded with -1."""
+    from repro_torch import placement as TP
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    from repro_torch.launch.serve_api import Request, ServeConfig
+
+    M = mesh.shape["model"] if mesh is not None else 2
+    plan = (TP.identity_per_layer(cfg.moe.num_experts, M, cfg.num_layers)
+            if placed else None)
+    b = ContinuousBatcher(params, cfg, ServeConfig(slots=4, max_len=24,
+                                                   block_size=8),
+                          mesh=mesh, impl="fused", device="cpu",
+                          placement=plan)
+    for r in _serve_requests(cfg):
+        b.submit(Request(arrival=0.0, **r))
+    while b.queue or any(s is not None for s in b.slots):
+        b.step()
+        if b.ticks == switch_at:
+            b.apply_placement(_serve_plan(M))
+    toks = np.full((8, 8), -1, np.int64)
+    for c in b.completions:
+        toks[c.request_id, :len(c.tokens)] = c.tokens
+    return toks
+
+
+def _serve_task(spec, job, mesh, out):
+    """The continuous batcher under placement, ragged (dropless): on 1xM
+    the identity plan kept, or switched at tick SERVE_SWITCH; on DxM (a
+    batcher per data group) unplaced, and switched."""
+    from repro_torch import interop
+
+    params_np = _unflatten(dict(np.load(job / "model_params.npz")))
+    cfg = _model_cfg("ragged")
+    runs = ({"base": (None, True), "moved": (SERVE_SWITCH, True)}
+            if mesh.shape["data"] == 1 else
+            {"plain": (None, False), "moved": (SERVE_SWITCH, True)})
+    for key, (switch_at, placed) in runs.items():
+        params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+        out[f"serve/{key}"] = _batcher_tokens(params, cfg, mesh, switch_at,
+                                              placed)
+
+
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
               "bit_equal": _bit_equal_task, "decode": _decode_task,
               "overlap": _overlap_task, "hier": _hier_task, "zoo": _zoo_task,
-              "placement": _placement_task}
+              "placement": _placement_task, "serve": _serve_task}
 
 
 def _rank_main(job: Path, rank: int) -> None:
@@ -747,6 +853,7 @@ def _rank_main(job: Path, rank: int) -> None:
     np.savez(job / f"rank{rank}.npz",
              **{k: (v.detach().numpy() if isinstance(v, torch.Tensor)
                     else np.asarray(v)) for k, v in out.items()})
+    tdist.barrier()  # no rank tears down a group a peer still receives on
     tdist.destroy_process_group()
 
 
@@ -911,7 +1018,7 @@ params = jax.tree.map(jnp.asarray, T._unflatten(dict(np.load({params!r}))))
 out = {{}}
 
 
-def model_run(key, cfg, dist):
+def model_run(key, cfg, dist, params=params):
     vg = jax.jit(jax.value_and_grad(
         lambda p, t: lm.loss_fn(p, cfg, {{"tokens": t}}, dist=dist,
                                 impl="einsum"), has_aux=True))
@@ -940,6 +1047,22 @@ for dispatch in T.DISPATCHES:
         model_run("model/" + dispatch, cfg, dist)
     if "psum" in parts:
         model_run("psum_model/" + dispatch, cfg, psum)
+        if data == 1:  # the placed psum train step, params in its order
+            from repro import placement as JP
+            plan = T._serve_plan(model, JP)
+            model_run("place_psum_model/" + dispatch, cfg,
+                      psum._replace(placement=plan),
+                      JP.from_logical(params, plan))
+if "psum" in parts and data == 1:  # JAX's placed psum layer (einsum)
+    from repro import placement as JP
+    plan = T._place_plan(JP, model)
+    for dispatch in T.DISPATCHES:
+        env = du.moe_env(dispatch=dispatch)
+        y, m = du.dist_apply(env, mesh, psum._replace(placement=plan),
+                             params=JP.from_logical(env.params, plan))
+        key = "place_psum/" + dispatch
+        out[key + "/y"], out[key + "/load"] = y, m.load
+        out[key + "/drop_frac"] = m.drop_frac
 if "tp" in parts:
     tp = dist._replace(tp_axis="data")
     model_run("tp_model", T._model_cfg("capacity", "repro"), tp)
@@ -1077,6 +1200,57 @@ def _jax_hier(root: Path, box: dict):
         box["hier"] = e
 
 
+JAX_SERVE = """
+import sys
+import numpy as np, jax, jax.numpy as jnp
+sys.path.insert(0, {tests!r})
+import test_torch_ep as T
+from repro import placement as JP
+from repro.launch.scheduler import ContinuousBatcher
+from repro.launch.serve_api import Request, ServeConfig
+cfg = T._model_cfg("ragged", "repro")
+params = jax.tree.map(jnp.asarray, T._unflatten(dict(np.load({params!r}))))
+out = {{}}
+for key, mesh, switch_at, placed in (("1x2/base", "1x2", None, True),
+                                     ("1x2/moved", "1x2", T.SERVE_SWITCH, True),
+                                     ("2x2/plain", "2x2", None, False),
+                                     ("2x2/moved", "2x2", T.SERVE_SWITCH, True)):
+    plan = (JP.identity_per_layer(cfg.moe.num_experts, 2, cfg.num_layers)
+            if placed else None)
+    b = ContinuousBatcher(params, cfg, ServeConfig(
+        slots=4, max_len=24, block_size=8, mesh=mesh), placement=plan)
+    for r in T._serve_requests(cfg):
+        b.submit(Request(arrival=0.0, **{{**r, "prompt": r["prompt"].astype(
+            np.int32)}}))
+    while b.queue or any(s is not None for s in b.slots):
+        b.step()
+        if b.ticks == switch_at:
+            b.apply_placement(T._serve_plan(2, JP))
+    toks = np.full((8, 8), -1, np.int64)
+    for c in b.completions:
+        toks[c.request_id, :len(c.tokens)] = c.tokens
+    out["serve/" + key] = toks
+np.savez({dest!r}, **out)
+print("jax serve ok")
+"""
+
+
+def _jax_serve(root: Path, box: dict):
+    """The JAX package's continuous batcher on the serving cell (the
+    reference's mid-stream replan test at 1x2, and a 2x2 mesh unplaced
+    and switched) on fake devices."""
+    import dist_utils as du
+    dest = root / "jax_serve.npz"
+    try:
+        du.run(JAX_SERVE.format(tests=str(ROOT / "tests"),
+                                params=str(root / "model_params.npz"),
+                                dest=str(dest)),
+               devices=4, timeout=SPAWN_TIMEOUT)
+        box["serve"] = dict(np.load(dest))
+    except Exception as e:  # reported by the tests that read it
+        box["serve"] = e
+
+
 @pytest.fixture(scope="module")
 def ep(tmp_path_factory):
     """Runs every spawn and the JAX counterparts once, concurrently."""
@@ -1104,6 +1278,7 @@ def ep(tmp_path_factory):
                                 args=(root / n, n, parts, jax_box))
                for n, jobs in JAX_PARTS.items() for parts in jobs]
     threads.append(threading.Thread(target=_jax_hier, args=(root, jax_box)))
+    threads.append(threading.Thread(target=_jax_serve, args=(root, jax_box)))
     for th in threads:
         th.start()
     oracle = _jax_layer_oracle(env, r)
@@ -1982,10 +2157,161 @@ def test_train_cli_replan_hook_under_torchrun():
     assert all(5.0 < v < 8.0 for v in losses), losses
 
 
+@pytest.mark.parametrize("router", ["topk", "expert_choice"])
+@pytest.mark.parametrize("name", ["1x2", "1x4"])
+def test_placed_psum_layer_matches_jax(ep, name, router):
+    """The psum mode (1xM, every rank holds every token) under a plan that
+    permutes the experts and shadows mp of them, each dispatch and impl:
+    every rank's y equal, y, the logical load and drop_frac against the
+    JAX package's single-rank layer at 1e-5 (expert-choice's: its zoo
+    oracle), and on 1x2 against its placed psum layer on fake devices
+    (einsum) at 1e-5; the gradients of sum(y * r) after sync_grads (each
+    rank's owned block and shadowed tail held to the oracle's rows in the
+    plan's order; a token's input gradient is its model group's mean)."""
+    from repro_torch import placement as TP
+    ranks = _ranks(ep, name)
+    mp = len(ranks)
+    plan = _place_plan(TP, mp)
+    jax_placed = _jax_dist_result(ep, "1x2") if name == "1x2" else {}
+    for dispatch in DISPATCHES:
+        for impl in IMPLS:
+            key = f"place_psum/{router}/{dispatch}/{impl}"
+            ref = (ep["oracle"][f"{dispatch}/{impl}"] if router == "topk"
+                   else ep["zoo"][("expert_choice", dispatch, 1)])
+            y = ranks[0][f"{key}/y"]
+            for r in ranks:
+                np.testing.assert_array_equal(r[f"{key}/y"], y, key)
+                np.testing.assert_allclose(r[f"{key}/load"], ref["load"],
+                                           rtol=1e-5, atol=1e-6, err_msg=key)
+                np.testing.assert_allclose(r[f"{key}/drop_frac"],
+                                           ref["drop_frac"], atol=1e-6)
+            np.testing.assert_allclose(y, ref["y"].reshape(y.shape),
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+            if router == "topk" and jax_placed:
+                jk = f"place_psum/{dispatch}"
+                np.testing.assert_allclose(
+                    y, jax_placed[f"{jk}/y"].reshape(y.shape), rtol=1e-5,
+                    atol=1e-5, err_msg=key)
+                np.testing.assert_allclose(ranks[0][f"{key}/load"],
+                                           jax_placed[f"{jk}/load"],
+                                           rtol=1e-5, atol=1e-6)
+            xg = sum(r[f"{key}/grad/x"] for r in ranks) / mp
+            _close_to_scale(xg, ref["grad"]["x"].reshape(xg.shape), 1e-5,
+                            f"{key} x")
+            phys = _physical({leaf: ref["grad"][f"experts/{leaf}"]
+                              for leaf in ("wi_gate", "wi_up", "wo")}, plan)
+            for m, r in enumerate(ranks):
+                _close_to_scale(r[f"{key}/grad/router/w"],
+                                ref["grad"]["router/w"], 1e-5,
+                                f"{key} router")
+                for leaf, whole in phys.items():
+                    _close_to_scale(r[f"{key}/grad/experts/{leaf}"],
+                                    _rank_rows_of(whole, plan, m), 1e-5,
+                                    f"{key} rank {m} {leaf}")
+
+
+@pytest.mark.parametrize("name", ["1x2", "1x4"])
+def test_placed_psum_layer_is_layout_invariant(ep, name):
+    """The slot-wise reduction: the layer under the plan (a permutation,
+    mp shadowed experts computed outside the all-reduce) gives bit for bit
+    the output of the identity plan, for each router, dispatch and impl
+    (on the CPU the plain kernels compute each expert's rows alone, so a
+    row's sums do not depend on the launch that holds it)."""
+    for r in _ranks(ep, name):
+        for router in ("topk", "expert_choice"):
+            for dispatch in DISPATCHES:
+                for impl in IMPLS:
+                    key = f"place_psum/{router}/{dispatch}/{impl}"
+                    np.testing.assert_array_equal(
+                        r[f"{key}/y"], r[f"{key}/identity/y"], key)
+                    np.testing.assert_array_equal(
+                        r[f"{key}/load"], r[f"{key}/identity/load"], key)
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_placed_psum_train_step_matches_jax(ep, dispatch):
+    """1x2, the psum mode (every rank holds every row) under the serving
+    cell's per-layer plan (a permutation per layer, 2 shadowed experts):
+    reduced fastmoe-gpt with remat, the step-0 loss, aux and z loss, the
+    load, every gradient leaf after sync_grads (each rank's expert rows
+    against the JAX package's whole gradient in the plan's order, layer by
+    layer), the grad norm and two AdamW steps' losses, against the JAX
+    package's distributed loss_fn under the same plan at 1e-4."""
+    from repro_torch import placement as TP
+    ranks = _ranks(ep, "1x2")
+    ref = _jax_dist_result(ep, "1x2")
+    plan = _serve_plan(2, TP)
+    key = f"place_psum_model/{dispatch}"
+    for m, r in enumerate(ranks):
+        for k in ("loss", "aux_loss", "z_loss", "drop_frac", "losses",
+                  "grad_norm"):
+            np.testing.assert_allclose(r[f"{key}/{k}"], ref[f"{key}/{k}"],
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(r[f"{key}/load"], ref[f"{key}/load"],
+                                   atol=1e-6)
+        grads, jgrads = _sub(r, f"{key}/grad"), _sub(ref, f"{key}/grad")
+        assert grads.keys() == jgrads.keys()
+        for path, g in grads.items():
+            want = jgrads[path]
+            if "/experts/" in path:  # (L, own + shadowed, ...) of (L, E, ...)
+                want = np.stack([_rank_rows_of(w, lp, m) for w, lp in
+                                 zip(want, plan.layers)])
+            _close_to_scale(g, want, 1e-4, f"{key} rank {m} {path}")
+
+
+def _serve_tokens(ep):
+    """The one-process batcher's tokens on the serving cell (unplaced),
+    made in the test process from the JAX package's params."""
+    from repro_torch import interop
+    cfg = _model_cfg("ragged")
+    params_np = _unflatten(dict(np.load(ep["root"] / "model_params.npz")))
+    return _batcher_tokens(interop.from_jax(params_np, cfg, device="cpu"),
+                           cfg, None, None, False)
+
+
+def test_replan_mid_stream_is_invisible_in_the_tokens(ep):
+    """The reference's tests/test_scheduler.py cell on 1x2 (gloo): the
+    same stream under the identity per-layer plan, and with the serving
+    cell's plan (a permutation per layer, 2 shadowed experts) switched in
+    after tick 3 (apply_placement: the params migrated across the ranks),
+    gives the same tokens on every rank, those of the one-process batcher,
+    and the JAX package's batcher's under both (greedy, f32)."""
+    ranks = _ranks(ep, "1x2")
+    jax_serve = ep["jax"].get("serve")
+    assert isinstance(jax_serve, dict), jax_serve
+    single = _serve_tokens(ep)
+    assert (single >= 0).sum() == 45, single
+    for r in ranks:
+        np.testing.assert_array_equal(r["serve/moved"], r["serve/base"])
+        np.testing.assert_array_equal(r["serve/base"], single)
+    np.testing.assert_array_equal(jax_serve["serve/1x2/moved"],
+                                  jax_serve["serve/1x2/base"])
+    np.testing.assert_array_equal(ranks[0]["serve/base"],
+                                  jax_serve["serve/1x2/base"])
+
+
+def test_batcher_per_data_group_matches_one_process(ep):
+    """2x2 (gloo): a batcher per data group, each decoding 2 of the 4
+    slots and exchanging its tokens over the data axis, gives the
+    completions of the port's one-process batcher, unplaced and with the
+    plan switched in after tick 3, on every rank; and the JAX package's
+    batcher's on the same 2x2 mesh of fake devices."""
+    ranks = _ranks(ep, "2x2")
+    jax_serve = ep["jax"].get("serve")
+    assert isinstance(jax_serve, dict), jax_serve
+    single = _serve_tokens(ep)
+    for r in ranks:
+        for key in ("plain", "moved"):
+            np.testing.assert_array_equal(r[f"serve/{key}"], single, key)
+            np.testing.assert_array_equal(jax_serve[f"serve/2x2/{key}"],
+                                          single, key)
+
+
 REFUSED = {
-    # placement is carried (ROADMAP §1 item 4, done) except in the psum
-    # mode, which is item 5
-    "placement": (dict(token_axes=(), placement="identity"), "item 5"),
+    # placement is carried in every mode (ROADMAP §1 items 4 and 5, done);
+    # shadowing under expert-internal TP is refused, as the reference does
+    "placement": (dict(tp_axis="data", placement="shadowed"),
+                  "expert-internal TP"),
     # as the reference: tp takes the capacity dispatch
     "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
     "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
@@ -2001,12 +2327,13 @@ def test_unsupported_options_raise(what):
     from repro_torch.core import fmoe
     from repro_torch.launch.mesh import Mesh
 
-    from repro_torch.placement import identity_placement
+    from repro_torch.placement import ExpertPlacement
 
     kw, item = REFUSED[what]
     kw = {"token_axes": ("data", "model"), **kw}
-    if kw.get("placement") == "identity":
-        kw["placement"] = identity_placement(LAYER["num_experts"], 2)
+    if kw.get("placement") == "shadowed":
+        E = LAYER["num_experts"]
+        kw["placement"] = ExpertPlacement(E, 2, tuple(range(E)), num_shadow=2)
     dist = fmoe.DistConfig(Mesh(1, 2), **kw)
     cfg = MoEConfig(dispatch="ragged" if what == "ragged_tp" else "capacity",
                     **LAYER)
@@ -2201,8 +2528,11 @@ def test_moe_dist_modes_and_expert_tp():
 
 
 def test_batcher_refuses_a_data_axis():
-    """Serving with a mesh takes 1xM meshes: a data axis needs a batcher
-    per data group (ROADMAP §1 item 5)."""
+    """A data axis serves now (ROADMAP §1 item 5: a batcher per data
+    group): on a 2x2 mesh rank 2 (data group 1) holds slots 2 and 3 of 4,
+    and 3 slots, which do not split, are every group's.  What the batcher
+    still refuses is a node axis (the reference's serving has none), from
+    a mesh or from ServeConfig.mesh."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.scheduler import ContinuousBatcher
     from repro_torch.launch.serve_api import ServeConfig
@@ -2210,11 +2540,15 @@ def test_batcher_refuses_a_data_axis():
 
     cfg = _model_cfg("ragged")
     params = lm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ContinuousBatcher(params, cfg, ServeConfig(slots=2), mesh=Mesh(2, 2),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ContinuousBatcher(params, cfg, ServeConfig(slots=2, mesh="2x2"),
+    for slots, mine in ((4, range(2, 4)), (3, range(0, 3))):
+        b = ContinuousBatcher(params, cfg, ServeConfig(slots=slots),
+                              mesh=Mesh(2, 2, rank=2), device="cpu")
+        assert b.mine == mine, (slots, b.mine)
+    with pytest.raises(NotImplementedError, match="node axis"):
+        ContinuousBatcher(params, cfg, ServeConfig(slots=2),
+                          mesh=Mesh(1, 2, node=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="node axis"):
+        ContinuousBatcher(params, cfg, ServeConfig(slots=2, mesh="1x2x2"),
                           device="cpu")
 
 
@@ -2245,6 +2579,42 @@ def test_serve_cli_under_torchrun(mode):
         for ln in (lines[0][0], lines[1][0]):
             assert "3 requests, 12 tokens" in ln, ln
     assert lines[0][1] == lines[1][1]  # the first sequence's tokens
+
+
+def _serve_cli(*args, ranks=1):
+    """The serve CLI, under torchrun with ``ranks`` gloo ranks when ``ranks
+    > 1``: its stdout lines."""
+    pre = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(ranks)] if ranks > 1 else [])
+    cmd = [sys.executable, *pre, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--reduced", "--prompt_len", "8", "--gen", "4", *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=SPAWN_TIMEOUT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout.strip().splitlines()
+
+
+def test_serve_cli_replans_under_torchrun():
+    """``serve --continuous --mesh 2x2 --replan_every 2`` on 4 gloo ranks (a
+    batcher per data group, the serve-time replan hook on the identity
+    plan from tick 0) serves every request with rank 0 printing alone, the
+    first request's tokens those of the one-process run; and the static
+    batch over 1x2 with --per_layer_plans serves under a plan measured on
+    its prompt (rank 0 prints it) with the one-process run's tokens."""
+    cont = ["--continuous", "--slots", "4", "--requests", "6",
+            "--block_size", "4", "--replan_every", "2"]
+    lines = _serve_cli(*cont, "--mesh", "2x2", ranks=4)
+    assert len(lines) == 2, lines  # rank 0 prints alone
+    assert "mesh 2x2 (psum)" in lines[0] and "6 requests, 24 tokens" in lines[0]
+    assert "replans=" in lines[0], lines
+    assert lines[1] == _serve_cli(*cont)[1]
+    static = _serve_cli("--batch", "2", "--mesh", "1x2", "--per_layer_plans",
+                        ranks=2)
+    assert len(static) == 3 and static[0].startswith("serving plan: shadow="), (
+        static)
+    assert static[2] == _serve_cli("--batch", "2")[1]
 
 
 @pytest.mark.cuda

@@ -697,8 +697,12 @@ def test_psum_mode_and_shadowing_with_tp_refuse_a_plan():
     params, x = _layer_params()
     cfg = MoEConfig(**LAYER)
     mesh = Mesh(1, 2)
-    psum = tfmoe.DistConfig(mesh, (), placement=TP.identity_placement(E, 2))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the psum mode runs a plan (item 5, ported); its shadowed experts must
+    # be laid out as the a2a mode's: a rank's owned block, then the tail
+    psum = tfmoe.DistConfig(mesh, (), placement=TP.ExpertPlacement(
+        E, 2, tuple(range(E)), num_shadow=2))
+    assert psum.mode == "psum"
+    with pytest.raises(ValueError, match="placement.migrate lays them out"):
         tfmoe.fmoe_apply(params, x, cfg, dist=psum)
     tp = tfmoe.DistConfig(mesh, ("data", "model"), tp_axis="data",
                           placement=TP.ExpertPlacement(

@@ -377,8 +377,12 @@ def test_serve_config_from_args():
     assert scfg.mesh_shape() == (1, 4)
     with pytest.raises(ValueError, match="policy"):
         ServeConfig(policy="batched")
-    for name in ("replan_every", "per_layer_plans", "metrics_out", "trace"):
-        with pytest.raises(TypeError, match=name):  # not ported: no field
+    assert (scfg.replan_every, scfg.per_layer_plans) == (0, True)
+    args.replan_every, args.per_layer_plans = 4, False  # the serve-time replan
+    scfg = ServeConfig.from_args(args)
+    assert (scfg.replan_every, scfg.per_layer_plans) == (4, False)
+    for name in ("metrics_out", "trace"):  # telemetry (item 7): no field
+        with pytest.raises(TypeError, match=name):
             ServeConfig(**{name: 1})
 
 

@@ -182,6 +182,24 @@ def test_ffn_plan_fills_the_card_within_the_grid(shape, gated):
     assert len(tiles) <= grid_rows(M, p.bm)
 
 
+@pytest.mark.parametrize("shape", ["decode", "train", "capacity"])
+@pytest.mark.parametrize("shadow", [1, 8, 48])
+def test_ffn_plan_split_follows_the_whole_buffer(shape, shadow):
+    """A launch on a part of a buffer (the placed psum mode's owned segment
+    of E - S experts, its shadowed tail of S), planned for the whole
+    buffer's rows and experts, takes the whole launch's hidden split, so
+    its rows sum the same f32 partials; unplanned, a narrow launch (few
+    groups) may take another."""
+    M, sizes = FFN_MAIN_PATH[shape]
+    whole = ff.plan(M, E, HIDDEN)
+    for m, e in ((sum(sizes[:E - shadow]), E - shadow),
+                 (sum(sizes[E - shadow:]), shadow)):
+        p = ff.plan(max(m, 1), e, HIDDEN, split_rows=M, split_groups=E)
+        assert (p.hc, p.splits) == (whole.hc, whole.splits), (m, e)
+    if shape != "decode":  # unplanned, 8 experts' rows take another split
+        assert ff.plan(sum(sizes[E - 8:]), 8, HIDDEN).hc != whole.hc
+
+
 @pytest.mark.parametrize("per_group,bm", [(1, 16), (16, 16), (17, 32), (32, 32),
                                           (33, 64), (500, 64)])
 def test_ffn_plan_row_tile_holds_an_average_expert(per_group, bm):

@@ -98,9 +98,10 @@
    on plain attention), and fused/ragged's step-0 loss and every gradient
    leaf equal bit for bit through either gather kernel (k = 2);
 11. holds the flash-attention kernels (forward; backward dq, dk, dv — the
-   bf16 backward twice, bit-equal over the runs where its dQ has a slot
-   per kv tile, at the fastmoe-gpt shapes, and each run to the tolerance
-   where it adds by atomics, at the starcoder2 kv group)
+   bf16 backward twice, bit-equal over the runs: with a dQ slot per kv
+   tile at the fastmoe-gpt shapes, over ranges of kv tiles whose slots
+   fit the budget at the starcoder2 kv group; and ranges forced on the
+   training shape and a tail bit-equal to the all-slots run)
    against their plain versions in bf16 and f32 at the fastmoe-gpt prefill
    (8 x 128) and training (8 x 256) shapes, one starcoder2-15b kv group
    (2 x 8192, 12 heads over 1, window 4096), window 1, sequences that
@@ -212,7 +213,21 @@
    tick's owned and shadowed buffers and combine_topk at k = 1 against
    their plain versions beside their bounds; and (in step 18, on its
    10-layer params) the placed psum train step under (a) and (b) against
-   the identity-placed step.
+   the identity-placed step;
+20. (slice 16, last: ``resilience_phase``) checkpoints, the step guard,
+   the fault drills and telemetry on full-width fastmoe-gpt cut to 2
+   layers (~11 GB of params and moments), 8 x 256, seed 0: a NaN at step
+   2 skipped and retried from the guard's host snapshot, and a crash
+   (exit 137) before a save's publish followed by ``--resume``, each
+   bit-equal to an uninterrupted run in every loss and every array's
+   sha256 (fused/ragged, and the resume again on pallas/capacity); a
+   rotted checkpoint skipped by ``restore_latest``; the dropless fallback
+   over a 1x1 NCCL mesh with ``--metrics_out`` / ``--trace`` (the seven
+   counters, the tallied collective bytes, the spans); the collectives
+   the same with the counters on and off; a step with the guard and
+   telemetry on and off in turns; the save, restore, snapshot and guard
+   times; and (in step 9's train phase) the guard's snapshot of the
+   10-layer state timed against its step.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -1042,12 +1057,11 @@ def flash_plain_fwd(q, k, v, kw, heads: int = 0):
 def flash_check(tag, dn, q, k, v, do, kw, *, fwd=True, bwd=True, heads=0):
     """The flash kernels against their plain versions on one input.
     Forward: o elementwise and by relative Frobenius, lse, and in bf16 >=
-    FLASH_EQUAL of the outputs bit-equal.  Backward, bf16 twice: where its
-    dQ scratch has a slot per kv tile (the fastmoe-gpt shapes) the two runs
-    must be equal bit for bit; where the kv tiles add into one scratch by
-    atomics (a starcoder2 kv group: its slots would exceed the budget) the
-    order of the adds changes from run to run, and each run must pass on
-    its own; each gradient's atol x max(1, its largest entry).  Returns
+    FLASH_EQUAL of the outputs bit-equal.  Backward, bf16 twice: the two
+    runs must be equal bit for bit, where its dQ has a slot per kv tile
+    (the fastmoe-gpt shapes) and where the kv tiles run in ranges whose
+    slots fit the budget (a starcoder2 kv group), and each run must pass
+    on its own; each gradient's atol x max(1, its largest entry).  Returns
     (o, lse, forward max |err|, backward max |err|)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -1072,17 +1086,14 @@ def flash_check(tag, dn, q, k, v, do, kw, *, fwd=True, bwd=True, heads=0):
         runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
                 for _ in range(2 if dn == "bfloat16" else 1)]
         torch.cuda.synchronize()
-        slots = fa.dq_slots(q, S) if dn == "bfloat16" else 0
-        if slots:
+        if dn == "bfloat16":
             for gname, a, b in zip(("dq", "dk", "dv"), *runs):
                 check(torch.equal(a, b), f"flash_attention_bwd {tag}: {gname} "
                                          f"differs between two runs")
-        if dn == "bfloat16":
-            notes.append("dq " + (
-                f"bit-equal over two runs ({slots} per-kv-tile slots)" if slots
-                else f"by atomic adds (slots would exceed {fa.DQ_SLOT_BUDGET >> 20} "
-                     f"MiB), max |run 0 - run 1| "
-                     f"{(runs[0][0].float() - runs[1][0].float()).abs().max().item():.3e}"))
+            slots, tiles = fa.dq_slots(q, S), math.ceil(S / fa.BWD_KV_TILE)
+            notes.append(f"dq, dk, dv bit-equal over two runs ({slots} of "
+                         f"{tiles} per-kv-tile slots a range, "
+                         f"{math.ceil(tiles / slots)} range(s))")
         ref = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
         for run, grads in enumerate(runs):
             for gname, a, b in zip(("dq", "dk", "dv"), grads, ref):
@@ -1146,6 +1157,41 @@ def flash_time(name, q, k, v, o, lse, do, kw, flush, kernels, heads=0):
     return timed
 
 
+def dq_ranges_check(dev):
+    """The bf16 backward's dQ over ranges of kv tiles (its slot budget
+    forced down to 2 slots: 2 kv tiles a range, each range summed in order
+    into one f32 accumulator) against its all-slots run at the fastmoe-gpt
+    training shape and a tail: dq, dk and dv bit for bit."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    for name in ("train", "tail"):
+        B, S, H, KV, dk, dv, window = FLASH_SHAPES[name]
+        q, do = (torch.randn(B, S, H, n, generator=g, device=dev)
+                 .to(torch.bfloat16) for n in (dk, dv))
+        k, v = (torch.randn(B, S, KV, n, generator=g, device=dev)
+                .to(torch.bfloat16) for n in (dk, dv))
+        o, lse = fa.flash_attention_fwd(q, k, v, window=window)
+        whole = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        slots = fa.dq_slots(q, S)
+        budget = fa.DQ_SLOT_BUDGET
+        fa.DQ_SLOT_BUDGET = 2 * q.numel() * 4
+        try:
+            check(fa.dq_slots(q, S) == 2 and fa.dq_accumulator(q, S) is not None,
+                  f"dq ranges {name}: the forced budget did not range")
+            ranged = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        finally:
+            fa.DQ_SLOT_BUDGET = budget
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("dq", "dk", "dv"), whole, ranged):
+            check(torch.equal(a, b), f"dq ranges {name}: {gname} of ranges of "
+                                     f"2 kv tiles != the all-slots run")
+        print(f"flash_attention_bwd dq ranges {name} {B}x{S}: ranges of 2 kv "
+              f"tiles bit-equal to the all-slots run ({slots} slots) in dq, "
+              f"dk and dv", flush=True)
+
+
 def flash_phase(dev, flush):
     """flash_attention_fwd / _bwd against their plain versions in bf16 and
     f32 at FLASH_SHAPES, the forward at FLASH_PREFILL, and in bf16 at
@@ -1188,6 +1234,7 @@ def flash_phase(dev, flush):
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     flash_small_shapes(dev)
+    dq_ranges_check(dev)
     # one starcoder2 layer at all its heads: the kernels alone
     B, S, H, KV, d, _, window = STARCODER2_FULL
     q, do = (torch.randn(B, S, H, d, generator=g, device=dev, dtype=torch.bfloat16)
@@ -2251,11 +2298,71 @@ def train_phase(dev):
         profile_train_step(f"{impl}/{dispatch}", step_fn, params, state,
                            data, dev, routing if (impl, dispatch) ==
                            ("fused", "ragged") else None)
+        if (impl, dispatch) == ("fused", "ragged"):
+            snapshot_times(params, state, dev, med * 1e3)
         del params, state, step_fn
     launches = {k: fn.launches for k, fn in counters().items()}
     print(f"main path launches (training): {json.dumps(launches)}", flush=True)
     torch.cuda.empty_cache()
     return launches, results, routing[:TRAIN_LAYERS]
+
+
+def host_room(where: Path) -> tuple:
+    """(MemAvailable bytes of /proc/meminfo, free bytes of the disk that
+    holds ``where``)."""
+    import shutil
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    where.mkdir(parents=True, exist_ok=True)
+    return avail, shutil.disk_usage(where).free
+
+
+def state_bytes(params, state) -> int:
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves((params, state.mu, state.nu)))
+
+
+def snapshot_times(params, state, dev, step_ms):
+    """The step guard's host snapshot of the live 10-layer training state
+    (params and both AdamW moments) into pinned host buffers: the first
+    commit (allocating the buffers, then copying), a second (the buffers
+    reused: what ``--snapshot_every 1`` pays each step), and the restore
+    into the live tensors, each ended by a synchronize.  Fails if the host
+    cannot hold the snapshot."""
+    import gc
+    import torch
+    from repro_torch.resilience import StepGuard
+
+    nbytes = state_bytes(params, state)
+    avail, _ = host_room(ROOT / "build")
+    print(f"snapshot: host MemAvailable {avail / 1e9:.2f} GB for the "
+          f"{nbytes / 1e9:.2f} GB 10-layer state", flush=True)
+    check(avail > 1.1 * nbytes, f"snapshot: the host has {avail / 1e9:.2f} GB "
+                                f"available, the snapshot needs {nbytes / 1e9:.2f}")
+    guard = StepGuard()
+    ms = []
+    for what in ("first", "again", "restore"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if what == "restore":
+            guard.load_snapshot()
+        else:
+            guard.commit(len(ms), params, state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del guard
+    gc.collect()
+    print(f"snapshot 10-layer fastmoe-gpt state ({nbytes / 1e9:.2f} GB: params "
+          f"and AdamW moments) to pinned host memory: first {ms[0]:.1f} ms "
+          f"(allocation + copy), then {ms[1]:.1f} ms a snapshot "
+          f"({nbytes / ms[1] / 1e6:.1f} GB/s device to host), guard restore "
+          f"{ms[2]:.1f} ms ({nbytes / ms[2] / 1e6:.1f} GB/s host to device); "
+          f"a snapshot is {ms[1] / step_ms:.2f} x the {step_ms:.1f} ms step",
+          flush=True)
 
 
 def profile_train_step(label, step_fn, params, state, data, dev, routing=None):
@@ -4853,7 +4960,8 @@ def placement_cli(dev):
     common = ["--arch", "fastmoe-gpt", "--num_layers", str(TRAIN_LAYERS),
               "--mesh", "1x1", "--dispatch", "ragged", "--impl", "fused",
               "--steps", str(PLACE_CLI_STEPS), "--log_every", "1",
-              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--max_bad_steps", "0"]  # the hook's cost alone, no guard
     med = collections.defaultdict(list)
     hook = ["--replan_every", str(PLACE_CLI_EVERY), "--ragged_bound", "auto"]
     for label, extra in (("with the hook", hook), ("without", [])):
@@ -5199,6 +5307,510 @@ def ep_by_path(ep_launches, name):
             runs[name] for path, runs in ep_launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# resilience (slice 16): checkpoints, the step guard, fault drills, telemetry
+# ---------------------------------------------------------------------------
+
+# full-width fastmoe-gpt cut to 2 of 12 layers (0.92 B f32 params, ~11 GB
+# with both AdamW moments: each save writes that, each restore hashes it,
+# each snapshot copies it), 8 x 256 tokens, seed 0
+RES_LAYERS, RES_STEPS = 2, 6
+RES_DIR = ROOT / "build" / "resilience"  # checkpoints, inside the checkout
+RES_TURNS, RES_TURN_STEPS = 2, 3  # guard + telemetry on / off, in turns
+
+
+def res_cfg(dispatch):
+    from repro_torch.configs import get_config
+    return with_dispatch(dataclasses.replace(get_config("fastmoe-gpt"),
+                                             num_layers=RES_LAYERS), dispatch)
+
+
+def res_argv(impl, dispatch, *extra):
+    """The train CLI's flags for the phase's model, data and path."""
+    return ["--arch", "fastmoe-gpt", "--num_layers", str(RES_LAYERS),
+            "--dispatch", dispatch, "--impl", impl, "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log_every", "1",
+            *extra]
+
+
+def res_run(cfg, impl, dev, *, guard=None, times=None, steps=RES_STEPS,
+            then=None, start=None, verify=True):
+    """The train CLI's loop through the functions it calls (params and data
+    from seed 0, the faults applied after each step, the guard's check,
+    restore and commit where given): (params, AdamW state, {step: loss}).
+    ``times`` gains the guard's commit and restore ms (synchronized);
+    ``then`` = (step, cfg, impl) switches the path from that step on;
+    ``start`` = a checkpoint path: the run resumes from it, as ``--resume``
+    does (the data stream replayed to the step after the checkpoint's),
+    its sha256s checked with ``verify``; ``times["ckpt_restore"]``."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.resilience import faults
+
+    params = lm.init_params(cfg, seed=0, device=dev,
+                            param_dtype=cfg.param_dtype)
+    opt = AdamW()
+    state = opt.init(params)
+    first = 0
+    if start is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = ckpt.restore(start, {"params": params, "opt": state},
+                            inplace=True, verify=verify)
+        torch.cuda.synchronize()
+        if times is not None:
+            times["ckpt_restore"] = [(time.perf_counter() - t0) * 1e3]
+        params, state = tree["params"], tree["opt"]
+        first = ckpt.load_manifest(start)["step"] + 1
+    step_fn = train.make_train_step(cfg, opt, impl=impl, device=dev)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+    for _ in range(first):
+        next(data)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if times is not None:
+            times.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    losses = {}
+    if guard is not None:
+        timed("commit", lambda: guard.commit(first - 1, params, state))
+    for step in range(first, steps):
+        if then is not None and step == then[0]:
+            step_fn = train.make_train_step(then[1], opt, impl=then[2],
+                                            device=dev)
+        batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+        while True:
+            params, state, m = step_fn(params, state, batch, step)
+            params, state, m = faults.apply_step(params, state, m, step=step)
+            loss, gnorm, drop = train._host_floats(m["loss"], m["grad_norm"],
+                                                   m["drop_frac"])
+            if guard is None or guard.check(step, loss=loss, grad_norm=gnorm,
+                                            drop=drop).ok:
+                break
+            params, state = timed("restore", guard.restore)
+        losses[step] = loss
+        if guard is not None:
+            timed("commit", lambda: guard.commit(step, params, state))
+    return params, state, losses
+
+
+def state_leaves(params, state) -> list:
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves((params, state.mu, state.nu))
+
+
+def same_state(params, state, ref: list) -> bool:
+    """Every param and moment bit-equal to ``ref`` (state_leaves')."""
+    import torch
+    got = state_leaves(params, state)
+    return len(got) == len(ref) and all(torch.equal(a, b)
+                                        for a, b in zip(got, ref))
+
+
+def res_cli(tag, argv, faults_spec=None, mesh=False):
+    """``train.main(argv)`` in this process with ``REPRO_FAULTS`` set to
+    ``faults_spec`` and its records in a JSONL file (on a 1x1 mesh, the
+    CLI's own NCCL init on localhost): (stdout lines, records, the faults
+    that fired)."""
+    import contextlib as cl
+    import io
+    import os
+    import socket
+    from repro_torch.launch import train
+    from repro_torch.obs import sink as obs_sink
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.resilience import faults
+
+    metrics = RES_DIR / f"{tag}.jsonl"
+    if mesh:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    faults.clear()
+    if faults_spec is not None:
+        os.environ["REPRO_FAULTS"] = json.dumps(faults_spec)
+    buf = io.StringIO()
+    try:
+        with cl.redirect_stdout(buf):
+            train.main(argv + ["--metrics_out", str(metrics)])
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        obs_trace.configure(enabled=False)
+    fired = list(faults.fired)
+    faults.clear()
+    return (buf.getvalue().splitlines(), obs_sink.jsonl_records(str(metrics)),
+            fired)
+
+
+def res_losses(records) -> dict:
+    return {r["step"]: r["loss"] for r in records if r["kind"] == "train_step"}
+
+
+def span_ms(trace_path, name) -> list:
+    from repro_torch.obs import trace as obs_trace
+    return [e["dur"] / 1e3 for e in obs_trace.load_trace(str(trace_path))
+            ["traceEvents"] if e["name"] == name]
+
+
+def resilience_phase(dev):
+    """Checkpoints, the step guard, the fault drills and telemetry on
+    full-width fastmoe-gpt cut to RES_LAYERS layers, 8 x 256 tokens,
+    fused/ragged, seed 0.  The machine counts every byte written to its
+    disk (45 GiB a call), so the phase saves three ~11 GB checkpoints in
+    all: (1) RES_STEPS uninterrupted steps (the losses, the final params
+    and moments, and their ``ckpt.digests``); (2) a ``nonfinite`` fault at
+    step 2: the guard skips, restores its host snapshot and retries, and
+    the losses and final state are bit-equal to (1); (3) ``python -m
+    repro_torch.launch.train`` checkpointing every 2 steps, crashed (exit
+    137) before the publish of the step-3 save: the step-1 checkpoint
+    intact, the torn save invisible; ``--resume`` in this process over a
+    1x1 NCCL mesh (the a2a exchange, bit-equal to local at one rank) with
+    ``--metrics_out`` and ``--trace``, the launch counters set to 0 just
+    before and read just after, to step 5: its losses and final state (the
+    step-5 manifest's sha256 of every array) bit-equal to (1), its records
+    carrying the seven counters, the tallied collective bytes and their
+    ratio, its trace the train_step, ckpt_save and ckpt_restore spans, and
+    a ``corrupt_array`` fault rotting its checkpoint after the checksum;
+    (4) ``restore_latest`` skips the rotted checkpoint (``ckpt_corrupt``)
+    for step 1; (5) the same resume from step 1 on pallas/capacity (the
+    grouped GEMM on a resumed path), through the functions the CLI calls,
+    bit-equal to the run that switches to pallas/capacity after step 1;
+    (6) over a 1x1 NCCL mesh with ``--ragged_bound 1024``, a
+    ``drop_spike`` over ``--drop_patience 2`` steps rebuilds the step with
+    the dropless bound (``drop_fallback applied=true``); (7) the collective
+    tally of a step with the counters on and off; (8) a step with the
+    guard and telemetry on and off, in turns.  Prints the save, restore,
+    snapshot and guard times and the phase's wall; fails, before anything
+    is written, when the host or the disk cannot hold what it needs.
+    Returns the resumed runs' launches."""
+    import os
+    import shutil
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import comm
+    from repro_torch.core.fmoe import DistConfig
+    from repro_torch.core.sync import sync_grads
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.obs import events as obs_events
+    from repro_torch.obs import sink as obs_sink
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.stats import StepStats
+    from repro_torch.optim import AdamW
+    from repro_torch.resilience import CheckpointManager, StepGuard, faults
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    RES_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    cfg = res_cfg("ragged")
+
+    # (1) the uninterrupted run
+    params, state, ref = res_run(cfg, "fused", dev)
+    nbytes = state_bytes(params, state)
+    avail, disk = host_room(RES_DIR)
+    print(f"resilience: a {RES_LAYERS}-layer fastmoe-gpt state is "
+          f"{nbytes / 1e9:.2f} GB; host MemAvailable {avail / 1e9:.2f} GB, "
+          f"disk free under build/ {disk / 1e9:.2f} GB", flush=True)
+    # two complete checkpoints and a torn save; the guard's pinned snapshot
+    # and a save's host copies
+    check(disk > 4 * nbytes, f"resilience: {disk / 1e9:.2f} GB of disk free, "
+                             f"the drills need {4 * nbytes / 1e9:.2f}")
+    check(avail > 3 * nbytes, f"resilience: {avail / 1e9:.2f} GB of host "
+                              f"memory available, the drills need "
+                              f"{3 * nbytes / 1e9:.2f}")
+    ref_state = [t.clone() for t in state_leaves(params, state)]
+    t0 = time.perf_counter()
+    ref_digest = ckpt.digests({"params": params, "opt": state})
+    digest_s = time.perf_counter() - t0
+    print("resilience (1) uninterrupted fused/ragged: losses "
+          + " ".join(f"{ref[s]:.6f}" for s in sorted(ref))
+          + f"; digest of {len(ref_digest)} arrays in {digest_s:.1f} s",
+          flush=True)
+    del params, state
+
+    # (2) a transient NaN: skip, restore, retry
+    faults.clear()
+    faults.arm({"kind": "nonfinite", "point": "train_step", "step": 2})
+    sink = obs_sink.MemorySink()
+    guard, times = StepGuard(sink=sink), {}
+    params, state, got = res_run(cfg, "fused", dev, guard=guard, times=times)
+    fired = list(faults.fired)
+    faults.clear()
+    check(len(fired) == 1 and fired[0]["fault_kind"] == "nonfinite",
+          f"resilience (2): faults fired {fired}")
+    kinds = [r["kind"] for r in sink.records]
+    check(kinds == [obs_events.GUARD_SKIP, obs_events.GUARD_RESTORE],
+          f"resilience (2): guard events {kinds}")
+    check(got == ref, f"resilience (2): retried losses {got} != {ref}")
+    check(same_state(params, state, ref_state), "resilience (2): the retried "
+          "run's final params and moments != the uninterrupted run's")
+    commits = times["commit"]
+    again = statistics.median(commits[1:])
+    print(f"resilience (2) NaN at step 2 skipped, restored and retried: "
+          f"losses and final params and moments bit-equal to (1); snapshot "
+          f"(device to pinned host, {nbytes / 1e9:.2f} GB) first "
+          f"{commits[0]:.1f} ms (registering the buffer + copy), then "
+          f"{again:.1f} ms median of {len(commits) - 1} "
+          f"({nbytes / again / 1e6:.1f} GB/s); guard restore "
+          f"{times['restore'][0]:.1f} ms", flush=True)
+    del params, state, ref_state
+    guard.sink = None  # reused in (8): its buffer is registered already
+    torch.cuda.empty_cache()
+
+    # (3) a crash before the step-3 save's publish, then --resume (both
+    # without the guard, which (2) drills: each process would page-lock
+    # another 11 GB for its snapshot)
+    ck = RES_DIR / "ck"
+    spec = [{"kind": "crash", "point": "ckpt_save_pre_commit", "at": 2}]
+    env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_FAULTS=json.dumps(spec))
+    t0 = time.perf_counter()
+    crashed = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *res_argv("fused", "ragged", "--steps", str(RES_STEPS), "--ckpt_dir",
+                   str(ck), "--save_every", "2", "--max_bad_steps", "0")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    crash_s = time.perf_counter() - t0
+    check(crashed.returncode == faults.CRASH_EXIT_CODE,
+          f"resilience (3): the crashed run exited {crashed.returncode}, not "
+          f"{faults.CRASH_EXIT_CODE}: {crashed.stderr[-2000:]}")
+    done = [s for s, _ in ckpt.complete_steps(str(ck))]
+    check(done == [1] and ckpt.latest_step(str(ck)) == ckpt.step_path(str(ck), 1),
+          f"resilience (3): after the crash {os.listdir(ck)}")
+    torn = [d for d in os.listdir(ck) if d.startswith(".tmp-")]
+    print(f"resilience (3) crash (exit {crashed.returncode}) at the step-3 "
+          f"save's publish after {crash_s:.1f} s: complete checkpoints "
+          f"{done}, the torn save {torn} invisible to latest_step", flush=True)
+    trace = RES_DIR / "resume_trace.json"
+    for f in counters().values():
+        f.launches = 0
+    lines, recs, fired = res_cli(
+        "resume", res_argv("fused", "ragged", "--steps", str(RES_STEPS),
+                           "--ckpt_dir", str(ck), "--resume", "--mesh", "1x1",
+                           "--trace", str(trace), "--max_bad_steps", "0"),
+        [{"kind": "corrupt_array", "point": "ckpt_save_file",
+          "match": "opt/nu/embed/table", "at": 1}], mesh=True)
+    res_launches = {k: f.launches for k, f in counters().items()}
+    for name in needed_kernels("fused", "ragged"):
+        check(res_launches[name] > 0, f"resilience (3): the resumed run never "
+                                      f"launched {name}")
+    check(any(ln.startswith("resumed from step 1") for ln in lines),
+          f"resilience (3): {lines[:3]}")
+    got = res_losses(recs)
+    check(got == {s: ref[s] for s in range(2, RES_STEPS)},
+          f"resilience (3): resumed losses {got} != {ref}")
+    kinds = [r["kind"] for r in recs]
+    check(kinds.count(obs_events.RESUME) == 1
+          and kinds.count(obs_events.CKPT_SAVE) == 1,
+          f"resilience (3): events {kinds}")
+    final = {k: v["sha256"] for k, v in ckpt.load_manifest(
+        ckpt.step_path(str(ck), RES_STEPS - 1))["params"].items()}
+    check(final == ref_digest, "resilience (3): the resumed run's final "
+                               "state != the uninterrupted run's")
+    check(len(fired) == 1 and fired[0]["fault_kind"] == "corrupt_array",
+          f"resilience (3): corrupt_array fired {fired}")
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    want = {"wire_elems", "wire_bytes", "dropped", "shadow_hits", "imbalance",
+            "wire_bytes_intra", "wire_bytes_inter", "modeled_all_to_all_bytes",
+            "modeled_all_reduce_bytes", "wire_measured_over_modeled"}
+    check(len(steps) == RES_STEPS - 2 and all(want <= set(r) for r in steps)
+          and all(r["wire_bytes"] > 0 for r in steps),
+          f"resilience (3): train_step records {[sorted(r) for r in steps]}")
+    spans = {e["name"] for e in obs_trace.load_trace(str(trace))["traceEvents"]}
+    check({"train_step", "ckpt_save", "ckpt_restore"} <= spans,
+          f"resilience (3): spans {spans}")
+    saves, restores = span_ms(trace, "ckpt_save"), span_ms(trace, "ckpt_restore")
+    print(f"resilience (3) --resume over a 1x1 NCCL mesh from step 1 to "
+          f"{RES_STEPS - 1}: losses and final state (the step-{RES_STEPS - 1} "
+          f"manifest's sha256 of {len(final)} arrays) bit-equal to (1); save "
+          + ", ".join(f"{v:.0f} ms ({nbytes / v / 1e6:.2f} GB/s)" for v in saves)
+          + f"; restore with sha256 {restores[0]:.0f} ms "
+          f"({nbytes / restores[0] / 1e6:.2f} GB/s); launches "
+          f"{json.dumps({k: v for k, v in res_launches.items() if v})}",
+          flush=True)
+    print("resilience (3) telemetry: train_step records carry "
+          f"{sorted(want)}; wire bytes a step "
+          + " ".join(f"{r['wire_bytes']:.0f}" for r in steps)
+          + "; modeled all-to-all bytes "
+          + " ".join(f"{r['modeled_all_to_all_bytes']:.0f}" for r in steps)
+          + "; wire_measured_over_modeled "
+          + " ".join(f"{r['wire_measured_over_modeled']:.4f}" for r in steps)
+          + f"; step wall s " + " ".join(f"{r['wall_s']:.4f}" for r in steps)
+          + f"; spans {sorted(spans)}", flush=True)
+
+    # (4) bit rot: the newest checkpoint fails its checksum, the next wins
+    p = lm.init_params(cfg, seed=1, device=dev, param_dtype=cfg.param_dtype)
+    like = {"params": p, "opt": AdamW().init(p)}
+    sink = obs_sink.MemorySink()
+    t0 = time.perf_counter()
+    res = CheckpointManager(str(ck), sink=sink).restore_latest(like,
+                                                              inplace=True)
+    torch.cuda.synchronize()
+    fallback_ms = (time.perf_counter() - t0) * 1e3
+    events = [(r["kind"], r["step"]) for r in sink.records]
+    check(res is not None and res[1] == 1
+          and events == [(obs_events.CKPT_CORRUPT, RES_STEPS - 1),
+                         (obs_events.RESUME, 1)],
+          f"resilience (4): restore_latest {None if res is None else res[1]}, "
+          f"events {events}")
+    print(f"resilience (4) the step-{RES_STEPS - 1} checkpoint rotted after "
+          f"its checksum: restore_latest skipped it ({events[0][0]}) and "
+          f"restored step 1 in {fallback_ms:.0f} ms (hashing the rotted "
+          f"one, then the step-1 restore with its sha256s)", flush=True)
+    del p, like, res
+    torch.cuda.empty_cache()
+
+    # (5) the same resume on pallas/capacity, against the run that switches
+    cap = res_cfg("capacity")
+    params, state, ref2 = res_run(cfg, "fused", dev, then=(2, cap, "pallas"))
+    ref2_state = [t.clone() for t in state_leaves(params, state)]
+    del params, state
+    torch.cuda.empty_cache()
+    for f in counters().values():
+        f.launches = 0
+    times = {}
+    params, state, got = res_run(cap, "pallas", dev, times=times,
+                                 start=ckpt.step_path(str(ck), 1), verify=False)
+    bare_ms = times["ckpt_restore"][0]
+    launches = {k: f.launches for k, f in counters().items()}
+    check(launches["grouped_gemm"] > 0,
+          "resilience (5): the resumed pallas run never launched grouped_gemm")
+    for k, v in launches.items():
+        res_launches[k] += v
+    check(got == {s: ref2[s] for s in range(2, RES_STEPS)}
+          and same_state(params, state, ref2_state),
+          f"resilience (5): pallas/capacity resumed losses {got} != {ref2}, "
+          f"or its final state differs")
+    print("resilience (5) pallas/capacity resumed from step 1: losses "
+          + " ".join(f"{got[s]:.6f}" for s in sorted(got))
+          + " and final params and moments bit-equal to the run that "
+          f"switched after step 1; its restore without sha256 {bare_ms:.0f} ms "
+          f"({nbytes / bare_ms / 1e6:.2f} GB/s); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    del params, state, ref2_state
+    torch.cuda.empty_cache()
+
+    # (6) the dropless fallback over a 1x1 NCCL mesh
+    lines, recs, _ = res_cli(
+        "fallback", res_argv("fused", "ragged", "--steps", "4", "--mesh",
+                             "1x1", "--ragged_bound", "1024",
+                             "--drop_patience", "2"),
+        [{"kind": "drop_spike", "point": "train_step", "step": 0, "until": 2,
+          "value": 0.9}], mesh=True)
+    fb = [r for r in recs if r["kind"] == obs_events.DROP_FALLBACK]
+    check(len(fb) == 1 and fb[0]["applied"] is True and fb[0]["step"] == 1
+          and any("forced dropless ragged bound" in ln for ln in lines),
+          f"resilience (6): fallback records {fb}")
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    check(len(steps) == 4 and all(r["dropped"] == 0.0 for r in steps[2:]),
+          f"resilience (6): dropped rows a step {[r['dropped'] for r in steps]}")
+    print("resilience (6) drop spike over 2 steps on --ragged_bound 1024 (1x1 "
+          "NCCL): dropless rebuild at step 1 (drop_fallback applied=true); "
+          "dropped rows a step "
+          + " ".join(f"{r['dropped']:.0f}" for r in steps)
+          + "; wire bytes " + " ".join(f"{r['wire_bytes']:.0f}" for r in steps),
+          flush=True)
+
+    # (7) the collectives of a step with the counters on and off
+    init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
+    try:
+        mesh = make_local_mesh(1, 1)
+        params = lm.init_params(cfg, seed=0, device=dev,
+                                param_dtype=cfg.param_dtype)
+        batch = batch_of(cfg, 0, dev)
+        seen = {}
+        for obs in (True, False):
+            dist = DistConfig(mesh, ("data", "model"), obs=obs)
+            comm.tally_reset()
+            loss, aux, grads = train.loss_and_grads(
+                params, cfg, batch, impl="fused", device=dev, dist=dist)
+            sync_grads(grads, dist)
+            torch.cuda.synchronize()
+            seen[obs] = (comm.tallied_calls(), comm.tallied(), float(loss),
+                         float(aux["wire_bytes"]))
+            del grads
+        check(seen[True][:3] == seen[False][:3] and seen[True][3] > 0
+              and seen[False][3] == 0.0,
+              f"resilience (7): tally on {seen[True]} / off {seen[False]}")
+        print(f"resilience (7) a step's collectives with the counters on and "
+              f"off (1x1 NCCL), the same: calls {json.dumps(seen[True][0])}, "
+              f"bytes {json.dumps(seen[True][1])}; the loss equal", flush=True)
+        del params
+    finally:
+        tdist.destroy_process_group()
+
+    # (8) a step with the guard and telemetry on and off, in turns
+    params = lm.init_params(cfg, seed=0, device=dev,
+                            param_dtype=cfg.param_dtype)
+    opt = AdamW()
+    state = opt.init(params)
+    step_fn = train.make_train_step(cfg, opt, impl="fused", device=dev)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
+    sink = obs_sink.MemorySink()
+    obs_trace.configure(enabled=True)
+    step, ms = 0, collections.defaultdict(list)
+
+    def steps_ms(on):
+        nonlocal params, state, step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RES_TURN_STEPS):
+            batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+            ts = time.perf_counter()
+            comm.tally_reset()
+            with (obs_trace.span("train_step", step=step) if on
+                  else contextlib.nullcontext()):
+                params, state, m = step_fn(params, state, batch, step)
+                if on:
+                    torch.cuda.synchronize()
+            if on:
+                keys = [k for k in train.STEP_COUNTERS if k in m]
+                out = dict(zip(keys, train._host_floats(*(m[k] for k in keys))))
+                guard.check(step, loss=out["loss"], drop=out["drop_frac"],
+                            grad_norm=train._host_floats(m["grad_norm"])[0])
+                sink.emit(StepStats("train_step", step,
+                                    time.perf_counter() - ts, counters=out,
+                                    modeled=comm.tallied()).record())
+                guard.commit(step, params, state)
+            step += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / RES_TURN_STEPS
+
+    steps_ms(True)  # warm (the guard's buffer is registered from (2))
+    for _ in range(RES_TURNS):
+        for on in (False, True):
+            ms[on].append(steps_ms(on))
+    obs_trace.configure(enabled=False)
+    off, on = (statistics.mean(ms[k]) for k in (False, True))
+    print(f"resilience (8) a {RES_LAYERS}-layer fused/ragged step in turns "
+          f"(off, on; the mean of {RES_TURN_STEPS} steps each): guard and "
+          f"telemetry off {' '.join(f'{v:.1f}' for v in ms[False])} ms, on "
+          f"(host read, snapshot, sync, tally, record) "
+          f"{' '.join(f'{v:.1f}' for v in ms[True])} ms; difference of the "
+          f"means {on - off:+.1f} ms ({on / off:.2f}x)", flush=True)
+    del params, state, step_fn, guard
+    torch.cuda.empty_cache()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    print(f"resilience phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"three {nbytes / 1e9:.2f} GB checkpoints written", flush=True)
+    return res_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5218,6 +5830,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
+
+    def mark(phase):  # where the script's wall time goes
+        print(f"timeline: {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
     libs = _build.build_all()
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -5226,34 +5842,60 @@ def main() -> int:
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs, timed = kernel_phase(dev, flush)
+    mark("kernel_phase")
     bwd_errs, bwd_timed = bwd_kernel_phase(dev, flush)
+    mark("bwd_kernel_phase")
     ds_bwd = ds_bwd_kernel_phase(dev, flush)
+    mark("ds_bwd_kernel_phase")
     fa_errs, fa_timed = flash_phase(dev, flush)
+    mark("flash_phase")
     del flush
     small_reference(dev)
+    mark("small_reference")
     small_reference_train(dev)
+    mark("small_reference_train")
     launches = serve_phase(dev)
+    mark("serve_phase")
     torch.cuda.empty_cache()  # the serving params are gone with serve_phase
     train_launches, _, routing = train_phase(dev)
+    mark("train_phase")
     ep_launches = ep_phase(dev)
+    mark("ep_phase")
     ep_launches["overlap"], chunk_ms = overlap_phase(dev)
+    mark("overlap_phase")
     print("hierarchical (two-level) exchange: not run here; it needs 1 < "
           "nodes < ranks, at least 4 ranks, and this machine has one card "
           "(the CPU tests hold it over gloo)", flush=True)
     init_phase(dev)
+    mark("init_phase")
     cb_launches, cb_tick, served = continuous_phase(dev)
+    mark("continuous_phase")
     routing_ms = model_routing_phase(dev, routing)
+    mark("model_routing_phase")
     grad_oracle_phase(dev)
+    mark("grad_oracle_phase")
     starcoder2_logits_phase(dev)
+    mark("starcoder2_logits_phase")
     sc2_launches = starcoder2_serve_phase(dev)
+    mark("starcoder2_serve_phase")
     deepseek_logits_phase(dev)
+    mark("deepseek_logits_phase")
     ds_launches, dsc_launches, dsc_tick = deepseek_serve_phase(dev)
+    mark("deepseek_serve_phase")
     zoo_launches = router_phase(dev)
+    mark("router_phase")
     sw_launches, sw_train_launches = switch_phase(dev)
+    mark("switch_phase")
     arctic_launches = arctic_phase(dev)
+    mark("arctic_phase")
     dense_launches = dense_phase(dev)
+    mark("dense_phase")
     dst_launches = deepseek_train_phase(dev)
+    mark("deepseek_train_phase")
     place_launches, place_kernels = placement_phase(dev)
+    mark("placement_phase")
+    res_launches = resilience_phase(dev)
+    mark("resilience_phase")
     slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
                zoo_launches,
                "switch-base-128 serving": sw_launches,
@@ -5264,7 +5906,10 @@ def main() -> int:
                "in a2a and the psum mode, a locally on fused/ragged)":
                    place_launches,
                "fastmoe-gpt placed continuous serving (psum 1x1: identity, "
-               "a, b, switched)": served["launches"]}
+               "a, b, switched)": served["launches"],
+               "fastmoe-gpt resumed training (2 layers, from step 1: "
+               "fused/ragged over a 1x1 mesh, pallas/capacity; steps "
+               "2-5 each)": res_launches}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,29 +1,37 @@
 """Load-balance losses and monitoring (paper §6 future work, following
-Switch/GShard).  The telemetry field ``obs`` of the JAX ``MoEMetrics`` joins
-with the telemetry slice of the port."""
+Switch/GShard)."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.counters import ObsCounters
+
 
 class MoEMetrics(NamedTuple):
-    """Per-MoE-layer metrics, accumulable across layers with ``+``."""
+    """Per-MoE-layer metrics, accumulable across layers with ``+``.
+
+    ``obs`` carries the telemetry counters (``repro_torch.obs.counters``)
+    through the same sum; a monitor-feeding construction that never sums
+    may leave it None (the default)."""
 
     aux_loss: torch.Tensor  # scalar — Switch load-balance loss
     z_loss: torch.Tensor  # scalar — router logit z-loss
     load: torch.Tensor  # (E,) float32 — fraction of tokens assigned per expert
     drop_frac: torch.Tensor  # scalar — fraction of (token, slot) pairs dropped
+    obs: Any = None  # Optional[ObsCounters] — wire/drop/shadow counters
 
     @staticmethod
     def zero(num_experts: int, device) -> "MoEMetrics":
         z = torch.zeros((), device=device)
-        return MoEMetrics(z, z, torch.zeros(num_experts, device=device), z)
+        return MoEMetrics(z, z, torch.zeros(num_experts, device=device), z,
+                          ObsCounters.zero())
 
     def __add__(self, other: "MoEMetrics") -> "MoEMetrics":
-        return MoEMetrics(*(a + b for a, b in zip(self, other)))
+        return MoEMetrics(*(b if a is None else a if b is None else a + b
+                            for a, b in zip(self, other)))
 
 
 def load_balance_loss(probs: torch.Tensor, expert_ids: torch.Tensor,

@@ -11,6 +11,14 @@ backward).  The counts carry no gradient.  The ragged exchange takes the
 §5.2 schedule's chunks, shift decomposition and wire dtype
 (``core/pipeline``), and the two-level exchange of a node mesh its intra-
 node hop (``*_intra``) and slim inter-node hop (``*_inter``).
+
+The collective tally: every collective the port issues (here, in
+``core/pipeline``, the metrics' and the gradient sync's all-reduces) adds
+its output bytes per rank under the reference's HLO op names
+(``all-to-all``, ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute`` for the shifts), the counterpart of the bytes the
+reference parses from its compiled step (``obs/stats.StepStats``).  It is
+host bookkeeping of shapes: it reads no tensor's values.
 """
 from __future__ import annotations
 
@@ -18,6 +26,37 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import pipeline
+
+_TALLY: dict = {}  # op name -> output bytes per rank since the last reset
+_CALLS: dict = {}  # op name -> calls since the last reset
+
+
+def tally(op: str, nbytes: float) -> None:
+    """Enter one collective of ``nbytes`` output bytes per rank."""
+    _TALLY[op] = _TALLY.get(op, 0) + nbytes
+    _CALLS[op] = _CALLS.get(op, 0) + 1
+
+
+def tally_reset() -> None:
+    _TALLY.clear()
+    _CALLS.clear()
+
+
+def tallied() -> dict:
+    """{op: output bytes per rank} since the last :func:`tally_reset`."""
+    return dict(_TALLY)
+
+
+def tallied_calls() -> dict:
+    """{op: calls} since the last :func:`tally_reset`."""
+    return dict(_CALLS)
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place SUM over ``group`` (not differentiable), tallied."""
+    tally("all-reduce", x.numel() * x.element_size())
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -30,9 +69,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.contiguous().clone()  # a fresh buffer: reduced in place
-    dist.all_reduce(out, group=group)
-    return out
+    return all_reduce_(x.contiguous().clone(), group)  # a fresh buffer
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -60,6 +97,7 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],
                         *xt.shape[1:]))
+    tally("all-gather", out.numel() * out.element_size())
     dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim)
 
@@ -68,6 +106,7 @@ def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // dist.get_world_size(group),
                         *xt.shape[1:]))
+    tally("reduce-scatter", out.numel() * out.element_size())
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
 

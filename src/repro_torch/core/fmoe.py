@@ -52,6 +52,7 @@ from repro_torch.core.gate import (EXPLORING, ROUTERS, expert_choice_forward,
                                    route_tokens, router_distill_loss,
                                    router_init)
 from repro_torch.kernels import ops
+from repro_torch.obs import counters as obs_counters
 
 
 class DistConfig(NamedTuple):
@@ -91,6 +92,10 @@ class DistConfig(NamedTuple):
       inter_bound — rows per slim per-node shard: 0 = n_inner *
         ragged_bound, which never drops there; a smaller bound drops the
         rows past it at the forwarding agent (also in ``drop_frac``).
+      obs — compute the telemetry counters (``MoEMetrics.obs``,
+        ``repro_torch.obs.counters``) from values the layer reduces anyway:
+        no collective of their own, so turning them off leaves the
+        collectives as they are.  Off: ``ObsCounters.zero()``.
       decompose — whether a chunked exchange takes the shifts of point-to-
         point sends (None: when chunked, as the reference) or one
         all-to-all a chunk (False).  The reference has it as an argument of
@@ -133,6 +138,7 @@ class DistConfig(NamedTuple):
     inter_bound: int = 0
     router: Optional[str] = None
     decompose: Optional[bool] = None
+    obs: bool = True
 
     @classmethod
     def local(cls, placement=None) -> "DistConfig":
@@ -522,7 +528,8 @@ def _ec_flat_load(E: int, device) -> torch.Tensor:
 
 def _ec_metrics(x: torch.Tensor, logits: torch.Tensor, E: int) -> MoEMetrics:
     z = x.new_zeros((), dtype=torch.float32)
-    return MoEMetrics(z, router_z_loss(logits), _ec_flat_load(E, x.device), z)
+    return MoEMetrics(z, router_z_loss(logits), _ec_flat_load(E, x.device), z,
+                      obs_counters.local_counters(dropped=0.0))
 
 
 def _ec_uniform(E: int, C: int, device) -> torch.Tensor:
@@ -564,7 +571,9 @@ def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         y = D.combine_capacity(out, plan, g.combine_weights)  # gather
         load, drop = load_metrics(plan.load, plan.keep, T * cfg.top_k)
     metrics = MoEMetrics(_aux_loss(router, x, g, cfg),
-                         router_z_loss(g.logits), _logical(load, table), drop)
+                         router_z_loss(g.logits), _logical(load, table), drop,
+                         obs_counters.local_counters(
+                             dropped=drop * (T * cfg.top_k)))
     return y, metrics
 
 
@@ -574,7 +583,7 @@ def _moe_local(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
 
 
 def _dist_metrics(dist: DistConfig, load_part: torch.Tensor, aux, z, drop,
-                  E: int, table=None) -> MoEMetrics:
+                  E: int, table=None, counters=None) -> MoEMetrics:
     """The layer's metrics over every token rank, in one all-reduce.
 
     ``load_part`` (E,) is this rank's share of the global assigned load in
@@ -582,17 +591,21 @@ def _dist_metrics(dist: DistConfig, load_part: torch.Tensor, aux, z, drop,
     expert; ``table`` then puts it in logical order); aux, z and drop are
     this rank's and come back as their mean over the token ranks.  The aux
     and z losses keep their local gradient: the train step's gradient sync
-    sums every rank's loss, which is the gradient of the mean."""
+    sums every rank's loss, which is the gradient of the mean.
+    ``counters(global physical load, mean drop)`` makes the telemetry
+    counters from the reduced values (with ``dist.obs``)."""
     group = dist.mesh.group(dist.token_axes)
     n = dist.mesh.axes_size(dist.token_axes)
     red = torch.cat([load_part.float(),
                      torch.stack([aux, z, drop]).detach().float()])
-    torch.distributed.all_reduce(red, group=group)
+    comm.all_reduce_(red, group)
     load_global = _logical(red[:E], table)
     load = load_global / load_global.sum().clamp_min(1.0)
     aux_pm, z_pm, drop_pm = red[E:] / n
+    obs = (counters(red[:E], drop_pm) if dist.obs and counters is not None
+           else obs_counters.ObsCounters.zero())
     return MoEMetrics(_keep_grad(aux, aux_pm), _keep_grad(z, z_pm), load,
-                      drop_pm)
+                      drop_pm, obs)
 
 
 def _keep_grad(v: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
@@ -687,6 +700,7 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     out, out_shadow = pipeline.pipelined_expert_exchange(
         buf.reshape(mp, E_local, Cm, d), group, mp, n_chunks, compute,
         fill_fn=fill_fn, wire_dtype=dist.wire_dtype, decompose=decompose)
+    d_out, out_dtype = out.shape[-1], out.dtype
     out = D.merge_outputs(out.reshape(E_ns, Cm, -1), out_shadow, spec)
     if ec:
         y = D.combine_ec(_logical(out, table), token_idx, ec_w, t)
@@ -700,14 +714,25 @@ def _moe_a2a(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
     load_part = x.new_zeros(E, dtype=torch.float32)
     load_part[m * E_local:(m + 1) * E_local] = incoming.sum(0).float()
     load_part[E_ns:] = assigned[E_ns:].float()
+    n_ranks = mesh.axes_size(dist.token_axes)
+
+    def counters(load_phys, drop_pm):  # the owned slots took the exchange
+        return obs_counters.exchange_counters(
+            frac=pipeline.wire_fraction(mp, decompose=decompose),
+            fwd_rows=E_ns * Cm, d_in=d, in_dtype=x.dtype, ret_rows=E_ns * Cm,
+            d_out=d_out, out_dtype=out_dtype, counts_elems=E_ns,
+            wire_dtype=dist.wire_dtype,
+            dropped=drop_pm * (t * cfg.top_k * n_ranks),
+            shadow_hits=load_phys[E_ns:].sum() if spec.num_shadow else 0.0,
+            imbalance=obs_counters.imbalance(load_phys[:E_ns], mp, E_local))
     if ec:
         zero = x.new_zeros((), dtype=torch.float32)
         return y, _dist_metrics(dist, load_part, zero, router_z_loss(logits),
-                                zero, E, table)
+                                zero, E, table, counters)
     _, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
     metrics = _dist_metrics(
         dist, load_part, _aux_loss(router, x, g, cfg),
-        router_z_loss(g.logits), drop, E, table)
+        router_z_loss(g.logits), drop, E, table, counters)
     return y, metrics
 
 
@@ -747,7 +772,7 @@ def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
     the de-aggregation and the intra-node return.  ``fill_fn`` (the
     shadowed experts) runs in the inter leg's first wire bubble, or just
     before the per-chunk leg, as the reference's.  Returns (ret, rows the
-    agent dropped at the inter bound, fill_out)."""
+    agent dropped at the inter bound, fill_out, (n_inner, IB, decomposed))."""
     mesh = dist.mesh
     mp, _, d = send.shape
     node_ax = dist.node_axis
@@ -829,7 +854,8 @@ def _hier_exchange(send, xplan, experts, act, dist: DistConfig, impl: str,
     ret = comm.return_ragged_intra(
         padded.reshape(n_nodes, n_inner, B, d_out), inner_g, n_inner,
         decompose=decomp, wire_dtype=wire)
-    return ret.reshape(mp, B, d_out), aplan.dropped, fill_out
+    return (ret.reshape(mp, B, d_out), aplan.dropped, fill_out,
+            (n_inner, IB, decomp))
 
 
 def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
@@ -900,8 +926,9 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     node_ax = dist.node_axis
     n_nodes = (mesh.shape[node_ax] if node_ax in dist.expert_axes else 1)
     agg_dropped = 0.0
-    if 1 < n_nodes < mp:
-        ret, agg_dropped, fill_out = _hier_exchange(
+    hier = 1 < n_nodes < mp
+    if hier:
+        ret, agg_dropped, fill_out, (n_inner, IB, decomp) = _hier_exchange(
             send, xplan, experts, act, dist, impl, B, E_ns // mp, fill_fn)
     else:
         group = mesh.group(dist.expert_axes)
@@ -917,6 +944,7 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
         ys = RAGGED_FNS[impl](experts, xs, gs_local, act)
         out = D.gather_rows_fill(ys, cplan)  # back to the shard slots
         ret = comm.return_ragged(out.reshape(mp, B, -1), group, mp, **ex)
+        decomp = ex["decompose"]
     y_sorted = D.gather_rows_fill(ret.reshape(mp * B, -1), xplan.send_dest)
     if fill_fn is not None:
         y_sorted = y_sorted + D.gather_rows_fill(fill_out, shadow_dest)
@@ -932,7 +960,24 @@ def _moe_a2a_ragged(x: torch.Tensor, router: dict, experts: dict,
     # rows over the peer bound, and those the forwarding agent dropped at
     # the inter bound: the mean over the ranks is the global fraction
     dropped = (xplan.num_owned_rows - xplan.keep.sum()).float() + agg_dropped
-    return y, _dist_metrics(dist, gs, aux, z, dropped / n, E, table)
+    n_ranks = mesh.axes_size(dist.token_axes)
+
+    def counters(load_phys, drop_pm):
+        kw = dict(d_in=d, in_dtype=x.dtype, d_out=ret.shape[-1],
+                  out_dtype=ret.dtype, counts_elems=E_ns,
+                  wire_dtype=dist.wire_dtype, dropped=drop_pm * (n * n_ranks),
+                  shadow_hits=load_phys[E_ns:].sum() if E_ns < E else 0.0,
+                  imbalance=obs_counters.imbalance(load_phys[:E_ns], mp,
+                                                   E_ns // mp))
+        if hier:
+            return obs_counters.hier_exchange_counters(
+                intra_frac=pipeline.wire_fraction(n_inner, decompose=decomp),
+                inter_frac=pipeline.wire_fraction(n_nodes, decompose=decomp),
+                intra_rows=mp * B, inter_rows=n_nodes * IB, **kw)
+        return obs_counters.exchange_counters(
+            frac=pipeline.wire_fraction(mp, decompose=decomp),
+            fwd_rows=mp * B, ret_rows=mp * B, **kw)
+    return y, _dist_metrics(dist, gs, aux, z, dropped / n, E, table, counters)
 
 
 def _psum_fns(impl: str, expert_fn: Callable, rows: int, groups: int):
@@ -1026,6 +1071,7 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
             c = comm.all_reduce_sum(
                 D.combine_ragged_slots(y_sorted, plan, g.combine_weights),
                 group)
+            payload = c
             if shadow:  # the sorted tail [offs[E_ns], n), at offset 0
                 dest_sh = segment(offs[E_ns], n)
                 ys_sh = ragged_fn(shadow, D.scatter_rows(x_sorted, dest_sh, n),
@@ -1033,11 +1079,13 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
                 c = c + D.combine_ragged_slots(
                     D.gather_rows_fill(ys_sh, dest_sh), plan,
                     g.combine_weights)
+            payload = c
             y = c.sum(1)
         else:
-            y = comm.all_reduce_sum(
+            y = payload = comm.all_reduce_sum(
                 D.combine_ragged(y_sorted, plan, g.combine_weights), group)
         load, drop = load_metrics(gs, None, n)
+        denom = n
     else:
         C = D.expert_capacity(t, E, cfg.top_k, cfg.capacity_factor)
         _, cap_fn = _psum_fns(impl, expert_fn, E * C, E)
@@ -1052,35 +1100,54 @@ def _moe_psum(x: torch.Tensor, router: dict, experts: dict, cfg: MoEConfig,
         if slotwise:
             c = comm.all_reduce_sum(
                 D.combine_capacity_slots(out, plan, g.combine_weights), group)
+            payload = c
             if shadow:
                 out_sh = cap_fn(shadow, buf_shadow, act)
                 c = c + D.combine_capacity_slots(D.shadow_only(out_sh, spec),
                                                  plan, g.combine_weights)
             y = c.sum(1)
         else:
-            y = comm.all_reduce_sum(
+            y = payload = comm.all_reduce_sum(
                 D.combine_capacity(out, plan, g.combine_weights), group)
         load, drop = load_metrics(plan.load, plan.keep, t * cfg.top_k)
+        denom = t * cfg.top_k
+    n_ranks = dist.mesh.axes_size(dist.token_axes)
+
+    def counters(load_pm, drop_pm):  # normalized loads, physical order
+        return obs_counters.reduction_counters(
+            payload_elems=payload.numel(), payload_dtype=payload.dtype,
+            dropped=drop_pm * (denom * n_ranks),
+            shadow_hits=(load_pm[E_ns:].sum() * (denom * n_ranks)
+                         if E_ns < E else 0.0),
+            imbalance=obs_counters.imbalance(load_pm[:E_ns], mp, E_local))
     return y, _psum_metrics(dist, MoEMetrics(_aux_loss(router, x, g, cfg),
                                              router_z_loss(g.logits), load,
-                                             drop), table)
+                                             drop), table, counters)
 
 
-def _psum_metrics(dist: DistConfig, m: MoEMetrics, table=None) -> MoEMetrics:
+def _psum_metrics(dist: DistConfig, m: MoEMetrics, table=None,
+                  counters=None) -> MoEMetrics:
     """The psum mode's metrics: the means over the token ranks, in one
     all-reduce (aux and z keep the rank's own gradient); the load, given
-    in physical order, comes back in logical order (``table``)."""
+    in physical order, comes back in logical order (``table``).
+    ``counters(mean physical load, mean drop)`` makes the telemetry
+    counters from the reduced values (with ``dist.obs``)."""
     ranks = dist.mesh.axes_size(dist.token_axes)
+    zero = obs_counters.ObsCounters.zero()
     if ranks == 1:
-        return m._replace(load=_logical(m.load, table))
+        obs = (counters(m.load, m.drop_frac)
+               if dist.obs and counters is not None else zero)
+        return m._replace(load=_logical(m.load, table), obs=obs)
     E = m.load.shape[0]
     red = torch.cat([m.load, torch.stack([m.aux_loss, m.z_loss, m.drop_frac])
                      .detach().float()])
-    torch.distributed.all_reduce(red, group=dist.mesh.group(dist.token_axes))
+    comm.all_reduce_(red, dist.mesh.group(dist.token_axes))
     red = red / ranks
+    obs = (counters(red[:E], red[E + 2])
+           if dist.obs and counters is not None else zero)
     return MoEMetrics(_keep_grad(m.aux_loss, red[E]),
                       _keep_grad(m.z_loss, red[E + 1]),
-                      _logical(red[:E], table), red[E + 2])
+                      _logical(red[:E], table), red[E + 2], obs)
 
 
 def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
@@ -1118,7 +1185,8 @@ def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
         dest = segment(m * E_local * C, E_local * C)
         ys = ragged_fn(experts, D.scatter_rows(x_sorted, dest, n),
                        _ec_uniform(E_local, C, x.device), act)
-        rows = comm.all_reduce_sum(D.gather_rows_fill(ys, dest), group)
+        rows = payload = comm.all_reduce_sum(D.gather_rows_fill(ys, dest),
+                                             group)
         if shadow:  # the tail [E_ns * C, n), at offset 0
             dest_sh = segment(E_ns * C, n)
             ys_sh = ragged_fn(shadow, D.scatter_rows(x_sorted, dest_sh, n),
@@ -1130,11 +1198,18 @@ def _moe_psum_ec(x: torch.Tensor, router: dict, experts: dict,
         out_local = cap_fn(experts, buf[mine], act)
         out = out_local.new_zeros(E_ns, C, out_local.shape[-1])
         out[mine] = out_local
-        out = comm.all_reduce_sum(out, group)
+        out = payload = comm.all_reduce_sum(out, group)
         if E_ns < E:  # every rank, its own tokens, outside the reduction
             out = torch.cat([out, cap_fn(shadow, buf[E_ns:], act)])
     y = D.combine_ec(_logical(out, table), token_idx, ec_w, t)
-    return y, _psum_metrics(dist, _ec_metrics(x, logits, E))
+    n_ranks = dist.mesh.axes_size(dist.token_axes)
+
+    def counters(load_pm, drop_pm):  # exact capacities: nothing dropped
+        return obs_counters.reduction_counters(
+            payload_elems=payload.numel(), payload_dtype=payload.dtype,
+            dropped=0.0, shadow_hits=float((E - E_ns) * C * n_ranks),
+            imbalance=1.0)
+    return y, _psum_metrics(dist, _ec_metrics(x, logits, E), None, counters)
 
 
 def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,

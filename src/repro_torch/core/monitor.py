@@ -6,9 +6,9 @@ them), the drop-rate EMA and the imbalance statistics the placement
 planner (``repro_torch.placement``) and the adaptive ragged bound read.
 The expert-parallel paths report the *global* per-expert arrival count in
 logical expert order, so the monitor never sees a placement's layout.
-
-The reference's ``sink=`` (the telemetry sink) is the telemetry slice,
-ROADMAP §1 item 7: anything but None is refused.
+Its sampled snapshots go to a bounded history and, with a ``sink``
+(``repro_torch.obs.sink``), into the telemetry stream as ``load_monitor``
+records.
 """
 from __future__ import annotations
 
@@ -19,20 +19,10 @@ from typing import Optional
 import numpy as np
 
 
-def refuse_sink(sink, what: str) -> None:
-    """The telemetry sinks are not ported: refuse one rather than drop its
-    records."""
-    if sink is not None:
-        raise NotImplementedError(
-            f"{what}(sink=...) emits to the telemetry sink, which is ROADMAP "
-            f"§1 item 7, not ported to repro_torch yet; pass sink=None")
-
-
 class LoadMonitor:
     def __init__(self, num_experts: int, *, ema: float = 0.99,
                  num_layers: int = 0, history_cap: int = 512,
                  record_every: int = 0, sink=None):
-        refuse_sink(sink, "LoadMonitor")
         self.num_experts = num_experts
         self.ema = ema
         self.load_ema = np.full(num_experts, 1.0 / num_experts)
@@ -48,15 +38,16 @@ class LoadMonitor:
         # not shrink the shards again
         self.force_dropless = False
         self.history: deque = deque(maxlen=max(1, int(history_cap)))
-        self.record_every = record_every
-        self.sink = None
+        self.record_every = record_every  # default cadence for update()
+        self.sink = sink  # optional repro_torch.obs.sink.MetricsSink
 
     def update(self, metrics, *, record_every: Optional[int] = None) -> None:
         """metrics: a ``core.balance.MoEMetrics`` (or anything with ``load``
         and ``drop_frac``).  ``load`` is an (E,) vector (renormalized here)
         or an (L, E) per-layer stack, which also refreshes
         ``load_ema_layers``.  ``record_every`` overrides the instance
-        default for this call."""
+        default for this call; each recorded snapshot also lands in the
+        sink."""
         load = np.asarray(metrics.load, np.float64)
         if load.ndim == 2:
             if self.load_ema_layers is not None:
@@ -78,7 +69,10 @@ class LoadMonitor:
         if record_every is None:
             record_every = self.record_every
         if record_every and self.steps % record_every == 0:
-            self.history.append({"step": self.steps, **self.snapshot()})
+            rec = {"step": self.steps, **self.snapshot()}
+            self.history.append(rec)
+            if self.sink is not None:
+                self.sink.emit({"kind": "load_monitor", **rec})
 
     def snapshot(self) -> dict:
         l = self.load_ema / max(self.load_ema.sum(), 1e-12)

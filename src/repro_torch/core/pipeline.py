@@ -33,8 +33,9 @@ starts and before that exchange is waited on, so on the card it fills the
 first wire bubble.  Its autograd graph is its own; no collective runs in
 it, so the ranks' collectives keep their order in the backward.
 
-Not ported: ``wire_fraction``, read only by the telemetry counters
-(ROADMAP §1 item 7).
+:func:`wire_fraction` is the share of an exchange's buffer that crosses
+the wire, which the telemetry counters (``obs/counters``) read.  Every
+exchange issued here is entered in ``core.comm``'s collective tally.
 """
 from __future__ import annotations
 
@@ -81,16 +82,29 @@ class _Pending:
         self.g_src = self.g_out = self.g_works = None
 
 
+def wire_fraction(mp: int, *, decompose: bool) -> float:
+    """The fraction of a tiled dim-0 exchange that crosses the wire: the
+    shifts keep each rank's own slice on the rank, so a decomposed
+    exchange moves (mp - 1) / mp of the buffer; one all-to-all is counted
+    at its whole output, as the reference counts its HLO op."""
+    return (mp - 1) / mp if (decompose and mp > 0) else 1.0
+
+
 def _issue(x: torch.Tensor, group, mp: int, decompose: bool):
     """Start the tiled dim-0 exchange of ``x`` (mp slices, one a peer):
     returns (the contiguous source, the output buffer, handles).  The
     buffer holds the result only after every handle's ``wait()``, and the
     source must live until then."""
+    from repro_torch.core import comm  # comm imports this module
     x = x.contiguous()
     out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
     if not decompose:
+        comm.tally("all-to-all", nbytes)
         return x, out, [dist.all_to_all_single(out, x, group=group,
                                                async_op=True)]
+    comm.tally("collective-permute",
+               nbytes * wire_fraction(mp, decompose=True))
     # shift s: my slice for rank r+s goes there; rank r-s's slice for me
     # lands in slot r-s, where the tiled all-to-all puts it
     r = dist.get_rank(group)

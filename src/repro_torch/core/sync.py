@@ -120,7 +120,7 @@ def sync_grads(grads, dist):
     for _, tag, g in tagged_parts(grads, dist):
         group = groups[tag]
         if group is not None:
-            torch.distributed.all_reduce(g, group=group)
+            comm.all_reduce_(g, group)
         if world > 1:
             g.div_(world)
     return grads
@@ -159,7 +159,7 @@ def sharded_sq_norms(tree, dist) -> list:
     per = torch.stack([_expert_sq(tagged[i][1]) for i in idx])  # (n, rows)
     if mesh is not None:
         if dist.expert_tp:
-            torch.distributed.all_reduce(per, group=mesh.group("data"))
+            comm.all_reduce_(per, mesh.group("data"))
         mp = mesh.axes_size(dist.expert_axes)
         if mp > 1:
             S = _num_shadow(dist)

@@ -49,14 +49,17 @@
 //   through shared memory;
 //   dQ += dS K: dS (bf16) is written once to shared memory, and each warp
 //   writes its (16 q rows x dk / 4 or dk / 2) part, 16 bytes a lane (two
-//   lanes pair up their fragments), to an f32 scratch in device memory:
-//   where the host gives one slot per kv tile
-//   (kernels/flash_attention.py dq_scratch, within a memory budget: every
-//   training shape), a plain store to this kv tile's own slot of (kv
-//   tiles, B, Sq, H, dk); beyond it, an atomic
-//   add to one (B, Sq, H, dk) scratch.  A last small kernel sums the slots
-//   the kv tiles wrote, in kv-tile order, scales by 1/sqrt(dk) and rounds
-//   to bf16.
+//   lanes pair up their fragments), with a plain store to this kv tile's
+//   own f32 slot of (slots, B, Sq, H, dk) in device memory.  A last small
+//   kernel sums the slots the kv tiles wrote, in kv-tile order, scales by
+//   1/sqrt(dk) and rounds to bf16.  Where a slot per kv tile would exceed
+//   the host's memory budget (kernels/flash_attention.py dq_slots: a
+//   starcoder2-15b kv group at 2 x 8192 would need 12.9 GB), the kernel
+//   runs over ranges of kv tiles that fit it (its tile0 argument), and
+//   after each range a summing kernel adds the range's slots, in kv-tile
+//   order, into one f32 (B, Sq, H, dk) accumulator that the last kernel
+//   rounds: the same additions in the same order, so dq is bit-equal to
+//   the all-slots result.
 // So the work is the 2 (3 dk + 2 dv) flops per pair the bound counts: no
 // kernel recomputes S and dP for dQ.  Q, dO, lse and delta of the next step land
 // in a two-stage cp.async ring while this one computes.  Tiles: 64 kv rows
@@ -67,9 +70,8 @@
 // are rounded to bf16 for their second products, as FlashAttention does.
 // The kv tile is the grid's slowest index, so the tiles most q tiles see
 // (the first, when causal) start first and the light ones fill in.
-// With slots, dq is bitwise reproducible (dk and dv have one owner each
-// and a fixed order).  With the atomic adds it is not: their order changes
-// from run to run, so dq may differ in its last bits between two runs.
+// dq is bitwise reproducible (dk and dv have one owner each and a fixed
+// order; dQ's parts are summed in kv-tile order), whatever the ranges.
 // Still simple: mma.sync rather than wgmma; K and V fragments re-read from
 // shared memory each step; ~255 registers a thread, so two blocks an SM;
 // at the small fastmoe-gpt shapes (blocks of 1-4 steps) latency, the
@@ -908,7 +910,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16: FlashAttention-2's loop with mma.sync, dQ by atomic adds
+// backward, bf16: FlashAttention-2's loop with mma.sync, dQ into slots
 // ---------------------------------------------------------------------------
 //
 // Warp w owns kv rows [16 w, 16 w + 16) of the block's 64-row kv tile: the
@@ -955,7 +957,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dq_acc,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
                      int Skv, int H, int KV, int window, int q_offset,
-                     int causal, float scale, int slots) {
+                     int causal, float scale, int tile0) {
   using C = BwdCfg<DK, DV>;
   constexpr int BK = C::BK, BQ = C::BQ, LDK = C::LDK, LDV = C::LDV, LDS = C::LDS;
   constexpr int NQ = BQ / 8, NDK = DK / 8, NDV = DV / 8;  // n8 tiles over q, dk, dv
@@ -967,8 +969,9 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* stats = reinterpret_cast<float*>(smem + C::STATS_OFF);  // lse[2][BQ], delta[2][BQ]
   const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
-  // the kv tile is the grid's slowest index: heavy tiles start first
-  const int j0 = blockIdx.z * BK, kvh = blockIdx.x, b = blockIdx.y;
+  // the kv tile is the grid's slowest index: heavy tiles start first; the
+  // grid covers the range of kv tiles from tile0
+  const int j0 = (tile0 + blockIdx.z) * BK, kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / KV;
   const int kv_rows = min(BK, Skv - j0);
 
@@ -980,8 +983,8 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int2 qts = bwd_q_tiles(j0, kv_rows, Sq, window, q_offset, causal, BQ);
   const int qt0 = qts.x, nq = qts.y;
   const int steps = G * nq;
-  // dQ: this kv tile's slot (plain stores), or the one scratch (atomics)
-  float* dq_base = dq_acc + (slots ? (size_t)blockIdx.z * gridDim.y * Sq * H * DK : 0);
+  // dQ: this kv tile's slot of the range (plain stores)
+  float* dq_base = dq_acc + (size_t)blockIdx.z * gridDim.y * Sq * H * DK;
   const bf16* qb = q + (size_t)b * Sq * H * DK;
   const bf16* db = dout + (size_t)b * Sq * H * DV;
 
@@ -1154,12 +1157,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float x1 = __shfl_xor_sync(kFullMask, odd ? qacc[c][1] : qacc[c][3], 1);
         const float4 add = odd ? make_float4(x0, x1, qacc[c][2], qacc[c][3])
                                : make_float4(qacc[c][0], qacc[c][1], x0, x1);
-        if (row < rows) {
-          if (slots)
-            *reinterpret_cast<float4*>(dq_row + c * 8) = add;
-          else
-            atomicAdd(reinterpret_cast<float4*>(dq_row + c * 8), add);
-        }
+        if (row < rows) *reinterpret_cast<float4*>(dq_row + c * 8) = add;
       }
     }
   }
@@ -1183,33 +1181,57 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The slots the kv tiles [tile0, tile0 + ntiles) wrote for the element's q
+// tile (flash_bwd_mma_kernel's own loop bounds; the others were never
+// written and are skipped), added in kv-tile order to ``a``.
+template <int DK, int DV>
+__device__ __forceinline__ float4 add_slots(float4 a, const float4* __restrict__ slots,
+                                            long long i, long long n4, int tile0,
+                                            int ntiles, int Sq, int Skv, int H,
+                                            int window, int q_offset, int causal) {
+  using C = BwdCfg<DK, DV>;
+  const int qt = (int)(i * 4 / ((long long)H * DK) % Sq) / C::BQ;
+  for (int t = 0; t < ntiles; ++t) {
+    const int j0 = (tile0 + t) * C::BK;
+    const int2 r = bwd_q_tiles(j0, min(C::BK, Skv - j0), Sq, window, q_offset,
+                               causal, C::BQ);
+    if (qt >= r.x && qt < r.x + r.y) {
+      const float4 v = slots[(long long)t * n4 + i];
+      a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+    }
+  }
+  return a;
+}
+
+// One range of kv tiles: sum = (first ? 0 : sum) + its slots, in kv-tile
+// order, four elements a thread.
+template <int DK, int DV>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_sum_kernel(const float4* __restrict__ slots, float4* __restrict__ sum,
+                        long long n4, int tile0, int ntiles, int first, int Sq,
+                        int Skv, int H, int window, int q_offset, int causal) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = first ? make_float4(0.f, 0.f, 0.f, 0.f) : sum[i];
+    sum[i] = add_slots<DK, DV>(a, slots, i, n4, tile0, ntiles, Sq, Skv, H,
+                               window, q_offset, causal);
+  }
+}
+
 // dq = bf16(acc * scale), four elements a thread.  With slots (one (B, Sq,
-// H, DK) slot per kv tile) acc is the sum of the slots the kv tiles that
-// see the element's q tile wrote (flash_bwd_mma_kernel's own loop bounds),
-// in kv-tile order; the others were never written and are skipped.
+// H, DK) slot per kv tile) acc is the sum of the slots, in kv-tile order
+// (add_slots); without, acc is the ranges' sum.
 template <int DK, int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_round_kernel(const float4* __restrict__ acc, bf16* __restrict__ dq,
                           long long n4, float scale, int slots, int Sq, int Skv,
                           int H, int window, int q_offset, int causal) {
-  using C = BwdCfg<DK, DV>;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (!slots) {
-      a = acc[i];
-    } else {
-      const int qt = (int)(i * 4 / ((long long)H * DK) % Sq) / C::BQ;
-      for (int t = 0; t < slots; ++t) {
-        const int j0 = t * C::BK;
-        const int2 r = bwd_q_tiles(j0, min(C::BK, Skv - j0), Sq, window, q_offset,
-                                   causal, C::BQ);
-        if (qt >= r.x && qt < r.x + r.y) {
-          const float4 v = acc[(long long)t * n4 + i];
-          a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-        }
-      }
-    }
+    const float4 a = slots ? add_slots<DK, DV>(make_float4(0.f, 0.f, 0.f, 0.f), acc,
+                                               i, n4, 0, slots, Sq, Skv, H,
+                                               window, q_offset, causal)
+                           : acc[i];
     *reinterpret_cast<uint2*>(dq + 4 * i) =
         make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
   }
@@ -1287,14 +1309,19 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq_acc: slots == 0: (B, Sq, H, DK) f32, zero on entry; else (slots, B,
-// Sq, H, DK) f32, slots = ceil(Skv / 64), any contents.
+// dq_acc: (slots, B, Sq, H, DK) f32, any contents.  slots = ceil(Skv /
+// 64): one range, summed by the round kernel; fewer: ranges of ``slots``
+// kv tiles, each summed into dq_sum ((B, Sq, H, DK) f32, any contents),
+// which the round kernel rounds.
 template <int DK, int DV>
 int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
              const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
-             float* delta, float* dq_acc, int slots, Args a, cudaStream_t st) {
+             float* delta, float* dq_acc, float* dq_sum, int slots, Args a,
+             cudaStream_t st) {
   using C = BwdCfg<DK, DV>;
-  if (slots && slots != (a.Skv + C::BK - 1) / C::BK)
+  const int tiles = (a.Skv + C::BK - 1) / C::BK;
+  const bool ranged = slots < tiles;
+  if (slots < 1 || slots > tiles || (ranged && dq_sum == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   launch_prep<bf16, DV>(o, dout, delta, a, st);
   cudaError_t err = cudaGetLastError();
@@ -1302,19 +1329,27 @@ int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 
   err = allow_smem(flash_bwd_mma_kernel<DK, DV>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(a.KV, a.B, (a.Skv + C::BK - 1) / C::BK);
-  flash_bwd_mma_kernel<DK, DV><<<grid, NT, C::SMEM, st>>>(
-      q, k, v, dout, lse, delta, dq_acc, dk, dv, a.Sq, a.Skv, a.H, a.KV,
-      a.window, a.q_offset, a.causal, a.scale, slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
   const long long n4 = (long long)a.B * a.Sq * a.H * DK / 4;
-  const long long blocks = (n4 + 255) / 256;
-  flash_bwd_dq_round_kernel<DK, DV><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256,
-                                      0, st>>>(reinterpret_cast<const float4*>(dq_acc),
-                                               dq, n4, a.scale, slots, a.Sq, a.Skv,
-                                               a.H, a.window, a.q_offset, a.causal);
+  const long long b4 = (n4 + 255) / 256;
+  const unsigned blocks = (unsigned)(b4 < 4096 ? b4 : 4096);
+  for (int t0 = 0; t0 < tiles; t0 += slots) {
+    const int n = tiles - t0 < slots ? tiles - t0 : slots;
+    dim3 grid(a.KV, a.B, n);
+    flash_bwd_mma_kernel<DK, DV><<<grid, NT, C::SMEM, st>>>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, a.Sq, a.Skv, a.H, a.KV,
+        a.window, a.q_offset, a.causal, a.scale, t0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!ranged) break;
+    flash_bwd_dq_sum_kernel<DK, DV><<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const float4*>(dq_acc), reinterpret_cast<float4*>(dq_sum),
+        n4, t0, n, t0 == 0, a.Sq, a.Skv, a.H, a.window, a.q_offset, a.causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_bwd_dq_round_kernel<DK, DV><<<blocks, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(ranged ? dq_sum : dq_acc), dq, n4, a.scale,
+      ranged ? 0 : slots, a.Sq, a.Skv, a.H, a.window, a.q_offset, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1368,14 +1403,16 @@ extern "C" int flash_attention_fwd_smem(int dk, int dv, int bq) {
 
 // The gradients of flash_attention_fwd: dO (B, Sq, H, dv) -> dq, dk, dv in
 // the inputs' shapes and dtype; delta (B, H, Sq) f32 scratch; for bf16,
-// dq_acc f32 scratch (unused for f32): dq_slots = ceil(Skv / 64) slots of
-// (B, Sq, H, dk), any contents, each kv tile's dQ in its own (summed in
-// order: deterministic), or dq_slots = 0 and one (B, Sq, H, dk), zero on
-// entry, that the kv tiles add into by atomics.
+// dq_acc f32 scratch (unused for f32): dq_slots slots of (B, Sq, H, dk),
+// any contents, each kv tile's dQ in its own (summed in kv-tile order:
+// deterministic): ceil(Skv / 64) of them, or fewer and the kv tiles run in
+// ranges of dq_slots, summed in order into dq_sum (B, Sq, H, dk) f32, any
+// contents (null when one range covers every tile).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
-                                   void* dv, void* delta, void* dq_acc, int B,
+                                   void* dv, void* delta, void* dq_acc,
+                                   void* dq_sum, int B,
                                    int Sq, int Skv, int H, int KV, int d_k,
                                    int d_v, int window, int q_offset,
                                    int causal, int dtype, int dq_slots,
@@ -1391,7 +1428,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                               static_cast<const bf16*>(v), static_cast<const bf16*>(o), \
                               l, static_cast<const bf16*>(dout), static_cast<bf16*>(dq), \
                               static_cast<bf16*>(dk), static_cast<bf16*>(dv), dl, \
-                              static_cast<float*>(dq_acc), dq_slots, a, st);    \
+                              static_cast<float*>(dq_acc),                      \
+                              static_cast<float*>(dq_sum), dq_slots, a, st);    \
     return bwd_f32<DK, DV>(static_cast<const float*>(q), static_cast<const float*>(k), \
                            static_cast<const float*>(v), static_cast<const float*>(o), \
                            l, static_cast<const float*>(dout), static_cast<float*>(dq), \

@@ -33,11 +33,14 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 12 + [_P],
          "flash_attention_fwd_smem": [_I] * 3,
-         "flash_attention_bwd": [_P] * 11 + [_I] * 12 + [_P]}
+         "flash_attention_bwd": [_P] * 12 + [_I] * 12 + [_P]}
 # (dk, dv) with an instance on the card (FOR_EACH_PAIR in the source)
 HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
 BWD_KV_TILE = 64  # kv rows a block of the bf16 backward (BwdCfg::BK)
-DQ_SLOT_BUDGET = 256 * 2 ** 20  # bytes of per-kv-tile f32 dQ slots at most
+# bytes of per-kv-tile f32 dQ slots at most (read at each call: a test may
+# lower it to force the ranged backward); a starcoder2-15b kv group at 2 x
+# 8192 (100 MB a slot, 128 kv tiles) runs in 4 ranges of 42 tiles
+DQ_SLOT_BUDGET = 4 * 2 ** 30
 _NEG = -1e30
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may ask for on Hopper
 
@@ -183,30 +186,39 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def dq_slots(q: torch.Tensor, skv: int) -> int:
     """The bf16 backward's per-kv-tile dQ slots for q and Skv = ``skv``
-    keys: ceil(skv / 64), or 0 where they would exceed DQ_SLOT_BUDGET."""
+    keys: one per 64-row kv tile, ceil(skv / 64), where they fit
+    DQ_SLOT_BUDGET, else as many as fit (at least one): the kv tiles then
+    run in ranges of that many."""
     tiles = math.ceil(skv / BWD_KV_TILE)
-    return tiles if tiles * q.numel() * 4 <= DQ_SLOT_BUDGET else 0
+    per = q.numel() * 4
+    return max(1, min(tiles, DQ_SLOT_BUDGET // per)) if per else tiles
 
 
 def dq_scratch(q: torch.Tensor, skv: int) -> torch.Tensor | None:
-    """The f32 scratch the bf16 backward kernel writes dQ into before a
-    last kernel sums, scales and rounds it, for Skv = ``skv`` keys; None
-    for f32, whose dQ kernel owns each row.
+    """The f32 scratch the bf16 backward kernel writes dQ into, (slots, B,
+    Sq, H, dk) uninitialised (:func:`dq_slots`), for Skv = ``skv`` keys;
+    None for f32, whose dQ kernel owns each row.
 
-    Where one (B, Sq, H, dk) slot per 64-row kv tile fits DQ_SLOT_BUDGET
-    (every training shape: 4 x 8.4 MB at fastmoe-gpt's 8 x 256), it is
-    (kv tiles, B, Sq, H, dk), uninitialised: each kv tile stores its part in
-    its own slot and the last kernel sums the slots that were written in
-    kv-tile order, so dq is bitwise reproducible.  Beyond the budget (one
-    starcoder2-15b kv group at 2 x 8192 would need ~12.9 GB) it is one
-    (B, Sq, H, dk) of zeros that the kv tiles add into by atomics, in an
-    order that changes from run to run."""
+    Each kv tile stores its part in its own slot, and the slots are summed
+    in kv-tile order, so dq is bitwise reproducible: by the last kernel
+    where every kv tile has a slot (every training shape: 4 x 8.4 MB at
+    fastmoe-gpt's 8 x 256), else range by range into
+    :func:`dq_accumulator`, the same additions in the same order (one
+    starcoder2-15b kv group at 2 x 8192 would need ~12.9 GB of slots)."""
     if q.dtype != torch.bfloat16:
         return None
-    slots = dq_slots(q, skv)
-    if slots:
-        return torch.empty(slots, *q.shape, dtype=torch.float32, device=q.device)
-    return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    return torch.empty(dq_slots(q, skv), *q.shape, dtype=torch.float32,
+                       device=q.device)
+
+
+def dq_accumulator(q: torch.Tensor, skv: int) -> torch.Tensor | None:
+    """The f32 (B, Sq, H, dk) sum of the ranges' slots where the kv tiles
+    run in ranges (uninitialised: the first range's sum writes it), else
+    None."""
+    if (q.dtype != torch.bfloat16
+            or dq_slots(q, skv) >= math.ceil(skv / BWD_KV_TILE)):
+        return None
+    return torch.empty(q.shape, dtype=torch.float32, device=q.device)
 
 
 def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
@@ -214,9 +226,9 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
     """(dq, dk, dv) of :func:`flash_attention_fwd` given its (o, lse) and
     dO, in the inputs' dtype.  bf16: delta = rowsum(dO o); one kernel per
     kv tile for dK, dV and its part of dQ into :func:`dq_scratch`; dq
-    summed and rounded from it — bitwise reproducible where the scratch
-    has a slot per kv tile, not where it is one that the kv tiles add into
-    by atomics.  f32: delta; dK and dV per kv tile; dQ per q tile."""
+    summed in kv-tile order and rounded from it (over ranges of kv tiles
+    where the slots would exceed the budget) — bitwise reproducible.  f32:
+    delta; dK and dV per kv tile; dQ per q tile."""
     check_args(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, window=window,
@@ -232,7 +244,8 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
     if q.numel():
         delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
         acc = dq_scratch(q, k.shape[1])
-        slots = dq_slots(q, k.shape[1]) if acc is not None else 0
+        total = dq_accumulator(q, k.shape[1])
+        slots = acc.shape[0] if acc is not None else 0
         lib = _build.load("flash_attention", _SIGS)
         rc = lib.flash_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(),
@@ -240,6 +253,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
                                      dk.data_ptr(), dv.data_ptr(),
                                      delta.data_ptr(),
                                      None if acc is None else acc.data_ptr(),
+                                     None if total is None else total.data_ptr(),
                                      *args[:-1], slots, args[-1])
         _build.check(lib, rc, "flash_attention_bwd")
         flash_attention_bwd.launches += 1

@@ -59,7 +59,7 @@ from repro_torch.core import comm
 from repro_torch.core.balance import MoEMetrics
 from repro_torch.core.dispatch import expert_capacity
 from repro_torch.core.fmoe import DistConfig
-from repro_torch.core.monitor import LoadMonitor, refuse_sink
+from repro_torch.core.monitor import LoadMonitor
 from repro_torch.device import resolve
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_local_mesh
@@ -67,6 +67,7 @@ from repro_torch.launch.serve_api import Completion, Request, ServeConfig
 from repro_torch.launch.train import _host
 from repro_torch.models import attention as A
 from repro_torch.models import lm
+from repro_torch.obs import trace as obs_trace
 from repro_torch.placement import (PlacementController, ReplanProbation,
                                    from_logical, load_calibration, migrate)
 
@@ -144,12 +145,11 @@ class ServeReplanHook:
     (one host transfer then).  On a mesh the loads and the drop fraction
     are the means over the data axis, the same on every rank, so every
     rank takes the same decision on the same tick (``apply_placement``
-    migrates collectively).  ``sink=`` (the telemetry sink) is ROADMAP §1
-    item 7: refused."""
+    migrates collectively).  ``sink``: the telemetry sink; the probation's
+    verdicts and each replan land in it."""
 
     def __init__(self, batcher: "ContinuousBatcher", num_ranks: int, *,
                  every: int, per_layer: bool = True, sink=None):
-        refuse_sink(sink, "ServeReplanHook")
         cfg = batcher.cfg
         moe = cfg.moe
         L = cfg.num_layers if per_layer else 0
@@ -157,6 +157,7 @@ class ServeReplanHook:
         # keep the batcher's params alive until the cycle collector runs
         self.batcher = weakref.proxy(batcher)
         self.per_layer = per_layer
+        self.sink = sink
         self.monitor = LoadMonitor(moe.num_experts, ema=0.9, num_layers=L)
         self.controller = PlacementController(
             self.monitor, num_ranks, d_model=cfg.d_model,
@@ -165,7 +166,8 @@ class ServeReplanHook:
                                      moe.capacity_factor),
             capacity_factor=moe.capacity_factor, every=every, train=False,
             num_layers=L, constants=load_calibration())
-        self.probation = ReplanProbation(window=max(4, min(64, every // 4)))
+        self.probation = ReplanProbation(window=max(4, min(64, every // 4)),
+                                         sink=sink)
         # decode ticks are cheap: sample the loads sparsely, as the train
         # hook does, so the host never waits on a fetch every tick
         self.sync_every = max(1, every // 16)
@@ -203,6 +205,9 @@ class ServeReplanHook:
         # were measured before it
         self.probation.start(tick, old, new, baseline_drop=(
             self._drop_ema if self._drop_ema is not None else 0.0))
+        if self.sink is not None:
+            self.sink.emit({"kind": "replan", "step": tick,
+                            "imbalance": self.monitor.imbalance})
 
 
 class ContinuousBatcher:
@@ -217,13 +222,17 @@ class ContinuousBatcher:
     reference's.  With ``ServeConfig.replan_every`` > 0 a
     :class:`ServeReplanHook` replans between ticks, and the identity plan
     is engaged from tick 0 where no plan is given, so every later switch
-    stays on the slot-wise placed decode.  Public surface:
+    stays on the slot-wise placed decode.  ``sink``: the telemetry sink
+    (``repro_torch.obs.sink``), which takes a ``serve_admit`` and a
+    ``serve_retire`` record per request and the replan hook's.  Public
+    surface:
     ``submit(Request)``, ``step()``, ``run()``, ``apply_placement(plan)``,
     and ``completions`` / ``ticks`` / ``replans`` for the caller."""
 
     def __init__(self, params, cfg: ModelConfig,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
-                 impl: str = "fused", device="cuda", placement=None):
+                 impl: str = "fused", device="cuda", placement=None,
+                 sink=None):
         scfg = serve_cfg if serve_cfg is not None else ServeConfig()
         if mesh is None and scfg.mesh:
             data, model = scfg.mesh_shape()
@@ -238,6 +247,7 @@ class ContinuousBatcher:
         self.paged = scfg.paged and lm.supports_paged(cfg)
         self.mesh = mesh
         self.dev = resolve(device)
+        self.sink = sink
         self.plan = placement
         self._impl = impl
         if (mesh is not None and cfg.moe is not None
@@ -275,7 +285,7 @@ class ContinuousBatcher:
         if scfg.replan_every > 0 and cfg.moe is not None:
             self._replan = ServeReplanHook(
                 self, self._expert_ranks(), every=scfg.replan_every,
-                per_layer=scfg.per_layer_plans)
+                per_layer=scfg.per_layer_plans, sink=sink)
             if self.plan is None:
                 # the identity plan (logical order) from tick 0: every
                 # later switch stays on the slot-wise placed decode
@@ -400,6 +410,10 @@ class ContinuousBatcher:
                                      times=[now])
             self.pos[slot] = int(req.prompt.shape[0])
             self.next_tok[slot] = tok
+            if self.sink is not None:
+                self.sink.emit({"kind": "serve_admit", "tick": self.ticks,
+                                "id": req.id, "slot": slot,
+                                "queue_wait": now - req.arrival})
 
     def _retire(self, slot: int, now: float) -> None:
         st = self.slots[slot]
@@ -420,6 +434,10 @@ class ContinuousBatcher:
         self.slots[slot] = None
         self.pos[slot] = 0
         self.next_tok[slot] = 0
+        if self.sink is not None:
+            self.sink.emit({"kind": "serve_retire", "tick": self.ticks,
+                            "id": st.req.id, "slot": slot,
+                            "tokens": len(st.out)})
 
     # -- one decode tick -----------------------------------------------------
 
@@ -439,7 +457,7 @@ class ContinuousBatcher:
         toks, pos = packed[:n, None], packed[n:2 * n]
         kw = dict(impl=self._impl, device=self.dev, dist=self._ddist,
                   layer_loads=self._replan is not None)
-        with torch.no_grad():
+        with torch.no_grad(), obs_trace.span("decode_step", tick=self.ticks):
             if self.paged:
                 res = lm.decode_step(
                     self.params, self.cfg, toks, pos, self.pool,

@@ -28,6 +28,13 @@ batch's rows).
 grouped-GEMM kernel, fused = the fused FFN kernel); ``--dispatch`` the MoE
 dispatch (capacity | ragged); ``--router`` the routing variant (serving
 draws no noise, so gumbel routes as topk).  Runs on the GPU unless ``--device cpu``.
+
+Telemetry: ``--metrics_out`` writes JSONL records (the static batch: one
+``decode_step`` record a step with its latency, tokens/s, drop fraction
+and wire/drop/shadow counters; continuous batching: ``serve_admit``,
+``serve_retire`` and the replan hook's records), ``--trace`` a Chrome
+trace of the host's ``decode_step`` spans.  With either, each decode step
+is synchronized so its wall time is real.
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.launch.serve_api import Request, ServeConfig
 from repro_torch.models import lm
+from repro_torch.obs import JsonlSink
+from repro_torch.obs import trace as obs_trace
 from repro_torch.placement import (from_logical, load_calibration,
                                    plan_placement, plan_placement_per_layer)
 
@@ -142,6 +151,15 @@ def plan_for_serving(params, cfg: ModelConfig, prompt, num_ranks: int, *,
                               mesh=None if dist is None else dist.mesh)
 
 
+def decode_metrics(metrics, cfg: ModelConfig) -> dict:
+    """A decode step's telemetry: the drop fraction averaged over the
+    layers and the wire/drop/shadow counters summed over them
+    (``lm.obs_aux``), as the reference packs its serve step's metrics."""
+    L = max(cfg.num_layers, 1)
+    return {"drop_frac": metrics.drop_frac / L,
+            **lm.obs_aux(metrics, L, metrics.drop_frac.device)}
+
+
 def sample(logits: torch.Tensor, temperature: float = 0.0,
            generator: torch.Generator | None = None) -> torch.Tensor:
     """(B, V) logits -> (B, 1) tokens: the argmax at temperature 0, else
@@ -161,7 +179,7 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
              use_prefill: bool = True, device="cuda",
              timings: dict | None = None, temperature: float = 0.0,
              generator: torch.Generator | None = None,
-             dist=None) -> torch.Tensor:
+             dist=None, sink=None) -> torch.Tensor:
     """Greedy or sampled decoding: (B, S) prompt -> (B, S + steps) tokens.
 
     ``use_prefill=True`` fills the cache with one full pass over the prompt
@@ -171,7 +189,10 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     ``torch.Generator`` on the device); 0, the default, is greedy.
     ``dist``: the MoE layers' ``DistConfig`` (``decode_dist``).  A
     ``timings`` dict, when given, receives ``prefill_s`` and the per-token
-    ``decode_s`` list, each taken after a device synchronize."""
+    ``decode_s`` list, each taken after a device synchronize.  ``sink``
+    (``repro_torch.obs.sink``) takes a ``decode_step`` record a step
+    (:func:`decode_metrics` with its latency); each step runs in a
+    ``decode_step`` span (``repro_torch.obs.trace``)."""
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
@@ -198,14 +219,23 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
         _sync(dev)
         timings["prefill_s"] = time.perf_counter() - t0
         timings["decode_s"] = []
+    telemetry = sink is not None or obs_trace.enabled()
     for pos in range(S, S + steps - 1):
         t0 = time.perf_counter()
-        logits, cache, _ = step(tok, pos, cache)
-        tok = next_token(logits)
+        with obs_trace.span("decode_step", pos=pos):
+            logits, cache, m = step(tok, pos, cache)
+            tok = next_token(logits)
+            if telemetry:  # real per-step latency, not dispatch time
+                _sync(dev)
         out.append(tok)
         if timings is not None:
             _sync(dev)
             timings["decode_s"].append(time.perf_counter() - t0)
+        if sink is not None:
+            wall = time.perf_counter() - t0
+            sink.emit({"kind": "decode_step", "pos": pos, "wall_s": wall,
+                       "tokens_per_s": B / max(wall, 1e-9),
+                       **decode_metrics(m, cfg)})
     return torch.cat(out, dim=1)
 
 
@@ -250,14 +280,15 @@ def format_stats(s: dict) -> str:
 
 def serve_continuous(params, cfg: ModelConfig, scfg: ServeConfig, *,
                      prompt_len: int, gen: int, num_requests: int,
-                     impl: str = "fused", device="cuda", mesh=None):
+                     impl: str = "fused", device="cuda", mesh=None,
+                     sink=None):
     """Drive the continuous batcher over ``request_stream``: every request
     submitted at the start, then ticks until all are done.  Returns
     ``(batcher, serving_stats(...))``."""
     from repro_torch.launch.scheduler import ContinuousBatcher
 
     batcher = ContinuousBatcher(params, cfg, scfg, mesh=mesh, impl=impl,
-                                device=device)
+                                device=device, sink=sink)
     reqs = request_stream(cfg, prompt_len=prompt_len, gen=gen,
                           num_requests=num_requests)
     t0 = time.time()
@@ -315,6 +346,14 @@ def main(argv=None) -> None:
                          "of --continuous, and with --mesh (M > 1) the "
                          "static batch, served under a per-layer plan "
                          "measured on its prompt")
+    ap.add_argument("--metrics_out", default="",
+                    help="write telemetry records (JSONL): per decode step "
+                         "latency, tokens/s, drop fraction and the "
+                         "wire/drop/shadow counters; under --continuous "
+                         "the admissions, retirements and replans")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace of the host-side "
+                         "decode_step spans (chrome://tracing / perfetto)")
     args = ap.parse_args(argv)
 
     scfg = ServeConfig.from_args(args)
@@ -338,6 +377,23 @@ def main(argv=None) -> None:
 
 def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
     lead = mesh is None or mesh.rank == 0
+    sink = JsonlSink(scfg.metrics_out) if scfg.metrics_out and lead else None
+    if scfg.trace:
+        obs_trace.configure(enabled=True)
+    try:
+        _serve(args, scfg, dev, mesh, sink)
+    finally:
+        if sink is not None:
+            sink.close()
+    if lead and sink is not None:
+        print(f"metrics written to {scfg.metrics_out}")
+    if lead and scfg.trace:
+        obs_trace.export(scfg.trace)
+        print(f"trace written to {scfg.trace}")
+
+
+def _serve(args, scfg: ServeConfig, dev: torch.device, mesh, sink) -> None:
+    lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
@@ -352,7 +408,7 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
         batcher, stats = serve_continuous(
             params, cfg, scfg, prompt_len=args.prompt_len, gen=args.gen,
             num_requests=args.requests or 3 * scfg.slots, impl=args.impl,
-            device=dev, mesh=mesh)
+            device=dev, mesh=mesh, sink=sink)
         if lead:
             print(f"{cfg.name} on {where}, continuous ({scfg.policy}, "
                   f"{'paged' if scfg.paged else 'ring'}, {scfg.slots} slots): "
@@ -376,7 +432,7 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
                    impl=args.impl, device=dev,
                    cache_len=cache_len_for(cfg, args.prompt_len + args.gen),
                    timings=timings, temperature=args.temperature,
-                   generator=gen, dist=dist)
+                   generator=gen, dist=dist, sink=sink)
     dec = sorted(timings["decode_s"]) or [0.0]
     p50 = dec[len(dec) // 2]
     if lead:

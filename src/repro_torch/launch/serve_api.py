@@ -48,10 +48,12 @@ class ServeConfig:
     per_layer_plans  plan each layer apart (a PerLayerPlacement) on the
                    serve-time replans
     eos_id         optional early-stop token id
+    metrics_out / trace   telemetry outputs (``repro_torch.obs``): a JSONL
+                   file of records and a Chrome trace of host spans, the
+                   same semantics as the train CLI's flags
 
-    The reference's telemetry knobs (metrics_out, trace) are not fields:
-    the telemetry sinks are ROADMAP §1 item 7, not ported.  Its arch and
-    reduced fields are the CLI's flags here (``launch/serve.py``).
+    The reference's arch and reduced fields are the CLI's flags here
+    (``launch/serve.py``).
     """
 
     slots: int = 8
@@ -64,6 +66,8 @@ class ServeConfig:
     replan_every: int = 0
     per_layer_plans: bool = True
     eos_id: Optional[int] = None
+    metrics_out: str = ""
+    trace: str = ""
 
     def __post_init__(self):
         if self.policy not in ("continuous", "static"):

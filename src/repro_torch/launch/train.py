@@ -63,8 +63,29 @@ overrides the config's MoE dispatch (capacity | ragged).  Runs on the GPU
 unless ``--device cpu``.  Params are f32 masters cast to ``cfg.dtype`` at
 use; ``--num_layers`` cuts the depth (full-width ``fastmoe-gpt`` with f32
 params, grads and AdamW moments needs 16 B per param: 10 layers, 66.8 GB,
-fit one 80 GB card; 12, 79.8 GB, do not).  Checkpoints and the step
-guard of the JAX CLI are not ported yet.
+fit one 80 GB card; 12, 79.8 GB, do not).
+
+Resilience, as the JAX CLI's: ``--ckpt_dir`` holds atomic verified
+checkpoints (``step_<N>/``, the state after step N, in the reference's
+format and in logical expert order), written every ``--save_every`` steps
+and at the end, ``--keep_ckpts`` of them kept; ``--resume`` restores the
+newest one that verifies and replays the data stream to its step, so the
+run continues as an uninterrupted one would.  The step guard
+(``--max_bad_steps``, 0 = off) reads each step's loss, grad norm and drop
+fraction on the host, skips a non-finite step and retries it from a host
+snapshot of the last good state (``--snapshot_every``); a drop fraction
+above ``--drop_spike`` for ``--drop_patience`` steps rebuilds the step
+with the dropless ragged bound once.  ``REPRO_FAULTS`` (a JSON list of
+``resilience.faults`` specs) arms fault drills:
+
+    REPRO_FAULTS='[{"kind": "nonfinite", "point": "train_step", "step": 2}]' \
+        python -m repro_torch.launch.train --device cpu --reduced --steps 4
+
+Telemetry: ``--metrics_out`` writes JSONL records (a ``train_step`` record
+a step with its wall time, the MoE counters and the collective bytes the
+step issued, and every resilience and replan event), ``--trace`` a Chrome
+trace of the host spans (``train_step``, ``ckpt_save``, ...).  With either,
+each step is synchronized so its wall time is real.
 """
 from __future__ import annotations
 
@@ -77,6 +98,7 @@ import torch.distributed
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core.balance import MoEMetrics
 from repro_torch.core.dispatch import expert_capacity
 from repro_torch.core.fmoe import expert_seed, moe_dist
@@ -87,8 +109,13 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models import lm
+from repro_torch.obs import JsonlSink, StepStats
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.resilience import (CheckpointManager, StepGuard,
+                                    TrainingAborted, faults)
 from repro_torch.placement import (PlacementController, ReplanProbation,
                                    load_calibration, migrate)
 
@@ -118,7 +145,7 @@ def _rank_rows(tokens: torch.Tensor, dist) -> torch.Tensor:
 
 def _mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
     t = t.clone()
-    torch.distributed.all_reduce(t, group=mesh.group(mesh.axis_names))
+    comm.all_reduce_(t, mesh.group(mesh.axis_names))
     return t / mesh.size
 
 
@@ -257,8 +284,11 @@ class ReplanHook:
     drop fraction after it regresses against the EMAs from before it, the
     migration is inverted, the step rebuilt under the old plan, and the
     plan blacklisted in the controller.  No replan is taken while a
-    probation is open.  ``sink=`` (the telemetry sink) is ROADMAP §1
-    item 7: refused.
+    probation is open.  ``rollback=False`` opts out; ``probation`` is the
+    window in steps (default a quarter of ``every``, within 4-64), judged
+    at ``probation_loss_tol`` and ``probation_drop_tol``.  ``sink``: the
+    telemetry sink, which takes the monitor's sampled snapshots, the
+    probation's verdicts and a record per replan.
 
     ``opts``: :func:`build_train_step`'s; with ``ragged_bound="auto"`` the
     caller puts ``load_monitor=hook.monitor`` in the same dict, so every
@@ -267,7 +297,10 @@ class ReplanHook:
     def __init__(self, cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
                  seq_len: int, *, every: int = 200,
                  num_microbatches: int = 1, opts: dict | None = None,
-                 per_layer: bool = False, sink=None):
+                 per_layer: bool = False, sink=None, rollback: bool = True,
+                 probation: int | None = None,
+                 probation_loss_tol: float = 1.05,
+                 probation_drop_tol: float = 0.05):
         self.cfg, self.opt, self.mesh = cfg, opt, mesh
         self.global_batch, self.seq_len = global_batch, seq_len
         self.num_microbatches = num_microbatches
@@ -286,7 +319,10 @@ class ReplanHook:
         cap = expert_capacity(t_local, moe.num_experts, moe.top_k,
                               moe.capacity_factor)
         L = cfg.num_layers if per_layer else 0
-        self.monitor = LoadMonitor(moe.num_experts, num_layers=L, sink=sink)
+        self.sink = sink
+        # the loads arrive sampled (every sync_every steps): record each
+        self.monitor = LoadMonitor(moe.num_experts, num_layers=L, sink=sink,
+                                   record_every=1 if sink is not None else 0)
         wire_bytes = 2 if self.opts.get("wire_dtype") == "bf16" else 4
         self.controller = PlacementController(
             self.monitor, ranks, d_model=cfg.d_model,
@@ -295,10 +331,10 @@ class ReplanHook:
             every=every if self.enabled else 0, bytes_per_elem=wire_bytes,
             num_layers=L, constants=load_calibration())
         self.sync_every = max(1, every // 16)
-        # a window of a quarter of the replan period (4-64 steps), at the
-        # probation's own loss and drop tolerances
-        self.probation = ReplanProbation(window=max(4, min(64, every // 4)),
-                                         sink=sink)
+        self.probation = (ReplanProbation(
+            window=probation if probation else max(4, min(64, every // 4)),
+            loss_tol=probation_loss_tol, drop_tol=probation_drop_tol,
+            sink=sink) if rollback else None)
         # the host-side loss and drop EMAs: the baselines probation judges
         self._loss_ema: float | None = None
         self._drop_ema: float | None = None
@@ -347,7 +383,7 @@ class ReplanHook:
             self.monitor.update(MoEMetrics(
                 0.0, 0.0, _host(metrics[load_key]),
                 _host(metrics.get("drop_frac", 0.0))))
-        if self.probation.active:
+        if self.probation is not None and self.probation.active:
             decision = self.probation.observe(step, loss=loss, drop=drop)
             if decision.rollback:
                 params, opt_state, step_fn = self._switch(
@@ -364,11 +400,17 @@ class ReplanHook:
         if new is None:
             return params, opt_state, None
         params, opt_state, step_fn = self._switch(old, new, params, opt_state)
-        # a replan must not introduce drops, even where none were seen
-        self.probation.start(
-            step, old, new, baseline_loss=self._loss_ema,
-            baseline_drop=self._drop_ema if self._drop_ema is not None
-            else 0.0)
+        if self.probation is not None:
+            # a replan must not introduce drops, even where none were seen
+            self.probation.start(
+                step, old, new, baseline_loss=self._loss_ema,
+                baseline_drop=self._drop_ema if self._drop_ema is not None
+                else 0.0)
+        if self.sink is not None:
+            self.sink.emit({"kind": "replan", "step": step,
+                            "num_shadow": int(new.num_shadow),
+                            "capacity_scale": float(new.capacity_scale),
+                            "imbalance": self.monitor.imbalance})
         return params, opt_state, step_fn
 
 
@@ -424,6 +466,43 @@ def main(argv=None) -> None:
                          "load (needs --replan_every)")
     ap.add_argument("--inter_bound", type=int, default=0,
                     help="rows per slim inter-node shard (0 = never drop)")
+    ap.add_argument("--ckpt_dir", default="",
+                    help="checkpoint root: atomic verified checkpoints in "
+                         "step_<N>/ dirs (the state after step N, in logical "
+                         "expert order whatever the live placement)")
+    ap.add_argument("--save_every", type=int, default=0,
+                    help="checkpoint every N completed steps (0 = only the "
+                         "final save; needs --ckpt_dir)")
+    ap.add_argument("--keep_ckpts", type=int, default=3,
+                    help="retention: newest complete checkpoints kept by GC")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest checkpoint under --ckpt_dir "
+                         "that verifies (corrupt ones are skipped) and "
+                         "continue from its step; the data stream replays "
+                         "so the run matches an uninterrupted one")
+    ap.add_argument("--max_bad_steps", type=int, default=3,
+                    help="step guard: tolerated consecutive non-finite "
+                         "steps (each skipped and retried from the last "
+                         "good snapshot; more abort; 0 disables the guard "
+                         "and its per-step host read)")
+    ap.add_argument("--snapshot_every", type=int, default=1,
+                    help="guard snapshot cadence (1 = copy the params and "
+                         "AdamW state to host memory after every good step; "
+                         "higher amortizes the copy and replays more)")
+    ap.add_argument("--drop_spike", type=float, default=0.25,
+                    help="guard: a drop fraction above this for "
+                         "--drop_patience consecutive steps rebuilds the "
+                         "step with the dropless ragged bound")
+    ap.add_argument("--drop_patience", type=int, default=4)
+    ap.add_argument("--metrics_out", default="",
+                    help="write telemetry records (JSONL): per step the wall "
+                         "time, the MoE wire/drop/shadow counters and the "
+                         "collective bytes issued, monitor snapshots, "
+                         "replans and the resilience events (faults, guard "
+                         "skips and restores, checkpoints, resumes)")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace (chrome://tracing, perfetto) "
+                         "of the host spans: train_step, ckpt_save, ...")
     args = ap.parse_args(argv)
     if args.ragged_bound == "auto" and not args.replan_every:
         raise SystemExit("--ragged_bound auto calibrates from the load "
@@ -445,7 +524,40 @@ def main(argv=None) -> None:
         torch.distributed.destroy_process_group()
 
 
+def _host_floats(*values) -> list:
+    """Scalars (tensors or floats) as host floats, in one transfer."""
+    ts = [v for v in values if isinstance(v, torch.Tensor)]
+    got = iter(torch.stack([t.detach().float().reshape(()) for t in ts])
+               .tolist() if ts else ())
+    return [next(got) if isinstance(v, torch.Tensor) else float(v)
+            for v in values]
+
+
+STEP_COUNTERS = ("loss", "drop_frac", *lm.COUNTER_KEYS)
+
+
 def _run(args, dev: torch.device, mesh) -> None:
+    lead = mesh is None or mesh.rank == 0
+    # one sink (rank 0's): every rank takes the same decisions
+    sink = JsonlSink(args.metrics_out) if args.metrics_out and lead else None
+    if args.trace:
+        obs_trace.configure(enabled=True)
+    faults.arm_from_env()  # REPRO_FAULTS drills
+    faults.set_sink(sink)
+    try:
+        _train(args, dev, mesh, sink)
+    finally:
+        faults.set_sink(None)
+        if sink is not None:
+            sink.close()
+    if lead and sink is not None:
+        print(f"metrics written to {args.metrics_out}", flush=True)
+    if lead and args.trace:
+        obs_trace.export(args.trace)
+        print(f"trace written to {args.trace}", flush=True)
+
+
+def _train(args, dev: torch.device, mesh, sink) -> None:
     lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.reduced:
@@ -479,7 +591,7 @@ def _run(args, dev: torch.device, mesh) -> None:
             hook = ReplanHook(cfg, opt, mesh, args.batch, args.seq,
                               every=args.replan_every,
                               num_microbatches=args.microbatches, opts=opts,
-                              per_layer=args.per_layer_plans)
+                              per_layer=args.per_layer_plans, sink=sink)
             if not hook.enabled:
                 if lead:
                     print("replan disabled: placement needs the a2a expert "
@@ -489,14 +601,17 @@ def _run(args, dev: torch.device, mesh) -> None:
                 # ragged_bound=auto: every rebuild re-sizes from the monitor
                 opts["load_monitor"] = hook.monitor
 
-    def build(cfg):
+    def placement():
+        return hook.placement if hook is not None else None
+
+    def build(cfg):  # every rebuild keeps the live placement
         if mesh is None:
             return make_train_step(cfg, opt, num_microbatches=args.microbatches,
                                    impl=args.impl, device=dev), None
         return build_train_step(
             cfg, opt, mesh, args.batch, args.seq,
             num_microbatches=args.microbatches, opts=opts,
-            placement=hook.placement if hook is not None else None)
+            placement=placement())
     step_fn, dist = build(cfg)
     if mesh is not None and dist is None:
         raise ValueError(f"{cfg.name}: {cfg.moe.num_experts if cfg.moe else 0}"
@@ -513,53 +628,170 @@ def _run(args, dev: torch.device, mesh) -> None:
         print(f"mesh {args.mesh} ({dist.mode} over {dist.token_axes}{auto})",
               flush=True)
     opt_state = opt.init(params)
+
+    # -- resilience: checkpoints, auto-resume and the step guard -----------
+    manager = None
+    if args.ckpt_dir:
+        manager = CheckpointManager(
+            args.ckpt_dir, save_every=args.save_every, keep=args.keep_ckpts,
+            sink=sink, mesh=mesh,
+            expert_tp=dist is not None and dist.expert_tp)
+    start_step = 0
+    if args.resume and manager is not None:
+        # checkpoints are in logical order and a fresh run starts on the
+        # identity placement: no placement on the restore side
+        res = manager.restore_latest({"params": params, "opt": opt_state},
+                                     inplace=True)
+        if res is not None:
+            tree, last = res
+            params, opt_state = tree["params"], tree["opt"]
+            start_step = last + 1
+            if lead:
+                print(f"resumed from step {last} ({manager.step_dir(last)}); "
+                      f"continuing at {start_step}", flush=True)
+        elif lead:
+            print(f"no restorable checkpoint under {args.ckpt_dir}; "
+                  f"starting fresh", flush=True)
+    guard = None
+    if args.max_bad_steps > 0:
+        guard = StepGuard(max_bad_steps=args.max_bad_steps,
+                          drop_threshold=args.drop_spike,
+                          drop_patience=args.drop_patience,
+                          snapshot_every=args.snapshot_every, sink=sink)
+    telemetry = sink is not None or obs_trace.enabled()
     batches = SyntheticLM(cfg.vocab_size, args.seq, seed=args.seed).batches(
         args.batch)
+    for _ in range(start_step):  # deterministic resume: replay the stream
+        next(batches)
+    if guard is not None:  # a seed snapshot: step 0 itself may go bad
+        guard.commit(start_step - 1, params, opt_state)
     t0 = time.time()
     tw, since = time.perf_counter(), 0  # the window since the last log line
-    for step in range(args.steps):
-        batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
-        if (args.freeze_router_at and step >= args.freeze_router_at
-                and cfg.moe.router != "frozen"):
-            # StableMoE stage 2: route through w_frozen from here on, a
-            # config flip (the params already carry the distilled router);
-            # the step is rebuilt under the live placement
-            cfg = dataclasses.replace(
-                cfg, moe=dataclasses.replace(cfg.moe, router="frozen"))
-            step_fn, _ = build(cfg)
-            if hook is not None:
-                hook.cfg = cfg  # later rebuilds keep the frozen gate
-            if lead:
-                print(f"step {step:5d} router frozen: gate-id tables are "
-                      f"now stable", flush=True)
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        if hook is not None:
-            params, opt_state, new_fn = hook.observe(step, metrics, params,
-                                                     opt_state)
-            if new_fn is not None:
-                step_fn = new_fn
-                p = hook.placement
+    step = start_step
+    try:
+        while step < args.steps:
+            batch = {"tokens": torch.from_numpy(next(batches)["tokens"]).to(dev)}
+            if (args.freeze_router_at and step >= args.freeze_router_at
+                    and cfg.moe.router != "frozen"):
+                # StableMoE stage 2: route through w_frozen from here on, a
+                # config flip (the params already carry the distilled
+                # router); the step is rebuilt under the live placement
+                cfg = dataclasses.replace(
+                    cfg, moe=dataclasses.replace(cfg.moe, router="frozen"))
+                step_fn, _ = build(cfg)
+                if hook is not None:
+                    hook.cfg = cfg  # later rebuilds keep the frozen gate
+                obs_events.emit(sink, obs_events.ROUTER_FROZEN, step=step)
                 if lead:
-                    print(f"step {step:5d} replan: shadow={p.num_shadow} "
-                          f"cap_scale={p.capacity_scale:.2f} "
-                          f"imbalance={hook.monitor.imbalance:.2f}",
+                    print(f"step {step:5d} router frozen: gate-id tables are "
+                          f"now stable", flush=True)
+            loss = drop = None
+            while True:  # the retry loop, bounded by the guard
+                ts = time.perf_counter()
+                comm.tally_reset()
+                with obs_trace.span("train_step", step=step):
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         batch, step)
+                    if telemetry:  # real wall times: don't run ahead
+                        _sync(dev)
+                wall = time.perf_counter() - ts
+                modeled = comm.tallied()
+                params, opt_state, metrics = faults.apply_step(
+                    params, opt_state, metrics, step=step)
+                if guard is None:
+                    verdict = None
+                    break
+                loss, gnorm, drop = _host_floats(
+                    metrics["loss"], metrics["grad_norm"],
+                    metrics.get("drop_frac", 0.0))
+                verdict = guard.check(step, loss=loss, grad_norm=gnorm,
+                                      drop=drop)
+                if verdict.ok:
+                    break
+                # a non-finite step: its state is poisoned; reinstate the
+                # last good snapshot and retry this batch
+                params, opt_state = guard.restore()
+                if lead:
+                    print(f"step {step:5d} non-finite ({verdict.reason}); "
+                          f"restored step-{guard.snapshot_step} state, "
+                          f"retrying", flush=True)
+            if verdict is not None and verdict.fallback_dropless:
+                applied = False
+                if mesh is not None and opts.get("ragged_bound") not in (0, None):
+                    opts["ragged_bound"] = 0  # never-dropping shards
+                    mon = opts.get("load_monitor")
+                    if mon is not None:  # keep auto mode from re-shrinking
+                        mon.force_dropless = True
+                    step_fn, _ = build(cfg)
+                    applied = True
+                obs_events.emit(sink, obs_events.DROP_FALLBACK, step=step,
+                                applied=applied)
+                if lead:
+                    print(f"step {step:5d} sustained drop spike: "
+                          + ("forced dropless ragged bound" if applied else
+                             "no bounded ragged exchange active (event only)"),
                           flush=True)
-        since += 1
-        if lead and step % args.log_every == 0:
-            # the mean wall ms of the steps since the last line: the host
-            # floats below wait for the card to finish them all
-            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-            now = time.perf_counter()
-            print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                  f"({time.time() - t0:.1f}s, "
-                  f"{(now - tw) * 1e3 / since:.1f} ms/step)", flush=True)
-            tw, since = now, 0
+            if sink is not None:
+                keys = [k for k in STEP_COUNTERS if k in metrics]
+                counters = dict(zip(keys, _host_floats(
+                    *(metrics[k] for k in keys))))
+                sink.emit(StepStats("train_step", step, wall,
+                                    counters=counters,
+                                    modeled=modeled).record())
+            new_fn = None
+            if hook is not None:
+                params, opt_state, new_fn = hook.observe(
+                    step, metrics, params, opt_state, loss=loss, drop=drop)
+                if new_fn is not None:
+                    step_fn = new_fn
+                    p = hook.placement
+                    if lead:
+                        print(f"step {step:5d} replan: shadow={p.num_shadow} "
+                              f"cap_scale={p.capacity_scale:.2f} "
+                              f"imbalance={hook.monitor.imbalance:.2f}",
+                              flush=True)
+            if guard is not None:
+                # after the hook, so the snapshot is in the live layout;
+                # forced after a migration for the same reason
+                guard.commit(step, params, opt_state, force=new_fn is not None)
+            if manager is not None:
+                manager.maybe_save(step, {"params": params, "opt": opt_state},
+                                   placement=placement())
+            since += 1
+            if lead and step % args.log_every == 0:
+                # the mean wall ms of the steps since the last line: the
+                # host floats below wait for the card to finish them all
+                lossf, gnorm = _host_floats(metrics["loss"],
+                                            metrics["grad_norm"])
+                now = time.perf_counter()
+                print(f"step {step:5d} loss {lossf:.4f} gnorm {gnorm:.3f} "
+                      f"({time.time() - t0:.1f}s, "
+                      f"{(now - tw) * 1e3 / since:.1f} ms/step)", flush=True)
+                tw, since = now, 0
+            step += 1
+    except TrainingAborted as e:
+        # persist the last good state so --resume can pick the run up
+        # (a snapshot before start_step is only the seed: nothing done)
+        if (manager is not None and guard is not None
+                and guard.snapshot_step is not None
+                and guard.snapshot_step >= start_step):
+            p_good, o_good = guard.load_snapshot()
+            manager.save(guard.snapshot_step, {"params": p_good, "opt": o_good},
+                         placement=placement())
+        if lead:
+            print(f"aborted: {e}", flush=True)
+        raise SystemExit(1)
+    if manager is not None and step > start_step:
+        # a final save, so a finished run can always be resumed or extended
+        manager.maybe_save(step - 1, {"params": params, "opt": opt_state},
+                           placement=placement(), force=True)
     if lead:
         if hook is not None:
             c = hook.controller
             print(f"placement: {c.replans} replans, {c.rollbacks} rollbacks, "
                   f"{c.flat_skips} flat skips", flush=True)
-        print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+        print(f"done: {args.steps} steps in {time.time() - t0:.1f}s",
+              flush=True)
 
 
 if __name__ == "__main__":

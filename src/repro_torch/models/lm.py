@@ -194,7 +194,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
     ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
     {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
-    load, load_layers}), drop_frac and load averaged over layers.  With ``dist``, the
+    load, load_layers} and the telemetry counters of :func:`obs_aux`),
+    drop_frac and load averaged over layers.  With ``dist``, the
     batch is this rank's rows and ``ce`` their mean; the MoE metrics are
     already the means over every rank (``fmoe_apply``).  ``aux`` also holds
     ``load_layers``, the (L, E) stack of the layers' loads in logical
@@ -215,7 +216,25 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     aux = {"ce": ce, "aux_loss": metrics.aux_loss, "z_loss": metrics.z_loss,
            "drop_frac": metrics.drop_frac / L, "load": metrics.load / L,
            "load_layers": loads}
+    aux.update(obs_aux(metrics, L, logits.device))
     return loss, aux
+
+
+COUNTER_KEYS = ("wire_elems", "wire_bytes", "wire_bytes_intra",
+                "wire_bytes_inter", "dropped", "shadow_hits", "imbalance")
+
+
+def obs_aux(metrics: MoEMetrics, L: int, device) -> dict:
+    """The telemetry counters (``repro_torch.obs.counters``) summed over the
+    layers as 0-d f32 tensors on ``device``, ``imbalance`` averaged over
+    them: the keys :func:`loss_fn` adds to its aux and the serving
+    metrics carry, as the reference packs them.  They ride the metrics to
+    the host with the loss; computing them syncs nothing."""
+    if metrics.obs is None:
+        return {}
+    obs = metrics.obs.tensors(device)
+    return {k: getattr(obs, k) / L if k == "imbalance" else getattr(obs, k)
+            for k in COUNTER_KEYS}
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,

@@ -1,14 +1,15 @@
 """Replan probation: judge a freshly applied placement plan against the
 loss and drop baselines from before it, and decide its rollback (the
 reference keeps it in ``resilience/guard.py``; the launch's ``ReplanHook``
-executes the migration).  The reference's ``sink=`` is the telemetry
-slice, ROADMAP §1 item 7: anything but None is refused."""
+executes the migration; ``repro_torch.resilience`` re-exports it).  With
+a ``sink`` every verdict emits a ``replan_rollback`` or ``replan_commit``
+record (``repro_torch.obs.events``)."""
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional
 
-from repro_torch.core.monitor import refuse_sink
+from repro_torch.obs import events as obs_events
 
 
 class ProbationDecision(NamedTuple):
@@ -28,12 +29,11 @@ class ReplanProbation:
 
     def __init__(self, *, window: int = 16, loss_tol: float = 1.05,
                  drop_tol: float = 0.05, min_samples: int = 3, sink=None):
-        refuse_sink(sink, "ReplanProbation")
         self.window = int(window)
         self.loss_tol = float(loss_tol)
         self.drop_tol = float(drop_tol)
         self.min_samples = int(min_samples)
-        self.sink = None
+        self.sink = sink
         self._active = None
 
     @property
@@ -56,6 +56,11 @@ class ReplanProbation:
                         "baseline_drop": baseline_drop,
                         "losses": [], "drops": []}
 
+    def _finish(self, step: int, kind: str, **fields) -> None:
+        obs_events.emit(self.sink, kind, step=step,
+                        start=self._active["start"], **fields)
+        self._active = None
+
     def observe(self, step: int, *, loss: Optional[float] = None,
                 drop: Optional[float] = None) -> ProbationDecision:
         """Feed one step after the replan: rollback, commit or keep
@@ -74,17 +79,19 @@ class ReplanProbation:
             if (bl is not None and a["losses"]
                     and sum(a["losses"]) / len(a["losses"]) > bl * self.loss_tol):
                 mean = sum(a["losses"]) / len(a["losses"])
-                self._active = None
+                self._finish(step, obs_events.REPLAN_ROLLBACK, metric="loss",
+                             mean=mean, baseline=bl)
                 return ProbationDecision(True,
                                          f"loss {mean:.4f} > {bl:.4f}"
                                          f" * {self.loss_tol}", old, new)
             if (bd is not None and a["drops"]
                     and sum(a["drops"]) / len(a["drops"]) > bd + self.drop_tol):
                 mean = sum(a["drops"]) / len(a["drops"])
-                self._active = None
+                self._finish(step, obs_events.REPLAN_ROLLBACK, metric="drop",
+                             mean=mean, baseline=bd)
                 return ProbationDecision(True,
                                          f"drop {mean:.4f} > {bd:.4f}"
                                          f" + {self.drop_tol}", old, new)
         if step - a["start"] >= self.window:
-            self._active = None  # committed
+            self._finish(step, obs_events.REPLAN_COMMIT)
         return ProbationDecision(False)

@@ -405,6 +405,42 @@ def test_flash_attention_bwd_bf16_group_twice(dev):
         assert torch.equal(a, b), f"{name} differs between two runs"
 
 
+def test_flash_attention_bwd_ranged_dq_equals_all_slots(dev, monkeypatch):
+    """The bf16 backward with its dQ slot budget forced down to two slots
+    (the kv tiles in ranges of two, each summed in order into one f32
+    accumulator) gives dq, dk and dv bit-equal to the run with a slot per
+    kv tile: the same additions in the same order."""
+    B, Sq, Skv, H, KV, d, window, q_offset = 1, 150, 300, 12, 1, 128, 100, 140
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, Sq, Skv, H, KV, d, seed=4)
+    kw = dict(window=window, q_offset=q_offset, causal=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    assert fa.dq_slots(q, Skv) == 5 and fa.dq_accumulator(q, Skv) is None
+    whole = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    monkeypatch.setattr(fa, "DQ_SLOT_BUDGET", 2 * q.numel() * 4)
+    assert fa.dq_slots(q, Skv) == 2 and fa.dq_accumulator(q, Skv) is not None
+    ranged = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), whole, ranged):
+        assert torch.equal(a, b), f"{name}: ranged != all slots"
+
+
+def test_flash_attention_bwd_starcoder2_group_twice(dev):
+    """One starcoder2-15b kv group at 2 x 8192 (12 query heads over one kv
+    head of 128, its sliding window): its slots would exceed the budget,
+    so the kv tiles run in ranges; two runs are bit-equal."""
+    B, S, H, KV, d = 2, 8192, 12, 1, 128
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, S, S, H, KV, d, seed=9)
+    kw = dict(window=4096, q_offset=0, causal=True)
+    assert fa.dq_slots(q, S) < S // fa.BWD_KV_TILE
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
 # MLA's pair (deepseek-v2: dk 192 = 128 nope + 64 rope, dv 128), H = KV:
 # tails of both forward tiles and of the backward's 16-row q steps, a
 # window, non-causal, a query offset, and both forward tile choices
@@ -433,8 +469,8 @@ def test_flash_attention_dv_differs_from_dk(dev, dtype, B, Sq, Skv, H, KV,
     the plain version (bf16 also bit for bit on >= 99% of outputs); dq,
     dk, dv against its autograd at the dtype's tolerance scaled by each
     gradient's largest entry and to a relative Frobenius error; the bf16
-    backward run twice, equal bit for bit where its dQ has a slot per kv
-    tile (all but the 128-head case, whose slots would exceed the budget)."""
+    backward run twice, equal bit for bit (the 128-head case, whose slots
+    would exceed the budget, runs its kv tiles in ranges)."""
     q, k, v, do = _mla_inputs(dev, dtype, B, Sq, Skv, H, KV)
     kw = dict(window=window, q_offset=q_offset, causal=causal)
     f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
@@ -459,7 +495,7 @@ def test_flash_attention_dv_differs_from_dk(dev, dtype, B, Sq, Skv, H, KV,
             tol = dict(rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale)
             torch.testing.assert_close(a.float(), b.float(), **tol)
             _assert_fro(a, b, dtype)
-    if dtype == torch.bfloat16 and fa.dq_slots(q, Skv):
+    if dtype == torch.bfloat16:
         for name, a, b in zip(("dq", "dk", "dv"), *runs):
             assert torch.equal(a, b), f"{name} differs between two runs"
 

@@ -78,6 +78,14 @@ holds the results to the JAX package:
   2x2 a batcher per data group (the one-process batcher's completions,
   unplaced and switched, and JAX's 2x2 batcher's), and ``serve
   --continuous --mesh 2x2 --replan_every 2`` under ``torchrun``;
+* telemetry and checkpoints: the seven counters of the reduced model's
+  loss aux (a2a and the psum mode on 1x2 and 2x2) and of the two-level
+  layer (1x2x2) against the JAX package's; the collective tally
+  (``core.comm``) of a layer's forward and backward the same with the
+  counters on and off (1x2, 2x2, 1x4); the ReplanHook's sink trail
+  (monitor snapshots, the replan, the rollback verdict); a checkpoint
+  saved on 1x2 under a per-layer plan with shadowed experts restored at
+  1x1 by both packages to the unplaced params, bit for bit;
 * refusals of what the slice does not carry (ragged dispatch with tp
   among them), and the ``torchrun`` CLIs of training (a2a, and the psum
   mode where 2 rows do not split over 4 ranks) and of continuous
@@ -140,6 +148,9 @@ PLACE_SEED, PLACE_SHRINK = 31, 0.1
 # (a permutation per layer, 2 shadowed experts) switched in at tick 3
 SERVE_SWITCH, SERVE_PERMS = 3, ((1, 3, 0, 2), (2, 0, 3, 1))
 HOOK_STEPS, HOOK_LOSSES = 8, (6.0, 6.0, 6.0, 9.0, 9.0, 9.0, 6.0, 6.0)
+# the telemetry counters of loss_fn's aux (both packages' keys)
+COUNTERS = ("wire_elems", "wire_bytes", "wire_bytes_intra",
+            "wire_bytes_inter", "dropped", "shadow_hits", "imbalance")
 
 
 def _flatten(tree, prefix=""):
@@ -222,6 +233,8 @@ def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
                            noise_seed=noise_seed, l2p=l2p)
     out.update({f"{key}/y": y.detach(), f"{key}/load": m.load,
                 f"{key}/drop_frac": m.drop_frac})
+    for k, v in m.obs.as_dict().items():  # the telemetry counters
+        out[f"{key}/obs/{k}"] = torch.as_tensor(v).detach().float()
     if not grads:
         return
     g_leaves = list(p["router"].values()) + list(p["experts"].values())
@@ -250,6 +263,7 @@ def _layer_task(spec, job, mesh, out):
         for impl in IMPLS:
             run(f"layer/{dispatch}/{impl}", params,
                 fmoe.DistConfig(mesh, ("data", "model")), dispatch, impl, rows)
+    _tally_on_off(params, x, r, rows, mesh, out)
     if "drops" in spec["tasks"]:
         run("drops/ragged/fused", params,
             fmoe.DistConfig(mesh, ("data", "model"), ragged_bound=DROP_BOUND),
@@ -271,6 +285,39 @@ def _layer_task(spec, job, mesh, out):
         for impl in IMPLS:
             run(f"tp_layer/capacity/{impl}", tp_params, dist, "capacity", impl,
                 rows)
+
+
+TALLY_OPS = ("all-to-all", "collective-permute", "all-reduce", "all-gather",
+             "reduce-scatter")
+TALLY_CASES = {"capacity": ("capacity", {}),
+               "capacity_chunks_bf16": ("capacity", dict(overlap_chunks=2,
+                                                         wire_dtype="bf16")),
+               "ragged": ("ragged", {}),
+               "psum": ("capacity", None)}
+
+
+def _tally_on_off(params, x, r, rows, mesh, out):
+    """The collectives one layer's forward and backward issue (core.comm's
+    tally: calls and bytes by op) with the telemetry counters on and off,
+    for the a2a exchanges and the psum mode."""
+    from repro_torch.core import comm, fmoe
+
+    for name, (dispatch, kw) in TALLY_CASES.items():
+        for obs in (True, False):
+            if kw is None:  # the psum mode over (), every row
+                dist = fmoe.DistConfig(mesh, (), obs=obs)
+                take = slice(None)
+            else:
+                dist = fmoe.DistConfig(mesh, ("data", "model"), obs=obs, **kw)
+                take = rows
+            comm.tally_reset()
+            _layer_run(f"tally/{name}/{obs}", params, dist, dispatch, "einsum",
+                       x, r, take, out)
+            calls, byts = comm.tallied_calls(), comm.tallied()
+            out[f"tally/{name}/{obs}/calls"] = np.asarray(
+                [calls.get(op, 0) for op in TALLY_OPS])
+            out[f"tally/{name}/{obs}/bytes"] = np.asarray(
+                [byts.get(op, 0) for op in TALLY_OPS], np.float64)
 
 
 def _zoo_params(whole, job):
@@ -423,12 +470,14 @@ def _hook_run(mesh, out):
     replan, with real train steps between them under the rebuilt steps."""
     from repro_torch.launch import train
     from repro_torch.models import lm
+    from repro_torch.obs.sink import MemorySink
     from repro_torch.optim import AdamW
 
     cfg = _model_cfg("capacity")
     opt = AdamW(lr=LR)
+    sink = MemorySink()
     hook = train.ReplanHook(cfg, opt, mesh, MODEL_B, MODEL_S, every=2,
-                            opts=dict(impl="einsum", device="cpu"))
+                            opts=dict(impl="einsum", device="cpu"), sink=sink)
     hook.controller.min_gain = -10.0
     params = lm.init_params(cfg, device="cpu", param_dtype="float32",
                             mesh=mesh)
@@ -454,6 +503,8 @@ def _hook_run(mesh, out):
     out["hook/events"] = np.asarray(events)
     out["hook/losses"] = np.asarray(losses)
     out["hook/final_identity"] = np.asarray(hook.placement.is_identity)
+    out["hook/sink"] = np.asarray([f"{r['kind']}@{r['step']}"
+                                   for r in sink.records])
 
 
 # options the port refused before the §5.2 schedule and the two-level
@@ -581,7 +632,7 @@ def _model_run(key, params_np, cfg, dist, impl, out):
         params, cfg, {"tokens": rows}, impl=impl, device="cpu", dist=dist)
     sync_grads(grads, dist)
     out[f"{key}/loss"] = train._mean_over_ranks(loss, dist.mesh)
-    for k in ("aux_loss", "z_loss", "drop_frac", "load"):
+    for k in ("aux_loss", "z_loss", "drop_frac", "load", *COUNTERS):
         out[f"{key}/{k}"] = aux[k]
     out[f"{key}/grad_norm"] = global_norm(grads, dist)
     for k, v in _flatten(interop.to_jax(grads)).items():
@@ -620,12 +671,38 @@ def _model_task(spec, job, mesh, out):
                        psum._replace(placement=_serve_plan(
                            mesh.shape["model"])),
                        MODEL_IMPL[dispatch], out)
+    if mesh.shape["data"] == 1:
+        _placed_checkpoint(params_np, job, mesh, out)
     if "tp" in spec["tasks"]:
         cfg = _model_cfg("capacity")
         dist = train.moe_dist(cfg, mesh, MODEL_B, expert_tp=True)
         assert dist.tp_axis == "data" and dist.expert_tp
         for impl in IMPLS:
             _model_run(f"tp_model/{impl}", params_np, cfg, dist, impl, out)
+
+
+def _placed_checkpoint(params_np, job, mesh, out):
+    """The reduced model's params sharded over the mesh and laid out under
+    the serving cell's per-layer plan (two shadowed experts), saved with
+    the plan and the mesh: rank 0 writes the whole logical-order tree."""
+    from repro_torch import interop
+    from repro_torch import placement as TP
+    from repro_torch.checkpoint import ckpt
+
+    cfg = _model_cfg("ragged")
+    plan = _serve_plan(mesh.shape["model"])
+    params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+    TP.from_logical(params, plan, mesh=mesh)
+    ckpt.save(str(job / "ckpt_placed"), {"params": params}, step=3,
+              placement=plan, mesh=mesh)
+    # every rank restores its shard of it, in the plan's physical order
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    back = ckpt.restore(str(job / "ckpt_placed"),
+                        {"params": tree_map(torch.zeros_like, params)},
+                        placement=plan, mesh=mesh)["params"]
+    out["ckpt/restored_shard_equal"] = np.asarray(all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                          tree_leaves(params))))
 
 
 def _bit_equal_task(spec, job, mesh, out):
@@ -1025,7 +1102,7 @@ def model_run(key, cfg, dist, params=params):
     with mesh:
         (loss, aux), grads = vg(params, jnp.asarray(T._tokens(0)))
     out[key + "/loss"] = loss
-    for k in ("aux_loss", "z_loss", "drop_frac", "load"):
+    for k in ("aux_loss", "z_loss", "drop_frac", "load", *T.COUNTERS):
         out[key + "/" + k] = aux[k]
     out[key + "/grad_norm"] = optim.global_norm(grads)
     for k, v in T._flatten(jax.tree.map(np.asarray, grads)).items():
@@ -1150,6 +1227,8 @@ for key, oc, ib in (("tight", 4, T.HIER_IB), ("drops", 2, T.HIER_DROP_IB)):
     y, m = du.dist_apply(env, mesh, hier._replace(overlap_chunks=oc,
                                                   inter_bound=ib))
     out["hier_" + key + "/y"], out["hier_" + key + "/drop_frac"] = y, m.drop_frac
+    for k, v in m.obs.as_dict().items():
+        out["hier_" + key + "/obs/" + k] = v
 # the comm helpers, each rank its block (rank = node * 2 + model)
 from jax.sharding import PartitionSpec as P
 from repro import compat
@@ -1856,6 +1935,73 @@ def test_hier_matches_jax_two_level_and_its_drops(ep):
                                    rtol=1e-6)
 
 
+def _assert_counters(got, ref, msg):
+    """Telemetry counters against the JAX package's: the wire sizes are
+    host constants (equal to f32 rounding), the rest reduced values."""
+    for k in COUNTERS:
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{msg} {k}")
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2"])
+@pytest.mark.parametrize("mode", ["model", "psum_model"])
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_model_counters_match_jax_distributed(ep, name, mode, dispatch):
+    """The telemetry counters in the reduced model's loss aux (summed over
+    the layers, imbalance averaged), a2a and the psum mode, against the
+    JAX package's distributed loss_fn on the same mesh: wire elements and
+    bytes (a flat exchange: all inter), dropped rows, shadow hits and
+    imbalance."""
+    ref = _jax_dist_result(ep, name)
+    key = f"{mode}/{dispatch}"
+    for rank, r in enumerate(_ranks(ep, name)):
+        got = {k: r[f"{key}/{k}"] for k in COUNTERS}
+        _assert_counters(got, {k: ref[f"{key}/{k}"] for k in COUNTERS},
+                         f"{name} {key} rank {rank}")
+        assert float(got["wire_bytes"]) > 0.0
+        assert float(got["wire_bytes_intra"]) == 0.0
+
+
+@pytest.mark.parametrize("case", ["tight", "drops"])
+def test_hier_counters_match_jax(ep, case):
+    """The two-level exchange's counters (its intra- and inter-node wire
+    bytes apart, the agents' drops) against the JAX package's two-level
+    layer on the same 1x2x2 mesh: HIER_IB at 4 chunks, HIER_DROP_IB at 2."""
+    ref = ep["jax"].get("hier")
+    assert isinstance(ref, dict), ref
+    key = f"hier/4/{HIER_IB}/einsum" if case == "tight" else "hier_drops"
+    want = {k: ref[f"hier_{case}/obs/{k}"] for k in COUNTERS}
+    for rank, r in enumerate(_hier_ranks(ep)):
+        got = {k: r[f"{key}/obs/{k}"] for k in COUNTERS}
+        _assert_counters(got, want, f"{case} rank {rank}")
+        assert float(got["wire_bytes_intra"]) > 0.0
+        np.testing.assert_allclose(
+            float(got["wire_bytes"]),
+            float(got["wire_bytes_intra"]) + float(got["wire_bytes_inter"]),
+            rtol=1e-6)
+    assert (float(want["dropped"]) > 0.0) == (case == "drops")
+
+
+@pytest.mark.parametrize("name", ["1x2", "2x2", "1x4"])
+def test_counters_add_no_collective(ep, name):
+    """The collective tally (core.comm: calls and output bytes by op) of a
+    layer's forward and backward is the same with the telemetry counters
+    on and off (DistConfig.obs), for the capacity exchange, its chunked
+    bf16 wire, the ragged exchange and the psum mode; off, the counters
+    are zero, and on, the wire bytes are the exchange's."""
+    for rank, r in enumerate(_ranks(ep, name)):
+        for case in TALLY_CASES:
+            on, off = f"tally/{case}/True", f"tally/{case}/False"
+            for what in ("calls", "bytes"):
+                np.testing.assert_array_equal(
+                    r[f"{on}/{what}"], r[f"{off}/{what}"],
+                    err_msg=f"{name} rank {rank} {case} {what}")
+            assert r[f"{on}/calls"].sum() > 0
+            assert float(r[f"{off}/obs/wire_bytes"]) == 0.0
+            assert float(r[f"{on}/obs/wire_bytes"]) > 0.0
+            np.testing.assert_array_equal(r[f"{on}/y"], r[f"{off}/y"])
+
+
 @pytest.mark.parametrize("fn", ["hierarchical", "bf16", "counts", "tokens",
                                 "returned"])
 def test_comm_helpers_match_jax(ep, fn):
@@ -2142,6 +2288,58 @@ def test_replan_hook_replans_and_rolls_back_as_the_reference(ep):
             r["hook/plan"], [*plan.physical_to_logical, plan.num_shadow])
         assert bool(r["hook/final_identity"])
         assert np.isfinite(r["hook/losses"]).all(), r["hook/losses"]
+
+
+def test_hook_sink_takes_the_replan_trail(ep):
+    """The hook's telemetry sink on 1x2: a snapshot of the monitor at each
+    of its samples (every step here), the replan's record and the
+    probation's rollback verdict, at the steps of the hook's events in
+    test_replan_hook_replans_and_rolls_back_as_the_reference."""
+    for r in _ranks(ep, "1x2"):
+        trail = [str(t) for t in r["hook/sink"]]
+        events = [t for t in trail if not t.startswith("load_monitor@")]
+        (replan, _, _), (back, _, _) = r["hook/events"]
+        assert events == [f"replan@{replan}", f"replan_rollback@{back}"], trail
+        assert trail.count("load_monitor@1") == 1, trail
+        assert len(trail) - len(events) == HOOK_STEPS, trail
+
+
+def test_placed_checkpoint_from_1x2_restores_at_1x1(ep):
+    """A checkpoint saved on 1x2 under a per-layer plan with shadowed
+    experts is in logical order: restored with no mesh and no plan, by the
+    port and by the JAX package, it is the unplaced whole params bit for
+    bit; restored on the 1x2 mesh under the plan, each rank's shard is the
+    one it saved."""
+    import jax
+    from repro.checkpoint import ckpt as jckpt
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+
+    for r in _ranks(ep, "1x2"):
+        assert bool(r["ckpt/restored_shard_equal"])
+    path = str(ep["root"] / "1x2" / "ckpt_placed")
+    params_np = _unflatten(dict(np.load(ep["root"] / "model_params.npz")))
+    cfg = _model_cfg("ragged")
+    want = interop.from_jax(params_np, cfg, device="cpu")
+    like = {"params": _zeros_like(want)}
+    got = ckpt.restore(path, like)["params"]
+    assert ckpt.load_manifest(path)["step"] == 3
+    for (k, a), (_, b) in zip(_flatten(interop.to_jax(got)).items(),
+                              _flatten(interop.to_jax(want)).items()):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    jlike = {"params": jax.tree.map(np.zeros_like, params_np)}
+    jgot = jckpt.restore(path, jlike)["params"]
+    for k, v in _flatten(jax.tree.map(np.asarray, jgot)).items():
+        np.testing.assert_array_equal(v, _flatten(params_np)[k], err_msg=k)
+
+
+def _zeros_like(tree):
+    """A port tree of zeros shaped like ``tree`` (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like(v) for v in tree]
+    return torch.zeros_like(tree)
 
 
 def test_train_cli_replan_hook_under_torchrun():

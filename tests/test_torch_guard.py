@@ -36,6 +36,28 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("sub", ["checkpoint", "resilience", "obs"])
+def test_resilience_and_telemetry_import_no_jax_or_repro(sub):
+    """The checkpoint, resilience and telemetry subpackages (the JAX
+    package's module names) import neither JAX nor the JAX package; the
+    trace, sink and events modules only the standard library and numpy."""
+    import sys
+    files = sorted((ROOT / "src" / "repro_torch" / sub).glob("*.py"))
+    names = {f.stem for f in files}
+    assert names >= {"checkpoint": {"__init__", "ckpt"},
+                     "resilience": {"__init__", "faults", "guard",
+                                    "recovery"},
+                     "obs": {"__init__", "counters", "events", "sink",
+                             "stats", "trace"}}[sub], names
+    for f in files:
+        mods = [m.split(".")[0] for m in _imported_modules(f)]
+        assert not FORBIDDEN & set(mods), (f.name, mods)
+        if sub == "obs" and f.stem in ("trace", "sink", "events"):
+            bad = [m for m in mods if m not in sys.stdlib_module_names
+                   and m not in ("__future__", "numpy")]
+            assert not bad, (f.name, bad)
+
+
 def test_lower_layers_import_no_upper_layer():
     """The MoE layer, gradient sync, the optimizer and the kernels import
     nothing of the planner, the models or the entry points, at the top of a

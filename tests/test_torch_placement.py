@@ -19,8 +19,8 @@
 * at world size 1 (a gloo group in this process): the a2a layer with
   shadowed experts and a shrunk capacity, the train step under a plan
   bit-equal to the unplaced one, ``ragged_bound="auto"`` and the
-  ``ReplanHook``; and the refusals (the psum mode, shadowing with tp, the
-  telemetry sinks).
+  ``ReplanHook``; the refusals (the psum mode, shadowing with tp); and
+  the telemetry sinks of the monitor, the probation and the hook.
 
 The multi-rank cases (gloo 1x2, 1x4, 1x2x2) are in ``test_torch_ep.py``.
 """
@@ -275,18 +275,39 @@ def test_probation_decisions_match_jax(series):
 
 
 @pytest.mark.parametrize("ctor", ["monitor", "probation", "hook"])
-def test_sinks_are_refused(ctor):
+def test_sinks_take_records(ctor):
+    """The telemetry sink of the monitor (its sampled snapshots), the
+    probation (its verdicts) and the train hook (its monitor's snapshots)
+    takes their records, as the reference's do."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core.balance import MoEMetrics
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.obs.sink import MemorySink
 
-    calls = {"monitor": lambda: tmon.LoadMonitor(E, sink=object()),
-             "probation": lambda: TP.ReplanProbation(sink=object()),
-             "hook": lambda: train.ReplanHook(
-                 reduced(get_config("fastmoe-gpt")), None, Mesh(1, 1), 2, 8,
-                 sink=object())}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        calls[ctor]()
+    sink = MemorySink()
+    load = np.arange(1.0, E + 1.0)
+    if ctor == "monitor":
+        mon = tmon.LoadMonitor(E, record_every=1, sink=sink)
+        mon.update(MoEMetrics(0.0, 0.0, load, 0.25))
+        want = ["load_monitor"]
+        assert sink.records[0]["drop_ema"] == pytest.approx(0.0025)
+    elif ctor == "probation":
+        p = TP.ReplanProbation(window=8, min_samples=3, sink=sink)
+        p.start(10, "OLD", "NEW", baseline_loss=1.0)
+        for s in (11, 12, 13):
+            d = p.observe(s, loss=2.0)
+        assert d.rollback
+        want = ["replan_rollback"]
+        assert sink.records[0]["metric"] == "loss"
+        assert sink.records[0]["start"] == 10
+    else:
+        cfg = reduced(get_config("fastmoe-gpt"))
+        hook = train.ReplanHook(cfg, None, Mesh(1, 1), 2, 8, sink=sink)
+        hook.observe(0, {"load": np.ones(cfg.moe.num_experts),
+                         "drop_frac": 0.0}, {}, None, loss=1.0)
+        want = ["load_monitor"]
+    assert [r["kind"] for r in sink.records] == want
 
 
 # ---------------------------------------------------------------------------

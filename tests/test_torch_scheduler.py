@@ -381,9 +381,10 @@ def test_serve_config_from_args():
     args.replan_every, args.per_layer_plans = 4, False  # the serve-time replan
     scfg = ServeConfig.from_args(args)
     assert (scfg.replan_every, scfg.per_layer_plans) == (4, False)
-    for name in ("metrics_out", "trace"):  # telemetry (item 7): no field
-        with pytest.raises(TypeError, match=name):
-            ServeConfig(**{name: 1})
+    assert (scfg.metrics_out, scfg.trace) == ("", "")  # telemetry: off
+    args.metrics_out, args.trace = "m.jsonl", "t.json"
+    scfg = ServeConfig.from_args(args)
+    assert (scfg.metrics_out, scfg.trace) == ("m.jsonl", "t.json")
 
 
 def test_completion_latencies():

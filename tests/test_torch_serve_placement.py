@@ -13,12 +13,13 @@ the JAX package on the same numpy inputs, in f32 on the CPU:
   defaults differ: the card's here, the reference's own there);
 * ``scheduler.ServeReplanHook``: the replan ticks, the plans it applies
   and its rollback on a scripted series of loads and drops, through a stub
-  batcher that records ``apply_placement``, against the reference's hook;
-* ``ServeConfig.from_args`` with the replan fields, and the one-process
-  batcher: the identity plan from tick 0 (one rank: no replan), and a
-  mid-stream ``apply_placement``, both leaving the tokens unchanged;
-* the refusals that stand: the hook's telemetry sink, and a node axis in
-  serving.
+  batcher that records ``apply_placement``, against the reference's hook,
+  and the records its telemetry sink takes against the reference's;
+* ``ServeConfig.from_args`` with the replan and telemetry fields, and the
+  one-process batcher: the identity plan from tick 0 (one rank: no
+  replan), and a mid-stream ``apply_placement``, both leaving the tokens
+  unchanged;
+* the refusal that stands: a node axis in serving.
 
 The placed psum layer across ranks, the placed psum train step and the
 batchers on 1x2 and 2x2 meshes ride ``tests/test_torch_ep.py``'s spawns.
@@ -308,12 +309,13 @@ def test_serve_replan_hook_matches_the_reference(monkeypatch, per_layer):
 
 
 def test_serve_config_takes_the_replan_fields():
-    """``from_args`` takes replan_every and per_layer_plans as the
-    reference's does; the reference's telemetry fields (item 7) and its
-    CLI's model fields are not ServeConfig's here."""
+    """``from_args`` takes replan_every, per_layer_plans and the telemetry
+    fields (metrics_out, trace) as the reference's does; its CLI's model
+    fields are not ServeConfig's here."""
     args = SimpleNamespace(batch=4, slots=None, block_size=None, max_len=None,
                            policy=None, mesh="2x2", replan_every=8,
-                           per_layer_plans=False)
+                           per_layer_plans=False, metrics_out="m.jsonl",
+                           trace="t.json")
     got = ServeConfig.from_args(args)
     want = jserve_api.ServeConfig.from_args(args)
     for f in dataclasses.fields(ServeConfig):
@@ -361,11 +363,31 @@ def test_one_process_batcher_under_placement(gpt):
     assert moved.replans == 1 and _tokens(moved) == _tokens(base)
 
 
+def test_serve_hook_sink_takes_the_references_records(monkeypatch):
+    """The port's hook and the reference's, each with an in-memory sink, on
+    the scripted series of test_serve_replan_hook_matches_the_reference:
+    the same records (replan, replan_rollback, replan_commit) at the same
+    ticks, in the same order."""
+    from repro.obs.sink import MemorySink as JSink
+    from repro_torch.obs.sink import MemorySink
+
+    jcfg = _gpt(jget_config, jreduced, experts=8)
+    tcfg = _gpt(get_config, reduced, experts=8)
+    _same_constants(monkeypatch)
+    got = []
+    for make, cfg, sink in ((jscheduler.ServeReplanHook, jcfg, JSink()),
+                            (scheduler.ServeReplanHook, tcfg, MemorySink())):
+        stub = _Stub(cfg, 4)  # the port's hook holds it weakly
+        hook = make(stub, 2, every=4, per_layer=True, sink=sink)
+        hook.controller.min_gain = -10.0
+        _hook_series(hook, cfg.num_layers, cfg.moe.num_experts)
+        got.append([(r["kind"], r["step"]) for r in sink.records])
+    assert got[0] == got[1], got
+    kinds = [k for k, _ in got[1]]
+    assert "replan" in kinds and "replan_rollback" in kinds, kinds
+
+
 def test_refusals_that_stand(gpt):
-    """A telemetry sink (ROADMAP §1 item 7) on the hook, and a node axis
-    in serving."""
-    _, tcfg, _, _ = gpt
-    with pytest.raises(NotImplementedError, match="item 7"):
-        scheduler.ServeReplanHook(_Stub(tcfg, 4), 1, every=4, sink=object())
+    """A node axis in serving."""
     with pytest.raises(NotImplementedError, match="node axis"):
         ServeConfig(mesh="1x2x2").mesh_shape()

@@ -2,7 +2,7 @@
 launched: the grouped GEMM's tile shape (``tile_config``) and its routing
 between the ring kernel and the simple one (``route``), the f32 dQ
 scratch of the flash backward (``dq_scratch``: per-kv-tile slots within a
-budget, else one the kv tiles add into), the fused FFN's tiling (``plan``)
+budget, else ranges of the kv tiles summed into ``dq_accumulator``), the fused FFN's tiling (``plan``)
 and routing (``route``), its backward's (``plan_bwd``, ``route``, the
 shared memory mirrors ``dx_smem`` / ``dw_smem``), and the flash forward's
 tiles and shared memory (``fwd_config``) at every (dk, dv) pair with an
@@ -86,23 +86,26 @@ def test_route_misaligned_operand_takes_the_simple_kernel(which):
 @pytest.mark.parametrize("shape,skv,slots", [
     ((8, 256, 16, 64), 256, 4),       # fastmoe-gpt training: 4 x 8.4 MB
     ((2, 333, 12, 128), 333, 6),      # tails of both tile sizes
-    ((1, 64, 12, 128), 70000, None),  # a long key run: 1094 slots > budget
+    ((2, 8192, 12, 128), 8192, 42),   # a starcoder2 kv group: 128 tiles
 ])
 def test_dq_scratch_bf16(shape, skv, slots):
     """One f32 slot of q's shape per 64-row kv tile where they fit the
     budget (each kv tile stores its part, summed in order: deterministic),
-    else one zeroed scratch of q's shape the kv tiles add into."""
-    q = torch.zeros(shape, dtype=torch.bfloat16)
+    else as many slots as fit, the kv tiles in ranges of that many, and an
+    f32 accumulator of q's shape the ranges are summed into in order."""
+    q = torch.zeros(shape, dtype=torch.bfloat16, device="meta")  # no memory
     acc = fa.dq_scratch(q, skv)
-    assert fa.dq_slots(q, skv) == (slots or 0)
+    assert fa.dq_slots(q, skv) == slots
     assert acc.dtype == torch.float32 and acc.is_contiguous()
     assert acc.device == q.device
-    if slots is None:
-        assert math.ceil(skv / 64) * q.numel() * 4 > fa.DQ_SLOT_BUDGET
-        assert acc.shape == q.shape and not acc.any()
+    assert acc.shape == (slots, *shape)
+    assert acc.numel() * 4 <= fa.DQ_SLOT_BUDGET
+    total = fa.dq_accumulator(q, skv)
+    if slots == math.ceil(skv / 64):
+        assert total is None
     else:
-        assert acc.shape == (slots, *shape)
-        assert acc.numel() * 4 <= fa.DQ_SLOT_BUDGET
+        assert math.ceil(skv / 64) * q.numel() * 4 > fa.DQ_SLOT_BUDGET
+        assert total.shape == q.shape and total.dtype == torch.float32
 
 
 def test_dq_scratch_f32_is_none():

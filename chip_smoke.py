@@ -63,7 +63,8 @@
    holding them against their plain versions at its most skewed layer;
 9. runs expert parallelism (the §3.2 exchange, repro_torch.launch.mesh and
    core.sync) over a 1x1 mesh, a world-size-1 NCCL group in this process:
-   the same 10-layer model and batch through the EP paths — a2a and the
+   the same model cut to 4 layers (EP_LAYERS) and batch through the EP
+   paths — a2a and the
    psum mode for fused/ragged, fused/capacity and pallas/ragged,
    expert-internal tensor parallelism (tp) for fused/capacity and
    pallas/capacity —, whose step-0 loss and every gradient leaf, then the
@@ -138,7 +139,7 @@
    times steady ticks of both in turns and profiles one;
 16. (after step 9) serves full-width fastmoe-gpt by continuous batching
    (launch/scheduler.ContinuousBatcher: 8 slots, blocks of 16, max_len
-   160) to 24 requests of 65-128 prompt tokens and 32 new, for
+   160) to 12 requests of 65-128 prompt tokens and 32 new, for
    fused/ragged paged (the headline), pallas/capacity paged, fused/ragged
    ring, and both admission policies on output lengths of 8-32, each a
    main path of its own (counters at 0 just before, read just after),
@@ -177,7 +178,7 @@
    steps timed); and, in the kernel phases, the fused FFN, dX and dW at
    deepseek's training rows (``ds_bwd_kernel_phase``) and the unfused
    SwiGLU references at deepseek's rows;
-18. (slice 14) expert placement on full-width fastmoe-gpt at 10 layers
+18. (slice 14) expert placement on full-width fastmoe-gpt at 4 layers
    over a 1x1 NCCL mesh (``placement_phase``): forced plans, (a) a seeded
    permutation per layer and (b) (a) with 8 shadowed experts, for
    {fused, pallas} x {capacity, ragged} in a2a (and (a) locally on
@@ -212,7 +213,7 @@
    owned segment and shadowed tail, the grouped GEMM on the capacity
    tick's owned and shadowed buffers and combine_topk at k = 1 against
    their plain versions beside their bounds; and (in step 18, on its
-   10-layer params) the placed psum train step under (a) and (b) against
+   params) the placed psum train step under (a) and (b) against
    the identity-placed step;
 20. (slice 16, last: ``resilience_phase``) checkpoints, the step guard,
    the fault drills and telemetry on full-width fastmoe-gpt cut to 2
@@ -227,7 +228,26 @@
    the same with the counters on and off; a step with the guard and
    telemetry on and off in turns; the save, restore, snapshot and guard
    times; and (in step 9's train phase) the guard's snapshot of the
-   10-layer state timed against its step.
+   10-layer state timed against its step;
+21. (slice 17, last: ``families_phase``) the other families at full
+   width, bf16, weights from seed 0, 2 prompts and 16 new tokens each:
+   rwkv6-7b (32 layers, 512-token prompts) and hymba-1.5b (32 layers,
+   512) through ``serve.generate``, whisper-tiny (4 + 4 layers, 64-token
+   prompts, frames (2, 1500, 384)) and internvl2-76b (24 of 80 layers,
+   512-token prompts after patches (2, 256, 8192)) through ``lm.prefill``
+   and ``lm.decode_step``, with the counters at 0 just before and read
+   just after (the flash forward as the layers predict); prefill logits
+   against the f32 plain path within the bf16 plain path's distance;
+   rwkv6 and hymba's prefill against token-by-token decoding; the time
+   loops' share of a prefill by events; fmoefy(rwkv6-7b) (96 experts of
+   hidden 7168, squared ReLU) at 2 layers served on fused/ragged and
+   pallas/capacity against the f32 oracle of each dispatch, and the fused
+   FFN at its prefill rows; hymba-1.5b trained whole through the train
+   CLI (3 steps of 4 x 256) and fmoefy(hymba-1.5b) (H 2752) at 2 layers
+   (2 steps), each with step-0 gradients within the bf16 floor of the f32
+   oracle, and the fused FFN's forward, dX and dW at its training rows.
+   ``python3 chip_smoke.py --only families`` builds the kernels and runs
+   this phase alone (no result line).
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -267,6 +287,10 @@ BATCH, PROMPT, GEN = 8, 128, 32
 # param: 12 layers are 79.8 GB, 10 layers 66.8 GB of the card's 80 GB; the
 # per-layer recompute keeps the rest to a few GB)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = 8, 256, 10
+# the depth of the expert-parallel, overlap and placement phases: the
+# paths are per layer, and 4 of 12 layers keep the script inside its
+# 1200 s limit beside the later phases
+EP_LAYERS = PLACE_LAYERS = 4
 TRAIN_WARM, TRAIN_STEPS = 1, 4
 TRAIN_COMBOS = [("fused", "capacity"), ("fused", "ragged"), ("pallas", "ragged")]
 # expert parallelism at world size 1 (NCCL): each path's step-0 loss and
@@ -788,12 +812,13 @@ def grouped_mm_call(x, w, offs):
     return lambda: fn(x, w, offs=offs)
 
 
-def unfused_ffn(label, x, wi, wo, offs, flush, wu=None):
+def unfused_ffn(label, x, wi, wo, offs, flush, wu=None, act="gelu"):
     """A reference line, not the library column: the expert FFN as PyTorch
-    calls (torch._grouped_mm, tanh GELU, torch._grouped_mm; with ``wu``
-    SwiGLU, two grouped products into silu(g) * u), which write the (M, H)
-    hidden to device memory; it shows whether fusion pays.  Events and
-    device time, or a note where this PyTorch lacks the grouped product."""
+    calls (torch._grouped_mm, tanh GELU — or with ``act="rwkv"`` squared
+    ReLU —, torch._grouped_mm; with ``wu`` SwiGLU, two grouped products
+    into silu(g) * u), which write the (M, H) hidden to device memory; it
+    shows whether fusion pays.  Events and device time, or a note where
+    this PyTorch lacks the grouped product."""
     import torch
     import torch.nn.functional as F
     fn = getattr(torch, "_grouped_mm", None)
@@ -802,7 +827,9 @@ def unfused_ffn(label, x, wi, wo, offs, flush, wu=None):
         return
 
     def run():
-        if wu is None:
+        if wu is None and act == "rwkv":
+            h = torch.square(torch.relu(fn(x, wi, offs=offs)))
+        elif wu is None:
             h = F.gelu(fn(x, wi, offs=offs), approximate="tanh")
         else:
             h = F.silu(fn(x, wi, offs=offs)) * fn(x, wu, offs=offs)
@@ -812,9 +839,10 @@ def unfused_ffn(label, x, wi, wo, offs, flush, wu=None):
     except RuntimeError as exc:
         print(f"reference {label}: unfused FFN not timed: {exc}"[:300], flush=True)
         return
-    act = "GELU" if wu is None else "SwiGLU"
+    name = ("SwiGLU" if wu is not None else
+            "squared ReLU" if act == "rwkv" else "GELU")
     ms, dev_ms = time_ms(run, flush), device_ms(run, what=label)
-    print(f"reference {label}: unfused FFN (torch._grouped_mm + {act} + "
+    print(f"reference {label}: unfused FFN (torch._grouped_mm + {name} + "
           f"torch._grouped_mm) {ms:.4f} ms, device (L2 warm) {dev_ms:.4f} "
           f"ms", flush=True)
     return ms, dev_ms
@@ -1495,7 +1523,9 @@ def profile_step(params, cfg, prompt, impl, cache_len, dev):
 # serve_continuous draws them from prompt_len CB_PROMPT (65-128 tokens,
 # RandomState(1)), CB_GEN new tokens each, all submitted at the start
 CB_SLOTS, CB_BLOCK, CB_MAX_LEN = 8, 16, 160
-CB_REQUESTS, CB_PROMPT, CB_GEN = 24, 128, 32
+# 12 requests over 8 slots: slots are reused and the placement switches
+# (SP_SWITCH_TICKS) fall mid-stream
+CB_REQUESTS, CB_PROMPT, CB_GEN = 12, 128, 32
 # (label, impl, dispatch, ServeConfig overrides, mixed output lengths): the
 # headline first, the ring on the headline's path; then the two admission
 # policies on a stream whose output lengths differ (CB_MIXED_GEN, drawn
@@ -2440,7 +2470,7 @@ def needed_kernels(impl, dispatch, router="topk"):
 
 def ep_phase(dev):
     """Expert parallelism over a 1x1 mesh: a world-size-1 NCCL process group
-    in this process (a HashStore), full-width fastmoe-gpt at TRAIN_LAYERS
+    in this process (a HashStore), full-width fastmoe-gpt at EP_LAYERS
     layers, 8 x 256 tokens.  At world size 1 the exchange is an identity
     (the send buffer is the sorted rows, the compaction and the capacity
     buffer unchanged), the psum mode's all-reduce too and tp's all-gather
@@ -2467,7 +2497,7 @@ def ep_phase(dev):
     try:
         mesh = make_local_mesh(1, 1)
         base = dataclasses.replace(get_config("fastmoe-gpt"),
-                                   num_layers=TRAIN_LAYERS)
+                                   num_layers=EP_LAYERS)
         data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
         batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
         torch.cuda.empty_cache()
@@ -2569,7 +2599,7 @@ def ep_phase(dev):
                     continue
                 launches = sum(per_step[name].values())
                 print(f"EP train step {name} {impl}/{dispatch} 1x1 vs local, "
-                      f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
+                      f"{EP_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
                       f"{TRAIN_SEQ}, AdamW included, in turns with "
                       f"{', '.join(steps)}: {name} {med[name]:.1f} ms, local "
                       f"{med['local']:.1f} ms median of {EP_STEPS} ({name} - "
@@ -2659,7 +2689,7 @@ def ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted):
 
 def overlap_phase(dev):
     """The §5.2 smart schedule over a 1x1 mesh (a world-size-1 NCCL group in
-    this process), full-width fastmoe-gpt at TRAIN_LAYERS layers, 8 x 256
+    this process), full-width fastmoe-gpt at EP_LAYERS layers, 8 x 256
     tokens.  For each OVERLAP_CASES (impl, dispatch, chunks), with the
     exchange decomposed (at one rank no collective: the shifts are a copy)
     and undecomposed (one async NCCL all-to-all a chunk, waited on right
@@ -2691,7 +2721,7 @@ def overlap_phase(dev):
     try:
         mesh = make_local_mesh(1, 1)
         base = dataclasses.replace(get_config("fastmoe-gpt"),
-                                   num_layers=TRAIN_LAYERS)
+                                   num_layers=EP_LAYERS)
         data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
         batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
         torch.cuda.empty_cache()
@@ -2731,7 +2761,7 @@ def overlap_phase(dev):
                 paths = [p for p, _ in leaf_paths(g_c)]
                 pairs = list(zip(tree_leaves(g_c), tree_leaves(g_s)))
                 expert = {i for i, p in enumerate(paths) if "/experts/" in p}
-                check(len(expert) == 2 * TRAIN_LAYERS,
+                check(len(expert) == 2 * EP_LAYERS,
                       f"overlap: {len(expert)} expert gradient leaves")
                 unequal = {i for i, (a, b) in enumerate(pairs)
                            if not torch.equal(a, b)}
@@ -2820,7 +2850,7 @@ def overlap_times(dev, base, mesh, batch):
         if name == "serial":
             continue
         print(f"overlap train step {impl}/{dispatch} 1x1 {name} vs serial, "
-              f"{TRAIN_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
+              f"{EP_LAYERS}-layer fastmoe-gpt, batch {TRAIN_BATCH}x"
               f"{TRAIN_SEQ}, AdamW included, in turns with {', '.join(steps)}: "
               f"{name} {med[name]:.1f} ms, serial {med['serial']:.1f} ms "
               f"median of {EP_STEPS} ({name} - serial "
@@ -4152,17 +4182,23 @@ def dw_ulp_atol(x, ws, wo, dy, gs, act) -> float:
 def ds_bwd_kernel_phase(dev, flush):
     """The fused FFN at deepseek-v2's training rows (DS_TRAIN_BATCH x
     DS_TRAIN_SEQ tokens' top-6 over DS_TRAIN_EXPERTS experts: 12288 rows,
-    K 5120, H 1536, SwiGLU, bf16): forward, dX and dW against their plain
+    K 5120, H 1536, SwiGLU, bf16): :func:`ffn_kernel_case`."""
+    return ffn_kernel_case(dev, flush, "deepseek train", DS_TRAIN_EXPERTS,
+                           5120, 1536, DS_TRAIN_BATCH * DS_TRAIN_SEQ, 6,
+                           "swiglu")
+
+
+def ffn_kernel_case(dev, flush, label, nE, K, Hh, T, k, act, bwd=True):
+    """The fused FFN (and with ``bwd`` its dX and dW) at T tokens' top-k
+    rows over nE experts, d K, hidden Hh, ``act``, bf16: against the plain
     versions (the ring kernels, as the counters show), timed beside their
     bounds, the plain versions and the unfused references by
-    torch._grouped_mm."""
+    torch._grouped_mm.  Returns {kernel name: times and error}."""
     import torch
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_ffn_bwd as fb
 
     g = torch.Generator(device=dev).manual_seed(9)
-    nE, K, Hh, k = DS_TRAIN_EXPERTS, 5120, 1536, 6
-    T = DS_TRAIN_BATCH * DS_TRAIN_SEQ
     M = T * k
     bf = torch.bfloat16
 
@@ -4172,83 +4208,98 @@ def ds_bwd_kernel_phase(dev, flush):
     ids = routed(T, k, 0, dev, nE)
     gs = torch.bincount(ids.flatten(), minlength=nE).to(torch.int32)
     n, used = int(gs.sum()), int((gs > 0).sum())
-    wi, wu = randn(nE, K, Hh, scale=K ** -0.5), randn(nE, K, Hh, scale=K ** -0.5)
+    gated = act == "swiglu"
+    ws = tuple(randn(nE, K, Hh, scale=K ** -0.5) for _ in range(1 + gated))
     wo = randn(nE, Hh, K, scale=Hh ** -0.5)
     x, dy = randn(M, K), randn(M, K)
-    ws = (wi, wu)
     tol = KERNEL_TOL["bfloat16"]
-    before = bwd_counts()
-    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "swiglu")
-    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "swiglu")
-    y = ff.fused_ffn(x, ws, wo, gs, "swiglu")
+    before, ffn_before = bwd_counts(), ff.fused_ffn.launches
+    y = ff.fused_ffn(x, ws, wo, gs, act)
+    errs = {"fused_ffn": close(f"fused_ffn_{act} {label}", y,
+                               ff.fused_ffn_plain(x, ws, wo, gs, act), tol)}
+    del y
+    if bwd:
+        dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+        dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
+        torch.cuda.synchronize()
+        check(bwd_counts() == (before[0] + 1, before[1], before[2] + 1,
+                               before[3]),
+              f"{label} rows: the backward did not take the ring kernels "
+              f"({before} -> {bwd_counts()})")
+        errs["fused_ffn_bwd_dx"] = close(
+            f"fused_ffn_bwd_dx {label}", dx,
+            fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act), tol)
+        rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act)
+        dw_tol = dict(DW_TOL["bfloat16"],
+                      atol=dw_ulp_atol(x, ws, wo, dy, gs, act))
+        print(f"fused_ffn_bwd_dw {label}: elementwise tolerance {dw_tol} "
+              f"(one bf16 ulp of the largest |dg| times the largest |x|)",
+              flush=True)
+        e2 = 0.0
+        for a, b in zip((*dws, dwo), (*rws, rwo)):
+            e2 = max(e2, close(f"fused_ffn_bwd_dw {label}", a, b, dw_tol))
+            fro = ((a - b).norm() / b.norm()).item()
+            check(fro <= DW_FRO, f"fused_ffn_bwd_dw {label}: relative "
+                                 f"Frobenius error {fro:.2e}")
+        errs["fused_ffn_bwd_dw"] = e2
+        del dx, dws, dwo, rws, rwo
     torch.cuda.synchronize()
-    check(bwd_counts() == (before[0] + 1, before[1], before[2] + 1, before[3]),
-          f"deepseek training rows: the backward did not take the ring "
-          f"kernels ({before} -> {bwd_counts()})")
-    errs = {"fused_ffn_bwd_dx": close(
-        "fused_ffn_bwd_dx deepseek train", dx,
-        fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "swiglu"), tol)}
-    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "swiglu")
-    dw_tol = dict(DW_TOL["bfloat16"],
-                  atol=dw_ulp_atol(x, ws, wo, dy, gs, "swiglu"))
-    print(f"fused_ffn_bwd_dw deepseek train: elementwise tolerance {dw_tol} "
-          f"(one bf16 ulp of the largest |dg| times the largest |x|)",
-          flush=True)
-    e2 = 0.0
-    for a, b in zip((*dws, dwo), (*rws, rwo)):
-        e2 = max(e2, close("fused_ffn_bwd_dw deepseek train", a, b, dw_tol))
-        fro = ((a - b).norm() / b.norm()).item()
-        check(fro <= DW_FRO, f"fused_ffn_bwd_dw deepseek train: relative "
-                             f"Frobenius error {fro:.2e}")
-    errs["fused_ffn_bwd_dw"] = e2
-    errs["fused_ffn"] = close("fused_ffn_swiglu deepseek train", y,
-                              ff.fused_ffn_plain(x, ws, wo, gs, "swiglu"), tol)
-    del dx, dws, dwo, rws, rwo, y
-    wbytes = used * 3 * K * Hh * 2
+    check(ff.fused_ffn.launches == ffn_before + 1,
+          f"{label} rows: the forward did not take the ring kernel")
+    m = len(ws) + 1  # weight matrices an expert
+    wbytes = used * m * K * Hh * 2
     cases = {
-        "fused_ffn_bwd_dx": (
-            lambda: fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, "swiglu"),
-            lambda: fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, "swiglu"),
-            2 * 3 * M * K + wbytes + 4 * nE, 8 * n * K * Hh),
-        "fused_ffn_bwd_dw": (
-            lambda: fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, "swiglu"),
-            lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, "swiglu"),
-            2 * 2 * M * K + wbytes + 4 * 3 * nE * K * Hh + 4 * nE,
-            12 * n * K * Hh),
         "fused_ffn": (
-            lambda: ff.fused_ffn(x, ws, wo, gs, "swiglu"),
-            lambda: ff.fused_ffn_plain(x, ws, wo, gs, "swiglu"),
-            2 * 2 * M * K + wbytes + 4 * nE, 6 * n * K * Hh),
+            lambda: ff.fused_ffn(x, ws, wo, gs, act),
+            lambda: ff.fused_ffn_plain(x, ws, wo, gs, act),
+            2 * 2 * M * K + wbytes + 4 * nE, 2 * m * n * K * Hh),
     }
+    if bwd:
+        # dX recomputes the input projections and dh, then the products
+        # back through each input projection; dW recomputes the same and
+        # forms every weight's gradient
+        cases["fused_ffn_bwd_dx"] = (
+            lambda: fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act),
+            lambda: fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act),
+            2 * 3 * M * K + wbytes + 4 * nE, (4 * (m - 1) + 2) * n * K * Hh)
+        cases["fused_ffn_bwd_dw"] = (
+            lambda: fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act),
+            lambda: fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act),
+            2 * 2 * M * K + wbytes + 4 * m * nE * K * Hh + 4 * nE,
+            4 * m * n * K * Hh)
+        p = fb.plan_bwd(M, nE, Hh)
+        print(f"plan_bwd {label} ({M} rows, {used} experts with rows, "
+              f"largest {int(gs.max())}): dX row tile {p.bm}, {p.splits} "
+              f"splits", flush=True)
     timed = {}
-    p = fb.plan_bwd(M, nE, Hh)
-    print(f"plan_bwd deepseek train ({M} rows, {used} experts with rows, "
-          f"largest {int(gs.max())}): dX row tile {p.bm}, {p.splits} splits",
-          flush=True)
     for kname, (kern, plain, nbytes, flops) in cases.items():
         ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush, 3)
         fl = device_floor(nbytes, flops, "bfloat16")
-        dev_ms = device_ms(kern, floor=fl, what=f"{kname} deepseek train")
+        dev_ms = device_ms(kern, floor=fl, what=f"{kname} {label}")
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         timed[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, device_ms=dev_ms,
                             max_abs_err=errs[kname])
-        print(f"kernel {kname} deepseek train bf16: {ms:.4f} ms  bound "
-              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.0f} MB, "
-              f"{flops / 1e9:.1f} GFLOP)  plain {plain_ms:.4f} ms  library "
-              f"n/a; device (L2 warm) {dev_ms:.4f} ms", flush=True)
+        print(f"kernel {kname} {label} bf16 ({act}, {M} rows, K {K}, H "
+              f"{Hh}): {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes / 1e6:.0f} MB, {flops / 1e9:.1f} GFLOP)  plain "
+              f"{plain_ms:.4f} ms  library n/a; device (L2 warm) "
+              f"{dev_ms:.4f} ms", flush=True)
     offs = torch.cumsum(gs, 0).to(torch.int32)
-    ref = unfused_ffn("fused_ffn_swiglu deepseek train", x, wi, wo, offs,
-                      flush, wu=wu)
+    wu = ws[1] if gated else None
+    ref = unfused_ffn(f"fused_ffn_{act} {label}", x, ws[0], wo, offs, flush,
+                      wu=wu, act=act)
     if ref:
         timed["fused_ffn"]["unfused_ms"], timed["fused_ffn"]["unfused_device_ms"] = ref
-    ref = unfused_ffn_bwd("fused_ffn_bwd deepseek train", x, wi, wo, dy, offs,
-                          flush, wu=wu) or {}
-    for what, kname in (("dX", "fused_ffn_bwd_dx"), ("dW", "fused_ffn_bwd_dw")):
-        if what in ref:
-            timed[kname]["unfused_ms"], timed[kname]["unfused_device_ms"] = \
-                ref[what]
-    del x, dy, wi, wu, wo
+    if bwd:
+        ref = unfused_ffn_bwd(f"fused_ffn_bwd {label}", x, ws[0], wo, dy,
+                              offs, flush, wu=wu) or {}
+        for what, kname in (("dX", "fused_ffn_bwd_dx"),
+                            ("dW", "fused_ffn_bwd_dw")):
+            if what in ref:
+                timed[kname]["unfused_ms"], timed[kname]["unfused_device_ms"] = \
+                    ref[what]
+    del x, dy, ws, wo
     torch.cuda.empty_cache()
     return timed
 
@@ -4513,7 +4564,7 @@ def placement_kernels(dev, flush):
 
 def placement_phase(dev):
     """Expert placement (ROADMAP §1 item 4) on full-width fastmoe-gpt at
-    TRAIN_LAYERS layers, 8 x 256 tokens, over a 1x1 mesh (a world-size-1
+    PLACE_LAYERS layers, 8 x 256 tokens, over a 1x1 mesh (a world-size-1
     NCCL group in this process).  At one rank no plan pays for itself, so
     the card drives forced plans (``placement_plans``): for each of
     PLACE_COMBOS the step-0 loss and every gradient leaf, mapped back to
@@ -4551,11 +4602,11 @@ def placement_phase(dev):
     init_distributed(dev, rank=0, world_size=1, store=tdist.HashStore())
     totals = {k: 0 for k in counters()}
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    plan_a, plan_b, plan_c = placement_plans(TRAIN_LAYERS)
+    plan_a, plan_b, plan_c = placement_plans(PLACE_LAYERS)
     try:
         mesh = make_local_mesh(1, 1)
         base = dataclasses.replace(get_config("fastmoe-gpt"),
-                                   num_layers=TRAIN_LAYERS)
+                                   num_layers=PLACE_LAYERS)
         data = SyntheticLM(base.vocab_size, TRAIN_SEQ, seed=0).batches(TRAIN_BATCH)
         batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
         torch.cuda.empty_cache()
@@ -4745,7 +4796,7 @@ def placement_drops(dev, base, mesh, batch, params, plan_c, counted):
     finally:
         Dsp.make_capacity_plan = orig
         P.to_logical(params, plan_c)
-    check(len(seen) == TRAIN_LAYERS, f"placement (c): {len(seen)} plans")
+    check(len(seen) == PLACE_LAYERS, f"placement (c): {len(seen)} plans")
     drops = []
     for ids, caps in seen:
         arrivals = np.zeros(E, np.int64)
@@ -4768,7 +4819,7 @@ def placement_times(dev, base, mesh, batch, plans, counted):
     """Each PLACE_TIMED path's AdamW step unplaced and under (a) and (b),
     in turns on one set of params and moments (migrated between the turns,
     untimed), PLACE_STEPS timed after a warm one; then the migration of
-    the whole 10-layer params and AdamW state from logical order to (b)
+    the whole params and AdamW state from logical order to (b)
     and back: ms, peak memory, and the round trip bit-equal by row
     fingerprints."""
     import torch
@@ -4809,7 +4860,7 @@ def placement_times(dev, base, mesh, batch, plans, counted):
                     times[n].append(wall * 1e3)
                     launches[n] = sum(runs.values())
         med = {n: statistics.median(v) for n, v in times.items()}
-        print(f"placement train step {impl}/{dispatch} 1x1, {TRAIN_LAYERS}-"
+        print(f"placement train step {impl}/{dispatch} 1x1, {PLACE_LAYERS}-"
               f"layer fastmoe-gpt, batch {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW "
               f"included, in turns: "
               + ", ".join(f"{n} {med[n]:.1f} ms ({' '.join(f'{v:.1f}' for v in times[n])}; "
@@ -4841,7 +4892,7 @@ def placement_times(dev, base, mesh, batch, plans, counted):
         same = all(torch.equal(x, y) for b_, a_ in zip(before, after)
                    for x, y in zip(b_, a_))
         print(f"placement migrate plan ({label}): params and AdamW moments of "
-              f"{TRAIN_LAYERS}-layer fastmoe-gpt ({held / 1e9:.2f} GB held), "
+              f"{PLACE_LAYERS}-layer fastmoe-gpt ({held / 1e9:.2f} GB held), "
               f"to the plan {there:.1f} ms, back {back:.1f} ms; peak memory "
               f"of the migrations {peak / 1e9:.2f} GB (+"
               f"{(peak - held) / 1e9:.2f} GB scratch); "
@@ -4944,7 +4995,7 @@ def batch_of(cfg, step: int, dev):
 
 def placement_cli(dev):
     """``train --mesh 1x1 --replan_every 4 --ragged_bound auto --steps 12``
-    (fused/ragged, 10 layers) and the same without the hook, in turns
+    (fused/ragged, PLACE_LAYERS layers) and the same without the hook, in turns
     (hook, none), in this process over a world-size-1 NCCL
     group on localhost (the CLI's own init): the hook's runs record no
     replan, the bound resolves to 0, and the step times with and without
@@ -4957,7 +5008,7 @@ def placement_cli(dev):
     import torch
     from repro_torch.launch import train
 
-    common = ["--arch", "fastmoe-gpt", "--num_layers", str(TRAIN_LAYERS),
+    common = ["--arch", "fastmoe-gpt", "--num_layers", str(PLACE_LAYERS),
               "--mesh", "1x1", "--dispatch", "ragged", "--impl", "fused",
               "--steps", str(PLACE_CLI_STEPS), "--log_every", "1",
               "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
@@ -5811,6 +5862,489 @@ def resilience_phase(dev):
     return res_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the other families (ssm, hybrid, audio, vlm), fmoefy
+# ---------------------------------------------------------------------------
+
+# (name, layers or None for all, prompt tokens, the frontend's input):
+# rwkv6-7b and hymba-1.5b whole, whisper-tiny whole (4 encoder, 4 decoder
+# layers) with frames (B, 1500, 384), internvl2-76b at 24 of 80 layers
+# (qwen2-72b's cut) with patches (B, 256, 8192); 2 prompts, 16 new tokens
+FAM_RUNS = (("rwkv6-7b", None, 512), ("hymba-1.5b", None, 512),
+            ("whisper-tiny", None, 64), ("internvl2-76b", 24, 512))
+FAM_BATCH, FAM_GEN = 2, 16
+# the flash forward's launches a prefill and a decode step: hymba one a
+# layer; whisper's encoder, self- and cross-attention a layer in the
+# prefill and the cross-attention a layer each step; internvl2 one a layer
+FAM_FLASH = {"rwkv6-7b": (0, 0), "hymba-1.5b": (32, 0),
+             "whisper-tiny": (12, 4), "internvl2-76b": (24, 0)}
+# The recurrent families at random init amplify rounding with depth as
+# the reference's own bf16 path does (PERF.md §6): their bf16 floor
+# is far wider than a dense model's (hymba ~0.1 relative, ~80% argmax
+# agreement over 1024 positions, whose binomial spread alone is ~1.3%),
+# so a second bf16 path is held to SERVE_AGREE_SLACK's agreement.  The
+# prefill is held against token-by-token decoding of its first
+# TBT_PROMPT tokens twice: in bf16 within TBT_SLACK x the floor's p90 (two
+# bf16 paths each within the floor of the oracle), and in f32 (an f32
+# copy of the weights) within TBT_F32 relative, where only reassociation
+# separates the two.
+TBT_PROMPT, TBT_SLACK, TBT_F32 = 64, 2.0, 1e-3
+# fmoefy(rwkv6-7b): 96 experts top-2 of hidden 7168 (d_ff / 2), squared
+# ReLU, at 2 of 32 layers (~12 B params, ~24 GB in bf16)
+FMOE_EXPERTS, FMOE_TOP_K, FMOE_LAYERS = 96, 2, 2
+# hymba-1.5b trained whole through the train CLI; fmoefy(hymba-1.5b) (96
+# experts of hidden 2752, SwiGLU) at 2 of 32 layers, fused/ragged
+HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = 4, 256, 3
+HYMBA_MOE_LAYERS, HYMBA_MOE_STEPS = 2, 2
+
+
+@contextlib.contextmanager
+def recurrence_events():
+    """CUDA events around every call of the time loops (``rwkv6.wkv_scan``
+    and ``mamba.ssm_scan``, the plain-PyTorch recurrences): yields the list
+    of (start, end) pairs."""
+    import torch
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rwkv6 as R
+    pairs = []
+
+    def timed(fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            pairs.append((start, end))
+            return out
+        return run
+    orig = R.wkv_scan, M.ssm_scan
+    R.wkv_scan, M.ssm_scan = timed(orig[0]), timed(orig[1])
+    try:
+        yield pairs
+    finally:
+        R.wkv_scan, M.ssm_scan = orig
+
+
+def family_inputs(cfg, prompt_len, dev, seed=8):
+    """Prompt tokens and the stubbed frontend's input (frames or patches),
+    from a seeded generator on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (FAM_BATCH, prompt_len),
+                           device=dev, generator=g)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn(FAM_BATCH, cfg.encoder.num_frames,
+                                      cfg.d_model, device=dev, generator=g)
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn(FAM_BATCH, cfg.num_patches,
+                                       cfg.d_model, device=dev, generator=g)
+    return prompt, extra
+
+
+def serve_frontend(params, cfg, prompt, extra, cache_len, dev, timings,
+                   gen=FAM_GEN):
+    """Greedy serving with the frontend's input, as ``serve.generate``
+    serves tokens: one prefill (frames or patches with it), then a
+    decode step a token, ``gen`` new tokens; prefill and per-step seconds
+    into ``timings``."""
+    import torch
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cache = lm.init_cache(cfg, FAM_BATCH, cache_len, device=dev)
+    logits, cache, _ = lm.prefill(params, cfg, prompt, cache, device=dev,
+                                  **extra)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    timings["prefill_s"], timings["decode_s"] = time.perf_counter() - t0, []
+    out, pos = [prompt, tok], logits.shape[1]
+    for step in range(gen - 1):
+        t0 = time.perf_counter()
+        logits, cache, _ = lm.decode_step(params, cfg, tok, pos + step, cache,
+                                          device=dev)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+        torch.cuda.synchronize()
+        timings["decode_s"].append(time.perf_counter() - t0)
+    return torch.cat(out, dim=1)
+
+
+def serve_family(dev, name, layers, prompt_len) -> dict:
+    """One family at full width (bf16, weights from seed 0): served
+    greedily with the counters at 0 just before and read just after (the
+    flash forward's launches as FAM_FLASH predicts); the prefill logits
+    of the kernel path against the f32 plain path on the same weights
+    within the bf16 plain path's distance; for the recurrent families the
+    prefill's last logits and the next decode step against token-by-token
+    decoding from an empty cache; prefill ms, decode ms a step, peak
+    memory and the recurrence's share of a prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    init_s = time.perf_counter() - t0
+    prompt, extra = family_inputs(cfg, prompt_len, dev)
+    tokens_only = not extra
+    P = prompt_len + (cfg.num_patches if "patches" in extra else 0)
+    cache_len = serve.cache_len_for(cfg, P + FAM_GEN)
+
+    def run(timings, p=prompt, gen=FAM_GEN):
+        with torch.no_grad():
+            if tokens_only:
+                return serve.generate(params, cfg, p, gen, cache_len=cache_len,
+                                      device=dev, timings=timings)
+            return serve_frontend(params, cfg, p, extra, cache_len, dev,
+                                  timings, gen)
+    run({}, prompt[:, :8], 2)  # warm: the allocator, cuBLAS's plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    timings: dict = {}
+    seq = run(timings)
+    torch.cuda.synchronize()
+    runs = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(seq.shape == (FAM_BATCH, prompt_len + FAM_GEN)
+          and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+          f"{name}: bad tokens")
+    pre, per_step = FAM_FLASH[name]
+    want = pre + per_step * (FAM_GEN - 1)
+    check(runs["flash_attention_fwd"] == want,
+          f"{name}: the flash forward ran {runs['flash_attention_fwd']} times, "
+          f"the layers predict {want} ({pre} in the prefill, {per_step} a "
+          f"decode step)")
+    for simple in SIMPLE_KERNELS:
+        check(runs[simple] == 0, f"{name} serving ran {simple}")
+    # the recurrence's share of one more prefill, by events around it
+    rec = None
+    if cfg.ssm is not None:
+        with torch.no_grad(), recurrence_events() as pairs:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lm.prefill(params, cfg, prompt, lm.init_cache(
+                cfg, FAM_BATCH, cache_len, device=dev), device=dev)
+            end.record()
+            end.synchronize()
+        whole = start.elapsed_time(end)
+        loops = sum(s.elapsed_time(e) for s, e in pairs)
+        rec = dict(prefill_ms=whole, loop_ms=loops, calls=len(pairs))
+    dec = statistics.median(timings["decode_s"]) * 1e3
+    a = cfg.attention
+    heads = (f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}"
+             if a is not None else f"attention-free, {cfg.d_model // cfg.ssm.head_dim} "
+             f"wkv heads of {cfg.ssm.head_dim}")
+    front = ", ".join(f"{k} {tuple(v.shape)}" for k, v in extra.items())
+    print(f"serve {name} ({cfg.num_layers} layers, {n / 1e9:.3f} B params "
+          f"made in {init_s:.1f} s, {heads}{', ' + front if front else ''}): "
+          f"prefill {FAM_BATCH}x{prompt_len} {timings['prefill_s'] * 1e3:.2f} "
+          f"ms; decode {dec:.3f} ms/step median over "
+          f"{len(timings['decode_s'])}; peak {peak:.2f} GB; launches "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}"
+          + (f"; recurrence {rec['loop_ms']:.2f} of {rec['prefill_ms']:.2f} "
+             f"ms of a prefill ({rec['loop_ms'] / rec['prefill_ms']:.1%}, "
+             f"{rec['calls']} time loops)" if rec else ""), flush=True)
+    # prefill logits against the f32 oracle on the same weights
+    with torch.no_grad():
+        with plain_attention():
+            oracle = lm.forward(params, dataclasses.replace(
+                cfg, dtype="float32"), prompt, device=dev, **extra)[0]
+            plain = lm.forward(params, cfg, prompt, device=dev, **extra)[0]
+        kern = lm.prefill(params, cfg, prompt, lm.init_cache(
+            cfg, FAM_BATCH, cache_len, device=dev), device=dev, **extra)[0]
+    label = f"{name} {cfg.num_layers} layers, {FAM_BATCH}x{prompt_len}"
+    logits_within_floor(label, oracle, {"plain bf16": plain,
+                                        "kernel bf16": kern},
+                        SC2_REL_SLACK, 0.0, SERVE_AGREE_SLACK)
+    floor = rel_err(plain, oracle).quantile(0.9).item()
+    del oracle, plain
+    if cfg.ssm is not None:
+        tbt_check(params, cfg, prompt, cache_len, dev, floor, label)
+    del params, kern
+    torch.cuda.empty_cache()
+    return dict(launches=runs, prefill_ms=timings["prefill_s"] * 1e3,
+                decode_ms=dec, peak_gb=peak, recurrence=rec)
+
+
+def tbt_check(params, cfg, prompt, cache_len, dev, floor, label):
+    """The prefill of the prompt's first TBT_PROMPT tokens (its last
+    logits and the decode step after it) against decoding them a token at
+    a time from an empty cache: in bf16 within TBT_SLACK x the bf16 plain
+    path's p90 distance from the f32 oracle, and in f32 on an f32 copy of
+    the weights within TBT_F32."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_map
+    prompt = prompt[:, :TBT_PROMPT]
+    S = prompt.shape[1]
+    nxt = prompt[:, :1]
+
+    def one(p, c):
+        with torch.no_grad():
+            c_p = lm.init_cache(c, FAM_BATCH, cache_len, device=dev)
+            last_p, c_p, _ = lm.prefill(p, c, prompt, c_p, device=dev)
+            next_p = lm.decode_step(p, c, nxt, S, c_p, device=dev)[0]
+            c_d = lm.init_cache(c, FAM_BATCH, cache_len, device=dev)
+            t0 = time.perf_counter()
+            for t in range(S):
+                last_d, c_d, _ = lm.decode_step(p, c, prompt[:, t:t + 1], t,
+                                                c_d, device=dev)
+            torch.cuda.synchronize()
+            tbt_s = time.perf_counter() - t0
+            next_d = lm.decode_step(p, c, nxt, S, c_d, device=dev)[0]
+        return (rel_err(last_d[:, -1], last_p[:, -1]).max().item(),
+                rel_err(next_d, next_p).max().item(), tbt_s)
+    runs = {"bf16": (params, cfg, TBT_SLACK * floor)}
+    params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        params)
+    runs["f32"] = (params32, dataclasses.replace(cfg, dtype="float32"),
+                   TBT_F32)
+    for what, (p, c, limit) in runs.items():
+        d_last, d_next, tbt_s = one(p, c)
+        print(f"{label}: {what} token-by-token decode of the first {S} "
+              f"prompt tokens ({tbt_s:.1f} s) against their prefill: last "
+              f"logits relative error {d_last:.6f}, next step {d_next:.6f} "
+              f"(bound {limit:.6f})", flush=True)
+        check(d_last <= limit and d_next <= limit,
+              f"{label}: {what} prefill and token-by-token decode disagree "
+              f"beyond {limit}")
+    del params32, runs
+
+
+def fmoefy_serve(dev, flush) -> dict:
+    """fmoefy(rwkv6-7b) at FMOE_LAYERS of 32 layers (the MoE in place of
+    the channel mix), served greedily under fused/ragged and
+    pallas/capacity with the counters at 0 just before and read just after;
+    each against the f32 einsum oracle of its dispatch on the same weights
+    within the bf16 einsum path's distance; the fused FFN held and timed
+    at this shape (K 4096, H 7168, squared ReLU, the prefill's rows)."""
+    import torch
+    from repro_torch import fmoefy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = dataclasses.replace(
+        fmoefy(get_config("rwkv6-7b"), FMOE_EXPERTS, FMOE_TOP_K),
+        num_layers=FMOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(base, seed=0, device=dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    prompt, _ = family_inputs(base, 512, dev)
+    cache_len = serve.cache_len_for(base, 512 + FAM_GEN)
+    combos = (("fused", "ragged"), ("pallas", "capacity"))
+    for impl, dispatch in combos:
+        serve.generate(params, with_dispatch(base, dispatch), prompt[:, :8], 2,
+                       impl=impl, cache_len=16, device=dev)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    out = {}
+    for impl, dispatch in combos:
+        cfg = with_dispatch(base, dispatch)
+        before = {k: fn.launches for k, fn in counters().items()}
+        timings: dict = {}
+        with torch.no_grad():
+            seq = serve.generate(params, cfg, prompt, FAM_GEN, impl=impl,
+                                 cache_len=cache_len, device=dev,
+                                 timings=timings)
+        torch.cuda.synchronize()
+        runs = {k: fn.launches - before[k] for k, fn in counters().items()}
+        check(seq.shape == (FAM_BATCH, 512 + FAM_GEN)
+              and bool(((seq >= 0) & (seq < base.vocab_size)).all()),
+              f"fmoefy rwkv6 {impl}/{dispatch}: bad tokens")
+        need = (("fused_ffn", "gather_rows_by_source", "combine_topk")
+                if impl == "fused" else ("grouped_gemm",))
+        for k in need:
+            check(runs[k] > 0, f"fmoefy rwkv6 {impl}/{dispatch} never "
+                               f"launched {k}")
+        for simple in SIMPLE_KERNELS:
+            check(runs[simple] == 0, f"fmoefy rwkv6 {impl}/{dispatch} ran "
+                                     f"{simple}")
+        dec = statistics.median(timings["decode_s"]) * 1e3
+        print(f"serve {base.name} ({FMOE_LAYERS} of 32 layers, {n / 1e9:.3f} "
+              f"B params) {impl}/{dispatch}: prefill {FAM_BATCH}x512 "
+              f"{timings['prefill_s'] * 1e3:.2f} ms; decode {dec:.3f} ms/step "
+              f"median over {len(timings['decode_s'])}; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches "
+              f"{json.dumps({k: v for k, v in runs.items() if v})}",
+              flush=True)
+        with torch.no_grad():
+            oracle = lm.forward(params, dataclasses.replace(
+                cfg, dtype="float32"), prompt, impl="einsum", device=dev)[0]
+            paths = {"plain bf16": lm.forward(params, cfg, prompt,
+                                              impl="einsum", device=dev)[0],
+                     f"kernel bf16 {impl}/{dispatch}": lm.forward(
+                         params, cfg, prompt, impl=impl, device=dev)[0]}
+        logits_within_floor(f"{base.name} {FMOE_LAYERS} layers, "
+                            f"{FAM_BATCH}x512, {dispatch}", oracle, paths,
+                            SERVE_REL_SLACK, SERVE_ABS_SLACK,
+                            SERVE_AGREE_SLACK)
+        del oracle, paths
+        out[f"{impl}/{dispatch}"] = dict(runs=runs,
+                                         prefill_ms=timings["prefill_s"] * 1e3,
+                                         decode_ms=dec)
+    serving = {k: sum(v["runs"][k] for v in out.values()) for k in counters()}
+    del params
+    torch.cuda.empty_cache()
+    kern = ffn_kernel_case(dev, flush, "fmoefy rwkv6 prefill", FMOE_EXPERTS,
+                           4096, base.moe.d_expert_hidden, FAM_BATCH * 512,
+                           FMOE_TOP_K, "rwkv", bwd=False)
+    return dict(serving=serving, by_combo=out, kernels=kern)
+
+
+def train_cli_in_process(argv) -> list:
+    """``repro_torch.launch.train``'s main on ``argv`` in this process (the
+    built kernels stay loaded), its step lines parsed: [(step, loss,
+    ms/step)]."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    steps = []
+    for line in text.splitlines():
+        f = line.split()
+        if f and f[0] == "step" and "loss" in f:
+            ms = float(line.split("(")[-1].split(",")[1].split()[0])
+            steps.append((int(f[1]), float(f[3]), ms))
+    return steps
+
+
+def family_train(dev, flush) -> dict:
+    """hymba-1.5b trained whole through the train CLI (HYMBA_TRAIN_STEPS
+    AdamW steps of HYMBA_TRAIN_BATCH x HYMBA_TRAIN_SEQ, the counters at 0
+    just before and read just after), its step-0 gradients (flash path)
+    within the plain-attention path's distance of the f32 oracle; then
+    fmoefy(hymba-1.5b) at HYMBA_MOE_LAYERS layers, fused/ragged, the same
+    checks and HYMBA_MOE_STEPS timed AdamW steps; the fused FFN's forward,
+    dX and dW at its training rows (H 2752) beside their bounds."""
+    import torch
+    from repro_torch import fmoefy
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    out = {}
+    base = get_config("hymba-1.5b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    steps = train_cli_in_process([
+        "--arch", "hymba-1.5b", "--steps", str(HYMBA_TRAIN_STEPS), "--batch",
+        str(HYMBA_TRAIN_BATCH), "--seq", str(HYMBA_TRAIN_SEQ), "--log_every",
+        "1", "--max_bad_steps", "0"])
+    torch.cuda.synchronize()
+    runs = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(len(steps) == HYMBA_TRAIN_STEPS
+          and all(math.isfinite(v) for _, v, _ in steps),
+          f"hymba-1.5b CLI training: steps {steps}")
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(runs[k] > 0, f"hymba-1.5b training never launched {k}")
+    step_ms = statistics.median(ms for _, _, ms in steps[1:])
+    print(f"train hymba-1.5b (32 layers, CLI): {HYMBA_TRAIN_BATCH}x"
+          f"{HYMBA_TRAIN_SEQ}, step {step_ms:.1f} ms median of the steps "
+          f"after the first; losses "
+          + " ".join(f"{v:.4f}" for _, v, _ in steps)
+          + f"; peak {peak:.2f} GB; launches "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+    out["hymba"] = dict(launches=runs, step_ms=step_ms, peak_gb=peak)
+    torch.cuda.empty_cache()
+    params = lm.init_params(base, seed=0, device=dev, param_dtype="float32")
+    data = SyntheticLM(base.vocab_size, HYMBA_TRAIN_SEQ, seed=0).batches(
+        HYMBA_TRAIN_BATCH)
+    batch = {"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+    grads_within_floor(f"hymba-1.5b 32 layers, {HYMBA_TRAIN_BATCH}x"
+                       f"{HYMBA_TRAIN_SEQ}", params, base, batch, dev,
+                       ("fused",))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(
+        fmoefy(base, FMOE_EXPERTS, FMOE_TOP_K), num_layers=HYMBA_MOE_LAYERS)
+    cfg = with_dispatch(cfg, "ragged")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, seed=0, device=dev, param_dtype="float32")
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"{cfg.name} training: {HYMBA_MOE_LAYERS} of 32 layers, "
+          f"{FMOE_EXPERTS} experts of hidden {cfg.moe.d_expert_hidden}: "
+          f"{n / 1e9:.3f} B f32 params ({16 * n / 1e9:.1f} GB at 16 B a "
+          f"param)", flush=True)
+    runs = grads_within_floor(
+        f"{cfg.name} {HYMBA_MOE_LAYERS} layers ragged, {HYMBA_TRAIN_BATCH}x"
+        f"{HYMBA_TRAIN_SEQ}", params, cfg, batch, dev, ("fused",))["fused"]
+    for k in ("fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+              "flash_attention_fwd", "flash_attention_bwd",
+              "gather_rows_by_source", "combine_topk"):
+        check(runs[k] > 0, f"{cfg.name} training never launched {k}")
+    for simple in SIMPLE_KERNELS:
+        check(runs[simple] == 0, f"{cfg.name} training ran {simple}")
+    opt = AdamW()
+    state = opt.init(params)
+    step_fn = train.make_train_step(cfg, opt, impl="fused", device=dev)
+    times, losses = [], []
+    for step in range(1 + HYMBA_MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]), f"{cfg.name} step {step}: loss "
+                                         f"{losses[-1]}")
+        if step:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(peak <= 70.0, f"{cfg.name} training peaked at {peak:.1f} GB "
+                        f"(over 70 GB: cut it to 1 layer)")
+    med = statistics.median(times)
+    print(f"train {cfg.name} fused/ragged ({HYMBA_MOE_LAYERS} layers): step "
+          f"{med:.1f} ms median of {len(times)}, AdamW included; peak "
+          f"{peak:.2f} GB; losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; step-0 launches "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+    out["hymba_moe"] = dict(launches=runs, step_ms=med, peak_gb=peak)
+    del params, state, opt, step_fn
+    torch.cuda.empty_cache()
+    out["kernels"] = ffn_kernel_case(
+        dev, flush, "fmoefy hymba train", FMOE_EXPERTS, base.d_model,
+        cfg.moe.d_expert_hidden, HYMBA_TRAIN_BATCH * HYMBA_TRAIN_SEQ,
+        FMOE_TOP_K, "swiglu")
+    return out
+
+
+def families_phase(dev, flush) -> dict:
+    """The other families at full width (FAM_RUNS), fmoefy'd rwkv6 served
+    on two kernel paths, hymba and fmoefy'd hymba trained."""
+    t0 = time.perf_counter()
+    served = {name: serve_family(dev, name, layers, prompt_len)
+              for name, layers, prompt_len in FAM_RUNS}
+    fm = fmoefy_serve(dev, flush)
+    tr = family_train(dev, flush)
+    print(f"families phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(served=served, fmoefy=fm, train=tr)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5841,6 +6375,12 @@ def main() -> int:
     dynamic_smem_report()
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    if sys.argv[1:] == ["--only", "families"]:
+        # a quick run of the last slice's phase alone: no result line
+        fam = families_phase(dev, flush)
+        mark("families_phase")
+        print(json.dumps({"families_only": fam}, default=str))
+        return 0
     errs, timed = kernel_phase(dev, flush)
     mark("kernel_phase")
     bwd_errs, bwd_timed = bwd_kernel_phase(dev, flush)
@@ -5849,7 +6389,6 @@ def main() -> int:
     mark("ds_bwd_kernel_phase")
     fa_errs, fa_timed = flash_phase(dev, flush)
     mark("flash_phase")
-    del flush
     small_reference(dev)
     mark("small_reference")
     small_reference_train(dev)
@@ -5896,6 +6435,9 @@ def main() -> int:
     mark("placement_phase")
     res_launches = resilience_phase(dev)
     mark("resilience_phase")
+    fam = families_phase(dev, flush)
+    mark("families_phase")
+    del flush
     slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
                zoo_launches,
                "switch-base-128 serving": sw_launches,
@@ -5909,7 +6451,18 @@ def main() -> int:
                "a, b, switched)": served["launches"],
                "fastmoe-gpt resumed training (2 layers, from step 1: "
                "fused/ragged over a 1x1 mesh, pallas/capacity; steps "
-               "2-5 each)": res_launches}
+               "2-5 each)": res_launches,
+               **{f"{n} serving ({FAM_BATCH} prompts, {FAM_GEN} new "
+                  f"tokens)": v["launches"] for n, v in fam["served"].items()},
+               f"rwkv6-7b-moe{FMOE_EXPERTS} serving ({FMOE_LAYERS} layers: "
+               f"fused/ragged, pallas/capacity)": fam["fmoefy"]["serving"],
+               f"hymba-1.5b training (train CLI, {HYMBA_TRAIN_STEPS} steps)":
+                   fam["train"]["hymba"]["launches"],
+               f"hymba-1.5b-moe{FMOE_EXPERTS} training ({HYMBA_MOE_LAYERS} "
+               f"layers, step 0, fused/ragged)":
+                   fam["train"]["hymba_moe"]["launches"]}
+    fam_ffn = {"fmoefy_rwkv6_prefill": fam["fmoefy"]["kernels"],
+               "fmoefy_hymba_train": fam["train"]["kernels"]}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5955,6 +6508,8 @@ def main() -> int:
             **({"by_shape": by_shape} if by_shape else {}),
             **({"deepseek_train": ds_bwd["fused_ffn"]} if name == "fused_ffn"
                else {}),
+            **({k: v["fused_ffn"] for k, v in fam_ffn.items()}
+               if name == "fused_ffn" else {}),
             **({"placement": place_kernels[name]} if name in place_kernels
                else {}),
             **({"serve_placement": served["kernels"][name]}
@@ -5974,6 +6529,7 @@ def main() -> int:
                                  "deepseek-v2-236b training":
                                      dst_launches[name]},
             "deepseek_train": ds_bwd[name],
+            "fmoefy_hymba_train": fam["train"]["kernels"][name],
             **({"placement": place_kernels[name]} if name in place_kernels
                else {}),
             "max_abs_err": bwd_errs[(name, "bfloat16", "ragged", "gelu")],

@@ -6,3 +6,5 @@ kernel of its path as a hand-written CUDA kernel for Hopper (``sm_90a``).
 Entry points run on ``device="cuda"`` unless the caller passes ``"cpu"``.
 """
 __version__ = "0.1.0"
+
+from repro_torch.core.fmoefy import fmoefy  # noqa: E402,F401

@@ -5,10 +5,10 @@ Layout: one directory per step with a JSON manifest mapping the flat keys
 of the reference's tree to file names, dtypes, shapes and sha256 checksums,
 each array a ``.npy`` file as ``np.save`` writes it (bf16 stored as f32,
 declared bf16).  The tree on disk is the reference's: the params' layers
-stacked on a leading L dim (``interop.to_jax`` stacks them alike), the
-AdamW state ``AdamWState(step, mu, nu)`` with ``step`` a 0-d int32, the
-flat keys the reference's ``_flatten`` keys, the dtypes under numpy's
-names.  :func:`restore` takes the port's own tree as ``like`` (layers a
+stacked on a leading L dim (``interop.to_jax`` stacks them alike, and
+the audio encoder's ``enc_layers``), the AdamW state ``AdamWState(step,
+mu, nu)`` with ``step`` a 0-d int32, the flat keys the reference's
+``_flatten`` keys, the dtypes under numpy's names.  :func:`restore` takes the port's own tree as ``like`` (layers a
 list of per-layer dicts) and gives it back in that layout, on the ``like``
 tree's device.
 
@@ -50,6 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.interop import STACKED
 from repro_torch.obs import trace as obs_trace
 
 MANIFEST = "manifest.json"
@@ -88,12 +89,12 @@ class _Leaf:
 
 def _view(tree: Any, path: str = "") -> Any:
     """The port tree in the reference's structure, its leaves :class:`_Leaf`:
-    a ``layers`` list of per-layer dicts becomes one dict whose leaves stack
-    the layers'."""
+    a ``layers`` (or the audio encoder's ``enc_layers``) list of per-layer
+    dicts becomes one dict whose leaves stack the layers'."""
     join = (lambda k: f"{path}/{k}") if path else str
     if isinstance(tree, dict):
         return {k: (_stack([_view(l, f"{join(k)}/{i}") for i, l in enumerate(v)])
-                    if k == "layers" and isinstance(v, list) else _view(v, join(k)))
+                    if k in STACKED and isinstance(v, list) else _view(v, join(k)))
                 for k, v in tree.items()}
     if hasattr(tree, "_fields"):
         return type(tree)(*(_view(getattr(tree, f), join(f))

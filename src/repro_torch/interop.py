@@ -3,9 +3,9 @@
 The JAX tree is taken as numpy arrays (``jax.tree.map(np.asarray, params)``
 on the JAX side); this module imports no JAX.  Layouts stay as JAX has them:
 experts ``wi`` (E, d, h) and ``wo`` (E, h, d), linear ``w`` (d_in, d_out).
-``params["layers"]`` is stacked on a leading L dim in JAX and a list of
-per-layer dicts here.  Every parity test builds its torch params through
-:func:`from_jax`.  With a mesh, a rank keeps its shard: the routed expert
+``params["layers"]`` (and whisper's ``params["enc_layers"]``) is stacked
+on a leading L dim in JAX and a list of per-layer dicts here.  Every
+parity test builds its torch params through :func:`from_jax`.  With a mesh, a rank keeps its shard: the routed expert
 stacks sliced on their expert dim, rank ``m`` of the model axis holding
 experts ``[m * E_local, (m + 1) * E_local)`` (``P("model", None, None)``
 in the reference; on a node mesh index ``n * model + m`` over ``("node",
@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sync import fastmoe_tag, tagged_leaves
 from repro_torch.device import resolve
-from repro_torch.optim.adamw import tree_map
+from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
 def _map(fn, tree):
@@ -63,6 +63,15 @@ def shard_params(params: dict, mesh, rank: int | None = None, *,
     return tree_map(lambda _: next(shards), params)
 
 
+STACKED = ("layers", "enc_layers")  # stacked on L there, lists here
+
+
+def _unstack(tree, dev) -> list:
+    n = len(tree_leaves(tree)[0])
+    return [_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev), tree)
+            for i in range(n)]
+
+
 def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda", mesh=None,
              rank: int | None = None, expert_tp: bool = False) -> dict:
     """JAX param tree (numpy leaves, stacked layers) -> port params, in the
@@ -71,10 +80,9 @@ def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda", mesh=None,
     (default: the mesh's own; :func:`shard_params`, ``expert_tp`` as
     there)."""
     dev = resolve(device)
-    out = {k: _map(lambda a: _to_torch(a, dev), v)
-           for k, v in params_np.items() if k != "layers"}
-    out["layers"] = [_map(lambda a, i=i: _to_torch(np.asarray(a)[i], dev),
-                          params_np["layers"]) for i in range(cfg.num_layers)]
+    out = {k: (_unstack(v, dev) if k in STACKED
+               else _map(lambda a: _to_torch(a, dev), v))
+           for k, v in params_np.items()}
     return (out if mesh is None
             else shard_params(out, mesh, rank, expert_tp=expert_tp))
 
@@ -86,12 +94,10 @@ def to_jax(params: dict) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    out = {k: _map(to_np, v) for k, v in params.items() if k != "layers"}
-
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return np.stack(trees)
 
-    out["layers"] = stack([_map(to_np, p) for p in params["layers"]])
-    return out
+    return {k: (stack([_map(to_np, p) for p in v]) if k in STACKED
+                else _map(to_np, v)) for k, v in params.items()}

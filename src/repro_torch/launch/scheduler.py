@@ -115,6 +115,26 @@ def _insert_blocks(pool: list, ring: list, blocks: torch.Tensor) -> None:
             dst[blocks] = src[0].reshape(nb, *dst.shape[1:]).to(dst.dtype)
 
 
+def _cache_leaves(tree) -> list:
+    """The tensors of a cache tree in order: a list of per-layer caches,
+    each a NamedTuple (KVCache, MLACache, RWKVState, MambaState), a dict
+    (the hybrid's {"attn", "mamba"}, the audio {"self", "enc_out"}) or a
+    tensor."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_leaves(tree[k])]
+    return [t for sub in tree for t in _cache_leaves(sub)]
+
+
+def _write_slot(cache: list, one: list, slot: int) -> None:
+    """Write a one-sequence cache ``one`` into row ``slot`` of every leaf
+    of the batch's ``cache``, in place, as the reference's ``tree.map``
+    of ``big.at[:, slot].set(one[:, 0])``."""
+    for dst, src in zip(_cache_leaves(cache), _cache_leaves(one), strict=True):
+        dst[slot] = src[0].to(dst.dtype)
+
+
 def _release_blocks(pool: list, blocks: torch.Tensor) -> None:
     """Reset freed blocks' positions to -1 so later reads mask them.  The
     stale payload may stay: a masked entry's softmax weight is exactly 0,
@@ -280,6 +300,9 @@ class ContinuousBatcher:
         else:
             self.cache = lm.init_cache(cfg, len(self.mine), scfg.max_len,
                                        device=self.dev)
+            # a fresh one-sequence cache: what a retired slot goes back to
+            self._empty_slot = lm.init_cache(cfg, 1, scfg.max_len,
+                                             device=self.dev)
 
         self._replan: Optional[ServeReplanHook] = None
         if scfg.replan_every > 0 and cfg.moe is not None:
@@ -396,9 +419,7 @@ class ContinuousBatcher:
                     blocks[:nb_p], device=self.dev))
             else:
                 tok, ring = self._prefill(req, self.scfg.max_len)
-                for big, one in zip(self.cache, ring):
-                    for dst, src in zip(big, one):
-                        dst[slot - self.mine.start] = src[0]
+                _write_slot(self.cache, ring, slot - self.mine.start)
             first[slot - self.mine.start] = tok
         if not admitted:
             return
@@ -426,11 +447,9 @@ class ContinuousBatcher:
                                                        device=self.dev))
             self.allocator.free(st.blocks)
             self.tables[slot, :] = A.NULL_BLOCK
-        elif slot in self.mine:  # reset the ring: no stale entry leaks on
-            for c in self.cache:
-                for buf in c[:-1]:
-                    buf[slot - self.mine.start].zero_()
-                c.positions[slot - self.mine.start].fill_(-1)
+        elif slot in self.mine:  # reset the slot: no stale entry leaks on
+            _write_slot(self.cache, self._empty_slot,
+                        slot - self.mine.start)
         self.slots[slot] = None
         self.pos[slot] = 0
         self.next_tok[slot] = 0

@@ -64,7 +64,10 @@ SWA_CAP = 8192  # ring-buffer cap for the long-context sliding-window variant
 
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     """Ring length: full seq when it fits the attention pattern, else the
-    sliding window."""
+    sliding window; 1 for the ssm family's pure recurrent state (no
+    ring)."""
+    if cfg.family == "ssm":
+        return 1
     a = cfg.attention
     if seq_len > 32768:
         w = a.sliding_window if a.sliding_window else SWA_CAP
@@ -193,6 +196,7 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     (``repro_torch.obs.sink``) takes a ``decode_step`` record a step
     (:func:`decode_metrics` with its latency); each step runs in a
     ``decode_step`` span (``repro_torch.obs.trace``)."""
+    lm.check_tokens_only(cfg)
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
@@ -395,6 +399,7 @@ def _run(args, scfg: ServeConfig, dev: torch.device, mesh) -> None:
 def _serve(args, scfg: ServeConfig, dev: torch.device, mesh, sink) -> None:
     lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
+    lm.check_tokens_only(cfg)
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
     if cfg.moe is not None:
@@ -411,7 +416,7 @@ def _serve(args, scfg: ServeConfig, dev: torch.device, mesh, sink) -> None:
             device=dev, mesh=mesh, sink=sink)
         if lead:
             print(f"{cfg.name} on {where}, continuous ({scfg.policy}, "
-                  f"{'paged' if scfg.paged else 'ring'}, {scfg.slots} slots): "
+                  f"{'paged' if batcher.paged else 'ring'}, {scfg.slots} slots): "
                   + format_stats(stats) + f"; replans={batcher.replans}")
             print(min(batcher.completions, key=lambda c: c.request_id).tokens)
         return

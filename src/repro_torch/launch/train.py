@@ -560,6 +560,7 @@ def _run(args, dev: torch.device, mesh) -> None:
 def _train(args, dev: torch.device, mesh, sink) -> None:
     lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
+    lm.check_tokens_only(cfg)
     if args.reduced:
         cfg = reduced(cfg, num_layers=4, d_model=256)
     if args.num_layers:

@@ -95,17 +95,28 @@ def gqa_init(gen: torch.Generator, d_model: int, cfg: AttentionConfig, *,
 
 
 def gqa_apply(params: dict, x: torch.Tensor, cfg: AttentionConfig, *,
-              window: int, return_kv: bool = False):
-    """Full-sequence causal GQA on x (B, S, d).  ``return_kv`` also returns
-    the (post-RoPE) k, v for prefill cache population."""
+              window: int, positions=None, kv_x: torch.Tensor | None = None,
+              causal: bool = True, return_kv: bool = False):
+    """Full-sequence GQA on x (B, S, d).  ``kv_x`` (B, Skv, d), the
+    cross-attention source, defaults to x.  Causal self-attention ropes q
+    at ``positions`` (default arange(S)) and k at arange(Skv); the
+    non-causal encoder and cross-attention skip RoPE, as the reference.
+    ``return_kv`` also returns the (post-RoPE) k, v for prefill cache
+    population."""
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = linear(params["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = linear(params["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(params["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    pos = torch.arange(S, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    out = blockwise_attention(q, k, v, window=window)
+    k = linear(params["wk"], src).reshape(B, Skv, cfg.num_kv_heads,
+                                          cfg.head_dim)
+    v = linear(params["wv"], src).reshape(B, Skv, cfg.num_kv_heads,
+                                          cfg.head_dim)
+    if causal:
+        pos = torch.arange(S, device=x.device) if positions is None \
+            else positions
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, torch.arange(Skv, device=x.device), cfg.rope_theta)
+    out = blockwise_attention(q, k, v, window=window, causal=causal)
     y = linear(params["wo"], out.reshape(B, S, -1))
     if return_kv:
         return y, (k, v)

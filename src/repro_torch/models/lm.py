@@ -1,23 +1,33 @@
-"""The language model assembled from a config (dense / moe families, GQA
-or MLA attention).
+"""The language model assembled from a config: every family of the JAX
+package (dense and moe with GQA or MLA attention, ssm (rwkv6), hybrid
+(hymba), audio (whisper: an encoder and a cross-attending decoder) and
+vlm (internvl2: patch embeddings prepended to the text)).
 
 Public API:
   init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=) -> params
+  encode(params, cfg, frames)                      -> encoder output (audio)
   forward(params, cfg, tokens, impl=, device=, dist=, router_seed=,
-          layer_loads=)                            -> (logits, MoEMetrics[,
+          layer_loads=, frames=, patches=)         -> (logits, MoEMetrics[,
                                                        (L, E) loads])
   loss_fn(params, cfg, batch, impl=, device=, dist=, router_seed=)
                                                    -> (loss, aux dict)
-  prefill(params, cfg, tokens, cache, ...)         -> (logits, cache, metrics)
-  init_cache(cfg, batch, cache_len, device=)       -> list of per-layer caches
+  prefill(params, cfg, tokens, cache, ..., frames=, patches=)
+                                                   -> (logits, cache, metrics)
+  init_cache(cfg, batch, cache_len, device=, enc_out=)
+                                                   -> list of per-layer caches
   init_paged_cache(cfg, num_blocks, block_size, device=) -> list of pools
   decode_step(params, cfg, tokens, pos, cache,..., layer_loads=)
                                                    -> (logits, cache, metrics[,
                                                        (L, E) loads])
 
-Params mirror the JAX tree, except that ``params["layers"]`` is a list of
-per-layer dicts (JAX stacks them on a leading L dim and scans; here a Python
-loop runs the layers).  Numerics: JAX keeps f32 master params, casts the
+Params mirror the JAX tree, except that ``params["layers"]`` (and the
+audio encoder's ``params["enc_layers"]``) is a list of per-layer dicts
+(JAX stacks them on a leading L dim and scans; here a Python loop runs
+the layers).  The stubbed frontends are inputs, as in the reference:
+whisper's frame embeddings (B, F, d) go through ``encode`` and every
+decoder layer cross-attends to them; internvl2's patch embeddings (B, P,
+d) are prepended to the token embeddings, the logits cover both, and the
+loss reads the text positions only.  Numerics: JAX keeps f32 master params, casts the
 *layer* params to ``cfg.dtype`` at every use and keeps ``embed``,
 ``final_norm`` and ``lm_head`` in f32, with f32 logits.  The port does the
 same — every forward casts the layer params at use, so gradients reach f32
@@ -26,7 +36,8 @@ already in ``cfg.dtype`` (``init_params`` default), where that cast is a
 no-op.  ``cfg.remat == "full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.remat`` does; the
 cast sits inside the recomputed region, so no bf16 copy of the weights
-outlives its layer.  The decode cache is updated in place.
+outlives its layer.  The decode cache is updated in place (the attention rings); the recurrent
+states of the ssm and hybrid families are new tensors each step.
 
 With ``dist`` (a ``core.fmoe.DistConfig`` over a mesh) ``forward`` and
 ``loss_fn`` run this rank's batch rows, and every MoE layer exchanges its
@@ -50,8 +61,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch as D
 from repro_torch.core.balance import MoEMetrics
-from repro_torch.core.fmoe import expert_seed
+from repro_torch.core.fmoe import dense_ffn, expert_seed
 from repro_torch.device import resolve
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
                                        linear, linear_init, norm_init, unembed)
@@ -93,12 +105,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
         "layers": [cast_params(B.layer_init(
             gen, cfg, device=dev, dtype=dtype,
-            expert_key=expert_seed(seed, layer), shard=shard), dtype)
+            expert_key=expert_seed(seed, layer), shard=shard,
+            cross=cfg.family == "audio"), dtype)
             for layer in range(cfg.num_layers)],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, device=dev)
+    if cfg.encoder is not None:
+        L = cfg.num_layers
+        p["enc_layers"] = [cast_params(B.layer_init(
+            gen, cfg, device=dev, dtype=dtype,
+            expert_key=expert_seed(seed, L + layer), shard=shard), dtype)
+            for layer in range(cfg.encoder.num_layers)]
+        p["enc_norm"] = norm_init(cfg.d_model, cfg.norm, device=dev)
     return p
 
 
@@ -125,12 +145,51 @@ def _n_experts(cfg: ModelConfig) -> int:
 
 
 def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
-               impl: str, dist, noise_seed=None, l2p=None):
+               impl: str, dist, noise_seed=None, l2p=None, enc_out=None,
+               state0=None):
     dtype = getattr(torch, cfg.dtype)
     x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
                              impl=impl, dist=dist, noise_seed=noise_seed,
-                             l2p=l2p)
+                             l2p=l2p, enc_out=enc_out, mixer_state=state0)
     return x.to(dtype), m
+
+
+def _enc_layer(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dtype = getattr(torch, cfg.dtype)
+    p_l = cast_params(p_l, dtype)
+    h = A.gqa_apply(p_l["attn"], apply_norm(p_l["norm1"], x, cfg.norm),
+                    cfg.attention, window=B.FULL_WINDOW, causal=False)
+    x = x + h
+    h = dense_ffn(p_l["ffn"], apply_norm(p_l["norm2"], x, cfg.norm), cfg.act)
+    return (x + h).to(dtype)
+
+
+def encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames (B, F, d_model): the stubbed conv frontend's embeddings ->
+    the encoder output (B, F, d_model) in ``cfg.dtype``: the
+    bidirectional stack (non-causal attention without RoPE, dense FFN)
+    and its final norm.  Under remat each layer is recomputed in the
+    backward, as :func:`forward`'s."""
+    dtype = getattr(torch, cfg.dtype)
+    x = torch.as_tensor(frames, device=params["embed"]["table"].device
+                        ).to(dtype)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for p_l in params["enc_layers"]:
+        x = (checkpoint(_enc_layer, p_l, cfg, x, use_reentrant=False)
+             if remat else _enc_layer(p_l, cfg, x))
+    return apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           patches) -> torch.Tensor:
+    """Token embeddings in ``cfg.dtype``; vlm: the patch embeddings (B, P,
+    d) in front of them."""
+    dtype = getattr(torch, cfg.dtype)
+    x = embed_lookup(params["embed"], tokens, dtype)
+    if cfg.frontend == "vision" and patches is not None:
+        x = torch.cat([torch.as_tensor(patches, device=x.device).to(dtype),
+                       x], dim=1)
+    return x
 
 
 def _layer_tables(cfg: ModelConfig, dist, device):
@@ -150,10 +209,12 @@ def _layer_tables(cfg: ModelConfig, dist, device):
 
 def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
             device="cuda", dist=None, router_seed: int | None = None,
-            layer_loads: bool = False):
-    """tokens (B, S) -> (logits (B, S, V) f32, MoEMetrics summed over
+            layer_loads: bool = False, frames=None, patches=None):
+    """tokens (B, S) -> (logits (B, S', V) f32, MoEMetrics summed over
     layers), and with ``layer_loads`` the (L, E) stack of the layers' loads
-    (logical expert order) as well.
+    (logical expert order) as well.  vlm: ``patches`` (B, P, d) are
+    prepended, S' = P + S; audio: ``frames`` (B, F, d) go through the
+    encoder and every decoder layer cross-attends to its output.
 
     ``router_seed`` arms the exploration of the noisy_topk and gumbel
     routers: layer ``l`` draws its noise from ``expert_seed(router_seed,
@@ -161,7 +222,9 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
     integer, never a stateful generator, enters the checkpoint).  None
     routes deterministically, the eval and serving stance."""
     tokens = _inputs(params, tokens, device)
-    x = embed_lookup(params["embed"], tokens, getattr(torch, cfg.dtype))
+    x = _embed(params, cfg, tokens, patches)
+    enc_out = encode(params, cfg, frames) if cfg.family == "audio" else None
+    state0 = B.mixer_state(cfg, x.shape[0], x.dtype, device=x.device)
     dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     loads = []
@@ -172,9 +235,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
         l2p = None if tables is None else tables[layer]
         if remat:
             x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl, dist,
-                              seed, l2p, use_reentrant=False)
+                              seed, l2p, enc_out, state0, use_reentrant=False)
         else:
-            x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed, l2p)
+            x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed, l2p,
+                              enc_out, state0)
         metrics = _accumulate(metrics, m)
         if m is not None:
             loads.append(m.load.detach())
@@ -193,7 +257,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             router_seed: int | None = None):
     """Next-token cross-entropy in f32 + the MoE aux losses, as the JAX
     ``loss_fn``: ``ce + (balance * aux + z * z_loss) / L``.  batch:
-    {"tokens": (B, S)}.  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
+    {"tokens": (B, S)}, and "frames" (audio) or "patches" (vlm: the loss
+    reads the text positions only).  Returns (loss, {ce, aux_loss, z_loss, drop_frac,
     load, load_layers} and the telemetry counters of :func:`obs_aux`),
     drop_frac and load averaged over layers.  With ``dist``, the
     batch is this rank's rows and ``ce`` their mean; the MoE metrics are
@@ -204,7 +269,11 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     tokens = _inputs(params, batch["tokens"], device)
     logits, metrics, loads = forward(params, cfg, tokens, impl=impl,
                                      device=device, dist=dist,
-                                     router_seed=router_seed, layer_loads=True)
+                                     router_seed=router_seed, layer_loads=True,
+                                     frames=batch.get("frames"),
+                                     patches=batch.get("patches"))
+    if cfg.frontend == "vision" and batch.get("patches") is not None:
+        logits = logits[:, batch["patches"].shape[1]:]  # text positions only
     V = logits.shape[-1]
     ce = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
                          tokens[:, 1:].reshape(-1).long())
@@ -238,15 +307,22 @@ def obs_aux(metrics: MoEMetrics, L: int, device) -> dict:
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
-            impl: str = "einsum", device="cuda", dist=None):
-    """tokens (B, S) + empty cache -> (logits (B, S, V), filled cache,
-    metrics).  Decoding then continues at position S with decode_step.
+            impl: str = "einsum", device="cuda", dist=None, frames=None,
+            patches=None):
+    """tokens (B, S) + empty cache -> (logits (B, S', V), filled cache,
+    metrics).  Decoding then continues at position S' with decode_step.
+    vlm: ``patches`` (B, P, d) are prepended (S' = P + S); audio:
+    ``frames`` (B, F, d) are encoded once and the output stored in every
+    layer's cache for the cross-attention.
     ``dist``: the MoE layers' ``DistConfig`` (serving takes the psum mode,
     ``launch.serve.decode_dist``), a per-layer placement on it split into
     the layers' tables as in :func:`forward`."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
-    x = embed_lookup(params["embed"], tokens, dtype)
+    x = _embed(params, cfg, tokens, patches)
+    if cfg.family == "audio":
+        enc_out = encode(params, cfg, frames).to(dtype)
+        cache = [{**c, "enc_out": enc_out} for c in cache]
     dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
@@ -263,19 +339,36 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               device="cuda") -> list:
-    """One ring-buffer cache per layer (KVCache; MLACache of latents for
-    MLA), in ``cfg.dtype``."""
+               device="cuda", enc_out: torch.Tensor | None = None) -> list:
+    """One decode cache per layer, in ``cfg.dtype``: a ring (KVCache;
+    MLACache of latents for MLA); ssm: an RWKVState; hybrid: a ring and
+    a MambaState; audio: a ring and the encoder output ``enc_out`` (B, F,
+    d), shared by the layers (zeros until ``prefill`` sets it)."""
     dev = resolve(device)
     dtype = getattr(torch, cfg.dtype)
-    return [B.layer_cache(cfg, batch, cache_len, dtype, device=dev)
+    return [B.layer_cache(cfg, batch, cache_len, dtype, device=dev,
+                          enc_out=enc_out)
             for _ in range(cfg.num_layers)]
 
 
+def check_tokens_only(cfg: ModelConfig) -> None:
+    """Refuse the audio family where an entry point feeds tokens alone
+    (``serve.generate`` and the serve and train CLIs, as the reference's):
+    its decoder cross-attends to frame embeddings, the stubbed frontend's
+    output, which only ``forward``, ``prefill`` and ``loss_fn(frames=...)``
+    take."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the audio family needs the stubbed frontend's "
+            f"frame embeddings (B, {cfg.encoder.num_frames}, {cfg.d_model}), "
+            f"which have no CLI input; call lm.prefill / lm.forward / "
+            f"lm.loss_fn with frames=...")
+
+
 def supports_paged(cfg: ModelConfig) -> bool:
-    """Whether the config's decode cache pages: every family the port
-    serves (dense and moe, GQA or MLA) does."""
-    return cfg.attention is not None and cfg.family in ("dense", "moe")
+    """Whether the family's decode cache can be paged (plain attention
+    rings; the recurrent, hybrid and audio caches cannot)."""
+    return cfg.attention is not None and cfg.family not in B.NO_PAGED
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
@@ -311,16 +404,15 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
     dtype = getattr(torch, cfg.dtype)
     x = embed_lookup(params["embed"], tokens, dtype)
     dist, tables = _layer_tables(cfg, dist, x.device)
-    cache_len = cache[0].positions.shape[-1]
-    if block_tables is not None:
-        cache_len *= block_tables.shape[1]  # the view: table width x block
+    cache_len = _cache_len(cfg, cache, block_tables)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache, loads = [], []
     for layer, (p_l, window, c_l) in enumerate(zip(
             params["layers"], B.layer_windows(cfg), cache)):
         x, c_l, m = B.layer_apply_decode(
             cast_params(p_l, dtype), cfg, x, c_l, pos,
-            window=min(window, cache_len), impl=impl, dist=dist,
+            window=min(window, cache_len) if cache_len else window,
+            impl=impl, dist=dist,
             block_tables=block_tables,
             l2p=None if tables is None else tables[layer])
         new_cache.append(c_l)
@@ -336,3 +428,18 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
         return logits, new_cache, metrics, x.new_zeros(
             cfg.num_layers, _n_experts(cfg), dtype=torch.float32)
     return logits, new_cache, metrics, torch.stack(loads)
+
+
+def _cache_len(cfg: ModelConfig, cache: list, block_tables=None) -> int:
+    """Ring length (0 for the ssm family's pure state).  With a paged pool
+    the visible length is the gathered per-slot view: table width x block
+    size."""
+    if cfg.family == "ssm":
+        return 0
+    ring = cache[0]
+    if cfg.family == "hybrid":
+        ring = ring["attn"]
+    elif cfg.family == "audio":
+        ring = ring["self"]
+    n = ring.positions.shape[-1]
+    return n * block_tables.shape[1] if block_tables is not None else n

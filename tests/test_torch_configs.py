@@ -85,7 +85,12 @@ def _tokens(vocab, shape, seed=0):
         np.int32)
 
 
-@pytest.mark.parametrize("name", NEW)
+# the other families (slice 17), whose serving and training parity is in
+# tests/test_torch_families.py
+FAMILIES = ("rwkv6-7b", "hymba-1.5b", "whisper-tiny", "internvl2-76b")
+
+
+@pytest.mark.parametrize("name", NEW + FAMILIES)
 def test_config_copy_matches_jax(name):
     assert name in ARCHS
     assert (dataclasses.asdict(get_config(name))

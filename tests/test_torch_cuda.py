@@ -17,7 +17,11 @@ query offset, one query row; the bf16 forward at both of its tile choices,
 also bit for bit on >= 99% of outputs; the bf16 backward's dq bit for bit
 over two runs; MLA's (dk 192, dv 128) forward and backward, the bf16
 backward's dq, dk and dv bit for bit over two runs; a pair without an
-instance refused) included.
+instance refused) included, and (slice 17) the flash kernels and the
+fused FFN with its backward at the other families' shapes: hymba's GQA
+group 5 under its window, whisper's non-causal 1500-frame encoder and
+cross-attention, fmoefy'd hymba's H 2752 and fmoefy'd rwkv6's squared ReLU
+at K 4096, H 7168.
 ``python3 chip_smoke.py`` checks the same at the serving and training
 shapes.  Skips on hosts without a card; on the GPU machine:
 
@@ -1186,3 +1190,58 @@ def test_placed_psum_layer_on_the_card(dev, impl, dispatch):
                                    atol=5e-2)
     finally:
         tdist.destroy_process_group()
+
+
+# The other families' shapes (B, Sq, Skv, H, KV, d, window, q_offset,
+# causal): hymba's GQA group 5 (25/5 heads of 64) under its 1024 window,
+# whisper's encoder (non-causal, 1500 frames), its prefill cross-attention
+# (64 prompt rows against the frames) and a decode step's (one row).
+FAMILY_FLASH = [
+    (1, 1100, 1100, 25, 5, 64, 1024, 0, True),
+    (2, 1500, 1500, 6, 6, 64, 1 << 30, 0, False),
+    (2, 64, 1500, 6, 6, 64, 1 << 30, 0, False),
+    (2, 1, 1500, 6, 6, 64, 1 << 30, 0, False),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,window,q_offset,causal",
+                         FAMILY_FLASH)
+def test_flash_attention_family_shapes(dev, dtype, B, Sq, Skv, H, KV, d,
+                                       window, q_offset, causal):
+    """The forward at every shape; the backward at hymba's (the one the
+    families train)."""
+    args = (dev, dtype, B, Sq, Skv, H, KV, d, window, q_offset, causal)
+    test_flash_attention_fwd(*args)
+    if causal:
+        test_flash_attention_bwd(*args)
+
+
+# (act, M, K, H, N, E): fmoefy'd hymba's SwiGLU experts (K 1600, H 2752:
+# the last 128-wide hidden chunk partial) and fmoefy'd rwkv6's squared
+# ReLU experts (K 4096, H 7168), each over routed rows with empty groups
+FAMILY_FFN = [("swiglu", 600, 1600, 2752, 1600, 16),
+              ("rwkv", 300, 4096, 7168, 4096, 8)]
+
+
+@pytest.mark.parametrize("act,M,K,H,N,E", FAMILY_FFN)
+def test_fused_ffn_family_shapes(dev, act, M, K, H, N, E):
+    """The ring kernel forward, dX and dW against their plain versions."""
+    x, gs, ws, wo, dy = _ffn_inputs(dev, torch.bfloat16, act, M, K, H, N,
+                                    _routed_sizes(M, E, M))
+    assert ff.route(x, ws, wo) == "ring"
+    got = ff.fused_ffn(x, ws, wo, gs, act)
+    dx = fb.fused_ffn_bwd_dx(x, ws, wo, dy, gs, act)
+    dws, dwo = fb.fused_ffn_bwd_dw(x, ws, wo, dy, gs, act)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got, ff.fused_ffn_plain(x, ws, wo, gs, act),
+                               **tol)
+    assert not got[int(gs.sum()):].any()
+    torch.testing.assert_close(
+        dx, fb.fused_ffn_bwd_dx_plain(x, ws, wo, dy, gs, act), **tol)
+    rws, rwo = fb.fused_ffn_bwd_dw_plain(x, ws, wo, dy, gs, act)
+    for a, b in zip((*dws, dwo), (*rws, rwo)):
+        scale = max(b.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(a, b.float(), rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale)

@@ -36,6 +36,20 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("rel", ["models/rwkv6.py", "models/mamba.py",
+                                 "core/fmoefy.py"])
+def test_family_modules_import_no_jax_or_repro(rel):
+    """The recurrences and the fmoefy plugin (the JAX package's module
+    names) import neither JAX nor the JAX package; fmoefy, a config
+    rewrite, nothing of the port but its configs."""
+    f = ROOT / "src" / "repro_torch" / rel
+    mods = list(_imported_modules(f))
+    assert not FORBIDDEN & {m.split(".")[0] for m in mods}, (rel, mods)
+    if rel == "core/fmoefy.py":
+        ours = [m for m in mods if m.startswith("repro_torch")]
+        assert ours == ["repro_torch.configs.base"], ours
+
+
 @pytest.mark.parametrize("sub", ["checkpoint", "resilience", "obs"])
 def test_resilience_and_telemetry_import_no_jax_or_repro(sub):
     """The checkpoint, resilience and telemetry subpackages (the JAX

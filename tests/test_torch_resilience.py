@@ -226,14 +226,14 @@ def test_manager_cadence_gc_and_corrupt_fallback(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _jax_state(dtype):
-    """Reduced fastmoe-gpt's JAX params (in ``dtype``) and the AdamW state
+def _jax_state(dtype, arch="fastmoe-gpt"):
+    """Reduced ``arch``'s JAX params (in ``dtype``) and the AdamW state
     after one update (nonzero moments, step 1)."""
     from repro.configs import get_config, reduced
     from repro.models import lm
     from repro.optim import AdamW
 
-    cfg = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=64)
+    cfg = reduced(get_config(arch), num_layers=2, d_model=64)
     params = jax.tree.map(lambda p: p.astype(dtype),
                           lm.init_params(jax.random.PRNGKey(0), cfg))
     opt = AdamW()
@@ -242,9 +242,9 @@ def _jax_state(dtype):
     return cfg, params, state
 
 
-def _port_state(params, state):
+def _port_state(params, state, arch="fastmoe-gpt"):
     from repro_torch.configs import get_config, reduced
-    cfg = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=64)
+    cfg = reduced(get_config(arch), num_layers=2, d_model=64)
     conv = lambda t: interop.from_jax(jax.tree.map(np.asarray, t), cfg,  # noqa: E731
                                       device="cpu")
     return {"params": conv(params),
@@ -297,6 +297,31 @@ def test_each_package_restores_the_others_checkpoint(tmp_path, dtype):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
+    got = ckpt.restore(str(tmp_path / "jax"), _zeros(ttree))
+    assert got["opt"].step == 1
+    for a, b in zip(_leaves(got), _leaves(ttree)):
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_whisper_checkpoint_round_trips_between_packages(tmp_path):
+    """Reduced whisper-tiny (the encoder's ``enc_layers`` stacked on L as
+    the decoder's ``layers``): the port writes the reference's manifest,
+    and each package restores the other's checkpoint bit for bit."""
+    _, params, state = _jax_state(jnp.float32, "whisper-tiny")
+    assert "enc_layers" in params
+    jtree = {"params": params, "opt": state}
+    ttree = _port_state(params, state, "whisper-tiny")
+    assert isinstance(ttree["params"]["enc_layers"], list)
+    jckpt.save(str(tmp_path / "jax"), jtree, step=1)
+    ckpt.save(str(tmp_path / "port"), ttree, step=1)
+    assert (ckpt.load_manifest(str(tmp_path / "port"))
+            == jckpt.load_manifest(str(tmp_path / "jax")))
+    back = jckpt.restore(str(tmp_path / "port"), jax.tree.map(
+        jnp.zeros_like, jtree))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jtree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     got = ckpt.restore(str(tmp_path / "jax"), _zeros(ttree))
     assert got["opt"].step == 1
     for a, b in zip(_leaves(got), _leaves(ttree)):

@@ -623,6 +623,7 @@ def kernel_phase(dev, flush):
     model's prefix and the routing ("decode" for fastmoe-gpt's)."""
     import torch
     from repro_torch.core import dispatch as Dsp
+    from repro_torch.kernels import cost
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import token_shuffle as ts
@@ -705,14 +706,13 @@ def kernel_phase(dev, flush):
 
                 if "grouped_gemm" in timing:
                     measure("grouped_gemm", shape, *cases["grouped_gemm"],
-                            e * (M * nD + used * nD * nH + M * nH) + 4 * nE,
-                            2 * n * nD * nH, "bfloat16",
-                            lib=grouped_mm_call(x, wi, offs))
+                            *cost.grouped_gemm(M, nD, nH, nE, n, used, e),
+                            "bfloat16", lib=grouped_mm_call(x, wi, offs))
                 for name, ws in (("fused_ffn", 1), ("fused_ffn_swiglu", 2)):
                     if name in timing:  # x, y; the used experts' wi (, wu), wo
                         measure(name, shape, *cases[name],
-                                e * (2 * M * nD + used * (ws + 1) * nD * nH)
-                                + 4 * nE, 2 * (ws + 1) * n * nD * nH, "bfloat16")
+                                *cost.fused_ffn(M, nD, nH, nD, nE, n, used,
+                                                ws, e), "bfloat16")
                 if "fused_ffn" in timing:
                     unfused_ffn(f"fused_ffn {shape}", x, wi, wo, offs, flush)
                 if "fused_ffn_swiglu" in timing:
@@ -783,15 +783,18 @@ def shuffle_case(shape, dn, tol, ids, nE, k, T, nD, dtype, randn, timing,
         close(f"gather gradient {dn} {shape}", by_slot, by_row, tol)
     if not timing:
         return
+    from repro_torch.kernels import cost
     e = 2
-    gbytes = e * nD * (int(rows.unique().numel()) + rows.numel()) + 4 * rows.numel()
+    gbytes, _ = cost.gather_rows(rows.numel(), nD,
+                                 int(rows.unique().numel()), e)
     for name, (kern, plain) in gathers.items():
         measure(name, shape, kern, plain, gbytes, 0, "bfloat16",
                 lib=lambda: torch.index_select(xt, 0, rows))
     measure("combine_topk", shape, lambda: ts.combine_topk(src, slots, w),
             lambda: ts.combine_topk_plain(src, slots, w),
-            e * nD * (int(slots.unique().numel()) + T)
-            + (4 + w.element_size()) * slots.numel(), 2 * slots.numel() * nD,
+            *cost.combine_topk(T, slots.shape[1], nD,
+                               int(slots.unique().numel()), e,
+                               w.element_size()),
             "float32", lib=lambda: F.embedding_bag(
                 slots, src, per_sample_weights=w, mode="sum"))
 
@@ -954,23 +957,17 @@ STARCODER2_FULL = (2, 8192, 48, 4, 128, 128, 4096)  # the kernels alone, all hea
 
 
 def visible_pairs(S: int, window: int) -> int:
-    """Causal (i, j) pairs with 0 <= i - j < window over S positions: what
-    this input needs (tiles outside the band are never computed)."""
-    w = min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
+    """Causal (i, j) pairs with 0 <= i - j < window over S positions
+    (``kernels/cost.visible_pairs``)."""
+    from repro_torch.kernels import cost
+    return cost.visible_pairs(S, window)
 
 
 def flash_bound(B, S, H, KV, dk, dv, window, *, backward: bool):
-    """(bytes, operations) of the forward (q, k, v, o once; 2 (dk + dv) per
-    visible pair and head: q k^T and p v) or the backward (q, k, v, o, dO,
-    dq, dk, dv and the f32 lse once; 2 (3 dk + 2 dv) per pair and head:
-    s, dp, dv, dk, dq) in bf16.  With dk = dv = d: 4 d and 10 d."""
-    e = 2
-    q_side, kv_side = B * S * H * (dk + dv) * e, B * S * KV * (dk + dv) * e
-    pairs = B * H * visible_pairs(S, window)
-    if backward:
-        return 2 * q_side + 2 * kv_side + 4 * B * H * S, 2 * (3 * dk + 2 * dv) * pairs
-    return q_side + kv_side, 2 * (dk + dv) * pairs
+    """(bytes, operations) of the flash forward or backward in bf16, the
+    count the dry run's roofline takes too (``kernels/cost.flash``)."""
+    from repro_torch.kernels import cost
+    return cost.flash(B, S, H, KV, dk, dv, window, backward=backward)
 
 
 def sdpa_calls(q, k, v, do, window):
@@ -1924,15 +1921,15 @@ def bwd_routing_times(label, x, ws, wo, dy, gs, flush):
             "dx_first": lambda: fb.fused_ffn_bwd_dx_simple(*args),
             "dw_first": lambda: fb.fused_ffn_bwd_dw_simple(*args)}
     t = {k: time_ms(fn, flush) for k, fn in runs.items()}
+    from repro_torch.kernels import cost
     (M, K), E_, H_ = x.shape, wo.shape[0], wo.shape[1]
     n, used = int(gs.sum()), int((gs > 0).sum())
-    wbytes = used * 2 * K * H_ * 2
     t.update(dx_device=device_ms(runs["dx"], floor=device_floor(
-                 2 * 3 * M * K + wbytes + 4 * E_, 6 * n * K * H_, "bfloat16"),
-                 what=f"fused_ffn_bwd_dx {label}"),
+                 *cost.fused_ffn_bwd_dx(M, K, H_, K, E_, n, used),
+                 "bfloat16"), what=f"fused_ffn_bwd_dx {label}"),
              dw_device=device_ms(runs["dw"], floor=device_floor(
-                 2 * 2 * M * K + wbytes + 4 * 2 * E_ * K * H_ + 4 * E_,
-                 8 * n * K * H_, "bfloat16"), what=f"fused_ffn_bwd_dw {label}"))
+                 *cost.fused_ffn_bwd_dw(M, K, H_, K, E_, n, used),
+                 "bfloat16"), what=f"fused_ffn_bwd_dw {label}"))
     sizes = gs.tolist()
     # each dW batch after an expert's first reads back and rewrites the f32
     # (DW_CHUNK x K) dwi and (DW_CHUNK x N) dwo slices of its hidden chunks
@@ -2435,22 +2432,24 @@ def group_sizes_tap(out: list):
 
 
 def ep_dists(cfg, mesh, impl, dispatch):
-    """The EP paths of one (impl, dispatch) at 1x1: a2a (``moe_dist``, for
-    EP_COMBOS), the psum mode over ("data",) (EP_COMBOS) and
-    expert-internal tensor parallelism (TP_COMBOS)."""
+    """The EP paths of one (impl, dispatch) at 1x1, each under the train
+    layout (the identity at 1x1): a2a (``moe_dist``, for EP_COMBOS), the
+    psum mode over ("data",) (EP_COMBOS) and expert-internal tensor
+    parallelism (TP_COMBOS)."""
     from repro_torch.core import fmoe
     from repro_torch.launch import train
     tokens = TRAIN_BATCH * TRAIN_SEQ
     dists = {}
     if (impl, dispatch) in EP_COMBOS:
         dists["a2a"] = train.moe_dist(cfg, mesh, tokens)
-        dists["psum"] = fmoe.DistConfig(mesh, ("data",))
+        dists["psum"] = train.train_dist(cfg, fmoe.DistConfig(mesh, ("data",)))
     if (impl, dispatch) in TP_COMBOS:
         dists["tp"] = train.moe_dist(cfg, mesh, tokens, expert_tp=True)
     want = {"a2a": ("a2a", None), "psum": ("psum", None), "tp": ("a2a", "data")}
     for name, d in dists.items():
-        check(d is not None and (d.mode, d.tp_axis) == want[name],
-              f"EP {impl}/{dispatch}: no {name} dist ({d})")
+        check(d is not None and (d.mode, d.tp_axis) == want[name]
+              and d.layout is not None,
+              f"EP {impl}/{dispatch}: no {name} dist under the layout ({d})")
     return dists
 
 
@@ -2631,7 +2630,7 @@ def ep_phase(dev):
 def ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted):
     """One AdamW step of the local path and of each EP path of (impl,
     dispatch) at 1x1, each from a fresh init (seed 0; the EP paths' params
-    made by ``lm.init_params(mesh=...)``) and fresh moments: the loss, the
+    made by ``lm.init_params(layout=...)``) and fresh moments: the loss, the
     grad norm and every param after the step must equal the local step's
     bit for bit.  The local step's params wait in host memory, so the card
     holds one set of params, moments and grads at a time."""
@@ -2646,8 +2645,7 @@ def ep_step_equal(dev, base, mesh, batch, impl, dispatch, counted):
     for name, dist in {"local": None, **ep_dists(cfg, mesh, impl, dispatch)}.items():
         params = lm.init_params(base, seed=0, device=dev,
                                 param_dtype=base.param_dtype,
-                                mesh=None if dist is None else mesh,
-                                expert_tp=dist is not None and dist.expert_tp)
+                                layout=None if dist is None else dist.layout)
         opt = AdamW()
         state = opt.init(params)
         step_fn = train.make_train_step(cfg, opt, dist=dist, impl=impl,
@@ -2742,8 +2740,10 @@ def overlap_phase(dev):
         for impl, dispatch in combos:
             cfg = with_dispatch(base, dispatch)
             serial = train.moe_dist(cfg, mesh, tokens)
-            check(serial.mode == "a2a" and not serial.overlap_chunks,
-                  f"overlap {impl}/{dispatch}: no serial a2a dist ({serial})")
+            check(serial.mode == "a2a" and not serial.overlap_chunks
+                  and serial.layout is not None,
+                  f"overlap {impl}/{dispatch}: no serial a2a dist under the "
+                  f"layout ({serial})")
             loss_s, _, g_s = train.loss_and_grads(params, cfg, batch,
                                                   impl=impl, device=dev,
                                                   dist=serial)
@@ -5786,7 +5786,8 @@ def resilience_phase(dev):
         batch = batch_of(cfg, 0, dev)
         seen = {}
         for obs in (True, False):
-            dist = DistConfig(mesh, ("data", "model"), obs=obs)
+            dist = train.train_dist(cfg, DistConfig(mesh, ("data", "model"),
+                                                    obs=obs))
             comm.tally_reset()
             loss, aux, grads = train.loss_and_grads(
                 params, cfg, batch, impl="fused", device=dev, dist=dist)
@@ -6344,6 +6345,224 @@ def families_phase(dev, flush) -> dict:
     print(f"families phase wall {time.perf_counter() - t0:.1f} s", flush=True)
     return dict(served=served, fmoefy=fm, train=tr)
 
+# ---------------------------------------------------------------------------
+# slice 18: the dry run's predictions against the card, the computed depth,
+# the naive baselines
+# ---------------------------------------------------------------------------
+
+# runs whose peaks the script measures elsewhere, each run once here after
+# a warm call (hymba's train step, ~8 s on the card, without one): (label,
+# arch, mode, batch, seq, layers (None: whole), impl)
+SHARD_RUNS = (
+    ("fastmoe-gpt train", "fastmoe-gpt", "train", TRAIN_BATCH, TRAIN_SEQ,
+     TRAIN_LAYERS, "fused"),
+    ("deepseek-v2-236b prefill", "deepseek-v2-236b", "prefill", DS_BATCH,
+     DS_PROMPT, DS_LAYERS, "fused"),
+    ("qwen2-72b prefill", "qwen2-72b", "prefill", DENSE_BATCH, DENSE_PROMPT,
+     24, "fused"),
+    ("starcoder2-15b prefill", "starcoder2-15b", "prefill", SC2_BATCH,
+     SC2_PROMPT, None, "fused"),
+    ("hymba-1.5b train", "hymba-1.5b", "train", HYMBA_TRAIN_BATCH,
+     HYMBA_TRAIN_SEQ, None, "fused"),
+)
+PEAK_TOL = 0.15  # a measured peak within 15% of the dry run's prediction
+NAIVE_TOKENS, NAIVE_PER_SAMPLE = 2048, 64
+# the naive layers' relative L2 error against the f32 oracle, held to the
+# bf16 plain (einsum) layer's: x this slack + this absolute slack
+NAIVE_REL_SLACK, NAIVE_ABS_SLACK = 1.5, 1e-3
+
+
+def shard_cfg(arch, layers, dispatch="ragged"):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.moe is not None:
+        cfg = with_dispatch(cfg, dispatch)
+    return cfg
+
+
+def card_step(dev, cfg, mode, batch, seq, impl, warm=True):
+    """One train step (after a warm one, unless ``warm`` is False) or one
+    prefill (after a short warm call) on the card: (ms by CUDA events, peak bytes from
+    torch.cuda.max_memory_allocated with the params, moments or cache
+    resident)."""
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=dev)
+    if mode == "train":
+        params = lm.init_params(cfg, seed=0, device=dev,
+                                param_dtype=cfg.param_dtype)
+        opt = AdamW()
+        state = opt.init(params)
+        step = train.make_train_step(cfg, opt, impl=impl, device=dev)
+        if warm:
+            params, state, _ = step(params, state, {"tokens": tokens}, 0)
+        run = lambda: step(params, state, {"tokens": tokens}, 1)
+    else:
+        params = lm.init_params(cfg, seed=0, device=dev)
+        warm = lm.init_cache(cfg, batch, 16, device=dev)
+        lm.prefill(params, cfg, tokens[:, :16], warm, impl=impl, device=dev)
+        del warm
+        cache = lm.init_cache(cfg, batch, serve.cache_len_for(cfg, seq),
+                              device=dev)
+        run = lambda: lm.prefill(params, cfg, tokens, cache, impl=impl,
+                                 device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad() if mode != "train" else contextlib.nullcontext():
+        start.record()
+        out = run()
+        end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss = out[2]["loss"] if mode == "train" else out[0]
+    check(bool(torch.isfinite(loss).all()), f"{cfg.name} {mode}: not finite")
+    del params, out, run
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def sharding_phase(dev, flush) -> dict:
+    """Slice 18: (1) the dry run's (``launch/dryrun``, the meta device)
+    per-rank peak and roofline step bound beside the card's measured peak
+    and time for SHARD_RUNS, each peak within PEAK_TOL of its prediction
+    and each time at or above its bound; (2) one fastmoe-gpt train step
+    (8 x 256, fused/ragged, f32 masters) at the largest depth the dry run
+    says fits the card's memory (torch.cuda.mem_get_info, less what lies
+    outside the allocator), reusing the TRAIN_LAYERS step where that is
+    the depth; (3) the naive baselines (``core/naive``) at fastmoe-gpt's
+    width beside the fused layer, within the bf16 plain floor of the f32
+    oracle (the layer's plain einsum path in f32), with their times."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.core import naive
+    from repro_torch.core.fmoe import fmoe_apply, fmoe_init
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    card = card_name()
+    out = {"runs": {}}
+    for label, arch, mode, batch, seq, layers, impl in SHARD_RUNS:
+        cfg = shard_cfg(arch, layers)
+        tp = time.perf_counter()
+        rec = dryrun.dry_run(cfg, InputShape(label, seq, batch, mode), "1x1",
+                             impl=impl)
+        pred_s = time.perf_counter() - tp
+        ms, peak = card_step(dev, cfg, mode, batch, seq, impl,
+                             warm=not arch.startswith("hymba"))
+        pred = rec["peak_bytes"]
+        bound_ms = rec["roofline"]["step_s_bound"] * 1e3
+        off = abs(peak - pred) / pred
+        print(f"sharding {label} ({cfg.num_layers} layers, {batch}x{seq}, "
+              f"{impl}) on {card}: peak {peak / 1e9:.3f} GB measured, "
+              f"{pred / 1e9:.3f} GB predicted by the dry run ({off * 100:.1f}% "
+              f"apart; params {rec['params_bytes'] / 1e9:.3f} GB); step "
+              f"{ms:.2f} ms measured, roofline bound {bound_ms:.2f} ms "
+              f"({rec['roofline']['dominant']}: compute "
+              f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rec['roofline']['memory_s'] * 1e3:.2f} ms); dry run "
+              f"{pred_s:.1f} s on the host", flush=True)
+        check(off <= PEAK_TOL, f"sharding {label}: measured peak {peak} is "
+                               f"{off * 100:.1f}% from the prediction {pred}")
+        check(ms >= bound_ms, f"sharding {label}: {ms:.2f} ms is below its "
+                              f"roofline bound {bound_ms:.2f} ms")
+        out["runs"][label] = dict(peak=peak, predicted=pred, ms=ms,
+                                  bound_ms=bound_ms, rec=rec)
+
+    # (2) the computed depth
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    outside = total - free - torch.cuda.memory_reserved(dev)
+    budget = total - outside
+    rec = out["runs"]["fastmoe-gpt train"]["rec"]
+    depth = dryrun.largest_depth(rec, budget)
+    check(depth >= 1, f"the dry run fits no fastmoe-gpt layer in {budget}")
+    if depth == TRAIN_LAYERS:
+        peak = out["runs"]["fastmoe-gpt train"]["peak"]
+        ms = out["runs"]["fastmoe-gpt train"]["ms"]
+    else:
+        ms, peak = card_step(dev, shard_cfg("fastmoe-gpt", depth), "train",
+                             TRAIN_BATCH, TRAIN_SEQ, "fused")
+    a, b = rec["peak_line"]
+    print(f"sharding computed depth on {card}: fastmoe-gpt trains at "
+          f"{depth} layers within {budget / 1e9:.3f} GB (card "
+          f"{total / 1e9:.3f} GB, {outside / 1e9:.3f} GB outside the "
+          f"allocator; predicted {(a + b * depth) / 1e9:.3f} GB + "
+          f"{dryrun.ALLOCATOR_SLACK:.0%} slack); step at {depth} layers: peak "
+          f"{peak / 1e9:.3f} GB, {ms:.2f} ms", flush=True)
+    out["depth"] = dict(depth=depth, peak=peak, ms=ms, budget=budget)
+
+    # (3) the naive baselines against the fused layer
+    cfg = shard_cfg("fastmoe-gpt", None)
+    moe = cfg.moe
+    g = torch.Generator(device=dev).manual_seed(0)
+    p32 = fmoe_init(g, cfg.d_model, moe, act=cfg.act, device=dev)
+    p16 = {k: ({n: v.to(torch.bfloat16) for n, v in sub.items()}
+               if k == "experts" else sub) for k, sub in p32.items()}
+    x32 = torch.randn(NAIVE_TOKENS, cfg.d_model, generator=g, device=dev)
+    x16 = x32.to(torch.bfloat16)
+    with torch.no_grad():
+        # the oracle is the layer's plain path in f32 (ragged: no drops),
+        # independent of the baselines under test
+        oracle = fmoe_apply(p32, x32, moe, act=cfg.act, impl="einsum")[0]
+        paths = {"bf16 plain (einsum)": lambda: fmoe_apply(
+                     p16, x16, moe, act=cfg.act, impl="einsum")[0],
+                 "fused": lambda: fmoe_apply(p16, x16, moe, act=cfg.act,
+                                             impl="fused")[0],
+                 "moe_loop_masked": lambda: naive.moe_loop_masked(
+                     p16, x16, moe, act=cfg.act),
+                 "moe_per_sample": lambda: naive.moe_per_sample(
+                     p16, x16[:NAIVE_PER_SAMPLE], moe, act=cfg.act)}
+        floor_y = None
+
+        def rel(y, rows):  # relative L2 against the oracle's first rows
+            ref = oracle[:rows]
+            return ((y[:rows] - ref).norm() / ref.norm()).item()
+        for name, fn in paths.items():
+            y = fn().float()
+            rows = y.shape[0]
+            err = rel(y, rows)
+            ms = time_ms(fn, flush, 5)
+            print(f"sharding naive {name} at fastmoe-gpt's width ({rows} "
+                  f"tokens, {moe.num_experts} experts top-{moe.top_k}) on "
+                  f"{card}: relative L2 vs the f32 oracle {err:.5f}, "
+                  f"{ms:.3f} ms", flush=True)
+            check(math.isfinite(err), f"naive {name}: not finite")
+            if floor_y is None:
+                floor_y = y
+                continue
+            # the floor over the same tokens: a token whose top-k flips
+            # between the bf16 and the f32 input weighs more in 64 rows
+            floor = rel(floor_y, rows)
+            print(f"sharding naive {name}: the bf16 plain floor over its "
+                  f"{rows} tokens {floor:.5f} (limit x{NAIVE_REL_SLACK} + "
+                  f"{NAIVE_ABS_SLACK})", flush=True)
+            check(err <= NAIVE_REL_SLACK * floor + NAIVE_ABS_SLACK,
+                  f"naive {name}: error {err} beyond the bf16 plain floor "
+                  f"{floor}")
+            out.setdefault("naive", {})[name] = dict(err=err, ms=ms,
+                                                      rows=rows, floor=floor)
+    del p32, p16, oracle, floor_y
+    torch.cuda.empty_cache()
+    print(f"sharding phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def card_name() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
 
 def main() -> int:
     import torch
@@ -6380,6 +6599,10 @@ def main() -> int:
         fam = families_phase(dev, flush)
         mark("families_phase")
         print(json.dumps({"families_only": fam}, default=str))
+        return 0
+    if sys.argv[1:] == ["--only", "sharding"]:
+        sharding_phase(dev, flush)
+        mark("sharding_phase")
         return 0
     errs, timed = kernel_phase(dev, flush)
     mark("kernel_phase")
@@ -6437,6 +6660,8 @@ def main() -> int:
     mark("resilience_phase")
     fam = families_phase(dev, flush)
     mark("families_phase")
+    sharding_phase(dev, flush)
+    mark("sharding_phase")
     del flush
     slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
                zoo_launches,

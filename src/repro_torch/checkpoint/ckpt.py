@@ -12,13 +12,13 @@ mu, nu)`` with ``step`` a 0-d int32, the flat keys the reference's
 list of per-layer dicts) and gives it back in that layout, on the ``like``
 tree's device.
 
-The expert stacks are written whole and in logical expert order: on a mesh
-(``mesh=``) every rank gathers its shards over the expert axes (and the
-hidden dim over ``data`` under ``expert_tp``) and rank 0 writes while the
-others wait at a barrier; under a placement (``placement=``) the physical
-order is undone through ``placement.migrate.to_logical``.  :func:`restore`
-applies ``from_logical`` and each rank keeps its shard, so a checkpoint
-from any mesh and layout restores on any other.
+Every leaf is written whole, the expert stacks in logical expert order:
+on a mesh (``layout=``, the tree's ``launch.sharding.Layout``) every rank
+gathers each leaf's shards by its spec and rank 0 writes while the others
+wait at a barrier; under a placement (``placement=``) the physical order
+is undone through ``placement.migrate.to_logical``.  :func:`restore`
+applies ``from_logical`` and each rank keeps its spec's shard, so a
+checkpoint from any mesh and layout restores on any other.
 
 Durability, as the reference's:
 
@@ -149,19 +149,26 @@ def _num_shadow(placement) -> int:
     return int(g.num_shadow)
 
 
-def _whole(path: str, t: torch.Tensor, *, placement, mesh,
-           expert_tp: bool) -> torch.Tensor:
+def _whole(path: str, t: torch.Tensor, *, placement,
+           layout) -> torch.Tensor:
     """A rank's leaf -> the whole leaf, in its physical order (collective
-    on a mesh: every rank calls this for every leaf in the same order)."""
+    on a mesh: every rank calls this for every leaf in the same order):
+    every sharded dim gathered by its spec, an expert stack's owned rows
+    over the expert axes (each shadowed expert is on every rank)."""
     t = t.detach()
-    if _is_expert(path) and mesh is not None:
-        from repro_torch.core import comm
-        if expert_tp and mesh.shape["data"] > 1:
-            t = comm.all_gather_rows(t, mesh.group("data"), _hidden_dim(path))
-        if mesh.axes_size(mesh.expert_axes) > 1:
-            own = t.shape[0] - _num_shadow(placement)
-            t = torch.cat([comm.all_gather_rows(
-                t[:own], mesh.group(mesh.expert_axes)), t[own:]])
+    if layout is None:
+        return t
+    from repro_torch.core import comm
+    mesh = layout.mesh
+    live = [(d, axes) for d, axes in layout.gather_dims(path)
+            if mesh.axes_size(axes) > 1]
+    if live:
+        t = comm.all_gather_rows(t, [mesh.group(a) for _, a in live],
+                                 [d for d, _ in live])
+    if _is_expert(path) and mesh.axes_size(mesh.expert_axes) > 1:
+        own = t.shape[0] - _num_shadow(placement)
+        t = torch.cat([comm.all_gather_rows(
+            t[:own], mesh.group(mesh.expert_axes)), t[own:]])
     return t
 
 
@@ -244,7 +251,7 @@ _WRITERS = min(8, os.cpu_count() or 1)  # files written and hashed at once
 _IN_FLIGHT_BYTES = 8 * 2 ** 30
 
 
-def _arrays(tree, *, placement, mesh, expert_tp, lead):
+def _arrays(tree, *, placement, layout, lead):
     """(key, dtype name, whole logical-order host array or None off the
     lead rank) of every array of the reference's tree, in its key order:
     the gathers of a mesh run in that order on every rank.  A stacked
@@ -255,8 +262,7 @@ def _arrays(tree, *, placement, mesh, expert_tp, lead):
             if not isinstance(v, torch.Tensor):
                 arr = _host(v)
                 continue
-            t = _whole(p, v, placement=placement, mesh=mesh,
-                       expert_tp=expert_tp)
+            t = _whole(p, v, placement=placement, layout=layout)
             if not lead:
                 continue
             if arr is None:
@@ -267,7 +273,7 @@ def _arrays(tree, *, placement, mesh, expert_tp, lead):
         yield key, _dtype_name(leaf.parts[0][1]), arr if lead else None
 
 
-def _write_all(tree, folder, *, placement, mesh, expert_tp, lead) -> dict:
+def _write_all(tree, folder, *, placement, layout, lead) -> dict:
     """Write every array to ``folder`` (None: hash only), several files at
     once while the next arrays come off the card; {key: (file, dtype,
     shape, sha256)} in key order (empty off the lead rank)."""
@@ -275,8 +281,7 @@ def _write_all(tree, folder, *, placement, mesh, expert_tp, lead) -> dict:
     out, pending = {}, []
     with ThreadPoolExecutor(_WRITERS) as pool:
         for i, (key, dtype, arr) in enumerate(_arrays(
-                tree, placement=placement, mesh=mesh, expert_tp=expert_tp,
-                lead=lead)):
+                tree, placement=placement, layout=layout, lead=lead)):
             if arr is None:
                 continue
             fname = f"arr_{i:05d}.npy"
@@ -291,34 +296,36 @@ def _write_all(tree, folder, *, placement, mesh, expert_tp, lead) -> dict:
         return {k: (*out[k], f.result()) for k, _, f in pending}
 
 
-def digests(tree: Any, *, placement=None, mesh=None,
-            expert_tp: bool = False) -> dict:
+def _lead(layout) -> bool:
+    return layout is None or layout.mesh.rank == 0
+
+
+def digests(tree: Any, *, placement=None, layout=None) -> dict:
     """{flat key: sha256} of the arrays :func:`save` would write for
     ``tree`` (the same ``.npy`` bytes), written nowhere: a digest of a
     training state to hold against a checkpoint's manifest.  Collective on
     a mesh, as :func:`save`; rank 0's result, {} on the others."""
-    lead = mesh is None or mesh.rank == 0
-    got = _write_all(tree, None, placement=placement, mesh=mesh,
-                     expert_tp=expert_tp, lead=lead)
+    got = _write_all(tree, None, placement=placement, layout=layout,
+                     lead=_lead(layout))
     return {k: v[3] for k, v in got.items()}
 
 
 def save(path: str, tree: Any, *, step: int | None = None, placement=None,
-         mesh=None, expert_tp: bool = False) -> None:
+         layout=None) -> None:
     """Write ``tree`` (the port's: params, or ``{"params": ..., "opt":
     AdamWState}``) to ``path`` atomically, in the reference's format.
 
     ``placement`` (ExpertPlacement or PerLayerPlacement): the tree's
     physical expert layout, undone before writing (checkpoints are in
-    logical expert order).  ``mesh``: the tree is this rank's shard; every
-    rank must call this, rank 0 writes the whole tree and the others wait
-    at a barrier (``expert_tp``: the expert stacks are also hidden-sharded
-    over ``data``).  The live tree is not changed.  The files are written
+    logical expert order).  ``layout`` (a ``launch.sharding.Layout``): the
+    tree is this rank's shard, every leaf its spec's; every rank of the
+    layout's mesh must call this, rank 0 writes the whole tree and the
+    others wait at a barrier.  The live tree is not changed.  The files are written
     and hashed by a few threads while the next arrays are copied off the
     card; the ``ckpt_save_file`` point then fires for each, in key order.
     """
     from repro_torch.resilience import faults  # resilience imports this
-    lead = mesh is None or mesh.rank == 0
+    lead = _lead(layout)
     with obs_trace.span("ckpt_save", path=path, step=step):
         tmp = None
         if lead:
@@ -329,8 +336,8 @@ def save(path: str, tree: Any, *, step: int | None = None, placement=None,
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
-        written = _write_all(tree, tmp, placement=placement, mesh=mesh,
-                             expert_tp=expert_tp, lead=lead)
+        written = _write_all(tree, tmp, placement=placement, layout=layout,
+                             lead=lead)
         if lead:
             manifest = {"format": 2, "step": step, "complete": True,
                         "params": {}}
@@ -356,7 +363,7 @@ def save(path: str, tree: Any, *, step: int | None = None, placement=None,
                 shutil.rmtree(path)
             os.replace(tmp, path)
             _fsync_file(parent)
-        _barrier(mesh)
+        _barrier(None if layout is None else layout.mesh)
 
 
 def load_manifest(path: str) -> dict:
@@ -378,47 +385,48 @@ def is_complete(path: str) -> bool:
         return False
 
 
-def _whole_shape(path: str, t: torch.Tensor, *, placement, mesh,
-                 expert_tp: bool) -> tuple:
+def _whole_shape(path: str, t: torch.Tensor, *, placement,
+                 layout) -> tuple:
     """The shape of the whole leaf whose shard (in the placement's physical
     layout) is ``t``."""
     shape = list(t.shape)
-    if not _is_expert(path):
-        return tuple(shape)
-    if placement is not None:
-        shape[0] = int(getattr(placement, "geometry", placement).num_experts)
-    elif mesh is not None:
-        shape[0] *= mesh.axes_size(mesh.expert_axes)
-    if mesh is not None and expert_tp:
-        shape[_hidden_dim(path)] *= mesh.shape["data"]
+    if layout is not None:
+        for d, axes in layout.gather_dims(path):
+            shape[d] *= layout.mesh.axes_size(axes)
+    if _is_expert(path):
+        if placement is not None:
+            shape[0] = int(getattr(placement, "geometry",
+                                   placement).num_experts)
+        elif layout is not None:
+            shape[0] *= layout.mesh.axes_size(layout.mesh.expert_axes)
     return tuple(shape)
 
 
-def _shard(path: str, t: torch.Tensor, *, placement, mesh,
-           expert_tp: bool) -> torch.Tensor:
+def _shard(path: str, t: torch.Tensor, *, placement,
+           layout) -> torch.Tensor:
     """The whole leaf in logical order -> this rank's shard in the
     placement's physical layout."""
-    if not _is_expert(path):
-        return t
-    if placement is not None:
+    if _is_expert(path) and placement is not None:
         from repro_torch.placement.migrate import from_logical
         t = _get(from_logical(_one_leaf(path, t), placement), path)
-    if mesh is None:
+    if layout is None:
         return t
-    from repro_torch import interop
+    from repro_torch.launch.sharding import shard_leaf
+    mesh, spec = layout.mesh, layout.spec(path)
     S = _num_shadow(placement)
-    E = t.shape[0]
-    if S and mesh.axes_size(mesh.expert_axes) > 1:
+    if _is_expert(path) and S and mesh.axes_size(mesh.expert_axes) > 1:
         # the rank's owned block of the physical order, then every shadow
-        own = _one_leaf(path, t[:E - S])
-        mine = _get(interop.shard_params(own, mesh, expert_tp=expert_tp), path)
-        return torch.cat([mine, t[E - S:]])
-    return _get(interop.shard_params(_one_leaf(path, t), mesh,
-                                     expert_tp=expert_tp), path)
+        # (its hidden dim cut as the owned rows are)
+        E = t.shape[0]
+        mine = shard_leaf(t[:E - S], spec, mesh, mesh.rank)
+        rest = shard_leaf(t[E - S:], (None,) + tuple(spec[1:]), mesh,
+                          mesh.rank)
+        return torch.cat([mine, rest])
+    return shard_leaf(t, spec, mesh, mesh.rank)
 
 
 def restore(path: str, like: Any, *, placement=None, verify: bool = True,
-            mesh=None, expert_tp: bool = False, inplace: bool = False) -> Any:
+            inplace: bool = False, layout=None) -> Any:
     """Restore into the structure of ``like`` (the port's tree, a rank's
     shard on a mesh, in ``placement``'s physical layout), validating keys,
     shapes and dtypes.
@@ -457,7 +465,7 @@ def restore(path: str, like: Any, *, placement=None, verify: bool = True,
                             f"{path}: checksum mismatch for {key} "
                             f"({meta['file']}): {digest[:12]} != "
                             f"{meta['sha256'][:12]}")
-        kw = dict(placement=placement, mesh=mesh, expert_tp=expert_tp)
+        kw = dict(placement=placement, layout=layout)
         loaded = {}  # port path -> restored leaf
         for key, leaf in flat_like.items():
             meta = manifest["params"][key]

@@ -7,7 +7,9 @@ from __future__ import annotations
 
 from repro_torch.configs.base import (
     AttentionConfig,
+    INPUT_SHAPES,
     EncoderConfig,
+    InputShape,
     ModelConfig,
     MoEConfig,
     SSMConfig,
@@ -32,6 +34,14 @@ ARCHS: dict[str, ModelConfig] = {
                         _deepseek_v2, _switch, _arctic, _granite, _smollm,
                         _qwen2, _rwkv6, _hymba, _whisper, _internvl]}
 
+# The ten assigned architectures (the paper's own GPT configs aside), as
+# the reference lists them.
+ASSIGNED = [
+    "granite-3-2b", "whisper-tiny", "arctic-480b", "qwen2-72b",
+    "deepseek-v2-236b", "hymba-1.5b", "rwkv6-7b", "smollm-360m",
+    "internvl2-76b", "starcoder2-15b",
+]
+
 
 def get_config(name: str) -> ModelConfig:
     try:
@@ -40,5 +50,6 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}") from None
 
 
-__all__ = ["ARCHS", "AttentionConfig", "EncoderConfig", "ModelConfig",
-           "MoEConfig", "SSMConfig", "get_config", "reduced"]
+__all__ = ["ARCHS", "ASSIGNED", "AttentionConfig", "EncoderConfig",
+           "INPUT_SHAPES", "InputShape", "ModelConfig", "MoEConfig",
+           "SSMConfig", "get_config", "reduced"]

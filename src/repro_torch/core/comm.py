@@ -7,7 +7,9 @@ its own inverse.  So are the psum mode's all-reduce (its backward is the
 all-reduce of the gradient, what ``jax.lax.psum`` transposes to under the
 reference's ``shard_map(check_vma=False)``) and expert-internal tensor
 parallelism's row all-gather and reduce-scatter (each the other's
-backward).  The counts carry no gradient.  The ragged exchange takes the
+backward), and the FSDP gather of a leaf's shard (:func:`gather_shard`,
+the train layout of ``launch/sharding``: its backward reduce-scatters the
+gradient in f32).  The counts carry no gradient.  The ragged exchange takes the
 §5.2 schedule's chunks, shift decomposition and wire dtype
 (``core/pipeline``), and the two-level exchange of a node mesh its intra-
 node hop (``*_intra``) and slim inter-node hop (``*_inter``).
@@ -53,8 +55,15 @@ def tallied_calls() -> dict:
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """In-place SUM over ``group`` (not differentiable), tallied."""
+    """In-place SUM over ``group`` (not differentiable), tallied.  A
+    non-contiguous ``x`` (a part of a gradient that a reduce-scatter left
+    strided) is reduced in a contiguous copy and written back: a
+    collective reads and writes its tensor's span whole."""
     tally("all-reduce", x.numel() * x.element_size())
+    if not x.is_contiguous():
+        buf = x.contiguous()
+        dist.all_reduce(buf, group=group)
+        return x.copy_(buf)
     dist.all_reduce(x, group=group)
     return x
 
@@ -111,38 +120,85 @@ def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _seq(v) -> list:
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _gather(x, group, dim)
+    def forward(ctx, x, groups, dims, dtype, reduce_dtype):
+        ctx.groups, ctx.dims, ctx.in_dtype = groups, dims, x.dtype
+        ctx.reduce_dtype = reduce_dtype
+        y = x if dtype is None else x.to(dtype)
+        for group, dim in zip(groups, dims):
+            y = _gather(y, group, dim)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, ctx.group, ctx.dim), None, None
+        if ctx.reduce_dtype is not None:
+            g = g.to(ctx.reduce_dtype)
+        for group, dim in zip(reversed(ctx.groups), reversed(ctx.dims)):
+            g = _scatter(g, group, dim)
+        return g.to(ctx.in_dtype), None, None, None, None
 
 
 class _ReduceScatterRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _scatter(x, group, dim)
+    def forward(ctx, x, groups, dims):
+        ctx.groups, ctx.dims = groups, dims
+        for group, dim in zip(groups, dims):
+            x = _scatter(x, group, dim)
+        return x
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.group, ctx.dim), None, None
+        for group, dim in zip(reversed(ctx.groups), reversed(ctx.dims)):
+            g = _gather(g, group, dim)
+        return g, None, None
 
 
-def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group, dim=0, *, dtype=None,
+                    reduce_dtype=None) -> torch.Tensor:
     """Tiled all-gather along ``dim``: rank i's rows land in block i.  Its
-    backward reduce-scatters (SUM) the gradient."""
-    return _AllGatherRows.apply(x, group, dim)
+    backward reduce-scatters (SUM) the gradient.
+
+    ``group`` and ``dim`` may be sequences: one gather per (group, dim) in
+    order, the backward's reduce-scatters in reverse.  ``dtype`` casts
+    ``x`` before the first gather (the wire then moves the narrower
+    dtype); ``reduce_dtype`` is the dtype the backward reduces in (None:
+    the gradient's own), and the gradient comes back in ``x``'s dtype."""
+    return _AllGatherRows.apply(x, _seq(group), _seq(dim), dtype,
+                                reduce_dtype)
 
 
-def reduce_scatter_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def reduce_scatter_rows(x: torch.Tensor, group, dim=0) -> torch.Tensor:
     """Tiled reduce-scatter (SUM) along ``dim``: rank i keeps block i of the
-    sum.  Its backward all-gathers the gradient."""
-    return _ReduceScatterRows.apply(x, group, dim)
+    sum.  Its backward all-gathers the gradient.  ``group`` and ``dim``
+    may be sequences, as :func:`all_gather_rows`'s."""
+    return _ReduceScatterRows.apply(x, _seq(group), _seq(dim))
+
+
+def gather_shard(x: torch.Tensor, dims, mesh, dtype=None) -> torch.Tensor:
+    """A leaf's shard -> the whole leaf, for its use (the FSDP gather).
+
+    ``dims``: (dim, mesh axes) of every sharded dim of the leaf's spec
+    (``launch.sharding.Layout.gather_dims``).  The forward casts the shard
+    to ``dtype`` first (the reference's ``fsdp_axis`` point: the gather
+    moves the compute dtype, bit-equal to gathering first since the cast
+    is elementwise), then all-gathers over each dim's axes in mesh order.
+    The backward casts the gradient to f32 and reduce-scatters it back to
+    the shard, so the gradient is summed over those axes in f32.  An axis
+    of size 1 gathers nothing: on a mesh of size-1 axes this is the cast
+    alone and launches no collective."""
+    live = [(d, axes) for d, axes in dims if mesh.axes_size(axes) > 1]
+    if not live:
+        return x if dtype is None else x.to(dtype)
+    order = {a: i for i, a in enumerate(mesh.axis_names)}
+    live.sort(key=lambda da: order[da[1][0]])
+    return all_gather_rows(x, [mesh.group(axes) for _, axes in live],
+                           [d for d, _ in live], dtype=dtype,
+                           reduce_dtype=torch.float32)
 
 
 def exchange_counts(counts: torch.Tensor, group) -> torch.Tensor:

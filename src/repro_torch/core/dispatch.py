@@ -156,7 +156,15 @@ def make_ragged_plan(expert_ids: torch.Tensor, num_experts: int) -> RaggedPlan:
     T, k = expert_ids.shape
     flat = expert_ids.reshape(-1)  # token-major
     sort_idx = torch.argsort(flat, stable=True)
-    group_sizes = torch.bincount(flat, minlength=num_experts).to(torch.int32)
+    if flat.device.type == "meta":
+        # the dry run: no values to count; the groups are taken as even (a
+        # path's allocations follow its row counts and bounds, not how the
+        # rows split among experts)
+        group_sizes = torch.empty(num_experts, dtype=torch.int32,
+                                  device=flat.device)
+    else:
+        group_sizes = torch.bincount(flat, minlength=num_experts).to(
+            torch.int32)
     token_rows = torch.div(sort_idx, k, rounding_mode="floor").to(torch.int32)
     n = sort_idx.numel()
     slot_rows = torch.empty(n, dtype=torch.int32, device=flat.device).scatter_(

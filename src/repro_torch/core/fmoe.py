@@ -120,9 +120,19 @@ class DistConfig(NamedTuple):
         (bit for bit the same output under any layout).  Shadowing refuses
         ``tp_axis``, as the reference does.
 
-    The reference's ``fsdp_axis`` is carried so that a caller's setting is
-    refused, never ignored: it raises ``NotImplementedError`` unless left
-    at its default.
+      fsdp_axis — the train layout's FSDP axis ("data"): the expert
+        stacks arrive as hidden-dim shards over it, and the layer casts
+        them to the compute dtype, then all-gathers them over it (the
+        gather moves bf16; its backward reduce-scatters the gradient in
+        f32), as the reference's ``fsdp_axis`` keeps the bf16 cast
+        sharded.  ``tp_axis`` wins over it: under expert-internal TP the
+        hidden shards are used as they are.
+      layout — the rank's param layout (``launch.sharding.Layout``): the
+        specs under which ``models.lm`` gathers each leaf at its use and
+        ``core.sync`` syncs and clips by spec (:meth:`with_layout`).
+        Training on a mesh always has one (``launch.train``: the train
+        layout).  None: serving's expert-parallel params (only the expert
+        stacks cut), which take no gather and no gradient.
     """
 
     mesh: Any
@@ -139,6 +149,7 @@ class DistConfig(NamedTuple):
     router: Optional[str] = None
     decompose: Optional[bool] = None
     obs: bool = True
+    layout: Any = None
 
     @classmethod
     def local(cls, placement=None) -> "DistConfig":
@@ -167,6 +178,14 @@ class DistConfig(NamedTuple):
         set, and in the a2a mode (the psum mode ignores it)."""
         return self.tp_axis is not None and self.mode == "a2a"
 
+    def with_layout(self, layout) -> "DistConfig":
+        """This distribution over params held in ``layout``: where it
+        shards the expert stacks' hidden dim over ``data`` and ``tp_axis``
+        is unset, ``fsdp_axis="data"`` (the layer gathers them)."""
+        fsdp = ("data" if self.tp_axis is None
+                and "data" in layout.expert_hidden_axes() else None)
+        return self._replace(layout=layout, fsdp_axis=fsdp)
+
     def decomposed(self, n_chunks: int) -> bool:
         """Whether an exchange split into ``n_chunks`` takes the shifts."""
         return n_chunks > 1 if self.decompose is None else self.decompose
@@ -175,7 +194,8 @@ class DistConfig(NamedTuple):
 def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
              overlap_chunks: int = 0, wire_dtype: Optional[str] = None,
              ragged_bound=0, inter_bound: int = 0, placement=None,
-             load_monitor=None, seq_len: int = 1) -> DistConfig | None:
+             load_monitor=None, seq_len: int = 1,
+             layout=None) -> DistConfig | None:
     """The expert-parallel mode for this (model config, mesh, global count
     of the rows that are split over the ranks: a layer's tokens, or the
     train entry's whole sequences of ``seq_len`` tokens).
@@ -195,7 +215,10 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
     mesh the slim inter-node shards too, unless ``inter_bound`` is given):
     a cold or missing monitor, or a bound that covers every local row,
     resolves to the dropless 0.  None when the config has no MoE or its
-    experts do not split over the expert axes."""
+    experts do not split over the expert axes.
+
+    ``layout`` (``launch.sharding.Layout``, the train layout) rides on
+    every mode (:meth:`DistConfig.with_layout`)."""
     axes = mesh.expert_axes
     ep = mesh.axes_size(axes)
     if cfg.moe is None or cfg.moe.num_experts % ep:
@@ -218,7 +241,7 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
                 ib = load_monitor.suggest_ragged_bound(
                     t_local * (ep // mesh.shape["node"]), k, ep)
     if num_rows % mesh.size == 0:
-        return DistConfig(mesh, tuple(mesh.axis_names),
+        dist = DistConfig(mesh, tuple(mesh.axis_names),
                           expert_axis=expert_axis,
                           tp_axis="data" if expert_tp else None,
                           placement=placement,
@@ -226,22 +249,16 @@ def moe_dist(cfg, mesh, num_rows: int, *, expert_tp: bool = False,
                           wire_dtype=wire_dtype or None,
                           ragged_bound=int(ragged_bound or 0),
                           node_axis=node, inter_bound=ib)
-    d_axes = tuple(a for a in mesh.axis_names if a == "data")
-    return DistConfig(mesh, d_axes if num_rows % mesh.axes_size(d_axes) == 0
-                      else (), expert_axis=expert_axis, placement=placement)
-
-
-# where each option the port does not carry yet is queued (ROADMAP.md §1)
-_NOT_CARRIED = {"fsdp_axis": "sharding (ROADMAP §1 item 9)"}
+    else:
+        d_axes = tuple(a for a in mesh.axis_names if a == "data")
+        dist = DistConfig(mesh, d_axes if num_rows % mesh.axes_size(d_axes)
+                          == 0 else (), expert_axis=expert_axis,
+                          placement=placement)
+    return dist if layout is None else dist.with_layout(layout)
 
 
 def _check_dist(dist: DistConfig) -> None:
-    """Refuse every option this slice does not carry."""
-    for field, item in _NOT_CARRIED.items():
-        if getattr(dist, field) != DistConfig._field_defaults[field]:
-            raise NotImplementedError(
-                f"DistConfig.{field}={getattr(dist, field)!r} is {item}, not "
-                f"ported to repro_torch yet")
+    """Refuse settings the layer cannot run."""
     pipeline.wire_torch_dtype(dist.wire_dtype)  # refuses an unknown name
     if dist.mesh is None:
         return
@@ -252,6 +269,22 @@ def _check_dist(dist: DistConfig) -> None:
     if dist.tp_axis not in (None, "data"):
         raise ValueError(f"expert-internal tensor parallelism shards the "
                          f"hidden dim over 'data', not {dist.tp_axis!r}")
+    if dist.fsdp_axis not in (None, "data"):
+        raise ValueError(f"the train layout shards the expert stacks' hidden "
+                         f"dim over 'data', not {dist.fsdp_axis!r}")
+
+
+def _fsdp_gather(experts: dict, dist: DistConfig, dtype) -> dict:
+    """Under ``fsdp_axis`` (and no ``tp_axis``, which wins): each expert
+    stack's hidden-dim shard cast to ``dtype`` and all-gathered over the
+    axis (``core.comm.gather_shard``: bf16 on the wire, the gradient
+    reduce-scattered in f32).  Otherwise the stacks as they are."""
+    if dist is None or dist.mesh is None or not dist.fsdp_axis or dist.tp_axis:
+        return experts
+    axes = (dist.fsdp_axis,)
+    return {k: comm.gather_shard(v, [(1 if k == "wo" else 2, axes)],
+                                 dist.mesh, dtype)
+            for k, v in experts.items()}
 
 
 def _check_placement(place, cfg: MoEConfig, dist: DistConfig) -> None:
@@ -336,7 +369,8 @@ def _expert_init(key: int, num: int, d: int, h: int, act: str, *, device,
     time, and its shard equals the whole stack's slice bit for bit."""
     ids = range(num)[experts]
     hid = range(h)[hidden]
-    gen = torch.Generator(device=device)
+    meta = torch.device(device).type == "meta"  # the dry run: shapes only
+    gen = None if meta else torch.Generator(device=device)
     p = {}
     for i, name in enumerate(_ffn_leaves(act)):
         wo = name == "wo"
@@ -344,7 +378,7 @@ def _expert_init(key: int, num: int, d: int, h: int, act: str, *, device,
         out = torch.empty((len(ids), len(hid), d) if wo
                           else (len(ids), d, len(hid)), dtype=dtype,
                           device=device)
-        for j, e in enumerate(ids):
+        for j, e in enumerate([] if meta else ids):
             gen.manual_seed(expert_seed(key, i, e))
             w = torch.randn(shape, generator=gen, device=device) * scale
             out[j] = w[hidden] if wo else w[:, hidden]
@@ -1265,7 +1299,8 @@ def fmoe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     expert_fn = EXPERT_FNS[impl]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
-    router, experts = params["router"], params["experts"]
+    router = params["router"]
+    experts = _fsdp_gather(params["experts"], dist, x.dtype)
     table = _route_table(place, l2p, x.device)
     if cfg.router not in EXPLORING:
         noise_seed = None  # every other router runs without a draw

@@ -105,6 +105,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def all_meta(*tensors) -> bool:
+    """Whether every tensor given (None skipped) is on the meta device: the
+    dry run's shapes, which a wrapper's meta branch takes (allocating what
+    its kernel allocates, computing nothing).  A mix of devices is not."""
+    ts = [t for t in tensors if t is not None]
+    return bool(ts) and all(t.device.type == "meta" for t in ts)
+
+
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Check what a kernel takes: CUDA, contiguous, one device."""
     dev = tensors[0].device

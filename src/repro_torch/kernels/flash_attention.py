@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"flash_attention_fwd": [_P] * 5 + [_I] * 12 + [_P],
@@ -164,8 +164,16 @@ def _kernel_args(what, q, k, v, window, q_offset, causal, *more):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int, q_offset: int = 0, causal: bool = True):
-    """(o (B, Sq, H, dv) in q's dtype, lse (B, H, Sq) f32)."""
+    """(o (B, Sq, H, dv) in q's dtype, lse (B, H, Sq) f32).  Meta tensors
+    (the dry run): the outputs allocated, the work entered in
+    ``kernels.cost``."""
     check_args(q, k, v, window=window, q_offset=q_offset)
+    if _build.all_meta(q, k, v):
+        B, Sq, H, dk = q.shape
+        cost.add("flash_attention_fwd", *_cost(q, k, v, window, q_offset,
+                                               causal, backward=False))
+        return (q.new_empty(B, Sq, H, v.shape[3]),
+                torch.empty(B, H, Sq, dtype=torch.float32, device=q.device))
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, window=window,
                                          q_offset=q_offset, causal=causal)
@@ -228,8 +236,19 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
     kv tile for dK, dV and its part of dQ into :func:`dq_scratch`; dq
     summed in kv-tile order and rounded from it (over ranges of kv tiles
     where the slots would exceed the budget) — bitwise reproducible.  f32:
-    delta; dK and dV per kv tile; dQ per q tile."""
+    delta; dK and dV per kv tile; dQ per q tile.  Meta tensors (the dry
+    run): the gradients, delta and the dQ scratch allocated, the work
+    entered in ``kernels.cost``."""
     check_args(q, k, v, window=window, q_offset=q_offset)
+    if _build.all_meta(q, k, v, o, lse, dout):
+        B, Sq, H, _ = q.shape
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+        scratch = (dq_scratch(q, k.shape[1]), dq_accumulator(q, k.shape[1]))
+        del delta, scratch
+        cost.add("flash_attention_bwd", *_cost(q, k, v, window, q_offset,
+                                               causal, backward=True))
+        return grads
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, window=window,
                                          q_offset=q_offset, causal=causal)
@@ -261,6 +280,13 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window: int,
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
+
+
+def _cost(q, k, v, window, q_offset, causal, *, backward):
+    B, Sq, H, dk = q.shape
+    return cost.flash(B, k.shape[1], H, k.shape[2], dk, v.shape[3],
+                      window, backward=backward, Sq=Sq, q_offset=q_offset,
+                      causal=causal, e=q.element_size())
 
 
 flash_attention_fwd.launches = 0

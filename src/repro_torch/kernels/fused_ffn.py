@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.grouped_gemm import rows_matmul
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -186,7 +186,11 @@ def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     ``plan_groups`` (0 = E): the rows and experts the hidden split is
     planned for (:func:`plan`'s ``split_rows`` and ``split_groups``).
     ``fused_ffn.launches`` counts every kernel launch,
-    ``fused_ffn_simple.launches`` the simple kernel's."""
+    ``fused_ffn_simple.launches`` the simple kernel's.  Meta tensors (the
+    dry run) allocate the output and the f32 hidden-split partials the
+    route's kernel would, and enter its work in ``kernels.cost``."""
+    if _build.all_meta(x, *ws, wo, group_sizes):
+        return _meta(x, ws, wo, group_sizes, plan_rows, plan_groups)
     if x.device.type == "cpu":
         return fused_ffn_plain(x, ws, wo, group_sizes, act)
     M, K, H, N, E = _check("fused_ffn", x, ws, wo, group_sizes, act)
@@ -207,6 +211,25 @@ def fused_ffn(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
                            p.splits, _build.stream_of(x))
         _build.check(lib, rc, "fused_ffn")
         fused_ffn.launches += 1
+    return y
+
+
+def _meta(x, ws, wo, group_sizes, plan_rows, plan_groups):
+    M, K = x.shape
+    E, _, H = ws[0].shape
+    N = wo.shape[2]
+    y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    if M and N:
+        splits = (plan(M, E, H, gated=len(ws) == 2, split_rows=plan_rows,
+                       split_groups=plan_groups).splits
+                  if route(x, ws, wo) == "ring"
+                  else simple_splits(plan_rows or M, plan_groups or E, H))
+        partial = torch.empty(splits, M, N, dtype=torch.float32,
+                              device=x.device)
+        del partial
+        cost.add("fused_ffn", *cost.fused_ffn(
+            M, K, H, N, E, *cost.groups_of(group_sizes, M), len(ws),
+            x.element_size()))
     return y
 
 

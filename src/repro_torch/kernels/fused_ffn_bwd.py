@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import fused_ffn as ff
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -239,7 +239,11 @@ def fused_ffn_bwd_dx(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     ``plan_groups`` (0 = E) pin the first version's (``fused_ffn.
     fused_ffn``'s arguments).
     ``fused_ffn_bwd_dx.launches`` counts every kernel launch,
-    ``fused_ffn_bwd_dx_simple.launches`` the first version's."""
+    ``fused_ffn_bwd_dx_simple.launches`` the first version's.  Meta
+    tensors (the dry run) allocate dX and the route's f32 split partials
+    and enter the kernel's work in ``kernels.cost``."""
+    if _build.all_meta(x, *ws, wo, dy, group_sizes):
+        return _meta_dx(x, ws, wo, dy, group_sizes, plan_rows, plan_groups)
     if x.device.type == "cpu":
         return fused_ffn_bwd_dx_plain(x, ws, wo, dy, group_sizes, act)
     M, K, H, N, E, _ = _check("fused_ffn_bwd_dx", x, ws, wo, dy, group_sizes,
@@ -296,7 +300,15 @@ def fused_ffn_bwd_dw(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
     """((dwi[, dwi_up]), dwo) in f32, shapes of ws and wo; same inputs as
     :func:`fused_ffn_bwd_dx`.  ``fused_ffn_bwd_dw.launches`` counts every
     kernel launch, ``fused_ffn_bwd_dw_simple.launches`` the first
-    version's."""
+    version's.  Meta tensors (the dry run): the f32 dW allocated, the work
+    entered in ``kernels.cost``."""
+    if _build.all_meta(x, *ws, wo, dy, group_sizes):
+        M, K = x.shape
+        E, _, H = ws[0].shape
+        cost.add("fused_ffn_bwd_dw", *cost.fused_ffn_bwd_dw(
+            M, K, H, wo.shape[2], E, *cost.groups_of(group_sizes, M),
+            len(ws), x.element_size()))
+        return _dw_outputs(x, ws, wo)
     if x.device.type == "cpu":
         return fused_ffn_bwd_dw_plain(x, ws, wo, dy, group_sizes, act)
     M, K, H, N, E, _ = _check("fused_ffn_bwd_dw", x, ws, wo, dy, group_sizes,
@@ -316,6 +328,22 @@ def fused_ffn_bwd_dw(x: torch.Tensor, ws: tuple, wo: torch.Tensor,
         _build.check(lib, rc, "fused_ffn_bwd_dw")
         fused_ffn_bwd_dw.launches += 1
     return dws, dwo
+
+
+def _meta_dx(x, ws, wo, dy, group_sizes, plan_rows, plan_groups):
+    M, K = x.shape
+    E, _, H = ws[0].shape
+    dx = torch.empty_like(x)
+    if M and K:
+        splits = (plan_bwd(M, E, H).splits if route(x, ws, wo, dy) == "ring"
+                  else ff.simple_splits(plan_rows or M, plan_groups or E, H))
+        partial = torch.empty(splits, M, K, dtype=torch.float32,
+                              device=x.device)
+        del partial
+        cost.add("fused_ffn_bwd_dx", *cost.fused_ffn_bwd_dx(
+            M, K, H, wo.shape[2], E, *cost.groups_of(group_sizes, M),
+            len(ws), x.element_size()))
+    return dx
 
 
 fused_ffn_bwd_dx.launches = 0

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"grouped_gemm": [_P, _P, _P, _P] + [_I] * 7 + [_P],
@@ -99,6 +99,11 @@ def grouped_dw_plain(x: torch.Tensor, dy: torch.Tensor,
     acc = torch.promote_types(x.dtype, torch.float32)
     dw = torch.zeros(num_groups, x.shape[1], dy.shape[1], dtype=acc,
                      device=x.device)
+    if _build.all_meta(x, dy, group_sizes):  # the dry run: even groups
+        M = x.shape[0]
+        cost.add("grouped_dw", *cost.grouped_dw(
+            M, x.shape[1], dy.shape[1], num_groups, M, x.element_size()))
+        return dw
     start = 0
     for e, size in enumerate(group_sizes.tolist()):
         end = min(start + size, x.shape[0])
@@ -145,7 +150,15 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                  trans_w: bool = False) -> torch.Tensor:
     """y[i] = x[i] @ w[g(i)]; x (M, K), w (E, K, N) — or (E, N, K) with
     ``trans_w``, read as its transpose —, group_sizes (E,) int32 summing to
-    <= M.  ``grouped_gemm.launches`` counts the ring kernel's launches."""
+    <= M.  ``grouped_gemm.launches`` counts the ring kernel's launches.
+    Meta tensors (the dry run) take the meta branch: the output allocated
+    and the work entered in ``kernels.cost``, nothing computed."""
+    if _build.all_meta(x, w, group_sizes):
+        M, K = x.shape
+        E, N = w.shape[0], (w.shape[1] if trans_w else w.shape[2])
+        cost.add("grouped_gemm", *cost.grouped_gemm(
+            M, K, N, E, *cost.groups_of(group_sizes, M), x.element_size()))
+        return torch.empty(M, N, dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, group_sizes, trans_w)
     M, K, N, E = _check("grouped_gemm", x, w, group_sizes, trans_w)

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
@@ -78,6 +78,11 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
     that ``by_source_fits`` then take the source-major kernel."""
     if slot_rows is not None and by_source_fits(x, slot_rows):
         return gather_rows_by_source(x, slot_rows)
+    if _build.all_meta(x, idx):  # the dry run: allocate, count, no compute
+        T, d = idx.shape[0], x.shape[1]
+        cost.add("gather_rows", *cost.gather_rows(
+            T, d, min(T, x.shape[0]), x.element_size()))
+        return torch.empty(T, d, dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
         return gather_rows_plain(x, idx)
     _build.require_cuda("gather_rows", x, idx)
@@ -102,6 +107,11 @@ def gather_rows_by_source(x: torch.Tensor,
     """y[slot_rows[t, j]] = x[t]; x (T, d) any dtype, slot_rows (T, k) int32
     a permutation of range(T * k) -> (T * k, d).  Each row of x is read
     once.  The kernel needs ``by_source_fits``."""
+    if _build.all_meta(x, slot_rows):  # the dry run: allocate and count
+        (T, d), k = x.shape, slot_rows.shape[1]
+        cost.add("gather_rows_by_source", *cost.gather_rows(
+            T * k, d, T, x.element_size()))
+        return torch.empty(T * k, d, dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
         return gather_rows_by_source_plain(x, slot_rows)
     _build.require_cuda("gather_rows_by_source", x, slot_rows)
@@ -129,8 +139,15 @@ def combine_topk(src: torch.Tensor, idx: torch.Tensor,
     """y[t] = sum_k w[t, k] * src[idx[t, k]] in f32, rounded to src's dtype.
 
     src (M, d) f32 or bf16; idx (T, k) int32; w (T, k) f32 or bf16, read as
-    stored and widened to f32 (exact), or None for weights of 1.
+    stored and widened to f32 (exact), or None for weights of 1.  Meta
+    tensors (the dry run): the output allocated, the work counted.
     """
+    if _build.all_meta(src, idx, w):
+        (T, k), d = idx.shape, src.shape[1]
+        cost.add("combine_topk", *cost.combine_topk(
+            T, k, d, min(src.shape[0], T * k), src.element_size(),
+            4 if w is None else w.element_size()))
+        return torch.empty(T, d, dtype=src.dtype, device=src.device)
     if src.device.type == "cpu":
         return combine_topk_plain(src, idx, w)
     _build.require_cuda("combine_topk", src, idx, *(() if w is None else (w,)))

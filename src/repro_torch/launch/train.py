@@ -18,9 +18,15 @@ Expert parallelism over a (data, model) mesh of ranks, one process each:
         --device cpu --reduced --dispatch ragged --impl fused \
         --overlap_chunks 2 --inter_bound 64   # two-level exchange
 
-(gloo on the CPU, NCCL with one card a rank on the GPU).  Each rank makes
-its own shard of the params from the seed (``lm.init_params(mesh=...)``):
-its model-axis shard of the expert stacks, everything else whole.  When
+(gloo on the CPU, NCCL with one card a rank on the GPU).  The params and
+AdamW moments are held in the reference's train layout
+(``launch/sharding``, the reference's ``jit_train_step``): each rank draws
+its shard of every leaf from the seed (``lm.init_params(layout=...)``):
+leaves FSDP-sharded over ``data`` on their embed dim and over ``model`` on
+heads, ffn and vocab, the routed expert stacks over the expert axes and
+their hidden dim over ``data``.  Each layer gathers its leaves at its
+entry (inside the remat region, so the recompute gathers again) and the
+gather's backward reduce-scatters the gradient.  When
 the batch's rows split over every rank, each rank takes its contiguous
 block of them and the MoE layers exchange tokens (a2a); otherwise the
 psum mode: the ranks of a model group share their data row's block (or,
@@ -101,13 +107,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
 from repro_torch.core.balance import MoEMetrics
 from repro_torch.core.dispatch import expert_capacity
-from repro_torch.core.fmoe import expert_seed, moe_dist
+from repro_torch.core import fmoe
+from repro_torch.core.fmoe import expert_seed
 from repro_torch.core.gate import EXPLORING, ROUTERS
 from repro_torch.core.monitor import LoadMonitor
 from repro_torch.core.sync import sync_grads
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
+from repro_torch.launch.sharding import make_layout
 from repro_torch.models import lm
 from repro_torch.obs import JsonlSink, StepStats
 from repro_torch.obs import events as obs_events
@@ -158,8 +166,10 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     given, gains the forward and backward seconds (``fwd_s``, ``bwd_s``),
     each taken after a device synchronize.  With ``dist``, ``batch`` holds
     this rank's rows and the loss and grads are the rank's own, unsynced
-    (``core.sync.sync_grads``).  ``router_seed``: ``lm.forward``'s."""
+    (``core.sync.sync_grads``), the params its shards under the train
+    layout (:func:`train_dist`).  ``router_seed``: ``lm.forward``'s."""
     dev = resolve(device)
+    dist = train_dist(cfg, dist)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -181,6 +191,25 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     return loss.detach(), aux, grads
 
 
+def train_dist(cfg: ModelConfig, dist):
+    """``dist`` for training: on a mesh the params and AdamW moments are
+    held in the train layout (``launch.sharding.make_layout(cfg, mesh,
+    "train")``, the reference's ``jit_train_step``), so a ``dist`` without
+    a layout takes it (``DistConfig.with_layout``); one with a layout, or
+    without a mesh, stays as it is."""
+    if dist is None or dist.mesh is None or dist.layout is not None:
+        return dist
+    return dist.with_layout(make_layout(cfg, dist.mesh, "train"))
+
+
+def moe_dist(cfg: ModelConfig, mesh, num_rows: int, *, layout=None,
+             **opts):
+    """``core.fmoe.moe_dist`` for training: under ``layout``, by default
+    the train layout of ``cfg`` on ``mesh`` (:func:`train_dist`)."""
+    return train_dist(cfg, fmoe.moe_dist(cfg, mesh, num_rows, layout=layout,
+                                         **opts))
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
                     num_microbatches: int = 1, warmup: int = 100,
                     total_steps: int = 10000, impl: str = "einsum",
@@ -191,17 +220,19 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dist=None,
     the optimizer state are updated in place.  The step also takes
     ``timings=``, a dict that gains ``fwd_s``, ``bwd_s`` and ``opt_s``.
 
-    ``dist`` (``moe_dist``) runs expert parallelism: every rank is given
-    the global batch and takes its rows over ``dist.token_axes``, its
-    params are its shard (``lm.init_params(mesh=...)``), the gradients are
-    synced as FastMoE does (``core.sync.sync_grads``) before AdamW, and the
-    metrics are the means over the ranks.
+    ``dist`` (:func:`moe_dist`) runs expert parallelism: every rank is
+    given the global batch and takes its rows over ``dist.token_axes``,
+    its params are its shards under the train layout (:func:`train_dist`;
+    ``lm.init_params(layout=dist.layout)``), the gradients are synced as
+    FastMoE does (``core.sync.sync_grads``) before AdamW, and the metrics
+    are the means over the ranks.
 
     The exploration routers (noisy_topk, gumbel) draw their noise from
     ``expert_seed(17, step, microbatch)`` (per layer from that,
     ``lm.forward``): deterministic and the same on a resumed run; every
     other router runs without a draw."""
     dev = resolve(device)
+    dist = train_dist(cfg, dist)
     mesh = dist.mesh if dist is not None else None
     explore = cfg.moe is not None and cfg.moe.router in EXPLORING
 
@@ -256,8 +287,9 @@ def build_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
 
     ``opts``: ``moe_dist``'s options (``overlap_chunks``, ``wire_dtype``,
     ``ragged_bound`` ("auto" calibrates from ``load_monitor``),
-    ``inter_bound``, ``expert_tp``, ``load_monitor``) and the step's
-    ``impl`` and ``device``.  Returns (step_fn, dist)."""
+    ``inter_bound``, ``expert_tp``, ``load_monitor``, ``layout``: the
+    params' ``launch.sharding.Layout``, by default the train layout) and
+    the step's ``impl`` and ``device``.  Returns (step_fn, dist)."""
     opts = dict(opts or {})
     impl = opts.pop("impl", "einsum")
     device = opts.pop("device", "cuda")
@@ -305,12 +337,14 @@ class ReplanHook:
         self.global_batch, self.seq_len = global_batch, seq_len
         self.num_microbatches = num_microbatches
         self.opts = opts if opts is not None else {}
+        # every rebuild holds the params in one layout
+        self.opts.setdefault("layout", make_layout(cfg, mesh, "train"))
         self.per_layer = per_layer
         moe = cfg.moe
         # as the reference's: the hook replans only in the a2a mode (the
         # psum mode runs a given plan; serving replans it,
         # launch/scheduler.ServeReplanHook)
-        probe = moe_dist(cfg, mesh, global_batch)
+        probe = fmoe.moe_dist(cfg, mesh, global_batch)
         self.enabled = probe is not None and probe.mode == "a2a"
         ranks = probe.expert_parallelism if self.enabled else 1
         # the tokens one gate sees: the rank's rows of a microbatch
@@ -587,7 +621,8 @@ def _train(args, dev: torch.device, mesh, sink) -> None:
         opts.update(overlap_chunks=args.overlap_chunks,
                     wire_dtype=args.wire_dtype or None,
                     ragged_bound=rb if rb == "auto" else int(rb),
-                    inter_bound=args.inter_bound)
+                    inter_bound=args.inter_bound,
+                    layout=make_layout(cfg, mesh, "train"))
         if args.replan_every and cfg.moe is not None:
             hook = ReplanHook(cfg, opt, mesh, args.batch, args.seq,
                               every=args.replan_every,
@@ -619,10 +654,10 @@ def _train(args, dev: torch.device, mesh, sink) -> None:
                          f" experts do not split over the expert axes of "
                          f"{args.mesh}, and data parallelism without "
                          f"experts is not ported")
-    # each rank makes its own shard from the seed
+    # each rank makes its own shard of the train layout from the seed
+    layout = opts.get("layout")
     params = lm.init_params(cfg, seed=args.seed, device=dev,
-                            param_dtype=cfg.param_dtype, mesh=mesh,
-                            expert_tp=dist is not None and dist.expert_tp)
+                            param_dtype=cfg.param_dtype, layout=layout)
     if lead and dist is not None:
         auto = (f", ragged bound {dist.ragged_bound}"
                 if args.ragged_bound == "auto" else "")
@@ -635,8 +670,7 @@ def _train(args, dev: torch.device, mesh, sink) -> None:
     if args.ckpt_dir:
         manager = CheckpointManager(
             args.ckpt_dir, save_every=args.save_every, keep=args.keep_ckpts,
-            sink=sink, mesh=mesh,
-            expert_tp=dist is not None and dist.expert_tp)
+            sink=sink, layout=layout)
     start_step = 0
     if args.resume and manager is not None:
         # checkpoints are in logical order and a fresh run starts on the

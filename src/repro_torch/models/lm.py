@@ -4,7 +4,8 @@ package (dense and moe with GQA or MLA attention, ssm (rwkv6), hybrid
 vlm (internvl2: patch embeddings prepended to the text)).
 
 Public API:
-  init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=) -> params
+  init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=, layout=)
+                                                   -> params
   encode(params, cfg, frames)                      -> encoder output (audio)
   forward(params, cfg, tokens, impl=, device=, dist=, router_seed=,
           layer_loads=, frames=, patches=)         -> (logits, MoEMetrics[,
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core import dispatch as D
 from repro_torch.core.balance import MoEMetrics
 from repro_torch.core.fmoe import dense_ffn, expert_seed
@@ -77,9 +79,35 @@ def cast_params(p, dtype):
     return p.to(dtype) if p.is_floating_point() else p
 
 
+def use_params(p, dtype, dist, prefix: str):
+    """The params of one use (a layer, the embedding, the head) as the
+    computation takes them: without a layout, ``p`` cast to ``dtype``
+    (None: as it is); under the train layout (``dist.layout``) each leaf's
+    shard cast, then all-gathered over its spec's axes
+    (``core.comm.gather_shard``).  The routed expert stacks stay shards
+    (expert parallelism); under ``fsdp_axis`` they pass uncast, since the
+    MoE layer casts and gathers their hidden dim itself.  ``prefix``: the
+    tree path of ``p`` (``layers/3``), which names each leaf's spec."""
+    layout = None if dist is None else dist.layout
+    if layout is None:
+        return p if dtype is None else cast_params(p, dtype)
+    fsdp = bool(dist.fsdp_axis) and not dist.tp_axis
+
+    def go(t, path):
+        if isinstance(t, dict):
+            return {k: go(v, f"{path}/{k}") for k, v in t.items()}
+        if not t.is_floating_point():
+            return t
+        if "experts" in path.split("/"):
+            return t if fsdp or dtype is None else t.to(dtype)
+        return comm.gather_shard(t, layout.gather_dims(path), layout.mesh,
+                                 dtype)
+    return go(p, prefix)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 param_dtype: str | None = None, mesh=None,
-                expert_tp: bool = False) -> dict:
+                expert_tp: bool = False, layout=None) -> dict:
     """Random params from ``seed`` (the JAX package's distributions and
     scales; torch generators, so not its numbers).  Layers are made one at
     a time, each weight drawn in f32 and stored in ``param_dtype`` (a routed
@@ -93,33 +121,64 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``launch.mesh.Mesh``; shape and rank suffice, no process group) a rank
     makes only its shard, its experts one at a time, and that shard equals
     ``interop.shard_params(init_params(...), mesh, expert_tp=expert_tp)``
-    of the whole bit for bit."""
+    of the whole bit for bit.
+
+    ``layout`` (a ``launch.sharding.Layout`` over a mesh with a rank: the
+    train layout) draws every leaf's shard under its spec: the expert
+    stacks as above (their hidden dim over ``data`` where the spec says
+    so), every other leaf drawn whole, one at a time, and cut.  The result
+    equals ``launch.sharding.shard_tree`` of the whole draw bit for bit."""
     dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    if layout is not None:
+        mesh = layout.mesh
+        expert_tp = "data" in layout.expert_hidden_axes()
+    # the meta device (the dry run) draws nothing: a CPU generator stands in
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu"
+                          ).manual_seed(seed)
     dtype = getattr(torch, param_dtype or cfg.dtype)
     shard = (slice(None), slice(None))
     if mesh is not None and cfg.moe is not None:
         shard = mesh.expert_shard(cfg.moe.num_experts, cfg.moe.d_expert_hidden,
                                   tp=expert_tp)
+    def cut(tree, path):  # a layer at a time: no whole layer outlives it
+        return tree if layout is None else _cut(tree, layout, path)
+
     p = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
-        "layers": [cast_params(B.layer_init(
+        "embed": cut(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
+                     "embed"),
+        "layers": [cut(cast_params(B.layer_init(
             gen, cfg, device=dev, dtype=dtype,
             expert_key=expert_seed(seed, layer), shard=shard,
-            cross=cfg.family == "audio"), dtype)
+            cross=cfg.family == "audio"), dtype), f"layers/{layer}")
             for layer in range(cfg.num_layers)],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, device=dev)
+        p["lm_head"] = cut(linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                       device=dev), "lm_head")
     if cfg.encoder is not None:
         L = cfg.num_layers
-        p["enc_layers"] = [cast_params(B.layer_init(
+        p["enc_layers"] = [cut(cast_params(B.layer_init(
             gen, cfg, device=dev, dtype=dtype,
-            expert_key=expert_seed(seed, L + layer), shard=shard), dtype)
+            expert_key=expert_seed(seed, L + layer), shard=shard), dtype),
+            f"enc_layers/{layer}")
             for layer in range(cfg.encoder.num_layers)]
         p["enc_norm"] = norm_init(cfg.d_model, cfg.norm, device=dev)
     return p
+
+
+def _cut(tree, layout, path: str):
+    """Every leaf but the (already sharded) expert stacks cut to the
+    layout's rank's block by its spec."""
+    from repro_torch.launch.sharding import shard_leaf
+    if isinstance(tree, dict):
+        return {k: _cut(v, layout, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cut(v, layout, f"{path}/{i}") for i, v in enumerate(tree)]
+    if "experts" in path.split("/"):
+        return tree
+    return shard_leaf(tree, layout.spec(path), layout.mesh, layout.mesh.rank)
 
 
 def _inputs(params: dict, tokens, device) -> torch.Tensor:
@@ -130,10 +189,12 @@ def _inputs(params: dict, tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=where)
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            dist=None) -> torch.Tensor:
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
-    return linear(params["lm_head"], x.float())
+    return linear(use_params(params["lm_head"], None, dist, "lm_head"),
+                  x.float())
 
 
 def _accumulate(metrics, m):
@@ -146,17 +207,19 @@ def _n_experts(cfg: ModelConfig) -> int:
 
 def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
                impl: str, dist, noise_seed=None, l2p=None, enc_out=None,
-               state0=None):
+               state0=None, layer: int = 0):
     dtype = getattr(torch, cfg.dtype)
-    x, m = B.layer_apply_seq(cast_params(p_l, dtype), cfg, x, window=window,
+    p_l = use_params(p_l, dtype, dist, f"layers/{layer}")
+    x, m = B.layer_apply_seq(p_l, cfg, x, window=window,
                              impl=impl, dist=dist, noise_seed=noise_seed,
                              l2p=l2p, enc_out=enc_out, mixer_state=state0)
     return x.to(dtype), m
 
 
-def _enc_layer(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _enc_layer(p_l: dict, cfg: ModelConfig, x: torch.Tensor, dist=None,
+               layer: int = 0) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    p_l = cast_params(p_l, dtype)
+    p_l = use_params(p_l, dtype, dist, f"enc_layers/{layer}")
     h = A.gqa_apply(p_l["attn"], apply_norm(p_l["norm1"], x, cfg.norm),
                     cfg.attention, window=B.FULL_WINDOW, causal=False)
     x = x + h
@@ -164,19 +227,20 @@ def _enc_layer(p_l: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x + h).to(dtype)
 
 
-def encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frames, dist=None) -> torch.Tensor:
     """frames (B, F, d_model): the stubbed conv frontend's embeddings ->
     the encoder output (B, F, d_model) in ``cfg.dtype``: the
     bidirectional stack (non-causal attention without RoPE, dense FFN)
     and its final norm.  Under remat each layer is recomputed in the
-    backward, as :func:`forward`'s."""
+    backward, as :func:`forward`'s; under the train layout (``dist``)
+    each layer gathers its leaves inside that region."""
     dtype = getattr(torch, cfg.dtype)
     x = torch.as_tensor(frames, device=params["embed"]["table"].device
                         ).to(dtype)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for p_l in params["enc_layers"]:
-        x = (checkpoint(_enc_layer, p_l, cfg, x, use_reentrant=False)
-             if remat else _enc_layer(p_l, cfg, x))
+    for i, p_l in enumerate(params["enc_layers"]):
+        x = (checkpoint(_enc_layer, p_l, cfg, x, dist, i, use_reentrant=False)
+             if remat else _enc_layer(p_l, cfg, x, dist, i))
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
@@ -222,8 +286,14 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
     integer, never a stateful generator, enters the checkpoint).  None
     routes deterministically, the eval and serving stance."""
     tokens = _inputs(params, tokens, device)
+    if dist is not None and dist.layout is not None:
+        # the train layout: the embedding gathered once, for the lookup
+        # and (tied) the head
+        params = {**params, "embed": use_params(params["embed"], None, dist,
+                                                "embed")}
     x = _embed(params, cfg, tokens, patches)
-    enc_out = encode(params, cfg, frames) if cfg.family == "audio" else None
+    enc_out = (encode(params, cfg, frames, dist) if cfg.family == "audio"
+               else None)
     state0 = B.mixer_state(cfg, x.shape[0], x.dtype, device=x.device)
     dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
@@ -235,15 +305,16 @@ def forward(params: dict, cfg: ModelConfig, tokens, *, impl: str = "einsum",
         l2p = None if tables is None else tables[layer]
         if remat:
             x, m = checkpoint(_layer_seq, p_l, cfg, x, window, impl, dist,
-                              seed, l2p, enc_out, state0, use_reentrant=False)
+                              seed, l2p, enc_out, state0, layer,
+                              use_reentrant=False)
         else:
             x, m = _layer_seq(p_l, cfg, x, window, impl, dist, seed, l2p,
-                              enc_out, state0)
+                              enc_out, state0, layer)
         metrics = _accumulate(metrics, m)
         if m is not None:
             loads.append(m.load.detach())
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, dist)
     if not layer_loads:
         return logits, metrics
     if not loads:

@@ -24,9 +24,10 @@ from __future__ import annotations
 import json
 from typing import NamedTuple, Optional
 
-HBM_BW = 3.35e12  # B/s, H100 SXM5 HBM3 (datasheet)
-PEAK_FLOPS = 989e12  # flop/s, H100 SXM5 dense bf16 (datasheet)
-ICI_BW = 450e9  # B/s each way, H100 SXM5 NVLink 4 (datasheet: 900 GB/s both)
+H100_SXM5_HBM_BW = 3.35e12  # B/s, HBM3 (datasheet)
+H100_SXM5_BF16_FLOPS = 989e12  # flop/s, dense bf16 tensor cores (datasheet)
+H100_SXM5_NVLINK_BW = 450e9  # B/s each way, NVLink 4 (datasheet: 900 both)
+H100_SXM5_HBM_BYTES = 80e9  # device memory (datasheet: 80 GB)
 DEFAULT_SOURCE = "h100-sxm-datasheet"
 
 # sanity clamps: outside these a "measurement" is an artifact
@@ -41,9 +42,9 @@ _REAL_BACKENDS = ("tpu", "gpu")
 class CostConstants(NamedTuple):
     """Hardware constants the placement cost model prices plans with."""
 
-    ici_bw: float = ICI_BW  # bytes/s across the expert-parallel wire
-    hbm_bw: float = HBM_BW  # bytes/s per card
-    peak_flops: float = PEAK_FLOPS  # flop/s per card
+    ici_bw: float = H100_SXM5_NVLINK_BW  # bytes/s, the expert-parallel wire
+    hbm_bw: float = H100_SXM5_HBM_BW  # bytes/s per card
+    peak_flops: float = H100_SXM5_BF16_FLOPS  # flop/s per card
     source: str = DEFAULT_SOURCE  # provenance, for logs
 
 
@@ -53,7 +54,7 @@ def calibrate_constants(results: dict, *,
     back field by field to the defaults where a measurement is absent or
     non-informative."""
     srcs = []
-    ici = ICI_BW
+    ici = H100_SXM5_NVLINK_BW
     for row in results.get("fig8", []):
         if row.get("backend") not in _REAL_BACKENDS:
             continue  # a fake-device memcpy time is not a wire measurement
@@ -68,7 +69,7 @@ def calibrate_constants(results: dict, *,
             ici = bw
             srcs.append("fig8")
             break
-    flops = PEAK_FLOPS
+    flops = H100_SXM5_BF16_FLOPS
     fig3 = [r.get("gflops", 0.0) for r in results.get("fig3", [])
             if r.get("backend") in _REAL_BACKENDS]
     if fig3:
@@ -76,7 +77,7 @@ def calibrate_constants(results: dict, *,
         if _FLOPS_MIN <= best <= _FLOPS_MAX:
             flops = best
             srcs.append("fig3")
-    return CostConstants(ici, HBM_BW, flops,
+    return CostConstants(ici, H100_SXM5_HBM_BW, flops,
                          "measured:" + "+".join(srcs) if srcs
                          else DEFAULT_SOURCE)
 

@@ -11,8 +11,9 @@ restore (the JAX package's ``repro/resilience/recovery.py``).
   returns the first that passes full verification: a corrupt newest
   checkpoint is *skipped with an obs event*, not fatal.
 
-On a mesh (``mesh=``) every rank calls the manager alike; rank 0 writes
-and collects (``checkpoint.ckpt``).  Events: ``ckpt_save``, ``ckpt_gc``,
+On a mesh (``layout=``, the params' ``launch.sharding.Layout``) every
+rank calls the manager alike; rank 0 writes and collects
+(``checkpoint.ckpt``).  Events: ``ckpt_save``, ``ckpt_gc``,
 ``ckpt_corrupt``, ``resume``.
 """
 from __future__ import annotations
@@ -26,13 +27,13 @@ from repro_torch.obs import events as obs_events
 
 class CheckpointManager:
     def __init__(self, root: str, *, save_every: int = 0, keep: int = 3,
-                 sink=None, mesh=None, expert_tp: bool = False):
+                 sink=None, layout=None):
         self.root = root
         self.save_every = int(save_every)
         self.keep = max(1, int(keep))
         self.sink = sink
-        self.mesh, self.expert_tp = mesh, expert_tp
-        self.lead = mesh is None or mesh.rank == 0
+        self.layout = layout
+        self.lead = layout is None or layout.mesh.rank == 0
         self._last_saved: Optional[int] = None
         if self.lead:
             os.makedirs(root, exist_ok=True)
@@ -54,8 +55,8 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, *, placement=None) -> str:
         path = self.step_dir(step)
-        ckpt.save(path, tree, step=step, placement=placement, mesh=self.mesh,
-                  expert_tp=self.expert_tp)
+        ckpt.save(path, tree, step=step, placement=placement,
+                  layout=self.layout)
         self._last_saved = step
         obs_events.emit(self.sink, obs_events.CKPT_SAVE, step=step, path=path)
         removed = (ckpt.gc_checkpoints(self.root, keep=self.keep)
@@ -73,8 +74,7 @@ class CheckpointManager:
         for step, path in reversed(ckpt.complete_steps(self.root)):
             try:
                 tree = ckpt.restore(path, like, placement=placement,
-                                    mesh=self.mesh, expert_tp=self.expert_tp,
-                                    inplace=inplace)
+                                    layout=self.layout, inplace=inplace)
             except (ckpt.CheckpointError, OSError) as e:
                 obs_events.emit(self.sink, obs_events.CKPT_CORRUPT, step=step,
                                 path=path, error=str(e))

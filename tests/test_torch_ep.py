@@ -21,8 +21,9 @@ holds the results to the JAX package:
 * *forced drops* (2x2): a ragged bound that drops rows, against the JAX
   package's distributed layer (same mesh, same bound): ``y`` and
   ``drop_frac``;
-* *model* (1x2, 2x2): reduced ``fastmoe-gpt`` with ``remat="full"``, the
-  step-0 loss, aux and z loss, every gradient leaf after ``sync_grads``,
+* *model* (1x2, 2x2): reduced ``fastmoe-gpt`` with ``remat="full"``, its
+  params in the train layout (``launch/sharding``), the step-0 loss, aux
+  and z loss, every gradient leaf after ``sync_grads`` (the rank's block),
   the global grad norm, and two train steps' losses against the JAX
   package's distributed ``lm.loss_fn`` under the same ``DistConfig`` on
   fake CPU devices (``tests/dist_utils.run``) at 1e-4 (of the leaf's
@@ -30,8 +31,8 @@ holds the results to the JAX package:
   per-shard losses and capacity drops are decided per rank, so the
   single-rank model is not the counterpart: a2a (``("data", "model")``)
   and the psum mode (``()`` on 1x2, ``("data",)`` on 2x2); and the sync
-  semantics: ``world`` leaves equal on every rank, expert leaves equal
-  within a data group and different across model ranks;
+  semantics: every leaf equal on the ranks that hold the same block of it,
+  expert leaves different between blocks;
 * *tensor parallelism* (2x2, capacity, ``tp_axis="data"``): the layer for
   each impl (``y``, ``load``, the gradients of ``sum(y * r)``, each rank
   its hidden slice of its experts) against the JAX package's layer with
@@ -84,7 +85,8 @@ holds the results to the JAX package:
   (``core.comm``) of a layer's forward and backward the same with the
   counters on and off (1x2, 2x2, 1x4); the ReplanHook's sink trail
   (monitor snapshots, the replan, the rollback verdict); a checkpoint
-  saved on 1x2 under a per-layer plan with shadowed experts restored at
+  saved on 1x2 in the train layout under a per-layer plan with shadowed
+  experts restored at
   1x1 by both packages to the unplaced params, bit for bit;
 * refusals of what the slice does not carry (ragged dispatch with tp
   among them), and the ``torchrun`` CLIs of training (a2a, and the psum
@@ -216,6 +218,19 @@ def _layer_inputs(job, mesh):
     return x, r, whole, slice(mesh.rank * t, (mesh.rank + 1) * t)
 
 
+def _layer_layout(params, dist):
+    """The lone layer's layout as :func:`_layer_run` holds its params: the
+    router whole, each expert stack its expert rows over the expert axes
+    (under expert-internal TP its hidden units over data too)."""
+    from repro_torch.launch.sharding import Layout
+    ea, hidden = dist.expert_axis, "data" if dist.expert_tp else None
+    specs = {f"router/{k}": (None,) * v.ndim
+             for k, v in params["router"].items()}
+    specs.update({f"experts/{k}": (ea, hidden, None) if k == "wo"
+                  else (ea, None, hidden) for k in params["experts"]})
+    return Layout(dist.mesh, specs)
+
+
 def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
                grads=True, router="topk", noise_seed=None, l2p=None):
     """y, load, drop_frac and the synced gradients of sum(y * r) over the
@@ -243,7 +258,7 @@ def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
     nr = len(p["router"])
     tree = {"router": dict(zip(p["router"], g[:nr])),
             "experts": dict(zip(p["experts"], g[nr:-1]))}
-    sync_grads(tree, dist)
+    sync_grads(tree, dist._replace(layout=_layer_layout(params, dist)))
     for k, v in _flatten(tree).items():
         out[f"{key}/grad/{k}"] = v
     out[f"{key}/grad/x"] = g[-1]
@@ -480,7 +495,7 @@ def _hook_run(mesh, out):
                             opts=dict(impl="einsum", device="cpu"), sink=sink)
     hook.controller.min_gain = -10.0
     params = lm.init_params(cfg, device="cpu", param_dtype="float32",
-                            mesh=mesh)
+                            layout=hook.opts["layout"])
     state = opt.init(params)
     step_fn = hook.build()
     skew = 1.0 / (np.arange(cfg.moe.num_experts) + 1) ** 1.5
@@ -613,17 +628,18 @@ def _comm_input():
 
 
 def _model_run(key, params_np, cfg, dist, impl, out):
-    """Reduced fastmoe-gpt under ``dist`` from the JAX params: the step-0
-    loss, aux, every synced gradient leaf and the grad norm, then two
-    train steps' losses."""
+    """Reduced fastmoe-gpt under ``dist`` and the train layout from the
+    JAX params: the step-0 loss, aux, every synced gradient leaf (the
+    rank's shard) and the grad norm, then two train steps' losses."""
     from repro_torch import interop
     from repro_torch.core.sync import sync_grads
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import global_norm
 
-    params = interop.from_jax(params_np, cfg, device="cpu", mesh=dist.mesh,
-                              expert_tp=dist.expert_tp)
+    dist = train.train_dist(cfg, dist)
+    params = interop.from_jax(params_np, cfg, device="cpu",
+                              layout=dist.layout)
     if dist.placement is not None:  # the identity shards -> the plan's
         from repro_torch import placement as TP
         TP.from_logical(params, dist.placement, mesh=dist.mesh)
@@ -682,24 +698,27 @@ def _model_task(spec, job, mesh, out):
 
 
 def _placed_checkpoint(params_np, job, mesh, out):
-    """The reduced model's params sharded over the mesh and laid out under
-    the serving cell's per-layer plan (two shadowed experts), saved with
-    the plan and the mesh: rank 0 writes the whole logical-order tree."""
+    """The reduced model's params in the train layout over the mesh and
+    laid out under the serving cell's per-layer plan (two shadowed
+    experts), saved with the plan and the layout: rank 0 writes the whole
+    logical-order tree."""
     from repro_torch import interop
     from repro_torch import placement as TP
     from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.sharding import make_layout
 
     cfg = _model_cfg("ragged")
     plan = _serve_plan(mesh.shape["model"])
-    params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+    layout = make_layout(cfg, mesh)
+    params = interop.from_jax(params_np, cfg, device="cpu", layout=layout)
     TP.from_logical(params, plan, mesh=mesh)
     ckpt.save(str(job / "ckpt_placed"), {"params": params}, step=3,
-              placement=plan, mesh=mesh)
+              placement=plan, layout=layout)
     # every rank restores its shard of it, in the plan's physical order
     from repro_torch.optim.adamw import tree_leaves, tree_map
     back = ckpt.restore(str(job / "ckpt_placed"),
                         {"params": tree_map(torch.zeros_like, params)},
-                        placement=plan, mesh=mesh)["params"]
+                        placement=plan, layout=layout)["params"]
     out["ckpt/restored_shard_equal"] = np.asarray(all(
         torch.equal(a, b) for a, b in zip(tree_leaves(back),
                                           tree_leaves(params))))
@@ -732,8 +751,8 @@ def _bit_equal_task(spec, job, mesh, out):
             for name, d in dists.items():
                 params = lm.init_params(
                     cfg, seed=0, device="cpu", param_dtype=cfg.param_dtype,
-                    mesh=None if d is None else mesh,
-                    expert_tp=d is not None and d.expert_tp)
+                    layout=None if d is None
+                    else train.train_dist(cfg, d).layout)
                 loss, _, grads = train.loss_and_grads(
                     params, cfg, batch, impl=impl, device="cpu", dist=d)
                 opt = AdamW(lr=LR)
@@ -791,7 +810,8 @@ def _zoo_bit_equal(cfg, mesh, dispatch, out):
         for name, d in dists.items():
             params = lm.init_params(rcfg, seed=0, device="cpu",
                                     param_dtype=rcfg.param_dtype,
-                                    mesh=None if d is None else mesh)
+                                    layout=None if d is None
+                                    else train.train_dist(rcfg, d).layout)
             opt = AdamW(lr=LR)
             step_fn = train.make_train_step(rcfg, opt, dist=d, impl="fused",
                                             device="cpu")
@@ -1533,14 +1553,14 @@ def test_forced_drops_match_jax_distributed(ep):
                                    ref["drops/load"], rtol=1e-6)
 
 
-def _expert_slice(want, path, rank, mesh, tp=False, lead=0):
-    """The rank's shard of a whole expert leaf (``lead`` dims before the
-    expert dim): its experts, and under ``tp`` its hidden slice (``wi*``
-    the last dim, ``wo`` the one before it)."""
+def _expert_slice(want, path, rank, mesh, tp=False):
+    """The rank's shard of a whole expert leaf: its experts, and under
+    ``tp`` its hidden slice (``wi*`` the last dim, ``wo`` the one before
+    it)."""
     data, model = mesh
     d, m = divmod(rank, model)
-    e = want.shape[lead] // model
-    want = want[(slice(None),) * lead + (slice(m * e, (m + 1) * e),)]
+    e = want.shape[0] // model
+    want = want[m * e:(m + 1) * e]
     if tp:
         dim = want.ndim - (2 if path.endswith("wo") else 1)
         h = want.shape[dim] // data
@@ -1548,10 +1568,62 @@ def _expert_slice(want, path, rank, mesh, tp=False, lead=0):
     return want
 
 
-def _assert_model(name, ranks, ref, key, ref_key=None, tp=False):
+_TRAIN_LAYOUTS: dict = {}
+
+
+def _train_layout(name):
+    """(the reduced model's train layout, its shape-only mesh) on mesh
+    ``name``: what every rank's params and gradients are shards of."""
+    if name not in _TRAIN_LAYOUTS:
+        from repro_torch.launch.sharding import ShapeMesh, make_layout
+        data, model = MESHES[name]
+        mesh = ShapeMesh.of(data=data, model=model)
+        _TRAIN_LAYOUTS[name] = (make_layout(_model_cfg("capacity"), mesh),
+                                mesh)
+    return _TRAIN_LAYOUTS[name]
+
+
+def _stacked_spec(layout, path):
+    """The spec of a JAX-tree path (``layers/...`` stacked on L)."""
+    parts = path.split("/")
+    if parts[0] != "layers":
+        return layout.spec(path)
+    return (None, *layout.spec("/".join(["layers", "0", *parts[1:]])))
+
+
+def _rank_shard(want, path, rank, name):
+    """The rank's block of a whole JAX-tree leaf under the train layout."""
+    from repro_torch.launch.sharding import shard_leaf
+    layout, mesh = _train_layout(name)
+    return shard_leaf(torch.from_numpy(np.asarray(want)),
+                      _stacked_spec(layout, path), mesh, rank).numpy()
+
+
+def _assert_blocks_synced(grads, name, key):
+    """After sync_grads each gradient leaf is bit-identical on the ranks
+    that hold the same block of it under the train layout (it is
+    replicated over the rest of the mesh), and an expert leaf differs
+    between blocks."""
+    from repro_torch.launch.sharding import entry_index, sharded_dims
+    layout, mesh = _train_layout(name)
+    for path in grads[0]:
+        spec = _stacked_spec(layout, path)
+        blocks = [tuple(entry_index(e, mesh, r) for _, e in
+                        sharded_dims(spec)) for r in range(len(grads))]
+        for rank, g in enumerate(grads):
+            first = blocks.index(blocks[rank])
+            if first < rank:
+                np.testing.assert_array_equal(g[path], grads[first][path],
+                                              f"{key} {path}")
+            elif rank and "/experts/" in path:
+                assert not np.allclose(g[path], grads[0][path]), (key, path)
+
+
+def _assert_model(name, ranks, ref, key, ref_key=None):
     """Every rank's step-0 loss, aux and z loss, drop fraction, load, every
-    synced gradient leaf (expert leaves held to the rank's shard), and the
-    losses of two AdamW steps against the JAX package's."""
+    synced gradient leaf (held to the rank's block of the whole under the
+    train layout), and the losses of two AdamW steps against the JAX
+    package's."""
     ref_key = ref_key or key
     for rank, r in enumerate(ranks):
         for k in ("loss", "aux_loss", "z_loss", "drop_frac", "losses"):
@@ -1563,9 +1635,7 @@ def _assert_model(name, ranks, ref, key, ref_key=None, tp=False):
         jgrads = _sub(ref, f"{ref_key}/grad")
         assert grads.keys() == jgrads.keys()
         for path, g in grads.items():
-            want = jgrads[path]
-            if "/experts/" in path:  # (L, E_local, ...) of (L, E, ...)
-                want = _expert_slice(want, path, rank, MESHES[name], tp, 1)
+            want = _rank_shard(jgrads[path], path, rank, name)
             _close_to_scale(g, want, 1e-4, f"{name} {key} rank {rank} {path}")
 
 
@@ -1598,7 +1668,7 @@ def test_tp_model_matches_jax_distributed(ep, impl):
     the JAX package's distributed loss_fn with the same tp_axis (its
     einsum experts)."""
     _assert_model("2x2", _ranks(ep, "2x2"), _jax_dist_result(ep, "2x2"),
-                  f"tp_model/{impl}", "tp_model", tp=True)
+                  f"tp_model/{impl}", "tp_model")
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -1634,25 +1704,15 @@ def test_tp_layer_matches_jax(ep, impl):
 
 @pytest.mark.parametrize("name", ["1x2", "2x2"])
 def test_sync_semantics_and_grad_norm(ep, name):
-    """After sync_grads: world leaves identical on every rank, expert
-    leaves identical within a data group and different across model ranks;
-    the global grad norm equals JAX's."""
+    """After sync_grads under the train layout: every leaf identical on
+    the ranks holding the same block of it, expert leaves different
+    between blocks; the global grad norm equals JAX's."""
     ranks = _ranks(ep, name)
     ref = _jax_dist_result(ep, name)
-    model = MESHES[name][1]
     for dispatch in DISPATCHES:
         key = f"model/{dispatch}"
-        grads = [_sub(r, f"{key}/grad") for r in ranks]
-        for path in grads[0]:
-            if "/experts/" not in path:
-                for g in grads[1:]:
-                    np.testing.assert_array_equal(g[path], grads[0][path], path)
-                continue
-            for rank, g in enumerate(grads):
-                peer = (rank + model) % len(ranks)  # same m, next data index
-                np.testing.assert_array_equal(g[path], grads[peer][path], path)
-                other = rank - rank % model + (rank + 1) % model
-                assert not np.allclose(g[path], grads[other][path]), path
+        _assert_blocks_synced([_sub(r, f"{key}/grad") for r in ranks], name,
+                              key)
         for r in ranks:
             np.testing.assert_allclose(r[f"{key}/grad_norm"],
                                        ref[f"{key}/grad_norm"], rtol=1e-5)
@@ -1660,24 +1720,15 @@ def test_sync_semantics_and_grad_norm(ep, name):
 
 @pytest.mark.parametrize("name", ["1x2", "2x2"])
 def test_psum_sync_semantics_and_grad_norm(ep, name):
-    """The psum mode after sync_grads: world leaves identical on every
-    rank, expert leaves identical within a data group and different across
-    model ranks; the global grad norm equals JAX's."""
+    """The psum mode after sync_grads under the train layout: every leaf
+    identical on the ranks holding the same block of it, expert leaves
+    different between blocks; the global grad norm equals JAX's."""
     ranks = _ranks(ep, name)
     ref = _jax_dist_result(ep, name)
-    model = MESHES[name][1]
     for dispatch in DISPATCHES:
         key = f"psum_model/{dispatch}"
-        grads = [_sub(r, f"{key}/grad") for r in ranks]
-        for path in grads[0]:
-            for rank, g in enumerate(grads):
-                if "/experts/" not in path:
-                    np.testing.assert_array_equal(g[path], grads[0][path], path)
-                    continue
-                peer = (rank + model) % len(ranks)  # same m, next data index
-                np.testing.assert_array_equal(g[path], grads[peer][path], path)
-                other = rank - rank % model + (rank + 1) % model
-                assert not np.allclose(g[path], grads[other][path]), path
+        _assert_blocks_synced([_sub(r, f"{key}/grad") for r in ranks], name,
+                              key)
         for r in ranks:
             np.testing.assert_allclose(r[f"{key}/grad_norm"],
                                        ref[f"{key}/grad_norm"], rtol=1e-5)
@@ -1686,20 +1737,15 @@ def test_psum_sync_semantics_and_grad_norm(ep, name):
 def test_tp_sync_semantics_and_grad_norm(ep):
     """Under expert-internal tensor parallelism (2x2) sync_grads leaves a
     tp expert leaf unreduced: it differs across data ranks (each holds
-    another hidden slice) and across model ranks, while world leaves are
-    identical on every rank; the grad norm, summed over every rank's
-    shard, is the whole gradient's (JAX's)."""
+    another hidden slice) and across model ranks, while every other leaf
+    is identical on the ranks holding the same block of it; the grad norm,
+    summed over every rank's shard, is the whole gradient's (JAX's)."""
     ranks = _ranks(ep, "2x2")
     ref = _jax_dist_result(ep, "2x2")
     for impl in IMPLS:
         key = f"tp_model/{impl}"
-        grads = [_sub(r, f"{key}/grad") for r in ranks]
-        for path in grads[0]:
-            for rank, g in enumerate(grads[1:], 1):
-                if "/experts/" in path:
-                    assert not np.allclose(g[path], grads[0][path]), path
-                else:
-                    np.testing.assert_array_equal(g[path], grads[0][path], path)
+        _assert_blocks_synced([_sub(r, f"{key}/grad") for r in ranks], "2x2",
+                              key)
         for r in ranks:
             np.testing.assert_allclose(r[f"{key}/grad_norm"],
                                        ref["tp_model/grad_norm"], rtol=1e-5)
@@ -2454,6 +2500,8 @@ def test_placed_psum_train_step_matches_jax(ep, dispatch):
             if "/experts/" in path:  # (L, own + shadowed, ...) of (L, E, ...)
                 want = np.stack([_rank_rows_of(w, lp, m) for w, lp in
                                  zip(want, plan.layers)])
+            else:  # the rank's block under the train layout
+                want = _rank_shard(want, path, m, "1x2")
             _close_to_scale(g, want, 1e-4, f"{key} rank {m} {path}")
 
 
@@ -2512,7 +2560,9 @@ REFUSED = {
                   "expert-internal TP"),
     # as the reference: tp takes the capacity dispatch
     "ragged_tp": (dict(tp_axis="data"), "ragged dispatch"),
-    "fsdp_axis": (dict(fsdp_axis="data"), "item 9"),
+    # fsdp_axis="data" is carried (the train layout, ROADMAP §1 item 9,
+    # done); the hidden dim shards over no other axis
+    "fsdp_axis": (dict(fsdp_axis="model"), "hidden dim over 'data'"),
     # the zoo is carried (ROADMAP §1 item 3, done): a router outside it
     # is what the dist channel refuses
     "router": (dict(router="switch"), "unknown router"),
@@ -2538,7 +2588,8 @@ def test_unsupported_options_raise(what):
     gen = torch.Generator().manual_seed(0)
     params = fmoe.fmoe_init(gen, 32, cfg, device="cpu")
     x = torch.zeros(8, 32)
-    error = ValueError if what == "router" else NotImplementedError
+    error = ValueError if what in ("router", "fsdp_axis") else \
+        NotImplementedError
     with pytest.raises(error, match=item):
         fmoe.fmoe_apply(params, x, cfg, dist=dist)
 
@@ -2851,8 +2902,8 @@ def test_world_size_1_bit_equal_on_the_card(tmp_path):
             for name, d in dists.items():
                 params = lm.init_params(
                     cfg, seed=0, device=dev, param_dtype=cfg.param_dtype,
-                    mesh=None if d is None else mesh,
-                    expert_tp=d is not None and d.expert_tp)
+                    layout=None if d is None
+                    else train.train_dist(cfg, d).layout)
                 loss, _, grads = train.loss_and_grads(
                     params, cfg, batch, impl=impl, device=dev, dist=d)
                 opt = AdamW(lr=LR)
@@ -2908,9 +2959,10 @@ def test_chunked_step_on_the_card(tmp_path):
                                ("ragged", "fused")):
             cfg = _model_cfg(dispatch, d_model=256)
             batch = {"tokens": torch.from_numpy(_tokens(0)).to(dev)}
-            params = lm.init_params(cfg, seed=0, device=dev,
-                                    param_dtype=cfg.param_dtype, mesh=mesh)
             serial = train.moe_dist(cfg, mesh, MODEL_B)
+            params = lm.init_params(cfg, seed=0, device=dev,
+                                    param_dtype=cfg.param_dtype,
+                                    layout=serial.layout)
             loss0, _, g0 = train.loss_and_grads(params, cfg, batch, impl=impl,
                                                 device=dev, dist=serial)
             for n in (2, 4):

@@ -110,17 +110,81 @@ def test_entry_points_raise_without_cuda():
             call()
 
 
-def test_kernel_wrapper_never_falls_back():
+def test_kernel_wrapper_never_falls_back(monkeypatch):
     """A tensor that is neither on the CPU nor on a card is refused, not
-    routed to the plain version."""
-    x = torch.empty(4, 8, device="meta")
+    routed to the plain version: a mix of meta and CPU tensors raises.  All
+    meta tensors (the dry run's) take the wrapper's meta branch alone: the
+    output's shape on meta, the kernel's work entered in ``kernels.cost``,
+    no launch counted and no plain version called."""
+    from repro_torch.kernels import cost, fused_ffn, fused_ffn_bwd, \
+        grouped_gemm
+
+    def refuse(*a, **k):
+        raise AssertionError("a meta tensor reached a plain version")
+    for mod, name in ((token_shuffle, "gather_rows_plain"),
+                      (token_shuffle, "gather_rows_by_source_plain"),
+                      (token_shuffle, "combine_topk_plain"),
+                      (flash_attention, "flash_attention_fwd_plain"),
+                      (flash_attention, "flash_attention_bwd_plain"),
+                      (grouped_gemm, "grouped_gemm_plain"),
+                      (fused_ffn, "fused_ffn_plain"),
+                      (fused_ffn_bwd, "fused_ffn_bwd_dx_plain"),
+                      (fused_ffn_bwd, "fused_ffn_bwd_dw_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    meta = dict(device="meta")
+    x = torch.empty(4, 8, **meta)
+    idx = torch.zeros(2, dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="expected CUDA tensors"):
-        token_shuffle.gather_rows(x, torch.zeros(2, dtype=torch.int32,
-                                                 device="meta"))
-    q = torch.empty(1, 8, 4, 64, device="meta")
-    kv = torch.empty(1, 8, 2, 64, device="meta")
+        token_shuffle.gather_rows(x, torch.zeros(2, dtype=torch.int32))
+    q = torch.empty(1, 8, 4, 64, **meta)
+    kv = torch.empty(1, 8, 2, 64, **meta)
     with pytest.raises(ValueError, match="expected CUDA tensors"):
-        flash_attention.flash_attention_fwd(q, kv, kv, window=8)
-    lse = torch.empty(1, 4, 8, device="meta")
+        flash_attention.flash_attention_fwd(q, kv, torch.empty(1, 8, 2, 64),
+                                            window=8)
+    lse = torch.empty(1, 4, 8, **meta)
     with pytest.raises(ValueError, match="expected CUDA tensors"):
-        flash_attention.flash_attention_bwd(q, kv, kv, q, lse, q, window=8)
+        flash_attention.flash_attention_bwd(q, kv, kv, q, torch.empty(1, 4, 8), q,
+                                            window=8)
+    w = torch.empty(2, 8, 16, **meta)
+    wo = torch.empty(2, 16, 8, **meta)
+    gs = torch.empty(2, dtype=torch.int32, **meta)
+    launches = [f.launches for f in (
+        token_shuffle.gather_rows, flash_attention.flash_attention_fwd,
+        flash_attention.flash_attention_bwd, grouped_gemm.grouped_gemm,
+        fused_ffn.fused_ffn, fused_ffn_bwd.fused_ffn_bwd_dx,
+        fused_ffn_bwd.fused_ffn_bwd_dw, token_shuffle.combine_topk)]
+    cost.reset()
+    outs = [token_shuffle.gather_rows(x, idx),
+            *flash_attention.flash_attention_fwd(q, kv, kv, window=8),
+            *flash_attention.flash_attention_bwd(q, kv, kv, q, lse, q,
+                                                 window=8),
+            grouped_gemm.grouped_gemm(x, w, gs),
+            fused_ffn.fused_ffn(x, (w,), wo, gs, "gelu"),
+            fused_ffn_bwd.fused_ffn_bwd_dx(x, (w,), wo, x, gs, "gelu"),
+            *fused_ffn_bwd.fused_ffn_bwd_dw(x, (w,), wo, x, gs, "gelu")[0],
+            token_shuffle.combine_topk(x, idx.reshape(1, 2), None)]
+    assert all(o.device.type == "meta" for o in outs)
+    assert [o.shape[-1] for o in outs[:2]] == [8, 64]
+    assert set(cost.tallied()) == {
+        "gather_rows", "flash_attention_fwd", "flash_attention_bwd",
+        "grouped_gemm", "fused_ffn", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+        "combine_topk"}
+    assert launches == [f.launches for f in (
+        token_shuffle.gather_rows, flash_attention.flash_attention_fwd,
+        flash_attention.flash_attention_bwd, grouped_gemm.grouped_gemm,
+        fused_ffn.fused_ffn, fused_ffn_bwd.fused_ffn_bwd_dx,
+        fused_ffn_bwd.fused_ffn_bwd_dw, token_shuffle.combine_topk)]
+
+
+@pytest.mark.parametrize("rel", ["launch/sharding.py", "launch/roofline.py",
+                                 "launch/dryrun.py", "core/naive.py",
+                                 "kernels/cost.py"])
+def test_slice18_modules_import_no_jax_or_repro(rel):
+    """The sharding rules, the roofline, the dry run, the naive baselines
+    and the kernels' cost counts import neither JAX nor the JAX package;
+    the naive baselines and the cost counts nothing of the launch layer."""
+    f = ROOT / "src" / "repro_torch" / rel
+    mods = list(_imported_modules(f))
+    assert not FORBIDDEN & {m.split(".")[0] for m in mods}, (rel, mods)
+    if rel.startswith(("core/", "kernels/")):
+        assert not [m for m in mods if m.startswith("repro_torch.launch")]

@@ -248,6 +248,21 @@
    oracle, and the fused FFN's forward, dX and dW at its training rows.
    ``python3 chip_smoke.py --only families`` builds the kernels and runs
    this phase alone (no result line).
+22. (slice 18: ``sharding_phase``) the dry run's per-rank peaks and
+   roofline bounds beside the card's, a train step at the computed depth
+   and the naive baselines; ``--only sharding`` runs it alone.
+23. (slice 19, last: ``serve_layout_phase``) serving under the reference's
+   layouts: (a) the 4-rank tensor-parallel composition (each rank's local
+   parts run in turn on the card through the path's own functions, summed
+   in f32 in rank order) of qwen2-72b's first 2 layers and of one
+   fastmoe-gpt MoE layer (experts in the psum mode over torch's fake
+   process group), a 2 x 2048 prefill and 16 decode steps, against an
+   independent f32 oracle within the whole bf16 path's floor; (b)
+   qwen2-72b whole (80 layers) as rank 0 of a 1x4 mesh under serve_tp,
+   its collectives through the fake process group: its param bytes, its
+   peak against the dry run's, and rank 0's compute times.  The serving
+   phases on a 1x1 mesh (continuous, placed) already run under the
+   layout, the identity there.  ``--only serve_layout`` runs it alone.
 
 Prints the kernel times beside their bounds, the serving and training
 rates, the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -3011,36 +3026,41 @@ def chunk_kernel_times(dev):
     return timed
 
 
-# per-rank init: (data, model, expert_tp, rank) shards of full 12-layer
-# fastmoe-gpt held against the whole init's slices
-INIT_SHARDS = tuple((1, 4, False, r) for r in range(4)) + ((2, 4, True, 6),)
+# per-rank init: (data, model, layout mode, rank) shards of full 12-layer
+# fastmoe-gpt held against the whole init's slices (the train-mode specs
+# split the experts' hidden dim over data, the serve-mode specs do not)
+INIT_SHARDS = tuple((1, 4, "serve", r) for r in range(4)) + ((2, 4, "train",
+                                                              6),)
 
 
 def init_phase(dev):
     """Per-rank init of full 12-layer fastmoe-gpt in f32 (4.986 B params,
     ~19.9 GB): the whole from seed 0, then each INIT_SHARDS rank's own
-    shard (``lm.init_params(mesh=Mesh(data, model, rank))``, a mesh without
-    process groups), which must equal ``interop.shard_params`` of the
-    whole bit for bit: the 4 model ranks of a 1x4 mesh, and rank (1, 2) of
-    a 2x4 mesh under expert-internal tensor parallelism.  Prints each
-    init's time and the peak memory it added."""
+    shard under its layout (``lm.init_params(layout=make_layout(cfg,
+    Mesh(data, model, rank), mode))``, a mesh without process groups),
+    which must equal ``interop.shard_params`` of the whole under the same
+    layout bit for bit: the 4 model ranks of a 1x4 mesh under the serve-
+    mode specs, and rank (1, 2) of a 2x4 mesh under the train-mode specs
+    (every leaf over data on its embed dim, the experts' hidden dim too).
+    Prints each init's time and the peak memory it added."""
     import torch
     from repro_torch import interop
     from repro_torch.configs import get_config
     from repro_torch.core.sync import tagged_leaves
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import make_layout
     from repro_torch.models import lm
 
     cfg = get_config("fastmoe-gpt")
     torch.cuda.empty_cache()
 
-    def timed_init(**kw):
+    def timed_init(layout=None):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         p = lm.init_params(cfg, seed=0, device=dev,
-                           param_dtype=cfg.param_dtype, **kw)
+                           param_dtype=cfg.param_dtype, layout=layout)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n = sum(t.numel() for _, t in tagged_leaves(p))
@@ -3051,20 +3071,20 @@ def init_phase(dev):
     print(f"init fastmoe-gpt {cfg.num_layers} layers f32, whole: "
           f"{n_whole / 1e9:.3f} B params, {secs:.3f} s ({draws} expert draws), "
           f"peak memory {peak / 1e9:.2f} GB", flush=True)
-    for data, model, tp, rank in INIT_SHARDS:
+    for data, model, mode, rank in INIT_SHARDS:
         mesh = Mesh(data, model, rank)
-        shard, n, secs, peak = timed_init(mesh=mesh, expert_tp=tp)
+        layout = make_layout(cfg, mesh, mode)
+        shard, n, secs, peak = timed_init(layout)
         shard = dict(tagged_leaves(shard))
-        want = dict(tagged_leaves(interop.shard_params(whole, mesh,
-                                                       expert_tp=tp)))
+        want = dict(tagged_leaves(interop.shard_params(whole, layout)))
         check(shard.keys() == want.keys(), f"init shard {mesh}: leaves differ")
         unequal = [k for k in shard if not torch.equal(shard[k], want[k])]
         print(f"init fastmoe-gpt shard {data}x{model} rank {mesh.coords()} "
-              f"{'(expert tp) ' if tp else ''}: {n / 1e9:.3f} B params, "
-              f"{secs:.3f} s, peak memory {peak / 1e9:.2f} GB; "
+              f"({mode}-mode specs): {n / 1e9:.3f} B params, {secs:.3f} s, "
+              f"peak memory {peak / 1e9:.2f} GB; "
               f"{len(shard) - len(unequal)} of {len(shard)} leaves bit-equal "
               f"to the whole init's slices", flush=True)
-        check(not unequal, f"init shard {mesh} tp={tp}: leaves {unequal} "
+        check(not unequal, f"init shard {mesh} {mode}: leaves {unequal} "
                            f"differ from the whole's slices")
         del shard, want
         torch.cuda.empty_cache()
@@ -6557,6 +6577,468 @@ def sharding_phase(dev, flush) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 19: serving on a mesh under the reference's layouts
+# ---------------------------------------------------------------------------
+
+SL_RANKS = 4  # the model axis of the 1x4 mesh
+SL_BATCH, SL_PROMPT, SL_GEN = 2, 2048, 16
+SL_LAYERS = 2  # (a): qwen2-72b's first layers at full width
+SL_PEAK_TOL = 0.05  # (b): the measured peak within 5% of the dry run's
+# (a): the composition's per-position relative error against the f32
+# oracle within this slack of the whole bf16 path's (the floor), its
+# argmax agreement within this of the floor's
+SL_REL_SLACK, SL_ABS_SLACK, SL_AGREE_SLACK = 1.25, 1e-3, 0.01
+
+
+def _f32sum(parts):
+    """The sum over model of the ranks' partials: f32, in rank order."""
+    out = parts[0].float().clone()
+    for part in parts[1:]:
+        out += part.float()
+    return out
+
+
+def _rope_f32(x, theta):
+    """Half-split RoPE at positions arange(S) on (B, S, H, d), the angles
+    in f64."""
+    import torch
+    d, S = x.shape[-1], x.shape[1]
+    inv = 1.0 / theta ** (torch.arange(0, d, 2, dtype=torch.float64,
+                                       device=x.device) / d)
+    ang = torch.arange(S, dtype=torch.float64, device=x.device)[:, None] * inv
+    cos, sin = (f(ang).float()[None, :, None, :] for f in (torch.cos, torch.sin))
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _norm_f32(p, x, kind):
+    import torch
+    if kind == "rmsnorm":
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) \
+            * p["scale"].float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-6) * p["scale"].float() \
+        + p["bias"].float()
+
+
+def _attn_f32(p, x, a):
+    """Causal GQA on the whole weights in f32: projections (bias where
+    given), RoPE, a masked softmax over materialised scores a head group
+    at a time, the output projection."""
+    import torch
+    B, S, _ = x.shape
+
+    def proj(name, heads):
+        w = p[name]
+        y = x @ w["w"].float() + (w["b"].float() if "b" in w else 0.0)
+        return y.view(B, S, heads, a.head_dim)
+    q = _rope_f32(proj("wq", a.num_heads), a.rope_theta)
+    k = _rope_f32(proj("wk", a.num_kv_heads), a.rope_theta)
+    v = proj("wv", a.num_kv_heads)
+    G = a.num_heads // a.num_kv_heads
+    mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+    out = torch.empty_like(q)
+    for h0 in range(0, a.num_heads, 8):
+        h1 = min(h0 + 8, a.num_heads)
+        kv = torch.arange(h0, h1, device=x.device) // G
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, :, h0:h1], k[:, :, kv])
+        s = (s * a.head_dim ** -0.5).masked_fill(~mask, float("-inf"))
+        out[:, :, h0:h1] = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1),
+                                        v[:, :, kv])
+    return out.reshape(B, S, -1) @ p["wo"]["w"].float()
+
+
+def sl_oracle(params, cfg, tokens):
+    """The independent f32 oracle of (a): the whole model on the whole
+    weights cast to f32 over every position of ``tokens`` (B, S) — plain
+    causal attention (:func:`_attn_f32`), the dense FFN written out, the
+    MoE layer on the layer's plain einsum path in f32 (ragged: no drops)
+    — and its f32 logits (B, S, V)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.fmoe import fmoe_apply
+    emb = params["embed"]["table"].float()
+    x = emb[tokens]
+    for p in params["layers"]:
+        x = x + _attn_f32(p["attn"], _norm_f32(p["norm1"], x, cfg.norm),
+                          cfg.attention)
+        h = _norm_f32(p["norm2"], x, cfg.norm)
+        f = {k: v.float() if torch.is_tensor(v) else
+             {n: t.float() for n, t in v.items()} for k, v in p["ffn"].items()}
+        if cfg.moe is not None:
+            y = fmoe_apply(f, h.reshape(-1, h.shape[-1]), cfg.moe,
+                           act=cfg.act, impl="einsum")[0].view(h.shape)
+        elif cfg.act == "swiglu":
+            y = (F.silu(h @ f["wi_gate"]) * (h @ f["wi_up"])) @ f["wo"]
+        else:
+            y = F.gelu(h @ f["wi"], approximate="tanh") @ f["wo"]
+        x = x + y
+    x = _norm_f32(params["final_norm"], x, cfg.norm)
+    if cfg.tie_embeddings:
+        return x @ emb.T
+    return x @ params["lm_head"]["w"].float()
+
+
+class SlRanks:
+    """The M ranks of a 1xM mesh under the serve-mode specs, run in turn
+    on the one card: each rank's shard of the whole params
+    (``launch.sharding.make_layout`` and ``shard_tree``), its caches, and
+    the local parts the mesh path calls — the vocab-parallel lookup
+    (``layers.embed_part``), ``blocks.attn_part_prefill`` /
+    ``attn_part_decode`` on its heads, the dense FFN on its columns
+    (``core.fmoe.dense_ffn``), the MoE layer's psum mode on its experts
+    (``fmoe_apply`` over a DistConfig of the rank's coordinates, whose
+    all-reduce the fake process group skips), the head's vocab slice —
+    each then summed (or joined) over the ranks by :func:`_f32sum`, as
+    ``models.layers.TP`` sums them over model."""
+
+    def __init__(self, whole, cfg, dev, groups, impl="fused"):
+        from repro_torch.core.fmoe import DistConfig
+        from repro_torch.launch import sharding as S
+        from repro_torch.launch.mesh import Mesh
+        self.cfg, self.impl, self.dev = cfg, impl, dev
+        self.ranks = []
+        for m in range(SL_RANKS):
+            mesh = Mesh(1, SL_RANKS, m, groups=groups)
+            layout = S.make_layout(cfg, mesh, "serve")
+            dist = (DistConfig(mesh, (), expert_axis="model")
+                    if cfg.moe is not None else None)
+            self.ranks.append((layout, S.shard_tree(whole, layout, m), [],
+                               dist))
+        self.tp = self.ranks[0][0].tp
+
+    def reset(self, cache_len):
+        """Fresh caches, each of the rank's kv heads."""
+        from repro_torch.models import lm
+        for layout, _, cache, _ in self.ranks:
+            cache[:] = lm.init_cache(self.cfg, SL_BATCH, cache_len,
+                                     device=self.dev, layout=layout)
+
+    def embed(self, tok):
+        import torch
+        from repro_torch.models.layers import embed_part
+        return _f32sum([embed_part(sh["embed"]["table"], tok, m)
+                        for m, (_, sh, _, _) in enumerate(self.ranks)]).to(
+                            getattr(torch, self.cfg.dtype))
+
+    def head(self, x):
+        import torch
+        from repro_torch.models.layers import linear
+        return torch.cat([linear(sh["lm_head"], x.float())
+                          for _, sh, _, _ in self.ranks], dim=-1)
+
+    def layers(self, x, pos=None, window=None):
+        """Every layer over x (B, S, d): prefill into the caches (``pos``
+        None), or one decode step at ``pos``."""
+        import torch
+        from repro_torch.core.fmoe import dense_ffn, fmoe_apply
+        from repro_torch.models import blocks as B
+        from repro_torch.models.layers import apply_norm
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        for i in range(cfg.num_layers):
+            p0 = self.ranks[0][1]["layers"][i]
+            xn = apply_norm(p0["norm1"], x, cfg.norm)
+            parts = []
+            for m, (_, sh, cache, _) in enumerate(self.ranks):
+                p = sh["layers"][i]
+                if pos is None:
+                    h, cache[i] = B.attn_part_prefill(p, cfg, xn, cache[i],
+                                                      window=B.FULL_WINDOW)
+                else:
+                    h, cache[i] = B.attn_part_decode(p, cfg, xn, cache[i],
+                                                     pos, window=window)
+                parts.append(h)
+            x = x + _f32sum(parts).to(h.dtype)
+            xn = apply_norm(p0["norm2"], x, cfg.norm)
+            if cfg.moe is None:
+                parts = [dense_ffn(sh["layers"][i]["ffn"], xn, cfg.act)
+                         for _, sh, _, _ in self.ranks]
+            else:
+                parts = [fmoe_apply(sh["layers"][i]["ffn"], xn.to(dtype),
+                                    cfg.moe, act=cfg.act, impl=self.impl,
+                                    dist=dist)[0]
+                         for _, sh, _, dist in self.ranks]
+            x = (x + _f32sum(parts).to(parts[0].dtype)).to(dtype)
+        return x
+
+    def serve(self, prompt, steps, cache_len):
+        """Prefill ``prompt`` then ``steps`` greedy decode steps: (the
+        logits of every position (B, S + steps, V) f32, the fed tokens
+        (B, steps))."""
+        import torch
+        from repro_torch.models.layers import apply_norm
+        self.reset(cache_len)
+        fin = self.ranks[0][1]["final_norm"]
+        S = prompt.shape[1]
+        x = self.layers(self.embed(prompt))
+        out = [self.head(apply_norm(fin, x, self.cfg.norm))]
+        fed = []
+        for t in range(steps):
+            tok = out[-1][:, -1].argmax(-1)[:, None]
+            fed.append(tok)
+            x = self.layers(self.embed(tok), pos=S + t, window=cache_len)
+            out.append(self.head(apply_norm(fin, x, self.cfg.norm)))
+        return torch.cat(out, dim=1), torch.cat(fed, dim=1)
+
+
+def whole_bf16(params, cfg, prompt, fed, cache_len, dev, impl="fused"):
+    """The floor of (a): the whole model in bf16 through the port's own
+    serving path (lm.prefill, then lm.decode_step fed ``fed``): the logits
+    of every position, (B, S + steps, V) f32."""
+    import torch
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, prompt.shape[0], cache_len, device=dev)
+    logits, cache, _ = lm.prefill(params, cfg, prompt, cache, impl=impl,
+                                  device=dev)
+    out = [logits]
+    for t in range(fed.shape[1]):
+        logits, cache, _ = lm.decode_step(params, cfg, fed[:, t:t + 1],
+                                          prompt.shape[1] + t, cache,
+                                          impl=impl, device=dev)
+        out.append(logits)
+    return torch.cat(out, dim=1)[:, :prompt.shape[1] + fed.shape[1]]
+
+
+def fake_world(world: int):
+    """Join torch's fake process group (``world`` ranks, this process rank
+    0; no collective moves data) and return the 1 x world mesh over it.
+    The caller destroys the group."""
+    import torch.distributed as tdist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_local_mesh
+    tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                             world_size=world)
+    return make_local_mesh(1, world)
+
+
+def fake_pg_takes_cuda(dev) -> str:
+    """'' when the fake process group runs an all-reduce and an all-gather
+    on CUDA tensors; else the error."""
+    import torch
+    import torch.distributed as tdist
+    try:
+        mesh = fake_world(SL_RANKS)
+        try:
+            x = torch.ones(8, device=dev)
+            tdist.all_reduce(x, group=mesh.group("model"))
+            out = torch.empty(SL_RANKS * 8, device=dev)
+            tdist.all_gather_into_tensor(out, x, group=mesh.group("model"))
+            torch.cuda.synchronize()
+        finally:
+            tdist.destroy_process_group()
+    except Exception as e:  # reported by the caller
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def sl_correctness(dev, label, cfg, groups) -> dict:
+    """(a) for ``cfg`` (its first layers at full width): the M ranks' parts
+    of a 2 x 2048 prefill and SL_GEN greedy decode steps, summed over the
+    ranks, against the f32 oracle on the whole weights, within the floor
+    of the whole bf16 path; the hand-written launches of the composition
+    (the counters at 0 just before, read just after)."""
+    import torch
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()
+    whole = lm.init_params(cfg, seed=0, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (SL_BATCH, SL_PROMPT),
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(19))
+    cache_len = SL_PROMPT + SL_GEN
+    ranks = SlRanks(whole, cfg, dev, groups)
+    blocks = {"embed", "lm_head"} | {f"layers/{i}/{b}" for i in range(
+        cfg.num_layers) for b in (("attn",) if cfg.moe else ("attn", "ffn"))}
+    check(ranks.tp == blocks, f"{label}: tensor-parallel blocks "
+                              f"{sorted(ranks.tp)}, not {sorted(blocks)}")
+    with torch.no_grad():
+        ranks.serve(prompt[:, :16], 1, 32)  # a warm call
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tp_logits, fed = ranks.serve(prompt, SL_GEN, cache_len)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs = {k: fn.launches for k, fn in counters().items()}
+        del ranks
+        torch.cuda.empty_cache()
+        tokens = torch.cat([prompt, fed], dim=1)
+        floor = whole_bf16(whole, cfg, prompt, fed, cache_len, dev)
+        oracle = sl_oracle(whole, cfg, tokens[:, :SL_PROMPT + SL_GEN])
+    want = cfg.num_layers * SL_RANKS
+    check(runs["flash_attention_fwd"] == want,
+          f"{label}: the ranks' prefills launched the flash forward "
+          f"{runs['flash_attention_fwd']} times, not {want}")
+    if cfg.moe is not None:
+        check(runs["fused_ffn"] > 0 and runs["gather_rows_by_source"] > 0,
+              f"{label}: the psum experts ran no kernel: {runs}")
+    check(not any(runs[k] for k in SIMPLE_KERNELS),
+          f"{label}: a first-version kernel ran: {runs}")
+    print(f"serve_layout (a) {label}: {SL_RANKS} ranks' parts of a "
+          f"{SL_BATCH}x{SL_PROMPT} prefill and {SL_GEN} decode steps in "
+          f"{secs:.2f} s (in turn on one card); launches "
+          f"{json.dumps({k: v for k, v in runs.items() if v})}", flush=True)
+    logits_within_floor(f"serve_layout (a) {label}", oracle,
+                        {"whole bf16": floor, f"{SL_RANKS}-rank tp": tp_logits},
+                        SL_REL_SLACK, SL_ABS_SLACK, SL_AGREE_SLACK)
+    del whole, floor, oracle, tp_logits
+    torch.cuda.empty_cache()
+    return runs
+
+
+def sl_rank_of_whole(dev, card) -> dict:
+    """(b) qwen2-72b whole (80 layers) at full width as rank 0 of a 1x4
+    mesh under ``serve_tp``, its collectives through the fake process
+    group: the rank's param bytes, its peak over a 2 x 2048 prefill and
+    SL_GEN decode steps against the dry run's prediction for the same
+    combination, and the times of rank 0's compute alone."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import comm
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_config("qwen2-72b")
+    opts = {"serve_tp": True}
+    cache_len = SL_PROMPT + SL_GEN
+    t0 = time.perf_counter()
+    recs = {mode: dryrun.dry_run(cfg, InputShape(mode, seq, SL_BATCH, mode),
+                                 f"1x{SL_RANKS}", opts=opts)
+            for mode, seq in (("prefill", SL_PROMPT), ("decode", cache_len))}
+    pred_s = time.perf_counter() - t0
+    pred = max(r["peak_bytes"] for r in recs.values())
+    torch.cuda.empty_cache()
+    mesh = fake_world(SL_RANKS)
+    try:
+        step, layout, dist = serve.make_serve_step(cfg, mesh, SL_BATCH,
+                                                   opts=opts, impl="fused",
+                                                   device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device=dev, layout=layout)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        cache = lm.init_cache(cfg, SL_BATCH, cache_len, device=dev,
+                              layout=layout)
+        prompt = torch.randint(0, cfg.vocab_size, (SL_BATCH, SL_PROMPT),
+                               device=dev, generator=torch.Generator(
+                                   device=dev).manual_seed(19))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters().values():
+            fn.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        steps = []
+        with torch.no_grad():
+            ev[0].record()
+            logits, cache, _ = lm.prefill(params, cfg, prompt, cache,
+                                          impl="fused", device=dev, dist=dist)
+            ev[1].record()
+            ev[1].synchronize()
+            prefill_ms = ev[0].elapsed_time(ev[1])
+            tok = logits[:, -1].argmax(-1)[:, None]
+            for t in range(SL_GEN):
+                ev[0].record()
+                logits, cache, _ = step(params, tok, SL_PROMPT + t, cache)
+                tok = logits[:, -1].argmax(-1)[:, None]
+                ev[1].record()
+                ev[1].synchronize()
+                steps.append(ev[0].elapsed_time(ev[1]))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        runs = {k: fn.launches for k, fn in counters().items()}
+        # what the fake group's own all-gather of the head's slice costs
+        # (it moves no data, but is inside each step's time)
+        part = torch.zeros(SL_BATCH, 1, cfg.vocab_size // SL_RANKS,
+                           device=dev)
+        ev[0].record()
+        for _ in range(5):
+            comm.tp_gather(part, mesh)
+        ev[1].record()
+        ev[1].synchronize()
+        gather_ms = ev[0].elapsed_time(ev[1]) / 5
+        check(bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+              and logits.shape == (SL_BATCH, 1, cfg.vocab_size),
+              "serve_layout (b): malformed decode output")
+        check(runs["flash_attention_fwd"] == cfg.num_layers,
+              f"serve_layout (b): the prefill launched the flash forward "
+              f"{runs['flash_attention_fwd']} times over {cfg.num_layers} "
+              f"layers")
+        a = cfg.attention
+        off = abs(peak - pred) / pred
+        print(f"serve_layout (b) qwen2-72b whole ({cfg.num_layers} layers) as "
+              f"rank 0 of 1x{SL_RANKS} under serve_tp on {card}: "
+              f"{a.num_heads // SL_RANKS}/{a.num_kv_heads // SL_RANKS} heads a "
+              f"rank; param bytes {nbytes / 1e9:.3f} GB (drawn in "
+              f"{init_s:.1f} s); peak over prefill {SL_BATCH}x{SL_PROMPT} and "
+              f"{SL_GEN} decode steps {peak / 1e9:.3f} GB measured, "
+              f"{pred / 1e9:.3f} GB predicted by the dry run ({off * 100:.2f}% "
+              f"apart; prefill {recs['prefill']['peak_bytes'] / 1e9:.3f} GB, "
+              f"decode {recs['decode']['peak_bytes'] / 1e9:.3f} GB; dry run "
+              f"{pred_s:.1f} s on the host)", flush=True)
+        print(f"serve_layout (b) times, rank 0's compute alone, collectives "
+              f"not run: prefill {prefill_ms:.2f} ms; decode "
+              f"{statistics.median(steps):.3f} ms/step median over {SL_GEN} "
+              f"(min {min(steps):.3f}, max {max(steps):.3f}), of which the "
+              f"fake group's all-gather of the head's slice {gather_ms:.3f} ms; "
+              f"launches {json.dumps({k: v for k, v in runs.items() if v})}",
+              flush=True)
+        check(off <= SL_PEAK_TOL, f"serve_layout (b): measured peak {peak} is "
+                                  f"{off * 100:.2f}% from the dry run's {pred}")
+        del params, cache, logits
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(launches=runs, param_bytes=nbytes, peak=peak, predicted=pred,
+                prefill_ms=prefill_ms, decode_ms=statistics.median(steps),
+                gather_ms=gather_ms)
+
+
+def serve_layout_phase(dev) -> dict:
+    """Slice 19: serving on a mesh under the reference's layouts.  (a) the
+    4-rank tensor-parallel composition (every rank's local parts run in
+    turn on the one card, summed in f32 in rank order) of qwen2-72b's
+    first SL_LAYERS layers and of one fastmoe-gpt MoE layer (attention
+    tensor-parallel, the experts in the psum mode) against the f32 oracle,
+    within the whole bf16 path's floor; (b) qwen2-72b whole as rank 0 of
+    a 1x4 mesh under serve_tp (:func:`sl_rank_of_whole`).  The earlier
+    serving phases on a 1x1 mesh (continuous, placed) run under the
+    layout too, where it is the identity."""
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    card = card_name()
+    err = fake_pg_takes_cuda(dev)
+    check(not err, f"serve_layout: torch's fake process group refused CUDA "
+                   f"tensors ({err})")
+    print("serve_layout: torch's fake process group takes CUDA tensors "
+          "(all-reduce and all-gather ran)", flush=True)
+    out = {}
+    mesh = fake_world(SL_RANKS)
+    try:
+        out["qwen2-72b"] = sl_correctness(
+            dev, f"qwen2-72b ({SL_LAYERS} layers)",
+            dataclasses.replace(get_config("qwen2-72b"), num_layers=SL_LAYERS),
+            mesh.groups)
+        out["fastmoe-gpt"] = sl_correctness(
+            dev, "fastmoe-gpt (1 MoE layer, fused/ragged)",
+            with_dispatch(dataclasses.replace(get_config("fastmoe-gpt"),
+                                              num_layers=1), "ragged"),
+            mesh.groups)
+    finally:
+        tdist.destroy_process_group()
+    out["whole"] = sl_rank_of_whole(dev, card)
+    print(f"serve_layout phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def card_name() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6603,6 +7085,10 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "sharding"]:
         sharding_phase(dev, flush)
         mark("sharding_phase")
+        return 0
+    if sys.argv[1:] == ["--only", "serve_layout"]:
+        serve_layout_phase(dev)
+        mark("serve_layout_phase")
         return 0
     errs, timed = kernel_phase(dev, flush)
     mark("kernel_phase")
@@ -6663,6 +7149,8 @@ def main() -> int:
     sharding_phase(dev, flush)
     mark("sharding_phase")
     del flush
+    sl = serve_layout_phase(dev)
+    mark("serve_layout_phase")
     slice13 = {"fastmoe-gpt routing zoo training (step 0, 10 paths)":
                zoo_launches,
                "switch-base-128 serving": sw_launches,
@@ -6686,6 +7174,12 @@ def main() -> int:
                f"hymba-1.5b-moe{FMOE_EXPERTS} training ({HYMBA_MOE_LAYERS} "
                f"layers, step 0, fused/ragged)":
                    fam["train"]["hymba_moe"]["launches"]}
+    slice19 = {f"qwen2-72b {SL_LAYERS}-layer {SL_RANKS}-rank tp serving "
+               f"(ranks in turn)": sl["qwen2-72b"],
+               f"fastmoe-gpt 1-layer {SL_RANKS}-rank tp + psum serving "
+               f"(ranks in turn)": sl["fastmoe-gpt"],
+               f"qwen2-72b serving as rank 0 of 1x{SL_RANKS} (80 layers, "
+               f"serve_tp)": sl["whole"]["launches"]}
     fam_ffn = {"fmoefy_rwkv6_prefill": fam["fmoefy"]["kernels"],
                "fmoefy_hymba_train": fam["train"]["kernels"]}
 
@@ -6719,6 +7213,7 @@ def main() -> int:
                                  "fastmoe-gpt training": train_launches[name],
                                  **ep_by_path(ep_launches, name),
                                  **{k: v[name] for k, v in slice13.items()},
+                                 **{k: v[name] for k, v in slice19.items()},
                                  "deepseek-v2-236b training":
                                      dst_launches[name]},
             "launches_per_tick": {**{f"fastmoe-gpt {k}": v.get(name, 0)
@@ -6776,7 +7271,8 @@ def main() -> int:
                    "fastmoe-gpt training": train_launches[name],
                    **ep_by_path(ep_launches, name),
                    "starcoder2-15b serving": sc2_launches[name],
-                   **{k: v[name] for k, v in slice13.items()}}
+                   **{k: v[name] for k, v in slice13.items()},
+                   **{k: v[name] for k, v in slice19.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": rep,

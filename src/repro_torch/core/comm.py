@@ -9,7 +9,10 @@ reference's ``shard_map(check_vma=False)``) and expert-internal tensor
 parallelism's row all-gather and reduce-scatter (each the other's
 backward), and the FSDP gather of a leaf's shard (:func:`gather_shard`,
 the train layout of ``launch/sharding``: its backward reduce-scatters the
-gradient in f32).  The counts carry no gradient.  The ragged exchange takes the
+gradient in f32).  The counts carry no gradient, nor do serving's two
+tensor-parallel collectives, the sum of row-parallel partials
+(:func:`tp_sum`) and the gather of the head's vocab slices
+(:func:`tp_gather`).  The ragged exchange takes the
 §5.2 schedule's chunks, shift decomposition and wire dtype
 (``core/pipeline``), and the two-level exchange of a node mesh its intra-
 node hop (``*_intra``) and slim inter-node hop (``*_inter``).
@@ -66,6 +69,29 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
         return x.copy_(buf)
     dist.all_reduce(x, group=group)
     return x
+
+
+def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Serving's sum over ``model`` of a tensor-parallel block's partials
+    (the row-parallel ``wo`` products, the vocab-parallel lookup), through
+    :func:`all_reduce_` on an f32 copy, returned in ``x``'s dtype; no
+    autograd.  On a mesh without a model split (None, or a model axis of
+    1) the identity: no cast, no collective."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return x
+    buf = x.to(torch.float32, copy=True)
+    return all_reduce_(buf, mesh.group("model")).to(x.dtype)
+
+
+def tp_gather(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """Serving's all-gather over ``model`` of a vocab-parallel slice (the
+    head's logits) along ``dim``: model rank i's slice lands in block i,
+    through :func:`all_gather_rows`' gather, without its autograd.  On a
+    mesh without a model split the identity."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return x
+    with torch.no_grad():
+        return _gather(x, mesh.group("model"), dim % x.dim())
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -130,9 +130,9 @@ class DistConfig(NamedTuple):
       layout — the rank's param layout (``launch.sharding.Layout``): the
         specs under which ``models.lm`` gathers each leaf at its use and
         ``core.sync`` syncs and clips by spec (:meth:`with_layout`).
-        Training on a mesh always has one (``launch.train``: the train
-        layout).  None: serving's expert-parallel params (only the expert
-        stacks cut), which take no gather and no gradient.
+        Training and serving on a mesh always have one (``launch.train``:
+        the train layout; ``launch.serve.serve_setup``: serving's).  None:
+        a lone MoE layer whose params are given as they are used.
     """
 
     mesh: Any

@@ -8,16 +8,9 @@ on a leading L dim in JAX and a list of per-layer dicts here.  Every
 parity test builds its torch params through :func:`from_jax`.
 
 With a ``layout`` (``launch.sharding.Layout``: the train layout, which
-training on a mesh holds) every leaf is cut by its spec, as the
-reference's ``tree_shardings(..., "train")`` lays it out.  With a mesh
-alone a rank keeps serving's expert-parallel shard: the routed expert
-stacks sliced on their expert dim, rank ``m`` of the model axis holding
-experts ``[m * E_local, (m + 1) * E_local)`` (``P("model", None, None)``
-in the reference; on a node mesh index ``n * model + m`` over ``("node",
-"model")``, node-major), everything else whole; :func:`shard_params` with
-``expert_tp`` cuts their hidden dim over the data axis too (``wi*`` dim
-2, ``wo`` dim 1: the reference's ``P("model", None, "data")`` and
-``P("model", "data", None)``).  ``models.lm.init_params(mesh=...)``
+training on a mesh holds, or serving's, ``launch.sharding.serve_layout``)
+every leaf is cut to a rank's block by its spec, as the reference's
+``tree_shardings`` lays it out; ``models.lm.init_params(layout=...)``
 draws the same shards without the whole.
 """
 from __future__ import annotations
@@ -26,9 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sync import is_expert_path, tagged_leaves
 from repro_torch.device import resolve
-from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.optim.adamw import tree_leaves
 
 
 def _map(fn, tree):
@@ -44,32 +36,13 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def shard_params(params: dict, mesh, rank: int | None = None, *,
-                 expert_tp: bool = False, layout=None) -> dict:
-    """The rank's shard of whole params (``rank`` defaults to the mesh's
-    own): each routed expert stack sliced on dim 0 to the rank's experts,
-    and with ``expert_tp`` on its hidden dim to the rank's hidden units
-    (``launch.mesh.Mesh.expert_shard``); every other leaf as it is.  A
-    slice is a copy, so the whole stack can be freed.  ``layout``: every
-    leaf cut by its spec (``launch.sharding.shard_tree``)."""
-    if layout is not None:
-        from repro_torch.launch.sharding import shard_tree
-        return shard_tree(params, layout, rank)
-    if (mesh.axes_size(mesh.expert_axes) == 1
-            and not (expert_tp and mesh.shape["data"] > 1)):
-        return params
-
-    def shard(path, t):
-        if not is_expert_path(path):
-            return t
-        dim = 1 if path.split("/")[-1] == "wo" else 2
-        experts, hidden = mesh.expert_shard(t.shape[0], t.shape[dim],
-                                            tp=expert_tp, rank=rank)
-        return t[experts].narrow(dim, hidden.start,
-                                 hidden.stop - hidden.start).clone()
-
-    shards = iter([shard(path, t) for path, t in tagged_leaves(params)])
-    return tree_map(lambda _: next(shards), params)
+def shard_params(params: dict, layout, rank: int | None = None) -> dict:
+    """The rank's shard of whole params (``rank`` defaults to the layout's
+    mesh's own): every leaf cut by its spec under ``layout``
+    (``launch.sharding.shard_tree``).  A cut is a copy, so the whole can be
+    freed."""
+    from repro_torch.launch.sharding import shard_tree
+    return shard_tree(params, layout, rank)
 
 
 STACKED = ("layers", "enc_layers")  # stacked on L there, lists here
@@ -81,20 +54,17 @@ def _unstack(tree, dev) -> list:
             for i in range(n)]
 
 
-def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda", mesh=None,
-             rank: int | None = None, layout=None) -> dict:
+def from_jax(params_np: dict, cfg: ModelConfig, *, device="cuda",
+             layout=None, rank: int | None = None) -> dict:
     """JAX param tree (numpy leaves, stacked layers) -> port params, in the
     dtypes JAX has them (f32 masters; ``repro_torch.models.lm`` casts the
-    layers to ``cfg.dtype`` at use).  With ``mesh``, the shard of ``rank``
-    (default: the mesh's own; :func:`shard_params` and ``layout`` as
-    there; a layout brings its mesh)."""
+    layers to ``cfg.dtype`` at use).  With ``layout``, the shard of
+    ``rank`` (default: the layout's mesh's own) by :func:`shard_params`."""
     dev = resolve(device)
     out = {k: (_unstack(v, dev) if k in STACKED
                else _map(lambda a: _to_torch(a, dev), v))
            for k, v in params_np.items()}
-    if layout is not None:
-        return shard_params(out, layout.mesh, rank, layout=layout)
-    return out if mesh is None else shard_params(out, mesh, rank)
+    return out if layout is None else shard_params(out, layout, rank)
 
 
 def to_jax(params: dict) -> dict:

@@ -11,7 +11,11 @@ the ``meta`` device (shapes and dtypes only; nothing is computed or held):
 the train step (forward, backward, the gradient sync and AdamW, params and
 moments in the train layout of ``launch/sharding``), the prefill forward
 (serving params, the cache filled), or one decode step against a cache of
-the sequence's length.  Meshes: ``16x16`` (the reference's single pod),
+the sequence's length.  Serving draws its params under the serving layout
+(``launch/sharding.serve_layout``: the train-mode specs, or with ``--opts
+serve_tp`` the serve-mode ones; ``head_aware``; a dense config's tiny
+batch drops both, as the reference's dry run does) and computes GQA
+attention, the dense FFN, the embedding and the head tensor-parallel.  Meshes: ``16x16`` (the reference's single pod),
 the port's own ``DxM`` and ``DxNxM``; ``1x1`` is the single-process path.
 The collectives run through a fake process group (``torch.testing.
 _internal.distributed.fake_pg``: rank 0 of a world of D*M ranks, no peer),
@@ -64,7 +68,7 @@ from repro_torch.core.fmoe import DistConfig, moe_dist
 from repro_torch.core.sync import sync_grads
 from repro_torch.launch import roofline as R
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.serve import cache_len_for, decode_dist
+from repro_torch.launch.serve import cache_len_for, serve_setup
 from repro_torch.launch.sharding import make_layout
 from repro_torch.launch.train import loss_and_grads
 from repro_torch.models import lm
@@ -138,7 +142,8 @@ def _tensor_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _train(cfg, shape, mesh, impl: str, out: dict, region) -> None:
+def _train(cfg, shape, mesh, impl: str, out: dict, region,
+           opts=None) -> None:
     """One train step of the rank: forward and backward, the sync, AdamW."""
     B, S = shape.global_batch, shape.seq_len
     layout = dist = None
@@ -167,23 +172,30 @@ def _train(cfg, shape, mesh, impl: str, out: dict, region) -> None:
         del grads
 
 
-def _serve_setup(cfg, shape, mesh):
+def _serve_setup(cfg, shape, mesh, opts=None):
+    """(params, dist, rows) of serving ``shape`` on ``mesh``: the params
+    drawn under the serving layout of the shape's batch (the reference's
+    train- or serve-mode specs by ``opts``, and its tiny-batch policy,
+    ``launch/sharding.serve_layout``), the rank's rows of the batch."""
     B = shape.global_batch
-    dist = decode_dist(cfg, mesh, B) if mesh is not None else None
-    if mesh is not None and cfg.moe is None:
-        dist = None  # dense serving: every rank the whole model
-    params = lm.init_params(cfg, device=META, mesh=mesh if dist else None)
+    layout, dist = serve_setup(cfg, mesh, B, opts)
+    params = lm.init_params(cfg, device=META, layout=layout)
     rows = B // mesh.shape["data"] if (
         dist is not None and "data" in dist.token_axes) else B
     return params, dist, rows
 
 
-def _prefill(cfg, shape, mesh, impl: str, out: dict, region) -> None:
-    params, dist, rows = _serve_setup(cfg, shape, mesh)
+def _layout(dist):
+    return None if dist is None else dist.layout
+
+
+def _prefill(cfg, shape, mesh, impl: str, out: dict, region,
+             opts=None) -> None:
+    params, dist, rows = _serve_setup(cfg, shape, mesh, opts)
     out["params"] = _tensor_bytes(params)
     batch = _inputs(cfg, rows, shape.seq_len)
     cache = lm.init_cache(cfg, rows, cache_len_for(cfg, shape.seq_len),
-                          device=META)
+                          device=META, layout=_layout(dist))
     out["cache"] = _tensor_bytes(cache)
     with region(params, cache), torch.no_grad():
         lm.prefill(params, cfg, batch["tokens"], cache, impl=impl,
@@ -191,14 +203,15 @@ def _prefill(cfg, shape, mesh, impl: str, out: dict, region) -> None:
                    patches=batch.get("patches"))
 
 
-def _decode(cfg, shape, mesh, impl: str, out: dict, region) -> None:
-    params, dist, rows = _serve_setup(cfg, shape, mesh)
+def _decode(cfg, shape, mesh, impl: str, out: dict, region,
+            opts=None) -> None:
+    params, dist, rows = _serve_setup(cfg, shape, mesh, opts)
     out["params"] = _tensor_bytes(params)
     enc = (torch.empty(rows, cfg.encoder.num_frames, cfg.d_model,
                        dtype=getattr(torch, cfg.dtype), device=META)
            if cfg.family == "audio" else None)
     cache = lm.init_cache(cfg, rows, cache_len_for(cfg, shape.seq_len),
-                          device=META, enc_out=enc)
+                          device=META, enc_out=enc, layout=_layout(dist))
     out["cache"] = _tensor_bytes(cache)
     tokens = torch.empty(rows, 1, dtype=torch.int64, device=META)
     with region(params, cache), torch.no_grad():
@@ -210,13 +223,14 @@ PROGRAMS = {"train": _train, "prefill": _prefill, "decode": _decode}
 
 
 def measure(cfg, shape, mesh, *, impl: str = "fused",
-            n_devices: int = 1) -> dict:
+            n_devices: int = 1, opts: dict | None = None) -> dict:
     """One program on meta: {"roofline": the step's Roofline, "peak": the
     most bytes live at once over the step, the resident state (registered
     with the tracker before the step) included, the state bytes it
     reports, "kernels": the kernels' counts}.  The set-up
     (params, moments, cache) runs outside the count: the step alone is
-    counted, as on the card, where its peak is read after the set-up."""
+    counted, as on the card, where its peak is read after the set-up.
+    ``opts``: serving's layout options (``serve_tp``, ``head_aware``)."""
     import contextlib
     from torch.distributed._tools.mem_tracker import MemTracker
     out: dict = {}
@@ -233,7 +247,7 @@ def measure(cfg, shape, mesh, *, impl: str = "fused",
         out["roofline"] = count.roofline
         out["kernels"] = count.kernels
 
-    PROGRAMS[shape.mode](cfg, shape, mesh, impl, out, region)
+    PROGRAMS[shape.mode](cfg, shape, mesh, impl, out, region, opts)
     return out
 
 
@@ -243,18 +257,22 @@ def _line(one: dict, two: dict, key: str) -> tuple:
 
 
 def dry_run(cfg, shape, mesh_name: str = "1x1", *, impl: str = "fused",
-            depth: int | None = None, card_bytes: float = CARD_BYTES) -> dict:
+            depth: int | None = None, card_bytes: float = CARD_BYTES,
+            opts: dict | None = None) -> dict:
     """The record of one (config, shape, mesh): ``depth`` layers (default
-    the config's) composed from its 1- and 2-layer programs."""
+    the config's) composed from its 1- and 2-layer programs.  ``opts``:
+    serving's layout options, as ``launch.serve.make_serve_step``'s."""
     L = depth or cfg.num_layers
     with _FakeWorld(mesh_name) as world:
         runs = [measure(dataclasses.replace(cfg, num_layers=d), shape,
-                        world.mesh, impl=impl, n_devices=world.world)
+                        world.mesh, impl=impl, n_devices=world.world,
+                        opts=opts)
                 for d in (1, 2)]
     one, two = runs
     rec = {"arch": cfg.name, "shape": shape.name, "mode": shape.mode,
            "global_batch": shape.global_batch, "seq_len": shape.seq_len,
-           "mesh": mesh_name, "num_layers": L, "impl": impl}
+           "mesh": mesh_name, "num_layers": L, "impl": impl,
+           "opts": dict(opts or {})}
     for key in ("params", "grads", "moments", "cache", "peak"):
         if key in one:
             a, b = _line(one, two, key)
@@ -289,13 +307,13 @@ def largest_depth(rec: dict, budget: float) -> int:
 
 def run_one(arch: str, shape_name: str, mesh_name: str = "16x16", *,
             out_dir: str | None = None, impl: str = "fused",
-            card_bytes: float = CARD_BYTES) -> dict:
+            card_bytes: float = CARD_BYTES, opts: dict | None = None) -> dict:
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     t0 = time.time()
     try:
         rec = dry_run(cfg, shape, mesh_name, impl=impl,
-                      card_bytes=card_bytes)
+                      card_bytes=card_bytes, opts=opts)
         rec["largest_depth"] = largest_depth(rec, card_bytes)
         rec["ok"] = True
     except Exception as e:  # a failure here is a bug in the port
@@ -329,7 +347,14 @@ def main(argv=None) -> None:
                     help="device memory a rank may use")
     ap.add_argument("--out", default="",
                     help="write one JSON a combination here")
+    ap.add_argument("--opts", default="",
+                    help="comma list of serving's layout options: serve_tp "
+                         "(the serve-mode specs), head_aware")
     args = ap.parse_args(argv)
+    opts = {k: True for k in args.opts.split(",") if k}
+    unknown = set(opts) - {"serve_tp", "head_aware"}
+    if unknown:
+        ap.error(f"unknown --opts {sorted(unknown)}")
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
     shapes = (list(INPUT_SHAPES) if args.shape == "all"
               else args.shape.split(","))
@@ -338,7 +363,8 @@ def main(argv=None) -> None:
         for shape in shapes:
             for mesh in args.mesh.split(","):
                 rec = run_one(arch, shape, mesh, out_dir=args.out or None,
-                              impl=args.impl, card_bytes=args.card_bytes)
+                              impl=args.impl, card_bytes=args.card_bytes,
+                              opts=opts)
                 if not rec["ok"]:
                     n_fail += 1
                     print(f"FAIL {arch:18s} {shape:12s} {mesh:8s} "

@@ -19,8 +19,12 @@ dummy token that still routes through the MoE layers.
   "static" only when every slot is free, which reproduces the static
   batch's head-of-line blocking on the same decode path.
 * **Mesh.**  On a DxM mesh every rank runs this loop on the same request
-  stream: the same admission, slot table and ticks.  The MoE layers run
-  the psum mode over the model axis (``serve.decode_dist``).  A batcher
+  stream: the same admission, slot table and ticks.  The params are the
+  rank's shard under the reference's serving layout (``opts``, as
+  ``serve.make_serve_step``'s: the train-mode specs by default, the
+  serve-mode ones under ``serve_tp``), the caches hold the rank's KV heads
+  where attention is tensor-parallel, and the MoE layers run the psum
+  mode over the model axis (``serve.decode_dist``).  A batcher
   per data group: where the slots split over the data axis, data group g
   holds and decodes only its B/D slots (the g-th block), prefills the
   requests admitted into them, and after each tick (and each admission)
@@ -28,7 +32,9 @@ dummy token that still routes through the MoE layers.
   host state stays the same.  Every group runs every tick's decode, with
   or without an active slot of its own: the MoE layers' metrics
   all-reduce over the data axis.  Where the slots do not split, every
-  group decodes all of them.
+  group decodes all of them.  Where the layout splits params over the
+  data axis (FSDP), every group runs every prefill too (their gathers
+  span the groups) and keeps only its own slots' results.
 * **Online replan.**  ``ServeReplanHook`` is ``launch.train.ReplanHook``
   on the serving side: the decode step's (L, E) expert loads
   (``lm.decode_step(layer_loads=True)``) feed a LoadMonitor EMA, a
@@ -234,9 +240,12 @@ class ContinuousBatcher:
     """The continuous-batching serve loop.
 
     ``params`` live on ``device``; with a ``mesh`` (``launch.mesh.Mesh``,
-    DxM) they are this rank's shard (``interop.shard_params``), and a
-    ``ServeConfig.mesh`` without one builds it from the joined process
-    group.  ``impl`` picks the expert kernels.  ``placement``: an
+    DxM) they are this rank's shard under ``serve.serve_setup(cfg, mesh,
+    slots, opts)``'s layout (``lm.init_params(layout=)`` or
+    ``interop.shard_params``), and a ``ServeConfig.mesh`` without one
+    builds it from the joined process group.  ``opts``: the reference's
+    serving options (``serve_tp``, ``head_aware``).  ``impl`` picks the
+    expert kernels.  ``placement``: an
     ``ExpertPlacement`` or ``PerLayerPlacement`` whose physical order
     ``params`` are already in (``placement.from_logical``), as the
     reference's.  With ``ServeConfig.replan_every`` > 0 a
@@ -252,7 +261,7 @@ class ContinuousBatcher:
     def __init__(self, params, cfg: ModelConfig,
                  serve_cfg: Optional[ServeConfig] = None, *, mesh=None,
                  impl: str = "fused", device="cuda", placement=None,
-                 sink=None):
+                 sink=None, opts: Optional[dict] = None):
         scfg = serve_cfg if serve_cfg is not None else ServeConfig()
         if mesh is None and scfg.mesh:
             data, model = scfg.mesh_shape()
@@ -270,16 +279,16 @@ class ContinuousBatcher:
         self.sink = sink
         self.plan = placement
         self._impl = impl
-        if (mesh is not None and cfg.moe is not None
-                and serve.decode_dist(cfg, mesh, self.B) is None):
-            raise ValueError(f"{cfg.moe.num_experts} experts do not split "
-                             f"over the model axis of {mesh}")
+        # refuses experts that do not split over the model axis
+        self.layout, _ = serve.serve_setup(cfg, mesh, self.B, opts)
         # the data group's slots: a block of B/D where the slots split
         D = mesh.shape["data"] if mesh is not None else 1
         self._split = D > 1 and self.B % D == 0
         g = mesh.axis_index("data") if self._split else 0
         n = self.B // D if self._split else self.B
         self.mine = range(g * n, (g + 1) * n)
+        # FSDP-split params: every group runs every prefill
+        self._lockstep = self._split and self.layout.splits_over("data")
 
         self.pos = np.zeros(self.B, np.int64)  # next write position a slot
         self.next_tok = np.zeros(self.B, np.int64)
@@ -294,15 +303,17 @@ class ContinuousBatcher:
             self.bs = scfg.block_size
             self.nb = scfg.blocks_per_slot
             self.pool = lm.init_paged_cache(cfg, scfg.pool_blocks, self.bs,
-                                            device=self.dev)
+                                            device=self.dev,
+                                            layout=self.layout)
             self.tables = np.full((self.B, self.nb), A.NULL_BLOCK, np.int64)
             self.allocator = BlockAllocator(scfg.pool_blocks)
         else:
             self.cache = lm.init_cache(cfg, len(self.mine), scfg.max_len,
-                                       device=self.dev)
+                                       device=self.dev, layout=self.layout)
             # a fresh one-sequence cache: what a retired slot goes back to
             self._empty_slot = lm.init_cache(cfg, 1, scfg.max_len,
-                                             device=self.dev)
+                                             device=self.dev,
+                                             layout=self.layout)
 
         self._replan: Optional[ServeReplanHook] = None
         if scfg.replan_every > 0 and cfg.moe is not None:
@@ -322,18 +333,19 @@ class ContinuousBatcher:
         return d.expert_parallelism if d is not None else 1
 
     def _build_dists(self) -> None:
-        """The decode and prefill ``DistConfig``s under the current plan.
-        Prefill is one sequence, psum-pinned over its model group like
-        decode (``decode_dist(..., 1)``: no data axis among its token
-        axes), so one plan applies to both phases of a request."""
+        """The decode and prefill ``DistConfig``s under the current plan,
+        both over the params' layout.  Prefill is one sequence, psum-pinned
+        over its model group like decode (``serve_dist(..., 1)``: no data
+        axis among its token axes), so one plan applies to both phases of
+        a request."""
         if self.mesh is None:
             local = (DistConfig.local(placement=self.plan)
                      if self.plan is not None else None)
             self._ddist = self._pdist = local
             return
-        ddist = serve.decode_dist(self.cfg, self.mesh, self.B)
-        pdist = serve.decode_dist(self.cfg, self.mesh, 1)
-        if self.plan is not None and ddist is not None:
+        ddist = serve.serve_dist(self.cfg, self.mesh, self.B, self.layout)
+        pdist = serve.serve_dist(self.cfg, self.mesh, 1, self.layout)
+        if self.plan is not None:
             ddist = ddist._replace(placement=self.plan)
             pdist = pdist._replace(placement=self.plan)
         self._ddist, self._pdist = ddist, pdist
@@ -371,7 +383,8 @@ class ContinuousBatcher:
         ring)."""
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.dev)[None]
-        ring = lm.init_cache(self.cfg, 1, cache_len, device=self.dev)
+        ring = lm.init_cache(self.cfg, 1, cache_len, device=self.dev,
+                             layout=self.layout)
         with torch.no_grad():
             logits, ring, _ = lm.prefill(self.params, self.cfg, prompt, ring,
                                          impl=self._impl, device=self.dev,
@@ -408,17 +421,18 @@ class ContinuousBatcher:
             if self.paged:
                 self.tables[slot, :len(blocks)] = blocks
                 self.tables[slot, len(blocks):] = A.NULL_BLOCK
-            if slot not in self.mine:
+            if slot not in self.mine and not self._lockstep:
                 continue  # another data group prefills it
-            if self.paged:
-                # prefill a ring of whole blocks, then copy it into the
-                # request's pool rows
-                nb_p = -(-S // self.bs)
-                tok, ring = self._prefill(req, nb_p * self.bs)
+            # prefill a ring of whole blocks for the pool
+            nb_p = -(-S // self.bs) if self.paged else 0
+            tok, ring = self._prefill(req, nb_p * self.bs if self.paged
+                                      else self.scfg.max_len)
+            if slot not in self.mine:
+                continue  # computed in lockstep for the owning group
+            if self.paged:  # copy it into the request's pool rows
                 _insert_blocks(self.pool, ring, torch.as_tensor(
                     blocks[:nb_p], device=self.dev))
             else:
-                tok, ring = self._prefill(req, self.scfg.max_len)
                 _write_slot(self.cache, ring, slot - self.mine.start)
             first[slot - self.mine.start] = tok
         if not admitted:

@@ -23,7 +23,15 @@ per-layer plan measured on the prompt:
 
 Every rank runs the same loop on the same requests; rank 0 prints.  On a
 DxM mesh each data group decodes its block of the slots (of the static
-batch's rows).
+batch's rows).  The params are held in the reference's serving layout
+(``launch/sharding.serve_layout``): by default its train-mode specs (FSDP
+over ``data``, heads, ffn columns and vocab rows over ``model``), under
+``opts={"serve_tp": True}`` (an argument of :func:`make_serve_step`, of
+``ContinuousBatcher`` and of :func:`serve_continuous`, as in the
+reference; the CLI has no flag for it) its serve-mode specs.  GQA
+attention, the dense and shared FFNs, the embedding and the head run
+tensor-parallel over ``model`` (``models.layers.TP``); every other split
+is gathered at use.  Dense configs serve on a mesh as MoE ones do.
 ``--impl`` picks the expert kernels (einsum = plain PyTorch, pallas = the
 grouped-GEMM kernel, fused = the fused FFN kernel); ``--dispatch`` the MoE
 dispatch (capacity | ragged); ``--router`` the routing variant (serving
@@ -48,11 +56,12 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dispatch import expert_capacity
-from repro_torch.core.fmoe import moe_dist
+from repro_torch.core.fmoe import DistConfig, moe_dist
 from repro_torch.core.gate import ROUTERS
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.launch.serve_api import Request, ServeConfig
+from repro_torch.launch.sharding import serve_layout
 from repro_torch.models import lm
 from repro_torch.obs import JsonlSink
 from repro_torch.obs import trace as obs_trace
@@ -105,6 +114,52 @@ def decode_dist(cfg: ModelConfig, mesh, batch: int):
     if mesh.axes_size(tok) > 1 and batch % mesh.axes_size(tok):
         tok = ()
     return d._replace(token_axes=tok)
+
+
+def serve_dist(cfg: ModelConfig, mesh, batch: int, layout):
+    """The serving ``DistConfig`` of ``batch`` rows over ``mesh`` with the
+    params in ``layout``: the MoE layers' psum mode (:func:`decode_dist`),
+    or for a dense config one that only carries the layout and the data
+    axis where the batch splits over it."""
+    d = decode_dist(cfg, mesh, batch)
+    if d is None:
+        if cfg.moe is not None:
+            raise ValueError(f"{cfg.moe.num_experts} experts do not split "
+                             f"over the model axis of {mesh}")
+        data = mesh.shape["data"]
+        d = DistConfig(mesh, ("data",) if data > 1 and batch % data == 0
+                       else ())
+    return d.with_layout(layout)
+
+
+def serve_setup(cfg: ModelConfig, mesh, batch: int, opts: dict | None = None):
+    """(layout, dist) of serving ``batch`` rows on ``mesh`` under the
+    reference's ``opts`` (``serve_tp``, ``head_aware``; ``launch/
+    sharding.serve_layout``); (None, None) without a mesh."""
+    if mesh is None:
+        return None, None
+    layout = serve_layout(cfg, mesh, batch, opts)
+    return layout, serve_dist(cfg, mesh, batch, layout)
+
+
+def make_serve_step(cfg: ModelConfig, mesh, batch: int, *,
+                    opts: dict | None = None, impl: str = "fused",
+                    device="cuda", layer_loads: bool = False):
+    """The one-token serve step of ``batch`` rows on ``mesh``, the
+    counterpart of the reference's ``jit_serve_step`` and (called with
+    ``block_tables``) ``jit_paged_serve_step``.  Returns ``(step, layout,
+    dist)``: the params (``lm.init_params(layout=layout)``) and the cache
+    (``lm.init_cache`` / ``init_paged_cache(layout=layout)``) are held in
+    ``layout``, and ``step(params, tokens, pos, cache, block_tables=None)``
+    is ``lm.decode_step`` under ``dist``."""
+    layout, dist = serve_setup(cfg, mesh, batch, opts)
+
+    def step(params, tokens, pos, cache, block_tables=None):
+        return lm.decode_step(params, cfg, tokens, pos, cache, impl=impl,
+                              device=device, dist=dist,
+                              block_tables=block_tables,
+                              layer_loads=layer_loads)
+    return step, layout, dist
 
 
 def data_rows(rows: torch.Tensor, dist) -> torch.Tensor:
@@ -190,7 +245,8 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     cross-check: both paths must agree).  ``temperature`` > 0 samples each
     token from softmax(logits / temperature) with ``generator`` (a
     ``torch.Generator`` on the device); 0, the default, is greedy.
-    ``dist``: the MoE layers' ``DistConfig`` (``decode_dist``).  A
+    ``dist``: the serving ``DistConfig`` (:func:`serve_setup`; its
+    layout holds ``params`` and sizes the cache).  A
     ``timings`` dict, when given, receives ``prefill_s`` and the per-token
     ``decode_s`` list, each taken after a device synchronize.  ``sink``
     (``repro_torch.obs.sink``) takes a ``decode_step`` record a step
@@ -200,7 +256,8 @@ def generate(params, cfg: ModelConfig, prompt, steps: int, *,
     dev = resolve(device)
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
-    cache = lm.init_cache(cfg, B, cache_len, device=dev)
+    cache = lm.init_cache(cfg, B, cache_len, device=dev,
+                          layout=None if dist is None else dist.layout)
 
     def step(tok, pos, cache):
         return lm.decode_step(params, cfg, tok, pos, cache, impl=impl,
@@ -285,14 +342,15 @@ def format_stats(s: dict) -> str:
 def serve_continuous(params, cfg: ModelConfig, scfg: ServeConfig, *,
                      prompt_len: int, gen: int, num_requests: int,
                      impl: str = "fused", device="cuda", mesh=None,
-                     sink=None):
+                     sink=None, opts: dict | None = None):
     """Drive the continuous batcher over ``request_stream``: every request
-    submitted at the start, then ticks until all are done.  Returns
-    ``(batcher, serving_stats(...))``."""
+    submitted at the start, then ticks until all are done.  ``params``:
+    on a mesh, the rank's shard under the batcher's layout (``opts``).
+    Returns ``(batcher, serving_stats(...))``."""
     from repro_torch.launch.scheduler import ContinuousBatcher
 
     batcher = ContinuousBatcher(params, cfg, scfg, mesh=mesh, impl=impl,
-                                device=device, sink=sink)
+                                device=device, sink=sink, opts=opts)
     reqs = request_stream(cfg, prompt_len=prompt_len, gen=gen,
                           num_requests=num_requests)
     t0 = time.time()
@@ -339,9 +397,10 @@ def main(argv=None) -> None:
                     help="admission policy (static = admit only when every "
                          "slot is free)")
     ap.add_argument("--mesh", default="",
-                    help="DxM: expert-parallel decode in the psum mode, one "
-                         "rank a process (run under torchrun), a batcher "
-                         "per data group")
+                    help="DxM: serve on a mesh of ranks, one a process (run "
+                         "under torchrun): params in the reference's "
+                         "serving layout, experts in the psum mode, a "
+                         "batcher per data group")
     ap.add_argument("--replan_every", type=int, default=None,
                     help="--continuous: decode ticks between serve-time "
                          "placement replans (0 = off; an MoE config)")
@@ -406,9 +465,12 @@ def _serve(args, scfg: ServeConfig, dev: torch.device, mesh, sink) -> None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=args.dispatch,
             router=args.router or cfg.moe.router))
-    # each rank makes its own shard from the seed
-    params = lm.init_params(cfg, seed=args.seed, device=dev, mesh=mesh)
-    where = f"{dev}" + (f", mesh {scfg.mesh} (psum)" if mesh else "")
+    # each rank makes its own shard of the serving layout from the seed
+    layout, dist = serve_setup(cfg, mesh, scfg.slots if args.continuous
+                               else args.batch)
+    params = lm.init_params(cfg, seed=args.seed, device=dev, layout=layout)
+    where = f"{dev}" + (f", mesh {scfg.mesh} ({'psum' if cfg.moe else 'dense'})"
+                        if mesh else "")
     if args.continuous:
         batcher, stats = serve_continuous(
             params, cfg, scfg, prompt_len=args.prompt_len, gen=args.gen,
@@ -423,8 +485,8 @@ def _serve(args, scfg: ServeConfig, dev: torch.device, mesh, sink) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    dist = decode_dist(cfg, mesh, args.batch) if mesh else None
-    if args.per_layer_plans and dist is not None and mesh.shape["model"] > 1:
+    if (args.per_layer_plans and cfg.moe is not None and dist is not None
+            and mesh.shape["model"] > 1):
         plan, params = plan_for_serving(params, cfg, prompt,
                                         dist.expert_parallelism, dist=dist,
                                         impl=args.impl, device=dev)

@@ -19,10 +19,28 @@ The train layout (``mode="train"``, the reference's ``jit_train_step``):
 every leaf FSDP-sharded over ``data`` on its ``embed`` dim and sharded over
 ``model`` on heads, ffn, vocab and experts; the routed expert stacks
 shard their expert dim over the expert axes and their hidden dim over
-``data``.  :class:`Layout` carries a rank's specs into the model
+``data``.  The serve layout (``mode="serve"``, the reference's
+``jit_serve_step`` under ``opts["serve_tp"]``): the same without the
+FSDP split.  :class:`Layout` carries a rank's specs into the model
 (``models.lm`` gathers a layer's leaves at its entry through
 ``core.comm.gather_shard``), the gradient sync and the clipping norm
-(``core.sync``), the checkpoints and the dry run.
+(``core.sync``), the checkpoints and the dry run.  Serving on a mesh
+always holds its params in one of the two (:func:`serve_layout`, with
+the reference's tiny-batch policy).
+
+Which split a leaf's use gathers is one rule, :meth:`Layout.gather_dims`:
+a split over ``data`` (FSDP) is gathered; a split over ``model`` is kept
+where serving computes the leaf's block tensor-parallel (``serve=True``
+and the block in :attr:`Layout.tp`), and gathered otherwise.  Training
+gathers every split.  The tensor-parallel blocks (:func:`tp_blocks`):
+GQA attention (self, cross and encoder) whose head and kv-head counts
+both split over ``model`` and whose four projections the specs split on
+heads; the dense FFN and the shared-expert and dense-residual FFNs
+(columns of ``wi*``, rows of ``wo``); the embedding and the head (vocab
+rows).  MLA, RWKV6 and Mamba leaves, and a flat projection whose split
+does not fall on a head boundary, are gathered at use.  The routed
+expert stacks keep their expert dim (expert parallelism); their hidden
+dim over ``data`` is gathered by the MoE layer (``fsdp_axis``).
 
 Gradient-sync tags (the paper's §3.2) follow from the specs:
 ``core.sync.fastmoe_tag`` and ``sync_report``.  This module is plain
@@ -423,13 +441,62 @@ def unshard_leaf(shards: list, spec, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# A leaf of a block that serving may compute tensor-parallel: the block's
+# path, and the leaf's name in it.  The block kinds: GQA attention (self,
+# cross, encoder), the dense / shared-expert / dense-residual FFN, the
+# embedding and the head.
+_TP_LEAF = re.compile(
+    r"^(?P<block>(?:.*/)?(?:attn|cross_attn|ffn|shared|dense|embed|lm_head))"
+    r"/(?P<leaf>w[qkv]/[wb]|wo/w|wi|wi_gate|wi_up|wo|table|w)$")
+# the dim of each such leaf that the block splits over model: heads or ffn
+# columns (dim 1 of the column-parallel and head projections), rows of the
+# row-parallel ones, vocab rows of the table, vocab columns of the head
+_TP_DIM = {"wq/w": 1, "wk/w": 1, "wv/w": 1, "wq/b": 0, "wk/b": 0, "wv/b": 0,
+           "wo/w": 0, "wi": 1, "wi_gate": 1, "wi_up": 1, "wo": 0,
+           "table": 0, "w": 1}
+_GQA = ("wq/w", "wk/w", "wv/w", "wo/w")
+
+
+def tp_blocks(whole, specs: dict, mesh, head_dim: int | None) -> frozenset:
+    """The paths of the blocks (``layers/3/attn``, ``layers/3/ffn/shared``,
+    ``embed``) that serving computes tensor-parallel over ``model`` under
+    ``specs``: every leaf of the block split over exactly ``model`` on its
+    head, column or vocab dim, and for attention the four GQA projections
+    present (MLA's block has none of ``wk``) with both head counts (from
+    ``head_dim``) a multiple of the model axis, so the split falls on a
+    head boundary.  Empty on a model axis of 1."""
+    mp = mesh.shape.get("model", 1)
+    if mp == 1:
+        return frozenset()
+    blocks: dict = {}
+    for path, t in flat_paths(whole):
+        m = _TP_LEAF.match(path)
+        if m:
+            blocks.setdefault(m["block"], {})[m["leaf"]] = (tuple(t.shape),
+                                                            specs[path])
+    out = set()
+    for block, leaves in blocks.items():
+        if not all(entry_axes(spec[_TP_DIM[leaf]]) == ("model",)
+                   for leaf, (_, spec) in leaves.items()):
+            continue
+        if block.endswith("attn"):
+            if head_dim is None or not set(_GQA) <= set(leaves):
+                continue
+            if any(leaves[n][0][1] // head_dim % mp for n in _GQA[:3]):
+                continue
+        out.add(block)
+    return frozenset(out)
+
+
 class Layout(NamedTuple):
-    """A rank's param layout: the mesh and {param path: spec} of the whole
-    params (the port's paths: ``layers/3/attn/wq/w``).  :meth:`spec`
+    """A rank's param layout: the mesh, {param path: spec} of the whole
+    params (the port's paths: ``layers/3/attn/wq/w``), and the blocks that
+    serving computes tensor-parallel (:func:`tp_blocks`).  :meth:`spec`
     finds a leaf's spec from any path that ends in a param path, so the
     AdamW moments (``1/layers/...``) and checkpoint trees read it too."""
     mesh: Any
     specs: dict
+    tp: frozenset = frozenset()
 
     def spec(self, path: str):
         parts = path.split("/")
@@ -439,13 +506,38 @@ class Layout(NamedTuple):
                 return got
         return None
 
-    def gather_dims(self, path: str) -> list:
+    def gather_dims(self, path: str, serve: bool = False) -> list:
         """(dim, mesh axes) that a leaf's use gathers: every sharded dim of
         a non-expert leaf; an expert leaf gathers only its hidden dim (the
-        expert dim stays sharded: expert parallelism)."""
+        expert dim stays sharded: expert parallelism).  ``serve``: a split
+        over ``model`` stays local where the leaf's block is computed
+        tensor-parallel (:attr:`tp`); a split over ``data`` is gathered
+        all the same.  Training passes ``serve=False``: every split."""
         spec = self.spec(path) or ()
+        local = serve and self.tp_block(path) is not None
         return [(d, entry_axes(e)) for d, e in sharded_dims(spec)
-                if not (is_expert_path(path) and d == 0)]
+                if not (is_expert_path(path) and d == 0)
+                and not (local and entry_axes(e) == ("model",))]
+
+    def tp_block(self, path: str):
+        """The tensor-parallel block a param path belongs to, or None."""
+        m = _TP_LEAF.match(path)
+        return m["block"] if m and m["block"] in self.tp else None
+
+    def blocks_under(self, prefix: str) -> frozenset:
+        """The tensor-parallel blocks under ``prefix`` (``layers/3``), by
+        their paths relative to it (``attn``, ``ffn/shared``); ``""``: the
+        embedding and the head."""
+        if not prefix:
+            return frozenset(b for b in self.tp if "/" not in b)
+        n = len(prefix) + 1
+        return frozenset(b[n:] for b in self.tp if b.startswith(prefix + "/"))
+
+    def splits_over(self, axis: str) -> bool:
+        """Whether any leaf is split over mesh ``axis`` (its use then runs
+        a collective over it)."""
+        return any(axis in entry_axes(e) for spec in self.specs.values()
+                   for e in spec)
 
     def expert_hidden_axes(self) -> tuple:
         """The axes the expert stacks' hidden dim shards over, or ()."""
@@ -466,11 +558,31 @@ def param_specs(params, mesh, mode: str = "train", cfg=None) -> dict:
 def make_layout(cfg, mesh, mode: str = "train", *, head_aware: bool = False
                 ) -> Layout:
     """The :class:`Layout` of ``cfg``'s params on ``mesh``, from their
-    whole shapes (drawn on the meta device: nothing is allocated)."""
+    whole shapes (drawn on the meta device: nothing is allocated), with
+    its tensor-parallel blocks."""
     from repro_torch.models import lm
     whole = lm.init_params(cfg, device="meta", param_dtype=cfg.param_dtype)
-    return Layout(mesh, param_specs(whole, mesh, mode,
-                                    cfg if head_aware else None))
+    specs = param_specs(whole, mesh, mode, cfg if head_aware else None)
+    a = cfg.attention
+    hd = a.head_dim if a is not None and a.kind == "gqa" else None
+    return Layout(mesh, specs, tp_blocks(whole, specs, mesh, hd))
+
+
+def serve_layout(cfg, mesh, batch: int, opts: dict | None = None) -> Layout:
+    """The layout serving ``batch`` rows holds ``cfg``'s params in on
+    ``mesh``, as the reference's ``jit_serve_step``: the train-mode specs
+    by default, the serve-mode specs under ``opts["serve_tp"]`` (weights
+    resident over ``model``, no FSDP), the head-aware rules under
+    ``opts["head_aware"]``; a dense config's tiny batch (``batch`` below
+    the model axis) drops both, as weight reads then dominate."""
+    opts = dict(opts or {})
+    if batch < mesh.shape.get("model", 1) and cfg.moe is None:
+        opts.pop("serve_tp", None)
+        opts.pop("head_aware", None)
+    with option_overrides(opts, mesh):
+        return make_layout(cfg, mesh,
+                           "serve" if opts.get("serve_tp") else "train",
+                           head_aware=bool(opts.get("head_aware")))
 
 
 def shard_tree(params, layout: Layout, rank: int | None = None):

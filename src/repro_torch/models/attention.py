@@ -14,6 +14,14 @@ The paged decodes (continuous batching) read and write one pool of blocks
 shared by every slot through per-slot block tables (see "Paged KV cache"
 below).
 
+Under tensor parallelism (serving on a mesh, ``launch/sharding``) a
+rank's GQA weights hold its heads; every function here reads the head
+counts from the weights, and its cache holds the rank's own KV heads
+(:func:`rank_attention` sizes it).  The reference's ``cache_specs`` splits
+the trailing ``head_dim`` over ``model`` instead; where both split, a rank
+holds the same bytes either way.  MLA's latent cache stays whole on each
+rank (the reference splits the latent over ``model``).
+
 MLA caches only the compressed latent (kv_lora) and the shared rope key;
 prefill materialises per-head keys (dk = nope + rope) and values (dv) from
 the latent and runs the flash kernels with dv != dk, and decode uses the
@@ -22,6 +30,7 @@ einsums against the cached latents, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -74,6 +83,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def rank_attention(cfg: AttentionConfig, mp: int) -> AttentionConfig:
+    """``cfg`` at one rank's heads when its GQA attention is tensor-parallel
+    over ``mp`` model ranks (its caches' size)."""
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // mp,
+                               num_kv_heads=cfg.num_kv_heads // mp)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, W, KV, dk)
     v: torch.Tensor  # (B, W, KV, dv)
@@ -97,8 +113,11 @@ def gqa_init(gen: torch.Generator, d_model: int, cfg: AttentionConfig, *,
 def gqa_apply(params: dict, x: torch.Tensor, cfg: AttentionConfig, *,
               window: int, positions=None, kv_x: torch.Tensor | None = None,
               causal: bool = True, return_kv: bool = False):
-    """Full-sequence GQA on x (B, S, d).  ``kv_x`` (B, Skv, d), the
-    cross-attention source, defaults to x.  Causal self-attention ropes q
+    """Full-sequence GQA on x (B, S, d).  The head counts come from the
+    weights given (``wq``'s and ``wk``'s widths over ``head_dim``): under
+    tensor parallelism a rank's heads, and the output is then its partial
+    of ``wo``'s product, which the caller sums over ``model``.  ``kv_x``
+    (B, Skv, d), the cross-attention source, defaults to x.  Causal self-attention ropes q
     at ``positions`` (default arange(S)) and k at arange(Skv); the
     non-causal encoder and cross-attention skip RoPE, as the reference.
     ``return_kv`` also returns the (post-RoPE) k, v for prefill cache
@@ -106,11 +125,9 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: AttentionConfig, *,
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = linear(params["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = linear(params["wk"], src).reshape(B, Skv, cfg.num_kv_heads,
-                                          cfg.head_dim)
-    v = linear(params["wv"], src).reshape(B, Skv, cfg.num_kv_heads,
-                                          cfg.head_dim)
+    q = linear(params["wq"], x).reshape(B, S, -1, cfg.head_dim)
+    k = linear(params["wk"], src).reshape(B, Skv, -1, cfg.head_dim)
+    v = linear(params["wv"], src).reshape(B, Skv, -1, cfg.head_dim)
     if causal:
         pos = torch.arange(S, device=x.device) if positions is None \
             else positions
@@ -161,9 +178,9 @@ def _gqa_decode_qkv(params: dict, x: torch.Tensor, posb: torch.Tensor,
     """q (B, 1, H, dk), k and v (B, 1, KV, d) of one decode token a
     sequence, q and k roped at its position posb (B,)."""
     B = x.shape[0]
-    q = linear(params["wq"], x).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    k = linear(params["wk"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(params["wv"], x).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    q = linear(params["wq"], x).reshape(B, 1, -1, cfg.head_dim)
+    k = linear(params["wk"], x).reshape(B, 1, -1, cfg.head_dim)
+    v = linear(params["wv"], x).reshape(B, 1, -1, cfg.head_dim)
     q = apply_rope(q, posb[:, None], cfg.rope_theta)
     k = apply_rope(k, posb[:, None], cfg.rope_theta)
     return q, k, v

@@ -12,6 +12,17 @@ replaces the channel mix by the MoE.  The MoE takes its input in the
 model's compute dtype (the expert kernels take one dtype): only the ssm
 family's f32 residual (its time mix returns f32, as the reference's) is
 cast for it, where the JAX package would promote the experts to f32.
+
+Serving on a mesh computes some blocks tensor-parallel over ``model``
+(``tp``, a ``models.layers.TP``): GQA attention on the rank's heads and
+the dense, shared-expert and dense-residual FFNs on its columns of
+``wi*`` and rows of ``wo``.  Each is a local part (:func:`attn_part_
+prefill`, :func:`attn_part_decode`, the FFN in :func:`_apply_ffn`), then
+one sum over ``model`` before the residual add, so norms and residuals
+stay replicated over ``model``.  Prefill and decode hold each sum in one
+place: the attention's in :func:`layer_apply_prefill` /
+:func:`layer_apply_decode`, the FFN's in :func:`_apply_ffn` (and the
+decoder's cross-attention's in :func:`_cross`).
 """
 from __future__ import annotations
 
@@ -24,10 +35,12 @@ from repro_torch.core.fmoe import _ffn_init, dense_ffn, fmoe_apply, fmoe_init
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.layers import apply_norm, norm_init
+from repro_torch.models.layers import NO_TP, TP, apply_norm, norm_init
 
 FULL_WINDOW = 1 << 30  # "no window" sentinel (larger than any seq len)
 NO_PAGED = ("ssm", "hybrid", "audio")  # recurrent-state / enc-out caches
+# the self-attention ring's key in a family's dict-shaped cache
+RING_KEY = {"hybrid": "attn", "audio": "self"}
 
 
 def _is_mla(cfg: ModelConfig) -> bool:
@@ -82,12 +95,23 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, *, device,
 
 
 def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str,
-               dist=None, noise_seed=None, l2p=None):
-    if cfg.moe is not None:
-        return fmoe_apply(p, x.to(getattr(torch, cfg.dtype)), cfg.moe,
-                          act=cfg.act, impl=impl, dist=dist,
-                          noise_seed=noise_seed, l2p=l2p)
-    return dense_ffn(p, x, cfg.act), None
+               dist=None, noise_seed=None, l2p=None, tp: TP = NO_TP):
+    """The layer's FFN: dense, or the MoE (its shared and dense-residual
+    FFNs inside ``fmoe_apply``).  A dense, shared or dense-residual FFN
+    that ``tp`` computes tensor-parallel gives this rank's partial, summed
+    over ``model`` here, once (the MoE's routed part is already its psum
+    mode's sum)."""
+    if cfg.moe is None:
+        return tp.sum(dense_ffn(p, x, cfg.act), "ffn"), None
+    x = x.to(getattr(torch, cfg.dtype))
+    split = [k for k in ("shared", "dense") if k in p and tp.on(f"ffn/{k}")]
+    y, metrics = fmoe_apply({k: v for k, v in p.items() if k not in split},
+                            x, cfg.moe, act=cfg.act, impl=impl, dist=dist,
+                            noise_seed=noise_seed, l2p=l2p)
+    if split:
+        part = sum(dense_ffn(p[k], x, cfg.act) for k in split)
+        y = y + tp.sum(part, f"ffn/{split[0]}")
+    return y, metrics
 
 
 def _fuse(p: dict, cfg: ModelConfig, y_a, y_m):
@@ -96,23 +120,27 @@ def _fuse(p: dict, cfg: ModelConfig, y_a, y_m):
                   + apply_norm(p["norm_m"], y_m, cfg.norm))
 
 
-def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor, enc_out):
+def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor, enc_out,
+           tp: TP = NO_TP):
     """Whisper's decoder cross-attention to the encoder output: non-causal,
-    no RoPE, every frame visible."""
-    return A.gqa_apply(p["cross_attn"], apply_norm(p["norm_cross"], x, cfg.norm),
-                       cfg.attention, window=FULL_WINDOW, kv_x=enc_out,
-                       causal=False)
+    no RoPE, every frame visible; summed over ``model`` where ``tp``
+    computes it tensor-parallel."""
+    h = A.gqa_apply(p["cross_attn"], apply_norm(p["norm_cross"], x, cfg.norm),
+                    cfg.attention, window=FULL_WINDOW, kv_x=enc_out,
+                    causal=False)
+    return tp.sum(h, "cross_attn")
 
 
 def _ssm_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, state, impl: str,
-             dist=None, noise_seed=None, l2p=None):
+             dist=None, noise_seed=None, l2p=None, tp: TP = NO_TP):
     """The ssm layer's second half: channel mix (updating the state's
     shift), or the MoE of an fmoefy'd rwkv.  Returns (x, state, metrics)."""
     xn = apply_norm(p["norm2"], x, cfg.norm)
     if cfg.moe is None:
         h, state = R.channel_mix(p["rwkv"], xn, state)
         return x + h, state, None
-    h, metrics = _apply_ffn(p["ffn"], cfg, xn, impl, dist, noise_seed, l2p)
+    h, metrics = _apply_ffn(p["ffn"], cfg, xn, impl, dist, noise_seed, l2p,
+                            tp)
     return x + h, state, metrics
 
 
@@ -147,95 +175,122 @@ def layer_apply_seq(p: dict, cfg: ModelConfig, x: torch.Tensor, *, window: int,
     return x + h, metrics
 
 
+def _ring(cfg: ModelConfig, cache):
+    key = RING_KEY.get(cfg.family)
+    return cache if key is None else cache[key]
+
+
+def _with_ring(cfg: ModelConfig, cache, ring):
+    key = RING_KEY.get(cfg.family)
+    return ring if key is None else {**cache, key: ring}
+
+
+def attn_part_prefill(p: dict, cfg: ModelConfig, xn: torch.Tensor, cache, *,
+                      window: int, start: int = 0):
+    """This rank's part of the layer's self-attention over the normed xn
+    (B, S, d), and the layer's cache with its ring (MLA: latents) filled
+    from ``start``: the whole output where the weights are whole, the
+    rank's heads' partial of ``wo``'s product where they are its
+    tensor-parallel shard.  Returns (part, cache)."""
+    a = cfg.attention
+    if _is_mla(cfg):
+        h, (ckv, kr) = A.mla_apply(p["attn"], xn, a, window=window,
+                                   return_kv=True)
+        return h, A.fill_mla_cache(cache, ckv, kr, start=start)
+    h, (k, v) = A.gqa_apply(p["attn"], xn, a, window=window, return_kv=True)
+    return h, _with_ring(cfg, cache, A.fill_kv_cache(_ring(cfg, cache), k, v,
+                                                     start=start))
+
+
+def attn_part_decode(p: dict, cfg: ModelConfig, xn: torch.Tensor, cache, pos,
+                     *, window: int, block_tables=None):
+    """:func:`attn_part_prefill` for one token a sequence at ``pos``,
+    against the ring or (``block_tables``) the paged pool, written in
+    place.  Returns (part, cache)."""
+    a = cfg.attention
+    if block_tables is not None:
+        decode = A.mla_decode_paged if _is_mla(cfg) else A.gqa_decode_paged
+        return decode(p["attn"], xn, cache, block_tables, pos, a,
+                      window=window)
+    decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
+    h, ring = decode(p["attn"], xn, _ring(cfg, cache), pos, a, window=window)
+    return h, _with_ring(cfg, cache, ring)
+
+
+def _after_attn(p: dict, cfg: ModelConfig, x, xn, h, cache, tp: TP):
+    """The attention output h added to the residual: hymba fuses it with
+    its mamba head (the state updated in ``cache``); whisper's decoder
+    then cross-attends.  Returns (x, cache)."""
+    if cfg.family == "hybrid":
+        y_m, ms = M.mamba_apply(p["mamba"], xn, cache["mamba"], cfg.ssm)
+        return x + _fuse(p, cfg, h, y_m), {**cache, "mamba": ms}
+    x = x + h
+    if cfg.family == "audio":
+        x = x + _cross(p, cfg, x, cache["enc_out"], tp)
+    return x, cache
+
+
 def layer_apply_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         cache, *, window: int, start: int = 0,
-                        impl: str = "einsum", dist=None, l2p=None):
+                        impl: str = "einsum", dist=None, l2p=None,
+                        tp: TP = NO_TP):
     """x (B, S, d), this layer's cache -> (x, filled cache, MoEMetrics|None).
     One full-sequence pass writes every position's K/V (MLA: latents; ssm
     and hybrid: the recurrent state) into the cache so decoding can
-    continue at position S.  ``l2p``: as :func:`layer_apply_seq`'s."""
+    continue at position S.  ``l2p``: as :func:`layer_apply_seq`'s.
+    ``tp``: the blocks computed tensor-parallel (serving on a mesh)."""
     xn = apply_norm(p["norm1"], x, cfg.norm)
-    a = cfg.attention
     if cfg.family == "ssm":
         h, c1 = R.time_mix(p["rwkv"], xn, cache, cfg)
-        return _ssm_ffn(p, cfg, x + h, c1, impl, dist, l2p=l2p)
-    if cfg.family == "hybrid":
-        y_a, (k, v) = A.gqa_apply(p["attn"], xn, a, window=window,
-                                  return_kv=True)
-        kv = A.fill_kv_cache(cache["attn"], k, v, start=start)
-        y_m, ms = M.mamba_apply(p["mamba"], xn, cache["mamba"], cfg.ssm)
-        x = x + _fuse(p, cfg, y_a, y_m)
-        cache = {"attn": kv, "mamba": ms}
-    elif cfg.family == "audio":
-        h, (k, v) = A.gqa_apply(p["attn"], xn, a, window=window,
-                                return_kv=True)
-        x = x + h
-        x = x + _cross(p, cfg, x, cache["enc_out"])
-        cache = {"self": A.fill_kv_cache(cache["self"], k, v, start=start),
-                 "enc_out": cache["enc_out"]}
-    elif _is_mla(cfg):
-        h, (ckv, kr) = A.mla_apply(p["attn"], xn, a, window=window,
-                                   return_kv=True)
-        cache = A.fill_mla_cache(cache, ckv, kr, start=start)
-        x = x + h
-    else:
-        h, (k, v) = A.gqa_apply(p["attn"], xn, a, window=window,
-                                return_kv=True)
-        cache = A.fill_kv_cache(cache, k, v, start=start)
-        x = x + h
+        return _ssm_ffn(p, cfg, x + h, c1, impl, dist, l2p=l2p, tp=tp)
+    h, cache = attn_part_prefill(p, cfg, xn, cache, window=window,
+                                 start=start)
+    x, cache = _after_attn(p, cfg, x, xn, tp.sum(h, "attn"), cache, tp)
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist, l2p=l2p)
+                            impl, dist, l2p=l2p, tp=tp)
     return x + h, cache, metrics
 
 
 def layer_apply_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cache, pos, *, window: int, impl: str = "einsum",
-                       dist=None, block_tables=None, l2p=None):
+                       dist=None, block_tables=None, l2p=None,
+                       tp: TP = NO_TP):
     """x (B, 1, d), this layer's cache -> (x, cache, MoEMetrics | None).
     ``block_tables`` (B, nb) reads and writes the cache as the paged block
     pool (``layer_paged_cache``) instead of per-slot rings: plain attention
     families only.  The ssm state ignores ``pos``.  ``l2p``: as
-    :func:`layer_apply_seq`'s."""
+    :func:`layer_apply_seq`'s; ``tp``: as :func:`layer_apply_prefill`'s."""
     if block_tables is not None and cfg.family in NO_PAGED:
         raise NotImplementedError(
             f"paged KV cache is not supported for family {cfg.family!r}")
     xn = apply_norm(p["norm1"], x, cfg.norm)
-    a = cfg.attention
     if cfg.family == "ssm":
         h, c1 = R.time_mix(p["rwkv"], xn, cache, cfg)
-        return _ssm_ffn(p, cfg, x + h, c1, impl, dist, l2p=l2p)
-    if cfg.family == "hybrid":
-        y_a, kv = A.gqa_decode(p["attn"], xn, cache["attn"], pos, a,
-                               window=window)
-        y_m, ms = M.mamba_apply(p["mamba"], xn, cache["mamba"], cfg.ssm)
-        x = x + _fuse(p, cfg, y_a, y_m)
-        cache = {"attn": kv, "mamba": ms}
-    elif cfg.family == "audio":
-        h, kv = A.gqa_decode(p["attn"], xn, cache["self"], pos, a,
-                             window=window)
-        x = x + h
-        x = x + _cross(p, cfg, x, cache["enc_out"])
-        cache = {"self": kv, "enc_out": cache["enc_out"]}
-    else:
-        if block_tables is not None:
-            decode = A.mla_decode_paged if _is_mla(cfg) else A.gqa_decode_paged
-            h, cache = decode(p["attn"], xn, cache, block_tables, pos, a,
-                              window=window)
-        else:
-            decode = A.mla_decode if _is_mla(cfg) else A.gqa_decode
-            h, cache = decode(p["attn"], xn, cache, pos, a, window=window)
-        x = x + h
+        return _ssm_ffn(p, cfg, x + h, c1, impl, dist, l2p=l2p, tp=tp)
+    h, cache = attn_part_decode(p, cfg, xn, cache, pos, window=window,
+                                block_tables=block_tables)
+    x, cache = _after_attn(p, cfg, x, xn, tp.sum(h, "attn"), cache, tp)
     h, metrics = _apply_ffn(p["ffn"], cfg, apply_norm(p["norm2"], x, cfg.norm),
-                            impl, dist, l2p=l2p)
+                            impl, dist, l2p=l2p, tp=tp)
     return x + h, cache, metrics
 
 
+def _cache_attention(cfg: ModelConfig, tp: TP):
+    """The attention config a rank's cache is sized by: its own KV heads
+    where ``tp`` computes the attention tensor-parallel."""
+    a = cfg.attention
+    return A.rank_attention(a, tp.size) if tp.on("attn") else a
+
+
 def layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
-                device, enc_out: torch.Tensor | None = None):
+                device, enc_out: torch.Tensor | None = None,
+                tp: TP = NO_TP):
     """A KVCache (MLA: an MLACache of latents); ssm: an RWKVState; hybrid:
     {"attn": KVCache, "mamba": MambaState}; audio: {"self": KVCache,
-    "enc_out": the encoder output (zeros until prefill sets it)}."""
-    a = cfg.attention
+    "enc_out": the encoder output (zeros until prefill sets it)}.  A ring
+    holds the rank's KV heads where ``tp`` computes attention
+    tensor-parallel."""
+    a = _cache_attention(cfg, tp)
     if cfg.family == "ssm":
         return R.rwkv_init_state(batch, cfg, dtype, device=device)
     if cfg.family == "hybrid":
@@ -254,15 +309,16 @@ def layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
 
 
 def layer_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                      dtype, *, device):
+                      dtype, *, device, tp: TP = NO_TP):
     """A PagedKVCache, or for MLA a PagedMLACache of latents: the layer's
     block pool shared by every decode slot (plain attention families
-    only)."""
+    only), of the rank's KV heads as :func:`layer_cache`'s ring."""
     if cfg.family in NO_PAGED or cfg.attention is None:
         raise NotImplementedError(
             f"paged KV cache is not supported for family {cfg.family!r}")
     init = A.mla_init_paged if _is_mla(cfg) else A.gqa_init_paged
-    return init(num_blocks, block_size, cfg.attention, dtype, device=device)
+    return init(num_blocks, block_size, _cache_attention(cfg, tp), dtype,
+                device=device)
 
 
 def mixer_state(cfg: ModelConfig, batch: int, dtype, *, device) -> Any:

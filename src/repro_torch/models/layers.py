@@ -1,12 +1,58 @@
-"""Shared layer primitives: norms, RoPE, embeddings, linear.
+"""Shared layer primitives: norms, RoPE, embeddings, linear, and the
+tensor-parallel view of a layer (:class:`TP`).
 
 Numerics follow the JAX reference exactly: norms compute in f32 with
 eps 1e-6 and the population variance, RoPE is the half-split form with
 angles in f32, and the unembedding runs in f32.
+
+The embedding is vocab-parallel where serving holds its table split over
+``model`` (``launch.sharding.Layout.tp``): each rank looks up the ids in
+its block of rows, writes zeros for the rest (:func:`embed_part`), and
+the parts are summed over ``model`` (exact: one part is nonzero).  The
+head's logits are then local to the rank's vocab block and gathered over
+``model`` into the whole (B, S, V), so every model rank of a data group
+holds the same logits bit for bit.
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
+
+from repro_torch.core import comm
+
+
+class TP(NamedTuple):
+    """Which blocks of a layer (``attn``, ``cross_attn``, ``ffn``,
+    ``ffn/shared``, ``ffn/dense``), or of the model's ends (``embed``,
+    ``lm_head``), a serving rank computes tensor-parallel over the mesh's
+    ``model`` axis (``launch.sharding.Layout.blocks_under``).  Such a block
+    computes its local part on the rank's weights; :meth:`sum` adds the
+    parts over ``model`` and :meth:`gather` joins vocab slices.  For a
+    block not among ``blocks`` both are the identity.  :data:`NO_TP`: the
+    whole-weight path."""
+    mesh: Any = None
+    blocks: frozenset = frozenset()
+
+    def on(self, block: str) -> bool:
+        return block in self.blocks
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape["model"] if self.blocks else 1
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.axis_index("model") if self.blocks else 0
+
+    def sum(self, part: torch.Tensor, block: str) -> torch.Tensor:
+        return comm.tp_sum(part, self.mesh) if self.on(block) else part
+
+    def gather(self, part: torch.Tensor, block: str) -> torch.Tensor:
+        return comm.tp_gather(part, self.mesh) if self.on(block) else part
+
+
+NO_TP = TP()
 
 
 # ---------------------------------------------------------------------------
@@ -71,13 +117,30 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *, device,
     return {"table": t.to(dtype)}
 
 
-def embed_lookup(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["table"][tokens].to(dtype)
+def embed_part(table: torch.Tensor, tokens: torch.Tensor,
+               rank: int) -> torch.Tensor:
+    """Model rank ``rank``'s part of the vocab-parallel lookup on its block
+    ``table`` of rows: the rows of the ids in its block, zeros for the
+    rest.  On the whole table (rank 0) the lookup itself."""
+    n = table.shape[0]
+    local = tokens - rank * n
+    rows = table[local.clamp(0, n - 1)]
+    hit = ((local >= 0) & (local < n))[..., None]
+    return torch.where(hit, rows, rows.new_zeros(()))
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in float32 (numerically-sensitive softmax upstream)."""
-    return x.float() @ params["table"].float().T
+def embed_lookup(params: dict, tokens: torch.Tensor, dtype,
+                 tp: TP = NO_TP) -> torch.Tensor:
+    if not tp.on("embed"):
+        return params["table"][tokens].to(dtype)
+    return tp.sum(embed_part(params["table"], tokens, tp.rank),
+                  "embed").to(dtype)
+
+
+def unembed(params: dict, x: torch.Tensor, tp: TP = NO_TP) -> torch.Tensor:
+    """Logits in float32 (numerically-sensitive softmax upstream); under a
+    vocab-parallel table the rank's slice, gathered over ``model``."""
+    return tp.gather(x.float() @ params["table"].float().T, "embed")
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, device,

@@ -4,8 +4,7 @@ package (dense and moe with GQA or MLA attention, ssm (rwkv6), hybrid
 vlm (internvl2: patch embeddings prepended to the text)).
 
 Public API:
-  init_params(cfg, seed=, device=, param_dtype=, mesh=, expert_tp=, layout=)
-                                                   -> params
+  init_params(cfg, seed=, device=, param_dtype=, layout=)  -> params
   encode(params, cfg, frames)                      -> encoder output (audio)
   forward(params, cfg, tokens, impl=, device=, dist=, router_seed=,
           layer_loads=, frames=, patches=)         -> (logits, MoEMetrics[,
@@ -14,9 +13,10 @@ Public API:
                                                    -> (loss, aux dict)
   prefill(params, cfg, tokens, cache, ..., frames=, patches=)
                                                    -> (logits, cache, metrics)
-  init_cache(cfg, batch, cache_len, device=, enc_out=)
+  init_cache(cfg, batch, cache_len, device=, enc_out=, layout=)
                                                    -> list of per-layer caches
-  init_paged_cache(cfg, num_blocks, block_size, device=) -> list of pools
+  init_paged_cache(cfg, num_blocks, block_size, device=, layout=)
+                                                   -> list of pools
   decode_step(params, cfg, tokens, pos, cache,..., layer_loads=)
                                                    -> (logits, cache, metrics[,
                                                        (L, E) loads])
@@ -47,6 +47,16 @@ in the backward, on every rank in the same order.  ``prefill`` and
 ``decode_step`` take the psum mode (serving): every rank holds all of the
 tokens and computes its own experts, and the layer sums over the ranks.
 
+Serving on a mesh holds the params in a ``launch.sharding`` layout (the
+reference's train- or serve-mode specs, ``launch.sharding.serve_layout``)
+carried by ``dist.layout``; ``prefill`` and ``decode_step`` take each
+layer's params through :func:`use_params` with ``serve=True``: FSDP
+splits gathered, the model splits of the tensor-parallel blocks kept
+local (GQA attention, the dense and shared FFNs, the vocab-parallel
+embedding and head: ``models.layers.TP``), every other split gathered.
+Their caches (``init_cache(layout=)``) hold a rank's own KV heads where
+attention is tensor-parallel.
+
 A placement on ``dist`` (``repro_torch.placement``) needs the params in
 its physical order (``placement.migrate``); a ``PerLayerPlacement`` is
 split into its shared geometry, which rides on the layers' ``dist``, and
@@ -67,8 +77,9 @@ from repro_torch.core.fmoe import dense_ffn, expert_seed
 from repro_torch.device import resolve
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
-                                       linear, linear_init, norm_init, unembed)
+from repro_torch.models.layers import (NO_TP, TP, apply_norm, embed_init,
+                                       embed_lookup, linear, linear_init,
+                                       norm_init, unembed)
 from repro_torch.placement.plan import PerLayerPlacement
 
 
@@ -79,12 +90,14 @@ def cast_params(p, dtype):
     return p.to(dtype) if p.is_floating_point() else p
 
 
-def use_params(p, dtype, dist, prefix: str):
+def use_params(p, dtype, dist, prefix: str, serve: bool = False):
     """The params of one use (a layer, the embedding, the head) as the
     computation takes them: without a layout, ``p`` cast to ``dtype``
-    (None: as it is); under the train layout (``dist.layout``) each leaf's
-    shard cast, then all-gathered over its spec's axes
-    (``core.comm.gather_shard``).  The routed expert stacks stay shards
+    (None: as it is); under a layout (``dist.layout``) each leaf's shard
+    cast, then all-gathered over the axes of the splits its use gathers
+    (``launch.sharding.Layout.gather_dims``: training every split;
+    ``serve`` keeps the model splits of the tensor-parallel blocks) by
+    ``core.comm.gather_shard``.  The routed expert stacks stay shards
     (expert parallelism); under ``fsdp_axis`` they pass uncast, since the
     MoE layer casts and gathers their hidden dim itself.  ``prefix``: the
     tree path of ``p`` (``layers/3``), which names each leaf's spec."""
@@ -100,14 +113,26 @@ def use_params(p, dtype, dist, prefix: str):
             return t
         if "experts" in path.split("/"):
             return t if fsdp or dtype is None else t.to(dtype)
-        return comm.gather_shard(t, layout.gather_dims(path), layout.mesh,
-                                 dtype)
+        return comm.gather_shard(t, layout.gather_dims(path, serve),
+                                 layout.mesh, dtype)
     return go(p, prefix)
 
 
+def tp_view(layout, prefix: str) -> TP:
+    """The ``models.layers.TP`` of the use at ``prefix`` (``layers/3``;
+    ``""`` the embedding and head) under ``layout``: the blocks serving
+    computes tensor-parallel there.  ``NO_TP`` without a layout."""
+    if layout is None:
+        return NO_TP
+    return TP(layout.mesh, layout.blocks_under(prefix))
+
+
+def _tp(dist, prefix: str) -> TP:
+    return tp_view(None if dist is None else dist.layout, prefix)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                param_dtype: str | None = None, mesh=None,
-                expert_tp: bool = False, layout=None) -> dict:
+                param_dtype: str | None = None, layout=None) -> dict:
     """Random params from ``seed`` (the JAX package's distributions and
     scales; torch generators, so not its numbers).  Layers are made one at
     a time, each weight drawn in f32 and stored in ``param_dtype`` (a routed
@@ -117,29 +142,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
     Every leaf but the routed expert stacks comes from one generator seeded
     by ``seed``; expert ``e`` of leaf ``i`` of layer ``l``'s stacks from a
-    generator seeded by (seed, l, i, e) alone.  So with ``mesh`` (a
-    ``launch.mesh.Mesh``; shape and rank suffice, no process group) a rank
-    makes only its shard, its experts one at a time, and that shard equals
-    ``interop.shard_params(init_params(...), mesh, expert_tp=expert_tp)``
-    of the whole bit for bit.
-
-    ``layout`` (a ``launch.sharding.Layout`` over a mesh with a rank: the
-    train layout) draws every leaf's shard under its spec: the expert
-    stacks as above (their hidden dim over ``data`` where the spec says
-    so), every other leaf drawn whole, one at a time, and cut.  The result
-    equals ``launch.sharding.shard_tree`` of the whole draw bit for bit."""
+    generator seeded by (seed, l, i, e) alone.  So under ``layout`` (a
+    ``launch.sharding.Layout`` over a mesh with a rank; shape and rank
+    suffice, no process group) a rank makes only its shard: its experts
+    one at a time (their hidden dim over ``data`` where the spec says so),
+    every other leaf drawn whole, one at a time, and cut by its spec.  The
+    result equals ``launch.sharding.shard_tree`` of the whole draw bit for
+    bit; this is the only sharded draw (training's and serving's layouts
+    alike)."""
     dev = resolve(device)
-    if layout is not None:
-        mesh = layout.mesh
-        expert_tp = "data" in layout.expert_hidden_axes()
     # the meta device (the dry run) draws nothing: a CPU generator stands in
     gen = torch.Generator(device=dev if dev.type != "meta" else "cpu"
                           ).manual_seed(seed)
     dtype = getattr(torch, param_dtype or cfg.dtype)
     shard = (slice(None), slice(None))
-    if mesh is not None and cfg.moe is not None:
-        shard = mesh.expert_shard(cfg.moe.num_experts, cfg.moe.d_expert_hidden,
-                                  tp=expert_tp)
+    if layout is not None and cfg.moe is not None:
+        shard = layout.mesh.expert_shard(
+            cfg.moe.num_experts, cfg.moe.d_expert_hidden,
+            tp="data" in layout.expert_hidden_axes())
+
     def cut(tree, path):  # a layer at a time: no whole layer outlives it
         return tree if layout is None else _cut(tree, layout, path)
 
@@ -190,11 +211,16 @@ def _inputs(params: dict, tokens, device) -> torch.Tensor:
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
-            dist=None) -> torch.Tensor:
+            dist=None, serve: bool = False) -> torch.Tensor:
+    """f32 logits (B, S, V); ``params["embed"]`` is the use's table (tied
+    head).  ``serve``: a vocab-parallel head computes the rank's slice and
+    gathers it over ``model``."""
+    tp = _tp(dist, "") if serve else NO_TP
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return linear(use_params(params["lm_head"], None, dist, "lm_head"),
-                  x.float())
+        return unembed(params["embed"], x, tp)
+    return tp.gather(linear(use_params(params["lm_head"], None, dist,
+                                       "lm_head", serve), x.float()),
+                     "lm_head")
 
 
 def _accumulate(metrics, m):
@@ -217,39 +243,44 @@ def _layer_seq(p_l: dict, cfg: ModelConfig, x: torch.Tensor, window: int,
 
 
 def _enc_layer(p_l: dict, cfg: ModelConfig, x: torch.Tensor, dist=None,
-               layer: int = 0) -> torch.Tensor:
+               layer: int = 0, serve: bool = False) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    p_l = use_params(p_l, dtype, dist, f"enc_layers/{layer}")
+    prefix = f"enc_layers/{layer}"
+    p_l = use_params(p_l, dtype, dist, prefix, serve)
+    tp = _tp(dist, prefix) if serve else NO_TP
     h = A.gqa_apply(p_l["attn"], apply_norm(p_l["norm1"], x, cfg.norm),
                     cfg.attention, window=B.FULL_WINDOW, causal=False)
-    x = x + h
+    x = x + tp.sum(h, "attn")
     h = dense_ffn(p_l["ffn"], apply_norm(p_l["norm2"], x, cfg.norm), cfg.act)
-    return (x + h).to(dtype)
+    return (x + tp.sum(h, "ffn")).to(dtype)
 
 
-def encode(params: dict, cfg: ModelConfig, frames, dist=None) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frames, dist=None,
+           serve: bool = False) -> torch.Tensor:
     """frames (B, F, d_model): the stubbed conv frontend's embeddings ->
     the encoder output (B, F, d_model) in ``cfg.dtype``: the
     bidirectional stack (non-causal attention without RoPE, dense FFN)
     and its final norm.  Under remat each layer is recomputed in the
-    backward, as :func:`forward`'s; under the train layout (``dist``)
-    each layer gathers its leaves inside that region."""
+    backward, as :func:`forward`'s; under a layout (``dist``) each layer
+    gathers its leaves inside that region (``serve``: as
+    :func:`prefill` takes them, tensor-parallel blocks local)."""
     dtype = getattr(torch, cfg.dtype)
     x = torch.as_tensor(frames, device=params["embed"]["table"].device
                         ).to(dtype)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i, p_l in enumerate(params["enc_layers"]):
-        x = (checkpoint(_enc_layer, p_l, cfg, x, dist, i, use_reentrant=False)
-             if remat else _enc_layer(p_l, cfg, x, dist, i))
+        x = (checkpoint(_enc_layer, p_l, cfg, x, dist, i, serve,
+                        use_reentrant=False)
+             if remat else _enc_layer(p_l, cfg, x, dist, i, serve))
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-           patches) -> torch.Tensor:
-    """Token embeddings in ``cfg.dtype``; vlm: the patch embeddings (B, P,
-    d) in front of them."""
+           patches, tp: TP = NO_TP) -> torch.Tensor:
+    """Token embeddings in ``cfg.dtype`` (vocab-parallel where ``tp`` says
+    so); vlm: the patch embeddings (B, P, d) in front of them."""
     dtype = getattr(torch, cfg.dtype)
-    x = embed_lookup(params["embed"], tokens, dtype)
+    x = embed_lookup(params["embed"], tokens, dtype, tp)
     if cfg.frontend == "vision" and patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=x.device).to(dtype),
                        x], dim=1)
@@ -390,36 +421,53 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: list, *,
     the layers' tables as in :func:`forward`."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
-    x = _embed(params, cfg, tokens, patches)
+    params = _serve_ends(params, dist)
+    x = _embed(params, cfg, tokens, patches, _tp(dist, ""))
     if cfg.family == "audio":
-        enc_out = encode(params, cfg, frames).to(dtype)
+        enc_out = encode(params, cfg, frames, dist, serve=True).to(dtype)
         cache = [{**c, "enc_out": enc_out} for c in cache]
     dist, tables = _layer_tables(cfg, dist, x.device)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache = []
     for layer, (p_l, window, c_l) in enumerate(zip(
             params["layers"], B.layer_windows(cfg), cache)):
+        prefix = f"layers/{layer}"
         x, c_l, m = B.layer_apply_prefill(
-            cast_params(p_l, dtype), cfg, x, c_l, window=window, impl=impl,
-            dist=dist, l2p=None if tables is None else tables[layer])
+            use_params(p_l, dtype, dist, prefix, serve=True), cfg, x, c_l,
+            window=window, impl=impl, dist=dist,
+            l2p=None if tables is None else tables[layer],
+            tp=_tp(dist, prefix))
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         x = x.to(dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, cfg, x), new_cache, metrics
+    return _logits(params, cfg, x, dist, serve=True), new_cache, metrics
+
+
+def _serve_ends(params: dict, dist) -> dict:
+    """``params`` with the embedding table as serving takes it (its FSDP
+    split gathered; a vocab-parallel table kept local), used by the lookup
+    and the tied head."""
+    if dist is None or dist.layout is None:
+        return params
+    return {**params, "embed": use_params(params["embed"], None, dist,
+                                          "embed", serve=True)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               device="cuda", enc_out: torch.Tensor | None = None) -> list:
+               device="cuda", enc_out: torch.Tensor | None = None,
+               layout=None) -> list:
     """One decode cache per layer, in ``cfg.dtype``: a ring (KVCache;
     MLACache of latents for MLA); ssm: an RWKVState; hybrid: a ring and
     a MambaState; audio: a ring and the encoder output ``enc_out`` (B, F,
-    d), shared by the layers (zeros until ``prefill`` sets it)."""
+    d), shared by the layers (zeros until ``prefill`` sets it).  Under a
+    serving ``layout`` a ring holds the rank's KV heads where the layer's
+    attention is tensor-parallel."""
     dev = resolve(device)
     dtype = getattr(torch, cfg.dtype)
     return [B.layer_cache(cfg, batch, cache_len, dtype, device=dev,
-                          enc_out=enc_out)
-            for _ in range(cfg.num_layers)]
+                          enc_out=enc_out, tp=tp_view(layout, f"layers/{i}"))
+            for i in range(cfg.num_layers)]
 
 
 def check_tokens_only(cfg: ModelConfig) -> None:
@@ -443,18 +491,20 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                     device="cuda") -> list:
+                     device="cuda", layout=None) -> list:
     """One block pool per layer (PagedKVCache; PagedMLACache for MLA), in
     ``cfg.dtype``, shared by every decode slot through the block tables
     given to ``decode_step(block_tables=...)``.  Rows 0 and 1 are the
-    reserved null and scratch blocks (``models/attention``)."""
+    reserved null and scratch blocks (``models/attention``).  ``layout``:
+    as :func:`init_cache`'s."""
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged KV cache is not supported for family {cfg.family!r}")
     dev = resolve(device)
     dtype = getattr(torch, cfg.dtype)
-    return [B.layer_paged_cache(cfg, num_blocks, block_size, dtype, device=dev)
-            for _ in range(cfg.num_layers)]
+    return [B.layer_paged_cache(cfg, num_blocks, block_size, dtype, device=dev,
+                                tp=tp_view(layout, f"layers/{i}"))
+            for i in range(cfg.num_layers)]
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
@@ -473,26 +523,28 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, pos, cache: list, *,
     per-slot rings."""
     tokens = _inputs(params, tokens, device)
     dtype = getattr(torch, cfg.dtype)
-    x = embed_lookup(params["embed"], tokens, dtype)
+    params = _serve_ends(params, dist)
+    x = embed_lookup(params["embed"], tokens, dtype, _tp(dist, ""))
     dist, tables = _layer_tables(cfg, dist, x.device)
     cache_len = _cache_len(cfg, cache, block_tables)
     metrics = MoEMetrics.zero(_n_experts(cfg), x.device)
     new_cache, loads = [], []
     for layer, (p_l, window, c_l) in enumerate(zip(
             params["layers"], B.layer_windows(cfg), cache)):
+        prefix = f"layers/{layer}"
         x, c_l, m = B.layer_apply_decode(
-            cast_params(p_l, dtype), cfg, x, c_l, pos,
-            window=min(window, cache_len) if cache_len else window,
-            impl=impl, dist=dist,
-            block_tables=block_tables,
-            l2p=None if tables is None else tables[layer])
+            use_params(p_l, dtype, dist, prefix, serve=True), cfg, x, c_l,
+            pos, window=min(window, cache_len) if cache_len else window,
+            impl=impl, dist=dist, block_tables=block_tables,
+            l2p=None if tables is None else tables[layer],
+            tp=_tp(dist, prefix))
         new_cache.append(c_l)
         metrics = _accumulate(metrics, m)
         if m is not None:
             loads.append(m.load)
         x = x.to(dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, dist, serve=True)
     if not layer_loads:
         return logits, new_cache, metrics
     if not loads:

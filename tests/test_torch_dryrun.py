@@ -5,7 +5,12 @@ sequence on 2x2.  The state bytes it reports equal a hand sum over the
 rank's spec shards (params and gradients in the param dtype, 8 B of AdamW
 moments a param; serving params in the config's dtype, the routed experts
 cut over the model axis), every kernel on the path is counted, and the dry
-run says fastmoe-gpt trains at the 10 layers the card ran (PERF.md §4)."""
+run says fastmoe-gpt trains at the 10 layers the card ran (PERF.md §4).
+Serving draws its params under the serving layout
+(``launch.sharding.serve_layout``): the deepseek-v2 prefill under the
+train-mode specs, and qwen2-72b whole (80 layers) as one rank of a 1x4
+mesh under ``serve_tp``, whose bytes are ``spec_bytes`` of the whole
+tree under the serve layout."""
 import dataclasses
 import math
 
@@ -59,10 +64,17 @@ def test_deepseek_prefill_on_16x16():
                                          "prefill"), "16x16", depth=4)
     whole = lm.init_params(dataclasses.replace(cfg, num_layers=4),
                            device="meta")
-    # serving holds every leaf whole but the routed experts, cut over the
-    # 16 ranks of the model axis
-    want = sum(t.numel() * t.element_size() // (16 if "experts" in p else 1)
+    # serving holds the reference's train-mode specs: the routed experts
+    # cut over the 16 ranks of the model axis and their hidden dim over
+    # the 16 of data, every other leaf over data on its embed dim and over
+    # model on heads, ffn and vocab where it splits
+    layout = S.make_layout(dataclasses.replace(cfg, num_layers=4),
+                           S.ShapeMesh.of(data=16, model=16), "train")
+    want = sum(math.prod(S.shard_shape(t.shape, layout.spec(p),
+                                       layout.mesh)) * t.element_size()
                for p, t in S.flat_paths(whole))
+    assert 100 * want < sum(t.numel() * t.element_size()
+                            for _, t in S.flat_paths(whole))
     assert rec["params_bytes"] == want
     assert rec["cache_bytes"] > 0 and rec["peak_bytes"] > want
     assert rec["roofline"]["collective_bytes"]["all-reduce"] > 0
@@ -82,3 +94,25 @@ def test_hymba_train_short_sequence_on_2x2():
     coll = rec["roofline"]["collective_bytes"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
     assert rec["fits"]
+
+
+def test_qwen2_72b_whole_as_a_rank_of_1x4_under_serve_tp():
+    """On meta, the serving params a rank of a 1x4 mesh draws for qwen2-72b
+    whole (80 layers) under ``opts={"serve_tp": True}`` (the dry run's set-
+    up, a fake process group) are ``spec_bytes`` of the whole tree under
+    the serve layout: 37.60 GB, a quarter of every leaf but the norms —
+    the layers' 36.36 GB in bf16 and the f32 table and head's 1.25 GB —
+    which one H100 holds; the whole model (150.4 GB) does not."""
+    cfg = get_config("qwen2-72b")
+    shape = InputShape("prefill_2x2048", 2048, 2, "prefill")
+    with dryrun._FakeWorld("1x4") as world:
+        params, dist, rows = dryrun._serve_setup(cfg, shape, world.mesh,
+                                                 {"serve_tp": True})
+        got = dryrun._tensor_bytes(params)
+        assert rows == 2 and dist.layout.mesh.shape == {"data": 1, "model": 4}
+    whole = lm.init_params(cfg, device="meta")
+    serve = S.make_layout(cfg, S.ShapeMesh.of(data=1, model=4), "serve")
+    assert got == S.spec_bytes(whole, serve) == 37_600_804_864
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for _, t in S.flat_paths(whole))
+    assert got < dryrun.CARD_BYTES < whole_bytes

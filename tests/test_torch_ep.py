@@ -150,6 +150,13 @@ PLACE_SEED, PLACE_SHRINK = 31, 0.1
 # (a permutation per layer, 2 shadowed experts) switched in at tick 3
 SERVE_SWITCH, SERVE_PERMS = 3, ((1, 3, 0, 2), (2, 0, 3, 1))
 HOOK_STEPS, HOOK_LOSSES = 8, (6.0, 6.0, 6.0, 9.0, 9.0, 9.0, 6.0, 6.0)
+# serving on a mesh under the reference's layouts (the "serve" task, 1x2
+# and 2x2): static decode of a dense and an MoE config under the train-
+# and the serve-mode specs, each against the JAX package's jit_serve_step
+SL_ARCHS = ("qwen2-72b", "fastmoe-gpt")
+SL_OPTS = {"train": {}, "serve_tp": {"serve_tp": True}}
+SL_PARAMS = {"qwen2-72b": "dense_params.npz",
+             "fastmoe-gpt": "model_params.npz"}
 # the telemetry counters of loss_fn's aux (both packages' keys)
 COUNTERS = ("wire_elems", "wire_bytes", "wire_bytes_intra",
             "wire_bytes_inter", "dropped", "shadow_hits", "imbalance")
@@ -180,6 +187,23 @@ def _unflatten(flat):
 def _sub(flat, prefix):
     n = len(prefix) + 1
     return {k[n:]: v for k, v in flat.items() if k.startswith(prefix + "/")}
+
+
+def _dense_cfg(package="repro_torch"):
+    """Reduced qwen2-72b (2 layers, d 64: 4 heads and 4 kv heads of 16,
+    QKV bias, SwiGLU FFN 224 wide, vocab 512) of ``package``'s configs."""
+    import importlib
+
+    configs = importlib.import_module(f"{package}.configs")
+    return configs.reduced(configs.get_config("qwen2-72b"), num_layers=2,
+                           d_model=64)
+
+
+def _sl_cfg(arch, package="repro_torch"):
+    """The serve layout's cases: reduced qwen2-72b (dense) or reduced
+    fastmoe-gpt (ragged)."""
+    return (_dense_cfg(package) if arch == "qwen2-72b"
+            else _model_cfg("ragged", package))
 
 
 def _model_cfg(dispatch, package="repro_torch", d_model=64):
@@ -218,17 +242,31 @@ def _layer_inputs(job, mesh):
     return x, r, whole, slice(mesh.rank * t, (mesh.rank + 1) * t)
 
 
+def _lone_layout(tree, mesh, tp=False):
+    """The layout lone layers' params (one layer's, or a stack of them)
+    are held in: the router whole, each expert stack its expert rows over
+    the mesh's expert axes (under expert-internal TP its hidden units over
+    data too)."""
+    from repro_torch.core.sync import is_expert_path
+    from repro_torch.launch.sharding import Layout, flat_paths
+    axes = mesh.expert_axes
+    ea, hidden = axes if len(axes) > 1 else axes[0], "data" if tp else None
+    specs = {p: ((ea, hidden, None) if p.endswith("wo") else
+                 (ea, None, hidden)) if is_expert_path(p) else (None,) * t.ndim
+             for p, t in flat_paths(tree)}
+    return Layout(mesh, specs)
+
+
+def _lone_shard(tree, mesh, tp=False):
+    """This rank's shard of whole lone-layer params under
+    :func:`_lone_layout`."""
+    from repro_torch import interop
+    return interop.shard_params(tree, _lone_layout(tree, mesh, tp))
+
+
 def _layer_layout(params, dist):
-    """The lone layer's layout as :func:`_layer_run` holds its params: the
-    router whole, each expert stack its expert rows over the expert axes
-    (under expert-internal TP its hidden units over data too)."""
-    from repro_torch.launch.sharding import Layout
-    ea, hidden = dist.expert_axis, "data" if dist.expert_tp else None
-    specs = {f"router/{k}": (None,) * v.ndim
-             for k, v in params["router"].items()}
-    specs.update({f"experts/{k}": (ea, hidden, None) if k == "wo"
-                  else (ea, None, hidden) for k in params["experts"]})
-    return Layout(dist.mesh, specs)
+    """The lone layer's layout as :func:`_layer_run` holds its params."""
+    return _lone_layout(params, dist.mesh, dist.expert_tp)
 
 
 def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
@@ -265,7 +303,6 @@ def _layer_run(key, params, dist, dispatch, impl, x, r, rows, out,
 
 
 def _layer_task(spec, job, mesh, out):
-    from repro_torch import interop
     from repro_torch.core import fmoe
 
     x, r, whole, rows = _layer_inputs(job, mesh)
@@ -273,7 +310,7 @@ def _layer_task(spec, job, mesh, out):
     def run(key, params, dist, dispatch, impl, rows, grads=True):
         _layer_run(key, params, dist, dispatch, impl, x, r, rows, out, grads)
 
-    params = interop.shard_params(whole, mesh)
+    params = _lone_shard(whole, mesh)
     for dispatch in DISPATCHES:
         for impl in IMPLS:
             run(f"layer/{dispatch}/{impl}", params,
@@ -296,7 +333,7 @@ def _layer_task(spec, job, mesh, out):
                 slice(d * t, (d + 1) * t))
     if "tp" in spec["tasks"]:  # expert-internal tensor parallelism
         dist = fmoe.DistConfig(mesh, ("data", "model"), tp_axis="data")
-        tp_params = interop.shard_params(whole, mesh, expert_tp=True)
+        tp_params = _lone_shard(whole, mesh, tp=True)
         for impl in IMPLS:
             run(f"tp_layer/capacity/{impl}", tp_params, dist, "capacity", impl,
                 rows)
@@ -348,11 +385,10 @@ def _zoo_params(whole, job):
 def _zoo_task(spec, job, mesh, out):
     """Every router but topk, a2a and the psum mode, both dispatches: the
     layer's y, metrics and synced gradients (``_layer_run``)."""
-    from repro_torch import interop
     from repro_torch.core import fmoe
 
     x, r, whole, rows = _layer_inputs(job, mesh)
-    params = interop.shard_params(_zoo_params(whole, job), mesh)
+    params = _lone_shard(_zoo_params(whole, job), mesh)
     data = mesh.shape["data"]
     t = x.shape[0] // data
     d = mesh.coords()[0]
@@ -393,7 +429,6 @@ def _placement_task(spec, job, mesh, out):
     chunks, expert-choice; flat, and two-level on the node mesh), a shrunk
     exchange capacity that drops, migration between plans across the
     ranks, and (1x2) one ReplanHook replan and its rollback."""
-    from repro_torch import interop
     from repro_torch import placement as TP
     from repro_torch.core import fmoe
 
@@ -456,8 +491,8 @@ def _placement_task(spec, job, mesh, out):
     from repro_torch.optim import AdamWState
     tree = {"layers": [whole, {k: {n: t * 2 for n, t in v.items()}
                                for k, v in whole.items()}]}
-    shard = interop.shard_params(tree, mesh)
-    state = AdamWState(3, interop.shard_params(
+    shard = _lone_shard(tree, mesh)
+    state = AdamWState(3, _lone_shard(
         {"layers": [{k: {n: t + 1 for n, t in v.items()}
                      for k, v in layer.items()} for layer in tree["layers"]]},
         mesh), {"layers": [{}, {}]})
@@ -536,12 +571,11 @@ def _overlap_task(spec, job, mesh, out):
     the undecomposed exchange (one all-to-all a chunk) at 4, and with the
     bf16 wire; tp with chunks (2x2); the options the port refused before;
     the reduced model with chunks against the JAX package (2x2)."""
-    from repro_torch import interop
     from repro_torch.core import fmoe
     from repro_torch.launch import train
 
     x, r, whole, rows = _layer_inputs(job, mesh)
-    params = interop.shard_params(whole, mesh)
+    params = _lone_shard(whole, mesh)
     base = fmoe.DistConfig(mesh, ("data", "model"))
     for dispatch in DISPATCHES:
         for impl in IMPLS:
@@ -558,7 +592,7 @@ def _overlap_task(spec, job, mesh, out):
         _layer_run(f"former/{what}", params, base._replace(**kw), "ragged",
                    "fused", x, r, rows, out)
     if "tp" in spec["tasks"]:
-        tp_params = interop.shard_params(whole, mesh, expert_tp=True)
+        tp_params = _lone_shard(whole, mesh, tp=True)
         for impl in IMPLS:
             _layer_run(f"tp_overlap/capacity/{impl}", tp_params,
                        base._replace(tp_axis="data", overlap_chunks=2),
@@ -578,11 +612,10 @@ def _hier_task(spec, job, mesh, out):
     inter bounds 0 and HIER_IB (ragged); capacity on the node mesh (a flat
     exchange over (node, model)); the agents' drops at HIER_DROP_IB; the
     bf16 wire over both levels against the flat exchange's."""
-    from repro_torch import interop
     from repro_torch.core import fmoe
 
     x, r, whole, rows = _layer_inputs(job, mesh)
-    params = interop.shard_params(whole, mesh)
+    params = _lone_shard(whole, mesh)
     hier = fmoe.DistConfig(mesh, tuple(mesh.axis_names),
                            expert_axis=("node", "model"), node_axis="node")
     flat = hier._replace(node_axis=None)
@@ -775,9 +808,10 @@ def _bit_equal_task(spec, job, mesh, out):
                 out[f"{sub}/step"] = np.asarray(all(
                     torch.equal(a, b) for a, b in zip(res["local"][1],
                                                       res[name][1])))
-            # serving: psum decode against local decode
+            # serving: psum decode under the serving layout (at 1x1 the
+            # identity) against local decode
             params = lm.init_params(cfg, seed=0, device="cpu")
-            ddist = serve.decode_dist(cfg, mesh, MODEL_B)
+            _, ddist = serve.serve_setup(cfg, mesh, MODEL_B)
             (l0, t0), (l1, t1) = (_decode_greedy(params, cfg, impl, d)
                                   for d in (None, ddist))
             out[f"{key}/psum_decode"] = np.asarray(
@@ -830,11 +864,15 @@ def _zoo_bit_equal(cfg, mesh, dispatch, out):
 
 def _decode_greedy(params, cfg, impl, dist, device="cpu"):
     """DECODE_STEPS greedy steps of ``lm.decode_step`` from the first
-    token of ``_tokens(0)``: (logits (steps, B, V), fed tokens)."""
+    token of ``_tokens(0)`` (the rank's data block of its rows under
+    ``dist``, the cache in ``dist``'s layout): (logits (steps, B, V), fed
+    tokens)."""
+    from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    cache = lm.init_cache(cfg, MODEL_B, DECODE_CACHE, device=device)
-    tok = torch.from_numpy(_tokens(0)[:, :1]).to(device)
+    tok = serve.data_rows(torch.from_numpy(_tokens(0)[:, :1]), dist).to(device)
+    cache = lm.init_cache(cfg, tok.shape[0], DECODE_CACHE, device=device,
+                          layout=None if dist is None else dist.layout)
     logits_all, toks = [], [tok]
     with torch.no_grad():
         for pos in range(DECODE_STEPS):
@@ -848,16 +886,17 @@ def _decode_greedy(params, cfg, impl, dist, device="cpu"):
 
 
 def _decode_task(spec, job, mesh, out):
-    """psum decode of the reduced model, each rank its expert shard."""
+    """psum decode of the reduced model, each rank its shard under the
+    serving layout (the train-mode specs)."""
     from repro_torch import interop
     from repro_torch.launch import serve
 
     params_np = _unflatten(dict(np.load(job / "model_params.npz")))
     for dispatch in DISPATCHES:
         cfg = _model_cfg(dispatch)
-        dist = serve.decode_dist(cfg, mesh, MODEL_B)
+        layout, dist = serve.serve_setup(cfg, mesh, MODEL_B)
         assert dist.mode == "psum" and dist.token_axes == ("data",)
-        params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+        params = interop.from_jax(params_np, cfg, device="cpu", layout=layout)
         logits, toks = _decode_greedy(params, cfg, MODEL_IMPL[dispatch], dist)
         out[f"decode/{dispatch}/logits"] = logits
         out[f"decode/{dispatch}/tokens"] = toks
@@ -880,11 +919,12 @@ def _serve_requests(cfg):
                  max_new_tokens=4 + (i % 5)) for i in range(8)]
 
 
-def _batcher_tokens(params, cfg, mesh, switch_at, placed):
+def _batcher_tokens(params, cfg, mesh, switch_at, placed, opts=None):
     """The port's batcher (4 slots, paged) on ``_serve_requests``: under the
     identity per-layer plan from tick 0 where ``placed`` (switched to
-    ``_serve_plan`` after tick ``switch_at`` unless None), else unplaced.
-    Returns the completions' tokens as an (8, 8) array padded with -1."""
+    ``_serve_plan`` after tick ``switch_at`` unless None), else unplaced;
+    ``opts`` the serving layout's options.  Returns the completions'
+    tokens as an (8, 8) array padded with -1."""
     from repro_torch import placement as TP
     from repro_torch.launch.scheduler import ContinuousBatcher
     from repro_torch.launch.serve_api import Request, ServeConfig
@@ -895,7 +935,7 @@ def _batcher_tokens(params, cfg, mesh, switch_at, placed):
     b = ContinuousBatcher(params, cfg, ServeConfig(slots=4, max_len=24,
                                                    block_size=8),
                           mesh=mesh, impl="fused", device="cpu",
-                          placement=plan)
+                          placement=plan, opts=opts)
     for r in _serve_requests(cfg):
         b.submit(Request(arrival=0.0, **r))
     while b.queue or any(s is not None for s in b.slots):
@@ -909,20 +949,63 @@ def _batcher_tokens(params, cfg, mesh, switch_at, placed):
 
 
 def _serve_task(spec, job, mesh, out):
-    """The continuous batcher under placement, ragged (dropless): on 1xM
-    the identity plan kept, or switched at tick SERVE_SWITCH; on DxM (a
-    batcher per data group) unplaced, and switched."""
+    """The continuous batcher under placement, ragged (dropless), its
+    params in the serving layout (the train-mode specs): on 1xM the
+    identity plan kept, or switched at tick SERVE_SWITCH; on DxM (a batcher
+    per data group) unplaced, and switched; and unplaced under
+    ``serve_tp``.  Then static decode under the serving layout
+    (:func:`_serve_layout_decode`)."""
     from repro_torch import interop
+    from repro_torch.launch.sharding import serve_layout
 
     params_np = _unflatten(dict(np.load(job / "model_params.npz")))
     cfg = _model_cfg("ragged")
-    runs = ({"base": (None, True), "moved": (SERVE_SWITCH, True)}
+    runs = ({"base": (None, True, None), "moved": (SERVE_SWITCH, True, None)}
             if mesh.shape["data"] == 1 else
-            {"plain": (None, False), "moved": (SERVE_SWITCH, True)})
-    for key, (switch_at, placed) in runs.items():
-        params = interop.from_jax(params_np, cfg, device="cpu", mesh=mesh)
+            {"plain": (None, False, None), "moved": (SERVE_SWITCH, True, None)})
+    runs["tp"] = (None, False, SL_OPTS["serve_tp"])
+    for key, (switch_at, placed, opts) in runs.items():
+        layout = serve_layout(cfg, mesh, 4, opts)
+        params = interop.from_jax(params_np, cfg, device="cpu", layout=layout)
         out[f"serve/{key}"] = _batcher_tokens(params, cfg, mesh, switch_at,
-                                              placed)
+                                              placed, opts)
+    _serve_layout_decode(job, mesh, out)
+
+
+def _serve_layout_decode(job, mesh, out):
+    """Greedy static decode (DECODE_STEPS steps) of reduced qwen2-72b and
+    reduced fastmoe-gpt through ``serve.make_serve_step`` under the train-
+    and the serve-mode specs: each rank's logits and tokens (its data
+    block's rows), its params' and first cache's shapes."""
+    from repro_torch import interop
+    from repro_torch.launch import serve
+    from repro_torch.launch.sharding import flat_paths
+    from repro_torch.models import lm
+
+    for arch in SL_ARCHS:
+        cfg = _sl_cfg(arch)
+        params_np = _unflatten(dict(np.load(job / SL_PARAMS[arch])))
+        for name, opts in SL_OPTS.items():
+            step, layout, dist = serve.make_serve_step(
+                cfg, mesh, MODEL_B, opts=opts, impl="fused", device="cpu")
+            params = interop.from_jax(params_np, cfg, device="cpu",
+                                      layout=layout)
+            key = f"sl/{arch}/{name}"
+            tok = serve.data_rows(torch.from_numpy(_tokens(0)[:, :1]), dist)
+            cache = lm.init_cache(cfg, tok.shape[0], DECODE_CACHE,
+                                  device="cpu", layout=layout)
+            out[f"{key}/cache_k"] = np.asarray(cache[0].k.shape)
+            logits_all, toks = [], [tok]
+            with torch.no_grad():
+                for pos in range(DECODE_STEPS):
+                    logits, cache, _ = step(params, tok, pos, cache)
+                    tok = torch.argmax(logits[:, -1], -1)[:, None]
+                    logits_all.append(logits[:, 0])
+                    toks.append(tok)
+            out[f"{key}/logits"] = torch.stack(logits_all)
+            out[f"{key}/tokens"] = torch.cat(toks, 1)
+            for path, t in flat_paths(params):
+                out[f"{key}/shape/{path}"] = np.asarray(t.shape)
 
 
 RANK_TASKS = {"layer": _layer_task, "model": _model_task,
@@ -1310,14 +1393,18 @@ from repro.launch.serve_api import Request, ServeConfig
 cfg = T._model_cfg("ragged", "repro")
 params = jax.tree.map(jnp.asarray, T._unflatten(dict(np.load({params!r}))))
 out = {{}}
-for key, mesh, switch_at, placed in (("1x2/base", "1x2", None, True),
-                                     ("1x2/moved", "1x2", T.SERVE_SWITCH, True),
-                                     ("2x2/plain", "2x2", None, False),
-                                     ("2x2/moved", "2x2", T.SERVE_SWITCH, True)):
+TP = T.SL_OPTS["serve_tp"]
+for key, mesh, switch_at, placed, opts in (
+        ("1x2/base", "1x2", None, True, None),
+        ("1x2/moved", "1x2", T.SERVE_SWITCH, True, None),
+        ("2x2/plain", "2x2", None, False, None),
+        ("2x2/moved", "2x2", T.SERVE_SWITCH, True, None),
+        ("1x2/tp", "1x2", None, False, TP), ("2x2/tp", "2x2", None, False, TP)):
     plan = (JP.identity_per_layer(cfg.moe.num_experts, 2, cfg.num_layers)
             if placed else None)
     b = ContinuousBatcher(params, cfg, ServeConfig(
-        slots=4, max_len=24, block_size=8, mesh=mesh), placement=plan)
+        slots=4, max_len=24, block_size=8, mesh=mesh), placement=plan,
+        opts=opts)
     for r in T._serve_requests(cfg):
         b.submit(Request(arrival=0.0, **{{**r, "prompt": r["prompt"].astype(
             np.int32)}}))
@@ -1329,6 +1416,32 @@ for key, mesh, switch_at, placed in (("1x2/base", "1x2", None, True),
     for c in b.completions:
         toks[c.request_id, :len(c.tokens)] = c.tokens
     out["serve/" + key] = toks
+# static decode under the serving layouts: jit_serve_step's shardings
+from repro.launch.mesh import make_local_mesh
+from repro.launch.serve import jit_serve_step
+from repro.models import lm
+for arch in T.SL_ARCHS:
+    jcfg = T._sl_cfg(arch, "repro")
+    jp = jax.tree.map(jnp.asarray, T._unflatten(dict(np.load(
+        {root!r} + "/" + T.SL_PARAMS[arch]))))
+    for name, (d, m) in (("1x2", (1, 2)), ("2x2", (2, 2))):
+        mesh = make_local_mesh(d, m)
+        for oname, opts in T.SL_OPTS.items():
+            fn, _ = jit_serve_step(jcfg, mesh, T.MODEL_B, T.DECODE_CACHE,
+                                   opts=opts)
+            cache = lm.init_cache(jcfg, T.MODEL_B, T.DECODE_CACHE)
+            tok = jnp.asarray(T._tokens(0)[:, :1])
+            logits_all, toks = [], [tok]
+            with mesh:
+                for pos in range(T.DECODE_STEPS):
+                    logits, cache, _ = fn(jp, tok, jnp.int32(pos), cache)
+                    tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(
+                        jnp.int32)
+                    logits_all.append(logits[:, 0])
+                    toks.append(tok)
+            key = "sl/" + name + "/" + arch + "/" + oname
+            out[key + "/logits"] = np.asarray(jnp.stack(logits_all))
+            out[key + "/tokens"] = np.asarray(jnp.concatenate(toks, 1))
 np.savez({dest!r}, **out)
 print("jax serve ok")
 """
@@ -1343,7 +1456,7 @@ def _jax_serve(root: Path, box: dict):
     try:
         du.run(JAX_SERVE.format(tests=str(ROOT / "tests"),
                                 params=str(root / "model_params.npz"),
-                                dest=str(dest)),
+                                root=str(root), dest=str(dest)),
                devices=4, timeout=SPAWN_TIMEOUT)
         box["serve"] = dict(np.load(dest))
     except Exception as e:  # reported by the tests that read it
@@ -1360,6 +1473,9 @@ def ep(tmp_path_factory):
     jcfg = _model_cfg("capacity", "repro")
     np.savez(root / "model_params.npz", **_flatten(jax.tree.map(
         np.asarray, jlm.init_params(jax.random.PRNGKey(0), jcfg))))
+    np.savez(root / "dense_params.npz", **_flatten(jax.tree.map(
+        np.asarray, jlm.init_params(jax.random.PRNGKey(1), _dense_cfg(
+            "repro")))))
     env, r = _jax_layer_inputs(root)
     waits = {}
     shapes = {**{n: (d, m, 1) for n, (d, m) in MESHES.items()},
@@ -1367,7 +1483,7 @@ def ep(tmp_path_factory):
     for name, (data, model, node) in shapes.items():
         job = root / name
         job.mkdir()
-        for f in ("layer.npz", "model_params.npz"):
+        for f in ("layer.npz", "model_params.npz", "dense_params.npz"):
             (job / f).symlink_to(root / f)
         (job / "job.json").write_text(json.dumps(
             {"mesh": [data, model, node], "tasks": TASKS[name]}))
@@ -2551,6 +2667,93 @@ def test_batcher_per_data_group_matches_one_process(ep):
             np.testing.assert_array_equal(r[f"serve/{key}"], single, key)
             np.testing.assert_array_equal(jax_serve[f"serve/2x2/{key}"],
                                           single, key)
+
+
+SL_MESHES = ("1x2", "2x2")
+
+
+@pytest.mark.parametrize("opts", list(SL_OPTS))
+@pytest.mark.parametrize("arch", SL_ARCHS)
+@pytest.mark.parametrize("name", SL_MESHES)
+def test_serve_layout_decode_matches_jax_serve_step(ep, name, arch, opts):
+    """Serving on a mesh (gloo) under the reference's layouts: greedy
+    static decode of reduced qwen2-72b (dense: GQA attention, the SwiGLU
+    FFN, the embedding and the head tensor-parallel over model) and of
+    reduced fastmoe-gpt (attention tensor-parallel, experts in the psum
+    mode) through ``serve.make_serve_step``, under the train-mode specs
+    (FSDP over data gathered at use) and under ``serve_tp``: every step's
+    logits against the JAX package's ``jit_serve_step`` on the same mesh
+    of fake devices with the same opts at 1e-4, the greedy tokens equal,
+    and the model ranks of a data group bit-equal (the vocab-parallel
+    logits gathered)."""
+    ranks = _ranks(ep, name)
+    jax_serve = ep["jax"].get("serve")
+    assert isinstance(jax_serve, dict), jax_serve
+    data, model = MESHES[name]
+    key, ref = f"sl/{arch}/{opts}", f"sl/{name}/{arch}/{opts}"
+    lead = [ranks[g * model] for g in range(data)]
+    logits = np.concatenate([r[f"{key}/logits"] for r in lead], axis=1)
+    np.testing.assert_allclose(logits, jax_serve[f"{ref}/logits"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        np.concatenate([r[f"{key}/tokens"] for r in lead]),
+        jax_serve[f"{ref}/tokens"])
+    for i, r in enumerate(ranks):
+        np.testing.assert_array_equal(r[f"{key}/logits"],
+                                      lead[i // model][f"{key}/logits"])
+
+
+@pytest.mark.parametrize("name", SL_MESHES)
+def test_serve_layout_ranks_hold_their_blocks(ep, name):
+    """A serving rank holds only its spec blocks, checked by shape: reduced
+    qwen2-72b (d 64, 4 heads and kv heads of 16, FFN 224, vocab 512) with
+    heads, FFN columns and vocab rows over model, and under the train-mode
+    specs the embed dim over data too; its ring the rank's KV heads and
+    data block of the rows; reduced fastmoe-gpt's experts over model,
+    their hidden dim over data under the train-mode specs only, the router
+    whole."""
+    ranks = _ranks(ep, name)
+    D, M = MESHES[name]
+    d, H, KV, hd, F, V = 64, 4, 4, 16, 224, 512
+    moe = _model_cfg("ragged").moe
+    E, h = moe.num_experts, moe.d_expert_hidden
+    for opts in SL_OPTS:
+        f = D if opts == "train" else 1  # the embed dim's FSDP split
+        dense = {"embed/table": (V // M, d // f), "lm_head/w": (d // f, V // M),
+                 "layers/0/attn/wq/w": (d // f, H * hd // M),
+                 "layers/0/attn/wq/b": (H * hd // M,),
+                 "layers/0/attn/wk/w": (d // f, KV * hd // M),
+                 "layers/1/attn/wo/w": (H * hd // M, d // f),
+                 "layers/1/ffn/wi_gate": (d // f, F // M),
+                 "layers/1/ffn/wo": (F // M, d // f),
+                 "layers/0/norm1/scale": (d,)}
+        moe_want = {"layers/0/ffn/experts/wi": (E // M, d, h // f),
+                    "layers/0/ffn/experts/wo": (E // M, h // f, d),
+                    "layers/0/ffn/router/w": (d, E),
+                    "layers/0/attn/wv/w": (d // f, 4 * 16 // M)}
+        for r in ranks:
+            for arch, want in (("qwen2-72b", dense), ("fastmoe-gpt", moe_want)):
+                for path, shape in want.items():
+                    got = tuple(r[f"sl/{arch}/{opts}/shape/{path}"])
+                    assert got == shape, (name, opts, arch, path, got)
+            assert tuple(r[f"sl/qwen2-72b/{opts}/cache_k"]) == (
+                MODEL_B // D, DECODE_CACHE, KV // M, hd)
+
+
+@pytest.mark.parametrize("name", SL_MESHES)
+def test_paged_batcher_under_serve_tp_matches_jax(ep, name):
+    """The paged continuous batcher with ``opts={"serve_tp": True}`` on 1x2
+    and 2x2 (gloo; params in the serve-mode specs, attention tensor-
+    parallel): every rank's completions are the one-process batcher's and
+    the JAX package's ``ContinuousBatcher(opts=...)`` on the same mesh of
+    fake devices."""
+    ranks = _ranks(ep, name)
+    jax_serve = ep["jax"].get("serve")
+    assert isinstance(jax_serve, dict), jax_serve
+    single = _serve_tokens(ep)
+    for r in ranks:
+        np.testing.assert_array_equal(r["serve/tp"], single)
+    np.testing.assert_array_equal(jax_serve[f"serve/{name}/tp"], single)
 
 
 REFUSED = {

@@ -1,15 +1,18 @@
-"""Per-rank init of the port (``repro_torch.models.lm.init_params(mesh=)``).
+"""Per-rank init of the port (``repro_torch.models.lm.init_params(layout=)``).
 
-A rank of a ``(data, model)`` mesh makes only its shard of the params:
-every leaf but the routed expert stacks whole, from the seed's generator;
-its experts one at a time, each from a generator seeded by (seed, layer,
-leaf, expert) alone, sliced to its hidden units under expert-internal
-tensor parallelism.  The rule held here, on the CPU at the reduced sizes
-of ``fastmoe-gpt`` (GELU) and ``deepseek-v2-236b`` (SwiGLU, a shared
+A rank of a ``(data, model)`` mesh makes only its shard of the params
+under a ``launch.sharding`` layout: every leaf but the routed expert
+stacks drawn whole from the seed's generator and cut by its spec; its
+experts one at a time, each from a generator seeded by (seed, layer,
+leaf, expert) alone, sliced to its hidden units where the spec splits
+them over ``data`` (the train-mode specs; the serve-mode specs keep them
+whole).  The rule held here, on the CPU at the reduced sizes of
+``fastmoe-gpt`` (GELU) and ``deepseek-v2-236b`` (SwiGLU, a shared
 expert): each rank's shard equals ``interop.shard_params`` of the whole
-init bit for bit, and the shards of every rank reassemble the whole.
-``python3 chip_smoke.py`` holds the same rule on the card at full width.
-Meshes need shape and rank only (no process group).
+init under the same layout bit for bit, and the expert shards of every
+rank reassemble the whole.  ``python3 chip_smoke.py`` holds the same rule
+on the card at full width.  Meshes need shape and rank only (no process
+group).
 """
 import pytest
 
@@ -19,18 +22,20 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.sync import tagged_leaves  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.launch.sharding import make_layout  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 ARCHS = ("fastmoe-gpt", "deepseek-v2-236b")
-# (data, model, expert_tp)
-MESHES = [(1, 1, False), (1, 2, False), (2, 2, False), (2, 2, True),
-          (1, 4, False), (2, 4, False), (2, 4, True)]
+# (data, model, mode): the train-mode specs split the experts' hidden dim
+# over data, the serve-mode specs do not
+MESHES = [(1, 1, "serve"), (1, 2, "serve"), (2, 2, "serve"), (2, 2, "train"),
+          (1, 4, "serve"), (2, 4, "serve"), (2, 4, "train")]
 SEED = 3
 
 
-def _init(cfg, mesh=None, tp=False, dtype="float32"):
+def _init(cfg, layout=None, dtype="float32"):
     return lm.init_params(cfg, seed=SEED, device="cpu", param_dtype=dtype,
-                          mesh=mesh, expert_tp=tp)
+                          layout=layout)
 
 
 def _leaves(tree):
@@ -42,24 +47,25 @@ def whole():
     return {a: _init(reduced(get_config(a))) for a in ARCHS}
 
 
-@pytest.mark.parametrize("data,model,tp", MESHES)
+@pytest.mark.parametrize("data,model,mode", MESHES)
 @pytest.mark.parametrize("arch", ARCHS)
-def test_rank_shard_is_the_whole_slice(whole, arch, data, model, tp):
-    """Every rank's own init equals its slice of the whole init, bit for
-    bit; the expert shards of the ranks, put back together (experts over
-    the model axis, hidden units over the data axis under tp), are the
-    whole stacks."""
+def test_rank_shard_is_the_whole_slice(whole, arch, data, model, mode):
+    """Every rank's own init under the layout equals its slice of the whole
+    init, bit for bit; the expert shards of the ranks, put back together
+    (experts over the model axis, hidden units over the data axis under
+    the train-mode specs), are the whole stacks."""
     cfg = reduced(get_config(arch))
+    tp = mode == "train"
     ref = _leaves(whole[arch])
     shards = []
     for rank in range(data * model):
-        mesh = Mesh(data, model, rank)
-        got = _leaves(_init(cfg, mesh, tp))
-        want = _leaves(interop.shard_params(whole[arch], mesh, expert_tp=tp))
+        layout = make_layout(cfg, Mesh(data, model, rank), mode)
+        got = _leaves(_init(cfg, layout))
+        want = _leaves(interop.shard_params(whole[arch], layout))
         assert got.keys() == want.keys() == ref.keys()
         for path, t in got.items():
             assert t.dtype == want[path].dtype, path
-            assert torch.equal(t, want[path]), (arch, data, model, tp, rank,
+            assert torch.equal(t, want[path]), (arch, data, model, mode, rank,
                                                 path)
         shards.append(got)
     for path, t in ref.items():
@@ -78,14 +84,14 @@ def test_rank_shard_is_the_whole_slice(whole, arch, data, model, tp):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serving_dtype_shard_is_the_whole_slice(arch):
-    """In the serving layout (layers kept in bf16) a rank's shard is still
+    """In the serving dtype (layers kept in bf16) a rank's shard is still
     the whole's slice bit for bit: each expert is drawn in f32 and cast
     once, as the whole stack is."""
     cfg = reduced(get_config(arch))
     full = _init(cfg, dtype="bfloat16")
-    mesh = Mesh(2, 2, 3)
-    got = _leaves(_init(cfg, mesh, True, dtype="bfloat16"))
-    want = _leaves(interop.shard_params(full, mesh, expert_tp=True))
+    layout = make_layout(cfg, Mesh(2, 2, 3), "train")
+    got = _leaves(_init(cfg, layout, dtype="bfloat16"))
+    want = _leaves(interop.shard_params(full, layout))
     for path, t in got.items():
         assert t.dtype == want[path].dtype
         assert torch.equal(t, want[path]), path
@@ -115,10 +121,16 @@ def test_expert_draws_are_independent_and_scaled(whole):
 
 
 def test_shard_needs_the_widths_to_split():
-    """A mesh whose model axis does not divide the experts, or whose data
-    axis does not divide the hidden units under tp, is refused."""
+    """A mesh whose model axis does not divide the experts is refused; a
+    hidden dim that does not split over the data axis stays whole in the
+    train-mode layout (the specs' divisibility guard), and the rank's draw
+    is then the whole's."""
     cfg = reduced(get_config("fastmoe-gpt"))  # 4 experts, hidden 512
     with pytest.raises(ValueError, match="do not shard"):
-        _init(cfg, Mesh(1, 3, 0))
-    with pytest.raises(ValueError, match="do not shard"):
-        _init(cfg, Mesh(3, 1, 0), tp=True)
+        _init(cfg, make_layout(cfg, Mesh(1, 3, 0), "serve"))
+    layout = make_layout(cfg, Mesh(3, 1, 0), "train")
+    assert layout.spec("layers/0/ffn/experts/wi")[2] is None
+    got = _leaves(_init(cfg, layout))
+    want = _leaves(_init(cfg))
+    experts = [k for k in got if "experts" in k.split("/")]
+    assert experts and all(torch.equal(got[k], want[k]) for k in experts)

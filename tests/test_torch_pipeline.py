@@ -206,21 +206,23 @@ def test_node_mesh_coordinates_and_expert_shard():
 
 
 def test_node_mesh_per_rank_init_equals_the_whole_slices():
-    """Reduced fastmoe-gpt on a 1x2x2 mesh: each rank's own init equals
+    """Reduced fastmoe-gpt on a 1x2x2 mesh: each rank's own init under the
+    layout (the experts over (node, model), node-major) equals
     ``interop.shard_params`` of the whole, bit for bit."""
     from repro_torch import interop
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sync import tagged_leaves
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import make_layout
     from repro_torch.models import lm
 
     cfg = reduced(get_config("fastmoe-gpt"), num_layers=2, d_model=64)
     whole = lm.init_params(cfg, seed=0, device="cpu")
     for rank in range(4):
-        mesh = Mesh(1, 2, rank, node=2)
+        layout = make_layout(cfg, Mesh(1, 2, rank, node=2), "serve")
         mine = dict(tagged_leaves(lm.init_params(cfg, seed=0, device="cpu",
-                                                 mesh=mesh)))
-        want = dict(tagged_leaves(interop.shard_params(whole, mesh)))
+                                                 layout=layout)))
+        want = dict(tagged_leaves(interop.shard_params(whole, layout)))
         assert mine.keys() == want.keys()
         for k in mine:
             assert torch.equal(mine[k], want[k]), (rank, k)
